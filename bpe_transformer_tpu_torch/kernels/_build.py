@@ -9,7 +9,8 @@ flags, so an edited source builds anew and an unchanged one is reused.
 Each library exposes plain C entry points that take pointers as
 ``c_void_p``, sizes as ``c_int``, the CUDA stream last, and return
 ``cudaGetLastError()`` after the launch; :func:`check` raises on a non-zero
-code.  Nothing here runs when the module is imported.
+code, and the wrapper then adds one to its kernel's entry in
+:data:`launches`.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -146,19 +147,41 @@ def check(rc: int, what: str) -> None:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_args(what: str, *tensors) -> tuple[int, int]:
-    """Validate the tensors handed to a kernel: all on one CUDA device, of
-    one dtype the kernels take (float32 or bfloat16), contiguous, with
-    16-byte aligned storage.  Returns ``(dtype_code, stream)``."""
+def kernel_args(what: str, *tensors, f32=()) -> tuple[int, int]:
+    """Validate the tensors handed to a kernel: all on one CUDA device,
+    contiguous, with 16-byte aligned storage; ``tensors`` of one dtype the
+    kernels take (float32 or bfloat16), ``f32`` (row statistics, tables)
+    float32 whatever that dtype.  Returns ``(dtype_code, stream)``."""
     first = tensors[0]
-    for t in tensors:
+    for t in (*tensors, *f32):
         if t.device != first.device or t.device.type != "cuda":
             raise ValueError(f"{what}: every tensor must be on one CUDA device")
-        if t.dtype != first.dtype:
-            raise ValueError(f"{what}: mixed dtypes {first.dtype} / {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be contiguous and 16-byte aligned")
+    for t in tensors:
+        if t.dtype != first.dtype:
+            raise ValueError(f"{what}: mixed dtypes {first.dtype} / {t.dtype}")
+    for t in f32:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: statistics and tables must be float32, got {t.dtype}")
     code = DTYPE_CODES.get(first.dtype)
     if code is None:
         raise ValueError(f"{what}: dtype {first.dtype} unsupported (float32, bfloat16)")
     return code, torch.cuda.current_stream(first.device).cuda_stream
+
+
+#: Kernel launches per kernel name, counted by each wrapper right after a
+#: launch succeeded (CPU calls, which run the plain versions, count nothing).
+launches: dict[str, int] = {}
+
+
+def count(name: str) -> None:
+    launches[name] = launches.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def read_launches(names) -> dict[str, int]:
+    return {name: launches.get(name, 0) for name in names}

@@ -20,10 +20,6 @@ import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
 
-#: Kernel launches made by :func:`decode_attention` (CPU calls not counted).
-launches = 0
-
-
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     pos = torch.as_tensor(pos, device=device).reshape(-1)
     if pos.numel() not in (1, batch):
@@ -77,6 +73,5 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
         stream,
     )
     _build.check(rc, "decode_attention")
-    global launches
-    launches += 1
+    _build.count("decode_attention")
     return out

@@ -25,13 +25,18 @@ import torch
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
-from bpe_transformer_tpu_torch.models.transformer import Params, _ffn, lm_head_weight
+from bpe_transformer_tpu_torch.models.transformer import (
+    Params,
+    _check_dense,
+    _ffn,
+    _maybe_norm,
+    lm_head_weight,
+)
 from bpe_transformer_tpu_torch.ops.core import (
     embedding,
     head_logits,
     linear,
     merge_heads,
-    rmsnorm,
     split_heads,
 )
 from bpe_transformer_tpu_torch.ops.rope import apply_rope, cached_rope_tables
@@ -69,20 +74,16 @@ def _rope_qk(q, k, positions, config: ModelConfig):
     return apply_rope(q, pos, cos, sin), apply_rope(k, pos, cos, sin)
 
 
-def _norm(x, w, config: ModelConfig):
-    return x if config.remove_rmsnorm else rmsnorm(x, w)
-
-
 def _block_apply(x, block_params, config: ModelConfig, attend):
     """One block around ``attend(h)``: pre-norm by default, post-norm under
     the ``use_post_norm`` ablation."""
     if config.use_post_norm:
-        x = _norm(x + attend(x), block_params["ln1"], config)
+        x = _maybe_norm(x + attend(x), block_params["ln1"], config)
         f = _ffn(x, block_params["ffn"], config)
-        return _norm(x + f, block_params["ln2"], config)
-    h = _norm(x, block_params["ln1"], config)
+        return _maybe_norm(x + f, block_params["ln2"], config)
+    h = _maybe_norm(x, block_params["ln1"], config)
     x = x + attend(h)
-    h = _norm(x, block_params["ln2"], config)
+    h = _maybe_norm(x, block_params["ln2"], config)
     return x + _ffn(h, block_params["ffn"], config)
 
 
@@ -100,13 +101,6 @@ def _expand_kv(x, config: ModelConfig):
     if kv_heads == config.num_heads:
         return x
     return x.repeat_interleave(config.num_heads // kv_heads, dim=1)
-
-
-def _check_dense(config: ModelConfig) -> None:
-    if config.ffn_type not in (None, "swiglu"):
-        raise NotImplementedError(
-            f"ffn_type={config.ffn_type!r} is not ported yet (dense SwiGLU only)"
-        )
 
 
 def prefill(
@@ -152,7 +146,7 @@ def prefill(
 
         x = _block_apply(x, block_params, config, attend)
 
-    x = _norm(x, params["ln_final"], config)
+    x = _maybe_norm(x, params["ln_final"], config)
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     if last_pos is None:
         last = x[:, -1]
@@ -212,6 +206,6 @@ def decode_step(
 
         x = _block_apply(x, block_params, config, attend)
 
-    x = _norm(x, params["ln_final"], config)
+    x = _maybe_norm(x, params["ln_final"], config)
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     return head_logits(x[:, 0], head), cache

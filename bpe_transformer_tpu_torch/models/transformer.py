@@ -1,5 +1,5 @@
-"""Transformer parameters and the FFN dispatch (port of the parts of
-``bpe_transformer_tpu/models/transformer.py`` that serving runs).
+"""Transformer parameters and the training forward (port of the dense
+path of ``bpe_transformer_tpu/models/transformer.py``).
 
 Parameters are the JAX package's tree as a plain nested dict of tensors::
 
@@ -10,16 +10,41 @@ Parameters are the JAX package's tree as a plain nested dict of tensors::
 
 with every matrix in the ``(d_out, d_in)`` layout, so the torch-style flat
 state dict and the JAX tree (as numpy arrays) both map onto it 1:1.
+
+The forward (:func:`forward`, :func:`forward_hidden`) is the JAX package's:
+pre-norm blocks (post-norm under the ablation flag), mixed precision by a
+differentiable cast of float32 masters to ``activation_dtype``, and the
+graduated ``remat_policy`` through ``torch.utils.checkpoint``.
+``attention_impl`` selects the materialized attention (``"xla"``), the flash
+kernels (``"flash"``) or RoPE inside the flash kernel (``"flash_fused"``,
+from ``flash_fused_min_seq`` up); ``ffn_impl="pallas"`` the fused SwiGLU
+kernel.  Only the dense SwiGLU FFN is ported: MoE and the ``silu``/``gelu``
+FFNs belong to later slices.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
-from bpe_transformer_tpu_torch.ops.core import swiglu
+from bpe_transformer_tpu_torch.ops.core import (
+    embedding,
+    head_logits,
+    multihead_self_attention,
+    rmsnorm,
+    swiglu,
+)
+from bpe_transformer_tpu_torch.ops.rope import rope_tables
+from bpe_transformer_tpu_torch.tree import tree_map
 
 Params = dict
 
@@ -39,10 +64,7 @@ def init_params(
     weights across with :func:`params_from_jax` instead.
     """
     dev = resolve_device(device)
-    if config.ffn_type not in (None, "swiglu"):
-        raise NotImplementedError(
-            f"ffn_type={config.ffn_type!r} is not ported yet (SwiGLU only)"
-        )
+    _check_dense(config)
     gen_dev = generator.device
 
     def dense(d_out, d_in, std=0.02):
@@ -85,13 +107,23 @@ def lm_head_weight(params: Params, config: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+def _check_dense(config: ModelConfig) -> None:
+    if config.ffn_type == "moe":
+        raise NotImplementedError(
+            'ffn_type="moe" is not ported yet: it comes with the multi-GPU training '
+            "slice (expert parallelism)"
+        )
+    if config.ffn_type not in (None, "swiglu"):
+        raise NotImplementedError(
+            f"ffn_type={config.ffn_type!r} is not ported yet: the two-matrix FFNs come "
+            'with the slice that ports the gelu kernel (dense SwiGLU only)'
+        )
+
+
 def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig) -> torch.Tensor:
     """FFN dispatch for the SwiGLU FFN: ``ffn_impl="pallas"`` runs the fused
     kernel (``kernels/swiglu.py``), anything else the plain composition."""
-    if config.ffn_type not in (None, "swiglu"):
-        raise NotImplementedError(
-            f"ffn_type={config.ffn_type!r} is not ported yet (SwiGLU only)"
-        )
+    _check_dense(config)
     w1, w2, w3 = ffn_params["w1"], ffn_params["w2"], ffn_params["w3"]
     if config.ffn_impl == "pallas":
         from bpe_transformer_tpu_torch.kernels.swiglu import swiglu_fused
@@ -154,3 +186,202 @@ def params_from_state_dict(
         "ln_final": get("ln_final.weight"),
         **head,
     }
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _maybe_norm(x, weight, config: ModelConfig):
+    return x if config.remove_rmsnorm else rmsnorm(x, weight)
+
+
+def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, positions,
+               attention_fn=None):
+    """Self-attention of one block with the config's ``attention_impl``."""
+    if attention_fn is None and config.attention_impl == "flash":
+        from bpe_transformer_tpu_torch.kernels.flash_attention import flash_attention
+
+        attention_fn = flash_attention
+    elif attention_fn is None and config.attention_impl == "flash_fused":
+        from bpe_transformer_tpu_torch.kernels.flash_attention import (
+            flash_attention,
+            flash_attention_rope,
+        )
+
+        if rope_cos_sin is None:
+            raise ValueError("attention_impl='flash_fused' requires RoPE enabled")
+        if positions.ndim != 1:
+            # Checked before the crossover so the contract does not depend on
+            # the sequence length.
+            raise ValueError(
+                "attention_impl='flash_fused' shares one cos/sin tile across "
+                f"the batch, so positions must be 1-D, got {tuple(positions.shape)}; "
+                "use attention_impl='flash' for per-example positions"
+            )
+        if x.shape[-2] < config.flash_fused_min_seq:
+            # Below the crossover: the plain flash kernel, RoPE outside.
+            attention_fn = flash_attention
+        else:
+            # RoPE moves inside the kernel: the tables are gathered at the
+            # token positions here and attention gets a rope-free path.
+            cos, sin = rope_cos_sin
+            cos_p, sin_p = cos[positions], sin[positions]
+            rope_cos_sin = None
+            attention_fn = lambda q, k, v: flash_attention_rope(q, k, v, cos_p, sin_p)  # noqa: E731
+    elif attention_fn is None and config.attention_impl != "xla":
+        raise ValueError(f"unknown attention_impl: {config.attention_impl!r}")
+    return multihead_self_attention(
+        x,
+        attn_params["q_proj"],
+        attn_params["k_proj"],
+        attn_params["v_proj"],
+        attn_params["output_proj"],
+        config.num_heads,
+        num_kv_heads=config.num_kv_heads,
+        positions=positions,
+        rope_cos_sin=rope_cos_sin,
+        causal=True,
+        attention_fn=attention_fn,
+    )
+
+
+def _attn_half(x, block_params: dict, config: ModelConfig, rope_cos_sin, positions,
+               attention_fn=None):
+    """The residual attention half of one block: ``x + attn(norm(x))``
+    pre-norm, ``norm(x + attn(x))`` post-norm."""
+    h = x if config.use_post_norm else _maybe_norm(x, block_params["ln1"], config)
+    attn_out = _attention(
+        h, block_params["attn"], config, rope_cos_sin, positions, attention_fn
+    )
+    if config.use_post_norm:
+        return _maybe_norm(x + attn_out, block_params["ln1"], config)
+    return x + attn_out
+
+
+def _ffn_half(x, block_params: dict, config: ModelConfig):
+    """The residual FFN half of one block; returns ``(x, aux_loss)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if config.use_post_norm:
+        f = _ffn(x, block_params["ffn"], config)
+        return _maybe_norm(x + f, block_params["ln2"], config), aux
+    h = _maybe_norm(x, block_params["ln2"], config)
+    return x + _ffn(h, block_params["ffn"], config), aux
+
+
+def transformer_block_aux(x, block_params: dict, config: ModelConfig, rope_cos_sin,
+                          positions, attention_fn=None):
+    """One block; returns ``(x, aux_loss)`` (aux is 0: dense FFNs only)."""
+    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn)
+    return _ffn_half(x, block_params, config)
+
+
+def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,
+                     positions, attention_fn=None):
+    """One block under ``remat_policy="save_attn"``: the attention half runs
+    outside any checkpoint, so the flash autograd Function keeps its
+    residuals (q/k/v, output, lse) and the attention forward runs once; the
+    FFN half (ln2, FFN, residual) is checkpointed, its ``d_ff`` wide
+    intermediates dropped and recomputed on the backward."""
+    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn)
+    return checkpoint(_ffn_half, x, block_params, config, use_reentrant=False)
+
+
+#: Operators whose outputs ``remat_policy="dots_saveable"`` keeps (the
+#: matrix products, as ``jax.checkpoint_policies.dots_saveable`` keeps dots).
+_DOT_OPS = frozenset((
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def policy_block(config: ModelConfig):
+    """The block callable for ``config.resolved_remat_policy``:
+
+    * ``none`` -- the plain block;
+    * ``full`` -- the whole block under ``torch.utils.checkpoint``, nothing
+      saved (the flash forward re-runs on the backward);
+    * ``dots_saveable`` -- the block checkpointed with a selective policy
+      that keeps the outputs of matrix products; the kernels' autograd
+      Functions are opaque to it, so their forwards re-run, as the opaque
+      custom-VJP call does in the JAX package;
+    * ``save_attn`` -- :func:`_block_save_attn`.
+    """
+    policy = config.resolved_remat_policy
+    if policy == "none":
+        return transformer_block_aux
+    if policy == "save_attn":
+        return _block_save_attn
+    if policy == "full":
+        return functools.partial(checkpoint, transformer_block_aux, use_reentrant=False)
+    context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(
+        checkpoint, transformer_block_aux, use_reentrant=False, context_fn=context_fn
+    )
+
+
+def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConfig,
+                      positions: torch.Tensor | None):
+    """Seq validation, default positions, the mixed-precision cast of the
+    master weights to ``activation_dtype`` (a differentiable ``.to``, so
+    gradients reach the float32 masters), the embedding lookup and the RoPE
+    tables.  Returns ``(x, compute_params, rope_cos_sin, positions)``."""
+    _check_dense(config)
+    seq_len = token_ids.shape[-1]
+    if seq_len > config.context_length:
+        raise ValueError(
+            f"sequence length {seq_len} exceeds context_length "
+            f"{config.context_length} (RoPE tables are sized to the context)"
+        )
+    device = token_ids.device
+    if positions is None:
+        positions = torch.arange(seq_len, device=device)
+    act_dtype = getattr(torch, config.activation_dtype)
+    compute_params = params
+    if act_dtype != torch.float32:
+        compute_params = tree_map(lambda p: p.to(act_dtype), params)
+    x = embedding(compute_params["token_embeddings"], token_ids).to(act_dtype)
+    rope_cos_sin = None
+    if not config.remove_rope:
+        # Built per call, not taken from the decode path's cache: tables that
+        # serving created under inference_mode cannot enter an autograd graph.
+        rope_cos_sin = rope_tables(
+            config.d_head, config.context_length, config.rope_theta, act_dtype, device
+        )
+    return x, compute_params, rope_cos_sin, positions
+
+
+def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
+                   positions: torch.Tensor | None = None, attention_fn=None):
+    """Final-norm hidden states ``(batch, seq, d_model)`` and the summed aux
+    loss (0: dense FFNs only): everything of :func:`forward` but the LM
+    head.  ``scan_layers`` (one ``lax.scan`` over the blocks in the JAX
+    package, for XLA compile time) is accepted and runs the same per-layer
+    loop: eager PyTorch compiles nothing."""
+    x, compute_params, rope_cos_sin, positions = _forward_prologue(
+        params, token_ids, config, positions
+    )
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = policy_block(config)
+    for block_params in compute_params["layers"]:
+        x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn)
+        aux_total = aux_total + aux
+    return _maybe_norm(x, compute_params["ln_final"], config), aux_total
+
+
+def forward(params: Params, token_ids: torch.Tensor, config: ModelConfig,
+            positions: torch.Tensor | None = None, attention_fn=None,
+            return_aux: bool = False):
+    """Float32 logits ``(batch, seq, vocab)`` for ``token_ids (batch, seq)``
+    (``seq`` up to ``context_length``); with ``return_aux`` also the summed
+    aux loss."""
+    x, aux_total = forward_hidden(params, token_ids, config, positions, attention_fn)
+    logits = head_logits(x, lm_head_weight(params, config))
+    if return_aux:
+        return logits, aux_total
+    return logits

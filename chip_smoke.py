@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one CUDA card and check it.
+"""Run the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -25,11 +26,28 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    tokens each) with every kernel counter at 0 before and checked after,
    and where a tick's time goes (host clock, and device time by kernel from
    ``torch.profiler``);
-5. one JSON line listing every ported kernel, then the ``ok`` line.
+5. the training kernels (flash forward with lse, the dK/dV and dQ backward
+   kernels, the RoPE-in-kernel forward) against autograd through their
+   plain versions, in float32 and bfloat16, at the ``TINYSTORIES_4L`` and
+   ``GPT2_SMALL_32K`` training shapes and, for correctness only, at ragged
+   S and head dims 16 and 128; with kernel / plain / SDPA times and bounds;
+6. the pinned 5-step AdamW trajectory of the trained fixture, trained on the
+   card in float32 through the flash kernels and then through the RoPE
+   kernel, against ``pin/traj_losses`` and ``pin/traj_lm_head``;
+7. the ``TINYSTORIES_4L`` north-star protocol (``benchmarks/northstar.py``,
+   reimplemented here without JAX): 200 float32 steps from the port's own
+   seeded init through the kernels, the val loss curve against the torch-CPU
+   reference, a checkpoint round trip at step 100, training tok/s;
+8. ``GPT2_SMALL_32K`` training at full width (bf16 activations, float32
+   masters, RoPE in the flash kernel, ``remat_policy="save_attn"``), 10
+   steps on one batch with exact launch counts, host ms per step, device
+   time by kernel for one step and peak memory;
+then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
-cuDNN).  Per-shape kernel numbers are also written to
-``chiprun_out/chip_smoke_kernels.json``.
+cuDNN).  Per-shape kernel numbers are also written as JSON under
+``OUT_DIR``: ``chip_smoke_kernels.json`` (serving) and
+``chip_smoke_training.json`` (training).
 """
 
 from __future__ import annotations
@@ -43,6 +61,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "trained_3l64d.npz"
+NORTHSTAR_TOKENS = ROOT / "benchmarks" / "northstar_tokens.npz"
+NORTHSTAR_TORCH = ROOT / "benchmarks" / "northstar_torch.json"
 OUT_DIR = ROOT / "chiprun_out"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the rate of
@@ -75,7 +95,21 @@ KERNEL_META = {
         "source": "bpe_transformer_tpu_torch/csrc/swiglu.cu",
         "replaces": "bpe_transformer_tpu/kernels/pallas/swiglu.py:76",
     },
+    "flash_attention_rope": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:569",
+    },
+    "flash_attention_bwd_dkdv": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:299",
+    },
+    "flash_attention_bwd_dq": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:341",
+    },
 }
+SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
+TRAINING_KERNELS = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 
 class SmokeFailure(RuntimeError):
@@ -283,20 +317,16 @@ def phase_kernels(torch) -> dict:
 # ------------------------------------------------------------ phase 3
 
 
-def kernel_modules():
-    from bpe_transformer_tpu_torch.kernels import decode_attention, flash_attention, swiglu
-
-    return {"decode_attention": decode_attention, "flash_attention": flash_attention,
-            "swiglu": swiglu}
-
-
 def reset_counts() -> None:
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    from bpe_transformer_tpu_torch.kernels import _build
+
+    _build.reset_launches()
 
 
-def read_counts() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+def read_counts(names=SERVING_KERNELS) -> dict:
+    from bpe_transformer_tpu_torch.kernels import _build
+
+    return _build.read_launches(names)
 
 
 KERNEL_KNOBS = dict(attention_impl="flash", ffn_impl="pallas", decode_attention_impl="pallas")
@@ -426,7 +456,6 @@ def profile_ticks(torch, params, cfg, rng, n_ticks: int = 10) -> None:
     with all 8 slots busy, and, from a ``torch.profiler`` trace of as many
     more ticks, the device time per tick by kernel and the device's idle
     share of the tick."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
@@ -447,13 +476,7 @@ def profile_ticks(torch, params, cfg, rng, n_ticks: int = 10) -> None:
         for _ in range(n_ticks):
             engine.tick()
         torch.cuda.synchronize()
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(e.name, [0.0, 0])
-            entry[0] += e.time_range.elapsed_us() / n_ticks
-            entry[1] += 1
-    busy_us = sum(t for t, _ in by_name.values())
+    by_name, busy_us = _device_breakdown(prof, n_ticks)
     if not by_name:
         log(f"tick profile: {tick_us:.0f} us per tick (host clock); device time not measured "
             "(the profiler recorded no device events)")
@@ -464,6 +487,444 @@ def profile_ticks(torch, params, cfg, rng, n_ticks: int = 10) -> None:
         f"{1 - busy_us / tick_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {us:9.1f} us/tick  {n // n_ticks:4d} launches/tick  {name[:90]}")
+
+
+# ------------------------------------------------------------ phase 5
+
+#: Training-kernel tolerances of kernel vs plain on the card.  float32 keeps
+#: the JAX kernel tests' atol: forward 2e-5 (tests/test_kernels.py:64; also
+#: for the lse, a float32 statistic whatever the input type), backward 3e-5
+#: (:113); bfloat16 uses 3e-2 for outputs (as phase 2) and 5e-2 for
+#: gradients (:136).  The RoPE table gradients are sums over every (batch,
+#: head) row, so they are held to 3e-5 (bf16: 5e-2) relative to their
+#: largest magnitude (the JAX test's 3e-5 at :163 is absolute for 2 rows).
+TRAIN_TOL = {
+    "float32": {"out": 2e-5, "lse": 2e-5, "grad": 3e-5, "tables": 3e-5},
+    "bfloat16": {"out": 3e-2, "lse": 2e-5, "grad": 5e-2, "tables": 5e-2},
+}
+#: (B, H, S, d) of the training main path, and off-path shapes checked for
+#: correctness only (ragged S, the other head dims the kernels take).
+TRAIN_SHAPES = {
+    "TINYSTORIES_4L": (16, 8, 256, 32),
+    "GPT2_SMALL_32K": (8, 12, 1024, 64),
+}
+TRAIN_SHAPES_OFF = {
+    "ragged S 77 d 16": (2, 3, 77, 16),
+    "ragged S 200 d 128": (1, 2, 200, 128),
+    "ragged S 1000 d 64": (1, 2, 1000, 64),
+}
+
+
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def training_kernel_errors(torch, fa, q, k, v, g, cos, sin) -> dict:
+    """Max abs error of each training kernel against autograd through its
+    plain version, checked against TRAIN_TOL; returns ``{kernel: err}``."""
+    dname = str(q.dtype).removeprefix("torch.")
+    tol = TRAIN_TOL[dname]
+    grad = torch.autograd.grad
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+
+    out, lse = fa._forward(q, k, v, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, True, return_lse=True)
+    ref = leaves(q, k, v)
+    ref_grads = grad(fa.flash_attention_plain(*ref), ref, g)
+    dq, dk, dv = fa._backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    errs = {
+        "flash_attention": _max_err(out, ref_out),
+        "lse": _max_err(lse, ref_lse.reshape(lse.shape)),
+        "flash_attention_bwd_dkdv": max(_max_err(dk, ref_grads[1]), _max_err(dv, ref_grads[2])),
+        "flash_attention_bwd_dq": _max_err(dq, ref_grads[0]),
+    }
+    limits = {"flash_attention": tol["out"], "lse": tol["lse"],
+              "flash_attention_bwd_dkdv": tol["grad"], "flash_attention_bwd_dq": tol["grad"]}
+
+    kern = leaves(q, k, v, cos, sin)
+    rout = fa.FlashAttentionRope.apply(*kern)
+    kgrads = grad(rout, kern, g)
+    ref = leaves(q, k, v, cos, sin)
+    rref = fa.flash_attention_rope_plain(*ref)
+    rgrads = grad(rref, ref, g)
+    torch.cuda.synchronize()
+    errs["flash_attention_rope"] = _max_err(rout, rref)
+    errs["rope_grads"] = max(_max_err(a, b) for a, b in zip(kgrads[:3], rgrads[:3]))
+    errs["rope_tables"] = max(
+        _max_err(a, b) / max(1.0, b.abs().max().item()) for a, b in zip(kgrads[3:], rgrads[3:])
+    )
+    limits.update(flash_attention_rope=tol["out"], rope_grads=tol["grad"],
+                  rope_tables=tol["tables"])
+    for t in (out, dq, dk, dv, rout, *kgrads):
+        require(bool(torch.isfinite(t).all()), f"{dname} {tuple(q.shape)}: non-finite output")
+    for name, err in errs.items():
+        require(err <= limits[name],
+                f"{name} {dname} {tuple(q.shape)}: max error {err:.3e} > {limits[name]:g}")
+    return errs
+
+
+def training_inputs(torch, shape, dtype, gen):
+    """q, k, v, dO (std 1) and the RoPE tables at positions 0..S-1 (float32
+    tables rounded to the activation type, as the model builds them)."""
+    from bpe_transformer_tpu_torch.ops.rope import rope_tables
+
+    b, h, s, d = shape
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    cos, sin = rope_tables(d, s, dtype=dtype, device="cuda")
+    return q, k, v, g, cos, sin
+
+
+def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
+    """Kernel / plain / library ms and bound of each training kernel at one
+    main-path shape (CUDA events; inputs cycled past the L2)."""
+    F = torch.nn.functional
+    dname = str(dtype).removeprefix("torch.")
+    b, h, s, d = shape
+    isz = torch.tensor([], dtype=dtype).element_size()
+    bh = b * h
+    pairs = bh * s * (s + 1) // 2
+    elems = bh * s * d
+    sets = []
+    for _ in range(copies_for(4 * elems * isz)):
+        q, k, v, g, cos, sin = training_inputs(torch, shape, dtype, gen)
+        out, lse = fa._forward(q, k, v, with_lse=True)
+        delta = (g.float() * out.float()).sum(-1).reshape(bh, s).contiguous()
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        sets.append(dict(q=q, k=k, v=v, g=g, cos=cos, sin=sin, out=out, lse=lse, delta=delta,
+                         qq=qq, kk=kk, vv=vv, sdpa_out=sdpa_out))
+
+    def sdpa_fwd_bwd(t):
+        o = F.scaled_dot_product_attention(t["qq"], t["kk"], t["vv"], is_causal=True)
+        return torch.autograd.grad(o, (t["qq"], t["kk"], t["vv"]), t["g"])
+
+    def sdpa_bwd(t):
+        return torch.autograd.grad(t["sdpa_out"], (t["qq"], t["kk"], t["vv"]), t["g"],
+                                   retain_graph=True)
+
+    table_bytes = 2 * s * (d // 2) * 4
+    cases = [
+        ("flash_attention", lambda t: fa._forward(t["q"], t["k"], t["v"], with_lse=True),
+         lambda t: fa.flash_attention_plain(t["q"], t["k"], t["v"], True, return_lse=True),
+         lambda t: F.scaled_dot_product_attention(t["q"], t["k"], t["v"], is_causal=True),
+         4 * elems * isz + bh * s * 4, 4 * d * pairs, "fwd + lse"),
+        ("flash_attention_rope",
+         lambda t: fa._forward(t["q"], t["k"], t["v"], t["cos"], t["sin"], with_lse=True),
+         lambda t: fa.flash_attention_rope_plain(t["q"], t["k"], t["v"], t["cos"], t["sin"],
+                                                 return_lse=True),
+         None, 4 * elems * isz + bh * s * 4 + table_bytes, 4 * d * pairs + 6 * elems,
+         "fwd + lse, RoPE in kernel"),
+        ("flash_attention_bwd_dkdv",
+         lambda t: fa._launch_bwd("dkdv", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"]),
+         lambda t: fa.flash_attention_bwd_dkdv_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
+                                                     t["g"]),
+         sdpa_bwd, 6 * elems * isz + 2 * bh * s * 4, 8 * d * pairs, "dK, dV"),
+        ("flash_attention_bwd_dq",
+         lambda t: fa._launch_bwd("dq", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"]),
+         lambda t: fa.flash_attention_bwd_dq_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
+                                                   t["g"]),
+         sdpa_bwd, 5 * elems * isz + 2 * bh * s * 4, 6 * d * pairs, "dQ"),
+    ]
+    iters = 10 if s >= 1024 else 30
+    one = [(t,) for t in sets]
+    sdpa_fb_ms = time_ms(torch, sdpa_fwd_bwd, one, iters)
+    rows = []
+    for name, kern, plain, lib, nbytes, flops, what in cases:
+        ms = time_ms(torch, kern, one, iters)
+        plain_ms = time_ms(torch, plain, one, 3)
+        lib_ms = time_ms(torch, lib, one, iters) if lib is not None else None
+        byte_ms = nbytes / HBM_BYTES_S * 1e3
+        op_ms = flops / PEAK_FLOPS[dname] * 1e3
+        rows.append({
+            "name": name, "dtype": dname, "shape": f"B={b} H={h} S={s} d={d} {what}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "sdpa_fwd_bwd_ms": sdpa_fb_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes": nbytes, "flops": flops,
+        })
+    return rows
+
+
+def phase_training_kernels(torch) -> dict:
+    """Training kernels vs plain on the card; returns the bf16 rows at the
+    GPT2_SMALL_32K training shape, keyed by kernel name."""
+    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        worst: dict[str, float] = {}
+        for label, shape in {**TRAIN_SHAPES, **TRAIN_SHAPES_OFF}.items():
+            errs = training_kernel_errors(torch, fa, *training_inputs(torch, shape, dtype, gen))
+            log(f"training kernels {dname:8s} {label:20s} {tuple(shape)}: "
+                + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            for name, err in errs.items():
+                worst[name] = max(worst.get(name, 0.0), err)
+            if label not in TRAIN_SHAPES:
+                continue
+            for row in training_timings(torch, fa, shape, dtype, gen):
+                row["config"] = label
+                row["max_abs_err"] = errs[row["name"]]
+                rows.append(row)
+                lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+                log(f"kernel {row['name']:24s} {dname:8s} {row['shape']:44s} "
+                    f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library {lib} "
+                    f"(SDPA fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f}) "
+                    f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        log(f"training kernels {dname}: largest errors {worst}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_training.json").write_text(json.dumps(rows, indent=1))
+    return {
+        r["name"]: r for r in rows
+        if r["dtype"] == "bfloat16" and r["config"] == "GPT2_SMALL_32K"
+        and r["name"] in TRAINING_KERNELS
+    }
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def phase_trajectory(torch) -> None:
+    """The trained fixture's pinned 5-step AdamW trajectory, trained on the
+    card in float32 through the kernels (flash, then RoPE in the kernel)."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
+    from bpe_transformer_tpu_torch.models.transformer import params_from_state_dict
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
+    with np.load(FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    sd = {k: v for k, v in arrays.items() if not k.startswith("pin/")}
+    tokens = np.load(NORTHSTAR_TOKENS)["tokens"]
+    paths = (
+        (dict(attention_impl="flash", ffn_impl="pallas"), "flash_attention"),
+        (dict(attention_impl="flash_fused", flash_fused_min_seq=0, ffn_impl="pallas"),
+         "flash_attention_rope"),
+    )
+    for knobs, attn_kernel in paths:
+        cfg = dataclasses.replace(TS_TEST_CONFIG, **knobs)
+        reset_counts()
+        params = params_from_state_dict(sd, cfg.num_layers, device="cuda")
+        opt_state = adamw_init(params)
+        step = make_train_step(cfg, TrainHParams())
+        rng = np.random.default_rng(2)
+        losses = []
+        for _ in range(5):
+            starts = rng.integers(0, len(tokens) - cfg.context_length - 1, size=32)
+            x = np.stack([tokens[s : s + cfg.context_length] for s in starts]).astype(np.int64)
+            y = np.stack([tokens[s + 1 : s + cfg.context_length + 1] for s in starts])
+            params, opt_state, m = step(params, opt_state, torch.as_tensor(x, device="cuda"),
+                                        torch.as_tensor(y.astype(np.int64), device="cuda"))
+            losses.append(float(m["loss"]))
+        names = (attn_kernel, "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "swiglu")
+        counts = read_counts(names)
+        loss_err = float(np.abs(np.asarray(losses) - arrays["pin/traj_losses"]).max())
+        head_err = float(np.abs(params["lm_head"].detach().cpu().numpy()
+                                - arrays["pin/traj_lm_head"]).max())
+        log(f"trajectory {knobs}: losses {losses}; max err vs pinned: losses {loss_err:.3e}, "
+            f"lm_head {head_err:.3e} (tol 1e-4); launches {counts}")
+        require(loss_err <= 1e-4 and head_err <= 1e-4,
+                f"trajectory {knobs} differs from the pinned one: {loss_err:.3e} / {head_err:.3e}")
+        require(all(n > 0 for n in counts.values()), f"a kernel was not launched: {counts}")
+
+
+# ------------------------------------------------------------ phase 7
+
+
+def _device_breakdown(prof, per: int):
+    """``({kernel name: [us per unit, launches]}, busy us per unit)`` of the
+    device events of a ``torch.profiler`` trace over ``per`` units."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name.setdefault(e.name, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us() / per
+            entry[1] += 1
+    return by_name, sum(t for t, _ in by_name.values())
+
+
+def profile_step(torch, label: str, run_step, n_top: int = 8) -> dict:
+    """Host-clock time of one synchronised training step and, from a
+    ``torch.profiler`` trace of another, device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_step()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    by_name, busy_us = _device_breakdown(prof, 1)
+    if not by_name:
+        log(f"{label} step profile: {host_us:.0f} us (host clock); device time not measured "
+            "(the profiler recorded no device events)")
+        return {"host_us": host_us, "device_us": None}
+    launches = sum(n for _, n in by_name.values())
+    log(f"{label} step profile: {host_us:.0f} us per step (host clock), device busy "
+        f"{busy_us:.0f} us in {launches} launches, idle share {1 - busy_us / host_us:.3f}")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]:
+        log(f"  {us:10.1f} us/step  {n:5d} launches/step  {name[:90]}")
+    return {"host_us": host_us, "device_us": busy_us}
+
+
+def phase_northstar(torch, smi: str) -> None:
+    """benchmarks/northstar.py's protocol at TINYSTORIES_4L, float32, through
+    the flash and SwiGLU kernels, from the port's own seeded init."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.checkpointing import (
+        load_checkpoint,
+        save_checkpoint,
+        training_state,
+    )
+    from bpe_transformer_tpu_torch.models import TINYSTORIES_4L
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        make_eval_step,
+        make_train_step,
+    )
+
+    seq, batch, steps, eval_every, check_at = 256, 16, 200, 25, 100
+    tokens = np.load(NORTHSTAR_TOKENS)["tokens"]
+    reference = json.loads(NORTHSTAR_TORCH.read_text())
+    n_val = max(int(len(tokens) * 0.1), seq + 1)
+    train_toks, val_toks = tokens[:-n_val], tokens[-n_val:]
+    schedule = np.random.default_rng(0).integers(0, len(train_toks) - seq - 1, size=(steps, batch))
+
+    def windows(toks, starts):
+        x = np.stack([toks[s : s + seq] for s in starts]).astype(np.int64)
+        y = np.stack([toks[s + 1 : s + seq + 1] for s in starts]).astype(np.int64)
+        return torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+
+    val = [windows(val_toks, [i * seq]) for i in range(min((len(val_toks) - 1) // seq, 8))]
+    cfg = dataclasses.replace(TINYSTORIES_4L, attention_impl="flash", ffn_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    opt_state = adamw_init(params)
+    step = make_train_step(cfg, TrainHParams())
+    evaluate = make_eval_step(cfg)
+
+    def val_loss() -> float:
+        return float(np.mean([float(evaluate(params, x, y)) for x, y in val]))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    curve, train_s, reloaded = [], 0.0, None
+    for i in range(steps):
+        x, y = windows(train_toks, schedule[i])
+        if reloaded is not None:
+            # The step after the round trip, from the reloaded state.
+            p2, o2, m2 = step(*reloaded, x, y)
+            reloaded = (float(m2["loss"]), p2["lm_head"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, x, y)
+        loss = float(m["loss"])  # one sync per step, as northstar.py's parity loop
+        train_s += time.perf_counter() - t0
+        if reloaded is not None:
+            same = reloaded[0] == loss and torch.equal(reloaded[1], params["lm_head"])
+            log(f"checkpoint round trip at step {check_at}: step {i + 1} loss {loss!r} live, "
+                f"{reloaded[0]!r} reloaded, lm_head identical {same}")
+            require(same, "the step after a checkpoint round trip differs from the live step")
+            reloaded = None
+        if i + 1 == check_at:
+            path = OUT_DIR / "northstar_step100.ckpt"
+            OUT_DIR.mkdir(exist_ok=True)
+            save_checkpoint(path, params=params, opt_state=opt_state, iteration=i + 1)
+            reloaded = training_state(load_checkpoint(path), "cuda")
+            path.unlink()
+            path.with_name(path.name + ".crc32.json").unlink()
+        if (i + 1) % eval_every == 0:
+            curve.append({"step": i + 1, "train_loss": loss, "val_loss": val_loss()})
+            log(f"north star step {i + 1}: {curve[-1]}")
+    counts = read_counts(("flash_attention", "flash_attention_bwd_dkdv",
+                          "flash_attention_bwd_dq", "swiglu"))
+    peak = torch.cuda.max_memory_allocated()
+    final = curve[-1]["val_loss"]
+    at_check = next(c["val_loss"] for c in curve if c["step"] == check_at)
+    tok_s = steps * batch * seq / train_s
+    log(f"north star TINYSTORIES_4L float32: final val loss {final:.4f} vs torch-CPU reference "
+        f"{reference['final_val_loss']:.4f} (delta {final - reference['final_val_loss']:+.4f}); "
+        f"step {check_at} val {at_check:.4f}; {tok_s:.1f} training tok/s "
+        f"({train_s / steps * 1e3:.2f} ms/step, one sync per step) on {smi}; "
+        f"peak memory {peak / 2**20:.0f} MiB; launches {counts}")
+    require(abs(final - reference["final_val_loss"]) <= 0.15,
+            f"final val loss {final:.4f} is not within 0.15 of {reference['final_val_loss']:.4f}")
+    require(final < at_check, f"final val loss {final:.4f} not below step {check_at}'s")
+    require(all(n > 0 for n in counts.values()), f"a kernel was not launched: {counts}")
+    x, y = windows(train_toks, schedule[0])
+    profile_step(torch, "TINYSTORIES_4L", lambda: step(params, opt_state, x, y))
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def phase_gpt2_training(torch, smi: str) -> dict:
+    """GPT2_SMALL_32K training at full width: 10 steps on one seeded batch
+    with exact launch counts per step."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
+    cfg = dataclasses.replace(
+        GPT2_SMALL_32K, attention_impl="flash_fused", flash_fused_min_seq=0, ffn_impl="pallas",
+        remat_policy="save_attn",
+    )
+    batch, n_steps = 8, 10
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt_state = adamw_init(params)
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=n_steps)
+    step = make_train_step(cfg, hparams)
+    rng = np.random.default_rng(8)
+    x, y = (torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)),
+                            device="cuda") for _ in range(2))
+    L = cfg.num_layers
+    per_step = {"flash_attention_rope": L, "flash_attention_bwd_dkdv": L,
+                "flash_attention_bwd_dq": L, "swiglu": 2 * L, "flash_attention": 0,
+                "decode_attention": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms = [], []
+    for _ in range(n_steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, x, y)
+        losses.append(float(m["loss"]))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(per_step)
+        require(counts == per_step, f"launch counts of one step {counts} != {per_step}")
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = float(np.mean(host_ms[1:]))
+    log(f"GPT2_SMALL_32K training (bf16 activations, B={batch} S={cfg.context_length}, "
+        f"save_attn, RoPE in kernel): losses {[round(v, 4) for v in losses]}")
+    log(f"GPT2_SMALL_32K host ms per step {[round(v, 1) for v in host_ms]} (steps 2-10 mean "
+        f"{mean_ms:.1f} ms = {batch * cfg.context_length / mean_ms * 1e3:.0f} tok/s); "
+        f"peak memory {peak / 2**30:.2f} GiB on {smi}; launches per step {per_step}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    profile_step(torch, "GPT2_SMALL_32K", lambda: step(params, opt_state, x, y))
+    return {name: per_step[name] * n_steps for name in TRAINING_KERNELS}
 
 
 # ------------------------------------------------------------ main
@@ -511,9 +972,22 @@ def main() -> int:
     counts = phase_full_width(torch)
     log(f"phase 4 GPT2_SMALL_32K serving: ok ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    train_rows = phase_training_kernels(torch)
+    log(f"phase 5 training kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_trajectory(torch)
+    log(f"phase 6 pinned trajectory on the card: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_northstar(torch, smi)
+    log(f"phase 7 TINYSTORIES_4L north star: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    counts.update(phase_gpt2_training(torch, smi))
+    log(f"phase 8 GPT2_SMALL_32K training: ok ({time.perf_counter() - t0:.1f} s)")
+
     kernels = []
     for name, meta in KERNEL_META.items():
-        row = main_rows[name]
+        row = main_rows.get(name) or train_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],
@@ -522,10 +996,10 @@ def main() -> int:
             "library_ms": row["library_ms"], "dtype": row["dtype"], "shape": row["shape"],
         })
     print(json.dumps({"kernels": kernels}))
+    # The run drove one card, cuda:0, whatever else the host shows.
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1},
     }))
     return 0
 

@@ -5,12 +5,14 @@ JAX kernels run in Pallas interpret mode on the CPU, as
 ``tests/test_kernels.py`` runs them.  The port's wrappers, given CPU
 tensors, run their plain PyTorch versions; the CUDA kernels themselves are
 held against those plain versions on the card by ``chip_smoke.py``.
-Tolerances are the JAX float32 kernel tests' atol: 2e-5 for both
-attentions, 1e-5 for SwiGLU.
+Tolerances are the JAX float32 kernel tests' atol: 2e-5 for the
+attention forwards (and the lse), 3e-5 for the flash backward and the RoPE
+table gradients, 1e-5 for SwiGLU and its gradient.
 """
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -20,7 +22,15 @@ from bpe_transformer_tpu.kernels.pallas.decode_attention import (
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
 )
+from bpe_transformer_tpu.kernels.pallas.flash_attention import (
+    flash_attention_with_lse as jax_flash_attention_with_lse,
+)
+from bpe_transformer_tpu.kernels.pallas.flash_attention import (
+    flash_attention_with_rope as jax_flash_attention_with_rope,
+)
 from bpe_transformer_tpu.kernels.pallas.swiglu import swiglu_fused as jax_swiglu
+from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
+from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.kernels import decode_attention as da
 from bpe_transformer_tpu_torch.kernels import flash_attention as fa
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
@@ -32,7 +42,7 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
     def normal(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
-    counts_before = (da.launches, fa.launches, sw.launches)
+    counts_before = dict(_build.launches)
 
     # Decode attention: MHA, GQA and MQA; a scalar and ragged per-slot
     # frontiers (first and last row included); ctx not a multiple of the JAX
@@ -89,5 +99,75 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
             got.numpy(), np.asarray(want), atol=1e-5, err_msg=f"swiglu {x_shape} ff={ff}"
         )
 
+    # Flash forward with the row logsumexp, and the FA-2 backward (jax.vjp
+    # of the Pallas kernel) against autograd through the plain version: S
+    # ragged against the JAX blocks, every head dim the kernels take.
+    for shape, block in [((1, 2, 200, 16), 128), ((2, 1, 77, 32), 32), ((1, 2, 96, 64), 64),
+                         ((1, 1, 40, 128), 32)]:
+        q, k, v, ct = normal(*shape), normal(*shape), normal(*shape), normal(*shape)
+        jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        want_out, want_lse = jax_flash_attention_with_lse(jq, jk, jv, True, block, block, True)
+        _, vjp = jax.vjp(
+            lambda a, b, c: jax_flash_attention(a, b, c, True, block, block, True), jq, jk, jv
+        )
+        want_grads = vjp(jnp.asarray(ct))
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+        out, lse = fa.flash_attention_plain(tq, tk, tv, True, return_lse=True)
+        (out * torch.from_numpy(ct)).sum().backward()
+        what = f"flash_attention {shape}"
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=2e-5,
+                                   err_msg=what)
+        np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want_lse), atol=2e-5,
+                                   err_msg=f"{what} lse")
+        # The backward kernels' plain arithmetic from the residuals.
+        residuals = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                     out.detach(), lse.detach(), torch.from_numpy(ct))
+        plain = (fa.flash_attention_bwd_dq_plain(*residuals),
+                 *fa.flash_attention_bwd_dkdv_plain(*residuals))
+        for autograd_grad, plain_grad, want, name in zip((tq, tk, tv), plain, want_grads, "qkv"):
+            for got in (autograd_grad.grad, plain_grad):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5,
+                                           err_msg=f"{what} d{name}")
+
+    # RoPE in the kernel: forward, q/k/v gradients and the cos/sin table
+    # gradients of flash_attention_with_rope, with tables gathered at
+    # positions that are not 0..S-1.
+    for shape, block in [((1, 2, 64, 32), 32), ((2, 1, 50, 16), 64), ((1, 1, 33, 64), 32)]:
+        s, d = shape[-2], shape[-1]
+        q, k, v, ct = normal(*shape), normal(*shape), normal(*shape), normal(*shape)
+        cos_t, sin_t = (np.asarray(t) for t in jax_rope_tables(d, 2 * s + 7))
+        pos = np.arange(s) * 2 + 3
+        cos, sin = cos_t[pos], sin_t[pos]
+        args = tuple(jnp.asarray(a) for a in (q, k, v, cos, sin))
+        want_out, vjp = jax.vjp(
+            lambda *a: jax_flash_attention_with_rope(*a, True, block, block, True), *args
+        )
+        want_grads = vjp(jnp.asarray(ct))
+        targs = tuple(torch.from_numpy(a).requires_grad_() for a in (q, k, v, cos, sin))
+        out = fa.flash_attention_rope(*targs)
+        (out * torch.from_numpy(ct)).sum().backward()
+        what = f"flash_attention_rope {shape}"
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=2e-5,
+                                   err_msg=what)
+        for got, want, name in zip(targs, want_grads, ("q", "k", "v", "cos", "sin")):
+            np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), atol=3e-5,
+                                       err_msg=f"{what} d{name}")
+
+    # SwiGLUFused's backward against jax.vjp of the Pallas swiglu.
+    for x_shape, ff in [((37, 64), 200), ((2, 5, 48), 96)]:
+        d = x_shape[-1]
+        arrays = (normal(*x_shape), normal(ff, d, scale=0.05), normal(d, ff, scale=0.05),
+                  normal(ff, d, scale=0.05))
+        ct = normal(*x_shape)
+        _, vjp = jax.vjp(
+            lambda *a: jax_swiglu(*a, 16, 32, True), *(jnp.asarray(a) for a in arrays)
+        )
+        want_grads = vjp(jnp.asarray(ct))
+        targs = tuple(torch.from_numpy(a).requires_grad_() for a in arrays)
+        (sw.swiglu_fused(*targs) * torch.from_numpy(ct)).sum().backward()
+        for got, want, name in zip(targs, want_grads, ("x", "w1", "w2", "w3")):
+            np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), atol=1e-5,
+                                       err_msg=f"swiglu {x_shape} ff={ff} d{name}")
+
     # CPU tensors take the plain versions: no kernel launch is counted.
-    assert (da.launches, fa.launches, sw.launches) == counts_before
+    assert _build.launches == counts_before
