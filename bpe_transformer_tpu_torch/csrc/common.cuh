@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: element conversion to and from
-// float32, 16-byte vector loads, warp reductions, and the dtype codes the C
-// entry points take (kernels/_build.py DTYPE_CODES).
+// float32 (int8 storage to float32), 16-byte vector loads, warp reductions,
+// and the dtype codes the C entry points take (kernels/_build.py
+// DTYPE_CODES and INT8_CODE).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,7 +10,7 @@
 
 namespace port {
 
-enum DType { F32 = 0, BF16 = 1 };
+enum DType { F32 = 0, BF16 = 1, I8 = 2 };
 
 // Finite mask filler, as ops/core.py MASK_VALUE: exp(MASK - m) underflows to
 // exactly 0 for any live row max m, and no inf - inf NaN can arise.
@@ -17,6 +18,7 @@ constexpr float MASK = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -41,6 +43,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void load16(const int8_t* p, float* o) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = (float)b[i];
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -145,15 +145,19 @@ def check(rc: int, what: str) -> None:
 
 #: The dtype codes the C entry points take (``csrc/common.cuh``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: The code of int8 storage (KV pools, quantized weights), passed beside
+#: the activation dtype's code.
+INT8_CODE = 2
 
 
-def kernel_args(what: str, *tensors, f32=()) -> tuple[int, int]:
+def kernel_args(what: str, *tensors, f32=(), others=()) -> tuple[int, int]:
     """Validate the tensors handed to a kernel: all on one CUDA device,
     contiguous, with 16-byte aligned storage; ``tensors`` of one dtype the
     kernels take (float32 or bfloat16), ``f32`` (row statistics, tables)
-    float32 whatever that dtype.  Returns ``(dtype_code, stream)``."""
+    float32 whatever that dtype; ``others`` (int8 storage, int32 tables)
+    of a dtype the caller has checked.  Returns ``(dtype_code, stream)``."""
     first = tensors[0]
-    for t in (*tensors, *f32):
+    for t in (*tensors, *f32, *others):
         if t.device != first.device or t.device.type != "cuda":
             raise ValueError(f"{what}: every tensor must be on one CUDA device")
         if not t.is_contiguous() or t.data_ptr() % 16:

@@ -1,5 +1,7 @@
-"""Decode-step attention against the dense KV cache (port of
-``bpe_transformer_tpu/kernels/pallas/decode_attention.py::decode_attention``).
+"""Decode-step attention against the dense KV cache and through the block
+table of the paged KV pool (port of
+``bpe_transformer_tpu/kernels/pallas/decode_attention.py::decode_attention``
+and ``::paged_decode_attention``).
 
 Shapes (GQA-native: the cache holds ``kv_heads`` heads and query head ``h``
 reads kv head ``h // (num_heads // kv_heads)``):
@@ -12,6 +14,20 @@ reads kv head ``h // (num_heads // kv_heads)``):
 
 :func:`decode_attention` launches ``csrc/decode_attention.cu`` for CUDA
 tensors and runs :func:`decode_attention_plain` for CPU tensors.
+
+:func:`paged_decode_attention` takes the paged pool instead of the cache:
+
+* ``k_pool``/``v_pool`` (num_blocks, kv_heads, block_size, d_head), at
+  ``q``'s dtype or int8
+* ``tables``   (batch, blocks_per_slot) integer: slot ``s``'s key ``j`` is
+  row ``j % block_size`` of pool block ``tables[s, j // block_size]``
+* ``k_scale``/``v_scale`` (num_blocks, kv_heads) float32, given exactly for
+  int8 pools (one scale per block and kv head)
+
+It launches ``csrc/paged_decode_attention.cu`` for CUDA tensors and runs
+:func:`paged_decode_attention_plain` for CPU tensors.  Launches are counted
+in ``kernels/_build.py`` under ``decode_attention`` and
+``paged_decode_attention``.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
+
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     pos = torch.as_tensor(pos, device=device).reshape(-1)
@@ -74,4 +91,100 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     )
     _build.check(rc, "decode_attention")
     _build.count("decode_attention")
+    return out
+
+
+def _check_paged(q, k_pool, v_pool, tables, k_scale, v_scale) -> None:
+    """The JAX function's argument checks, with its ``ValueError`` texts."""
+    slots, num_heads, d = q.shape
+    num_blocks, kv_heads, _, d2 = k_pool.shape
+    if d2 != d or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k_pool {tuple(k_pool.shape)}, "
+            f"v_pool {tuple(v_pool.shape)}"
+        )
+    if tables.ndim != 2 or tables.shape[0] != slots:
+        raise ValueError(
+            f"tables {tuple(tables.shape)} must be (slots={slots}, blocks_per_slot)"
+        )
+    if num_heads % kv_heads:
+        raise ValueError(f"num_heads={num_heads} not divisible by kv_heads={kv_heads}")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None) or quantized != (k_pool.dtype == torch.int8):
+        raise ValueError("k_scale/v_scale must both be given exactly for int8 pools")
+    if quantized and (
+        k_scale.shape != (num_blocks, kv_heads) or v_scale.shape != k_scale.shape
+    ):
+        raise ValueError(
+            f"k_scale {tuple(k_scale.shape)} must be (num_blocks={num_blocks}, "
+            f"kv_heads={kv_heads})"
+        )
+
+
+def paged_decode_attention_plain(
+    q, k_pool, v_pool, tables, pos, k_scale=None, v_scale=None
+) -> torch.Tensor:
+    """Reference: gather each slot's blocks through its table (dequantizing
+    an int8 pool in float32 with each block's scale), attend over keys
+    ``0..pos`` as :func:`decode_attention_plain`, cast to ``q``'s dtype."""
+    from bpe_transformer_tpu_torch.models.decode import (
+        gather_paged_kv,
+        gather_paged_kv_dequant,
+    )
+
+    _check_paged(q, k_pool, v_pool, tables, k_scale, v_scale)
+    if k_scale is None:
+        k, v = gather_paged_kv(k_pool, tables), gather_paged_kv(v_pool, tables)
+    else:
+        k = gather_paged_kv_dequant(k_pool, k_scale, tables, torch.float32)
+        v = gather_paged_kv_dequant(v_pool, v_scale, tables, torch.float32)
+    return decode_attention_plain(q.float(), k.float(), v.float(), pos).to(q.dtype)
+
+
+def paged_decode_attention(
+    q, k_pool, v_pool, tables, pos, *, k_scale=None, v_scale=None
+) -> torch.Tensor:
+    """One decode step of attention read through the block table (see module
+    docstring): the CUDA kernel for CUDA tensors,
+    :func:`paged_decode_attention_plain` for CPU tensors."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+    _check_paged(q, k_pool, v_pool, tables, k_scale, v_scale)
+    slots, num_heads, d = q.shape
+    _, kv_heads, block_size, _ = k_pool.shape
+    nbs = tables.shape[1]
+    if num_heads // kv_heads not in (1, 2, 4, 8):
+        raise ValueError(
+            f"num_heads={num_heads} / kv_heads={kv_heads}: the kernel takes "
+            "query groups of 1, 2, 4 or 8 heads"
+        )
+    if d not in (16, 32, 64, 128):
+        raise ValueError(f"d_head={d} unsupported by the kernel (16, 32, 64, 128)")
+    if nbs > 4096:
+        raise ValueError(f"blocks_per_slot={nbs} unsupported by the kernel (at most 4096)")
+    quantized = k_pool.dtype == torch.int8
+    if not quantized and k_pool.dtype != q.dtype:
+        raise ValueError(f"pool dtype {k_pool.dtype} must be q's ({q.dtype}) or int8")
+    q = q.contiguous()
+    tables32 = tables.to(torch.int32).contiguous()
+    pos_b = _pos_vector(pos, slots, q.device).to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    scales = (k_scale, v_scale) if quantized else ()
+    for s in scales:
+        if s.dtype != torch.float32:
+            raise ValueError(f"k_scale/v_scale must be float32, got {s.dtype}")
+    code, stream = _build.kernel_args(
+        "paged_decode_attention", q, out, f32=scales,
+        others=(k_pool, v_pool, tables32, pos_b),
+    )
+    kv_code = _build.INT8_CODE if quantized else code
+    fn = _build.entry("paged_decode_attention", "paged_decode_attention_launch", 8, 7)
+    rc = fn(
+        code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables32.data_ptr(),
+        pos_b.data_ptr(), k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None, out.data_ptr(), kv_code, slots,
+        num_heads, kv_heads, block_size, nbs, d, stream,
+    )
+    _build.check(rc, "paged_decode_attention")
+    _build.count("paged_decode_attention")
     return out

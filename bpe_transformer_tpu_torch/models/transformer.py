@@ -122,10 +122,13 @@ def _check_dense(config: ModelConfig) -> None:
 
 def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig) -> torch.Tensor:
     """FFN dispatch for the SwiGLU FFN: ``ffn_impl="pallas"`` runs the fused
-    kernel (``kernels/swiglu.py``), anything else the plain composition."""
+    kernel (``kernels/swiglu.py``), anything else the plain composition.
+    int8 quantized serving weights (dict leaves) always take the plain
+    composition, whose three linears each run the int8 matmul kernel: the
+    fused kernel reads plain weight tensors."""
     _check_dense(config)
     w1, w2, w3 = ffn_params["w1"], ffn_params["w2"], ffn_params["w3"]
-    if config.ffn_impl == "pallas":
+    if config.ffn_impl == "pallas" and not isinstance(w1, dict):
         from bpe_transformer_tpu_torch.kernels.swiglu import swiglu_fused
 
         return swiglu_fused(x, w1, w2, w3)

@@ -16,19 +16,30 @@ from bpe_transformer_tpu_torch.ops.rope import apply_rope, rope_tables
 MASK_VALUE = -1e30
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``y = x @ W.T`` with ``W: (d_out, d_in)``; no bias."""
+def linear(x: torch.Tensor, weight) -> torch.Tensor:
+    """``y = x @ W.T`` with ``W: (d_out, d_in)``; no bias.  An int8
+    quantized weight dict (``ops/quant.py``, serving only) goes to the int8
+    matmul kernel."""
+    if isinstance(weight, dict):
+        from bpe_transformer_tpu_torch.ops.quant import quant_linear
+
+        return quant_linear(x, weight)
     return torch.matmul(x, weight.t())
 
 
-def head_logits(hidden: torch.Tensor, head_w: torch.Tensor) -> torch.Tensor:
+def head_logits(hidden: torch.Tensor, head_w) -> torch.Tensor:
     """Vocab projection ``hidden (..., d) @ head_w (vocab, d).T``: inputs at
     the hidden's dtype, float32 accumulation and float32 output.
 
     Both operands are rounded to the hidden's dtype and then upcast, so the
     float32 product sees exactly the bf16 values on the bf16 path without a
-    bf16 GEMM rounding its output.
+    bf16 GEMM rounding its output.  An int8 quantized head dict goes to the
+    int8 matmul kernel, whose float32 accumulator is the output.
     """
+    if isinstance(head_w, dict):
+        from bpe_transformer_tpu_torch.ops.quant import quant_linear
+
+        return quant_linear(hidden, head_w, preserve_f32=True)
     w = head_w.to(hidden.dtype)
     return torch.matmul(hidden.float(), w.float().t())
 

@@ -7,6 +7,10 @@ slots at their own positions, and prefill pads each prompt up to a
 power-of-two bucket and refills the slot's whole cache row.  Per-slot
 sampling knobs are runtime values.
 
+``weight_dtype="int8"`` serves per-channel int8 matmul weights
+(:func:`prepare_serving_weights`); every linear and the head then run the
+int8 matmul kernel.
+
 Sampling draws gumbel noise from a per-slot ``torch.Generator`` seeded from
 the request's ``seed`` and takes the argmax of filtered logits plus noise
 (the same law as ``jax.random.categorical``; the bits differ from JAX's).
@@ -28,31 +32,14 @@ from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.decode import decode_step, init_kv_cache, prefill
 from bpe_transformer_tpu_torch.models.transformer import lm_head_weight
+from bpe_transformer_tpu_torch.ops.quant import quantize_params, quantize_weight, tree_bytes
+from bpe_transformer_tpu_torch.tree import tree_map
 
 #: Runtime encodings for "knob disabled" (as in the JAX package).
 TOP_K_DISABLED = 0
 TOP_P_DISABLED = 2.0
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def activation_dtype(config: ModelConfig) -> torch.dtype:
@@ -66,33 +53,34 @@ def activation_dtype(config: ModelConfig) -> torch.dtype:
 
 
 def prepare_serving_weights(params, config: ModelConfig, weight_dtype, device):
-    """Cast the tree and the LM head to the activation dtype on ``device``.
+    """The weight pipeline every serving engine runs at build time, in the
+    JAX package's order: cast the tree and the LM head to the activation
+    dtype on ``device``, then, under ``weight_dtype="int8"``, quantize the
+    matmul weights per output channel (``ops/quant.py``) and the head.
 
     Returns ``(params, lm_head, label, params_bytes, tick_weight_bytes)`` as
-    the JAX package does: ``label`` names the weight width, and
-    ``tick_weight_bytes`` counts what one decode tick streams (block stack,
-    final norm and head).  ``weight_dtype="int8"`` is refused until the
-    quantized-weights slice is ported.
+    the JAX package does: ``label`` names the weight width ("int8" or the
+    activation dtype), ``params_bytes`` the resident bytes of the tree and
+    the head copy, and ``tick_weight_bytes`` what one decode tick streams
+    (block stack, final norm and head; int8 dicts count their int8 values
+    and float32 scales).
     """
-    if weight_dtype == "int8":
-        raise NotImplementedError(
-            'weight_dtype="int8" is not ported yet (the quantized-weights '
-            "slice brings the int8 matmul kernel); serve at the activation "
-            "width with weight_dtype=None"
-        )
-    if weight_dtype is not None:
+    if weight_dtype not in (None, "int8"):
         raise ValueError(
             f'weight_dtype={weight_dtype!r} must be None (activation width) or "int8"'
         )
     act = activation_dtype(config)
-    params = _tree_map(lambda p: p.to(device=device, dtype=act), params)
-    lm_head = lm_head_weight(params, config)
-    params_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    tick_weight_bytes = sum(
-        t.numel() * t.element_size()
-        for t in _leaves([params["layers"], params["ln_final"], lm_head])
+    lm_head = lm_head_weight(params, config).to(device=device, dtype=act)
+    params = tree_map(lambda p: p.to(device=device, dtype=act), params)
+    if weight_dtype == "int8":
+        params = quantize_params(params, config)
+        lm_head = quantize_weight(lm_head)
+    label = "int8" if weight_dtype == "int8" else str(act).removeprefix("torch.")
+    params_bytes = tree_bytes(params) + tree_bytes(lm_head)
+    tick_weight_bytes = (
+        tree_bytes(params["layers"]) + tree_bytes(params["ln_final"]) + tree_bytes(lm_head)
     )
-    return params, lm_head, str(act).removeprefix("torch."), params_bytes, tick_weight_bytes
+    return params, lm_head, label, params_bytes, tick_weight_bytes
 
 
 def default_prefill_buckets(context_length: int, min_bucket: int = 16) -> tuple[int, ...]:
@@ -201,12 +189,13 @@ class SlotPoolEngine:
             buckets = buckets + (ctx,)
         self.buckets = buckets
 
-        act = activation_dtype(config)
         (
             self._params, self._lm_head, self.weight_dtype,
             self.params_bytes, self.tick_weight_bytes,
         ) = prepare_serving_weights(params, config, weight_dtype, self.device)
-        self._cache = init_kv_cache(config, slots, dtype=act, device=self.device)
+        self._cache = init_kv_cache(
+            config, slots, dtype=activation_dtype(config), device=self.device
+        )
 
         self._tokens = np.zeros(slots, np.int64)
         self._positions = np.zeros(slots, np.int64)

@@ -1,0 +1,128 @@
+"""Refcounted fixed-size KV block allocator (host-side).
+
+The port's own copy of ``bpe_transformer_tpu/serving/kvpool/blocks.py``
+(the two packages share no module).
+
+The device pool is a flat array of ``num_blocks`` KV blocks per layer;
+this allocator owns WHICH blocks are free, who holds references, and the
+gauges the serving surface exports (``kv_blocks_{total,free,shared}``).
+Pure host bookkeeping over small integer lists — it never touches the
+device, so the router and tests can reason about pool pressure on hosts
+with no accelerator runtime.
+
+Reference protocol (copy-on-write sharing):
+
+- every *user* of a block holds one reference: a slot whose block table
+  points at it, and the radix prefix cache for every block it has
+  indexed;
+- a block with ``refcount >= 2`` is **shared** — by construction it is
+  frozen (only fully-written prompt blocks enter the prefix cache, and
+  decode writes land strictly beyond the prompt), so sharing needs no
+  device-side copy;
+- a block whose last reference drops returns to the free list.
+
+Block id 0 is RESERVED as the trash block: masked device writes
+(inactive slots, padded prefill tail) are steered to it instead of being
+predicated out, so one compiled program serves every occupancy pattern.
+The allocator never hands it out.
+"""
+
+from __future__ import annotations
+
+
+class NoFreeBlocksError(RuntimeError):
+    """The pool cannot satisfy an allocation even after cache eviction.
+
+    Raised to the serving layer, which parks the admission until decode
+    retirements free blocks (backpressure, not failure)."""
+
+
+class BlockAllocator:
+    """Free-list + refcount bookkeeping over ``num_blocks`` KV blocks.
+
+    ``num_blocks`` INCLUDES the reserved trash block 0, so a pool sized
+    ``slots * blocks_per_slot + 1`` is exactly dense-slot-pool capacity.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError(
+                f"num_blocks must be >= 2 (block 0 is reserved), got "
+                f"{num_blocks}"
+            )
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._refs = [0] * num_blocks
+        self._refs[0] = 1  # the trash block is permanently held
+        # LIFO free list: recently-freed blocks are re-used first (their
+        # pool rows are hottest in any cache hierarchy).
+        self._free = list(range(num_blocks - 1, 0, -1))
+
+    # ------------------------------------------------------------- queries
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def usable_blocks(self) -> int:
+        """Blocks a single request could ever hold (total minus trash)."""
+        return self.num_blocks - 1
+
+    def refcount(self, block_id: int) -> int:
+        return self._refs[block_id]
+
+    @property
+    def shared_count(self) -> int:
+        """Blocks referenced more than once (prefix-cache sharing at work;
+        the cache's own index reference is excluded by the >2 threshold
+        for blocks it holds — callers report the simpler >=2 count)."""
+        return sum(1 for r in self._refs[1:] if r >= 2)
+
+    # ----------------------------------------------------------- lifecycle
+
+    def alloc(self, n: int) -> list[int]:
+        """Take ``n`` free blocks (refcount 1 each); raises
+        :class:`NoFreeBlocksError` without allocating when short."""
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} blocks")
+        if n > len(self._free):
+            raise NoFreeBlocksError(
+                f"need {n} KV blocks, only {len(self._free)} free"
+            )
+        taken = [self._free.pop() for _ in range(n)]
+        for block_id in taken:
+            self._refs[block_id] = 1
+        return taken
+
+    def ref(self, block_ids: list[int]) -> None:
+        """Add one reference to each block (prefix-cache hit / index)."""
+        for block_id in block_ids:
+            if self._refs[block_id] < 1:
+                raise ValueError(f"block {block_id} is not allocated")
+            self._refs[block_id] += 1
+
+    def deref(self, block_ids: list[int]) -> int:
+        """Drop one reference per block; returns how many blocks freed."""
+        freed = 0
+        for block_id in block_ids:
+            if block_id == 0:
+                raise ValueError("the trash block is never deref'd")
+            refs = self._refs[block_id]
+            if refs < 1:
+                raise ValueError(f"block {block_id} is not allocated")
+            self._refs[block_id] = refs - 1
+            if refs == 1:
+                self._free.append(block_id)
+                freed += 1
+        return freed
+
+    def gauges(self) -> dict:
+        """The /metrics view: total (usable), free, shared."""
+        return {
+            "kv_blocks_total": self.usable_blocks,
+            "kv_blocks_free": self.free_count,
+            "kv_blocks_shared": self.shared_count,
+        }

@@ -1,17 +1,26 @@
-"""In-process serving front end (port of the dense-engine subset of
-``bpe_transformer_tpu/serving/server.py``): ``Request``/``Result`` types and
-the blocking + streaming :class:`ServingEngine`.
+"""In-process serving front end (port of the dense and paged engines'
+subset of ``bpe_transformer_tpu/serving/server.py``): ``Request``/``Result``
+types and the blocking + streaming :class:`ServingEngine`.
 
 Layering (one thread owns the card):
 
 * callers (``generate``, ``stream``, ``run_batch``) only touch the
   :class:`FifoScheduler` and per-request completion events;
 * ONE worker thread runs the engine loop: admit queued requests into free
-  slots (prefill), run a decode tick across every occupied slot, deliver
-  tokens to the per-request streams, retire finished slots;
+  slots, run prefill (the dense engine's whole prompt at admission, or the
+  paged engine's chunks under a per-tick token budget), a decode tick
+  across every occupied slot, deliver tokens to the per-request streams,
+  retire finished slots;
 * backpressure surfaces at submit time as :class:`QueueFullError`.
 
-Paged KV, speculation, KV migration, telemetry, alerts, the flight recorder
+With ``paged=True`` the engine is the paged
+:class:`~bpe_transformer_tpu_torch.serving.kvpool.PagedEngine`: an
+admission the block pool cannot cover yet is PARKED and retried first,
+strictly in FIFO order, as retirements free blocks (newer requests wait
+behind it), and parked requests still expire at their deadline and can be
+cancelled.
+
+Speculation, KV migration, roles, telemetry, alerts, the flight recorder
 and the HTTP transport are not ported yet.
 """
 
@@ -27,7 +36,12 @@ from typing import Iterator
 import torch
 
 from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine, TickEvent
-from bpe_transformer_tpu_torch.serving.scheduler import FifoScheduler, QueueFullError
+from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError, PagedEngine
+from bpe_transformer_tpu_torch.serving.scheduler import (
+    FifoScheduler,
+    PrefillBudget,
+    QueueFullError,
+)
 
 __all__ = ["Request", "Result", "RequestHandle", "ServingEngine", "QueueFullError"]
 
@@ -138,12 +152,41 @@ class ServingEngine:
         idle_poll_s: float = 0.02,
         clock=time.monotonic,
         weight_dtype: str | None = None,
+        paged: bool = False,
+        block_size: int = 16,
+        num_kv_blocks: int | None = None,
+        prefill_chunk: int | None = None,
+        prefill_token_budget: int | None = None,
+        prefix_cache: bool = True,
+        kv_dtype: str | None = None,
         device: str | torch.device = "cuda",
     ):
-        self.engine = SlotPoolEngine(
-            params, config, slots=slots, prefill_buckets=prefill_buckets,
-            min_bucket=min_bucket, weight_dtype=weight_dtype, device=device,
-        )
+        if kv_dtype is not None and not paged:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} needs paged=True (the int8 KV blocks live in the "
+                "block pool)"
+            )
+        if paged:
+            self.engine = PagedEngine(
+                params, config, slots=slots, block_size=block_size, num_blocks=num_kv_blocks,
+                prefill_buckets=prefill_buckets, min_bucket=min_bucket,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache, kv_dtype=kv_dtype,
+                weight_dtype=weight_dtype, device=device,
+            )
+        else:
+            self.engine = SlotPoolEngine(
+                params, config, slots=slots, prefill_buckets=prefill_buckets,
+                min_bucket=min_bucket, weight_dtype=weight_dtype, device=device,
+            )
+        self.paged = paged
+        #: Prefill tokens allowed between consecutive decode ticks (paged
+        #: only; None runs each prefill to completion, the dense schedule).
+        self._prefill_budget = PrefillBudget(prefill_token_budget if paged else None)
+        #: Admissions parked on KV-block exhaustion (paged), retried in FIFO
+        #: order before any newer queue pop.
+        self._admit_backlog: list[_Entry] = []
+        #: Slots mid-chunked-prefill -> their entries (paged).
+        self._prefill_entries: dict[int, _Entry] = {}
         self.scheduler = FifoScheduler(max_queue=max_queue, max_wait_s=max_wait_s, clock=clock)
         self.default_stop_id = default_stop_id
         self.default_max_new_tokens = default_max_new_tokens
@@ -176,10 +219,7 @@ class ServingEngine:
         drain = self.scheduler.pop_ready(self.scheduler.max_queue)
         for qe in drain.admit + drain.expired + drain.cancelled:
             self._finish(qe.item, "cancelled")
-        for slot in list(self._slot_entries):
-            entry = self._slot_entries.pop(slot)
-            self.engine.release(slot)
-            self._finish(entry, "cancelled")
+        self._release_all("cancelled")
 
     def __enter__(self) -> "ServingEngine":
         return self.start()
@@ -207,6 +247,15 @@ class ServingEngine:
             )
         if request.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {request.max_new_tokens}")
+        if self.paged:
+            # A request whose worst-case chain exceeds the whole pool could
+            # never be admitted: fail now instead of blocking the backlog.
+            need = self.engine.blocks_needed(plen, request.max_new_tokens)
+            if need > self.engine.allocator.usable_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks; the pool holds "
+                    f"{self.engine.allocator.usable_blocks}"
+                )
         entry = _Entry(request, self._clock())
         with self._entries_lock:
             if request.request_id in self._entries:
@@ -301,10 +350,7 @@ class ServingEngine:
         except BaseException as exc:  # noqa: BLE001 -- fail loudly, unblock callers
             self._worker_error = exc
             self._running = False
-            for slot in list(self._slot_entries):
-                entry = self._slot_entries.pop(slot)
-                self.engine.release(slot)
-                self._finish(entry, "error")
+            self._release_all("error")
             drain = self.scheduler.pop_ready(self.scheduler.max_queue)
             for qe in drain.admit + drain.expired + drain.cancelled:
                 self._finish(qe.item, "error")
@@ -313,18 +359,58 @@ class ServingEngine:
             for entry in leftover:
                 self._finish(entry, "error")
 
-    def _step(self) -> bool:
-        """One loop iteration: cancellations, admissions, then a decode tick.
-        Returns whether any work happened."""
-        worked = False
-        for slot, entry in list(self._slot_entries.items()):
-            if entry.cancel_requested:
-                del self._slot_entries[slot]
+    def _release_all(self, reason: str) -> None:
+        """Finish every admitted or parked request with ``reason``, freeing
+        its slot (close, or a dead worker)."""
+        for entries in (self._slot_entries, self._prefill_entries):
+            for slot in list(entries):
+                entry = entries.pop(slot)
                 self.engine.release(slot)
-                self._finish(entry, "cancelled")
-                worked = True
-        engine_idle = self.engine.active_count == 0
-        pop = self.scheduler.pop_ready(self.engine.free_slots, engine_idle=engine_idle)
+                self._finish(entry, reason)
+        for entry in self._admit_backlog:
+            self._finish(entry, reason)
+        self._admit_backlog = []
+
+    def _step(self) -> bool:
+        """One loop iteration: cancellations, admissions (parked ones
+        first), prefill chunks under the per-tick budget (paged), then a
+        decode tick.  Returns whether any work happened."""
+        worked = False
+        # In-flight cancellations retire their slots before the next tick:
+        # decoding slots, slots mid-prefill and parked admissions alike.
+        for entries in (self._slot_entries, self._prefill_entries):
+            for slot, entry in list(entries.items()):
+                if entry.cancel_requested:
+                    del entries[slot]
+                    self.engine.release(slot)
+                    self._finish(entry, "cancelled")
+                    worked = True
+        if self._admit_backlog:
+            now = self._clock()
+            kept = []
+            for entry in self._admit_backlog:
+                deadline = entry.request.deadline_s
+                if entry.cancel_requested:
+                    self._finish(entry, "cancelled")
+                    worked = True
+                elif deadline is not None and now >= entry.t_submit + deadline:
+                    # The deadline follows a parked request out of the queue.
+                    self._finish(entry, "deadline")
+                    worked = True
+                else:
+                    kept.append(entry)
+            self._admit_backlog = kept
+
+        # Parked admissions retry first, strictly FIFO: while one is parked,
+        # newer submissions stay queued.
+        while self._admit_backlog and self.engine.free_slots:
+            if not self._try_admit(self._admit_backlog[0]):
+                break
+            self._admit_backlog.pop(0)
+            worked = True
+        n_free = 0 if self._admit_backlog else self.engine.free_slots
+        engine_idle = self.engine.active_count == 0 and not self._prefill_entries
+        pop = self.scheduler.pop_ready(n_free, engine_idle=engine_idle)
         for qe in pop.cancelled:
             self._finish(qe.item, "cancelled")
             worked = True
@@ -332,19 +418,27 @@ class ServingEngine:
             self._finish(qe.item, "deadline")
             worked = True
         for qe in pop.admit:
-            self._admit(qe.item)
+            # Past a parked admission everything popped behind it parks too:
+            # admitting it would take the blocks the parked one waits for.
+            if self._admit_backlog or not self._try_admit(qe.item):
+                self._admit_backlog.append(qe.item)
             worked = True
+
+        worked |= self._advance_prefills()
         if self.engine.active_count:
             self._deliver(self.engine.tick())
             worked = True
         return worked
 
-    def _admit(self, entry: _Entry) -> None:
+    def _try_admit(self, entry: _Entry) -> bool:
+        """Admit one entry.  Dense engine: the whole bucketed prefill, which
+        always succeeds (the scheduler never pops more than the free
+        slots).  Paged engine: reserve the slot and its block chain and
+        queue the prompt's chunks; False when the pool is short of blocks,
+        so that the caller parks the entry."""
         request = entry.request
         t0 = self._clock()
-        entry.queue_wait_s = t0 - entry.t_submit
-        event = self.engine.admit(
-            request.prompt_ids,
+        knobs = dict(
             max_new_tokens=request.max_new_tokens,
             temperature=request.temperature,
             top_k=request.top_k,
@@ -353,9 +447,53 @@ class ServingEngine:
             stop_id=request.stop_id,
             request_id=request.request_id,
         )
-        now = self._clock()
-        entry.prefill_s = now - t0
-        entry.t_decode_start = now
+        if self.paged:
+            try:
+                slot = self.engine.begin(request.prompt_ids, **knobs)
+            except NoFreeBlocksError:
+                return False
+            entry.queue_wait_s = t0 - entry.t_submit
+            entry.slot = slot
+            entry.prefill_s = 0.0
+            self._prefill_entries[slot] = entry
+            return True
+        entry.queue_wait_s = t0 - entry.t_submit
+        event = self.engine.admit(request.prompt_ids, **knobs)
+        entry.prefill_s = self._clock() - t0
+        self._start_decode(entry, event)
+        return True
+
+    def _advance_prefills(self) -> bool:
+        """Run pending prefill chunks (paged engine) under the per-tick
+        token budget, oldest admission first; a finished prefill delivers
+        its first token and joins the decode set."""
+        if not self._prefill_entries:
+            return False
+        worked = False
+        budget = self._prefill_budget
+        budget.start_tick()
+        for slot in self.engine.pending_prefills():
+            entry = self._prefill_entries.get(slot)
+            if entry is None:
+                continue
+            while True:
+                chunk_tokens = self.engine.next_chunk_tokens(slot)
+                if not budget.admits(chunk_tokens):
+                    return worked  # budget spent: the decode tick runs next
+                t0 = self._clock()
+                event = self.engine.prefill_step(slot)
+                entry.prefill_s += self._clock() - t0
+                budget.spend(chunk_tokens)
+                worked = True
+                if event is not None:
+                    del self._prefill_entries[slot]
+                    self._start_decode(entry, event)
+                    break
+        return worked
+
+    def _start_decode(self, entry: _Entry, event: TickEvent) -> None:
+        """Deliver an admission's first token; the slot then decodes."""
+        entry.t_decode_start = self._clock()
         entry.slot = event.slot
         entry.tokens.append(event.token)
         entry.stream.put(event.token)

@@ -9,12 +9,15 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    kernel in ``bpe_transformer_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) and its time;
-2. each kernel against its plain PyTorch version on the card, at the
-   ``GPT2_SMALL_32K`` serving shapes, in float32 and bfloat16: max error
-   against the stated tolerance, kernel / plain / one-library-call times,
-   and the least time the card could take (the bound); and, for correctness
-   only, at shapes off that path (other head dims, GQA groups, ragged
-   lengths, odd d_ff);
+2. each serving kernel against its plain PyTorch version on the card, at
+   the ``GPT2_SMALL_32K`` serving shapes, in float32 and bfloat16 (the
+   paged decode kernel also with int8 pools, the int8 matmul at the tick
+   and at a prefill chunk for every matrix of the model): max error against
+   the stated tolerance, kernel / plain / one-library-call device times
+   (CUDA graph replays; the kernel also as launched from Python), and the
+   least time the card could take (the bound); and, for correctness only,
+   at shapes off that path (other head dims, GQA groups, block sizes,
+   ragged lengths, odd d_ff, int8 rows not a multiple of 16 bytes);
 3. the whole path in float32 on the trained 3-layer fixture
    (``tests/fixtures/trained_3l64d.npz``): prefill logits against the
    fixture's pinned logits, and greedy tokens served on the card identical
@@ -31,6 +34,7 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    plain versions, in float32 and bfloat16, at the ``TINYSTORIES_4L`` and
    ``GPT2_SMALL_32K`` training shapes and, for correctness only, at ragged
    S and head dims 16 and 128; with kernel / plain / SDPA times and bounds;
+   and the SwiGLU forward at the training m of both configs;
 6. the pinned 5-step AdamW trajectory of the trained fixture, trained on the
    card in float32 through the flash kernels and then through the RoPE
    kernel, against ``pin/traj_losses`` and ``pin/traj_lm_head``;
@@ -42,6 +46,16 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    masters, RoPE in the flash kernel, ``remat_policy="save_attn"``), 10
    steps on one batch with exact launch counts, host ms per step, device
    time by kernel for one step and peak memory;
+9. paged serving (``decode_attention_impl="paged"``): the fixture served by
+   the paged engine at act width, with int8 KV and with int8 KV + int8
+   weights, greedy tokens identical to the CPU's (and to the dense engine's
+   at act width); ``GPT2_SMALL_32K`` chunked prefill + one paged decode
+   step held against the plain versions in float32; a paged
+   ``ServingEngine`` (8 slots, blocks of 16, chunks of 256, a 512-token
+   prefill budget, a pool of four contexts) on 16 requests, 8 of them a
+   shared 512-token prefix, at int8 KV + int8 weights and at act width, with
+   parked admissions, prefix-cache hits and exact launch counts; a tick
+   profile of each width;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
@@ -52,10 +66,12 @@ cuDNN).  Per-shape kernel numbers are also written as JSON under
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -74,13 +90,26 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: Max-abs-error tolerances of kernel vs plain on the card.  float32 keeps
 #: the JAX kernel tests' atol (attention 2e-5, SwiGLU 1e-5); bfloat16 uses
 #: 3e-2, the JAX bf16 kernel tests' atol (one bf16 ulp at |x| in [2, 4) is
-#: 1.6e-2, and the kernel and the plain version round once each).
+#: 1.6e-2, and the kernel and the plain version round once each).  The int8
+#: matmul's output is float32 whatever x's type (bf16 x is widened exactly),
+#: so both are held to 1e-4: float32 sums over up to 2048 terms of |x q| up
+#: to ~130 each, taken in another order than cuBLAS's, for outputs of order 1.
 TOL = {
     ("decode_attention", "float32"): 2e-5,
     ("flash_attention", "float32"): 2e-5,
     ("swiglu", "float32"): 1e-5,
+    ("paged_decode_attention", "float32"): 2e-5,
+    ("quant_matmul", "float32"): 1e-4,
+    ("quant_matmul", "bfloat16"): 1e-4,
 }
 TOL_BF16 = 3e-2
+#: Phase 9b: full-width float32 logits of the paged path, kernels vs plain
+#: versions.  Act width keeps phase 4's 1e-4.  Under int8 KV the kernels'
+#: and the plain versions' K/V rows differ by float32 rounding, and a value
+#: that lands on the other side of a .5 boundary of the KV quantizer moves
+#: by one int8 step (about 1% of its block's largest value); such steps
+#: reach the logits, so int8 is held to 1e-3.
+PAGED_LOGIT_TOL = {"act": 1e-4, "int8 KV + int8 weights": 1e-3}
 
 KERNEL_META = {
     "decode_attention": {
@@ -107,8 +136,17 @@ KERNEL_META = {
         "source": "bpe_transformer_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:341",
     },
+    "paged_decode_attention": {
+        "source": "bpe_transformer_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/decode_attention.py:284",
+    },
+    "quant_matmul": {
+        "source": "bpe_transformer_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/quant_matmul.py:68",
+    },
 }
 SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
+PAGED_KERNELS = ("paged_decode_attention", "quant_matmul")
 TRAINING_KERNELS = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 
@@ -128,18 +166,34 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------- timing
 
 
-def time_ms(torch, fn, input_sets, iters: int) -> float:
+def time_ms(torch, fn, input_sets, iters: int, graph: bool = False) -> float:
     """Mean ms of ``fn(*inputs)`` over ``iters`` launches on the current
     stream, cycling through ``input_sets`` (sized to exceed the 50 MB L2,
-    so each launch finds its inputs cold as the serving path does)."""
+    so each launch finds its inputs cold as the serving path does).
+
+    Between CUDA events the launches are enqueued from Python, so a small
+    kernel that runs faster than its wrapper can enqueue it is timed at the
+    enqueue rate.  ``graph=True`` captures the ``iters`` launches in one
+    CUDA graph and times its replay instead: the device time alone."""
     for inputs in input_sets:
         fn(*inputs)
     torch.cuda.synchronize()
+
+    def run():
+        for i in range(iters):
+            fn(*input_sets[i % len(input_sets)])
+
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(*input_sets[i % len(input_sets)])
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -152,13 +206,56 @@ def copies_for(nbytes: int) -> int:
 # ------------------------------------------------------------ phase 2
 
 
+def paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype, kv_int8, pos=None, trash_slot=False):
+    """q, k/v pools, shuffled tables, pos and (int8) scales for the paged
+    decode kernel: every slot owns nbs blocks of a pool of S * nbs + 1
+    (block 0 the trash block); ``trash_slot`` parks the last slot on block
+    0, as an idle slot is."""
+    dev = "cuda"
+    nb = S * nbs + 1
+    tables = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)[: S * nbs]
+    tables = tables.reshape(S, nbs).to(torch.int32)
+    if trash_slot:
+        tables[-1] = 0
+    if pos is None:
+        pos = torch.randint(0, nbs * bs, (S,), generator=gen, device=dev)
+    q = torch.randn(S, H, d, generator=gen, device=dev).to(dtype)
+    if kv_int8:
+        k, v = (torch.randint(-127, 128, (nb, KV, bs, d), generator=gen, device=dev)
+                .to(torch.int8) for _ in range(2))
+        # Scales of unit-variance K/V (max |x| / 127): dequantized values of order 1.
+        ks, vs = ((torch.rand(nb, KV, generator=gen, device=dev) + 0.5) / 60 for _ in range(2))
+    else:
+        k, v = (torch.randn(nb, KV, bs, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        ks = vs = None
+    return q, k, v, tables, pos, ks, vs
+
+
+def quant_inputs(torch, gen, m, k, n, dtype):
+    """x, int8 q, scale of a std-0.02 weight (quantized as ops/quant.py does,
+    with one all-zero row), and the dequantized weight at x's dtype (the
+    library call's operand)."""
+    from bpe_transformer_tpu_torch.ops.quant import dequantize, quantize_weight
+
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+    w[0] = 0.0
+    qw = quantize_weight(w)
+    return x, qw["q"], qw["scale"], dequantize(qw, dtype)
+
+
 def kernel_cases(torch, dtype, gen):
-    """(name, label, kernel_fn, plain_fn, library_fn, input_sets, bytes,
-    flops) at the GPT2_SMALL_32K serving shapes: 8 slots x 12 heads x d 64,
-    ctx 1024, prefill buckets 16..1024, d_model 768, d_ff 2048."""
+    """(name, label, kernel_fn, plain_fn, library_fn or None, input_sets,
+    bytes, flops[, {reference name: fn}]) at the GPT2_SMALL_32K serving
+    shapes: 8 slots x 12 heads x d 64, ctx 1024, prefill buckets 16..1024,
+    paged blocks of 16 (64 a slot), prefill chunks of 256, d_model 768,
+    d_ff 2048, vocab 32000."""
     from bpe_transformer_tpu_torch.kernels import decode_attention as da
     from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
+    from bpe_transformer_tpu_torch.models.decode import gather_paged_kv
 
     F = torch.nn.functional
     dev = "cuda"
@@ -214,16 +311,59 @@ def kernel_cases(torch, dtype, gen):
             lambda x, w1, w2, w3: F.linear(F.silu(F.linear(x, w1)) * F.linear(x, w3), w2),
             sets, (2 * m * dm + 3 * ff * dm) * isz, 6 * m * dm * ff,
         ))
+    # paged decode attention: one tick of 8 slots x 12 heads through
+    # shuffled tables, blocks of 16, 64 blocks a slot, the same ragged
+    # frontiers; act-width pools, and int8 pools under bf16 q.  No one
+    # PyTorch call attends through a block table (library null); the dense
+    # kernel on the gathered cache is timed beside it for reference.
+    S, H, bs, nbs = 8, 12, 16, 64
+    for kv_int8 in (False, True) if dtype == torch.bfloat16 else (False,):
+        kv_isz = 1 if kv_int8 else isz
+        live_blocks = int(((pos // bs) + 1).sum())
+        nbytes = (live * H * d * 2 * kv_isz + 2 * S * H * d * isz + S * 4 + live_blocks * 4
+                  + (live_blocks * H * 2 * 4 if kv_int8 else 0))
+        sets = [paged_inputs(torch, gen, S, H, H, bs, nbs, d, dtype, kv_int8, pos=pos)
+                for _ in range(copies_for((S * nbs + 1) * H * bs * d * 2 * kv_isz))]
+
+        def dense_on_gathered(q, k, v, t, p, ks, vs):
+            return da.decode_attention(q, gather_paged_kv(k, t), gather_paged_kv(v, t), p)
+
+        cases.append((
+            "paged_decode_attention",
+            f"S={S} H=KV={H} bs={bs} nbs={nbs} d={d} {'int8' if kv_int8 else 'act'} KV",
+            lambda q, k, v, t, p, ks, vs: da.paged_decode_attention(
+                q, k, v, t, p, k_scale=ks, v_scale=vs),
+            da.paged_decode_attention_plain, None, sets, nbytes, 4 * live * H * d,
+            {} if kv_int8 else {"dense_kernel_on_gathered_ms": dense_on_gathered},
+        ))
+    # int8 matmul: the tick (m = slots) and a prefill chunk (m = 256), for
+    # every matrix shape of the model; the library call is the product at
+    # x's dtype against the weight dequantized once beforehand.
+    for m in (8, 256):
+        for k_in, n_out in ((768, 768), (768, 2048), (2048, 768), (768, 32000)):
+            sets = [quant_inputs(torch, gen, m, k_in, n_out, dtype)
+                    for _ in range(copies_for(n_out * k_in))]
+            cases.append((
+                "quant_matmul", f"m={m} {k_in}->{n_out}",
+                lambda x, q, s, w: qm.quant_matmul(x, q, s),
+                lambda x, q, s, w: qm.quant_matmul_plain(x, q, s),
+                lambda x, q, s, w: torch.matmul(x, w.t()),
+                sets, m * k_in * isz + n_out * k_in + n_out * 4 + m * n_out * 4,
+                2 * m * n_out * k_in,
+            ))
     return cases
 
 
 def check_other_shapes(torch) -> None:
     """Kernel vs plain at shapes off the main path that the kernels take:
     every head dim and GQA group size they instantiate, ragged ctx and S,
-    d_ff not a multiple of the SwiGLU slice (TINYSTORIES_4L's 683), and the
-    widest SwiGLU register tile (d_model 2048).  Correctness only."""
+    d_ff not a multiple of the SwiGLU slice (TINYSTORIES_4L's 683), the
+    widest SwiGLU register tile (d_model 2048), paged blocks of 8 to 64 with
+    a slot on the trash block, and int8 weight rows that are not a multiple
+    of 16 bytes.  Correctness only."""
     from bpe_transformer_tpu_torch.kernels import decode_attention as da
     from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -247,6 +387,27 @@ def check_other_shapes(torch) -> None:
             cases.append(("swiglu", f"m={m} d={dm} ff={ff}", sw.swiglu_fused, sw.swiglu_plain,
                           (rnd(m, dm), rnd(ff, dm, std=0.02), rnd(dm, ff, std=0.02),
                            rnd(ff, dm, std=0.02))))
+        # Paged decode: GQA groups 2, 4 and 8, head dims 16, 32 and 128,
+        # blocks of 8, 32 and 64, act and int8 pools, the last slot on trash.
+        for S, H, KV, bs, nbs, d in ((3, 8, 4, 8, 16, 16), (4, 16, 4, 32, 8, 32),
+                                     (2, 16, 2, 64, 4, 128), (5, 8, 1, 8, 8, 64)):
+            for kv_int8 in (False, True):
+                q, k, v, tb, ps, ks, vs = paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype,
+                                                       kv_int8, trash_slot=True)
+                ps[0] = nbs * bs - 1
+                cases.append((
+                    "paged_decode_attention",
+                    f"S={S} H={H} KV={KV} bs={bs} d={d} {'int8' if kv_int8 else 'act'}",
+                    lambda q, k, v, t, p, ks, vs: da.paged_decode_attention(
+                        q, k, v, t, p, k_scale=ks, v_scale=vs),
+                    da.paged_decode_attention_plain, (q, k, v, tb, ps, ks, vs)))
+        # int8 matmul: rows of 683 and 1365 bytes (d_ff of TINYSTORIES_4L
+        # and GPT2_MEDIUM's 12-layer kin), m 1 and 1000, ragged d_out.
+        for m, k_in, n_out in ((1, 683, 256), (37, 683, 300), (5, 1365, 768), (1000, 64, 100),
+                               (1000, 768, 77)):
+            x, q, s, _ = quant_inputs(torch, gen, m, k_in, n_out, dtype)
+            cases.append(("quant_matmul", f"m={m} {k_in}->{n_out}", qm.quant_matmul,
+                          qm.quant_matmul_plain, (x, q, s)))
         worst = 0.0
         for name, label, kern, plain, args in cases:
             out = kern(*args)
@@ -269,7 +430,8 @@ def phase_kernels(torch) -> dict:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
-        for name, label, kern, plain, lib, sets, nbytes, flops in kernel_cases(torch, dtype, gen):
+        for name, label, kern, plain, lib, sets, nbytes, flops, *refs in kernel_cases(
+                torch, dtype, gen):
             errs = []
             for inputs in sets[:2]:
                 out = kern(*inputs)
@@ -282,23 +444,28 @@ def phase_kernels(torch) -> dict:
             err = max(errs)
             tol = TOL.get((name, dname), TOL_BF16)
             iters = 50 if name != "flash_attention" or "S=1024" not in label else 20
-            ms = time_ms(torch, kern, sets, iters)
-            plain_ms = time_ms(torch, plain, sets, max(5, iters // 5))
-            lib_ms = time_ms(torch, lib, sets, iters)
+            ms = time_ms(torch, kern, sets, iters, graph=True)
+            loop_ms = time_ms(torch, kern, sets, iters)
+            plain_ms = time_ms(torch, plain, sets, max(5, iters // 5), graph=True)
+            lib_ms = time_ms(torch, lib, sets, iters, graph=True) if lib is not None else None
             byte_ms = nbytes / HBM_BYTES_S * 1e3
             op_ms = flops / PEAK_FLOPS[dname] * 1e3
             row = {
                 "name": name, "dtype": dname, "shape": label,
-                "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
+                "max_abs_err": err, "tol": tol, "ms": ms, "loop_ms": loop_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "bytes": nbytes, "flops": flops,
             }
+            for ref_name, ref_fn in (refs[0] if refs else {}).items():
+                row[ref_name] = time_ms(torch, ref_fn, sets, iters, graph=True)
             rows.append(row)
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            extra = "".join(f" {k} {row[k]:.4f}" for k in (refs[0] if refs else {}))
             log(
-                f"kernel {name:16s} {dname:8s} {label:38s} err {err:.3e} (tol {tol:g}) "
-                f"ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} "
-                f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+                f"kernel {name:22s} {dname:8s} {label:40s} err {err:.3e} (tol {tol:g}) "
+                f"ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
+                f"library {lib} bound {row['bound_ms']:.4f} ({row['bound_by']}){extra}"
             )
             require(err <= tol, f"{name} {dname} {label}: max error {err:.3e} > {tol:g}")
     OUT_DIR.mkdir(exist_ok=True)
@@ -307,6 +474,8 @@ def phase_kernels(torch) -> dict:
         "decode_attention": "KV=12 ",
         "flash_attention": "S=1024",
         "swiglu": "m=8 ",
+        "paged_decode_attention": "int8 KV",
+        "quant_matmul": "m=8 768->2048",
     }
     return {
         r["name"]: r for r in rows
@@ -447,20 +616,19 @@ def phase_full_width(torch) -> dict:
     expected = {"decode_attention": L * ticks, "flash_attention": L * P,
                 "swiglu": L * (ticks + P)}
     require(counts == expected, f"launch counts {counts} != expected {expected}")
-    profile_ticks(torch, params, cfg, rng)
+    from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
+
+    profile_ticks(torch, SlotPoolEngine(params, cfg, slots=8, device="cuda"), cfg, rng, "dense")
     return counts
 
 
-def profile_ticks(torch, params, cfg, rng, n_ticks: int = 10) -> None:
+def profile_ticks(torch, engine, cfg, rng, label: str, n_ticks: int = 10) -> dict:
     """Where a full-width tick's time goes: the host-clock time of a tick
-    with all 8 slots busy, and, from a ``torch.profiler`` trace of as many
-    more ticks, the device time per tick by kernel and the device's idle
-    share of the tick."""
+    of ``engine`` (8 slots) with all 8 slots busy, and, from a
+    ``torch.profiler`` trace of as many more ticks, the device time per
+    tick by kernel and the device's idle share of the tick."""
     from torch.profiler import ProfilerActivity, profile
 
-    from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
-
-    engine = SlotPoolEngine(params, cfg, slots=8, device="cuda")
     for i, n in enumerate((16, 100, 200, 300, 450, 600, 750, 900)):
         knobs = {"temperature": 0.0} if i % 2 == 0 else {"temperature": 0.8, "top_k": 50}
         engine.admit(rng.integers(0, cfg.vocab_size, size=n), max_new_tokens=100, **knobs)
@@ -478,15 +646,16 @@ def profile_ticks(torch, params, cfg, rng, n_ticks: int = 10) -> None:
         torch.cuda.synchronize()
     by_name, busy_us = _device_breakdown(prof, n_ticks)
     if not by_name:
-        log(f"tick profile: {tick_us:.0f} us per tick (host clock); device time not measured "
-            "(the profiler recorded no device events)")
-        return
+        log(f"{label} tick profile: {tick_us:.0f} us per tick (host clock); device time not "
+            "measured (the profiler recorded no device events)")
+        return {"host_us": tick_us, "device_us": None}
     launches = sum(n for _, n in by_name.values()) / n_ticks
-    log(f"tick profile (8 slots busy): {tick_us:.0f} us per tick (host clock), device busy "
-        f"{busy_us:.0f} us per tick in {launches:.0f} launches, idle share "
+    log(f"{label} tick profile (8 slots busy): {tick_us:.0f} us per tick (host clock), device "
+        f"busy {busy_us:.0f} us per tick in {launches:.0f} launches, idle share "
         f"{1 - busy_us / tick_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {us:9.1f} us/tick  {n // n_ticks:4d} launches/tick  {name[:90]}")
+    return {"host_us": tick_us, "device_us": busy_us}
 
 
 # ------------------------------------------------------------ phase 5
@@ -648,6 +817,50 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
     return rows
 
 
+def swiglu_training_timings(torch, gen) -> list[dict]:
+    """The SwiGLU forward kernel at the training ``m`` (batch x sequence) of
+    GPT2_SMALL_32K (bf16, m 8192) and TINYSTORIES_4L (float32, m 4096):
+    kernel / plain / library ms (the library call is the composition phase 2
+    times) and the bound, operations 6 m d d_ff at the dtype's peak."""
+    from bpe_transformer_tpu_torch.kernels import swiglu as sw
+
+    F = torch.nn.functional
+    rows = []
+    for config, m, dm, ff, dtype in (("GPT2_SMALL_32K", 8192, 768, 2048, torch.bfloat16),
+                                     ("TINYSTORIES_4L", 4096, 256, 683, torch.float32)):
+        dname = str(dtype).removeprefix("torch.")
+        isz = torch.tensor([], dtype=dtype).element_size()
+
+        def rnd(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+        sets = [(rnd(m, dm), rnd(ff, dm, std=0.02), rnd(dm, ff, std=0.02), rnd(ff, dm, std=0.02))
+                for _ in range(copies_for((2 * m * dm + 3 * ff * dm) * isz))]
+        out = sw._swiglu_forward(*sets[0])
+        torch.cuda.synchronize()
+        err = _max_err(out, sw.swiglu_plain(*sets[0]))
+        tol = TOL.get(("swiglu", dname), TOL_BF16)
+        require(err <= tol, f"swiglu {config} m={m}: max error {err:.3e} > {tol:g}")
+        nbytes, flops = (2 * m * dm + 3 * ff * dm) * isz, 6 * m * dm * ff
+        byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+        row = {
+            "name": "swiglu", "config": config, "dtype": dname,
+            "shape": f"m={m} d={dm} ff={ff} forward", "max_abs_err": err,
+            "ms": time_ms(torch, sw._swiglu_forward, sets, 5),
+            "plain_ms": time_ms(torch, sw.swiglu_plain, sets, 3),
+            "library_ms": time_ms(
+                torch, lambda x, w1, w2, w3: F.linear(F.silu(F.linear(x, w1)) * F.linear(x, w3), w2),
+                sets, 5),
+            "bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+        log(f"kernel swiglu {dname:8s} {config} {row['shape']:30s} err {err:.3e} ms {row['ms']:.4f} "
+            f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        rows.append(row)
+    return rows
+
+
 def phase_training_kernels(torch) -> dict:
     """Training kernels vs plain on the card; returns the bf16 rows at the
     GPT2_SMALL_32K training shape, keyed by kernel name."""
@@ -676,6 +889,7 @@ def phase_training_kernels(torch) -> dict:
                     f"(SDPA fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f}) "
                     f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
         log(f"training kernels {dname}: largest errors {worst}")
+    rows += swiglu_training_timings(torch, gen)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_training.json").write_text(json.dumps(rows, indent=1))
     return {
@@ -927,6 +1141,218 @@ def phase_gpt2_training(torch, smi: str) -> dict:
     return {name: per_step[name] * n_steps for name in TRAINING_KERNELS}
 
 
+# ------------------------------------------------------------ phase 9
+
+PAGED_KNOBS = dict(KERNEL_KNOBS, decode_attention_impl="paged")
+#: (label, kv_dtype, weight_dtype) of the paged serving runs.
+PAGED_WIDTHS = (("act", None, None), ("int8 KV", "int8", None), ("int8 KV + int8 weights", "int8", "int8"))
+
+
+@contextlib.contextmanager
+def plain_quant_matmul():
+    """Route the int8 matmul to its plain version on the card (the
+    reference run of phase 9b); nothing else changes."""
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+
+    kernel = qm.quant_matmul
+    qm.quant_matmul = qm.quant_matmul_plain
+    try:
+        yield
+    finally:
+        qm.quant_matmul = kernel
+
+
+def phase_paged_fixture(torch) -> None:
+    """The trained fixture in float32 served by the paged engine on the card
+    at act width, with int8 KV blocks, and with int8 KV and int8 weights:
+    greedy tokens identical to the same run on the CPU, and at act width to
+    the dense engine's on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
+    from bpe_transformer_tpu_torch.models.transformer import params_from_state_dict
+    from bpe_transformer_tpu_torch.serving.server import ServingEngine
+
+    with np.load(FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    sd = {k: v for k, v in arrays.items() if not k.startswith("pin/")}
+    cfg = dataclasses.replace(TS_TEST_CONFIG, **PAGED_KNOBS)
+    ids = arrays["pin/input_ids"]
+    rng = np.random.default_rng(3)
+    prompts = [list(ids[i, : 3 + 3 * i]) for i in range(4)]
+    prompts += [list(ids[0, :8]) + [int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+                for n in (1, 4, 7)]  # a shared two-block prefix
+
+    def serve(device, **kw):
+        with ServingEngine(params_from_state_dict(sd, cfg.num_layers, device=device), cfg,
+                           slots=3, min_bucket=8, device=device, **kw) as serving:
+            results = serving.run_batch(prompts, max_new_tokens=16, temperature=0.0)
+        return [list(r.token_ids) for r in results]
+
+    dense = serve("cuda")
+    reset_counts()
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS:
+        kw = dict(paged=True, block_size=4, prefill_chunk=8, kv_dtype=kv_dtype,
+                  weight_dtype=weight_dtype)
+        card, cpu = serve("cuda", **kw), serve("cpu", **kw)
+        log(f"fixture paged {label}: greedy tokens (card) {card}")
+        require(card == cpu, f"paged {label}: card tokens {card} differ from cpu {cpu}")
+        if kv_dtype is None:
+            require(card == dense, f"paged act tokens {card} differ from dense {dense}")
+    counts = read_counts(PAGED_KERNELS)
+    log(f"fixture paged launches: {counts}")
+    require(all(n > 0 for n in counts.values()), f"a kernel was not launched: {counts}")
+
+
+def phase_paged_full_width(torch, smi: str) -> dict:
+    """GPT2_SMALL_32K paged serving at full depth and width: the chunked
+    prefill and a paged decode step held against the plain versions in
+    float32, then a paged ServingEngine on a mixed load with a shared
+    prefix, at int8 KV + int8 weights and at act width, with exact launch
+    counts, and a tick profile of each.  Returns the int8 run's counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.decode import (
+        init_kv_pool,
+        paged_chunk_prefill,
+        paged_decode_step,
+    )
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.serving.engine import prepare_serving_weights
+    from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError, PagedEngine
+    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+
+    cfg = dataclasses.replace(GPT2_SMALL_32K, **PAGED_KNOBS)
+    plain_cfg = dataclasses.replace(GPT2_SMALL_32K)  # every knob "xla"
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    L, bs = cfg.num_layers, 16
+    nbs = cfg.context_length // bs
+
+    # (b) A 300-token prompt in two chunks (256 + 44) and one decode step,
+    # kernels vs plain versions, float32.
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, size=300)
+    tables = torch.zeros((1, nbs), dtype=torch.int32, device="cuda")
+    tables[0, :20] = torch.randperm(40, device="cuda")[:20] + 1
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::2]:
+        outs = {}
+        for mode, c in (("kernels", cfg), ("plain", plain_cfg)):
+            c32 = dataclasses.replace(c, activation_dtype="float32")
+            p32, head, *_ = prepare_serving_weights(params, c32, weight_dtype, "cuda")
+            pool = init_kv_pool(c32, 41, bs, kv_dtype=kv_dtype, device="cuda")
+            with torch.inference_mode(), (
+                    plain_quant_matmul() if mode == "plain" else contextlib.nullcontext()):
+                got = []
+                for start, n, bucket in ((0, 256, 256), (256, 44, 64)):
+                    chunk = np.zeros((1, bucket), np.int64)
+                    chunk[0, :n] = prompt[start:start + n]
+                    logits, _ = paged_chunk_prefill(
+                        p32, torch.as_tensor(chunk, device="cuda"), start, n, tables[0], pool,
+                        c32, lm_head=head, block_size=bs)
+                    got.append(logits)
+                logits, _ = paged_decode_step(
+                    p32, torch.argmax(got[-1], -1), torch.tensor([300], device="cuda"), pool,
+                    tables, c32, lm_head=head, block_size=bs)
+                outs[mode] = got + [logits]
+        err = max((a - b).abs().max().item() for a, b in zip(outs["kernels"], outs["plain"]))
+        tol = PAGED_LOGIT_TOL[label]
+        log(f"full-width paged float32 {label}: chunk + chunk + decode logits, kernels vs plain: "
+            f"max err {err:.3e} (|logits| max {outs['plain'][0].abs().max().item():.3e}, "
+            f"tol {tol:g})")
+        require(err <= tol, f"full-width paged {label} logits differ by {err:.3e}")
+
+    # (c) The paged ServingEngine: 16 requests, 8 of them a shared 512-token
+    # prefix and a suffix of their own, half greedy, half top-k 50 / top-p
+    # 0.95, 64 new tokens each, a pool of four full contexts' blocks.
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, size=512)]
+    suffixes = iter((16, 40, 100, 160, 220, 280, 340, 388))
+    own = iter((900, 800, 513, 257, 129, 64, 33, 17))
+    requests = []
+    for i in range(16):
+        ids = (shared + [int(t) for t in rng.integers(0, cfg.vocab_size, size=next(suffixes))]
+               if i % 2 == 0 else [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                                 size=next(own))])
+        knobs = {"temperature": 0.0} if (i // 2) % 2 == 0 else {
+            "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": i}
+        requests.append(Request(prompt_ids=tuple(ids), max_new_tokens=64, **knobs))
+    int8_counts = None
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::-2]:
+        with ServingEngine(params, cfg, paged=True, slots=8, block_size=bs, prefill_chunk=256,
+                           prefill_token_budget=512, num_kv_blocks=4 * nbs + 1,
+                           kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                           device="cuda") as serving:
+            engine = serving.engine
+            # Warm up outside the counted run (cuBLAS handles, allocator pools).
+            serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
+            parked, chunks, all_queued = [], [0], threading.Event()
+            begin, prefill_step = engine.begin, engine.prefill_step
+
+            def counting_begin(prompt_ids, **kw):
+                all_queued.wait(timeout=60)  # the first admissions see the whole load
+                try:
+                    return begin(prompt_ids, **kw)
+                except NoFreeBlocksError:
+                    parked.append(kw["request_id"])
+                    raise
+
+            def counting_prefill_step(slot):
+                chunks[0] += 1
+                return prefill_step(slot)
+
+            engine.begin, engine.prefill_step = counting_begin, counting_prefill_step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ticks0 = engine.ticks
+            reset_counts()
+            t0 = time.perf_counter()
+            handles = [serving.submit(r) for r in requests]
+            all_queued.set()
+            results = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(SERVING_KERNELS + PAGED_KERNELS)
+            ticks = engine.ticks - ticks0
+            gauges = engine.gauges()
+            peak = torch.cuda.max_memory_allocated()
+            kv_pool_bytes, tick_bytes = engine.kv_pool_bytes, engine.tick_weight_bytes
+        del engine, serving
+        n_tokens = sum(len(r.token_ids) for r in results)
+        log(f"paged serving {label}: {len(results)} requests, {n_tokens} tokens in {wall:.3f} s "
+            f"= {n_tokens / wall:.1f} tok/s; {chunks[0]} chunks, {ticks} ticks; "
+            f"{len(set(parked))} requests parked; prefix cache hits "
+            f"{gauges['prefix_cache_hits']} tokens (rate {gauges['prefix_hit_rate']}); "
+            f"kv_pool_bytes {kv_pool_bytes}, tick_weight_bytes {tick_bytes}, peak memory "
+            f"{peak / 2**30:.2f} GiB on {smi}; launches {counts}")
+        for req, res in zip(requests, results):
+            require(res.finish_reason == "length" and len(res.token_ids) == 64,
+                    f"{label} request {req.request_id}: {res.finish_reason} after "
+                    f"{len(res.token_ids)} tokens")
+            require(all(0 <= t < cfg.vocab_size for t in res.token_ids), "token id out of range")
+        require(gauges["prefix_cache_hits"] > 0, f"{label}: no prefix-cache hit")
+        require(parked, f"{label}: no request parked")
+        steps = ticks + chunks[0]
+        expected = {"decode_attention": 0, "flash_attention": 0, "paged_decode_attention": L * ticks}
+        if weight_dtype == "int8":
+            expected.update(swiglu=0, quant_matmul=(7 * L + 1) * steps)
+            int8_counts = {k: counts[k] for k in PAGED_KERNELS}
+        else:
+            expected.update(swiglu=L * steps, quant_matmul=0)
+        require(counts == expected, f"{label}: launch counts {counts} != expected {expected}")
+
+    # (d) A tick of each width with 8 slots busy.
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::-2]:
+        engine = PagedEngine(params, cfg, slots=8, block_size=bs, prefill_chunk=256,
+                             kv_dtype=kv_dtype, weight_dtype=weight_dtype, device="cuda")
+        profile_ticks(torch, engine, cfg, rng, f"paged {label}")
+        del engine
+    return int8_counts
+
+
 # ------------------------------------------------------------ main
 
 
@@ -984,6 +1410,10 @@ def main() -> int:
     t0 = time.perf_counter()
     counts.update(phase_gpt2_training(torch, smi))
     log(f"phase 8 GPT2_SMALL_32K training: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_paged_fixture(torch)
+    counts.update(phase_paged_full_width(torch, smi))
+    log(f"phase 9 paged serving: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -1,12 +1,18 @@
 """The PyTorch port's KV-cached prefill and decode step held against the JAX
 package's, with the kernel knobs of the ported serving path
 (``attention_impl="flash"``, ``ffn_impl="pallas"``,
-``decode_attention_impl="pallas"``).
+``decode_attention_impl="pallas"``), and the paged twins
+(``init_kv_pool``, ``paged_chunk_prefill``, ``paged_decode_step``) at act
+width and with int8 KV blocks, under ``decode_attention_impl`` "paged" and
+"xla".
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU; the port
 runs on the CPU (``device="cpu"``), where its kernel wrappers take their
 plain versions.  Logits agree to 1e-4, the tolerance of the JAX package's
-own trained-fixture test.
+own trained-fixture test; caches and act-width pools to 1e-5; int8 pool
+values within 1 (a value rounding at the other side of a .5 boundary) and
+their scales to a relative 1e-5.  The trash block 0 takes masked writes in
+no fixed order, so it is left out of the pool comparison.
 """
 
 import dataclasses
@@ -25,7 +31,14 @@ from bpe_transformer_tpu.models.transformer import (
     params_from_state_dict as jax_params_from_state_dict,
 )
 from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG, ModelConfig
-from bpe_transformer_tpu_torch.models.decode import decode_step, init_kv_cache, prefill
+from bpe_transformer_tpu_torch.models.decode import (
+    decode_step,
+    init_kv_cache,
+    init_kv_pool,
+    paged_chunk_prefill,
+    paged_decode_step,
+    prefill,
+)
 from bpe_transformer_tpu_torch.models.transformer import (
     params_from_jax,
     params_from_state_dict,
@@ -84,6 +97,86 @@ def _run_both(jax_params, torch_params, jax_cfg, cfg, ids, last_pos, steps):
         pos = np.where(active, pos + 1, pos)
 
 
+def _assert_pools(pool, j_pool, what):
+    for layer, (t_layer, j_layer) in enumerate(zip(pool, j_pool)):
+        assert set(t_layer) == set(j_layer)
+        for name, arr in t_layer.items():
+            got, want = arr.numpy()[1:], np.asarray(j_layer[name])[1:]
+            assert got.dtype == want.dtype, (what, name, got.dtype, want.dtype)
+            msg = f"{what}: pool layer {layer} {name}"
+            if got.dtype == np.int8:
+                assert np.abs(got.astype(np.int32) - want).max() <= 1, msg
+            elif name.endswith("_scale"):
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=0, err_msg=msg)
+            else:
+                np.testing.assert_allclose(got, want, atol=1e-5, err_msg=msg)
+
+
+def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps):
+    """Prefill three slots into a paged pool through shuffled block tables
+    in both packages (slot 0 in two chunks, slot 1 resuming after a
+    block-aligned prefix shared with slot 0, slot 2 in one chunk), then take
+    ``steps`` greedy decode steps at ragged positions that cross block
+    boundaries, with slot 2 inactive; for act and int8 pools and the "paged"
+    and "xla" decode attentions, assert logits and pools agree at every
+    stage."""
+    ids = np.array(ids[:3], np.int32)
+    ids[1, :block_size] = ids[0, :block_size]  # slot 1 shares slot 0's first block
+    lengths = [2 * block_size + 2, block_size + 3, block_size + 1]
+    chunk = 2 * block_size
+    nbs = cfg.context_length // block_size
+    num_blocks = 3 * nbs + 1
+    tables = np.random.default_rng(9).permutation(np.arange(1, num_blocks))[: 3 * nbs]
+    tables = tables.reshape(3, nbs).astype(np.int32)
+    tables[1, 0] = tables[0, 0]
+    # (slot, start, length) per chunk; the shared block is never rewritten.
+    chunks = [(0, 0, chunk), (0, chunk, lengths[0] - chunk), (1, block_size, 3), (2, 0, lengths[2])]
+    active = np.array([True, True, False])
+    for kv_dtype in (None, "int8"):
+        for impl in ("paged", "xla"):
+            jcfg = dataclasses.replace(jax_cfg, decode_attention_impl=impl)
+            tcfg = dataclasses.replace(cfg, decode_attention_impl=impl)
+            what = f"kv_dtype={kv_dtype} impl={impl}"
+            j_pool = jax_decode.init_kv_pool(jcfg, num_blocks, block_size, kv_dtype=kv_dtype)
+            pool = init_kv_pool(tcfg, num_blocks, block_size, kv_dtype=kv_dtype, device="cpu")
+            _assert_pools(pool, j_pool, f"{what} init")
+            j_chunk = jax.jit(lambda p, c, s, n, t, pl, jcfg=jcfg: jax_decode.paged_chunk_prefill(
+                p, c, s, n, t, pl, jcfg, block_size=block_size))
+            for slot, start, n in chunks:
+                padded = np.zeros((1, chunk), np.int32)
+                padded[0, :n] = ids[slot, start:start + n]
+                j_logits, j_pool = j_chunk(jax_params, jnp.asarray(padded), jnp.int32(start),
+                                           jnp.int32(n), jnp.asarray(tables[slot]), j_pool)
+                with torch.inference_mode():
+                    logits, _ = paged_chunk_prefill(
+                        torch_params, torch.as_tensor(padded, dtype=torch.int64), start, n,
+                        torch.as_tensor(tables[slot]), pool, tcfg, block_size=block_size,
+                    )
+                stage = f"{what} chunk slot {slot} start {start}"
+                np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-4,
+                                           err_msg=stage)
+                _assert_pools(pool, j_pool, stage)
+            j_step = jax.jit(lambda p, tok, pos, pl, t, a, jcfg=jcfg: jax_decode.paged_decode_step(
+                p, tok, pos, pl, t, jcfg, active=a, block_size=block_size))
+            pos = np.array(lengths, np.int32)
+            token = ids[np.arange(3), pos - 1]
+            for step in range(steps):
+                j_logits, j_pool = j_step(jax_params, jnp.asarray(token), jnp.asarray(pos),
+                                          j_pool, jnp.asarray(tables), jnp.asarray(active))
+                with torch.inference_mode():
+                    logits, _ = paged_decode_step(
+                        torch_params, torch.as_tensor(token, dtype=torch.int64),
+                        torch.as_tensor(pos, dtype=torch.int64), pool, torch.as_tensor(tables),
+                        tcfg, active=torch.as_tensor(active), block_size=block_size,
+                    )
+                stage = f"{what} decode step {step}"
+                np.testing.assert_allclose(logits.numpy()[active], np.asarray(j_logits)[active],
+                                           atol=1e-4, err_msg=stage)
+                _assert_pools(pool, j_pool, stage)
+                token = np.where(active, np.argmax(np.asarray(j_logits), axis=-1), token)
+                pos = np.where(active, pos + 1, pos)
+
+
 def test_torch_prefill_and_decode_match_jax():
     with np.load(FIXTURE) as z:
         arrays = {k: z[k] for k in z.files}
@@ -105,6 +198,7 @@ def test_torch_prefill_and_decode_match_jax():
         jax_params, torch_params, jax_cfg, cfg, ids[:, :10],
         last_pos=np.array([9, 5, 7, 3], np.int32), steps=3,
     )
+    _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=3)
 
     # GQA with the post-norm and no-RMSNorm ablations, on random weights
     # carried across from JAX (8 times the init scale, so that the logits
@@ -124,3 +218,4 @@ def test_torch_prefill_and_decode_match_jax():
         jax_params, torch_params, jax_cfg, cfg, ids,
         last_pos=np.array([11, 4, 8], np.int32), steps=2,
     )
+    _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=3)

@@ -6,11 +6,15 @@ JAX kernels run in Pallas interpret mode on the CPU, as
 tensors, run their plain PyTorch versions; the CUDA kernels themselves are
 held against those plain versions on the card by ``chip_smoke.py``.
 Tolerances are the JAX float32 kernel tests' atol: 2e-5 for the
-attention forwards (and the lse), 3e-5 for the flash backward and the RoPE
-table gradients, 1e-5 for SwiGLU and its gradient.
+attention forwards (and the lse; the paged decode attention too, act and
+int8 pools), 3e-5 for the flash backward and the RoPE table gradients, 1e-5
+for SwiGLU and its gradient and for the int8 matmul; bfloat16 inputs are
+held to 3e-2, the JAX bf16 kernel tests' atol.  The int8 weight quantizer
+must give JAX's int8 values and scales bit for bit.
 """
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -25,15 +29,22 @@ from bpe_transformer_tpu.kernels.pallas.flash_attention import (
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention_with_lse as jax_flash_attention_with_lse,
 )
+from bpe_transformer_tpu.kernels.pallas.decode_attention import (
+    paged_decode_attention as jax_paged_decode_attention,
+)
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention_with_rope as jax_flash_attention_with_rope,
 )
+from bpe_transformer_tpu.kernels.pallas.quant_matmul import quant_matmul as jax_quant_matmul
 from bpe_transformer_tpu.kernels.pallas.swiglu import swiglu_fused as jax_swiglu
+from bpe_transformer_tpu.ops.quant import quantize_weight as jax_quantize_weight
 from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
 from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.kernels import decode_attention as da
 from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
+from bpe_transformer_tpu_torch.ops.quant import quantize_weight
 
 
 def test_torch_kernel_plain_versions_match_jax_kernels():
@@ -168,6 +179,96 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         for got, want, name in zip(targs, want_grads, ("x", "w1", "w2", "w3")):
             np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), atol=1e-5,
                                        err_msg=f"swiglu {x_shape} ff={ff} d{name}")
+
+    # Paged decode attention: shuffled block tables, block sizes 8 to 64
+    # (a warp's 32-key tile spans several blocks below 32), frontiers at 0,
+    # bs - 1, bs and the last row, GQA groups 1, 2 and 4, and a last slot
+    # parked on the trash block (an all-zero table row, as an idle slot has).
+    for slots, heads, kv_heads, bs, nbs, d, kind in [
+        (4, 4, 4, 8, 4, 16, "float32"),
+        (4, 8, 4, 16, 3, 32, "float32"),
+        (4, 8, 2, 32, 2, 16, "float32"),
+        (4, 4, 1, 64, 2, 32, "float32"),
+        (4, 8, 4, 8, 4, 16, "int8"),
+        (4, 4, 2, 16, 3, 32, "int8"),
+        (4, 8, 4, 16, 3, 32, "bfloat16"),
+    ]:
+        num_blocks = slots * nbs + 1
+        ctx = nbs * bs
+        tables = rng.permutation(np.arange(1, num_blocks)).reshape(slots, nbs).astype(np.int32)
+        tables[-1] = 0
+        pos = np.array([0, bs - 1, bs, ctx - 1][:slots], np.int32)
+        q = normal(slots, heads, d)
+        k_pool, v_pool = (normal(num_blocks, kv_heads, bs, d) for _ in range(2))
+        scales, tol = {}, 2e-5
+        if kind == "int8":
+            k_scale, v_scale = (
+                (np.abs(normal(num_blocks, kv_heads)) / 40 + 0.01).astype(np.float32)
+                for _ in range(2)
+            )
+            k_pool = np.clip(np.round(k_pool / k_scale[:, :, None, None]), -127, 127).astype(np.int8)
+            v_pool = np.clip(np.round(v_pool / v_scale[:, :, None, None]), -127, 127).astype(np.int8)
+            scales = {"k_scale": k_scale, "v_scale": v_scale}
+        want_args = [jnp.asarray(a) for a in (q, k_pool, v_pool, tables, pos)]
+        got_args = [torch.from_numpy(a) for a in (q, k_pool, v_pool, tables, pos)]
+        if kind == "bfloat16":
+            tol = 3e-2
+            want_args[:3] = [a.astype(jnp.bfloat16) for a in want_args[:3]]
+            got_args[:3] = [a.to(torch.bfloat16) for a in got_args[:3]]
+        want = jax_paged_decode_attention(
+            *want_args, **{k: jnp.asarray(s) for k, s in scales.items()}, interpret=True
+        )
+        got = da.paged_decode_attention(
+            *got_args, **{k: torch.from_numpy(s) for k, s in scales.items()}
+        )
+        assert got.shape == (slots, heads, d) and got.dtype == got_args[0].dtype
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)), atol=tol,
+            err_msg=f"paged_decode_attention {kind} H={heads} KV={kv_heads} bs={bs} d={d}",
+        )
+    # The JAX function's argument errors (tests/test_kernels.py).
+    q, pool = torch.zeros(2, 4, 16), torch.zeros(9, 2, 8, 16)
+    tables, pos = torch.zeros(2, 4, dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
+    for match, args, kwargs in [
+        ("tables", (q, pool, pool, torch.zeros(3, 4, dtype=torch.int32), pos), {}),
+        ("shape mismatch", (q, pool, torch.zeros(9, 2, 8, 8), tables, pos), {}),
+        ("int8", (q, pool, pool, tables, pos), {"k_scale": torch.zeros(9, 2)}),
+        ("not divisible", (torch.zeros(2, 5, 16), pool, pool, tables, pos), {}),
+    ]:
+        with pytest.raises(ValueError, match=match):
+            da.paged_decode_attention(*args, **kwargs)
+
+    # int8 matmul: d_in 64 and 683 (rows not a multiple of 16 bytes), m 1,
+    # 8 and 37, float32 and bfloat16 activations; float32 out.
+    for m, d_in, d_out, kind in [(1, 64, 96, "float32"), (8, 683, 64, "float32"),
+                                 (37, 64, 40, "float32"), (8, 683, 64, "bfloat16"),
+                                 (37, 64, 40, "bfloat16")]:
+        x = normal(m, d_in)
+        wq = rng.integers(-127, 128, size=(d_out, d_in)).astype(np.int8)
+        # Scales of std-0.02 weights (max |w| / 127): outputs of order 1.
+        scale = (np.abs(normal(d_out)) * 5e-4).astype(np.float32)
+        jx, tx, tol = jnp.asarray(x), torch.from_numpy(x), 1e-5
+        if kind == "bfloat16":
+            jx, tx, tol = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16), 3e-2
+        want = jax_quant_matmul(jx, jnp.asarray(wq), jnp.asarray(scale), interpret=True)
+        got = qm.quant_matmul(tx, torch.from_numpy(wq), torch.from_numpy(scale))
+        assert got.shape == (m, d_out) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
+                                   err_msg=f"quant_matmul m={m} d_in={d_in} {kind}")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        qm.quant_matmul(torch.zeros(2, 8), torch.zeros(4, 7, dtype=torch.int8), torch.zeros(4))
+
+    # Weight quantization: JAX's int8 values and scales bit for bit, on
+    # bf16-rounded weights (as the serving tree holds them) with an all-zero
+    # row (scale 0, values 0).
+    w = normal(48, 683, scale=0.02)
+    w[5] = 0.0
+    w_bf16 = torch.from_numpy(w).to(torch.bfloat16)
+    want = jax_quantize_weight(jnp.asarray(w).astype(jnp.bfloat16))
+    got = quantize_weight(w_bf16)
+    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(got["scale"].numpy(), np.asarray(want["scale"]))
+    assert got["scale"][5] == 0 and not got["q"][5].any()
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 its entry points run on the card unless the caller asks for the CPU, and
 ``chip_smoke.py`` refuses to report without a card or without the repo.
-The jax-free run also drives the ``train`` CLI on the CPU, resuming from its
+The jax-free run also serves through the paged engine with int8 KV blocks
+and int8 weights and drives the ``train`` CLI on the CPU, resuming from its
 own checkpoint."""
 
 import re
@@ -37,15 +38,17 @@ for name in names:
 expected = {
     "bpe_transformer_tpu_torch." + m for m in (
         "checkpointing.checkpoint", "data.dataset", "kernels.flash_attention",
-        "kernels.swiglu", "models.transformer", "ops.core", "ops.grad", "ops.losses",
-        "optim.adamw", "optim.schedule", "resilience.integrity", "training.cli",
-        "training.loop", "training.train_step", "tree",
+        "kernels.quant_matmul", "kernels.swiglu", "models.transformer", "ops.core", "ops.grad",
+        "ops.losses", "ops.quant", "optim.adamw", "optim.schedule", "resilience.integrity",
+        "serving.kvpool.blocks", "serving.kvpool.paged_engine", "serving.kvpool.radix",
+        "training.cli", "training.loop", "training.train_step", "tree",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
 
 from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
 from bpe_transformer_tpu_torch.models.transformer import init_params
+from bpe_transformer_tpu_torch.serving.kvpool import PagedEngine
 from bpe_transformer_tpu_torch.serving.server import ServingEngine
 
 cfg = dataclasses.replace(
@@ -55,6 +58,10 @@ cfg = dataclasses.replace(
 params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 with ServingEngine(params, cfg, slots=2, min_bucket=4, device="cpu") as serving:
     result = serving.generate([1, 2, 3], max_new_tokens=3, temperature=0.0)
+assert len(result.token_ids) == 3 and result.finish_reason == "length", result
+with ServingEngine(params, cfg, slots=2, min_bucket=4, paged=True, block_size=4,
+                   kv_dtype="int8", weight_dtype="int8", device="cpu") as serving:
+    result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=3, temperature=0.0)
 assert len(result.token_ids) == 3 and result.finish_reason == "length", result
 
 import json, numpy as np
@@ -81,6 +88,8 @@ if not torch.cuda.is_available():
     for call in (
         lambda: init_params(cfg, torch.Generator()),
         lambda: ServingEngine(params, cfg),
+        lambda: PagedEngine(params, cfg),
+        lambda: ServingEngine(params, cfg, paged=True),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2), tokens),
     ):
         try:
