@@ -20,7 +20,8 @@ here, as in the JAX package).  int8 quantized weights send every linear and
 the head to the int8 matmul kernel.
 
 The paged twins (:func:`init_kv_pool`, :func:`paged_decode_step`,
-:func:`paged_chunk_prefill`) read and write KV through a block table: the
+:func:`paged_chunk_prefill`, and the speculative verify pass
+:func:`paged_verify_step`) read and write KV through a block table: the
 pool holds per layer ``(num_blocks, kv_heads, block_size, d_head)`` K and V
 blocks, block 0 is the trash block that masked writes go to, and a slot's
 cache is its chain of block ids.  They too write the pool IN PLACE.  An
@@ -188,12 +189,17 @@ def decode_step(
     config: ModelConfig,
     lm_head: torch.Tensor | None = None,
     active: torch.Tensor | None = None,
+    return_hidden: bool = False,
 ) -> tuple[torch.Tensor, KVCache]:
     """One cached decode step for ``token`` (batch,) at position ``pos`` (an
     int for the whole batch, or a (batch,) tensor, one per sequence).
     Writes the step's K/V into ``cache`` in place (only for ``active``
     sequences when given) and returns float32 logits ``(batch, vocab)``;
-    inactive rows' logits are computed and meant to be discarded."""
+    inactive rows' logits are computed and meant to be discarded.
+
+    ``return_hidden=True`` skips the head projection and returns the
+    final-norm hidden state ``(batch, d_model)`` instead: the fused
+    head + sample kernel (``kernels/sample.py``) projects it itself."""
     _check_dense(config)
     batch = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).reshape(-1).expand(batch)
@@ -221,6 +227,8 @@ def decode_step(
         x = _block_apply(x, block_params, config, attend)
 
     x = _maybe_norm(x, params["ln_final"], config)
+    if return_hidden:
+        return x[:, 0], cache
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     return head_logits(x[:, 0], head), cache
 
@@ -317,12 +325,14 @@ def paged_decode_step(
     config: ModelConfig,
     lm_head=None,
     active: torch.Tensor | None = None,
+    return_hidden: bool = False,
     *,
     block_size: int,
 ) -> tuple[torch.Tensor, KVCache]:
     """One cached decode step against the paged pool, the block-table twin
-    of :func:`decode_step`.  ``token``/``pos``/``active`` are ``(slots,)``;
-    ``tables`` (slots, blocks_per_slot) maps each slot's logical block to a
+    of :func:`decode_step` (``return_hidden`` as there).
+    ``token``/``pos``/``active`` are ``(slots,)``; ``tables`` (slots,
+    blocks_per_slot) maps each slot's logical block to a
     pool block id (0 = trash).  The new K/V lands at ``(tables[s, pos //
     block_size], pos % block_size)``, inactive slots' at the trash block (an
     int8 pool quantizes the row as it writes, :func:`_quantize_decode_row`);
@@ -385,6 +395,8 @@ def paged_decode_step(
         x = _block_apply(x, block_params, config, attend)
 
     x = _maybe_norm(x, params["ln_final"], config)
+    if return_hidden:
+        return x[:, 0], pool
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     return head_logits(x[:, 0], head), pool
 
@@ -486,3 +498,100 @@ def paged_chunk_prefill(
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     last = x[:, min(max(chunk_len - 1, 0), cb - 1)]
     return head_logits(last, head), pool
+
+
+def paged_verify_step(
+    params: Params,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    rooms: torch.Tensor,
+    pool: KVCache,
+    tables: torch.Tensor,
+    config: ModelConfig,
+    lm_head=None,
+    active: torch.Tensor | None = None,
+    return_hidden: bool = False,
+    *,
+    block_size: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """The speculative-decoding verify forward: :func:`paged_decode_step`
+    generalized from one token per slot to ``K+1``.
+
+    ``tokens`` (slots, K+1) holds each slot's not-yet-written last token and
+    its K draft proposals; ``positions`` (slots,) the absolute position of
+    ``tokens[:, 0]``; ``rooms`` (slots,) how many proposal rows are real:
+    rows ``0..rooms[s]`` are written, later rows, rows past the context and
+    inactive slots write the trash block 0.  Every row's K/V scatters into
+    the pool through the block table, then each row attends to its slot's
+    gathered cache under the frontier ``key_pos <= positions + row``, with
+    materialized float32 scores as :func:`paged_chunk_prefill` computes
+    them (``decode_attention_impl`` governs the one-token tick only).
+    Returns float32 logits ``(slots, K+1, vocab)``, row ``j`` the target
+    distribution of position ``positions + j + 1`` (or the final-norm
+    hidden states ``(slots, K+1, d_model)`` under ``return_hidden``); the
+    pool is written in place.
+
+    int8 pools quantize the K+1 rows one after another with
+    :func:`_quantize_decode_row`, the order of K+1 plain ticks: rows land
+    mid-block beside valid rows of earlier steps, which the chunk
+    quantizer's scale reset would corrupt.  Readers then see each block's
+    final scale, so int8 verify logits match K+1 plain ticks within the
+    quantization error, not bit for bit (act width is exact)."""
+    _check_dense(config)
+    s, k1 = tokens.shape
+    ctx = config.context_length
+    nb = tables.shape[1]
+    dev = tokens.device
+    rows = torch.arange(k1, device=dev)
+    pos_j = positions[:, None] + rows[None, :]  # (S, K+1)
+    safe_pos = pos_j.clamp(0, ctx - 1)
+    valid = (rows[None, :] <= rooms[:, None]) & (pos_j <= ctx - 1)
+    if active is not None:
+        valid = valid & active[:, None]
+    idx = (safe_pos // block_size).clamp(0, nb - 1)
+    write_ids = torch.where(valid, torch.gather(tables.long(), 1, idx), torch.zeros_like(idx))
+    offsets = safe_pos % block_size
+    quantized = "k_scale" in pool[0]
+
+    x = embedding(params["token_embeddings"], tokens)  # (S, K+1, d)
+    scale = config.d_head**-0.5
+    # (S, 1, K+1, ctx): key j is visible to row i iff j <= pos_i.
+    mask = (torch.arange(nb * block_size, device=dev)[None, None, :] <= pos_j[:, :, None])[:, None]
+
+    for block_params, layer_pool in zip(params["layers"], pool):
+
+        def attend(h, block_params=block_params, layer_pool=layer_pool):
+            q, k, v = _project_qkv(h, block_params["attn"], config)
+            q, k = _rope_qk(q, k, safe_pos, config)
+            k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)  # (S, K+1, kv, dh)
+            if quantized:
+                for j in range(k1):
+                    _quantize_decode_row(layer_pool["k"], layer_pool["k_scale"], k_rows[:, j],
+                                         write_ids[:, j], offsets[:, j])
+                    _quantize_decode_row(layer_pool["v"], layer_pool["v_scale"], v_rows[:, j],
+                                         write_ids[:, j], offsets[:, j])
+                k_cache = gather_paged_kv_dequant(
+                    layer_pool["k"], layer_pool["k_scale"], tables, h.dtype
+                )
+                v_cache = gather_paged_kv_dequant(
+                    layer_pool["v"], layer_pool["v_scale"], tables, h.dtype
+                )
+            else:
+                layer_pool["k"][write_ids, :, offsets] = k_rows
+                layer_pool["v"][write_ids, :, offsets] = v_rows
+                k_cache = gather_paged_kv(layer_pool["k"], tables)
+                v_cache = gather_paged_kv(layer_pool["v"], tables)
+            k_full, v_full = _expand_kv(k_cache, config), _expand_kv(v_cache, config)
+            scores = torch.matmul(q, k_full.transpose(-1, -2)).float() * scale
+            scores = scores.masked_fill(~mask, float("-inf"))
+            probs = torch.softmax(scores, dim=-1).to(h.dtype)
+            att = merge_heads(torch.matmul(probs, v_full))
+            return linear(att, block_params["attn"]["output_proj"])
+
+        x = _block_apply(x, block_params, config, attend)
+
+    x = _maybe_norm(x, params["ln_final"], config)
+    if return_hidden:
+        return x, pool
+    head = lm_head_weight(params, config) if lm_head is None else lm_head
+    return head_logits(x, head), pool

@@ -9,7 +9,9 @@ sampling knobs are runtime values.
 
 ``weight_dtype="int8"`` serves per-channel int8 matmul weights
 (:func:`prepare_serving_weights`); every linear and the head then run the
-int8 matmul kernel.
+int8 matmul kernel.  ``fused_sampling=True`` ends each tick with the fused
+head + filter + sample kernel (``kernels/sample.py``) on the decode step's
+final hidden state, with the same noise the unfused sampler would draw.
 
 Sampling draws gumbel noise from a per-slot ``torch.Generator`` seeded from
 the request's ``seed`` and takes the argmax of filtered logits plus noise
@@ -118,9 +120,10 @@ def filter_logits(logits, temps, top_ks, top_ps):
     return torch.where(masked < cutoff[:, None], float("-inf"), masked)
 
 
-def gumbel_noise(generator: torch.Generator, vocab: int, device) -> torch.Tensor:
-    """One row of standard gumbel noise ``(vocab,)`` from ``generator``."""
-    u = torch.rand(vocab, generator=generator, device=device, dtype=torch.float32)
+def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard gumbel noise of ``shape`` (one row: the vocabulary size)
+    from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
     return -torch.log(-torch.log(u))
 
 
@@ -169,6 +172,7 @@ class SlotPoolEngine:
         prefill_buckets: tuple[int, ...] | None = None,
         min_bucket: int = 16,
         weight_dtype: str | None = None,
+        fused_sampling: bool = False,
         device: str | torch.device = "cuda",
     ):
         if slots < 1:
@@ -176,6 +180,12 @@ class SlotPoolEngine:
         self.device = resolve_device(device)
         self.config = config
         self.n_slots = slots
+        self.fused_sampling = bool(fused_sampling)
+        #: The fused tail's float32 logit workspace, one row per slot.
+        self._logits_ws = (
+            torch.empty((slots, config.vocab_size), dtype=torch.float32, device=self.device)
+            if self.fused_sampling else None
+        )
         ctx = config.context_length
         if prefill_buckets is None:
             prefill_buckets = default_prefill_buckets(ctx, min_bucket)
@@ -251,26 +261,52 @@ class SlotPoolEngine:
 
     # ------------------------------------------------------------ lifecycle
 
-    def _sample(self, logits, rows: list[int], live: list[int]) -> torch.Tensor:
-        """Sample one token per logits row; row ``i`` belongs to slot
-        ``rows[i]``.  Only ``live`` slots with a temperature draw noise (from
-        their own generator); every other row takes the raw argmax."""
+    def _gumbel_rows(self, rows: list[int], live: list[int]):
+        """The noise and knobs of one sampling call; row ``i`` belongs to
+        slot ``rows[i]``.  Only ``live`` slots with a temperature draw a
+        gumbel row (from their own generator); every other row gets zeros and
+        temperature 0 (the raw argmax).  Returns ``(gumbel, temps, top_ks,
+        top_ps)`` on the device, or None when no row samples."""
         sampled = [s for s in live if self._temps[s] > 0.0]
         if not sampled:
-            return torch.argmax(logits, dim=-1)
+            return None
         dev, vocab = self.device, self.config.vocab_size
         temps = np.where(np.isin(rows, sampled), self._temps[rows], 0.0)
         gumbel = torch.zeros((len(rows), vocab), dtype=torch.float32, device=dev)
         for i, slot in enumerate(rows):
             if slot in sampled:
                 gumbel[i] = gumbel_noise(self._generators[slot], vocab, dev)
-        return sample_tokens(
-            logits,
+        return (
             gumbel,
             torch.as_tensor(temps.astype(np.float32), device=dev),
             torch.as_tensor(self._top_ks[rows], device=dev),
             torch.as_tensor(self._top_ps[rows], device=dev),
         )
+
+    def _sample(self, logits, rows: list[int], live: list[int]) -> torch.Tensor:
+        """Sample one token per logits row (see :meth:`_gumbel_rows`)."""
+        noise = self._gumbel_rows(rows, live)
+        if noise is None:
+            return torch.argmax(logits, dim=-1)
+        gumbel, temps, top_ks, top_ps = noise
+        return sample_tokens(logits, gumbel, temps, top_ks, top_ps)
+
+    def _fused_sample(self, hidden, live: list[int]) -> torch.Tensor:
+        """One token per slot from the final hidden states ``(slots, d)``
+        through the fused head + sample kernel, with :meth:`_sample`'s noise
+        and knobs (greedy rows: temperature 0, no noise)."""
+        from bpe_transformer_tpu_torch.kernels.sample import fused_head_sample
+
+        rows = list(range(self.n_slots))
+        noise = self._gumbel_rows(rows, live)
+        if noise is None:
+            dev = self.device
+            zeros = torch.zeros(len(rows), dtype=torch.float32, device=dev)
+            noise = (torch.zeros((len(rows), self.config.vocab_size), dtype=torch.float32,
+                                 device=dev), zeros, zeros.long(), zeros)
+        gumbel, temps, top_ks, top_ps = noise
+        return fused_head_sample(hidden, self._lm_head, temps, top_ks, top_ps, gumbel,
+                                 logits_out=self._logits_ws)
 
     @torch.inference_mode()
     def admit(
@@ -358,7 +394,7 @@ class SlotPoolEngine:
             return []
         dev = self.device
         active = torch.as_tensor(self._active, device=dev)
-        logits, _ = decode_step(
+        out, _ = decode_step(
             self._params,
             torch.as_tensor(self._tokens, device=dev),
             torch.as_tensor(self._positions, device=dev),
@@ -366,9 +402,13 @@ class SlotPoolEngine:
             self.config,
             lm_head=self._lm_head,
             active=active,
+            return_hidden=self.fused_sampling,
         )
         live = [int(s) for s in np.flatnonzero(self._active)]
-        tokens = self._sample(logits, list(range(self.n_slots)), live).cpu().numpy()
+        if self.fused_sampling:
+            tokens = self._fused_sample(out, live).cpu().numpy()
+        else:
+            tokens = self._sample(out, list(range(self.n_slots)), live).cpu().numpy()
         self.ticks += 1
 
         events: list[TickEvent] = []

@@ -18,13 +18,17 @@ A peer of :class:`~bpe_transformer_tpu_torch.serving.engine.SlotPoolEngine`
 * **chunked prefill**: :meth:`begin` reserves the slot and its worst-case
   block chain, each :meth:`prefill_step` runs one ``prefill_chunk``-token
   chunk, so the serving worker can interleave decode ticks between a long
-  prompt's chunks (under :class:`serving.scheduler.PrefillBudget`).
+  prompt's chunks (under :class:`serving.scheduler.PrefillBudget`);
+* **rewind** (:meth:`rewind`, :meth:`extend_blocks`): the KV-memory
+  primitives of speculative decoding (``serving/spec/``), which writes past
+  a slot's frontier and rolls back what the target rejected.
 
-Sampling is the dense engine's, shared: one ``torch.Generator`` per slot
-seeded from the request's seed, drawn once for the first token (on the final
-chunk only) and once per tick after that, so a seeded request gives the same
-tokens on both engines.  Eager PyTorch compiles no programs, so the JAX
-engine's ``compiled_programs`` has no counterpart here.
+Sampling is the dense engine's, shared (``fused_sampling`` too): one
+``torch.Generator`` per slot seeded from the request's seed, drawn once for
+the first token (on the final chunk only) and once per tick after that, so a
+seeded request gives the same tokens on both engines.  Eager PyTorch
+compiles no programs, so the JAX engine's ``compiled_programs`` has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -87,7 +91,9 @@ class PagedEngine:
     # The dense engine's sampler and retirement rule, shared: they read
     # ``_temps``/``_top_ks``/``_top_ps``/``_generators``, which this engine
     # keeps under the same names.
+    _gumbel_rows = SlotPoolEngine._gumbel_rows
     _sample = SlotPoolEngine._sample
+    _fused_sample = SlotPoolEngine._fused_sample
     _finish_reason = staticmethod(SlotPoolEngine._finish_reason)
 
     def __init__(
@@ -111,17 +117,17 @@ class PagedEngine:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f'kv_dtype={kv_dtype!r} must be None (activation width) or "int8"')
-        if fused_sampling:
-            raise NotImplementedError(
-                "fused_sampling=True is not ported yet: the fused head + sampling kernel "
-                "comes with the next slice (fused sampling and speculative decoding)"
-            )
         ctx = config.context_length
         if block_size < 1 or ctx % block_size:
             raise ValueError(f"block_size={block_size} must divide context_length={ctx}")
         self.device = resolve_device(device)
         self.config = config
         self.n_slots = slots
+        self.fused_sampling = bool(fused_sampling)
+        self._logits_ws = (
+            torch.empty((slots, config.vocab_size), dtype=torch.float32, device=self.device)
+            if self.fused_sampling else None
+        )
         self.block_size = block_size
         self.blocks_per_slot = ctx // block_size
         if prefill_chunk is None:
@@ -427,7 +433,7 @@ class PagedEngine:
         if not self._active.any():
             return []
         dev = self.device
-        logits, _ = paged_decode_step(
+        out, _ = paged_decode_step(
             self._params,
             torch.as_tensor(self._tokens, device=dev),
             torch.as_tensor(self._positions, device=dev),
@@ -436,10 +442,14 @@ class PagedEngine:
             self.config,
             lm_head=self._lm_head,
             active=torch.as_tensor(self._active, device=dev),
+            return_hidden=self.fused_sampling,
             block_size=self.block_size,
         )
         live = [int(s) for s in np.flatnonzero(self._active)]
-        tokens = self._sample(logits, list(range(self.n_slots)), live).cpu().numpy()
+        if self.fused_sampling:
+            tokens = self._fused_sample(out, live).cpu().numpy()
+        else:
+            tokens = self._sample(out, list(range(self.n_slots)), live).cpu().numpy()
         self.ticks += 1
 
         events: list[TickEvent] = []
@@ -455,6 +465,82 @@ class PagedEngine:
                 self.release(slot)
             events.append(TickEvent(slot=slot, token=token, finished=finished))
         return events
+
+    def extend_blocks(self, slot: int, upto_len: int) -> None:
+        """Grow ``slot``'s block chain to cover ``upto_len`` positions
+        (speculative scratch: the verify pass writes a few positions past
+        the admission's reservation, and :meth:`rewind` returns what the
+        acceptance did not keep).  Raises :class:`NoFreeBlocksError` when
+        the pool is dry: the caller shrinks its speculation window instead
+        of parking."""
+        info = self._slots[slot]
+        if info is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        need = -(-min(upto_len, self.config.context_length) // self.block_size)
+        extra = need - len(info.block_ids)
+        if extra <= 0:
+            return
+        fresh = self._alloc_blocks(extra)
+        start = len(info.block_ids)
+        info.block_ids.extend(fresh)
+        self._tables[slot, start : start + len(fresh)] = fresh
+
+    @torch.inference_mode()
+    def rewind(self, slot: int, new_len: int, *, keep_blocks: int | None = None) -> dict:
+        """Roll ``slot``'s written-KV frontier back to ``new_len`` tokens:
+        positions ``0..new_len-1`` stay valid, everything past them is
+        abandoned (a speculative rejection).
+
+        * Within a block this is bookkeeping: abandoned rows stay in the pool
+          but every reader masks keys by the slot's position.
+        * Chain blocks wholly past the frontier are dereferenced (returned to
+          the pool on their last reference); ``keep_blocks`` floors the chain
+          length, so a caller mid-generation keeps its admission's
+          reservation and only speculative scratch is released.
+        * Copy-on-write: when the block the next write lands in is shared
+          (radix-indexed, or held by another slot) it is replaced by a fresh
+          copy of all its rows (and, in an int8 pool, its scale rows); the
+          shared block is never written.  The copy may evict prefix-cache
+          leaves and raises :class:`NoFreeBlocksError` when the pool cannot
+          supply the block.
+        * int8 pools: a block's scale only grows within one occupancy, so a
+          rewound row's magnitude stays in its block's scale until the block
+          is vacated; later writes quantize against that scale.
+
+        Returns ``{"released": n_blocks, "cow": bool}``; the caller owns the
+        position and sampling state."""
+        info = self._slots[slot]
+        if info is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        if slot in self._prefilling:
+            raise ValueError(f"slot {slot} is mid-prefill; cannot rewind")
+        ctx = self.config.context_length
+        if new_len < 0 or new_len > ctx:
+            raise ValueError(f"new_len={new_len} outside [0, {ctx}]")
+        bs = self.block_size
+        floor = max(-(-new_len // bs), keep_blocks or 0)
+        released = 0
+        if floor < len(info.block_ids):
+            dropped = info.block_ids[floor:]
+            info.block_ids = info.block_ids[:floor]
+            self.allocator.deref(dropped)
+            released = len(dropped)
+            self._tables[slot, floor:] = 0
+        cow = False
+        idx = new_len // bs
+        if idx < len(info.block_ids):
+            shared = info.block_ids[idx]
+            if self.allocator.refcount(shared) > 1:
+                fresh = self._alloc_blocks(1)[0]
+                for layer in self._pool:
+                    for arr in layer.values():
+                        arr[fresh] = arr[shared]
+                self.allocator.deref([shared])
+                info.block_ids[idx] = fresh
+                self._tables[slot, idx] = fresh
+                cow = True
+        info.shared_len = min(info.shared_len, new_len)
+        return {"released": released, "cow": cow}
 
     def release(self, slot: int) -> None:
         """Free a slot: drop its block references (blocks the prefix cache

@@ -18,10 +18,14 @@ With ``paged=True`` the engine is the paged
 admission the block pool cannot cover yet is PARKED and retried first,
 strictly in FIFO order, as retirements free blocks (newer requests wait
 behind it), and parked requests still expire at their deadline and can be
-cancelled.
+cancelled.  ``speculate_k`` with a ``draft_spec`` (and ``paged=True``)
+serves through the speculative
+:class:`~bpe_transformer_tpu_torch.serving.spec.SpecEngine`, whose tick may
+deliver several tokens of one request; ``fused_sampling=True`` ends every
+tick with the fused head + sample kernel.
 
-Speculation, KV migration, roles, telemetry, alerts, the flight recorder
-and the HTTP transport are not ported yet.
+KV migration, roles, telemetry, alerts, the flight recorder and the HTTP
+transport are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from bpe_transformer_tpu_torch.serving.scheduler import (
     PrefillBudget,
     QueueFullError,
 )
+from bpe_transformer_tpu_torch.serving.spec import SpecEngine
 
 __all__ = ["Request", "Result", "RequestHandle", "ServingEngine", "QueueFullError"]
 
@@ -159,6 +164,9 @@ class ServingEngine:
         prefill_token_budget: int | None = None,
         prefix_cache: bool = True,
         kv_dtype: str | None = None,
+        fused_sampling: bool = False,
+        speculate_k: int = 0,
+        draft_spec=None,
         device: str | torch.device = "cuda",
     ):
         if kv_dtype is not None and not paged:
@@ -166,19 +174,34 @@ class ServingEngine:
                 f"kv_dtype={kv_dtype!r} needs paged=True (the int8 KV blocks live in the "
                 "block pool)"
             )
+        if speculate_k and not paged:
+            raise ValueError(
+                "speculate_k needs paged=True (the verify pass scores through the paged "
+                "scatter; the KV rewind lives in the block pool)"
+            )
+        if speculate_k and draft_spec is None:
+            raise ValueError("speculate_k needs a draft_spec (DraftSpec or a built DraftModel)")
         if paged:
-            self.engine = PagedEngine(
-                params, config, slots=slots, block_size=block_size, num_blocks=num_kv_blocks,
+            kwargs = dict(
+                slots=slots, block_size=block_size, num_blocks=num_kv_blocks,
                 prefill_buckets=prefill_buckets, min_bucket=min_bucket,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache, kv_dtype=kv_dtype,
-                weight_dtype=weight_dtype, device=device,
+                weight_dtype=weight_dtype, fused_sampling=fused_sampling, device=device,
             )
+            if speculate_k:
+                self.engine = SpecEngine(params, config, draft=draft_spec,
+                                         speculate_k=speculate_k, **kwargs)
+            else:
+                self.engine = PagedEngine(params, config, **kwargs)
         else:
             self.engine = SlotPoolEngine(
                 params, config, slots=slots, prefill_buckets=prefill_buckets,
-                min_bucket=min_bucket, weight_dtype=weight_dtype, device=device,
+                min_bucket=min_bucket, weight_dtype=weight_dtype,
+                fused_sampling=fused_sampling, device=device,
             )
         self.paged = paged
+        #: Speculative decoding is on (the engine is a SpecEngine).
+        self.spec = bool(speculate_k)
         #: Prefill tokens allowed between consecutive decode ticks (paged
         #: only; None runs each prefill to completion, the dense schedule).
         self._prefill_budget = PrefillBudget(prefill_token_budget if paged else None)
@@ -503,6 +526,9 @@ class ServingEngine:
             self._slot_entries[event.slot] = entry
 
     def _deliver(self, events: list[TickEvent]) -> None:
+        """Hand each event's token to its request, in order: a speculative
+        tick may carry several events of one slot, ``finished`` on its
+        last."""
         for event in events:
             entry = self._slot_entries.get(event.slot)
             if entry is None:

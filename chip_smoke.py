@@ -56,12 +56,28 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    shared 512-token prefix, at int8 KV + int8 weights and at act width, with
    parked admissions, prefix-cache hits and exact launch counts; a tick
    profile of each width;
+10. fused sampling and speculative decoding: (a) the fused head + sample
+   and verify tails (``csrc/sample.cu``) against their plain versions at
+   the GPT2_SMALL_32K tick (8 rows) and verify (40 rows) shapes, float32
+   and bfloat16 with heads at their width and int8, every knob, and off the
+   path at other vocabularies, rows and widths: the logit workspace within
+   tolerance, tokens identical to the plain chain run on the kernel's own
+   logits, p_d within 2e-6, kernel / plain ms and the bound; (b) the
+   fixture served by the speculative engine (one-layer draft, K 4), fused
+   and unfused, at act width and int8 KV + int8 weights, greedy tokens
+   identical to the CPU's and to the non-speculative engine's; (c)
+   GPT2_SMALL_32K served by a speculative ``ServingEngine`` (K 4, a
+   two-layer truncated draft, the fused verify tail) on phase 9c's mix at
+   both widths with exact launch counts, acceptance and a spec-tick
+   profile, and the same mix through the paged engine with the fused tick
+   tail, whose greedy tokens must be phase 9c's;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
-``OUT_DIR``: ``chip_smoke_kernels.json`` (serving) and
-``chip_smoke_training.json`` (training).
+``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
+``chip_smoke_training.json`` (training) and ``chip_smoke_sample.json``
+(the fused tails).
 """
 
 from __future__ import annotations
@@ -143,6 +159,14 @@ KERNEL_META = {
     "quant_matmul": {
         "source": "bpe_transformer_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "bpe_transformer_tpu/kernels/pallas/quant_matmul.py:68",
+    },
+    "fused_head_sample": {
+        "source": "bpe_transformer_tpu_torch/csrc/sample.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/sample.py:335",
+    },
+    "fused_verify_head": {
+        "source": "bpe_transformer_tpu_torch/csrc/sample.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/sample.py:373",
     },
 }
 SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
@@ -496,6 +520,11 @@ def read_counts(names=SERVING_KERNELS) -> dict:
     from bpe_transformer_tpu_torch.kernels import _build
 
     return _build.read_launches(names)
+
+
+def only(**launches) -> dict:
+    """Expected launch counts: ``launches`` and 0 for every other kernel."""
+    return {name: launches.get(name, 0) for name in KERNEL_META}
 
 
 KERNEL_KNOBS = dict(attention_impl="flash", ffn_impl="pallas", decode_attention_impl="pallas")
@@ -1211,7 +1240,9 @@ def phase_paged_full_width(torch, smi: str) -> dict:
     prefill and a paged decode step held against the plain versions in
     float32, then a paged ServingEngine on a mixed load with a shared
     prefix, at int8 KV + int8 weights and at act width, with exact launch
-    counts, and a tick profile of each.  Returns the int8 run's counts."""
+    counts, and a tick profile of each.  Returns the int8 run's counts of
+    the paged kernels, the requests, and the act run's results (phase 10c
+    serves the same mix)."""
     import dataclasses
 
     import numpy as np
@@ -1224,8 +1255,7 @@ def phase_paged_full_width(torch, smi: str) -> dict:
     )
     from bpe_transformer_tpu_torch.models.transformer import init_params
     from bpe_transformer_tpu_torch.serving.engine import prepare_serving_weights
-    from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError, PagedEngine
-    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+    from bpe_transformer_tpu_torch.serving.kvpool import PagedEngine
 
     cfg = dataclasses.replace(GPT2_SMALL_32K, **PAGED_KNOBS)
     plain_cfg = dataclasses.replace(GPT2_SMALL_32K)  # every knob "xla"
@@ -1269,79 +1299,19 @@ def phase_paged_full_width(torch, smi: str) -> dict:
     # (c) The paged ServingEngine: 16 requests, 8 of them a shared 512-token
     # prefix and a suffix of their own, half greedy, half top-k 50 / top-p
     # 0.95, 64 new tokens each, a pool of four full contexts' blocks.
-    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, size=512)]
-    suffixes = iter((16, 40, 100, 160, 220, 280, 340, 388))
-    own = iter((900, 800, 513, 257, 129, 64, 33, 17))
-    requests = []
-    for i in range(16):
-        ids = (shared + [int(t) for t in rng.integers(0, cfg.vocab_size, size=next(suffixes))]
-               if i % 2 == 0 else [int(t) for t in rng.integers(0, cfg.vocab_size,
-                                                                 size=next(own))])
-        knobs = {"temperature": 0.0} if (i // 2) % 2 == 0 else {
-            "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": i}
-        requests.append(Request(prompt_ids=tuple(ids), max_new_tokens=64, **knobs))
-    int8_counts = None
+    requests = paged_mix(rng, cfg.vocab_size)
+    int8_counts, act_results = None, None
     for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::-2]:
-        with ServingEngine(params, cfg, paged=True, slots=8, block_size=bs, prefill_chunk=256,
-                           prefill_token_budget=512, num_kv_blocks=4 * nbs + 1,
-                           kv_dtype=kv_dtype, weight_dtype=weight_dtype,
-                           device="cuda") as serving:
-            engine = serving.engine
-            # Warm up outside the counted run (cuBLAS handles, allocator pools).
-            serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
-            parked, chunks, all_queued = [], [0], threading.Event()
-            begin, prefill_step = engine.begin, engine.prefill_step
-
-            def counting_begin(prompt_ids, **kw):
-                all_queued.wait(timeout=60)  # the first admissions see the whole load
-                try:
-                    return begin(prompt_ids, **kw)
-                except NoFreeBlocksError:
-                    parked.append(kw["request_id"])
-                    raise
-
-            def counting_prefill_step(slot):
-                chunks[0] += 1
-                return prefill_step(slot)
-
-            engine.begin, engine.prefill_step = counting_begin, counting_prefill_step
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ticks0 = engine.ticks
-            reset_counts()
-            t0 = time.perf_counter()
-            handles = [serving.submit(r) for r in requests]
-            all_queued.set()
-            results = [h.result(timeout=600) for h in handles]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts(SERVING_KERNELS + PAGED_KERNELS)
-            ticks = engine.ticks - ticks0
-            gauges = engine.gauges()
-            peak = torch.cuda.max_memory_allocated()
-            kv_pool_bytes, tick_bytes = engine.kv_pool_bytes, engine.tick_weight_bytes
-        del engine, serving
-        n_tokens = sum(len(r.token_ids) for r in results)
-        log(f"paged serving {label}: {len(results)} requests, {n_tokens} tokens in {wall:.3f} s "
-            f"= {n_tokens / wall:.1f} tok/s; {chunks[0]} chunks, {ticks} ticks; "
-            f"{len(set(parked))} requests parked; prefix cache hits "
-            f"{gauges['prefix_cache_hits']} tokens (rate {gauges['prefix_hit_rate']}); "
-            f"kv_pool_bytes {kv_pool_bytes}, tick_weight_bytes {tick_bytes}, peak memory "
-            f"{peak / 2**30:.2f} GiB on {smi}; launches {counts}")
-        for req, res in zip(requests, results):
-            require(res.finish_reason == "length" and len(res.token_ids) == 64,
-                    f"{label} request {req.request_id}: {res.finish_reason} after "
-                    f"{len(res.token_ids)} tokens")
-            require(all(0 <= t < cfg.vocab_size for t in res.token_ids), "token id out of range")
-        require(gauges["prefix_cache_hits"] > 0, f"{label}: no prefix-cache hit")
-        require(parked, f"{label}: no request parked")
-        steps = ticks + chunks[0]
-        expected = {"decode_attention": 0, "flash_attention": 0, "paged_decode_attention": L * ticks}
+        run = serve_mix(torch, params, cfg, requests, smi, f"paged serving {label}",
+                        kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+        counts, steps = run["counts"], run["ticks"] + run["chunks"]
         if weight_dtype == "int8":
-            expected.update(swiglu=0, quant_matmul=(7 * L + 1) * steps)
+            expected = only(paged_decode_attention=L * run["ticks"],
+                            quant_matmul=(7 * L + 1) * steps)
             int8_counts = {k: counts[k] for k in PAGED_KERNELS}
         else:
-            expected.update(swiglu=L * steps, quant_matmul=0)
+            expected = only(paged_decode_attention=L * run["ticks"], swiglu=L * steps)
+            act_results = run["results"]
         require(counts == expected, f"{label}: launch counts {counts} != expected {expected}")
 
     # (d) A tick of each width with 8 slots busy.
@@ -1350,7 +1320,449 @@ def phase_paged_full_width(torch, smi: str) -> dict:
                              kv_dtype=kv_dtype, weight_dtype=weight_dtype, device="cuda")
         profile_ticks(torch, engine, cfg, rng, f"paged {label}")
         del engine
-    return int8_counts
+    return int8_counts, requests, act_results
+
+
+def paged_mix(rng, vocab: int) -> list:
+    """Phase 9c's 16 requests: 8 of them a shared 512-token prefix and a
+    suffix of 16-388 tokens, the rest 17-900 tokens of their own; half
+    greedy, half temperature 0.8 / top-k 50 / top-p 0.95; 64 new tokens."""
+    from bpe_transformer_tpu_torch.serving.server import Request
+
+    shared = [int(t) for t in rng.integers(0, vocab, size=512)]
+    suffixes = iter((16, 40, 100, 160, 220, 280, 340, 388))
+    own = iter((900, 800, 513, 257, 129, 64, 33, 17))
+    requests = []
+    for i in range(16):
+        ids = (shared + [int(t) for t in rng.integers(0, vocab, size=next(suffixes))]
+               if i % 2 == 0 else [int(t) for t in rng.integers(0, vocab, size=next(own))])
+        knobs = {"temperature": 0.0} if (i // 2) % 2 == 0 else {
+            "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": i}
+        requests.append(Request(prompt_ids=tuple(ids), max_new_tokens=64, **knobs))
+    return requests
+
+
+def serve_mix(torch, params, cfg, requests, smi: str, label: str, on_engine=None,
+              **engine_kw) -> dict:
+    """Serve ``requests`` through a paged ``ServingEngine`` with phase 9c's
+    pool (four full contexts), blocks of 16, chunks of 256 and a 512-token
+    prefill budget, the first admission held until every request is queued
+    (so the schedule repeats run to run).  Launch counts are reset after a
+    warm-up request; every request must finish at 64 tokens.  Returns the
+    results, counts, ticks, chunks, gauges and timings."""
+    from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError
+    from bpe_transformer_tpu_torch.serving.server import ServingEngine
+
+    bs = 16
+    with ServingEngine(params, cfg, paged=True, slots=8, block_size=bs, prefill_chunk=256,
+                       prefill_token_budget=512,
+                       num_kv_blocks=4 * (cfg.context_length // bs) + 1, device="cuda",
+                       **engine_kw) as serving:
+        engine = serving.engine
+        # Warm up outside the counted run (cuBLAS handles, allocator pools).
+        serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
+        parked, chunks, all_queued = [], [0], threading.Event()
+        begin, prefill_step = engine.begin, engine.prefill_step
+
+        def counting_begin(prompt_ids, **kw):
+            all_queued.wait(timeout=60)  # the first admissions see the whole load
+            try:
+                return begin(prompt_ids, **kw)
+            except NoFreeBlocksError:
+                parked.append(kw["request_id"])
+                raise
+
+        def counting_prefill_step(slot):
+            chunks[0] += 1
+            return prefill_step(slot)
+
+        engine.begin, engine.prefill_step = counting_begin, counting_prefill_step
+        if on_engine is not None:
+            on_engine(engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ticks0 = engine.ticks
+        base_gauges = engine.gauges()
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [serving.submit(r) for r in requests]
+        all_queued.set()
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(tuple(KERNEL_META))
+        ticks = engine.ticks - ticks0
+        gauges = engine.gauges()
+        peak = torch.cuda.max_memory_allocated()
+        kv_pool_bytes, tick_bytes = engine.kv_pool_bytes, engine.tick_weight_bytes
+    n_tokens = sum(len(r.token_ids) for r in results)
+    log(f"{label}: {len(results)} requests, {n_tokens} tokens in {wall:.3f} s "
+        f"= {n_tokens / wall:.1f} tok/s; {chunks[0]} chunks, {ticks} ticks; "
+        f"{len(set(parked))} requests parked; prefix cache hits "
+        f"{gauges['prefix_cache_hits'] - base_gauges['prefix_cache_hits']} tokens (rate "
+        f"{gauges['prefix_hit_rate']}); kv_pool_bytes {kv_pool_bytes}, tick_weight_bytes "
+        f"{tick_bytes}, peak memory {peak / 2**30:.2f} GiB on {smi}; launches {counts}")
+    for req, res in zip(requests, results):
+        require(res.finish_reason == "length" and len(res.token_ids) == 64,
+                f"{label} request {req.request_id}: {res.finish_reason} after "
+                f"{len(res.token_ids)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in res.token_ids), "token id out of range")
+    require(gauges["prefix_cache_hits"] > 0, f"{label}: no prefix-cache hit")
+    require(parked, f"{label}: no request parked")
+    return {"results": results, "counts": counts, "ticks": ticks, "chunks": chunks[0],
+            "gauges": gauges, "wall": wall, "tokens": n_tokens}
+
+
+# ------------------------------------------------------------ phase 10
+
+SAMPLE_KERNELS = ("fused_head_sample", "fused_verify_head")
+#: The fused tails' float32 logit workspace against the plain head_logits:
+#: float32 products of the same values (bf16 and int8 widen exactly) summed in
+#: another order than cuBLAS's, for logits of order 1, as the int8 matmul.
+SAMPLE_LOGIT_TOL = 1e-4
+#: p_d of the verify tail: tests/test_quant.py's bound for the TPU kernel.
+PD_TOL = 2e-6
+#: Per-row knobs (temperature, top_k, top_p) cycled over the rows: greedy,
+#: temperature only, the serving mix, top-k 1 and 5, top-p 0.3 and 0 (the
+#: argmax and its ties), top-k 40 with top-p 0.9.
+KNOB_MIX = ((0.0, 0, 2.0), (1.0, 0, 2.0), (0.8, 50, 0.95), (1.3, 1, 0.5), (0.7, 5, 2.0),
+            (1.0, 0, 0.3), (0.5, 0, 0.0), (1.0, 40, 0.9))
+#: Phase 9c's serving mix: greedy and temperature 0.8 / top-k 50 / top-p 0.95.
+SERVING_MIX = ((0.0, 0, 2.0), (0.8, 50, 0.95))
+
+
+def sample_inputs(torch, gen, rows, vocab, d, dtype, head_kind, mix, copies=1):
+    """``copies`` input sets for the fused tails: hidden (rows, d) at
+    ``dtype`` (rms-normed scale), the head (std 0.02, at ``dtype`` or int8
+    quantized, or float32 for ``head_kind="f32"``), knobs cycled from
+    ``mix``, gumbel noise, and for verify a judged token and a softmax q per
+    row; plus a (rows, vocab) float32 logit workspace."""
+    from bpe_transformer_tpu_torch.ops.quant import quantize_weight
+
+    dev = "cuda"
+    knobs = [mix[i % len(mix)] for i in range(rows)]
+    temps = torch.tensor([k[0] for k in knobs], device=dev)
+    top_ks = torch.tensor([k[1] for k in knobs], dtype=torch.int32, device=dev)
+    top_ps = torch.tensor([k[2] for k in knobs], device=dev)
+    sets = []
+    for _ in range(copies):
+        w = torch.randn(vocab, d, generator=gen, device=dev) * 0.02
+        head = (quantize_weight(w) if head_kind == "int8" else w if head_kind == "f32"
+                else w.to(dtype))
+        u = torch.rand(rows, vocab, generator=gen, device=dev).clamp(min=1e-20)
+        sets.append(dict(
+            hidden=torch.randn(rows, d, generator=gen, device=dev).to(dtype), head=head,
+            temps=temps, top_ks=top_ks, top_ps=top_ps, gumbel=-torch.log(-torch.log(u)),
+            judge=torch.randint(0, vocab, (rows,), generator=gen, device=dev, dtype=torch.int32),
+            q=torch.softmax(torch.randn(rows, vocab, generator=gen, device=dev) * 2, dim=-1),
+            ws=torch.empty(rows, vocab, device=dev),
+        ))
+    return sets
+
+
+def nucleus_edge(logits, t, temp, top_k, top_p) -> bool:
+    """Whether token ``t`` of one row sits at the nucleus edge of the plain
+    filter: the sorted mass before it within 1e-5 of ``top_p`` (there the
+    kernel's mass sum, taken in another order, may keep or drop it)."""
+    import torch
+
+    from bpe_transformer_tpu_torch.serving.engine import filter_logits
+
+    row = logits[None].float()
+    masked = filter_logits(row, torch.tensor([temp], device=row.device),
+                           torch.tensor([top_k], device=row.device),
+                           torch.tensor([2.0], device=row.device))[0]
+    scaled = masked[t]
+    probs = torch.softmax(masked, dim=-1)
+    before = probs[masked > scaled].sum().item()
+    return abs(before - top_p) < 1e-5 or abs(before + probs[t].item() - top_p) < 1e-5
+
+
+def check_sample_case(torch, inp, what: str) -> dict:
+    """Launch both fused tails on one input set and hold them against the
+    plain versions: the logit workspace against head_logits, and the tokens
+    (p_d within PD_TOL) against the plain chains run on the kernel's own
+    logits.  Returns the largest errors."""
+    from bpe_transformer_tpu_torch.kernels import sample as smp
+    from bpe_transformer_tpu_torch.ops.core import head_logits
+    from bpe_transformer_tpu_torch.serving.engine import sample_tokens
+
+    knobs = (inp["temps"], inp["top_ks"], inp["top_ps"])
+    ws = inp["ws"]
+    tok = smp.fused_head_sample(inp["hidden"], inp["head"], *knobs, inp["gumbel"], logits_out=ws)
+    torch.cuda.synchronize()
+    logit_err = (ws - head_logits(inp["hidden"], inp["head"])).abs().max().item()
+    require(logit_err <= SAMPLE_LOGIT_TOL,
+            f"{what}: logit workspace error {logit_err:.3e} > {SAMPLE_LOGIT_TOL:g}")
+    ref = sample_tokens(ws, inp["gumbel"], *knobs)
+    edges = 0
+    for r in torch.nonzero(tok != ref).flatten().tolist():
+        temp, top_k, top_p = (float(inp["temps"][r]), int(inp["top_ks"][r]),
+                              float(inp["top_ps"][r]))
+        at_edge = temp > 0 and any(nucleus_edge(ws[r], int(t), temp, top_k, top_p)
+                                   for t in (tok[r], ref[r]))
+        require(at_edge, f"{what}: row {r} token {int(tok[r])} != plain {int(ref[r])}")
+        edges += 1
+    greedy, p_d, bonus = smp.fused_verify_head(inp["hidden"], inp["head"], *knobs, inp["judge"],
+                                               inp["q"], inp["gumbel"], logits_out=ws)
+    torch.cuda.synchronize()
+    r_greedy, r_pd, r_bonus = smp.verify_rows(ws, *knobs, inp["judge"], inp["q"], inp["gumbel"])
+    pd_err = (p_d - r_pd).abs().max().item()
+    require(torch.equal(greedy, r_greedy), f"{what}: verify greedy tokens differ")
+    require(pd_err <= PD_TOL, f"{what}: p_d error {pd_err:.3e} > {PD_TOL:g}")
+    bad = torch.nonzero(bonus != r_bonus).flatten().tolist()
+    require(not bad, f"{what}: verify bonus tokens differ from the plain ones in rows {bad}")
+    return {"logit_err": logit_err, "pd_err": pd_err, "edge_flips": edges}
+
+
+def phase_sample_kernels(torch) -> dict:
+    """10a: the fused head + sample (B9) and verify (B10) tails against their
+    plain versions on the card, at the GPT2_SMALL_32K tick (8 rows) and
+    verify (40 rows, K 4) shapes, float32 and bfloat16 hidden states with
+    heads at their width and int8, every knob of KNOB_MIX; off the path at
+    vocabularies of 257, 101 and 10000, rows 1, 3 and 33, a bf16 hidden
+    state against a float32 head, and widths whose rows are not a multiple
+    of 16 bytes.  Then kernel / plain ms (CUDA graph replay) and the bound
+    at the main shapes.  Returns the bf16 rows of the main shapes."""
+    from bpe_transformer_tpu_torch.kernels import sample as smp
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = {"logit_err": 0.0, "pd_err": 0.0, "edge_flips": 0}
+    shapes = [(8, 32000, 768), (40, 32000, 768), (1, 257, 64), (3, 101, 32), (33, 10000, 256),
+              (3, 101, 100)]
+    n = 0
+    for rows, vocab, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for head_kind in ("act", "int8") + (("f32",) if dtype == torch.bfloat16 else ()):
+                what = f"R={rows} V={vocab} d={d} {str(dtype)[6:]} {head_kind} head"
+                for key, err in check_sample_case(torch, sample_inputs(
+                        torch, gen, rows, vocab, d, dtype, head_kind, KNOB_MIX)[0], what).items():
+                    worst[key] = max(worst[key], err) if key != "edge_flips" else worst[key] + err
+                n += 1
+    log(f"fused sample/verify tails vs plain: {n} cases, tokens identical (nucleus-edge flips "
+        f"{worst['edge_flips']}), largest logit error {worst['logit_err']:.3e} (tol "
+        f"{SAMPLE_LOGIT_TOL:g}), p_d {worst['pd_err']:.3e} (tol {PD_TOL:g})")
+
+    rows_out, main = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for head_kind in ("act", "int8"):
+            for name, rows in (("fused_head_sample", 8), ("fused_verify_head", 40)):
+                vocab, d = 32000, 768
+                head_bytes = vocab * d * isz if head_kind == "act" else vocab * (d + 4)
+                sets = sample_inputs(torch, gen, rows, vocab, d, dtype, head_kind, SERVING_MIX,
+                                     copies=copies_for(head_bytes))
+                err = check_sample_case(torch, sets[0], f"{name} R={rows} {dname} {head_kind}")
+                if name == "fused_head_sample":
+                    def kern(t):
+                        return smp.fused_head_sample(t["hidden"], t["head"], t["temps"],
+                                                     t["top_ks"], t["top_ps"], t["gumbel"],
+                                                     logits_out=t["ws"])
+
+                    def plain(t):
+                        return smp.fused_head_sample_plain(t["hidden"], t["head"], t["temps"],
+                                                           t["top_ks"], t["top_ps"], t["gumbel"])
+                    # hidden, head, knobs and gumbel in; tokens out.
+                    nbytes = rows * d * isz + head_bytes + rows * 12 + rows * vocab * 4 + rows * 8
+                else:
+                    def kern(t):
+                        return smp.fused_verify_head(t["hidden"], t["head"], t["temps"],
+                                                     t["top_ks"], t["top_ps"], t["judge"], t["q"],
+                                                     t["gumbel"], logits_out=t["ws"])
+
+                    def plain(t):
+                        return smp.fused_verify_head_plain(t["hidden"], t["head"], t["temps"],
+                                                           t["top_ks"], t["top_ps"], t["judge"],
+                                                           t["q"], t["gumbel"])
+                    # ... and judge and q in; greedy, p_d and bonus out.
+                    nbytes = (rows * d * isz + head_bytes + rows * 16 + 2 * rows * vocab * 4
+                              + rows * 20)
+                flops = 2 * rows * vocab * d
+                one = [(t,) for t in sets]
+                ms = time_ms(torch, kern, one, 20, graph=True)
+                plain_ms = time_ms(torch, plain, one, 10, graph=True)
+                # All rows greedy: the finalize takes one pass per row, so
+                # this is about the projection's time alone.
+                greedy = [(dict(t, temps=torch.zeros_like(t["temps"])),) for t in sets]
+                greedy_ms = time_ms(torch, kern, greedy, 20, graph=True)
+                byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+                row = {
+                    "name": name, "dtype": dname, "shape": f"R={rows} V={vocab} d={d} "
+                    f"{'int8' if head_kind == 'int8' else dname} head, serving knobs",
+                    "max_abs_err": err["pd_err"] if name == "fused_verify_head"
+                    else err["logit_err"], "logit_err": err["logit_err"], "ms": ms,
+                    "plain_ms": plain_ms, "greedy_rows_ms": greedy_ms, "library_ms": None,
+                    "bound_ms": max(byte_ms, op_ms),
+                    "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes,
+                    "flops": flops,
+                }
+                rows_out.append(row)
+                log(f"kernel {name:18s} {dname:8s} {row['shape']:44s} logit err "
+                    f"{err['logit_err']:.3e} p_d err {err['pd_err']:.3e} ms {ms:.4f} (all rows "
+                    f"greedy {greedy_ms:.4f}) plain {plain_ms:.4f} library null bound "
+                    f"{row['bound_ms']:.4f} ({row['bound_by']})")
+                if dname == "bfloat16" and head_kind == "act":
+                    main[name] = row
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_sample.json").write_text(json.dumps(rows_out, indent=1))
+    return main
+
+
+def phase_spec_fixture(torch) -> None:
+    """10b: the trained fixture in float32 served by the speculative engine
+    (a one-layer truncated draft, K 4, fused and unfused; and a full-depth
+    draft), at act width and at int8 KV + int8 weights: greedy tokens
+    identical to the same run on the CPU and to the non-speculative paged
+    engine's on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
+    from bpe_transformer_tpu_torch.models.transformer import params_from_state_dict
+    from bpe_transformer_tpu_torch.serving.server import ServingEngine
+    from bpe_transformer_tpu_torch.serving.spec import DraftSpec
+
+    with np.load(FIXTURE) as z:
+        arrays = {k: z[k] for k in z.files}
+    sd = {k: v for k, v in arrays.items() if not k.startswith("pin/")}
+    cfg = dataclasses.replace(TS_TEST_CONFIG, **PAGED_KNOBS)
+    ids = arrays["pin/input_ids"]
+    rng = np.random.default_rng(3)
+    prompts = [list(ids[i, : 3 + 3 * i]) for i in range(4)]
+    prompts += [list(ids[0, :8]) + [int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+                for n in (1, 4, 7)]  # a shared two-block prefix
+
+    def serve(device, **kw):
+        with ServingEngine(params_from_state_dict(sd, cfg.num_layers, device=device), cfg,
+                           slots=3, min_bucket=8, paged=True, block_size=4, prefill_chunk=8,
+                           device=device, **kw) as serving:
+            results = serving.run_batch(prompts, max_new_tokens=16, temperature=0.0)
+            gauges = serving.engine.gauges()
+        return [list(r.token_ids) for r in results], gauges
+
+    reset_counts()
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::2]:
+        widths = dict(kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+        plain, _ = serve("cuda", **widths)
+        # A one-layer draft, and a full-depth one (the target itself: nearly
+        # every proposal is accepted, so windows of K+1 tokens and rewinds
+        # across blocks run too).
+        for fused, layers in ((False, 1), (True, 1), (True, cfg.num_layers)):
+            kw = dict(widths, speculate_k=4, draft_spec=DraftSpec(truncate_layers=layers),
+                      fused_sampling=fused)
+            (card, gauges), (cpu, _) = serve("cuda", **kw), serve("cpu", **kw)
+            what = f"fixture spec {label} fused={fused} draft layers={layers}"
+            log(f"{what}: accept rate {gauges['spec_accept_rate']}, "
+                f"{gauges['spec_tokens_per_target_step']} tokens per target step; "
+                f"greedy tokens (card) {card}")
+            require(card == cpu, f"{what}: card tokens {card} != cpu {cpu}")
+            require(card == plain, f"{what}: tokens {card} != the non-speculative engine's "
+                    f"{plain}")
+    counts = read_counts(SAMPLE_KERNELS + PAGED_KERNELS)
+    log(f"fixture spec launches: {counts}")
+    require(counts["fused_verify_head"] > 0 and counts["paged_decode_attention"] > 0
+            and counts["quant_matmul"] > 0, f"a kernel was not launched: {counts}")
+
+
+def phase_spec_full_width(torch, smi: str, requests, unfused_results) -> dict:
+    """10c: GPT2_SMALL_32K (bf16, ctx 1024, 12 layers) served by the
+    speculative ServingEngine (paged, K 4, a two-layer truncated draft, the
+    fused verify tail) on phase 9c's pool, chunks and 16-request mix, at act
+    width and at int8 KV + int8 weights, with exact launch counts and a
+    spec-tick profile; then the same mix through a non-speculative paged
+    engine with the fused tick tail, whose greedy requests must give phase
+    9c's unfused tokens.  Returns the launches of B9 and B10."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.serving.spec import DraftSpec, SpecEngine
+
+    cfg = dataclasses.replace(GPT2_SMALL_32K, **PAGED_KNOBS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    L, K, draft_layers = cfg.num_layers, 4, 2
+    spec_kw = dict(speculate_k=K, draft_spec=DraftSpec(truncate_layers=draft_layers),
+                   fused_sampling=True)
+    out = {}
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::-2]:
+        run = serve_mix(torch, params, cfg, requests, smi, f"spec serving {label}",
+                        kv_dtype=kv_dtype, weight_dtype=weight_dtype, **spec_kw)
+        g, ticks, chunks = run["gauges"], run["ticks"], run["chunks"]
+        prefills = len(requests)  # every request decodes on, so its draft prefills once
+        if weight_dtype == "int8":
+            # Chunks: 7 L + 1 matmuls; draft prefill 7 per layer + the head;
+            # a tick: K draft steps with the head, one without, and the
+            # target's 7 L (its head is in the fused verify kernel).
+            per_tick = K * (7 * draft_layers + 1) + 7 * draft_layers + 7 * L
+            expected = only(quant_matmul=(7 * L + 1) * chunks
+                            + (7 * draft_layers + 1) * prefills + per_tick * ticks,
+                            fused_verify_head=ticks)
+        else:
+            # The draft runs the plain paths; the target's FFN is the SwiGLU
+            # kernel in every chunk and verify pass.
+            expected = only(swiglu=L * (chunks + ticks), fused_verify_head=ticks)
+        log(f"spec serving {label}: accept rate {g['spec_accept_rate']}, "
+            f"{g['spec_tokens_per_target_step']} tokens per target step, draft share of the "
+            f"tick {g['spec_draft_frac']}, rewound {g['spec_rewound_tokens']} positions")
+        require(run["counts"] == expected,
+                f"spec {label}: launch counts {run['counts']} != expected {expected}")
+        out["fused_verify_head"] = run["counts"]["fused_verify_head"]
+
+    # The fused tick tail on the plain paged engine (act width): greedy
+    # requests give phase 9c's unfused tokens.  Each tick's top-2 logit
+    # margins are kept on the card by slot (read after the run, so the
+    # ticks take no extra sync), so a divergence can be explained.
+    ticks_gaps = []
+
+    def record_margins(engine):
+        fused_sample = engine._fused_sample
+
+        def recording(hidden, live):
+            tokens = fused_sample(hidden, live)
+            top2 = torch.topk(engine._logits_ws, 2, dim=-1).values
+            owners = [(slot, engine._slots[slot].request_id, engine._slots[slot].generated)
+                      for slot in live]
+            ticks_gaps.append((top2[:, 0] - top2[:, 1], owners))
+            return tokens
+
+        engine._fused_sample = recording
+
+    run = serve_mix(torch, params, cfg, requests, smi, "paged serving act, fused tick tail",
+                    on_engine=record_margins, fused_sampling=True)
+    margins = {}
+    for gap, owners in ticks_gaps:
+        gap = gap.tolist()
+        for slot, request_id, generated in owners:
+            margins[(request_id, generated)] = gap[slot]
+    require(run["counts"] == only(paged_decode_attention=L * run["ticks"],
+                                  swiglu=L * (run["ticks"] + run["chunks"]),
+                                  fused_head_sample=run["ticks"]),
+            f"fused paged: launch counts {run['counts']}")
+    out["fused_head_sample"] = run["counts"]["fused_head_sample"]
+    for req, res, ref in zip(requests, run["results"], unfused_results):
+        if req.temperature != 0.0 or res.token_ids == ref.token_ids:
+            continue
+        pos = next(i for i, (a, b) in enumerate(zip(res.token_ids, ref.token_ids)) if a != b)
+        gap = margins.get((req.request_id, pos))
+        log(f"fused paged request {req.request_id}: greedy tokens diverge at {pos}; top-2 logit "
+            f"margin there {gap}")
+        require(gap is not None and gap < SAMPLE_LOGIT_TOL,
+                f"fused paged greedy tokens diverge at {pos} with a top-2 margin of {gap}")
+
+    # A spec tick of each width with 8 slots busy.
+    for label, kv_dtype, weight_dtype in PAGED_WIDTHS[::-2]:
+        engine = SpecEngine(params, cfg, draft=DraftSpec(truncate_layers=draft_layers),
+                            speculate_k=K, slots=8, block_size=16, prefill_chunk=256,
+                            kv_dtype=kv_dtype, weight_dtype=weight_dtype, fused_sampling=True,
+                            device="cuda")
+        profile_ticks(torch, engine, cfg, np.random.default_rng(11), f"spec {label}")
+        log(f"spec {label} tick profile gauges: {engine.spec_gauges()}")
+        del engine
+    return out
 
 
 # ------------------------------------------------------------ main
@@ -1412,12 +1824,19 @@ def main() -> int:
     log(f"phase 8 GPT2_SMALL_32K training: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     phase_paged_fixture(torch)
-    counts.update(phase_paged_full_width(torch, smi))
+    paged_counts, requests, unfused_results = phase_paged_full_width(torch, smi)
+    counts.update(paged_counts)
     log(f"phase 9 paged serving: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sample_main = phase_sample_kernels(torch)
+    phase_spec_fixture(torch)
+    counts.update(phase_spec_full_width(torch, smi, requests, unfused_results))
+    log(f"phase 10 fused sampling and speculative decoding: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():
-        row = main_rows.get(name) or train_rows[name]
+        row = main_rows.get(name) or sample_main.get(name) or train_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],

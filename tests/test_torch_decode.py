@@ -4,15 +4,18 @@ package's, with the kernel knobs of the ported serving path
 ``decode_attention_impl="pallas"``), and the paged twins
 (``init_kv_pool``, ``paged_chunk_prefill``, ``paged_decode_step``) at act
 width and with int8 KV blocks, under ``decode_attention_impl`` "paged" and
-"xla".
+"xla", with the speculative verify pass (``paged_verify_step``) after the
+decode steps and the final hidden states that ``return_hidden`` gives.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU; the port
 runs on the CPU (``device="cpu"``), where its kernel wrappers take their
 plain versions.  Logits agree to 1e-4, the tolerance of the JAX package's
 own trained-fixture test; caches and act-width pools to 1e-5; int8 pool
 values within 1 (a value rounding at the other side of a .5 boundary) and
-their scales to a relative 1e-5.  The trash block 0 takes masked writes in
-no fixed order, so it is left out of the pool comparison.
+their scales to a relative 1e-5 (the verify pass quantizes its rows one
+after another as JAX's sequential quantizer does, so the same bounds hold);
+hidden states to 1e-4.  The trash block 0 takes masked writes in no fixed
+order, so it is left out of the pool comparison.
 """
 
 import dataclasses
@@ -37,12 +40,14 @@ from bpe_transformer_tpu_torch.models.decode import (
     init_kv_pool,
     paged_chunk_prefill,
     paged_decode_step,
+    paged_verify_step,
     prefill,
 )
 from bpe_transformer_tpu_torch.models.transformer import (
     params_from_jax,
     params_from_state_dict,
 )
+from bpe_transformer_tpu_torch.ops.core import head_logits
 
 FIXTURE = Path(__file__).parent / "fixtures" / "trained_3l64d.npz"
 KERNEL_KNOBS = dict(attention_impl="flash", ffn_impl="pallas", decode_attention_impl="pallas")
@@ -58,7 +63,9 @@ def _run_both(jax_params, torch_params, jax_cfg, cfg, ids, last_pos, steps):
         lambda p, t, c, lp: jax_decode.prefill(p, t, jax_cfg, c, last_pos=lp)
     )
     j_step = jax.jit(
-        lambda p, t, pos, c, a: jax_decode.decode_step(p, t, pos, c, jax_cfg, active=a)
+        lambda p, t, pos, c, a, h=False: jax_decode.decode_step(
+            p, t, pos, c, jax_cfg, active=a, return_hidden=h),
+        static_argnums=5,
     )
     j_cache = jax_decode.init_kv_cache(jax_cfg, batch)
     j_logits, j_cache = j_prefill(jax_params, jnp.asarray(ids), j_cache, jnp.asarray(last_pos))
@@ -73,6 +80,18 @@ def _run_both(jax_params, torch_params, jax_cfg, cfg, ids, last_pos, steps):
     pos = np.asarray(last_pos) + 1
     token = np.argmax(np.asarray(j_logits), axis=-1).astype(np.int32)
     for step in range(steps):
+        if step == 0:
+            # The final hidden state (the step's cache write is idempotent).
+            j_hidden, _ = j_step(jax_params, jnp.asarray(token), jnp.asarray(pos, jnp.int32),
+                                 j_cache, jnp.asarray(active), True)
+            with torch.inference_mode():
+                hidden, _ = decode_step(
+                    torch_params, torch.as_tensor(token, dtype=torch.int64),
+                    torch.as_tensor(pos), cache, cfg, active=torch.as_tensor(active),
+                    return_hidden=True,
+                )
+            np.testing.assert_allclose(hidden.numpy(), np.asarray(j_hidden), atol=1e-4,
+                                       err_msg="decode_step return_hidden")
         j_logits, j_cache = j_step(
             jax_params, jnp.asarray(token), jnp.asarray(pos, jnp.int32), j_cache,
             jnp.asarray(active),
@@ -87,6 +106,8 @@ def _run_both(jax_params, torch_params, jax_cfg, cfg, ids, last_pos, steps):
             logits.numpy()[active], np.asarray(j_logits)[active], atol=1e-4,
             err_msg=f"decode step {step}",
         )
+        if step == 0:
+            assert torch.equal(head_logits(hidden, lm_head_of(torch_params, cfg)), logits)
         for layer, (j_layer, t_layer) in enumerate(zip(j_cache, cache)):
             for name in ("k", "v"):
                 np.testing.assert_allclose(
@@ -95,6 +116,10 @@ def _run_both(jax_params, torch_params, jax_cfg, cfg, ids, last_pos, steps):
                 )
         token = np.where(active, np.argmax(np.asarray(j_logits), axis=-1), token)
         pos = np.where(active, pos + 1, pos)
+
+
+def lm_head_of(params, cfg):
+    return params["token_embeddings"] if cfg.tie_embeddings else params["lm_head"]
 
 
 def _assert_pools(pool, j_pool, what):
@@ -156,11 +181,27 @@ def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps):
                 np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-4,
                                            err_msg=stage)
                 _assert_pools(pool, j_pool, stage)
-            j_step = jax.jit(lambda p, tok, pos, pl, t, a, jcfg=jcfg: jax_decode.paged_decode_step(
-                p, tok, pos, pl, t, jcfg, active=a, block_size=block_size))
+            j_step = jax.jit(lambda p, tok, pos, pl, t, a, h=False, jcfg=jcfg:
+                             jax_decode.paged_decode_step(p, tok, pos, pl, t, jcfg, active=a,
+                                                          return_hidden=h, block_size=block_size),
+                             static_argnums=6)
             pos = np.array(lengths, np.int32)
             token = ids[np.arange(3), pos - 1]
             for step in range(steps):
+                if step == 0:
+                    # The final hidden state (the step's pool write is idempotent).
+                    j_hidden, _ = j_step(jax_params, jnp.asarray(token), jnp.asarray(pos),
+                                         j_pool, jnp.asarray(tables), jnp.asarray(active), True)
+                    with torch.inference_mode():
+                        hidden, _ = paged_decode_step(
+                            torch_params, torch.as_tensor(token, dtype=torch.int64),
+                            torch.as_tensor(pos, dtype=torch.int64), pool,
+                            torch.as_tensor(tables), tcfg, active=torch.as_tensor(active),
+                            return_hidden=True, block_size=block_size,
+                        )
+                    np.testing.assert_allclose(hidden.numpy()[active],
+                                               np.asarray(j_hidden)[active], atol=1e-4,
+                                               err_msg=f"{what} return_hidden")
                 j_logits, j_pool = j_step(jax_params, jnp.asarray(token), jnp.asarray(pos),
                                           j_pool, jnp.asarray(tables), jnp.asarray(active))
                 with torch.inference_mode():
@@ -175,6 +216,36 @@ def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps):
                 _assert_pools(pool, j_pool, stage)
                 token = np.where(active, np.argmax(np.asarray(j_logits), axis=-1), token)
                 pos = np.where(active, pos + 1, pos)
+            if impl != "paged":
+                continue  # the verify pass does not read decode_attention_impl
+            # The verify pass: each slot's last token and 3 proposals from its
+            # frontier, rooms 3 / 1 / 2 (slot 2 inactive), twice at the same
+            # positions (a rewind and a new window rewrite the rows; int8
+            # blocks keep their grown scales).  Near the context edge rows
+            # past it go to the trash block.
+            j_verify = jax.jit(lambda p, tk, ps, rm, pl, t, a, jcfg=jcfg:
+                               jax_decode.paged_verify_step(p, tk, ps, rm, pl, t, jcfg, active=a,
+                                                            block_size=block_size))
+            rooms = np.array([3, 1, 2], np.int32)
+            for window in range(2):
+                tokens = np.concatenate(
+                    [token[:, None], ids[:3, window + 1:window + 4]], axis=1).astype(np.int32)
+                j_logits, j_pool = j_verify(jax_params, jnp.asarray(tokens), jnp.asarray(pos),
+                                            jnp.asarray(rooms), j_pool, jnp.asarray(tables),
+                                            jnp.asarray(active))
+                with torch.inference_mode():
+                    logits, _ = paged_verify_step(
+                        torch_params, torch.as_tensor(tokens, dtype=torch.int64),
+                        torch.as_tensor(pos, dtype=torch.int64), torch.as_tensor(rooms), pool,
+                        torch.as_tensor(tables), tcfg, active=torch.as_tensor(active),
+                        block_size=block_size,
+                    )
+                stage = f"{what} verify window {window}"
+                assert logits.shape == (3, 4, cfg.vocab_size)
+                live = active[:, None] & (np.arange(4)[None, :] <= rooms[:, None])
+                np.testing.assert_allclose(logits.numpy()[live], np.asarray(j_logits)[live],
+                                           atol=1e-4, err_msg=stage)
+                _assert_pools(pool, j_pool, stage)
 
 
 def test_torch_prefill_and_decode_match_jax():

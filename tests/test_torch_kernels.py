@@ -10,7 +10,9 @@ attention forwards (and the lse; the paged decode attention too, act and
 int8 pools), 3e-5 for the flash backward and the RoPE table gradients, 1e-5
 for SwiGLU and its gradient and for the int8 matmul; bfloat16 inputs are
 held to 3e-2, the JAX bf16 kernel tests' atol.  The int8 weight quantizer
-must give JAX's int8 values and scales bit for bit.
+must give JAX's int8 values and scales bit for bit.  The fused head + sample
+and verify tails must give JAX's tokens exactly, with the verify's ``p_d``
+within 2e-6 (``tests/test_quant.py``'s bound).
 """
 
 import numpy as np
@@ -36,6 +38,8 @@ from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention_with_rope as jax_flash_attention_with_rope,
 )
 from bpe_transformer_tpu.kernels.pallas.quant_matmul import quant_matmul as jax_quant_matmul
+from bpe_transformer_tpu.kernels.pallas.sample import fused_head_sample as jax_fused_head_sample
+from bpe_transformer_tpu.kernels.pallas.sample import fused_verify_head as jax_fused_verify_head
 from bpe_transformer_tpu.kernels.pallas.swiglu import swiglu_fused as jax_swiglu
 from bpe_transformer_tpu.ops.quant import quantize_weight as jax_quantize_weight
 from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
@@ -43,6 +47,7 @@ from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.kernels import decode_attention as da
 from bpe_transformer_tpu_torch.kernels import flash_attention as fa
 from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+from bpe_transformer_tpu_torch.kernels import sample as smp
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
 from bpe_transformer_tpu_torch.ops.quant import quantize_weight
 
@@ -269,6 +274,61 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
     np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
     np.testing.assert_array_equal(got["scale"].numpy(), np.asarray(want["scale"]))
     assert got["scale"][5] == 0 and not got["q"][5].any()
+
+    # Fused head + sample: test_quant.py's knob mix (greedy, temperature,
+    # top-k of 1, 5 and 40, top-p 0.3 to 0.9, top-p 0) on a vocabulary of
+    # 257 (no 128-multiple divisor), f32 and int8 heads, the same numpy
+    # gumbel noise on both sides: identical tokens.
+    s, d, v = 6, 64, 257
+    hidden = normal(s, d)
+    head = normal(v, d, scale=0.3)
+    knobs = (np.array([0.0, 1.0, 0.7, 1.3, 1.0, 0.5], np.float32),
+             np.array([0, 0, 5, 1, 40, 0], np.int32),
+             np.array([2.0, 0.9, 2.0, 0.5, 0.3, 0.0], np.float32))
+    gumbel = rng.gumbel(size=(s, v)).astype(np.float32)
+    for quantized in (False, True):
+        j_head = jnp.asarray(head)
+        t_head = torch.from_numpy(head)
+        if quantized:
+            j_head, t_head = jax_quantize_weight(j_head), quantize_weight(t_head)
+        want = jax_fused_head_sample(jnp.asarray(hidden), j_head, *map(jnp.asarray, knobs),
+                                     jnp.asarray(gumbel), interpret=True)
+        logits_out = torch.empty(s, v)
+        got = smp.fused_head_sample(torch.from_numpy(hidden), t_head,
+                                    *map(torch.from_numpy, knobs), torch.from_numpy(gumbel),
+                                    logits_out=logits_out)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"int8={quantized}")
+        np.testing.assert_array_equal(
+            got.numpy(),
+            smp.fused_head_sample_plain(torch.from_numpy(hidden), t_head,
+                                        *map(torch.from_numpy, knobs),
+                                        torch.from_numpy(gumbel)).numpy())
+        assert not torch.equal(got, torch.argmax(logits_out, dim=-1))  # sampled rows moved
+
+    # Fused verify tail: 3 slots x K+1 = 4 rows on a vocabulary of 101, a
+    # greedy, a top-k 7 / top-p 0.8 and a temperature-only slot; a softmax
+    # draft q and random judged tokens.
+    s, k1, d, v = 3, 4, 32, 101
+    hidden = normal(s * k1, d)
+    head = normal(v, d, scale=0.3)
+    knobs = (np.repeat(np.array([0.0, 1.0, 0.8], np.float32), k1),
+             np.repeat(np.array([0, 7, 0], np.int32), k1),
+             np.repeat(np.array([2.0, 0.8, 2.0], np.float32), k1))
+    judge = rng.integers(0, v, size=s * k1).astype(np.int32)
+    q = np.array(jax.nn.softmax(jnp.asarray(normal(s * k1, v)), axis=-1))
+    gumbel = rng.gumbel(size=(s * k1, v)).astype(np.float32)
+    args = (hidden, head, *knobs, judge, q, gumbel)
+    want = jax_fused_verify_head(*map(jnp.asarray, args), interpret=True)
+    got = smp.fused_verify_head(*map(torch.from_numpy, args))
+    for name, g_out, w_out in zip(("greedy", "p_d", "bonus"), got, want):
+        if name == "p_d":
+            np.testing.assert_allclose(g_out.numpy(), np.asarray(w_out), rtol=0, atol=2e-6)
+        else:
+            np.testing.assert_array_equal(g_out.numpy(), np.asarray(w_out), err_msg=name)
+    assert got[1][:k1].tolist() == [float(t == j) for t, j in zip(got[0][:k1].tolist(),
+                                                                 judge[:k1].tolist())]
+    with pytest.raises(ValueError, match="must be"):
+        smp._head_operands(torch.zeros(v, d + 1), v, d)
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before

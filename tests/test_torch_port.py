@@ -2,7 +2,8 @@
 its entry points run on the card unless the caller asks for the CPU, and
 ``chip_smoke.py`` refuses to report without a card or without the repo.
 The jax-free run also serves through the paged engine with int8 KV blocks
-and int8 weights and drives the ``train`` CLI on the CPU, resuming from its
+and int8 weights and through the speculative engine with the fused
+sampling tail, and drives the ``train`` CLI on the CPU, resuming from its
 own checkpoint."""
 
 import re
@@ -38,9 +39,10 @@ for name in names:
 expected = {
     "bpe_transformer_tpu_torch." + m for m in (
         "checkpointing.checkpoint", "data.dataset", "kernels.flash_attention",
-        "kernels.quant_matmul", "kernels.swiglu", "models.transformer", "ops.core", "ops.grad",
-        "ops.losses", "ops.quant", "optim.adamw", "optim.schedule", "resilience.integrity",
-        "serving.kvpool.blocks", "serving.kvpool.paged_engine", "serving.kvpool.radix",
+        "kernels.quant_matmul", "kernels.sample", "kernels.swiglu", "models.transformer",
+        "ops.core", "ops.grad", "ops.losses", "ops.quant", "optim.adamw", "optim.schedule",
+        "resilience.integrity", "serving.kvpool.blocks", "serving.kvpool.paged_engine",
+        "serving.kvpool.radix", "serving.spec", "serving.spec.draft", "serving.spec.engine",
         "training.cli", "training.loop", "training.train_step", "tree",
     )
 }
@@ -50,6 +52,7 @@ from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
 from bpe_transformer_tpu_torch.models.transformer import init_params
 from bpe_transformer_tpu_torch.serving.kvpool import PagedEngine
 from bpe_transformer_tpu_torch.serving.server import ServingEngine
+from bpe_transformer_tpu_torch.serving.spec import DraftModel, DraftSpec, SpecEngine
 
 cfg = dataclasses.replace(
     TS_TEST_CONFIG, vocab_size=64, context_length=16, attention_impl="flash", ffn_impl="pallas",
@@ -63,6 +66,11 @@ with ServingEngine(params, cfg, slots=2, min_bucket=4, paged=True, block_size=4,
                    kv_dtype="int8", weight_dtype="int8", device="cpu") as serving:
     result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=3, temperature=0.0)
 assert len(result.token_ids) == 3 and result.finish_reason == "length", result
+with ServingEngine(params, cfg, slots=2, min_bucket=4, paged=True, block_size=4, speculate_k=2,
+                   draft_spec=DraftSpec(truncate_layers=1), fused_sampling=True,
+                   device="cpu") as serving:
+    result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=4, temperature=0.8, top_k=5)
+assert len(result.token_ids) == 4 and result.finish_reason == "length", result
 
 import json, numpy as np
 from pathlib import Path
@@ -90,6 +98,8 @@ if not torch.cuda.is_available():
         lambda: ServingEngine(params, cfg),
         lambda: PagedEngine(params, cfg),
         lambda: ServingEngine(params, cfg, paged=True),
+        lambda: SpecEngine(params, cfg, draft=DraftSpec(truncate_layers=1), speculate_k=2),
+        lambda: DraftModel(params, cfg, DraftSpec(truncate_layers=1)),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2), tokens),
     ):
         try:

@@ -3,8 +3,13 @@ package's: greedy tokens identical to the JAX ``SlotPoolEngine`` and
 ``PagedEngine`` (act and int8 KV blocks, int8 weights, prefix sharing),
 seeded sampling that replays and agrees between the port's paged and dense
 engines, the serving weight bytes and label equal to JAX's, the paged
-``ServingEngine`` parking admissions the block pool cannot cover, and
-``filter_logits`` masks identical on shared logits.
+``ServingEngine`` parking admissions the block pool cannot cover,
+``filter_logits`` masks identical on shared logits, the fused-sampling tick
+giving the unfused tick's tokens, and speculative decoding: the port's
+``SpecEngine`` greedy tokens identical to its ``PagedEngine``'s and to the
+JAX ``SpecEngine``'s (fused and unfused tails, act width and int8), its
+verify tail giving JAX's ``(out, n_emit)`` on JAX's own noise, and the
+``rewind``/``extend_blocks`` bookkeeping equal to JAX's.
 
 Both packages run a GQA model with the kernel knobs of the ported serving
 path, on random JAX weights at 8 times the init scale (the greedy tokens
@@ -15,11 +20,13 @@ Pallas kernels in interpret mode on the CPU, the port runs on the CPU
 """
 
 import dataclasses
+import functools
 import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +40,17 @@ from bpe_transformer_tpu.serving.engine import (
     prepare_serving_weights as jax_prepare_serving_weights,
 )
 from bpe_transformer_tpu.serving.kvpool.paged_engine import PagedEngine as JaxPagedEngine
+from bpe_transformer_tpu.serving.spec.draft import DraftSpec as JaxDraftSpec
+from bpe_transformer_tpu.serving.spec.engine import SpecEngine as JaxSpecEngine
+from bpe_transformer_tpu.serving.spec.engine import _spec_verify_program
 from bpe_transformer_tpu_torch.models import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import params_from_jax
 from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine, filter_logits
 from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError, PagedEngine
+from bpe_transformer_tpu_torch.models.decode import paged_verify_step
 from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+from bpe_transformer_tpu_torch.serving.spec import DraftModel, DraftSpec, SpecEngine
+from bpe_transformer_tpu_torch.serving.spec import spec_verify_tail
 
 JAX_CFG = dataclasses.replace(
     JAX_TS_TEST_CONFIG, vocab_size=128, context_length=32, num_kv_heads=2,
@@ -221,6 +234,169 @@ def test_torch_serving_matches_jax_engine():
     cached = len(engine.prefix_cache)
     assert cached > 0
     assert engine.allocator.free_count + cached == engine.allocator.usable_blocks
+
+    # Fused sampling: the fused tick gives the unfused tick's tokens, greedy
+    # and seeded-sampled (on the CPU both tails run the same plain math), on
+    # the dense and the paged engine.
+    for fused_engine, plain_engine in (
+        (SlotPoolEngine(params, cfg, slots=2, min_bucket=8, fused_sampling=True, device="cpu"),
+         dense),
+        (PagedEngine(params, tcfg, fused_sampling=True, device="cpu", **knobs), paged),
+    ):
+        assert _drive(fused_engine, paged_prompts, 6) == paged_want[None, None]
+        assert _drive(fused_engine, paged_prompts, 6, **sampled) == got_dense
+
+    # Speculative decoding, greedy: the port's SpecEngine (a one-layer
+    # truncated draft, K 3, fused and unfused verify tails) gives the paged
+    # engine's tokens through the shared prefix and chunked prefill, and the
+    # JAX SpecEngine's with its acceptance gauges; at int8 KV + int8
+    # weights, the JAX SpecEngine's tokens.
+    spec_knobs = dict(knobs, draft=DraftSpec(truncate_layers=1), speculate_k=3)
+    for kv_dtype, weight_dtype in ((None, None), ("int8", "int8")):
+        jax_spec = JaxSpecEngine(jax_params, paged_cfg, kv_dtype=kv_dtype,
+                                 weight_dtype=weight_dtype, **dict(
+                                     spec_knobs, draft=JaxDraftSpec(truncate_layers=1)))
+        want_spec = _drive(jax_spec, paged_prompts, 6)
+        if kv_dtype is None:
+            assert want_spec == paged_want[None, None]
+        for fused in (False, True):
+            spec = SpecEngine(params, tcfg, kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                              fused_sampling=fused, device="cpu", **spec_knobs)
+            assert _drive(spec, paged_prompts, 6) == want_spec, (kv_dtype, fused)
+            gauges, want_gauges = spec.spec_gauges(), jax_spec.spec_gauges()
+            for key in ("spec_proposed_tokens", "spec_accepted_tokens", "spec_emitted_tokens",
+                        "spec_target_steps", "spec_rewound_tokens"):
+                assert gauges[key] == want_gauges[key], (key, kv_dtype, fused)
+            assert spec.allocator.free_count + len(spec.prefix_cache) == \
+                spec.allocator.usable_blocks
+    # The truncated draft views the engine's tensors: no weight bytes of its
+    # own; a geometry draft owns its (seeded) weights.
+    assert spec.draft.param_bytes == 0
+    assert spec.draft.params["layers"][0]["attn"]["q_proj"] is \
+        spec._params["layers"][0]["attn"]["q_proj"]
+    geometry = DraftSpec(d_model=32, num_layers=1, num_heads=2, d_ff=64, seed=3)
+    drafts = [DraftModel(params, tcfg, geometry, device="cpu") for _ in range(2)]
+    assert drafts[0].param_bytes > 0 and torch.equal(drafts[0].params["lm_head"],
+                                                      drafts[1].params["lm_head"])
+    for bad, match in ((DraftSpec(truncate_layers=1, vocab_size=7), "vocab_size"),
+                       (DraftSpec(truncate_layers=9), "truncate_layers"),
+                       (DraftSpec(truncate_layers=1, d_model=8), "not both"),
+                       (DraftSpec(d_model=8), "incomplete")):
+        with pytest.raises(ValueError, match=match):
+            bad.validate_against(tcfg)
+    assert DraftSpec.from_dict({"truncate_layers": 2}) == DraftSpec(truncate_layers=2)
+
+    # A pool of exactly one request's reservation: the speculation window
+    # shrinks instead of stalling (JAX tests/test_spec.py), with JAX's
+    # tokens and proposals, and every block comes back.
+    dry = dict(slots=1, block_size=8, min_bucket=8, num_blocks=3, prefix_cache=False,
+               speculate_k=3)
+    jax_dry = JaxSpecEngine(jax_params, paged_cfg, draft=JaxDraftSpec(truncate_layers=1), **dry)
+    port_dry = SpecEngine(params, tcfg, draft=DraftSpec(truncate_layers=1), device="cpu", **dry)
+    assert _drive(port_dry, [prompts[2]], 4) == _drive(jax_dry, [prompts[2]], 4)
+    assert port_dry.spec_proposed == jax_dry.spec_proposed < 3 * port_dry.spec_target_steps
+    assert port_dry.allocator.free_count == port_dry.allocator.usable_blocks
+
+    # rewind / extend_blocks: the same calls on the JAX and the port's paged
+    # engines leave the same chains, tables, free counts and results; a
+    # rewind into a radix-shared block copies it (all rows) into a fresh one.
+    engines = [JaxPagedEngine(jax_params, paged_cfg, slots=2, block_size=4, min_bucket=8),
+               PagedEngine(params, tcfg, slots=2, block_size=4, min_bucket=8, device="cpu")]
+    for eng in engines:
+        eng.admit(paged_prompts[0], max_new_tokens=6, temperature=0.0)  # indexes 2 full blocks
+        eng.admit(paged_prompts[1], max_new_tokens=6, temperature=0.0)  # shares the first two
+    results = []
+    for eng in engines:
+        info = eng._slots[1]
+        got = [list(info.block_ids)]
+        eng.extend_blocks(1, len(paged_prompts[1]) + 12)
+        got.append(list(info.block_ids))
+        got.append(eng.rewind(1, 14, keep_blocks=5))
+        got.append(eng.rewind(1, 6))  # into shared block 1: copy-on-write
+        got += [list(info.block_ids), eng._tables[1].tolist(), eng.allocator.free_count,
+                info.shared_len]
+        results.append(got)
+    assert results[0] == results[1], results
+    assert results[1][3] == {"released": 3, "cow": True}
+    shared, fresh = engines[1]._slots[0].block_ids[1], engines[1]._slots[1].block_ids[1]
+    for layer in engines[1]._pool:
+        assert torch.equal(layer["k"][fresh], layer["k"][shared])
+
+    # The verify tail from noise to tokens: after three admissions (greedy,
+    # top-k 20 / top-p 0.9 at temperature 0.9, temperature 1.3), random draft
+    # tokens and draft distributions and rooms 3 / 2 / 3, the port's tail
+    # fed the uniforms and gumbel rows that JAX draws from each slot's key
+    # gives JAX's (out, n_emit), fused and unfused.
+    engines = [JaxPagedEngine(jax_params, paged_cfg, slots=3, block_size=4, min_bucket=8),
+               PagedEngine(params, tcfg, slots=3, block_size=4, min_bucket=8, device="cpu")]
+    slot_knobs = [dict(temperature=0.0), dict(temperature=0.9, top_k=20, top_p=0.9, seed=5),
+                  dict(temperature=1.3, seed=6)]
+    for eng in engines:
+        for p, kn in zip(prompts[3:6], slot_knobs):
+            eng.admit(p, max_new_tokens=12, **kn)
+    jax_eng, port_eng = engines
+    rng = np.random.default_rng(7)
+    k, vocab = 3, cfg.vocab_size
+    d_toks = rng.integers(0, vocab, size=(3, k))
+    rooms = np.array([3, 2, 3], np.int32)
+    for j in range(2):
+        # Slots 0 and 1 propose the target's argmax for their first two
+        # tokens: acceptances beside the random proposals' rejections.
+        with torch.inference_mode():
+            logits, _ = paged_verify_step(
+                port_eng._params,
+                torch.as_tensor(np.concatenate([port_eng._tokens[:, None], d_toks], axis=1)),
+                torch.as_tensor(port_eng._positions), torch.as_tensor(rooms), port_eng._pool,
+                torch.as_tensor(port_eng._tables), tcfg, lm_head=port_eng._lm_head,
+                block_size=4)
+        d_toks[:2, j] = torch.argmax(logits[:2, j], dim=-1).numpy()
+    d_probs = np.array(jax.nn.softmax(jnp.asarray(rng.standard_normal((3, k, vocab)) * 2.0)),
+                       np.float32)
+    keys = jnp.asarray(jax_eng._keys)
+    split = jax.vmap(lambda kk: jax.random.split(kk, 3))(keys)
+    u = np.array(jax.vmap(lambda kk: jax.random.uniform(kk, (k,)))(split[:, 1]))
+    g_row = np.asarray(jax.vmap(lambda kk: jax.random.gumbel(kk, (vocab,)))(split[:, 2]))
+    g_all = np.array(jax.vmap(lambda kk: jax.random.gumbel(kk, (k + 1, vocab)))(split[:, 2]))
+    dev_args = dict(rooms=torch.as_tensor(rooms), active=torch.ones(3, dtype=torch.bool),
+                    base_tokens=torch.as_tensor(port_eng._tokens),
+                    temps=torch.as_tensor(port_eng._temps),
+                    top_ks=torch.as_tensor(port_eng._top_ks),
+                    top_ps=torch.as_tensor(port_eng._top_ps), u=torch.as_tensor(u))
+    tokens = torch.cat([dev_args["base_tokens"][:, None], torch.as_tensor(d_toks)], dim=1)
+    outcomes = set()
+    for fused, gumbel in ((False, np.repeat(g_row[:, None], k + 1, axis=1)), (True, g_all)):
+        j_out, j_emit, _, _ = jax.jit(functools.partial(
+            _spec_verify_program, config=paged_cfg, block_size=4, fused=fused))(
+            jax_eng._params, jax_eng._lm_head, jax_eng._pool, jax_eng._tables,
+            jax_eng._tokens, d_toks.astype(np.int32), d_probs, jax_eng._positions, rooms,
+            np.ones(3, bool), keys, jax_eng._temps, jax_eng._top_ks, jax_eng._top_ps)
+        with torch.inference_mode():
+            scores, _ = paged_verify_step(
+                port_eng._params, tokens, torch.as_tensor(port_eng._positions),
+                dev_args["rooms"], port_eng._pool, torch.as_tensor(port_eng._tables), tcfg,
+                lm_head=port_eng._lm_head, active=dev_args["active"], return_hidden=fused,
+                block_size=4)
+            out, n_emit = spec_verify_tail(
+                scores, port_eng._lm_head, torch.as_tensor(d_toks), torch.as_tensor(d_probs),
+                gumbel=torch.as_tensor(gumbel), fused=fused, **dev_args)
+        np.testing.assert_array_equal(n_emit.numpy(), np.asarray(j_emit), err_msg=f"{fused}")
+        np.testing.assert_array_equal(out.numpy(), np.asarray(j_out), err_msg=f"{fused}")
+        outcomes.update(n_emit.tolist())
+    assert len(outcomes) > 1, outcomes  # both rejections and acceptances
+
+    # The spec ServingEngine delivers several tokens of one request per
+    # tick (greedy: the paged engine's tokens); speculate_k needs paged=True
+    # and a draft.
+    with ServingEngine(params, tcfg, paged=True, slots=2, block_size=4, prefill_chunk=8,
+                       min_bucket=8, speculate_k=3, draft_spec=DraftSpec(truncate_layers=1),
+                       fused_sampling=True, device="cpu") as serving:
+        results = serving.run_batch(paged_prompts, max_new_tokens=6, temperature=0.0)
+        assert serving.spec and serving.engine.spec_emitted > serving.engine.spec_target_steps
+    assert [list(r.token_ids) for r in results] == paged_want[None, None]
+    for kw, match in ((dict(paged=False, draft_spec=DraftSpec(truncate_layers=1)), "paged=True"),
+                      (dict(paged=True), "draft_spec")):
+        with pytest.raises(ValueError, match=match):
+            ServingEngine(params, tcfg, speculate_k=2, device="cpu", **kw)
 
     # filter_logits: identical masks to the JAX package on shared logits,
     # with tied values at the top-k boundary and every knob combination.
