@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element conversion to and from
-// float32 (int8 storage to float32), 16-byte vector loads, warp reductions,
-// and the dtype codes the C entry points take (kernels/_build.py
+// float32 (int8 storage to float32), 16-byte vector loads and stores, warp
+// reductions, and the dtype codes the C entry points take (kernels/_build.py
 // DTYPE_CODES and INT8_CODE).
 #pragma once
 
@@ -49,6 +49,19 @@ __device__ __forceinline__ void load16(const int8_t* p, float* o) {
   const int8_t* b = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
   for (int i = 0; i < 16; ++i) o[i] = (float)b[i];
+}
+
+// Round 16 bytes' worth of float32 values to T (nearest even) and store them
+// at p (16-byte aligned).
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = out;
 }
 
 __device__ __forceinline__ float warp_max(float v) {

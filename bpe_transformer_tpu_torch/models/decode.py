@@ -13,7 +13,8 @@ be written the JAX way).  The semantics are the JAX package's:
 * sequences whose ``active`` flag is False keep their cache rows.
 
 Kernels: ``attention_impl`` "flash"/"flash_fused" runs the flash kernel in
-prefill, ``ffn_impl="pallas"`` the fused SwiGLU kernel in every FFN, and
+prefill, ``ffn_impl="pallas"`` the fused SwiGLU kernel in every FFN (a
+``gelu`` FFN runs the GeLU kernel whatever ``ffn_impl`` says), and
 ``decode_attention_impl`` "pallas"/"paged" the flash-decoding kernel in
 every step (the dense cache has no block table, so "paged" means "pallas"
 here, as in the JAX package).  int8 quantized weights send every linear and

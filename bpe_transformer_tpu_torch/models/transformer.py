@@ -18,8 +18,9 @@ graduated ``remat_policy`` through ``torch.utils.checkpoint``.
 ``attention_impl`` selects the materialized attention (``"xla"``), the flash
 kernels (``"flash"``) or RoPE inside the flash kernel (``"flash_fused"``,
 from ``flash_fused_min_seq`` up); ``ffn_impl="pallas"`` the fused SwiGLU
-kernel.  Only the dense SwiGLU FFN is ported: MoE and the ``silu``/``gelu``
-FFNs belong to later slices.
+kernel.  The dense FFNs are ported: SwiGLU and the two-matrix ``silu`` and
+``gelu`` FFNs (the GeLU kernel runs in every ``gelu`` FFN); MoE belongs to
+the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.ops.core import (
     embedding,
     head_logits,
+    linear,
     multihead_self_attention,
     rmsnorm,
+    silu,
     swiglu,
 )
 from bpe_transformer_tpu_torch.ops.rope import rope_tables
@@ -57,6 +60,9 @@ def init_params(
 ) -> Params:
     """Random parameters with the JAX package's tree and init law:
     truncated normal (std 0.02, cut at 3 std) projections, unit norms.
+    Every dense FFN kind gets ``w1``, ``w2`` and ``w3``: the JAX package
+    builds ``w3`` for the two-matrix ``silu``/``gelu`` FFNs too, which never
+    read it.
 
     Draws come from ``generator`` on the generator's own device and are then
     moved to ``device`` (a seed gives the same weights whatever the target).
@@ -113,26 +119,39 @@ def _check_dense(config: ModelConfig) -> None:
             'ffn_type="moe" is not ported yet: it comes with the multi-GPU training '
             "slice (expert parallelism)"
         )
-    if config.ffn_type not in (None, "swiglu"):
-        raise NotImplementedError(
-            f"ffn_type={config.ffn_type!r} is not ported yet: the two-matrix FFNs come "
-            'with the slice that ports the gelu kernel (dense SwiGLU only)'
-        )
 
 
 def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig) -> torch.Tensor:
-    """FFN dispatch for the SwiGLU FFN: ``ffn_impl="pallas"`` runs the fused
-    kernel (``kernels/swiglu.py``), anything else the plain composition.
-    int8 quantized serving weights (dict leaves) always take the plain
-    composition, whose three linears each run the int8 matmul kernel: the
-    fused kernel reads plain weight tensors."""
-    _check_dense(config)
-    w1, w2, w3 = ffn_params["w1"], ffn_params["w2"], ffn_params["w3"]
-    if config.ffn_impl == "pallas" and not isinstance(w1, dict):
-        from bpe_transformer_tpu_torch.kernels.swiglu import swiglu_fused
+    """FFN dispatch, the JAX package's ``_ffn`` for the dense kinds:
 
-        return swiglu_fused(x, w1, w2, w3)
-    return swiglu(x, w1, w2, w3)
+    * SwiGLU (``ffn_type`` None or ``"swiglu"``): ``ffn_impl="pallas"`` runs
+      the fused kernel (``kernels/swiglu.py``), anything else the plain
+      composition.  int8 quantized serving weights (dict leaves) always take
+      the plain composition, whose three linears each run the int8 matmul
+      kernel: the fused kernel reads plain weight tensors.
+    * ``"silu"``: ``linear(silu(linear(x, w1)), w2)``, plain.
+    * ``"gelu"``: ``linear(gelu(linear(x, w1)), w2)`` with the GeLU kernel
+      (``kernels/gelu.py``) whatever ``ffn_impl`` says, as the JAX branch
+      always calls its Pallas kernel.
+
+    The two-matrix kinds leave ``w3`` unread; it stays in the tree, as in
+    the JAX package's."""
+    _check_dense(config)
+    w1, w2 = ffn_params["w1"], ffn_params["w2"]
+    if config.ffn_type in (None, "swiglu"):
+        w3 = ffn_params["w3"]
+        if config.ffn_impl == "pallas" and not isinstance(w1, dict):
+            from bpe_transformer_tpu_torch.kernels.swiglu import swiglu_fused
+
+            return swiglu_fused(x, w1, w2, w3)
+        return swiglu(x, w1, w2, w3)
+    if config.ffn_type == "silu":
+        return linear(silu(linear(x, w1)), w2)
+    if config.ffn_type == "gelu":
+        from bpe_transformer_tpu_torch.kernels.gelu import gelu
+
+        return linear(gelu(linear(x, w1)), w2)
+    raise ValueError(f"unknown ffn_type: {config.ffn_type!r}")
 
 
 def _tensor(value, device: torch.device) -> torch.Tensor:

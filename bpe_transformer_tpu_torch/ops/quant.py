@@ -10,9 +10,10 @@ and applies the scale once per output: the serving programs (decode tick,
 chunk prefill) run quantized without a second code path, and training never
 builds such a dict.
 
-Quantized: the attention projections, the dense FFN matrices and the LM
-head.  Not quantized: token embeddings (a row gather, not a matmul), norm
-gains, and MoE expert stacks (refused).
+Quantized: the attention projections, the dense FFN matrices (all of
+``w1``/``w2``/``w3``, also the ``w3`` that a two-matrix FFN never reads, as
+the JAX package does) and the LM head.  Not quantized: token embeddings (a
+row gather, not a matmul), norm gains, and MoE expert stacks (refused).
 """
 
 from __future__ import annotations

@@ -65,7 +65,8 @@ def prepare_serving_weights(params, config: ModelConfig, weight_dtype, device):
     activation dtype), ``params_bytes`` the resident bytes of the tree and
     the head copy, and ``tick_weight_bytes`` what one decode tick streams
     (block stack, final norm and head; int8 dicts count their int8 values
-    and float32 scales).
+    and float32 scales).  Both count the whole tree, as the JAX package's
+    do: a two-matrix FFN's unread ``w3`` (a third of its FFN bytes) too.
     """
     if weight_dtype not in (None, "int8"):
         raise ValueError(

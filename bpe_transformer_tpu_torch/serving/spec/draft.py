@@ -17,7 +17,9 @@ verify pass (``serving/spec/engine.py``).  Two ways to get one
 
 As in the JAX package the draft runs the plain attention and FFN paths
 (``attention_impl``/``ffn_impl``/``decode_attention_impl`` "xla"); its
-linears take the int8 matmul kernel when it views an int8 target.
+linears take the int8 matmul kernel when it views an int8 target, and the
+truncated draft of a ``gelu`` target, itself a ``gelu`` model, runs the GeLU
+kernel in every FFN (the JAX draft's FFN calls its Pallas kernel too).
 """
 
 from __future__ import annotations

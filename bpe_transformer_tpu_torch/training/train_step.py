@@ -80,7 +80,9 @@ def make_loss_fn(config: ModelConfig) -> Callable:
 def value_and_grad(loss_fn: Callable) -> Callable:
     """``(params, x, y) -> (loss, grads)``, ``grads`` in the parameter
     tree's structure (the counterpart of ``jax.value_and_grad``).  The
-    parameters are the graph's leaves; no ``.grad`` is accumulated."""
+    parameters are the graph's leaves; no ``.grad`` is accumulated.  A leaf
+    the loss does not read (``w3`` of a two-matrix FFN) gets a zero
+    gradient, as in JAX."""
 
     def wrapped(params, x, y):
         leaves = tree_leaves(params)
@@ -88,7 +90,8 @@ def value_and_grad(loss_fn: Callable) -> Callable:
             for p in leaves:
                 p.requires_grad_(True)
             loss = loss_fn(params, x, y)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(params, grads)
 
     return wrapped

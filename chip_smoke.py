@@ -71,13 +71,27 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    both widths with exact launch counts, acceptance and a spec-tick
    profile, and the same mix through the paged engine with the fused tick
    tail, whose greedy tokens must be phase 9c's;
+11. the two-matrix FFNs and the GeLU kernels (``csrc/gelu.cu``): (a) the
+   forward and backward kernels against their plain versions and
+   ``F.gelu(approximate="tanh")`` / its backward at the tick, chunk and
+   training shapes of a d_ff 3072 FFN, float32 and bfloat16, and for
+   correctness at sizes with a scalar tail, an unaligned view and
+   magnitudes up to 1000; (b) small seeded float32 gelu and silu models
+   served on the card by the dense, paged (act, int8 KV + int8 weights)
+   and speculative engines with the CPU's greedy tokens, and a 5-step AdamW
+   trajectory on the card against the CPU's; (c) GPT2_SMALL_32K with
+   GPT-2's 3072-wide tanh-GeLU FFN at full width: one prefill + decode
+   step against the plain versions, phase 4's mix through the dense engine
+   and phase 9c's through the paged engine at int8 KV + int8 weights, and
+   phase 8's 10 training steps, each with exact launch counts and a
+   profile;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
-``chip_smoke_training.json`` (training) and ``chip_smoke_sample.json``
-(the fused tails).
+``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
+fused tails) and ``chip_smoke_gelu.json`` (the GeLU kernels).
 """
 
 from __future__ import annotations
@@ -167,6 +181,15 @@ KERNEL_META = {
     "fused_verify_head": {
         "source": "bpe_transformer_tpu_torch/csrc/sample.cu",
         "replaces": "bpe_transformer_tpu/kernels/pallas/sample.py:373",
+    },
+    "gelu": {
+        "source": "bpe_transformer_tpu_torch/csrc/gelu.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/gelu.py:41",
+    },
+    # The JAX package runs the GeLU backward (its custom JVP) in XLA.
+    "gelu_bwd": {
+        "source": "bpe_transformer_tpu_torch/csrc/gelu.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/gelu.py:83",
     },
 }
 SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
@@ -277,7 +300,6 @@ def kernel_cases(torch, dtype, gen):
     d_ff 2048, vocab 32000."""
     from bpe_transformer_tpu_torch.kernels import decode_attention as da
     from bpe_transformer_tpu_torch.kernels import flash_attention as fa
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
     from bpe_transformer_tpu_torch.models.decode import gather_paged_kv
 
@@ -361,21 +383,30 @@ def kernel_cases(torch, dtype, gen):
             {} if kv_int8 else {"dense_kernel_on_gathered_ms": dense_on_gathered},
         ))
     # int8 matmul: the tick (m = slots) and a prefill chunk (m = 256), for
-    # every matrix shape of the model; the library call is the product at
-    # x's dtype against the weight dequantized once beforehand.
+    # every matrix shape of the model.
     for m in (8, 256):
         for k_in, n_out in ((768, 768), (768, 2048), (2048, 768), (768, 32000)):
-            sets = [quant_inputs(torch, gen, m, k_in, n_out, dtype)
-                    for _ in range(copies_for(n_out * k_in))]
-            cases.append((
-                "quant_matmul", f"m={m} {k_in}->{n_out}",
-                lambda x, q, s, w: qm.quant_matmul(x, q, s),
-                lambda x, q, s, w: qm.quant_matmul_plain(x, q, s),
-                lambda x, q, s, w: torch.matmul(x, w.t()),
-                sets, m * k_in * isz + n_out * k_in + n_out * 4 + m * n_out * 4,
-                2 * m * n_out * k_in,
-            ))
+            cases.append(quant_case(torch, gen, m, k_in, n_out, dtype))
     return cases
+
+
+def quant_case(torch, gen, m, k_in, n_out, dtype) -> tuple:
+    """The int8 matmul's case tuple (as :func:`kernel_cases`) at ``m`` rows
+    of ``k_in -> n_out``; the library call is the product at x's dtype
+    against the weight dequantized once beforehand."""
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+
+    isz = torch.tensor([], dtype=dtype).element_size()
+    sets = [quant_inputs(torch, gen, m, k_in, n_out, dtype)
+            for _ in range(copies_for(n_out * k_in))]
+    return (
+        "quant_matmul", f"m={m} {k_in}->{n_out}",
+        lambda x, q, s, w: qm.quant_matmul(x, q, s),
+        lambda x, q, s, w: qm.quant_matmul_plain(x, q, s),
+        lambda x, q, s, w: torch.matmul(x, w.t()),
+        sets, m * k_in * isz + n_out * k_in + n_out * 4 + m * n_out * 4,
+        2 * m * n_out * k_in,
+    )
 
 
 def check_other_shapes(torch) -> None:
@@ -446,6 +477,51 @@ def check_other_shapes(torch) -> None:
             f"(largest error {worst:.3f} of its tolerance)")
 
 
+def measure_case(torch, dtype, case) -> dict:
+    """One case of :func:`kernel_cases`: the kernel against its plain
+    version on two input sets (max error against ``TOL``), then kernel,
+    plain and library times by CUDA-graph replay, the kernel also as
+    enqueued from Python, and the bound.  Returns the row."""
+    name, label, kern, plain, lib, sets, nbytes, flops, *refs = case
+    dname = str(dtype).removeprefix("torch.")
+    errs = []
+    for inputs in sets[:2]:
+        out = kern(*inputs)
+        torch.cuda.synchronize()
+        ref = plain(*inputs)
+        require(out.shape == ref.shape and out.dtype == ref.dtype,
+                f"{name} {label}: output {tuple(out.shape)} {out.dtype}")
+        require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
+        errs.append((out.float() - ref.float()).abs().max().item())
+    err = max(errs)
+    tol = TOL.get((name, dname), TOL_BF16)
+    iters = 50 if name != "flash_attention" or "S=1024" not in label else 20
+    ms = time_ms(torch, kern, sets, iters, graph=True)
+    loop_ms = time_ms(torch, kern, sets, iters)
+    plain_ms = time_ms(torch, plain, sets, max(5, iters // 5), graph=True)
+    lib_ms = time_ms(torch, lib, sets, iters, graph=True) if lib is not None else None
+    byte_ms = nbytes / HBM_BYTES_S * 1e3
+    op_ms = flops / PEAK_FLOPS[dname] * 1e3
+    row = {
+        "name": name, "dtype": dname, "shape": label,
+        "max_abs_err": err, "tol": tol, "ms": ms, "loop_ms": loop_ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+    for ref_name, ref_fn in (refs[0] if refs else {}).items():
+        row[ref_name] = time_ms(torch, ref_fn, sets, iters, graph=True)
+    lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+    extra = "".join(f" {k} {row[k]:.4f}" for k in (refs[0] if refs else {}))
+    log(
+        f"kernel {name:22s} {dname:8s} {label:40s} err {err:.3e} (tol {tol:g}) "
+        f"ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
+        f"library {lib} bound {row['bound_ms']:.4f} ({row['bound_by']}){extra}"
+    )
+    require(err <= tol, f"{name} {dname} {label}: max error {err:.3e} > {tol:g}")
+    return row
+
+
 def phase_kernels(torch) -> dict:
     """Kernel vs plain on the card.  Returns the bf16 rows of the main-path
     representatives, keyed by kernel name."""
@@ -453,45 +529,8 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).removeprefix("torch.")
-        for name, label, kern, plain, lib, sets, nbytes, flops, *refs in kernel_cases(
-                torch, dtype, gen):
-            errs = []
-            for inputs in sets[:2]:
-                out = kern(*inputs)
-                torch.cuda.synchronize()
-                ref = plain(*inputs)
-                require(out.shape == ref.shape and out.dtype == ref.dtype,
-                        f"{name} {label}: output {tuple(out.shape)} {out.dtype}")
-                require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
-                errs.append((out.float() - ref.float()).abs().max().item())
-            err = max(errs)
-            tol = TOL.get((name, dname), TOL_BF16)
-            iters = 50 if name != "flash_attention" or "S=1024" not in label else 20
-            ms = time_ms(torch, kern, sets, iters, graph=True)
-            loop_ms = time_ms(torch, kern, sets, iters)
-            plain_ms = time_ms(torch, plain, sets, max(5, iters // 5), graph=True)
-            lib_ms = time_ms(torch, lib, sets, iters, graph=True) if lib is not None else None
-            byte_ms = nbytes / HBM_BYTES_S * 1e3
-            op_ms = flops / PEAK_FLOPS[dname] * 1e3
-            row = {
-                "name": name, "dtype": dname, "shape": label,
-                "max_abs_err": err, "tol": tol, "ms": ms, "loop_ms": loop_ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
-                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                "bytes": nbytes, "flops": flops,
-            }
-            for ref_name, ref_fn in (refs[0] if refs else {}).items():
-                row[ref_name] = time_ms(torch, ref_fn, sets, iters, graph=True)
-            rows.append(row)
-            lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-            extra = "".join(f" {k} {row[k]:.4f}" for k in (refs[0] if refs else {}))
-            log(
-                f"kernel {name:22s} {dname:8s} {label:40s} err {err:.3e} (tol {tol:g}) "
-                f"ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
-                f"library {lib} bound {row['bound_ms']:.4f} ({row['bound_by']}){extra}"
-            )
-            require(err <= tol, f"{name} {dname} {label}: max error {err:.3e} > {tol:g}")
+        for case in kernel_cases(torch, dtype, gen):
+            rows.append(measure_case(torch, dtype, case))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(rows, indent=1))
     main_shapes = {
@@ -582,9 +621,7 @@ def phase_full_width(torch) -> dict:
     import numpy as np
 
     from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
-    from bpe_transformer_tpu_torch.models.decode import decode_step, init_kv_cache, prefill
     from bpe_transformer_tpu_torch.models.transformer import init_params
-    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
 
     cfg = dataclasses.replace(GPT2_SMALL_32K, **KERNEL_KNOBS)
     plain_cfg = dataclasses.replace(GPT2_SMALL_32K)  # every knob "xla"
@@ -592,23 +629,50 @@ def phase_full_width(torch) -> dict:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     log(f"GPT2_SMALL_32K init: {time.perf_counter() - t0:.2f} s")
 
-    # Reference check at full width: one 100-token prefill and one decode
-    # step through the kernels vs the plain versions, in float32.
     rng = np.random.default_rng(1)
+    full_width_reference(torch, params, cfg, plain_cfg, rng, "full-width")
+    requests = dense_mix(rng, cfg.vocab_size)
+    run = serve_dense(torch, params, cfg, requests, "full-width serving")
+    counts, ticks = run["counts"], run["ticks"]
+    L, P = cfg.num_layers, len(requests)
+    expected = only(decode_attention=L * ticks, flash_attention=L * P, swiglu=L * (ticks + P))
+    require(counts == expected, f"launch counts {counts} != expected {expected}")
+    from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
+
+    profile_ticks(torch, SlotPoolEngine(params, cfg, slots=8, device="cuda"), cfg, rng, "dense")
+    return {name: counts[name] for name in SERVING_KERNELS}, requests
+
+
+def full_width_reference(torch, params, cfg, plain_cfg, rng, label: str,
+                         plain_route=contextlib.nullcontext) -> None:
+    """Reference check at full width: one 100-token prefill and one decode
+    step through the kernels (``cfg``) vs the plain versions (``plain_cfg``,
+    under ``plain_route``), in float32."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.models.decode import decode_step, init_kv_cache, prefill
+
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 100)), device="cuda")
     outs = {}
     with torch.inference_mode():
-        for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+        for mode, c in (("kernels", cfg), ("plain", plain_cfg)):
             c32 = dataclasses.replace(c, activation_dtype="float32")
             cache = init_kv_cache(c32, 1, device="cuda")
-            lp, _ = prefill(params, prompt, c32, cache)
-            ld, _ = decode_step(params, torch.argmax(lp, -1), 100, cache, c32)
-            outs[label] = (lp, ld)
+            with plain_route() if mode == "plain" else contextlib.nullcontext():
+                lp, _ = prefill(params, prompt, c32, cache)
+                ld, _ = decode_step(params, torch.argmax(lp, -1), 100, cache, c32)
+            outs[mode] = (lp, ld)
     err = max((a - b).abs().max().item() for a, b in zip(outs["kernels"], outs["plain"]))
     scale = outs["plain"][0].abs().max().item()
-    log(f"full-width float32 logits, kernels vs plain: max err {err:.3e} "
+    log(f"{label} float32 logits, kernels vs plain: max err {err:.3e} "
         f"(|logits| max {scale:.3e}, tol 1e-4)")
-    require(err <= 1e-4, f"full-width logits differ by {err:.3e}")
+    require(err <= 1e-4, f"{label} logits differ by {err:.3e}")
+
+
+def dense_mix(rng, vocab: int) -> list:
+    """Phase 4's 16 requests: prompts of 16 to 900 tokens, half greedy, half
+    temperature 0.8 / top-k 50 / top-p 0.95, 64 new tokens each."""
+    from bpe_transformer_tpu_torch.serving.server import Request
 
     lengths = [16, 40, 100, 200, 300, 450, 600, 750, 900, 17, 64, 129, 257, 513, 800, 33]
     requests = []
@@ -616,13 +680,24 @@ def phase_full_width(torch) -> dict:
         knobs = {"temperature": 0.0} if i % 2 == 0 else {
             "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": i}
         requests.append(Request(
-            prompt_ids=tuple(int(t) for t in rng.integers(0, cfg.vocab_size, size=n)),
+            prompt_ids=tuple(int(t) for t in rng.integers(0, vocab, size=n)),
             max_new_tokens=64, **knobs,
         ))
+    return requests
+
+
+def serve_dense(torch, params, cfg, requests, label: str) -> dict:
+    """Serve ``requests`` through a dense ``ServingEngine`` with 8 slots,
+    every launch count reset after a warm-up request; every request must
+    finish at 64 tokens.  Returns the results, counts of every kernel,
+    ticks, wall time and peak memory."""
+    from bpe_transformer_tpu_torch.serving.server import ServingEngine
+
     with ServingEngine(params, cfg, slots=8, device="cuda") as serving:
         # Warm up outside the counted run (cuBLAS handles, allocator pools).
         serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ticks0 = serving.engine.ticks
         reset_counts()
         t0 = time.perf_counter()
@@ -630,25 +705,34 @@ def phase_full_width(torch) -> dict:
         results = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = read_counts(tuple(KERNEL_META))
         ticks = serving.engine.ticks - ticks0
+        peak = torch.cuda.max_memory_allocated()
     n_tokens = sum(len(r.token_ids) for r in results)
     prefill_s = sum(r.prefill_s for r in results)  # the worker admits one at a time
-    log(f"full-width serving: {len(results)} requests, {n_tokens} tokens in {wall:.3f} s "
+    log(f"{label}: {len(results)} requests, {n_tokens} tokens in {wall:.3f} s "
         f"= {n_tokens / wall:.1f} tok/s; {len(results)} prefills {prefill_s:.3f} s, "
-        f"{ticks} ticks {wall - prefill_s:.3f} s; launches {counts}")
+        f"{ticks} ticks {wall - prefill_s:.3f} s; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
     for req, res in zip(requests, results):
         require(res.finish_reason == "length" and len(res.token_ids) == 64,
-                f"request {req.request_id}: {res.finish_reason} after {len(res.token_ids)} tokens")
+                f"{label} request {req.request_id}: {res.finish_reason} after "
+                f"{len(res.token_ids)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in res.token_ids), "token id out of range")
-    L, P = cfg.num_layers, len(requests)
-    expected = {"decode_attention": L * ticks, "flash_attention": L * P,
-                "swiglu": L * (ticks + P)}
-    require(counts == expected, f"launch counts {counts} != expected {expected}")
-    from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
+    return {"results": results, "counts": counts, "ticks": ticks, "wall": wall,
+            "tokens": n_tokens, "peak": peak}
 
-    profile_ticks(torch, SlotPoolEngine(params, cfg, slots=8, device="cuda"), cfg, rng, "dense")
-    return counts
+
+def fill_slots(torch, engine, vocab: int, rng) -> None:
+    """Admit 8 requests (prompts of 16 to 900 tokens, half greedy, half
+    sampled, 100 new tokens each) into ``engine``'s 8 slots and run 3
+    ticks."""
+    for i, n in enumerate((16, 100, 200, 300, 450, 600, 750, 900)):
+        knobs = {"temperature": 0.0} if i % 2 == 0 else {"temperature": 0.8, "top_k": 50}
+        engine.admit(rng.integers(0, vocab, size=n), max_new_tokens=100, **knobs)
+    for _ in range(3):
+        engine.tick()
+    torch.cuda.synchronize()
 
 
 def profile_ticks(torch, engine, cfg, rng, label: str, n_ticks: int = 10) -> dict:
@@ -658,12 +742,7 @@ def profile_ticks(torch, engine, cfg, rng, label: str, n_ticks: int = 10) -> dic
     tick by kernel and the device's idle share of the tick."""
     from torch.profiler import ProfilerActivity, profile
 
-    for i, n in enumerate((16, 100, 200, 300, 450, 600, 750, 900)):
-        knobs = {"temperature": 0.0} if i % 2 == 0 else {"temperature": 0.8, "top_k": 50}
-        engine.admit(rng.integers(0, cfg.vocab_size, size=n), max_new_tokens=100, **knobs)
-    for _ in range(3):
-        engine.tick()
-    torch.cuda.synchronize()
+    fill_slots(torch, engine, cfg.vocab_size, rng)
     t0 = time.perf_counter()
     for _ in range(n_ticks):
         engine.tick()
@@ -1122,17 +1201,30 @@ def phase_gpt2_training(torch, smi: str) -> dict:
     with exact launch counts per step."""
     import dataclasses
 
-    import numpy as np
-
     from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
-    from bpe_transformer_tpu_torch.models.transformer import init_params
-    from bpe_transformer_tpu_torch.optim import adamw_init
-    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
 
     cfg = dataclasses.replace(
         GPT2_SMALL_32K, attention_impl="flash_fused", flash_fused_min_seq=0, ffn_impl="pallas",
         remat_policy="save_attn",
     )
+    L = cfg.num_layers
+    per_step = only(flash_attention_rope=L, flash_attention_bwd_dkdv=L,
+                    flash_attention_bwd_dq=L, swiglu=2 * L)
+    run = train_full_width(torch, smi, cfg, per_step, "GPT2_SMALL_32K")
+    return {name: per_step[name] * len(run["losses"]) for name in TRAINING_KERNELS}
+
+
+def train_full_width(torch, smi: str, cfg, per_step: dict, label: str) -> dict:
+    """10 AdamW steps of ``cfg`` from the port's seeded init on one seeded
+    batch of 8 full contexts; every step's launch counts must be
+    ``per_step``; the loss must fall; host ms per step, peak memory and a
+    step profile."""
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
     batch, n_steps = 8, 10
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     opt_state = adamw_init(params)
@@ -1142,10 +1234,6 @@ def phase_gpt2_training(torch, smi: str) -> dict:
     rng = np.random.default_rng(8)
     x, y = (torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)),
                             device="cuda") for _ in range(2))
-    L = cfg.num_layers
-    per_step = {"flash_attention_rope": L, "flash_attention_bwd_dkdv": L,
-                "flash_attention_bwd_dq": L, "swiglu": 2 * L, "flash_attention": 0,
-                "decode_attention": 0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, host_ms = [], []
@@ -1156,18 +1244,20 @@ def phase_gpt2_training(torch, smi: str) -> dict:
         losses.append(float(m["loss"]))
         host_ms.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts(per_step)
-        require(counts == per_step, f"launch counts of one step {counts} != {per_step}")
+        require(counts == per_step, f"{label}: launch counts of one step {counts} != {per_step}")
     peak = torch.cuda.max_memory_allocated()
     mean_ms = float(np.mean(host_ms[1:]))
-    log(f"GPT2_SMALL_32K training (bf16 activations, B={batch} S={cfg.context_length}, "
+    log(f"{label} training (bf16 activations, B={batch} S={cfg.context_length}, "
         f"save_attn, RoPE in kernel): losses {[round(v, 4) for v in losses]}")
-    log(f"GPT2_SMALL_32K host ms per step {[round(v, 1) for v in host_ms]} (steps 2-10 mean "
+    log(f"{label} host ms per step {[round(v, 1) for v in host_ms]} (steps 2-10 mean "
         f"{mean_ms:.1f} ms = {batch * cfg.context_length / mean_ms * 1e3:.0f} tok/s); "
-        f"peak memory {peak / 2**30:.2f} GiB on {smi}; launches per step {per_step}")
-    require(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
-    profile_step(torch, "GPT2_SMALL_32K", lambda: step(params, opt_state, x, y))
-    return {name: per_step[name] * n_steps for name in TRAINING_KERNELS}
+        f"peak memory {peak / 2**30:.2f} GiB on {smi}; launches per step "
+        f"{ {k: v for k, v in per_step.items() if v} }")
+    require(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss: {losses}")
+    require(losses[-1] < losses[0],
+            f"{label}: loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    profile_step(torch, label, lambda: step(params, opt_state, x, y))
+    return {"losses": losses, "host_ms": host_ms, "peak": peak}
 
 
 # ------------------------------------------------------------ phase 9
@@ -1765,6 +1855,366 @@ def phase_spec_full_width(torch, smi: str, requests, unfused_results) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+#: The GeLU kernels against their plain versions on the card.  float32:
+#: 1e-5 absolute, as SwiGLU (the same float32 operations in the same order,
+#: no FMA; the kernel's expf/tanhf and PyTorch's exp/tanh may differ in the
+#: last place, which 1 + tanh amplifies where it cancels, so the bound is
+#: absolute, at outputs up to ~15).  bfloat16: within one bf16 ulp of the
+#: plain result, element by element (both round one float32 result once,
+#: and a last-place difference may cross a rounding boundary).
+GELU_TOL_F32 = 1e-5
+#: Float32 operations per element of the forward and the backward, as
+#: csrc/gelu.cu does them (exp and tanh one each).  The math runs on the
+#: CUDA cores in float32 whatever the storage type, so the bound uses the
+#: float32 rate for both types.
+GELU_FLOPS = {"gelu": 14, "gelu_bwd": 19}
+#: This slice's model: GPT2_SMALL_32K with GPT-2 small's own 4 x d_model
+#: tanh-GeLU FFN.  2 * 3072 == 3 * 2048, so its FFN has the used
+#: parameters, FLOPs and streamed bytes of the SwiGLU GPT2_SMALL_32K of
+#: phases 4, 8 and 9c; the unread w3 (768 x 3072 a layer) comes on top.
+GELU_GPT2 = dict(ffn_type="gelu", d_ff=3072)
+
+
+def gelu_error(torch, out, ref) -> tuple[float, float]:
+    """``(max abs error, max error in units of the tolerance)`` of a GeLU
+    kernel's output against its plain version's."""
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        return diff.max().item(), diff.max().item() / GELU_TOL_F32
+    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0**-126))) - 7)
+    return diff.max().item(), (diff / ulp).max().item()
+
+
+def interleaved_ticks(torch, engines: dict, vocab: int, rng, label: str,
+                      n_ticks: int = 10) -> dict:
+    """Host-clock us per tick of two engines with 8 slots busy, timed in
+    blocks of ``n_ticks`` in the order A B B A, so that a drift of the
+    host's speed during the call falls on both alike."""
+    for engine in engines.values():
+        fill_slots(torch, engine, vocab, rng)
+    names = list(engines)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            engines[name].tick()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e6 / n_ticks)
+    log(f"{label}, host us per tick (8 slots busy), blocks of {n_ticks} ticks A B B A: "
+        + "; ".join(f"{name} {[round(t) for t in ts]}" for name, ts in times.items()))
+    return times
+
+
+@contextlib.contextmanager
+def plain_gelu():
+    """Route the GeLU forward to its plain version on the card (the
+    reference run of phase 11c); nothing else changes."""
+    from bpe_transformer_tpu_torch.kernels import gelu as ge
+
+    kernel = ge._gelu_forward
+    ge._gelu_forward = ge.gelu_plain
+    try:
+        yield
+    finally:
+        ge._gelu_forward = kernel
+
+
+def gelu_cases(torch, dtype, gen) -> list:
+    """(name, label, kernel, plain, library, input sets, bytes, flops) of
+    the GeLU forward and backward at the GeLU GPT2_SMALL_32K's FFN widths:
+    the tick (8 x 3072), a prefill chunk (256 x 3072) and a training step
+    (8 x 1024 tokens x 3072), on 3 N(0, 1) values."""
+    from bpe_transformer_tpu_torch.kernels import gelu as ge
+
+    F = torch.nn.functional
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(m, std):
+        return (torch.randn(m, 3072, generator=gen, device="cuda") * std).to(dtype)
+
+    cases = []
+    for m in (8, 256, 8192):
+        n = m * 3072
+        cases.append((
+            "gelu", f"m={m} ff=3072", ge._gelu_forward, ge.gelu_plain,
+            lambda x: F.gelu(x, approximate="tanh"),
+            [(rnd(m, 3.0),) for _ in range(copies_for(2 * n * isz))],
+            2 * n * isz, GELU_FLOPS["gelu"] * n,
+        ))
+        cases.append((
+            "gelu_bwd", f"m={m} ff=3072", ge._gelu_backward, ge.gelu_bwd_plain,
+            lambda x, g: torch.ops.aten.gelu_backward(g, x, approximate="tanh"),
+            [(rnd(m, 3.0), rnd(m, 1.0)) for _ in range(copies_for(3 * n * isz))],
+            3 * n * isz, GELU_FLOPS["gelu_bwd"] * n,
+        ))
+    return cases
+
+
+def check_gelu_other_shapes(torch) -> None:
+    """The GeLU kernels off the main path, for correctness: sizes that leave
+    a scalar tail after the 16-byte vectors (1 to 24,581 elements), a view
+    that starts off a 16-byte boundary, and the large magnitudes of
+    tests/test_kernels.py (gelu(11) == 11, gelu(-1000) == 0, no NaN)."""
+    from bpe_transformer_tpu_torch.kernels import gelu as ge
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    big = [11.0, 50.0, 1000.0, -11.0, -50.0, -1000.0, 0.0]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        worst, n_cases = 0.0, 0
+        inputs = [(torch.randn(n, generator=gen, device="cuda") * 3).to(dtype)
+                  for n in (1, 7, 9, 4097, 3 * 1001, 8 * 3072 + 5)]
+        inputs.append((torch.randn(4101, generator=gen, device="cuda") * 3).to(dtype)[1:])
+        inputs.append(torch.tensor(big, device="cuda").to(dtype))
+        for x in inputs:
+            g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            for name, out, ref in (("gelu", ge._gelu_forward(x), ge.gelu_plain(x)),
+                                   ("gelu_bwd", ge._gelu_backward(x, g),
+                                    ge.gelu_bwd_plain(x, g))):
+                torch.cuda.synchronize()
+                err, rel = gelu_error(torch, out, ref)
+                require(out.shape == ref.shape and out.dtype == ref.dtype
+                        and bool(torch.isfinite(out).all()) and rel <= 1,
+                        f"{name} {dname} n={x.numel()}: max error {err:.3e} "
+                        f"({rel:.2f} of the tolerance)")
+                worst, n_cases = max(worst, rel), n_cases + 1
+        y = ge._gelu_forward(inputs[-1]).float().tolist()
+        require(y == big[:3] + [0.0] * 4, f"gelu {dname} at large magnitudes: {y}")
+        log(f"gelu kernels off the main path, {dname}: {n_cases} cases within tolerance "
+            f"(largest error {worst:.3f} of its tolerance); gelu({big}) = {y}")
+
+
+def phase_gelu_kernels(torch) -> dict:
+    """11a: the GeLU forward and backward kernels against their plain
+    versions and one library call each, float32 and bfloat16, with device
+    times by CUDA-graph replay (inputs cycled past the L2) and the bound;
+    and the int8 matmul at the GeLU FFN's shapes, as phase 2 holds it.
+    Returns the GeLU kernels' bf16 rows at the training shape, keyed by
+    kernel name."""
+    check_gelu_other_shapes(torch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for name, label, kern, plain, lib, sets, nbytes, flops in gelu_cases(torch, dtype, gen):
+            errs = []
+            for inputs in sets[:2]:
+                out = kern(*inputs)
+                torch.cuda.synchronize()
+                ref = plain(*inputs)
+                require(out.shape == ref.shape and out.dtype == ref.dtype
+                        and bool(torch.isfinite(out).all()), f"{name} {label}: bad output")
+                errs.append(gelu_error(torch, out, ref))
+            err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+            ms = time_ms(torch, kern, sets, 50, graph=True)
+            loop_ms = time_ms(torch, kern, sets, 50)
+            plain_ms = time_ms(torch, plain, sets, 10, graph=True)
+            lib_ms = time_ms(torch, lib, sets, 50, graph=True)
+            byte_ms = nbytes / HBM_BYTES_S * 1e3
+            op_ms = flops / PEAK_FLOPS["float32"] * 1e3
+            tol = GELU_TOL_F32 if dtype == torch.float32 else "1 bf16 ulp"
+            row = {
+                "name": name, "dtype": dname, "shape": label, "max_abs_err": err,
+                "tol": tol, "err_over_tol": rel, "ms": ms, "loop_ms": loop_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "bytes": nbytes, "flops": flops,
+            }
+            rows.append(row)
+            log(f"kernel {name:8s} {dname:8s} {label:14s} err {err:.3e} ({rel:.3f} of tol "
+                f"{tol}) ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
+                f"library {lib_ms:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            require(rel <= 1, f"{name} {dname} {label}: max error {err:.3e} over {tol}")
+    # B8 at the int8 GeLU FFN's shapes: the down projection reduces over
+    # K = 3072, which _splits cuts into slices for the tick's m = 8.
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+
+    nsplit, per = qm._splits(8, 768, 3072, torch.device("cuda"))
+    log(f"quant_matmul m=8 3072->768: the reduction in {nsplit} slices of {per} columns")
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (8, 256):
+            for k_in, n_out in ((768, 3072), (3072, 768)):
+                rows.append(measure_case(torch, dtype,
+                                         quant_case(torch, gen, m, k_in, n_out, dtype)))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_gelu.json").write_text(json.dumps(rows, indent=1))
+    return {r["name"]: r for r in rows
+            if r["name"].startswith("gelu") and r["dtype"] == "bfloat16"
+            and "m=8192" in r["shape"]}
+
+
+def scaled_params(torch, cfg, seed: int, scale: float = 1.0) -> dict:
+    """The port's seeded init of ``cfg`` on the CPU, matrices times
+    ``scale`` (norm gains stay 1)."""
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.tree import tree_map
+
+    params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    return tree_map(lambda t: t * scale if t.ndim == 2 else t, params)
+
+
+def phase_ffn_small(torch) -> None:
+    """11b: small seeded float32 models with a gelu and with a silu FFN
+    (TS_TEST_CONFIG at vocab 512 and ctx 64; matrices at 8 times the init
+    scale, so that logits are of order 1 and greedy margins far above
+    rounding): greedy tokens served on the card by the dense engine, the
+    paged engine at act width and at int8 KV + int8 weights, and the
+    speculative engine (a one-layer truncated draft, K 2) identical to the
+    same requests served on the CPU; then a 5-step AdamW trajectory (flash,
+    save_attn) trained on the card against the CPU's, losses and every leaf
+    within 1e-4 (phase 6's tolerance)."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.serving.server import ServingEngine
+    from bpe_transformer_tpu_torch.serving.spec import DraftSpec
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+    from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(0, 512, size=n)] for n in (3, 7, 12, 5, 20, 9)]
+    widths = (("dense", {}),
+              ("paged act", dict(paged=True, block_size=4, prefill_chunk=8)),
+              ("paged int8 KV + int8 weights", dict(paged=True, block_size=4, prefill_chunk=8,
+                                                    kv_dtype="int8", weight_dtype="int8")),
+              ("spec", dict(paged=True, block_size=4, prefill_chunk=8, speculate_k=2,
+                            draft_spec=DraftSpec(truncate_layers=1))))
+    for ffn_type in ("gelu", "silu"):
+        cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=512, context_length=64,
+                                  ffn_type=ffn_type, **PAGED_KNOBS)
+        base = scaled_params(torch, cfg, seed=5, scale=8.0)
+        reset_counts()
+        served = {}
+        for label, kw in widths:
+            for device in ("cuda", "cpu"):
+                params = tree_map(lambda t: t.to(device), base)
+                with ServingEngine(params, cfg, slots=3, min_bucket=8, device=device,
+                                   **kw) as serving:
+                    results = serving.run_batch(prompts, max_new_tokens=16, temperature=0.0)
+                served[label, device] = [list(r.token_ids) for r in results]
+            require(served[label, "cuda"] == served[label, "cpu"],
+                    f"{ffn_type} {label}: card tokens {served[label, 'cuda']} differ from cpu "
+                    f"{served[label, 'cpu']}")
+            if "int8" not in label:
+                require(served[label, "cuda"] == served["dense", "cuda"],
+                        f"{ffn_type} {label}: tokens differ from the dense engine's")
+        counts = read_counts(tuple(KERNEL_META))
+        log(f"small {ffn_type} model: greedy tokens identical card == CPU over "
+            f"{[w for w, _ in widths]}; launches {counts}")
+        require((counts["gelu"] > 0) == (ffn_type == "gelu") and counts["swiglu"] == 0
+                and counts["quant_matmul"] > 0, f"{ffn_type}: launches {counts}")
+
+        tcfg = dataclasses.replace(cfg, attention_impl="flash", remat_policy="save_attn")
+        hparams = TrainHParams(max_learning_rate=1e-3, warmup_iters=1, cosine_cycle_iters=5,
+                               weight_decay=0.1)
+        init = scaled_params(torch, tcfg, seed=6)
+        batches = [tuple(rng.integers(0, 512, size=(8, 64)) for _ in range(2))
+                   for _ in range(5)]
+        runs = {}
+        for device in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.to(device), init)
+            opt_state = adamw_init(params)
+            step = make_train_step(tcfg, hparams)
+            losses = []
+            for x, y in batches:
+                params, opt_state, m = step(params, opt_state, torch.as_tensor(x, device=device),
+                                            torch.as_tensor(y, device=device))
+                losses.append(float(m["loss"]))
+            runs[device] = (losses, tree_leaves(params))
+        loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+        leaf_err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                       for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+        log(f"small {ffn_type} model, 5 AdamW steps card vs CPU: losses "
+            f"{[round(v, 5) for v in runs['cuda'][0]]}, max loss error {loss_err:.2e}, max "
+            f"leaf error {leaf_err:.2e} (tol 1e-4)")
+        require(loss_err <= 1e-4 and leaf_err <= 1e-4,
+                f"{ffn_type} trajectory: loss error {loss_err:.2e}, leaf error {leaf_err:.2e}")
+
+
+def phase_gelu_full_width(torch, smi: str, dense_requests, paged_requests) -> dict:
+    """11c: the GeLU GPT2_SMALL_32K (bf16, d_ff 3072) at full depth and
+    width: one prefill + decode step against the plain versions in float32;
+    phase 4's mix through the dense ServingEngine and phase 9c's through
+    the paged one at int8 KV + int8 weights, with exact launch counts and a
+    tick profile each; the GeLU and the SwiGLU model's ticks timed in turns
+    on both engines; then phase 8's 10 training steps (RoPE in the kernel,
+    save_attn) with exact launch counts per step.  Returns the GeLU
+    kernels' launches over the serving and training runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine
+    from bpe_transformer_tpu_torch.serving.kvpool import PagedEngine
+
+    cfg = dataclasses.replace(GPT2_SMALL_32K, **GELU_GPT2, **KERNEL_KNOBS)
+    plain_cfg = dataclasses.replace(GPT2_SMALL_32K, **GELU_GPT2)  # every knob "xla"
+    L = cfg.num_layers
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(12)
+    full_width_reference(torch, params, cfg, plain_cfg, rng, "GeLU full-width",
+                         plain_route=plain_gelu)
+
+    run = serve_dense(torch, params, cfg, dense_requests, "GeLU dense serving")
+    P, ticks = len(dense_requests), run["ticks"]
+    expected = only(decode_attention=L * ticks, flash_attention=L * P, gelu=L * (ticks + P))
+    require(run["counts"] == expected, f"GeLU dense: launch counts {run['counts']} != {expected}")
+    gelu_launches = run["counts"]["gelu"]
+    profile_ticks(torch, SlotPoolEngine(params, cfg, slots=8, device="cuda"), cfg, rng,
+                  "GeLU dense")
+
+    pcfg = dataclasses.replace(cfg, **PAGED_KNOBS)
+    run = serve_mix(torch, params, pcfg, paged_requests, smi,
+                    "GeLU paged serving int8 KV + int8 weights", kv_dtype="int8",
+                    weight_dtype="int8")
+    steps = run["ticks"] + run["chunks"]
+    expected = only(paged_decode_attention=L * run["ticks"], quant_matmul=(6 * L + 1) * steps,
+                    gelu=L * steps)
+    require(run["counts"] == expected, f"GeLU paged: launch counts {run['counts']} != {expected}")
+    gelu_launches += run["counts"]["gelu"]
+    engine = PagedEngine(params, pcfg, slots=8, block_size=16, prefill_chunk=256,
+                         kv_dtype="int8", weight_dtype="int8", device="cuda")
+    profile_ticks(torch, engine, pcfg, rng, "GeLU paged int8 KV + int8 weights")
+    del engine
+
+    # The GeLU and the SwiGLU model's ticks in one stretch of the call.
+    scfg = dataclasses.replace(GPT2_SMALL_32K, **KERNEL_KNOBS)
+    swiglu_params = init_params(scfg, torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+    interleaved_ticks(torch, {
+        "SwiGLU": SlotPoolEngine(swiglu_params, scfg, slots=8, device="cuda"),
+        "GeLU": SlotPoolEngine(params, cfg, slots=8, device="cuda"),
+    }, cfg.vocab_size, rng, "dense tick, SwiGLU d_ff 2048 vs GeLU d_ff 3072")
+    paged_kw = dict(slots=8, block_size=16, prefill_chunk=256, kv_dtype="int8",
+                    weight_dtype="int8", device="cuda")
+    interleaved_ticks(torch, {
+        "SwiGLU": PagedEngine(swiglu_params, dataclasses.replace(scfg, **PAGED_KNOBS),
+                              **paged_kw),
+        "GeLU": PagedEngine(params, pcfg, **paged_kw),
+    }, cfg.vocab_size, rng, "paged int8 KV + int8 weights tick, SwiGLU vs GeLU")
+    del params, swiglu_params
+
+    tcfg = dataclasses.replace(
+        GPT2_SMALL_32K, **GELU_GPT2, attention_impl="flash_fused", flash_fused_min_seq=0,
+        remat_policy="save_attn",
+    )
+    # save_attn re-runs the FFN half (the GeLU forward) in the backward.
+    per_step = only(flash_attention_rope=L, flash_attention_bwd_dkdv=L,
+                    flash_attention_bwd_dq=L, gelu=2 * L, gelu_bwd=L)
+    run = train_full_width(torch, smi, tcfg, per_step, "GeLU GPT2_SMALL_32K")
+    n_steps = len(run["losses"])
+    return {"gelu": gelu_launches + per_step["gelu"] * n_steps,
+            "gelu_bwd": per_step["gelu_bwd"] * n_steps}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1807,7 +2257,7 @@ def main() -> int:
     phase_fixture(torch)
     log(f"phase 3 fixture float32 path: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    counts = phase_full_width(torch)
+    counts, dense_requests = phase_full_width(torch)
     log(f"phase 4 GPT2_SMALL_32K serving: ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -1833,10 +2283,16 @@ def main() -> int:
     counts.update(phase_spec_full_width(torch, smi, requests, unfused_results))
     log(f"phase 10 fused sampling and speculative decoding: ok "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gelu_main = phase_gelu_kernels(torch)
+    phase_ffn_small(torch)
+    counts.update(phase_gelu_full_width(torch, smi, dense_requests, requests))
+    log(f"phase 11 two-matrix FFNs and the GeLU kernels: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():
-        row = main_rows.get(name) or sample_main.get(name) or train_rows[name]
+        row = (main_rows.get(name) or sample_main.get(name) or gelu_main.get(name)
+               or train_rows[name])
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],

@@ -5,7 +5,8 @@ package's, with the kernel knobs of the ported serving path
 (``init_kv_pool``, ``paged_chunk_prefill``, ``paged_decode_step``) at act
 width and with int8 KV blocks, under ``decode_attention_impl`` "paged" and
 "xla", with the speculative verify pass (``paged_verify_step``) after the
-decode steps and the final hidden states that ``return_hidden`` gives.
+decode steps and the final hidden states that ``return_hidden`` gives; for
+the SwiGLU FFN and for the two-matrix ``silu`` and ``gelu`` FFNs.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU; the port
 runs on the CPU (``device="cpu"``), where its kernel wrappers take their
@@ -137,13 +138,14 @@ def _assert_pools(pool, j_pool, what):
                 np.testing.assert_allclose(got, want, atol=1e-5, err_msg=msg)
 
 
-def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps):
+def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps,
+               impls=("paged", "xla")):
     """Prefill three slots into a paged pool through shuffled block tables
     in both packages (slot 0 in two chunks, slot 1 resuming after a
     block-aligned prefix shared with slot 0, slot 2 in one chunk), then take
     ``steps`` greedy decode steps at ragged positions that cross block
-    boundaries, with slot 2 inactive; for act and int8 pools and the "paged"
-    and "xla" decode attentions, assert logits and pools agree at every
+    boundaries, with slot 2 inactive; for act and int8 pools and the
+    decode attentions ``impls``, assert logits and pools agree at every
     stage."""
     ids = np.array(ids[:3], np.int32)
     ids[1, :block_size] = ids[0, :block_size]  # slot 1 shares slot 0's first block
@@ -158,7 +160,7 @@ def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps):
     chunks = [(0, 0, chunk), (0, chunk, lengths[0] - chunk), (1, block_size, 3), (2, 0, lengths[2])]
     active = np.array([True, True, False])
     for kv_dtype in (None, "int8"):
-        for impl in ("paged", "xla"):
+        for impl in impls:
             jcfg = dataclasses.replace(jax_cfg, decode_attention_impl=impl)
             tcfg = dataclasses.replace(cfg, decode_attention_impl=impl)
             what = f"kv_dtype={kv_dtype} impl={impl}"
@@ -290,3 +292,24 @@ def test_torch_prefill_and_decode_match_jax():
         last_pos=np.array([11, 4, 8], np.int32), steps=2,
     )
     _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=3)
+
+    # The two-matrix FFNs (silu plain, gelu through the GeLU kernel's
+    # wrapper), dense and paged, act and int8 pools, on random weights whose
+    # matrices are at 8 times the init scale (the norm gains stay 1, so the
+    # K/V rows and the logits are of order 1).
+    for ffn_type in ("silu", "gelu"):
+        jax_cfg = dataclasses.replace(
+            JAX_TS_TEST_CONFIG, vocab_size=96, context_length=24, ffn_type=ffn_type,
+            **KERNEL_KNOBS,
+        )
+        cfg = ModelConfig.from_dict(dataclasses.asdict(jax_cfg))
+        jax_params = jax.tree_util.tree_map(
+            lambda a: a * 8 if a.ndim == 2 else a, jax_init_params(jax.random.PRNGKey(5), jax_cfg)
+        )
+        torch_params = params_from_jax(jax.device_get(jax_params), device="cpu")
+        _run_both(
+            jax_params, torch_params, jax_cfg, cfg, ids,
+            last_pos=np.array([11, 4, 8], np.int32), steps=2,
+        )
+        _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=2,
+                   impls=("paged",))

@@ -12,7 +12,14 @@ for SwiGLU and its gradient and for the int8 matmul; bfloat16 inputs are
 held to 3e-2, the JAX bf16 kernel tests' atol.  The int8 weight quantizer
 must give JAX's int8 values and scales bit for bit.  The fused head + sample
 and verify tails must give JAX's tokens exactly, with the verify's ``p_d``
-within 2e-6 (``tests/test_quant.py``'s bound).
+within 2e-6 (``tests/test_quant.py``'s bound).  GeLU in float32: the
+forward within 1e-6 of JAX's (the same operations; the two ``exp`` differ in
+the last place), the backward within 3e-5 (XLA's CPU ``tanh`` returns
+exactly +-1 from |u| ~ 7.9, where ``1 - t t`` ~ 5e-7 still weighs ~10 |g|);
+in bfloat16 within one bf16 ulp of JAX's float32 GeLU rounded once, which
+is what the TPU computes (the backward within one ulp or 3e-5, the float32
+bound); JAX's interpret mode rounds a bf16 input after every operation
+instead, and lands further off.
 """
 
 import numpy as np
@@ -37,6 +44,7 @@ from bpe_transformer_tpu.kernels.pallas.decode_attention import (
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention_with_rope as jax_flash_attention_with_rope,
 )
+from bpe_transformer_tpu.kernels.pallas.gelu import gelu as jax_gelu
 from bpe_transformer_tpu.kernels.pallas.quant_matmul import quant_matmul as jax_quant_matmul
 from bpe_transformer_tpu.kernels.pallas.sample import fused_head_sample as jax_fused_head_sample
 from bpe_transformer_tpu.kernels.pallas.sample import fused_verify_head as jax_fused_verify_head
@@ -46,6 +54,7 @@ from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
 from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.kernels import decode_attention as da
 from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+from bpe_transformer_tpu_torch.kernels import gelu as ge
 from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
 from bpe_transformer_tpu_torch.kernels import sample as smp
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
@@ -329,6 +338,49 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
                                                                  judge[:k1].tolist())]
     with pytest.raises(ValueError, match="must be"):
         smp._head_operands(torch.zeros(v, d + 1), v, d)
+
+    # GeLU and its backward (jax.vjp of the Pallas gelu): 3 N(0, 1) values of
+    # a (64, 3072) FFN activation and the large magnitudes of
+    # tests/test_kernels.py, in float32 and in bfloat16.
+    x = np.concatenate([normal(64 * 3072, scale=3.0),
+                        np.array([11.0, 50.0, 1000.0, -1000.0], np.float32)])
+    ct = normal(*x.shape)
+    want, vjp = jax.vjp(jax_gelu, jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(ct))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = ge.gelu(tx)
+    (got * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-6, rtol=0,
+                               err_msg="gelu float32")
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), atol=3e-5, rtol=0,
+                               err_msg="gelu backward float32")
+    assert got[-4:].tolist() == [11.0, 50.0, 1000.0, 0.0]
+
+    def bf16_ulps(got, ref, floor=2.0**-126):
+        """Max elementwise |got - ref| in bf16 ulps of ``ref`` (both bf16),
+        an ulp counted as at least ``floor``."""
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0**-126))) - 7)
+        return ((got.float() - ref.float()).abs() / ulp.clamp(min=floor)).max().item()
+
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ctb = torch.from_numpy(ct).to(torch.bfloat16)
+    x_wide, ct_wide = jnp.asarray(xb.float().numpy()), jnp.asarray(ctb.float().numpy())
+    want, vjp = jax.vjp(jax_gelu, x_wide)
+    ref = torch.from_numpy(np.array(want)).to(torch.bfloat16)
+    ref_dx = torch.from_numpy(np.array(vjp(ct_wide)[0])).to(torch.bfloat16)
+    txb = xb.clone().requires_grad_()
+    got = ge.gelu(txb)
+    (got.float() * ctb.float()).sum().backward()
+    assert got.dtype == txb.grad.dtype == torch.bfloat16
+    assert bf16_ulps(got.detach(), ref) <= 1
+    # Where XLA's saturated tanh zeroes JAX's gradient, the float32 bound.
+    assert bf16_ulps(txb.grad, ref_dx, floor=3e-5) <= 1
+    assert bf16_ulps(ge.gelu_bwd_plain(xb, ctb), ref_dx, floor=3e-5) <= 1
+    # The known difference: JAX's interpret mode, rounding after every op.
+    per_op = torch.from_numpy(
+        np.array(jax_gelu(x_wide.astype(jnp.bfloat16)).astype(jnp.float32))).to(torch.bfloat16)
+    share = (per_op != ref).float().mean().item()
+    assert share > 0.25 and bf16_ulps(per_op, ref) > 1, share
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before

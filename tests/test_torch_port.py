@@ -3,8 +3,9 @@ its entry points run on the card unless the caller asks for the CPU, and
 ``chip_smoke.py`` refuses to report without a card or without the repo.
 The jax-free run also serves through the paged engine with int8 KV blocks
 and int8 weights and through the speculative engine with the fused
-sampling tail, and drives the ``train`` CLI on the CPU, resuming from its
-own checkpoint."""
+sampling tail, serves a ``gelu`` FFN model dense and paged (int8), and
+drives the ``train`` CLI on the CPU, resuming from its own checkpoint, and
+on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``."""
 
 import re
 import shutil
@@ -38,7 +39,7 @@ for name in names:
     importlib.import_module(name)
 expected = {
     "bpe_transformer_tpu_torch." + m for m in (
-        "checkpointing.checkpoint", "data.dataset", "kernels.flash_attention",
+        "checkpointing.checkpoint", "data.dataset", "kernels.flash_attention", "kernels.gelu",
         "kernels.quant_matmul", "kernels.sample", "kernels.swiglu", "models.transformer",
         "ops.core", "ops.grad", "ops.losses", "ops.quant", "optim.adamw", "optim.schedule",
         "resilience.integrity", "serving.kvpool.blocks", "serving.kvpool.paged_engine",
@@ -71,6 +72,13 @@ with ServingEngine(params, cfg, slots=2, min_bucket=4, paged=True, block_size=4,
                    device="cpu") as serving:
     result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=4, temperature=0.8, top_k=5)
 assert len(result.token_ids) == 4 and result.finish_reason == "length", result
+gelu_cfg = dataclasses.replace(cfg, ffn_type="gelu")
+gelu_params = init_params(gelu_cfg, torch.Generator().manual_seed(1), device="cpu")
+for kw in ({}, dict(paged=True, block_size=4, kv_dtype="int8", weight_dtype="int8")):
+    with ServingEngine(gelu_params, gelu_cfg, slots=2, min_bucket=4, device="cpu",
+                       **kw) as serving:
+        result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=3, temperature=0.0)
+    assert len(result.token_ids) == 3 and result.finish_reason == "length", (kw, result)
 
 import json, numpy as np
 from pathlib import Path
@@ -91,6 +99,14 @@ assert cli_main(argv + ["--steps", "3", "--resume", str(work / "ck")]) == 0
 summary = json.loads((work / "ck" / "summary.json").read_text())
 assert [r["step"] for r in summary["history"]] == [3], summary
 assert (work / "ck" / "step_00000003.ckpt.crc32.json").exists()
+gelu_cfg.to_json(work / "gelu.json")
+assert json.loads((work / "gelu.json").read_text())["ffn_type"] == "gelu"
+gelu_argv = argv[:argv.index("--model-config")] + ["--model-config", str(work / "gelu.json")]
+gelu_argv += argv[argv.index("--model-config") + 2:]
+gelu_argv[gelu_argv.index(str(work / "ck"))] = str(work / "ck_gelu")
+assert cli_main(gelu_argv + ["--steps", "2"]) == 0
+summary = json.loads((work / "ck_gelu" / "summary.json").read_text())
+assert [r["step"] for r in summary["history"]] == [1, 2], summary
 
 if not torch.cuda.is_available():
     for call in (

@@ -9,7 +9,9 @@ giving the unfused tick's tokens, and speculative decoding: the port's
 ``SpecEngine`` greedy tokens identical to its ``PagedEngine``'s and to the
 JAX ``SpecEngine``'s (fused and unfused tails, act width and int8), its
 verify tail giving JAX's ``(out, n_emit)`` on JAX's own noise, and the
-``rewind``/``extend_blocks`` bookkeeping equal to JAX's.
+``rewind``/``extend_blocks`` bookkeeping equal to JAX's; and the two-matrix
+``silu`` and ``gelu`` FFNs served by the dense, paged (act, int8) and
+speculative engines with JAX's greedy tokens and weight gauges.
 
 Both packages run a GQA model with the kernel knobs of the ported serving
 path, on random JAX weights at 8 times the init scale (the greedy tokens
@@ -413,3 +415,39 @@ def test_torch_serving_matches_jax_engine():
     keep = ~np.isneginf(want)
     assert keep.sum(axis=1).tolist()[:3] == [50, 4, 13]  # ties are kept
     np.testing.assert_allclose(got[keep], want[keep], rtol=1e-6)
+
+    # The two-matrix FFNs (silu, and gelu through the GeLU kernel's
+    # wrapper): the JAX dense and paged engines' greedy tokens, the paged
+    # ones at act width and at int8 KV + int8 weights, with the serving
+    # weight gauges equal to JAX's (both count the unread w3, quantized
+    # under int8); the speculative engine, whose truncated draft is itself a
+    # silu or gelu model, gives the same greedy tokens.
+    for ffn_type in ("silu", "gelu"):
+        jcfg = dataclasses.replace(paged_cfg, ffn_type=ffn_type)
+        fcfg = ModelConfig.from_dict(dataclasses.asdict(jcfg))
+        j_params = jax.tree_util.tree_map(
+            lambda a: a * 8, jax_init_params(jax.random.PRNGKey(0), jcfg)
+        )
+        f_params = params_from_jax(jax.device_get(j_params), device="cpu")
+        want = _drive(JaxSlotPoolEngine(j_params, jcfg, slots=2, min_bucket=8),
+                      paged_prompts[:4], 6)
+        assert _drive(SlotPoolEngine(f_params, fcfg, slots=2, min_bucket=8, device="cpu"),
+                      paged_prompts[:4], 6) == want, ffn_type
+        for kv_dtype, weight_dtype in ((None, None), ("int8", "int8")):
+            jax_paged = JaxPagedEngine(j_params, jcfg, kv_dtype=kv_dtype,
+                                       weight_dtype=weight_dtype, **knobs)
+            want_paged = _drive(jax_paged, paged_prompts[:4], 6)
+            paged = PagedEngine(f_params, fcfg, kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                                device="cpu", **knobs)
+            assert _drive(paged, paged_prompts[:4], 6) == want_paged, (ffn_type, kv_dtype)
+            if kv_dtype is None:
+                assert want_paged == want
+            _, _, label, params_bytes, tick_bytes = jax_prepare_serving_weights(
+                j_params, jcfg, weight_dtype
+            )
+            assert (paged.weight_dtype, paged.params_bytes, paged.tick_weight_bytes) == (
+                label, params_bytes, tick_bytes), (ffn_type, weight_dtype)
+        spec = SpecEngine(f_params, fcfg, draft=DraftSpec(truncate_layers=1), speculate_k=3,
+                          device="cpu", **knobs)
+        assert spec.draft.config.ffn_type == ffn_type
+        assert _drive(spec, paged_prompts[:4], 6) == want, ffn_type

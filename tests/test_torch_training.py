@@ -8,7 +8,8 @@ kernel wrappers take their plain versions (the CUDA kernels are held against
 those on the card by ``chip_smoke.py``).  Tolerances: 1e-4, the JAX
 package's trained-fixture trajectory test; 1e-6 between the port's own
 remat policies, which change where activations are recomputed, not the
-arithmetic.
+arithmetic.  The two-matrix FFNs (``ffn_type`` "silu" and "gelu") are held
+to 1e-4 too, on every leaf after two AdamW steps, the unread ``w3`` included.
 """
 
 import dataclasses
@@ -30,7 +31,12 @@ from bpe_transformer_tpu.training.loop import LoopConfig as JaxLoopConfig
 from bpe_transformer_tpu.training.loop import train as jax_train
 from bpe_transformer_tpu.training.train_step import TrainHParams as JaxTrainHParams
 from bpe_transformer_tpu.training.train_step import make_loss_fn as jax_make_loss_fn
-from bpe_transformer_tpu_torch.checkpointing import load_checkpoint
+from bpe_transformer_tpu.training.train_step import make_train_step as jax_make_train_step
+from bpe_transformer_tpu_torch.checkpointing import (
+    load_checkpoint,
+    save_checkpoint,
+    training_state,
+)
 from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG, ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import params_from_jax, params_from_state_dict
 from bpe_transformer_tpu_torch.optim import adamw_init
@@ -168,7 +174,53 @@ def _loops_from_one_checkpoint(tmp_path):
         load_checkpoint(stranger)
 
 
+def _two_matrix_ffns(tmp_path):
+    """(d) The silu and gelu FFNs: two train steps of ``TS_TEST_CONFIG`` at
+    vocab 512 from one JAX init, the port's ``make_train_step`` against
+    JAX's: loss, grad norm and every leaf after each step (``w3``, which
+    neither FFN reads, gets a zero gradient and shrinks by the decoupled
+    weight decay alone); the gelu model also under ``save_attn``, which
+    re-runs the GeLU forward in the backward.  The port's state after step
+    one, through a checkpoint round trip, takes step two identically."""
+    rng = np.random.default_rng(11)
+    batches = [tuple(rng.integers(0, 512, size=(4, 16)) for _ in range(2)) for _ in range(2)]
+    hp = dict(warmup_iters=1, cosine_cycle_iters=5, weight_decay=0.1)
+    for knobs in (dict(ffn_type="silu"),
+                  dict(ffn_type="gelu", remat_policy="save_attn", **KERNEL_KNOBS)):
+        cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=512, **knobs)
+        jcfg = _jax_config(cfg)
+        jax_params = jax_init_params(jax.random.PRNGKey(4), jcfg)
+        params = params_from_jax(jax.device_get(jax_params), device="cpu")
+        w3_init = params["layers"][0]["ffn"]["w3"].clone()
+        jax_step = jax_make_train_step(jcfg, JaxTrainHParams(**hp))
+        step = make_train_step(cfg, TrainHParams(**hp))
+        j_state = (jax_params, jax_adamw_init(jax_params))
+        state = (params, adamw_init(params))
+        for i, (x, y) in enumerate(batches):
+            if i == 1:
+                ckpt = tmp_path / f"{cfg.ffn_type}.ckpt"
+                save_checkpoint(ckpt, params=state[0], opt_state=state[1], iteration=1)
+                reloaded = step(*training_state(load_checkpoint(ckpt), "cpu"),
+                                torch.as_tensor(x), torch.as_tensor(y))
+            *j_state, j_m = jax_step(*j_state, jnp.asarray(x), jnp.asarray(y))
+            *state, m = step(*state, torch.as_tensor(x), torch.as_tensor(y))
+            what = f"{knobs} step {i + 1}"
+            _close(float(m["loss"]), float(j_m["loss"]), 1e-4, f"loss {what}")
+            _close(float(m["grad_norm"]), float(j_m["grad_norm"]), 1e-4, f"grad norm {what}")
+            want_leaves = tree_leaves(jax.tree_util.tree_map(np.asarray, j_state[0]))
+            got_leaves = tree_leaves(state[0])
+            assert len(got_leaves) == len(want_leaves)
+            for got, want in zip(got_leaves, want_leaves):
+                _close(got.detach(), want, 1e-4, f"params {what}")
+        assert float(reloaded[2]["loss"]) == float(m["loss"])
+        for got, want in zip(tree_leaves(reloaded[0]), tree_leaves(state[0])):
+            assert torch.equal(got, want), f"{knobs}: the step after a checkpoint round trip"
+        w3 = state[0]["layers"][0]["ffn"]["w3"].detach()
+        assert not torch.equal(w3, w3_init) and float(w3.abs().sum()) < float(w3_init.abs().sum())
+
+
 def test_torch_training_matches_jax(tmp_path):
     _pinned_trajectory()
     _one_step_grads()
     _loops_from_one_checkpoint(tmp_path)
+    _two_matrix_ffns(tmp_path)
