@@ -11,12 +11,18 @@ port's class without importing the JAX package, and any other global of the
 JAX package or of JAX is refused.  The JAX package does not read the port's
 checkpoints yet, and the sharded directory format (v2) is not ported: both
 come with the multi-GPU training slice.
+
+:func:`load_checkpoint_with_fallback` is the resume path: it verifies a
+snapshot against its CRC32 sidecar before loading it, quarantines one that
+fails and falls back to the newest valid earlier snapshot, with the JAX
+package's rules.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import sys
 import tempfile
 from pathlib import Path
 from typing import Any, BinaryIO
@@ -26,7 +32,14 @@ import torch
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState
-from bpe_transformer_tpu_torch.resilience.integrity import Crc32Writer, write_sidecar
+from bpe_transformer_tpu_torch.resilience.integrity import (
+    Crc32Writer,
+    candidate_snapshots,
+    quarantine,
+    snapshot_step,
+    verify_checkpoint,
+    write_sidecar,
+)
 from bpe_transformer_tpu_torch.tree import tree_map
 
 _FORMAT_VERSION = 1
@@ -135,3 +148,94 @@ def training_state(payload: dict, device: str | torch.device = "cuda"):
         v=tree_map(to_dev, opt.v),
     )
     return params, opt_state
+
+
+class CheckpointCorruptionError(RuntimeError):
+    """No loadable checkpoint: the requested snapshot and every earlier
+    sibling failed verification or loading.  ``failures`` lists why."""
+
+    def __init__(self, message: str, failures: list[str]):
+        super().__init__(message)
+        self.failures = failures
+
+
+def _quarantine_snapshot(path: Path) -> Path | None:
+    """Quarantine a corrupt snapshot; a symlink quarantines its target and
+    drops the dangling link."""
+    if path.is_symlink():
+        try:
+            target = path.resolve(strict=False)
+        except OSError:
+            target = None
+        path.unlink()
+        if target is not None and (target.exists() or target.is_symlink()):
+            return quarantine(target)
+        return None
+    if path.exists():
+        return quarantine(path)
+    return None
+
+
+def load_checkpoint_with_fallback(src: str | os.PathLike, loader=None) -> tuple[dict, Path]:
+    """Load ``src``, falling back to the newest earlier valid snapshot in
+    its directory when it is corrupt, and quarantining (never deleting)
+    every snapshot that fails on the way.  Returns ``(payload, used_path)``.
+
+    ``loader`` defaults to :func:`load_checkpoint`.  As in the JAX package:
+
+    * only snapshots whose step is strictly below the requested one are
+      candidates (``latest.ckpt`` has no step: every snapshot is), so a
+      resume from an old snapshot is never moved forward;
+    * a snapshot whose bytes match its checksum but whose load raises is
+      an error of the caller or the environment, not corruption: the
+      error is re-raised and the snapshot left in place.  Only a snapshot
+      without a sidecar is quarantined for a failed load.
+    """
+    loader = loader or load_checkpoint
+    src = Path(src)
+    try:
+        exclude = {src.resolve()}
+    except OSError:
+        exclude = set()
+    siblings = candidate_snapshots(src.parent, exclude=exclude)
+    src_step = snapshot_step(src.name)
+    if src_step is not None:
+        siblings = [p for p in siblings if (snapshot_step(p.name) or 0) < src_step]
+    failures: list[str] = []
+    for path in [src] + siblings:
+        result = verify_checkpoint(path)
+        if not result.ok:
+            failures.append(f"{path}: {'; '.join(result.problems) or 'invalid'}")
+            quarantined = _quarantine_snapshot(path)
+            print(
+                f"checkpoint {path} failed integrity verification"
+                + (f" (quarantined as {quarantined})" if quarantined else "")
+                + f": {'; '.join(result.problems)}",
+                file=sys.stderr,
+            )
+            continue
+        try:
+            payload = loader(path)
+        except Exception as exc:  # noqa: BLE001 - triaged below
+            if not result.warnings:  # every byte matched its checksum
+                raise
+            failures.append(f"{path}: load failed ({exc})")
+            quarantined = _quarantine_snapshot(path)
+            print(
+                f"checkpoint {path} failed to load ({exc})"
+                + (f"; quarantined as {quarantined}" if quarantined else ""),
+                file=sys.stderr,
+            )
+            continue
+        if failures:
+            print(
+                f"resumed from fallback snapshot {path} after {len(failures)} corrupt "
+                "candidate(s)",
+                file=sys.stderr,
+            )
+        return payload, path
+    raise CheckpointCorruptionError(
+        f"no loadable checkpoint at {src} or among its siblings ({len(failures)} "
+        "candidate(s) failed; corrupt snapshots were quarantined with a .corrupt suffix)",
+        failures,
+    )

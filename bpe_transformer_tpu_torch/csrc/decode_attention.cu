@@ -4,7 +4,9 @@
 //   decode_attention (line 107; kernel _decode_kernel, pallas_call at 213).
 // Computes: out[b, h] = softmax(q[b, h] . k[b, kv, 0..pos[b]] / sqrt(d)) v[...]
 //   with kv = h / (H / KV): GQA groups are consecutive query heads.
-//   q (B, H, d), k/v cache (B, KV, ctx, d), pos (B,) int32 -> out (B, H, d).
+//   q (B, H, d), k/v cache (B, KV, ctx, d), pos (B,) int32 -> out (B, H, d),
+//   for any head dim d <= 256 and any group H / KV (the JAX kernel pads d to
+//   128 lanes and the group to 8 sublanes).
 //
 // Bound on the H100: bytes.  Each live cache row (keys 0..pos) is read once
 // and used for 4 * G * d flops, far below the ~295 flops per byte where the
@@ -25,6 +27,17 @@
 // warp waited one load latency per row).
 // Scores and probabilities never leave registers.  Accumulation is float32
 // for both input types.
+//
+// Geometry: the kernel is instantiated for register widths D in {16, 32, 64,
+// 128, 256} and head chunks G in {1, 2, 4, 8} (at most 4 at D = 256, to keep
+// the warps' merge buffer within static shared memory).  A head dim d below
+// its width D is read in place (rows of d elements, scalar loads instead of
+// 16-byte vectors; the columns past d are zero in registers and never
+// stored), with the softmax scale of d.  A group of g query heads is cut into
+// ceil(g / G) chunks of G heads, one block each (the last one masks the heads
+// past g); the wrapper picks the smallest G that holds the group, so a group
+// of 3 runs one chunk of 4 and a group of 12 two chunks of 8, and every
+// chunk reads its kv head's rows.
 
 #include "common.cuh"
 
@@ -38,7 +51,8 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
-                        T* __restrict__ out, int H, int KV, int ctx, float scale) {
+                        T* __restrict__ out, int H, int KV, int ctx, int dt, int group,
+                        int n_chunks, float scale) {
   constexpr int DL = D < 32 ? D : 32;   // lanes across one row in the value pass
   constexpr int KPL = 32 / DL;          // rows side by side in the value pass
   constexpr int DPL = D / DL;           // columns per lane in the value pass
@@ -49,17 +63,22 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float l_sh[WARPS][G];
   __shared__ float acc_sh[WARPS][G][D];
 
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
+  const int b = blockIdx.x / (KV * n_chunks);
+  const int kvh = blockIdx.x / n_chunks % KV;
+  const int head0 = kvh * group + blockIdx.x % n_chunks * G;  // first query head
+  const int ng = min(G, kvh * group + group - head0);           // live heads of the chunk
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_keys = min(pos[b], ctx - 1) + 1;
 
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) q_sh[i / D][i % D] = to_f(qb[i]) * scale;
+  const T* qb = q + ((size_t)b * H + head0) * dt;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, c = i % D;
+    q_sh[g][c] = (g < ng && c < dt) ? to_f(qb[(size_t)g * dt + c]) * scale : 0.f;
+  }
   __syncthreads();
 
-  const size_t head_off = ((size_t)b * KV + kvh) * (size_t)ctx * D;
+  const size_t head_off = ((size_t)b * KV + kvh) * (size_t)ctx * dt;
   const T* kb = k + head_off;
   const T* vb = v + head_off;
 
@@ -81,15 +100,23 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
     if (live) {
-      const T* kr = kb + (size_t)key * D;
+      const T* kr = kb + (size_t)key * dt;
+      if (dt == D) {
 #pragma unroll
-      for (int c0 = 0; c0 < D; c0 += E) {
-        float kv[E];
-        load16(kr + c0, kv);
+        for (int c0 = 0; c0 < D; c0 += E) {
+          float kv[E];
+          load16(kr + c0, kv);
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
+          for (int e = 0; e < E; ++e) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) s[g] += q_sh[g][c0 + e] * kv[e];
+            for (int g = 0; g < G; ++g) s[g] += q_sh[g][c0 + e] * kv[e];
+          }
+        }
+      } else {  // a padded head dim: rows of dt elements, scalar loads
+        for (int c = 0; c < dt; ++c) {
+          const float kv = to_f(kr[c]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[g] += q_sh[g][c] * kv;
         }
       }
     }
@@ -115,10 +142,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < G; ++g) pj[g] = __shfl_sync(0xffffffffu, p[g], j);
       if (t0 + j < n_keys) {
-        const T* vr = vb + (size_t)(t0 + j) * D;
+        const T* vr = vb + (size_t)(t0 + j) * dt;
 #pragma unroll
         for (int r = 0; r < DPL; ++r) {
-          const float vv = to_f(vr[col0 + r * DL]);
+          const int col = col0 + r * DL;
+          const float vv = col < dt ? to_f(vr[col]) : 0.f;
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[g][r] += pj[g] * vv;
         }
@@ -151,9 +179,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   // Merge the warps' partial softmax states (a warp that saw no key holds
   // m = MASK, l = 0 and contributes exp(MASK - M) = 0).
-  T* ob = out + ((size_t)b * H + (size_t)kvh * G) * D;
+  T* ob = out + ((size_t)b * H + head0) * dt;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D, c = i % D;
+    if (g >= ng || c >= dt) continue;
     float mx = MASK;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m_sh[w][g]);
@@ -164,40 +193,47 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den += l_sh[w][g] * f;
       num += acc_sh[w][g][c] * f;
     }
-    ob[i] = from_f<T>(num / fmaxf(den, 1e-30f));
+    ob[(size_t)g * dt + c] = from_f<T>(num / fmaxf(den, 1e-30f));
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_d(int G, const void* q, const void* k, const void* v, const int* pos,
-                     void* out, int B, int H, int KV, int ctx, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);
-  const dim3 grid(B * KV), block(WARPS * 32);
-#define PORT_DECODE_CASE(GG)                                                          \
-  case GG:                                                                            \
-    decode_attention_kernel<T, D, GG><<<grid, block, 0, stream>>>(                   \
-        (const T*)q, (const T*)k, (const T*)v, pos, (T*)out, H, KV, ctx, scale);     \
-    break;
-  switch (G) {
-    PORT_DECODE_CASE(1)
-    PORT_DECODE_CASE(2)
-    PORT_DECODE_CASE(4)
-    PORT_DECODE_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PORT_DECODE_CASE
+struct Args {
+  const void *q, *k, *v;
+  const int* pos;
+  void* out;
+  int B, H, KV, ctx, dt, G, n_chunks;
+};
+
+template <typename T, int D, int G>
+cudaError_t launch_g(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.KV * a.n_chunks), block(WARPS * 32);
+  decode_attention_kernel<T, D, G><<<grid, block, 0, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.pos, (T*)a.out, a.H, a.KV, a.ctx, a.dt,
+      a.H / a.KV, a.n_chunks, 1.0f / sqrtf((float)a.dt));
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  switch (a.G) {
+    case 1: return launch_g<T, D, 1>(a, stream);
+    case 2: return launch_g<T, D, 2>(a, stream);
+    case 4: return launch_g<T, D, 4>(a, stream);
+    case 8:
+      if constexpr (D <= 128) return launch_g<T, D, 8>(a, stream);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-cudaError_t launch_t(int G, int d, const void* q, const void* k, const void* v, const int* pos,
-                     void* out, int B, int H, int KV, int ctx, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_d<T, 16>(G, q, k, v, pos, out, B, H, KV, ctx, stream);
-    case 32: return launch_d<T, 32>(G, q, k, v, pos, out, B, H, KV, ctx, stream);
-    case 64: return launch_d<T, 64>(G, q, k, v, pos, out, B, H, KV, ctx, stream);
-    case 128: return launch_d<T, 128>(G, q, k, v, pos, out, B, H, KV, ctx, stream);
+cudaError_t launch_t(int D, const Args& a, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_d<T, 16>(a, stream);
+    case 32: return launch_d<T, 32>(a, stream);
+    case 64: return launch_d<T, 64>(a, stream);
+    case 128: return launch_d<T, 128>(a, stream);
+    case 256: return launch_d<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -205,15 +241,19 @@ cudaError_t launch_t(int G, int d, const void* q, const void* k, const void* v, 
 }  // namespace
 
 // q (B, H, d), k/v (B, KV, ctx, d), pos (B,) int32, out (B, H, d); all
-// contiguous.  d in {16, 32, 64, 128}; H / KV in {1, 2, 4, 8}.
+// contiguous.  D in {16, 32, 64, 128, 256} is the register width of the true
+// head dim d <= D; the group H / KV runs in n_chunks chunks of G in {1, 2, 4,
+// 8} heads (G <= 4 at D = 256), G * n_chunks >= H / KV.
 extern "C" int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
                                        const void* pos, void* out, int B, int H, int KV,
-                                       int ctx, int d, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV || ctx <= 0) return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
+                                       int ctx, int D, int d, int G, int n_chunks,
+                                       void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV || ctx <= 0 || d <= 0 || d > D || n_chunks <= 0 ||
+      G * n_chunks < H / KV || (size_t)B * KV * n_chunks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, (const int*)pos, out, B, H, KV, ctx, d, G, n_chunks};
   const cudaStream_t s = (cudaStream_t)stream;
-  const int* p = (const int*)pos;
-  if (dtype == F32) return (int)launch_t<float>(G, d, q, k, v, p, out, B, H, KV, ctx, s);
-  if (dtype == BF16) return (int)launch_t<__nv_bfloat16>(G, d, q, k, v, p, out, B, H, KV, ctx, s);
+  if (dtype == F32) return (int)launch_t<float>(D, a, s);
+  if (dtype == BF16) return (int)launch_t<__nv_bfloat16>(D, a, s);
   return (int)cudaErrorInvalidValue;
 }

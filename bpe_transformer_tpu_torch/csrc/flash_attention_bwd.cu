@@ -1,15 +1,19 @@
-// Causal flash-attention backward (FlashAttention-2): dK/dV and dQ.
+// Flash-attention backward (FlashAttention-2), causal or not: dK/dV and dQ.
 //
 // Replaces: bpe_transformer_tpu/kernels/pallas/flash_attention.py
 //   _flash_bwd_impl (line 379): _flash_bwd_dkdv_kernel (line 299, pallas_call
-//   at 418) and _flash_bwd_dq_kernel (line 341, pallas_call at 442).
-// Computes, per (batch*head), from the forward's q/k/v (BH, S, d), the
-//   upstream gradient dO (BH, S, d), the forward's row logsumexp lse (BH, S)
+//   at 418) and _flash_bwd_dq_kernel (line 341, pallas_call at 442), reached
+//   from the causal flash VJP and from flash_attention_block_bwd (line 527),
+//   which the ring-flash backward calls with causal=False for every
+//   off-diagonal K/V shard, given the GLOBAL out and lse.
+// Computes, per (batch*head), from the forward's q/k/v (BH, S, D), the
+//   upstream gradient dO (BH, S, D), the forward's row logsumexp lse (BH, S)
 //   and delta = rowsum(dO * O) (BH, S), both float32:
-//     P  = exp(q k^T / sqrt(d) - lse)   (causal; recomputed, never stored)
+//     P  = exp(q k^T * scale - lse)     (causal or not; recomputed, never stored)
 //     dV = P^T dO        dS = P * (dO V^T - delta)
-//     dK = dS^T q / sqrt(d)             dQ = dS K / sqrt(d)
-//   dq/dk/dv in the input type, accumulated in float32.
+//     dK = dS^T q * scale               dQ = dS K * scale
+//   dq/dk/dv in the input type, accumulated in float32.  scale = 1/sqrt(d)
+//   of the caller's true head dim d <= D (the wrapper zero-pads d to D).
 //
 // Bound on the H100: operations at training lengths (about 2.5x the
 // forward's flops: 5 products of 2 * d flops per unmasked (query, key) pair
@@ -21,15 +25,19 @@
 // the accumulators in VMEM scratch across it.  Blocks here run in parallel and
 // in no order, so each kernel loops inside the block over the axis the TPU
 // walks:
-//   * dK/dV: one block per (64-key tile, batch*head).  Each key row belongs to
-//     TPR = max(1, d / 16) neighbouring threads holding d / TPR interleaved
+//   * dK/dV: one block per (BR-key tile, batch*head).  Each key row belongs to
+//     TPR = max(1, D / 16) neighbouring threads holding D / TPR interleaved
 //     columns of k, v and the float32 dK/dV accumulators in registers.  The
-//     block walks 32-query tiles from the one that holds its first key (the
-//     diagonal) to the end of the sequence, staging q (scaled), dO, lse and
-//     delta in shared memory; tiles wholly above the diagonal are never read.
-//   * dQ: one block per (64-query tile, batch*head), each query row holding q,
-//     dO and the dQ accumulator in registers, walking 32-key tiles of K and V
-//     staged in shared memory from 0 up to the tile's last row.
+//     block walks BT-query tiles, staging q (scaled), dO, lse and delta in
+//     shared memory: causal, from the tile that holds its first key (the
+//     diagonal) to the end of the sequence, so tiles wholly above the
+//     diagonal are never read; non-causal, every tile.
+//   * dQ: one block per (BR-query tile, batch*head), each query row holding q,
+//     dO and the dQ accumulator in registers, walking BT-key tiles of K and V
+//     staged in shared memory: causal, from 0 up to the tile's last row;
+//     non-causal, to the end.
+// BR = 64 and BT = 32 up to D = 128; at D = 256, BR = 32 (512 threads) and
+// BT = 16 (the two staged tiles stay within 48 KB of static shared memory).
 // Each gradient is owned by exactly one block, so no atomics are used and the
 // results are the same from run to run (the TPU's two-kernel split gives the
 // same property).  A ragged S is masked, not padded; rows past S are staged
@@ -41,10 +49,9 @@ using namespace port;
 
 namespace {
 
-constexpr int BR = 64;  // rows (keys for dK/dV, queries for dQ) owned per block
-constexpr int BT = 32;  // rows per staged shared-memory tile
-
 template <int D> struct Split {
+  static constexpr int BR = D <= 128 ? 64 : 32;     // rows (keys for dK/dV, queries for dQ) owned
+  static constexpr int BT = D <= 128 ? 32 : 16;     // rows per staged shared-memory tile
   static constexpr int TPR = D <= 16 ? 1 : D / 16;  // threads per owned row
   static constexpr int DT = D / TPR;                // columns per thread
   static constexpr int NT = BR * TPR;               // threads per block
@@ -58,13 +65,14 @@ __device__ __forceinline__ float row_sum(float part) {
   return part;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(Split<D>::NT)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       int S, float scale) {
   constexpr int TPR = Split<D>::TPR, DT = Split<D>::DT, NT = Split<D>::NT;
+  constexpr int BR = Split<D>::BR, BT = Split<D>::BT;
 
   __shared__ float q_sh[BT][D];  // q * scale
   __shared__ float do_sh[BT][D];
@@ -89,7 +97,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 
   // Causal: query rows below k0 see none of this block's keys.
-  for (int q0 = (k0 / BT) * BT; q0 < S; q0 += BT) {
+  for (int q0 = CAUSAL ? (k0 / BT) * BT : 0; q0 < S; q0 += BT) {
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < BT * D; i += NT) {
       const int row = q0 + i / D, col = i % D;
@@ -116,7 +124,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       s = row_sum<TPR>(s);
       dp = row_sum<TPR>(dp);
       const int row = q0 + i;
-      const bool live = key_live && row >= key && row < S;
+      const bool live = key_live && (!CAUSAL || row >= key) && row < S;
       const float p = live ? expf(s - lse_sh[i]) : 0.f;
       const float ds = p * (dp - delta_sh[i]);
 #pragma unroll
@@ -136,12 +144,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(Split<D>::NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int S, float scale) {
   constexpr int TPR = Split<D>::TPR, DT = Split<D>::DT, NT = Split<D>::NT;
+  constexpr int BR = Split<D>::BR, BT = Split<D>::BT;
 
   __shared__ float k_sh[BT][D];
   __shared__ float v_sh[BT][D];
@@ -164,7 +173,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float lse_r = row_live ? lse[bh * S + row] : 0.f;
   const float delta_r = row_live ? delta[bh * S + row] : 0.f;
 
-  const int last_key = min(q0 + BR, S) - 1;  // causal: nothing past the tile's last row
+  // Causal: nothing past the tile's last row.
+  const int last_key = CAUSAL ? min(q0 + BR, S) - 1 : S - 1;
   for (int k0 = 0; k0 <= last_key; k0 += BT) {
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < BT * D; i += NT) {
@@ -187,7 +197,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       s = row_sum<TPR>(s);
       dp = row_sum<TPR>(dp);
       const int key = k0 + j;
-      const bool live = row_live && key <= row && key < S;
+      const bool live = row_live && (!CAUSAL || key <= row) && key < S;
       const float p = live ? expf(s - lse_r) : 0.f;
       const float ds = p * (dp - delta_r);
 #pragma unroll
@@ -201,81 +211,83 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dkdv_d(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dk, void* dv, int BH, int S,
-                          cudaStream_t stream) {
-  const dim3 grid((S + BR - 1) / BR, BH), block(Split<D>::NT);
-  flash_bwd_dkdv_kernel<T, D><<<grid, block, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, S,
-      1.0f / sqrtf((float)D));
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *g0, *g1;  // dk, dv (dK/dV kernel) or dq, unused (dQ kernel)
+  int BH, S, d_true;
+  bool causal;
+};
+
+template <typename T, int D, bool DKDV>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.S + Split<D>::BR - 1) / Split<D>::BR, a.BH), block(Split<D>::NT);
+  const float scale = 1.0f / sqrtf((float)a.d_true);
+  const T *q = (const T*)a.q, *k = (const T*)a.k, *v = (const T*)a.v, *o = (const T*)a.dout;
+  if constexpr (DKDV) {
+    if (a.causal) {
+      flash_bwd_dkdv_kernel<T, D, true><<<grid, block, 0, stream>>>(
+          q, k, v, o, a.lse, a.delta, (T*)a.g0, (T*)a.g1, a.S, scale);
+    } else {
+      flash_bwd_dkdv_kernel<T, D, false><<<grid, block, 0, stream>>>(
+          q, k, v, o, a.lse, a.delta, (T*)a.g0, (T*)a.g1, a.S, scale);
+    }
+  } else {
+    if (a.causal) {
+      flash_bwd_dq_kernel<T, D, true><<<grid, block, 0, stream>>>(
+          q, k, v, o, a.lse, a.delta, (T*)a.g0, a.S, scale);
+    } else {
+      flash_bwd_dq_kernel<T, D, false><<<grid, block, 0, stream>>>(
+          q, k, v, o, a.lse, a.delta, (T*)a.g0, a.S, scale);
+    }
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq_d(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, void* dq, int BH, int S,
-                        cudaStream_t stream) {
-  const dim3 grid((S + BR - 1) / BR, BH), block(Split<D>::NT);
-  flash_bwd_dq_kernel<T, D><<<grid, block, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, S,
-      1.0f / sqrtf((float)D));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkdv_t(int d, const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dk, void* dv, int BH, int S,
-                          cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_dkdv_d<T, 16>(q, k, v, dout, lse, delta, dk, dv, BH, S, s);
-    case 32: return launch_dkdv_d<T, 32>(q, k, v, dout, lse, delta, dk, dv, BH, S, s);
-    case 64: return launch_dkdv_d<T, 64>(q, k, v, dout, lse, delta, dk, dv, BH, S, s);
-    case 128: return launch_dkdv_d<T, 128>(q, k, v, dout, lse, delta, dk, dv, BH, S, s);
+template <typename T, bool DKDV>
+cudaError_t launch_t(int D, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_d<T, 16, DKDV>(a, s);
+    case 32: return launch_d<T, 32, DKDV>(a, s);
+    case 64: return launch_d<T, 64, DKDV>(a, s);
+    case 128: return launch_d<T, 128, DKDV>(a, s);
+    case 256: return launch_d<T, 256, DKDV>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_dq_t(int d, const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, void* dq, int BH, int S,
-                        cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_dq_d<T, 16>(q, k, v, dout, lse, delta, dq, BH, S, s);
-    case 32: return launch_dq_d<T, 32>(q, k, v, dout, lse, delta, dq, BH, S, s);
-    case 64: return launch_dq_d<T, 64>(q, k, v, dout, lse, delta, dq, BH, S, s);
-    case 128: return launch_dq_d<T, 128>(q, k, v, dout, lse, delta, dq, BH, S, s);
-    default: return cudaErrorInvalidValue;
-  }
+template <bool DKDV>
+int launch(int dtype, int D, const Args& a, void* stream) {
+  if (a.BH <= 0 || a.S <= 0 || a.BH > 65535 || a.d_true <= 0 || a.d_true > D)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32) return (int)launch_t<float, DKDV>(D, a, s);
+  if (dtype == BF16) return (int)launch_t<__nv_bfloat16, DKDV>(D, a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q/k/v/dout/dk/dv (BH, S, d) contiguous, one dtype; lse/delta float32
-// (BH, S); causal; d in {16, 32, 64, 128}.
+// q/k/v/dout/dk/dv (BH, S, D) contiguous, one dtype; lse/delta float32
+// (BH, S).  D in {16, 32, 64, 128, 256}, the padded width of the true head
+// dim d_true <= D (columns past d_true are zero).  causal: 1 for the causal
+// mask, 0 for none.
 extern "C" int flash_attention_bwd_dkdv_launch(int dtype, const void* q, const void* k,
                                                const void* v, const void* dout, const void* lse,
                                                const void* delta, void* dk, void* dv, int BH,
-                                               int S, int d, void* stream) {
-  if (BH <= 0 || S <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const float *l = (const float*)lse, *dl = (const float*)delta;
-  if (dtype == F32) return (int)launch_dkdv_t<float>(d, q, k, v, dout, l, dl, dk, dv, BH, S, s);
-  if (dtype == BF16)
-    return (int)launch_dkdv_t<__nv_bfloat16>(d, q, k, v, dout, l, dl, dk, dv, BH, S, s);
-  return (int)cudaErrorInvalidValue;
+                                               int S, int D, int d_true, int causal,
+                                               void* stream) {
+  const Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, BH, S, d_true,
+               causal != 0};
+  return launch<true>(dtype, D, a, stream);
 }
 
-// As above; writes dq (BH, S, d).
+// As above; writes dq (BH, S, D).
 extern "C" int flash_attention_bwd_dq_launch(int dtype, const void* q, const void* k,
                                              const void* v, const void* dout, const void* lse,
-                                             const void* delta, void* dq, int BH, int S, int d,
-                                             void* stream) {
-  if (BH <= 0 || S <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const float *l = (const float*)lse, *dl = (const float*)delta;
-  if (dtype == F32) return (int)launch_dq_t<float>(d, q, k, v, dout, l, dl, dq, BH, S, s);
-  if (dtype == BF16)
-    return (int)launch_dq_t<__nv_bfloat16>(d, q, k, v, dout, l, dl, dq, BH, S, s);
-  return (int)cudaErrorInvalidValue;
+                                             const void* delta, void* dq, int BH, int S, int D,
+                                             int d_true, int causal, void* stream) {
+  const Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dq, nullptr, BH, S, d_true,
+               causal != 0};
+  return launch<false>(dtype, D, a, stream);
 }

@@ -10,7 +10,9 @@
 //   q (S, H, d), k/v pool (NB, KV, bs, d), tables (S, nbs) int32, pos (S,)
 //   int32 -> out (S, H, d) in q's type.  The pool holds q's type, or int8
 //   with one float32 scale per (block, kv head) in k_scale / v_scale
-//   (NB, KV), applied in registers.
+//   (NB, KV), applied in registers.  Any head dim d <= 256 and any group
+//   H / KV, with the geometry of decode_attention.cu (register widths D,
+//   head chunks G, rows of d elements read in place).
 //
 // Bound on the H100: bytes.  Each live key row (keys 0..pos of the slot) is
 // read once, with its block's two scales for an int8 pool, and used for
@@ -52,7 +54,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                     const TKV* __restrict__ vp, const int* __restrict__ tables,
                     const int* __restrict__ pos, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, TQ* __restrict__ out, int H, int KV,
-                    int bs, int nbs, float scale) {
+                    int bs, int nbs, int dt, int group, int n_chunks, float scale) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   constexpr int DL = D < 32 ? D : 32;  // lanes across one row in the value pass
   constexpr int KPL = 32 / DL;         // rows side by side in the value pass
@@ -65,16 +67,21 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   __shared__ float l_sh[WARPS][G];
   __shared__ float acc_sh[WARPS][G][D];
 
-  const int s = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
+  const int s = blockIdx.x / (KV * n_chunks);
+  const int kvh = blockIdx.x / n_chunks % KV;
+  const int head0 = kvh * group + blockIdx.x % n_chunks * G;  // first query head
+  const int ng = min(G, kvh * group + group - head0);           // live heads of the chunk
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_keys = min(pos[s], nbs * bs - 1) + 1;
   const int n_blocks = (n_keys + bs - 1) / bs;
 
   for (int i = threadIdx.x; i < n_blocks; i += blockDim.x) tab_sh[i] = tables[(size_t)s * nbs + i];
-  const TQ* qb = q + ((size_t)s * H + (size_t)kvh * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) q_sh[i / D][i % D] = to_f(qb[i]) * scale;
+  const TQ* qb = q + ((size_t)s * H + head0) * dt;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, c = i % D;
+    q_sh[g][c] = (g < ng && c < dt) ? to_f(qb[(size_t)g * dt + c]) * scale : 0.f;
+  }
   __syncthreads();
 
   float m[G], l[G], acc[G][DPL];
@@ -99,16 +106,24 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     if (live) {
       const int blk = tab_sh[key / bs];
       const size_t bh = (size_t)blk * KV + kvh;
-      row = (long long)((bh * bs + key % bs) * D);
+      row = (long long)((bh * bs + key % bs) * dt);
       const TKV* kr = kp + row;
+      if (dt == D) {
 #pragma unroll
-      for (int c0 = 0; c0 < D; c0 += E) {
-        float kv[E];
-        load16(kr + c0, kv);
+        for (int c0 = 0; c0 < D; c0 += E) {
+          float kv[E];
+          load16(kr + c0, kv);
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
+          for (int e = 0; e < E; ++e) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) s_[g] += q_sh[g][c0 + e] * kv[e];
+            for (int g = 0; g < G; ++g) s_[g] += q_sh[g][c0 + e] * kv[e];
+          }
+        }
+      } else {  // a padded head dim: rows of dt elements, scalar loads
+        for (int c = 0; c < dt; ++c) {
+          const float kv = to_f(kr[c]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) s_[g] += q_sh[g][c] * kv;
         }
       }
       if constexpr (QUANT) {
@@ -147,7 +162,8 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
         const TKV* vr = vp + rj;
 #pragma unroll
         for (int r = 0; r < DPL; ++r) {
-          const float vv = to_f(vr[col0 + r * DL]);
+          const int col = col0 + r * DL;
+          const float vv = col < dt ? to_f(vr[col]) : 0.f;
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[g][r] += pj[g] * vv;
         }
@@ -180,9 +196,10 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   __syncthreads();
   // Merge the warps' partial softmax states (a warp that saw no key holds
   // m = MASK, l = 0 and contributes exp(MASK - M) = 0).
-  TQ* ob = out + ((size_t)s * H + (size_t)kvh * G) * D;
+  TQ* ob = out + ((size_t)s * H + head0) * dt;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D, c = i % D;
+    if (g >= ng || c >= dt) continue;
     float mx = MASK;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m_sh[w][g]);
@@ -193,7 +210,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
       den += l_sh[w][g] * f;
       num += acc_sh[w][g][c] * f;
     }
-    ob[i] = from_f<TQ>(num / fmaxf(den, 1e-30f));
+    ob[(size_t)g * dt + c] = from_f<TQ>(num / fmaxf(den, 1e-30f));
   }
 }
 
@@ -202,39 +219,41 @@ struct Args {
   const int *tables, *pos;
   const float *k_scale, *v_scale;
   void* out;
-  int S, H, KV, bs, nbs;
+  int S, H, KV, bs, nbs, dt, G, n_chunks;
 };
 
-template <typename TQ, typename TKV, int D>
-cudaError_t launch_d(int G, const Args& a, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);
-  const dim3 grid(a.S * a.KV), block(WARPS * 32);
+template <typename TQ, typename TKV, int D, int G>
+cudaError_t launch_g(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.S * a.KV * a.n_chunks), block(WARPS * 32);
   const size_t smem = (size_t)a.nbs * sizeof(int);
-#define PORT_PAGED_CASE(GG)                                                                  \
-  case GG:                                                                                   \
-    paged_decode_kernel<TQ, TKV, D, GG><<<grid, block, smem, stream>>>(                     \
-        (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.tables, a.pos, a.k_scale,        \
-        a.v_scale, (TQ*)a.out, a.H, a.KV, a.bs, a.nbs, scale);                               \
-    break;
-  switch (G) {
-    PORT_PAGED_CASE(1)
-    PORT_PAGED_CASE(2)
-    PORT_PAGED_CASE(4)
-    PORT_PAGED_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PORT_PAGED_CASE
+  paged_decode_kernel<TQ, TKV, D, G><<<grid, block, smem, stream>>>(
+      (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.tables, a.pos, a.k_scale, a.v_scale,
+      (TQ*)a.out, a.H, a.KV, a.bs, a.nbs, a.dt, a.H / a.KV, a.n_chunks,
+      1.0f / sqrtf((float)a.dt));
   return cudaGetLastError();
 }
 
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  switch (a.G) {
+    case 1: return launch_g<TQ, TKV, D, 1>(a, stream);
+    case 2: return launch_g<TQ, TKV, D, 2>(a, stream);
+    case 4: return launch_g<TQ, TKV, D, 4>(a, stream);
+    case 8:
+      if constexpr (D <= 128) return launch_g<TQ, TKV, D, 8>(a, stream);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TQ, typename TKV>
-cudaError_t launch_t(int G, int d, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_d<TQ, TKV, 16>(G, a, stream);
-    case 32: return launch_d<TQ, TKV, 32>(G, a, stream);
-    case 64: return launch_d<TQ, TKV, 64>(G, a, stream);
-    case 128: return launch_d<TQ, TKV, 128>(G, a, stream);
+cudaError_t launch_t(int D, const Args& a, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_d<TQ, TKV, 16>(a, stream);
+    case 32: return launch_d<TQ, TKV, 32>(a, stream);
+    case 64: return launch_d<TQ, TKV, 64>(a, stream);
+    case 128: return launch_d<TQ, TKV, 128>(a, stream);
+    case 256: return launch_d<TQ, TKV, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -244,24 +263,26 @@ cudaError_t launch_t(int G, int d, const Args& a, cudaStream_t stream) {
 // q (S, H, d) and out in q's type (dtype code), k/v pools (NB, KV, bs, d) in
 // q's type or int8 (kv_dtype code), tables (S, nbs) int32, pos (S,) int32,
 // k_scale / v_scale (NB, KV) float32 for int8 pools (else NULL); all
-// contiguous.  d in {16, 32, 64, 128}; H / KV in {1, 2, 4, 8}; nbs * 4 bytes
-// of dynamic shared memory (nbs <= 4096).
+// contiguous.  D in {16, 32, 64, 128, 256} is the register width of the true
+// head dim d <= D; the group H / KV runs in n_chunks chunks of G in {1, 2, 4,
+// 8} heads (G <= 4 at D = 256), G * n_chunks >= H / KV; nbs * 4 bytes of
+// dynamic shared memory (nbs <= 4096).
 extern "C" int paged_decode_attention_launch(int dtype, const void* q, const void* k,
                                              const void* v, const void* tables, const void* pos,
                                              const void* k_scale, const void* v_scale, void* out,
                                              int kv_dtype, int S, int H, int KV, int bs, int nbs,
-                                             int d, void* stream) {
-  if (S <= 0 || KV <= 0 || H % KV || bs <= 0 || nbs <= 0 || nbs > 4096)
+                                             int D, int d, int G, int n_chunks, void* stream) {
+  if (S <= 0 || KV <= 0 || H % KV || bs <= 0 || nbs <= 0 || nbs > 4096 || d <= 0 || d > D ||
+      n_chunks <= 0 || G * n_chunks < H / KV)
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
   const Args a{q, k, v, (const int*)tables, (const int*)pos, (const float*)k_scale,
-               (const float*)v_scale, out, S, H, KV, bs, nbs};
+               (const float*)v_scale, out, S, H, KV, bs, nbs, d, G, n_chunks};
   const cudaStream_t s = (cudaStream_t)stream;
   if (kv_dtype == I8 && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == F32 && kv_dtype == F32) return (int)launch_t<float, float>(G, d, a, s);
-  if (dtype == F32 && kv_dtype == I8) return (int)launch_t<float, int8_t>(G, d, a, s);
+  if (dtype == F32 && kv_dtype == F32) return (int)launch_t<float, float>(D, a, s);
+  if (dtype == F32 && kv_dtype == I8) return (int)launch_t<float, int8_t>(D, a, s);
   if (dtype == BF16 && kv_dtype == BF16)
-    return (int)launch_t<__nv_bfloat16, __nv_bfloat16>(G, d, a, s);
-  if (dtype == BF16 && kv_dtype == I8) return (int)launch_t<__nv_bfloat16, int8_t>(G, d, a, s);
+    return (int)launch_t<__nv_bfloat16, __nv_bfloat16>(D, a, s);
+  if (dtype == BF16 && kv_dtype == I8) return (int)launch_t<__nv_bfloat16, int8_t>(D, a, s);
   return (int)cudaErrorInvalidValue;
 }

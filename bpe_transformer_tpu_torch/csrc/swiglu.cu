@@ -24,6 +24,9 @@
 // held in registers (thread t owns output columns t, t + 256, ...).  A second
 // small kernel sums the nsplit float32 partials and rounds y to the input
 // type; the sum order is fixed, so results do not vary from run to run.
+// A block holds at most 8 * 256 = 2048 output columns in registers; a wider
+// d_model is cut into chunks of 2048 columns over gridDim.z, and the blocks
+// of each chunk recompute the slice's up products (h) for themselves.
 
 #include "common.cuh"
 
@@ -35,6 +38,7 @@ constexpr int BM = 16;   // rows per tile
 constexpr int BF = 32;   // ff columns per slice
 constexpr int BC = 32;   // d columns per staged tile of the up products
 constexpr int NT = 256;  // threads per block
+constexpr int MAX_NR = 8;  // output columns per thread: NT * MAX_NR per block
 
 __device__ __forceinline__ float silu(float u) { return u / (1.f + expf(-u)); }
 
@@ -49,6 +53,7 @@ swiglu_partial_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.z * NT * MAX_NR;  // this block's output columns start here
   const int split = blockIdx.y, nsplit = gridDim.y;
   const int n_slices = (ff + BF - 1) / BF;
   const int ui = tid / 16;  // up-product row
@@ -92,7 +97,7 @@ swiglu_partial_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
-      const int n = tid + NT * r;
+      const int n = n0 + tid + NT * r;
       if (n < d) {
         float w2v[BF];
         const T* w2r = w2 + (size_t)n * ff + f0;
@@ -110,7 +115,7 @@ swiglu_partial_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T
   }
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
-    const int n = tid + NT * r;
+    const int n = n0 + tid + NT * r;
     if (n >= d) continue;
 #pragma unroll
     for (int i = 0; i < BM; ++i) {
@@ -133,8 +138,9 @@ __global__ void swiglu_reduce_kernel(const float* __restrict__ ws, T* __restrict
 template <typename T>
 cudaError_t launch_t(const void* x, const void* w1, const void* w3, const void* w2, float* ws,
                      void* y, int m, int d, int ff, int nsplit, cudaStream_t stream) {
-  const int nr = (d + NT - 1) / NT;
-  const dim3 grid((m + BM - 1) / BM, nsplit), block(NT);
+  const int nr = d > NT * MAX_NR ? MAX_NR : (d + NT - 1) / NT;
+  const int n_chunks = (d + NT * MAX_NR - 1) / (NT * MAX_NR);
+  const dim3 grid((m + BM - 1) / BM, nsplit, n_chunks), block(NT);
   const T *xp = (const T*)x, *w1p = (const T*)w1, *w3p = (const T*)w3, *w2p = (const T*)w2;
 #define PORT_SWIGLU_CASE(R)                                                                   \
   case R:                                                                                     \
@@ -164,7 +170,7 @@ cudaError_t launch_t(const void* x, const void* w1, const void* w3, const void* 
 }  // namespace
 
 // x (m, d), w1/w3 (ff, d), w2 (d, ff), y (m, d) contiguous; ws float32
-// (nsplit, m, d) scratch.  d <= 2048.
+// (nsplit, m, d) scratch.  Any d.
 extern "C" int swiglu_launch(int dtype, const void* x, const void* w1, const void* w3,
                              const void* w2, void* ws, void* y, int m, int d, int ff, int nsplit,
                              void* stream) {

@@ -25,7 +25,12 @@ tensors and runs :func:`decode_attention_plain` for CPU tensors.
   int8 pools (one scale per block and kv head)
 
 It launches ``csrc/paged_decode_attention.cu`` for CUDA tensors and runs
-:func:`paged_decode_attention_plain` for CPU tensors.  Launches are counted
+:func:`paged_decode_attention_plain` for CPU tensors.
+
+Both kernels take any ``d_head`` up to 256 and any group ``num_heads //
+kv_heads``, as the JAX functions do (:func:`decode_geometry`: the head dim
+runs at the next instantiated register width, the group in chunks of 1, 2,
+4 or 8 heads).  Launches are counted
 in ``kernels/_build.py`` under ``decode_attention`` and
 ``paged_decode_attention``.
 """
@@ -35,6 +40,26 @@ from __future__ import annotations
 import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
+from bpe_transformer_tpu_torch.kernels.flash_attention import padded_head_dim
+
+#: Query-head chunks the kernels are instantiated for (at most 4 heads at the
+#: 256-wide register tile, whose merge buffer would not fit shared memory).
+GROUP_CHUNKS = (1, 2, 4, 8)
+
+
+def decode_geometry(num_heads: int, kv_heads: int, d: int) -> tuple[int, int, int]:
+    """``(width, chunk, n_chunks)`` of a decode kernel launch: the register
+    width the head dim ``d`` runs at (:func:`padded_head_dim`), and the
+    query group ``num_heads // kv_heads`` cut into ``n_chunks`` chunks of
+    ``chunk`` heads, the smallest instantiated chunk that holds the group
+    (or the largest, repeated)."""
+    if kv_heads < 1 or num_heads % kv_heads:
+        raise ValueError(f"num_heads={num_heads} not divisible by kv_heads={kv_heads}")
+    width = padded_head_dim(d)
+    group = num_heads // kv_heads
+    chunks = [c for c in GROUP_CHUNKS if width <= 128 or c <= 4]
+    chunk = next((c for c in chunks if c >= group), chunks[-1])
+    return width, chunk, -(-group // chunk)
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -72,22 +97,16 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
             f"shape mismatch: q {tuple(q.shape)}, k_cache {tuple(k_cache.shape)}, "
             f"v_cache {tuple(v_cache.shape)}"
         )
-    if num_heads % kv_heads or num_heads // kv_heads not in (1, 2, 4, 8):
-        raise ValueError(
-            f"num_heads={num_heads} / kv_heads={kv_heads}: the kernel takes "
-            "query groups of 1, 2, 4 or 8 heads"
-        )
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"d_head={d} unsupported by the kernel (16, 32, 64, 128)")
+    width, chunk, n_chunks = decode_geometry(num_heads, kv_heads, d)
     q = q.contiguous()
     pos_b = _pos_vector(pos, batch, q.device).to(torch.int32).contiguous()
     out = torch.empty_like(q)
     code, stream = _build.kernel_args("decode_attention", q, k_cache, v_cache, out)
-    fn = _build.entry("decode_attention", "decode_attention_launch", 5, 5)
+    fn = _build.entry("decode_attention", "decode_attention_launch", 5, 8)
     rc = fn(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_b.data_ptr(), out.data_ptr(), batch, num_heads, kv_heads, ctx, d,
-        stream,
+        pos_b.data_ptr(), out.data_ptr(), batch, num_heads, kv_heads, ctx, width, d,
+        chunk, n_chunks, stream,
     )
     _build.check(rc, "decode_attention")
     _build.count("decode_attention")
@@ -153,13 +172,7 @@ def paged_decode_attention(
     slots, num_heads, d = q.shape
     _, kv_heads, block_size, _ = k_pool.shape
     nbs = tables.shape[1]
-    if num_heads // kv_heads not in (1, 2, 4, 8):
-        raise ValueError(
-            f"num_heads={num_heads} / kv_heads={kv_heads}: the kernel takes "
-            "query groups of 1, 2, 4 or 8 heads"
-        )
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"d_head={d} unsupported by the kernel (16, 32, 64, 128)")
+    width, chunk, n_chunks = decode_geometry(num_heads, kv_heads, d)
     if nbs > 4096:
         raise ValueError(f"blocks_per_slot={nbs} unsupported by the kernel (at most 4096)")
     quantized = k_pool.dtype == torch.int8
@@ -178,12 +191,12 @@ def paged_decode_attention(
         others=(k_pool, v_pool, tables32, pos_b),
     )
     kv_code = _build.INT8_CODE if quantized else code
-    fn = _build.entry("paged_decode_attention", "paged_decode_attention_launch", 8, 7)
+    fn = _build.entry("paged_decode_attention", "paged_decode_attention_launch", 8, 10)
     rc = fn(
         code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables32.data_ptr(),
         pos_b.data_ptr(), k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None, out.data_ptr(), kv_code, slots,
-        num_heads, kv_heads, block_size, nbs, d, stream,
+        num_heads, kv_heads, block_size, nbs, width, d, chunk, n_chunks, stream,
     )
     _build.check(rc, "paged_decode_attention")
     _build.count("paged_decode_attention")

@@ -25,7 +25,7 @@ import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
 
-_BM, _BF, _NT = 16, 32, 256  # row tile, ff slice, threads (csrc/swiglu.cu)
+_BM, _BF = 16, 32  # row tile, ff slice (csrc/swiglu.cu)
 
 
 def swiglu_plain(x, w1, w2, w3) -> torch.Tensor:
@@ -64,8 +64,6 @@ def _swiglu_forward(x, w1, w2, w3) -> torch.Tensor:
             f"weight shapes {tuple(w1.shape)} {tuple(w2.shape)} {tuple(w3.shape)} "
             f"do not fit d_model={d}"
         )
-    if d > 8 * _NT:
-        raise ValueError(f"d_model={d} unsupported by the kernel (at most {8 * _NT})")
     x2d = x.reshape(-1, d).contiguous()
     m = x2d.shape[0]
     out = torch.empty_like(x2d)

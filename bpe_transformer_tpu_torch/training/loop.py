@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 import shutil
 import time
 from pathlib import Path
@@ -29,7 +28,7 @@ import numpy as np
 import torch
 
 from bpe_transformer_tpu_torch.checkpointing.checkpoint import (
-    load_checkpoint,
+    load_checkpoint_with_fallback,
     save_checkpoint,
     training_state,
 )
@@ -38,7 +37,11 @@ from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import init_params
 from bpe_transformer_tpu_torch.optim.adamw import adamw_init
-from bpe_transformer_tpu_torch.resilience.integrity import atomic_write_json, sidecar_path
+from bpe_transformer_tpu_torch.resilience.integrity import (
+    SNAPSHOT_RE,
+    atomic_write_json,
+    sidecar_path,
+)
 from bpe_transformer_tpu_torch.training.train_step import (
     TrainHParams,
     make_eval_step,
@@ -83,13 +86,16 @@ class LoopConfig:
     async_checkpoint: bool = False
 
 
-#: LoopConfig fields that select the machinery of a later slice.
+#: LoopConfig fields that select the machinery of a later slice.  Sequence
+#: parallelism on one card is ``parallel.sp.make_sp_train_step``; the loop
+#: wiring (``parallel="sp"``) comes with the multi-GPU slice.
+_MULTI_GPU = "multi-GPU training (ROADMAP slice 10)"
 _OTHER_SLICES = {
-    "parallel": "multi-GPU training",
-    "mesh_axes": "multi-GPU training",
-    "opt_sharding": "multi-GPU training",
-    "sp_zigzag": "multi-GPU training",
-    "sp_ulysses": "multi-GPU training",
+    "parallel": _MULTI_GPU,
+    "mesh_axes": _MULTI_GPU,
+    "opt_sharding": _MULTI_GPU,
+    "sp_zigzag": _MULTI_GPU,
+    "sp_ulysses": _MULTI_GPU,
     "metrics_jsonl": "telemetry",
     "wandb_project": "telemetry",
     "health_stats": "telemetry",
@@ -100,8 +106,6 @@ _OTHER_SLICES = {
     "inner_steps": "a later training slice (scanned inner steps)",
     "async_checkpoint": "a later training slice (async checkpoints)",
 }
-
-_SNAPSHOT_RE = re.compile(r"^step_(\d+)\.ckpt$")
 
 
 def _check_loop(loop: LoopConfig) -> None:
@@ -124,7 +128,7 @@ def _gc_checkpoints(ckpt_dir: Path, keep: int, log_fn) -> None:
     snaps = sorted(
         (int(m.group(1)), p)
         for p in ckpt_dir.iterdir()
-        if (m := _SNAPSHOT_RE.match(p.name))
+        if (m := SNAPSHOT_RE.match(p.name))
     )
     for _, path in snaps[: max(len(snaps) - keep, 0)]:
         path.unlink()
@@ -147,7 +151,10 @@ def train(
     records).  The parameters start from ``torch.Generator().manual_seed(
     loop.seed)`` (:func:`init_params`; other values than the JAX package's
     ``PRNGKey(seed)``), or from ``resume_from``, a checkpoint file or a
-    directory holding ``latest.ckpt`` (the port's or the JAX package's)."""
+    directory holding ``latest.ckpt`` (the port's or the JAX package's),
+    restored through :func:`load_checkpoint_with_fallback`: a snapshot that
+    fails its CRC32 check is quarantined and the newest valid earlier one
+    is loaded."""
     dev = resolve_device(device)
     _check_loop(loop)
     check_dataset_geometry(
@@ -164,10 +171,10 @@ def train(
         src = Path(resume_from)
         if src.is_dir():
             src = src / "latest.ckpt"
-        payload = load_checkpoint(src)
+        payload, used = load_checkpoint_with_fallback(src)
         params, opt_state = training_state(payload, dev)
         start_iteration = payload["iteration"]
-        log_fn(f"resumed from {src} at iteration {start_iteration}")
+        log_fn(f"resumed from {used} at iteration {start_iteration}")
     else:
         params = init_params(model_config, torch.Generator().manual_seed(loop.seed), device=dev)
     if opt_state is None:

@@ -8,7 +8,8 @@ functions where the JAX package returns jitted ones.  ``loss`` and
 ``grad_norm`` stay on the step's device (reading them is the caller's sync
 point, as a metric fetch is in the JAX loop); ``lr`` is a Python float.
 The multi-device variants (``reduce_axis``, ZeRO-1) and the health and
-dynamics taps belong to later slices and raise.
+dynamics taps belong to later slices and raise; sequence parallelism on one
+card is ``parallel/sp.py``.
 """
 
 from __future__ import annotations
@@ -162,15 +163,18 @@ def make_train_step(
     return train_step_fn(config, hparams, health=health, dynamics=dynamics)
 
 
-def accumulate_grads(grad_fn, params, xs, ys, accum_steps: int, context: str = ""):
+def accumulate_grads(grad_fn, params, xs, ys, accum_steps: int, context: str = "",
+                     layout: str = "micro_batch, seq"):
     """``(loss, grads)`` averaged over the leading microbatch dim of ``xs,
     ys (accum_steps, micro_batch, seq)``: one forward and backward per
     microbatch, gradients summed in float32, so the result equals one step
-    on the concatenated batch."""
-    if xs.ndim != 3 or ys.ndim != 3 or xs.shape[0] != accum_steps:
+    on the concatenated batch.  ``layout`` names the dims of one microbatch
+    (the sp step's carry a leading ring-rank dim)."""
+    ndim = 1 + len(layout.split(","))
+    if xs.ndim != ndim or ys.ndim != ndim or xs.shape[0] != accum_steps:
         raise ValueError(
             f"{context or 'grad-accum step'} wants (accum_steps={accum_steps}, "
-            f"micro_batch, seq) token ids, got xs {tuple(xs.shape)}"
+            f"{layout}) token ids, got xs {tuple(xs.shape)}"
         )
     loss_sum = None
     grad_sum = None

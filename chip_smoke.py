@@ -85,13 +85,27 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and phase 9c's through the paged engine at int8 KV + int8 weights, and
    phase 8's 10 training steps, each with exact launch counts and a
    profile;
+12. ring-flash sequence-parallel training on a stacked ring of 4 ranks
+   (``bpe_transformer_tpu_torch/parallel``): (a) B6, the non-causal flash
+   forward with its lse and the non-causal block backward, with their
+   causal twins, against the plain versions at the sp path's launch shapes
+   (4 x (8, 12, 256, 64) contiguous, 4 x (8, 12, 128, 64) zig-zag),
+   float32 and bfloat16, with kernel / plain / library ms and the bound;
+   (b) the contiguous and zig-zag rings, forward and backward, against one
+   full-length causal flash call and its gradients at (8, 12, 1024, 64);
+   (c) ``make_sp_train_step`` at GPT2_SMALL_32K (phase 8's batch and
+   dtypes, ``attention_impl="flash"``), contiguous and zig-zag: step 1's
+   loss and gradients against the dense step's, then 10 steps on one batch
+   with exact launch counts, host ms per step, a step profile and peak
+   memory;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
 ``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
-fused tails) and ``chip_smoke_gelu.json`` (the GeLU kernels).
+fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels) and
+``chip_smoke_sp.json`` (B6).
 """
 
 from __future__ import annotations
@@ -190,6 +204,19 @@ KERNEL_META = {
     "gelu_bwd": {
         "source": "bpe_transformer_tpu_torch/csrc/gelu.cu",
         "replaces": "bpe_transformer_tpu/kernels/pallas/gelu.py:83",
+    },
+    # B6: the ring-flash interface, the causal=False instances.
+    "flash_attention_nc": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:512",
+    },
+    "flash_attention_bwd_dkdv_nc": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:527",
+    },
+    "flash_attention_bwd_dq_nc": {
+        "source": "bpe_transformer_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "bpe_transformer_tpu/kernels/pallas/flash_attention.py:527",
     },
 }
 SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
@@ -411,11 +438,12 @@ def quant_case(torch, gen, m, k_in, n_out, dtype) -> tuple:
 
 def check_other_shapes(torch) -> None:
     """Kernel vs plain at shapes off the main path that the kernels take:
-    every head dim and GQA group size they instantiate, ragged ctx and S,
+    every head dim and GQA group size they instantiate, head dims between
+    them (96) and groups that are no power of two (3, 12), ragged ctx and S,
     d_ff not a multiple of the SwiGLU slice (TINYSTORIES_4L's 683), the
-    widest SwiGLU register tile (d_model 2048), paged blocks of 8 to 64 with
-    a slot on the trash block, and int8 weight rows that are not a multiple
-    of 16 bytes.  Correctness only."""
+    widest SwiGLU register tile (d_model 2048) and wider models (2500, 4096),
+    paged blocks of 8 to 64 with a slot on the trash block, and int8 weight
+    rows that are not a multiple of 16 bytes.  Correctness only."""
     from bpe_transformer_tpu_torch.kernels import decode_attention as da
     from bpe_transformer_tpu_torch.kernels import flash_attention as fa
     from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
@@ -429,23 +457,32 @@ def check_other_shapes(torch) -> None:
             return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
         cases = []
+        # The last four are shapes the kernels once refused: head dims 96 and
+        # 256 (padded to the next register width), groups of 12 and 3.
         for B, H, KV, ctx, d in ((3, 4, 4, 77, 16), (2, 8, 4, 200, 32), (2, 8, 1, 300, 128),
-                                 (4, 16, 2, 64, 64)):
+                                 (4, 16, 2, 64, 64), (2, 4, 4, 128, 96), (2, 12, 1, 100, 64),
+                                 (3, 6, 2, 77, 32), (2, 16, 1, 50, 256)):
             pos = torch.randint(0, ctx, (B,), generator=gen, device="cuda")
+            if d == 96:
+                pos = torch.tensor([5, 100], device="cuda")
             cases.append(("decode_attention", f"B={B} H={H} KV={KV} ctx={ctx} d={d}",
                           da.decode_attention, da.decode_attention_plain,
                           (rnd(B, H, d), rnd(B, KV, ctx, d), rnd(B, KV, ctx, d), pos)))
-        for shape in ((2, 3, 77, 16), (1, 2, 200, 32), (2, 1, 300, 128)):
+        for shape in ((2, 3, 77, 16), (1, 2, 200, 32), (2, 1, 300, 128), (2, 64, 96),
+                      (1, 2, 130, 256)):
             cases.append(("flash_attention", f"{shape}", fa.flash_attention,
                           fa.flash_attention_plain, tuple(rnd(*shape) for _ in range(3))))
-        for m, dm, ff in ((5, 256, 683), (37, 64, 200), (3, 2048, 96)):
+        for m, dm, ff in ((5, 256, 683), (37, 64, 200), (3, 2048, 96), (5, 4096, 96),
+                          (3, 2500, 200)):
             cases.append(("swiglu", f"m={m} d={dm} ff={ff}", sw.swiglu_fused, sw.swiglu_plain,
                           (rnd(m, dm), rnd(ff, dm, std=0.02), rnd(dm, ff, std=0.02),
                            rnd(ff, dm, std=0.02))))
         # Paged decode: GQA groups 2, 4 and 8, head dims 16, 32 and 128,
         # blocks of 8, 32 and 64, act and int8 pools, the last slot on trash.
         for S, H, KV, bs, nbs, d in ((3, 8, 4, 8, 16, 16), (4, 16, 4, 32, 8, 32),
-                                     (2, 16, 2, 64, 4, 128), (5, 8, 1, 8, 8, 64)):
+                                     (2, 16, 2, 64, 4, 128), (5, 8, 1, 8, 8, 64),
+                                     (2, 4, 4, 16, 8, 96), (3, 12, 1, 16, 4, 64),
+                                     (3, 6, 2, 8, 8, 32), (2, 8, 2, 16, 4, 256)):
             for kv_int8 in (False, True):
                 q, k, v, tb, ps, ks, vs = paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype,
                                                        kv_int8, trash_slot=True)
@@ -789,6 +826,8 @@ TRAIN_SHAPES_OFF = {
     "ragged S 77 d 16": (2, 3, 77, 16),
     "ragged S 200 d 128": (1, 2, 200, 128),
     "ragged S 1000 d 64": (1, 2, 1000, 64),
+    "S 64 d 96 (padded)": (2, 2, 64, 96),
+    "ragged S 130 d 256": (1, 2, 130, 256),
 }
 
 
@@ -2215,6 +2254,314 @@ def phase_gelu_full_width(torch, smi: str, dense_requests, paged_requests) -> di
             "gelu_bwd": per_step["gelu_bwd"] * n_steps}
 
 
+# ------------------------------------------------------------ phase 12
+
+#: The ring-flash interface (B6): the non-causal forward with its lse and the
+#: non-causal block backward, counted apart from the causal launches.
+RING_KERNELS = ("flash_attention_nc", "flash_attention_bwd_dkdv_nc", "flash_attention_bwd_dq_nc")
+#: Ring ranks of the sequence-parallel path: GPT2_SMALL_32K's 1024-token
+#: context cut into 4 shards of 256 (zig-zag chunks of 128).
+SP_RANKS = 4
+
+
+def _sp_shards(torch, x, n: int, zigzag: bool):
+    """(B, H, S, D) -> (n, B, H, S/n, D) ring shards, zig-zag laid out when
+    asked; and the inverse."""
+    from bpe_transformer_tpu_torch.parallel import zigzag_indices
+
+    b, h, s, d = x.shape
+    if zigzag:
+        x = x[..., zigzag_indices(s, n).to(x.device), :]
+    return x.reshape(b, h, n, s // n, d).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def _sp_unshard(torch, x, zigzag: bool):
+    from bpe_transformer_tpu_torch.parallel import zigzag_inverse_indices
+
+    n, b, h, sl, d = x.shape
+    out = x.permute(1, 2, 0, 3, 4).reshape(b, h, n * sl, d)
+    if zigzag:
+        out = out[..., zigzag_inverse_indices(n * sl, n).to(x.device), :]
+    return out
+
+
+def ring_kernel_errors(torch, fa, q, k, v, g) -> dict:
+    """B6 against its plain versions: the forward with lse and the block
+    backward, causal and non-causal, given the global out and lse of the
+    same call; checked against TRAIN_TOL."""
+    dname = str(q.dtype).removeprefix("torch.")
+    tol = TRAIN_TOL[dname]
+    errs = {}
+    for causal in (False, True):
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+        grads = fa.flash_attention_block_bwd(q, k, v, out, lse, g, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
+        ref = (fa.flash_attention_bwd_dq_plain(q, k, v, out, lse, g, causal),
+               *fa.flash_attention_bwd_dkdv_plain(q, k, v, out, lse, g, causal))
+        for t in (out, lse, *grads):
+            require(bool(torch.isfinite(t).all()), f"B6 {dname} {tuple(q.shape)}: non-finite")
+        tag = "" if causal else "_nc"
+        for name, err, limit in (
+            (f"flash_attention{tag}", _max_err(out, ref_out), tol["out"]),
+            (f"lse{tag}", _max_err(lse, ref_lse), tol["lse"]),
+            (f"flash_attention_bwd_dq{tag}", _max_err(grads[0], ref[0]), tol["grad"]),
+            (f"flash_attention_bwd_dkdv{tag}",
+             max(_max_err(grads[1], ref[1]), _max_err(grads[2], ref[2])), tol["grad"]),
+        ):
+            require(err <= limit,
+                    f"{name} {dname} {tuple(q.shape)}: max error {err:.3e} > {limit:g}")
+            errs[name] = err
+    return errs
+
+
+def ring_kernel_timings(torch, fa, shape, gen) -> list[dict]:
+    """bf16 kernel / plain / library ms and bound of the three non-causal
+    kernels at one launch shape of the sp path (CUDA events, inputs cycled
+    past the L2).  The library calls are PyTorch's flash attention with its
+    lse and its backward on the global out and lse (timed only)."""
+    dtype = torch.bfloat16
+    *batch, s, d = shape
+    bh = math.prod(batch)
+    elems = bh * s * d
+    pairs = bh * s * s  # non-causal: every (query, key) pair
+    aten = torch.ops.aten
+    sets = []
+    for _ in range(copies_for(4 * elems * 2)):
+        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        out, lse = fa.flash_attention_with_lse(q, k, v, False)
+        delta = (g.float() * out.float()).sum(-1).contiguous()
+        sets.append(dict(q=q, k=k, v=v, g=g, out=out, lse=lse, delta=delta,
+                         q4=q.reshape(-1, *shape[-3:]), k4=k.reshape(-1, *shape[-3:]),
+                         v4=v.reshape(-1, *shape[-3:]), g4=g.reshape(-1, *shape[-3:])))
+    lib_fwd = lib_bwd = None
+    try:
+        for t in sets:
+            t["lib"] = aten._scaled_dot_product_flash_attention(t["q4"], t["k4"], t["v4"], 0.0,
+                                                                 False)
+
+        def lib_fwd(t):
+            return aten._scaled_dot_product_flash_attention(t["q4"], t["k4"], t["v4"], 0.0, False)
+
+        def lib_bwd(t):
+            o, l_, cq, ck, mq, mk, seed, offset, _ = t["lib"]
+            return aten._scaled_dot_product_flash_attention_backward(
+                t["g4"], t["q4"], t["k4"], t["v4"], o, l_, cq, ck, mq, mk, 0.0, False, seed,
+                offset)
+
+        lib_bwd(sets[0])
+    except (RuntimeError, TypeError) as exc:
+        log(f"library flash attention not timed at {shape}: {str(exc).splitlines()[0]}")
+        lib_fwd = lib_bwd = None
+    cases = [
+        ("flash_attention_nc",
+         lambda t: fa._forward(t["q"], t["k"], t["v"], with_lse=True, causal=False),
+         lambda t: fa.flash_attention_plain(t["q"], t["k"], t["v"], False, return_lse=True),
+         lib_fwd, 4 * elems * 2 + bh * s * 4, 4 * d * pairs, "fwd + lse"),
+        ("flash_attention_bwd_dkdv_nc",
+         lambda t: fa._launch_bwd("dkdv", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"],
+                                  False),
+         lambda t: fa.flash_attention_bwd_dkdv_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
+                                                     t["g"], False),
+         lib_bwd, 6 * elems * 2 + 2 * bh * s * 4, 8 * d * pairs, "dK, dV"),
+        ("flash_attention_bwd_dq_nc",
+         lambda t: fa._launch_bwd("dq", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"],
+                                  False),
+         lambda t: fa.flash_attention_bwd_dq_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
+                                                   t["g"], False),
+         lib_bwd, 5 * elems * 2 + 2 * bh * s * 4, 6 * d * pairs, "dQ"),
+    ]
+    one = [(t,) for t in sets]
+    rows = []
+    for name, kern, plain, lib, nbytes, flops, what in cases:
+        ms = time_ms(torch, kern, one, 20)
+        plain_ms = time_ms(torch, plain, one, 3)
+        lib_ms = time_ms(torch, lib, one, 20) if lib is not None else None
+        byte_ms = nbytes / HBM_BYTES_S * 1e3
+        op_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        rows.append({
+            "name": name, "dtype": "bfloat16", "shape": f"{tuple(shape)} {what}", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes,
+            "flops": flops,
+        })
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"kernel {name:28s} bfloat16 {rows[-1]['shape']:36s} ms {ms:.4f} plain "
+            f"{plain_ms:.4f} library {lib_s} bound {rows[-1]['bound_ms']:.4f} "
+            f"({rows[-1]['bound_by']})")
+    return rows
+
+
+def ring_vs_full(torch, gen) -> None:
+    """12b: the stacked rings (contiguous and zig-zag, SP_RANKS ranks),
+    forward and backward, against one full-length causal flash attention
+    (B2/B4) and its gradients on (8, 12, 1024, 64)."""
+    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.parallel import (
+        StackedRing,
+        ring_flash_attention,
+        zigzag_ring_flash_attention,
+    )
+
+    ring = StackedRing(SP_RANKS)
+    shape = TRAIN_SHAPES["GPT2_SMALL_32K"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        tol = TRAIN_TOL[dname]
+        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention(*leaves)
+        ref_grads = torch.autograd.grad(ref, leaves, g)
+        for zigzag, fn in ((False, ring_flash_attention), (True, zigzag_ring_flash_attention)):
+            shards = [_sp_shards(torch, t, SP_RANKS, zigzag).requires_grad_() for t in (q, k, v)]
+            out = fn(*shards, ring)
+            grads = torch.autograd.grad(out, shards, _sp_shards(torch, g, SP_RANKS, zigzag))
+            torch.cuda.synchronize()
+            err = _max_err(_sp_unshard(torch, out, zigzag), ref)
+            gerr = max(_max_err(_sp_unshard(torch, a, zigzag), b) for a, b in zip(grads, ref_grads))
+            label = "zig-zag" if zigzag else "contiguous"
+            log(f"ring flash {label} {dname} {shape} on {SP_RANKS} ranks vs full causal flash: "
+                f"out {err:.3e} (tol {tol['out']:g}) grads {gerr:.3e} (tol {tol['grad']:g})")
+            require(err <= tol["out"] and gerr <= tol["grad"],
+                    f"ring flash {label} {dname}: out {err:.3e} grads {gerr:.3e}")
+
+
+def sp_launches_per_step(L: int, n: int, zigzag: bool) -> dict:
+    """Launches of one sp step, from the ring code's structure: per layer
+    and per kernel, contiguous runs 1 causal + (n - 1) non-causal calls,
+    zig-zag 2 causal + 1 + 2 (n - 1) non-causal (three sub-blocks on the
+    diagonal step, two on every other); the backward repeats the forward's
+    calls with the block backward (one dK/dV and one dQ launch each);
+    save_attn runs the SwiGLU forward twice per layer."""
+    causal, nc = (2, 1 + 2 * (n - 1)) if zigzag else (1, n - 1)
+    return only(flash_attention=causal * L, flash_attention_nc=nc * L,
+                flash_attention_bwd_dkdv=causal * L, flash_attention_bwd_dkdv_nc=nc * L,
+                flash_attention_bwd_dq=causal * L, flash_attention_bwd_dq_nc=nc * L,
+                swiglu=2 * L)
+
+
+def sp_full_width(torch, smi: str) -> dict:
+    """12c: make_sp_train_step at GPT2_SMALL_32K (bf16 activations, float32
+    masters, save_attn, SP_RANKS shards), contiguous and zig-zag: step 1's
+    loss and gradients against the dense step's, then 10 steps on one batch
+    with exact launch counts per step, host ms per step, a step profile and
+    peak memory."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.parallel import (
+        StackedRing,
+        make_sp_grad_fn,
+        make_sp_train_step,
+        shard_sp_batch,
+    )
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        make_loss_fn,
+        value_and_grad,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash", ffn_impl="pallas",
+                              remat_policy="save_attn")
+    ring = StackedRing(SP_RANKS)
+    batch, n_steps = 8, 10
+    rng = np.random.default_rng(8)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)) for _ in range(2))
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=n_steps)
+    tol = TRAIN_TOL["bfloat16"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dense_loss, dense_grads = value_and_grad(make_loss_fn(cfg))(
+        params, torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda"))
+    dense_grads = tree_leaves(dense_grads)
+    totals = dict.fromkeys(RING_KERNELS, 0)
+    for zigzag in (False, True):
+        label = f"GPT2_SMALL_32K sp {'zig-zag' if zigzag else 'contiguous'} x{SP_RANKS}"
+        xs, ys = shard_sp_batch((x, y), ring, zigzag=zigzag, device="cuda")
+        loss, grads = make_sp_grad_fn(cfg, ring, zigzag)(params, xs, ys)
+        grads = tree_leaves(grads)
+        loss_err = abs(float(loss) - float(dense_loss))
+        grad_err = max(_max_err(a, b) for a, b in zip(grads, dense_grads, strict=True))
+        rel_err = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+                      for a, b in zip(grads, dense_grads))
+        log(f"{label} step 1 vs the dense step: loss {float(loss):.6f} vs "
+            f"{float(dense_loss):.6f} (|d| {loss_err:.3e}, tol {tol['out']:g}); grads max "
+            f"abs error {grad_err:.3e} (tol {tol['grad']:g}), largest per-leaf relative "
+            f"error {rel_err:.3e}")
+        # The bf16 gradient tolerance is also held relative to each leaf's
+        # norm: most weight gradients are far below it in absolute terms.
+        require(loss_err <= tol["out"] and grad_err <= tol["grad"] and rel_err <= tol["grad"],
+                f"{label}: step 1 disagrees with the dense step")
+        del grads
+        per_step = sp_launches_per_step(cfg.num_layers, SP_RANKS, zigzag)
+        p = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        opt_state = adamw_init(p)
+        step = make_sp_train_step(cfg, hparams, ring, zigzag=zigzag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, host_ms = [], []
+        for _ in range(n_steps):
+            reset_counts()
+            t0 = time.perf_counter()
+            p, opt_state, m = step(p, opt_state, xs, ys)
+            losses.append(float(m["loss"]))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts(per_step)
+            require(counts == per_step, f"{label}: launch counts of one step {counts} != {per_step}")
+            for name in RING_KERNELS:
+                totals[name] += counts[name]
+        peak = torch.cuda.max_memory_allocated()
+        mean_ms = float(np.mean(host_ms[1:]))
+        log(f"{label} (bf16 activations, B={batch} S={cfg.context_length}, save_attn): losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"{label} host ms per step {[round(v, 1) for v in host_ms]} (steps 2-10 mean "
+            f"{mean_ms:.1f} ms = {batch * cfg.context_length / mean_ms * 1e3:.0f} tok/s); peak "
+            f"memory {peak / 2**30:.2f} GiB on {smi}; launches per step "
+            f"{ {k: v for k, v in per_step.items() if v} }")
+        require(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss: {losses}")
+        require(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+        profile_step(torch, label, lambda: step(p, opt_state, xs, ys))
+        del p, opt_state, step
+    return totals
+
+
+def phase_sp(torch, smi: str) -> tuple[dict, dict]:
+    """Phase 12: B6 vs plain at the sp launch shapes (12a), the stacked rings
+    vs full causal flash (12b), and the sp train step at full width (12c).
+    Returns the bf16 rows of the three non-causal kernels at the contiguous
+    launch shape, and their launch counts over 12c's steps."""
+    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, s, d = TRAIN_SHAPES["GPT2_SMALL_32K"]
+    shard = (SP_RANKS, b, h, s // SP_RANKS, d)
+    half = (SP_RANKS, b, h, s // SP_RANKS // 2, d)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for shape in (shard, half):
+            errs = ring_kernel_errors(torch, fa, *(
+                torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4)))
+            log(f"B6 {dname:8s} {shape}: " + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if dtype == torch.bfloat16:
+                for row in ring_kernel_timings(torch, fa, shape, gen):
+                    row["max_abs_err"] = errs[row["name"]]
+                    rows.append(row)
+    ring_vs_full(torch, gen)
+    totals = sp_full_width(torch, smi)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_sp.json").write_text(json.dumps(rows, indent=1))
+    main = {r["name"]: r for r in rows if r["shape"].startswith(str(shard))}
+    return main, totals
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2288,11 +2635,15 @@ def main() -> int:
     phase_ffn_small(torch)
     counts.update(phase_gelu_full_width(torch, smi, dense_requests, requests))
     log(f"phase 11 two-matrix FFNs and the GeLU kernels: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sp_main, sp_counts = phase_sp(torch, smi)
+    counts.update(sp_counts)
+    log(f"phase 12 ring-flash sequence-parallel training: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():
         row = (main_rows.get(name) or sample_main.get(name) or gelu_main.get(name)
-               or train_rows[name])
+               or sp_main.get(name) or train_rows[name])
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],

@@ -20,7 +20,20 @@ in bfloat16 within one bf16 ulp of JAX's float32 GeLU rounded once, which
 is what the TPU computes (the backward within one ulp or 3e-5, the float32
 bound); JAX's interpret mode rounds a bf16 input after every operation
 instead, and lands further off.
+
+The ring-flash interface (``flash_attention_with_lse`` non-causal,
+``flash_attention_block_bwd`` both ways) is held to the same 2e-5 forward
+and lse, 3e-5 gradients; so are the port's stacked rings (contiguous and
+zig-zag, flash and plain, ``kv_chunk`` too) against the JAX rings inside
+``shard_map`` over the 8-device CPU mesh ``{"data": 2, "seq": 4}``, forward
+and gradients through one seeded cotangent.  The kernels' geometry (head
+dims padded to an instantiated width, decode query groups cut into chunks,
+the non-causal block check) is pinned as pure functions, and the shapes the
+port once refused (head dim 96, groups of 3 and 12) run through the plain
+versions against JAX's.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -34,6 +47,9 @@ from bpe_transformer_tpu.kernels.pallas.decode_attention import (
 )
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
+)
+from bpe_transformer_tpu.kernels.pallas.flash_attention import (
+    flash_attention_block_bwd as jax_flash_attention_block_bwd,
 )
 from bpe_transformer_tpu.kernels.pallas.flash_attention import (
     flash_attention_with_lse as jax_flash_attention_with_lse,
@@ -51,6 +67,9 @@ from bpe_transformer_tpu.kernels.pallas.sample import fused_verify_head as jax_f
 from bpe_transformer_tpu.kernels.pallas.swiglu import swiglu_fused as jax_swiglu
 from bpe_transformer_tpu.ops.quant import quantize_weight as jax_quantize_weight
 from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
+from bpe_transformer_tpu.parallel import make_mesh
+from bpe_transformer_tpu.parallel import ring_attention as jax_ring
+from bpe_transformer_tpu_torch import parallel
 from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.kernels import decode_attention as da
 from bpe_transformer_tpu_torch.kernels import flash_attention as fa
@@ -381,6 +400,126 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         np.array(jax_gelu(x_wide.astype(jnp.bfloat16)).astype(jnp.float32))).to(torch.bfloat16)
     share = (per_op != ref).float().mean().item()
     assert share > 0.25 and bf16_ulps(per_op, ref) > 1, share
+
+    # The ring-flash interface: the non-causal forward with its lse, and the
+    # block backward of both masks given the global out and lse.
+    for shape, block in [((1, 2, 64, 16), 16), ((2, 1, 32, 32), 32)]:
+        q, k, v, ct = normal(*shape), normal(*shape), normal(*shape), normal(*shape)
+        jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, ct))
+        tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, ct))
+        for causal in (False, True):
+            what = f"ring-flash interface {shape} causal={causal}"
+            want_out, want_lse = jax_flash_attention_with_lse(jq, jk, jv, causal, block, block,
+                                                              True)
+            out, lse = fa.flash_attention_with_lse(tq, tk, tv, causal, block, block)
+            assert lse.shape == shape[:-1] and lse.dtype == torch.float32
+            np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5, err_msg=what)
+            np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5,
+                                       err_msg=f"{what} lse")
+            want = jax_flash_attention_block_bwd(jq, jk, jv, want_out, want_lse, jg, causal,
+                                                 block, block, True)
+            got = fa.flash_attention_block_bwd(
+                tq, tk, tv, torch.from_numpy(np.array(want_out)),
+                torch.from_numpy(np.array(want_lse)), tg, causal, block, block)
+            for g_, w_, name in zip(got, want, "qkv"):
+                np.testing.assert_allclose(g_.numpy(), np.asarray(w_), atol=3e-5,
+                                           err_msg=f"{what} block bwd d{name}")
+    for call in (lambda: fa.flash_attention_with_lse(tq[..., :24, :], tk[..., :24, :],
+                                                     tv[..., :24, :], False, 16, 16),
+                 lambda: fa.flash_attention_block_bwd(*(t[..., :24, :] for t in (tq, tk, tv)),
+                                                      tq[..., :24, :], tq[..., :24, 0],
+                                                      tg[..., :24, :], True, 16, 16)):
+        with pytest.raises(ValueError, match="divisible by the block"):
+            call()
+
+    # The stacked rings (n = 4 ranks on one device) against the JAX rings
+    # inside shard_map over {"data": 2, "seq": 4}: the flash rings of both
+    # layouts (interpret mode), and the plain rings against the same oracle.
+    mesh = make_mesh({"data": 2, "seq": 4})
+    spec = jax.sharding.PartitionSpec("data", None, "seq", None)
+    ring = parallel.StackedRing(4)
+    b, h, s, d = 2, 2, 64, 16
+    q, k, v, ct = normal(b, h, s, d), normal(b, h, s, d), normal(b, h, s, d), normal(b, h, s, d)
+
+    def stack(a):  # (B, H, S, D) -> (4, B, H, S/4, D)
+        return torch.from_numpy(a).reshape(b, h, 4, s // 4, d).permute(2, 0, 1, 3, 4).contiguous()
+
+    def unstack(t):
+        return t.permute(1, 2, 0, 3, 4).reshape(b, h, s, d).numpy()
+
+    for zigzag, block in ((False, 16), (True, 8)):
+        jax_fn = jax_ring.zigzag_ring_flash_attention if zigzag else jax_ring.ring_flash_attention
+        mapped = jax.shard_map(
+            partial(jax_fn, axis_name="seq", block_q=block, block_k=block, interpret=True),
+            mesh=mesh, in_specs=(spec,) * 3, out_specs=spec, check_vma=False)
+
+        def fwd_bwd(q_, k_, v_, g_):
+            out, vjp = jax.vjp(mapped, q_, k_, v_)
+            return out, vjp(g_)
+
+        perm = np.asarray(parallel.zigzag_indices(s, 4)) if zigzag else np.arange(s)
+        arrays = [a[..., perm, :] for a in (q, k, v, ct)]
+        want_out, want_grads = jax.jit(fwd_bwd)(*(jnp.asarray(a) for a in arrays))
+        if zigzag:
+            ports = [partial(parallel.zigzag_ring_flash_attention, block_q=block, block_k=block),
+                     parallel.zigzag_ring_self_attention]
+        else:
+            ports = [partial(parallel.ring_flash_attention, block_q=block, block_k=block),
+                     parallel.ring_self_attention,
+                     partial(parallel.ring_self_attention, kv_chunk=4)]
+        for fn in ports:
+            what = f"stacked ring {getattr(fn, 'func', fn).__name__} zigzag={zigzag}"
+            args = [stack(a).requires_grad_() for a in arrays[:3]]
+            out = fn(*args, ring)
+            (out * stack(arrays[3])).sum().backward()
+            np.testing.assert_allclose(unstack(out.detach()), np.asarray(want_out), atol=2e-5,
+                                       err_msg=what)
+            for got, want, name in zip(args, want_grads, "qkv"):
+                np.testing.assert_allclose(unstack(got.grad), np.asarray(want), atol=3e-5,
+                                           err_msg=f"{what} d{name}")
+    inv = parallel.zigzag_inverse_indices(s, 4)
+    assert torch.equal(parallel.zigzag_indices(s, 4)[inv], torch.arange(s))
+    np.testing.assert_array_equal(
+        parallel.zigzag_positions(ring.index(), s // 4, 4).numpy(),
+        np.stack([np.asarray(jax_ring.zigzag_positions(i, s // 4, 4)) for i in range(4)]))
+
+    # Kernel geometry: head dims run at the next instantiated width (up to
+    # 256), decode query groups in chunks of 1, 2, 4 or 8 heads (4 at width
+    # 256), and a non-causal call needs seq divisible by the JAX blocks.
+    assert [fa.padded_head_dim(d) for d in (1, 16, 17, 40, 64, 96, 128, 129, 256)] == [
+        16, 16, 32, 64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="at most 256"):
+        fa.padded_head_dim(257)
+    for args, want in [((4, 4, 64), (64, 1, 1)), ((8, 2, 32), (32, 4, 1)),
+                       ((12, 1, 64), (64, 8, 2)), ((6, 2, 96), (128, 4, 1)),
+                       ((4, 4, 96), (128, 1, 1)), ((16, 1, 256), (256, 4, 4)),
+                       ((40, 4, 16), (16, 8, 2)), ((5, 1, 200), (256, 4, 2))]:
+        assert da.decode_geometry(*args) == want, args
+    with pytest.raises(ValueError, match="not divisible"):
+        da.decode_geometry(12, 5, 64)
+    fa.check_blocks(24, True, 16, 16)  # causal calls pad
+    fa.check_blocks(48, False, 16, 24)
+    with pytest.raises(ValueError, match="divisible by the block size \\(48\\)"):
+        fa.check_blocks(96 + 24, False, 16, 24)
+
+    # Shapes the kernels once refused, through the plain versions against
+    # JAX's: flash at head dim 96, decode at head dim 96 and at query groups
+    # of 12 and 3.
+    q, k, v = normal(2, 64, 96), normal(2, 64, 96), normal(2, 64, 96)
+    want = jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v)), True, 128, 128, True)
+    np.testing.assert_allclose(
+        fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v))).numpy(),
+        np.asarray(want), atol=2e-5, err_msg="flash d=96")
+    for batch, heads, kv_heads, ctx, d, pos in [(2, 4, 4, 128, 96, np.array([5, 100])),
+                                                (2, 12, 1, 64, 64, np.array([63, 7])),
+                                                (2, 6, 2, 40, 32, np.array([0, 39]))]:
+        q = normal(batch, heads, d)
+        k, v = normal(batch, kv_heads, ctx, d), normal(batch, kv_heads, ctx, d)
+        want = jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)), block_k=32,
+                                    interpret=True)
+        got = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, pos)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   err_msg=f"decode H={heads} KV={kv_heads} d={d}")
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before

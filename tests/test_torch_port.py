@@ -5,7 +5,9 @@ The jax-free run also serves through the paged engine with int8 KV blocks
 and int8 weights and through the speculative engine with the fused
 sampling tail, serves a ``gelu`` FFN model dense and paged (int8), and
 drives the ``train`` CLI on the CPU, resuming from its own checkpoint, and
-on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``."""
+on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``, and takes a
+sequence-parallel step on a stacked ring of two shards, on the device of the
+tensors it is given."""
 
 import re
 import shutil
@@ -42,7 +44,7 @@ expected = {
         "checkpointing.checkpoint", "data.dataset", "kernels.flash_attention", "kernels.gelu",
         "kernels.quant_matmul", "kernels.sample", "kernels.swiglu", "models.transformer",
         "ops.core", "ops.grad", "ops.losses", "ops.quant", "optim.adamw", "optim.schedule",
-        "resilience.integrity", "serving.kvpool.blocks", "serving.kvpool.paged_engine",
+        "parallel.mesh", "parallel.ring_attention", "parallel.sp", "resilience.integrity", "serving.kvpool.blocks", "serving.kvpool.paged_engine",
         "serving.kvpool.radix", "serving.spec", "serving.spec.draft", "serving.spec.engine",
         "training.cli", "training.loop", "training.train_step", "tree",
     )
@@ -108,6 +110,18 @@ assert cli_main(gelu_argv + ["--steps", "2"]) == 0
 summary = json.loads((work / "ck_gelu" / "summary.json").read_text())
 assert [r["step"] for r in summary["history"]] == [1, 2], summary
 
+from bpe_transformer_tpu_torch.optim import adamw_init
+from bpe_transformer_tpu_torch.parallel import StackedRing, make_sp_train_step, shard_sp_batch
+
+ring = StackedRing(2)
+sp_params = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+batch = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 2, 16))
+xs, ys = shard_sp_batch((batch[0], batch[1]), ring, zigzag=True, device="cpu")
+assert xs.shape == (2, 2, 8) and xs.device.type == "cpu", xs.shape
+sp_params, _, metrics = make_sp_train_step(cfg, TrainHParams(), ring, zigzag=True)(
+    sp_params, adamw_init(sp_params), xs, ys)
+assert np.isfinite(float(metrics["loss"])) and sp_params["lm_head"].device.type == "cpu"
+
 if not torch.cuda.is_available():
     for call in (
         lambda: init_params(cfg, torch.Generator()),
@@ -117,6 +131,7 @@ if not torch.cuda.is_available():
         lambda: SpecEngine(params, cfg, draft=DraftSpec(truncate_layers=1), speculate_k=2),
         lambda: DraftModel(params, cfg, DraftSpec(truncate_layers=1)),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2), tokens),
+        lambda: shard_sp_batch((batch[0], batch[1]), ring),
     ):
         try:
             call()
