@@ -27,10 +27,10 @@ tensors and runs :func:`decode_attention_plain` for CPU tensors.
 It launches ``csrc/paged_decode_attention.cu`` for CUDA tensors and runs
 :func:`paged_decode_attention_plain` for CPU tensors.
 
-Both kernels take any ``d_head`` up to 256 and any group ``num_heads //
-kv_heads``, as the JAX functions do (:func:`decode_geometry`: the head dim
-runs at the next instantiated register width, the group in chunks of 1, 2,
-4 or 8 heads).  Launches are counted
+Both kernels take any ``d_head`` and any group ``num_heads // kv_heads``,
+as the JAX functions do (:func:`decode_geometry`: the head dim runs at the
+next instantiated register width, or above 256 in output-column chunks of
+256, the group in chunks of 1, 2, 4 or 8 heads).  Launches are counted
 in ``kernels/_build.py`` under ``decode_attention`` and
 ``paged_decode_attention``.
 """
@@ -40,26 +40,27 @@ from __future__ import annotations
 import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
-from bpe_transformer_tpu_torch.kernels.flash_attention import padded_head_dim
+from bpe_transformer_tpu_torch.kernels.flash_attention import col_chunks, padded_head_dim
 
 #: Query-head chunks the kernels are instantiated for (at most 4 heads at the
 #: 256-wide register tile, whose merge buffer would not fit shared memory).
 GROUP_CHUNKS = (1, 2, 4, 8)
 
 
-def decode_geometry(num_heads: int, kv_heads: int, d: int) -> tuple[int, int, int]:
-    """``(width, chunk, n_chunks)`` of a decode kernel launch: the register
-    width the head dim ``d`` runs at (:func:`padded_head_dim`), and the
+def decode_geometry(num_heads: int, kv_heads: int, d: int) -> tuple[int, int, int, int]:
+    """``(width, chunk, n_chunks, col_chunks)`` of a decode kernel launch:
+    the width the head dim ``d`` runs at (:func:`padded_head_dim`), the
     query group ``num_heads // kv_heads`` cut into ``n_chunks`` chunks of
     ``chunk`` heads, the smallest instantiated chunk that holds the group
-    (or the largest, repeated)."""
+    (or the largest, repeated), and the output-column chunks of the width
+    (:func:`col_chunks`, one per block)."""
     if kv_heads < 1 or num_heads % kv_heads:
         raise ValueError(f"num_heads={num_heads} not divisible by kv_heads={kv_heads}")
     width = padded_head_dim(d)
     group = num_heads // kv_heads
     chunks = [c for c in GROUP_CHUNKS if width <= 128 or c <= 4]
     chunk = next((c for c in chunks if c >= group), chunks[-1])
-    return width, chunk, -(-group // chunk)
+    return width, chunk, -(-group // chunk), col_chunks(width)
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -97,7 +98,7 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
             f"shape mismatch: q {tuple(q.shape)}, k_cache {tuple(k_cache.shape)}, "
             f"v_cache {tuple(v_cache.shape)}"
         )
-    width, chunk, n_chunks = decode_geometry(num_heads, kv_heads, d)
+    width, chunk, n_chunks, _ = decode_geometry(num_heads, kv_heads, d)
     q = q.contiguous()
     pos_b = _pos_vector(pos, batch, q.device).to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -172,7 +173,7 @@ def paged_decode_attention(
     slots, num_heads, d = q.shape
     _, kv_heads, block_size, _ = k_pool.shape
     nbs = tables.shape[1]
-    width, chunk, n_chunks = decode_geometry(num_heads, kv_heads, d)
+    width, chunk, n_chunks, _ = decode_geometry(num_heads, kv_heads, d)
     if nbs > 4096:
         raise ValueError(f"blocks_per_slot={nbs} unsupported by the kernel (at most 4096)")
     quantized = k_pool.dtype == torch.int8

@@ -6,10 +6,20 @@ and the ring-attention interface ``flash_attention_with_lse`` and
 ``flash_attention_block_bwd``).
 
 ``q, k, v`` are ``(..., seq, d_head)`` with any leading dims (batch, heads);
-the result has ``q``'s shape and dtype.  The kernels are instantiated for
-head dims 16, 32, 64, 128 and 256; any other ``d_head`` up to 256 is
-zero-padded to the next of them (:func:`padded_head_dim`) and sliced back,
-with the softmax scale of the true ``d_head``.
+the result has ``q``'s shape and dtype.  The kernels take any ``d_head``: it
+is zero-padded to a launch width (:func:`padded_head_dim`: the next of 16,
+32, 64, 128 and 256, or a multiple of 256 above) and sliced back, with the
+softmax scale of the true ``d_head``.  Above 256 the kernels split the
+output columns into chunks of 256 over a grid axis (:func:`_geometry`), so
+their registers do not grow with the head dim.
+
+The forward is bound by operations at training lengths.  In bf16 it runs
+on the tensor cores (``wgmma`` with TMA-fed K/V tiles; a head below 64 is
+padded to 64, and RoPE keeps its rotated tiles as a bf16 pair, high part and
+residual, so the scores stay at float32 accuracy); in float32, which must
+keep float32 accuracy, and in bf16 above width 256, on the CUDA cores
+(``csrc/flash_attention.cu`` says why and how).  The backward kernels run
+on the CUDA cores.
 
 * :func:`flash_attention` launches ``csrc/flash_attention.cu``.  When a
   gradient is wanted it goes through :class:`FlashAttention`, whose forward
@@ -48,17 +58,30 @@ from bpe_transformer_tpu_torch.kernels import _build
 from bpe_transformer_tpu_torch.ops.core import MASK_VALUE
 from bpe_transformer_tpu_torch.ops.rope import apply_rope
 
-#: Head dims the kernels are instantiated for.
+#: Register widths the kernels are instantiated for; a wider head runs at the
+#: last of them in output-column chunks of that width.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+COL_CHUNK = HEAD_DIMS[-1]
+#: Narrowest width of the bf16 tensor-core forward (one 128-byte row).
+TC_MIN_WIDTH = 64
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiated width a head dim ``d`` runs at: the smallest of
-    :data:`HEAD_DIMS` that holds it."""
+    """The width a head dim ``d`` runs at: the smallest of
+    :data:`HEAD_DIMS` that holds it, or ``d`` rounded up to a multiple of
+    :data:`COL_CHUNK` above the last."""
+    if d < 1:
+        raise ValueError(f"d_head={d} must be positive")
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"d_head={d} unsupported by the kernel (at most {HEAD_DIMS[-1]})")
+    return -(-d // COL_CHUNK) * COL_CHUNK
+
+
+def col_chunks(width: int) -> int:
+    """Output-column chunks of a launch at ``width``: one up to
+    :data:`COL_CHUNK`, ``width / COL_CHUNK`` above."""
+    return max(1, width // COL_CHUNK)
 
 
 def check_blocks(s: int, causal: bool, block_q: int, block_k: int) -> None:
@@ -134,17 +157,18 @@ def flash_attention_bwd_dq_plain(q, k, v, out, lse, g, causal: bool = True):
     return (torch.matmul(ds, k32) * q.shape[-1] ** -0.5).to(q.dtype)
 
 
-def _geometry(q, k, v) -> tuple[int, int, int]:
-    """``(bh, s, D)`` of a launch on q/k/v of one shape whose head dim is an
-    instantiated width."""
+def _geometry(q, k, v) -> tuple[int, int, int, int]:
+    """``(bh, s, width, chunks)`` of a launch on q/k/v of one shape whose
+    head dim is a launch width (:func:`padded_head_dim`), with its
+    output-column chunks (:func:`col_chunks`)."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q/k/v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
         )
     *batch, s, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"d_head={d} is not an instantiated width {HEAD_DIMS}")
-    return math.prod(batch), s, d
+    if padded_head_dim(d) != d:
+        raise ValueError(f"d_head={d} is not a launch width (see padded_head_dim)")
+    return math.prod(batch), s, d, col_chunks(d)
 
 
 def _pad_head(x, width: int):
@@ -157,15 +181,24 @@ def _name(base: str, causal: bool) -> str:
     return base if causal else f"{base}_nc"
 
 
+def forward_width(d: int, dtype) -> int:
+    """The width the forward kernel runs a head dim ``d`` at: bf16 takes the
+    tensor cores from :data:`TC_MIN_WIDTH` up."""
+    width = padded_head_dim(d)
+    if dtype == torch.bfloat16:
+        width = max(width, TC_MIN_WIDTH)
+    return width
+
+
 def _forward(q, k, v, cos=None, sin=None, with_lse: bool = False, causal: bool = True):
-    """Launch the forward kernel on CUDA tensors of any head dim up to 256
-    (zero-padded to :func:`padded_head_dim` for the launch); returns
+    """Launch the forward kernel on CUDA tensors of any head dim
+    (zero-padded to :func:`forward_width` for the launch); returns
     ``(out, lse)`` (``lse`` None unless ``with_lse``, else float32
     ``(bh, seq)``)."""
     d = q.shape[-1]
-    width = padded_head_dim(d)
+    width = forward_width(d, q.dtype)
     q, k, v = (_pad_head(t, width) for t in (q, k, v))
-    bh, s, _ = _geometry(q, k, v)
+    bh, s, _, _ = _geometry(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) if with_lse else None
     tables = ()
@@ -200,10 +233,10 @@ def _forward(q, k, v, cos=None, sin=None, with_lse: bool = False, causal: bool =
 
 def _launch_bwd(which: str, q, k, v, g, lse, delta, causal: bool = True, d: int | None = None):
     """Launch one backward kernel (``"dkdv"`` -> ``(dk, dv)``, ``"dq"`` ->
-    ``dq``) on contiguous CUDA tensors of one geometry whose head dim is an
-    instantiated width; ``d`` is the true head dim (the softmax scale's) when
-    the tensors are zero-padded past it."""
-    bh, s, width = _geometry(q, k, v)
+    ``dq``) on contiguous CUDA tensors of one geometry whose head dim is a
+    launch width; ``d`` is the true head dim (the softmax scale's) when the
+    tensors are zero-padded past it."""
+    bh, s, width, _ = _geometry(q, k, v)
     name = _name(f"flash_attention_bwd_{which}", causal)
     if which == "dkdv":
         grads = (torch.empty_like(k), torch.empty_like(v))

@@ -14,7 +14,17 @@ dtype across its ff slices).
 tensors; its backward is the JAX package's ``_swiglu_bwd``, float32 matmuls
 that recompute the two up projections, which the JAX package runs in XLA
 outside any Pallas kernel.  Launches are counted in ``kernels/_build.py``
-under ``swiglu``.
+under ``swiglu``, one per forward whichever design runs.
+
+The forward is bound by operations from a few dozen rows up and by the
+weight bytes at a decode tick.  :func:`swiglu_path` picks the design: bf16
+runs on the tensor cores (two ``wgmma`` GEMM kernels, the up and gate
+products with the SiLU-gate epilogue writing h in bf16, then the down
+product) at every m, since they beat the CUDA-core kernel from one row up
+on the card (``chip_smoke.py`` measures the crossover, ``PERF.md``);
+float32 (which must keep float32 accuracy: no TF32) and bf16 at widths
+TMA cannot describe run the CUDA-core kernel, which keeps h on chip and
+splits d_ff over blocks for parallelism at small m.
 """
 
 from __future__ import annotations
@@ -25,7 +35,16 @@ import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
 
-_BM, _BF = 16, 32  # row tile, ff slice (csrc/swiglu.cu)
+_BM, _BF = 16, 32  # row tile, ff slice of the CUDA-core kernel (csrc/swiglu.cu)
+
+
+def swiglu_path(d: int, ff: int, dtype) -> str:
+    """The design a forward runs: ``"tensor_cores"`` for bf16 when ``d``
+    and ``d_ff`` are multiples of 8 (16-byte rows, which TMA needs), else
+    ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and ff % 8 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def swiglu_plain(x, w1, w2, w3) -> torch.Tensor:
@@ -51,8 +70,9 @@ def _nsplit(m: int, ff: int, device: torch.device) -> int:
     return max(1, min(slices, -(-2 * sms // m_tiles)))
 
 
-def _swiglu_forward(x, w1, w2, w3) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, :func:`swiglu_plain` for CPU
+def _swiglu_forward(x, w1, w2, w3, path: str | None = None) -> torch.Tensor:
+    """The CUDA kernels for CUDA tensors (the design :func:`swiglu_path`
+    picks, unless ``path`` names one), :func:`swiglu_plain` for CPU
     tensors."""
     if x.device.type == "cpu":
         return swiglu_plain(x, w1, w2, w3)
@@ -67,6 +87,17 @@ def _swiglu_forward(x, w1, w2, w3) -> torch.Tensor:
     x2d = x.reshape(-1, d).contiguous()
     m = x2d.shape[0]
     out = torch.empty_like(x2d)
+    if (path or swiglu_path(d, ff, x.dtype)) == "tensor_cores":
+        h = torch.empty((m, ff), dtype=x.dtype, device=x.device)
+        code, stream = _build.kernel_args("swiglu", x2d, w1, w3, w2, h, out)
+        fn = _build.entry("swiglu", "swiglu_tc_launch", 6, 3)
+        rc = fn(
+            code, x2d.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            h.data_ptr(), out.data_ptr(), m, d, ff, stream,
+        )
+        _build.check(rc, "swiglu")
+        _build.count("swiglu")
+        return out.reshape(orig_shape)
     nsplit = _nsplit(m, ff, x.device)
     ws = torch.empty((nsplit, m, d), dtype=torch.float32, device=x.device)
     code, stream = _build.kernel_args("swiglu", x2d, w1, w3, w2, out)

@@ -15,9 +15,12 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and at a prefill chunk for every matrix of the model): max error against
    the stated tolerance, kernel / plain / one-library-call device times
    (CUDA graph replays; the kernel also as launched from Python), and the
-   least time the card could take (the bound); and, for correctness only,
-   at shapes off that path (other head dims, GQA groups, block sizes,
-   ragged lengths, odd d_ff, int8 rows not a multiple of 16 bytes);
+   least time the card could take (the bound); the SwiGLU forward's two
+   designs (tensor cores, CUDA cores) timed side by side from 1 to 256 rows
+   and the crossover m where the tensor cores win; and, for correctness
+   only, at shapes off that path (other head dims, among them 320 and 512,
+   which run in output-column chunks, GQA groups, block sizes, ragged
+   lengths, odd d_ff, int8 rows not a multiple of 16 bytes);
 3. the whole path in float32 on the trained 3-layer fixture
    (``tests/fixtures/trained_3l64d.npz``): prefill logits against the
    fixture's pinned logits, and greedy tokens served on the card identical
@@ -33,8 +36,9 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    kernels, the RoPE-in-kernel forward) against autograd through their
    plain versions, in float32 and bfloat16, at the ``TINYSTORIES_4L`` and
    ``GPT2_SMALL_32K`` training shapes and, for correctness only, at ragged
-   S and head dims 16 and 128; with kernel / plain / SDPA times and bounds;
-   and the SwiGLU forward at the training m of both configs;
+   S and head dims 16, 96, 128, 256, 320 and 512; with kernel / plain / SDPA
+   times and bounds; and the SwiGLU forward at the training m of both
+   configs;
 6. the pinned 5-step AdamW trajectory of the trained fixture, trained on the
    card in float32 through the flash kernels and then through the RoPE
    kernel, against ``pin/traj_losses`` and ``pin/traj_lm_head``;
@@ -439,7 +443,8 @@ def quant_case(torch, gen, m, k_in, n_out, dtype) -> tuple:
 def check_other_shapes(torch) -> None:
     """Kernel vs plain at shapes off the main path that the kernels take:
     every head dim and GQA group size they instantiate, head dims between
-    them (96) and groups that are no power of two (3, 12), ragged ctx and S,
+    them (96) and above them (320, 512: output-column chunks), groups that
+    are no power of two (3, 12), ragged ctx and S,
     d_ff not a multiple of the SwiGLU slice (TINYSTORIES_4L's 683), the
     widest SwiGLU register tile (d_model 2048) and wider models (2500, 4096),
     paged blocks of 8 to 64 with a slot on the trash block, and int8 weight
@@ -457,11 +462,13 @@ def check_other_shapes(torch) -> None:
             return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
         cases = []
-        # The last four are shapes the kernels once refused: head dims 96 and
-        # 256 (padded to the next register width), groups of 12 and 3.
+        # The last six are shapes the kernels once refused: head dims 96 and
+        # 256 (padded to the next register width), groups of 12 and 3, and
+        # head dims 320 and 512 (output-column chunks of 256) in groups of 3.
         for B, H, KV, ctx, d in ((3, 4, 4, 77, 16), (2, 8, 4, 200, 32), (2, 8, 1, 300, 128),
                                  (4, 16, 2, 64, 64), (2, 4, 4, 128, 96), (2, 12, 1, 100, 64),
-                                 (3, 6, 2, 77, 32), (2, 16, 1, 50, 256)):
+                                 (3, 6, 2, 77, 32), (2, 16, 1, 50, 256), (2, 6, 2, 77, 320),
+                                 (2, 6, 2, 50, 512)):
             pos = torch.randint(0, ctx, (B,), generator=gen, device="cuda")
             if d == 96:
                 pos = torch.tensor([5, 100], device="cuda")
@@ -469,7 +476,7 @@ def check_other_shapes(torch) -> None:
                           da.decode_attention, da.decode_attention_plain,
                           (rnd(B, H, d), rnd(B, KV, ctx, d), rnd(B, KV, ctx, d), pos)))
         for shape in ((2, 3, 77, 16), (1, 2, 200, 32), (2, 1, 300, 128), (2, 64, 96),
-                      (1, 2, 130, 256)):
+                      (1, 2, 130, 256), (1, 2, 70, 320), (1, 1, 40, 512)):
             cases.append(("flash_attention", f"{shape}", fa.flash_attention,
                           fa.flash_attention_plain, tuple(rnd(*shape) for _ in range(3))))
         for m, dm, ff in ((5, 256, 683), (37, 64, 200), (3, 2048, 96), (5, 4096, 96),
@@ -478,11 +485,13 @@ def check_other_shapes(torch) -> None:
                           (rnd(m, dm), rnd(ff, dm, std=0.02), rnd(dm, ff, std=0.02),
                            rnd(ff, dm, std=0.02))))
         # Paged decode: GQA groups 2, 4 and 8, head dims 16, 32 and 128,
-        # blocks of 8, 32 and 64, act and int8 pools, the last slot on trash.
+        # blocks of 8, 32 and 64, act and int8 pools, the last slot on trash;
+        # head dims 320 and 512 in groups of 3.
         for S, H, KV, bs, nbs, d in ((3, 8, 4, 8, 16, 16), (4, 16, 4, 32, 8, 32),
                                      (2, 16, 2, 64, 4, 128), (5, 8, 1, 8, 8, 64),
                                      (2, 4, 4, 16, 8, 96), (3, 12, 1, 16, 4, 64),
-                                     (3, 6, 2, 8, 8, 32), (2, 8, 2, 16, 4, 256)):
+                                     (3, 6, 2, 8, 8, 32), (2, 8, 2, 16, 4, 256),
+                                     (2, 6, 2, 16, 4, 320), (2, 6, 2, 8, 6, 512)):
             for kv_int8 in (False, True):
                 q, k, v, tb, ps, ks, vs = paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype,
                                                        kv_int8, trash_slot=True)
@@ -559,6 +568,41 @@ def measure_case(torch, dtype, case) -> dict:
     return row
 
 
+def swiglu_crossover(torch, gen) -> list[dict]:
+    """The SwiGLU forward's two designs side by side in bf16 at the
+    GPT2_SMALL_32K widths (d 768, d_ff 2048) from 1 to 256 rows (CUDA-graph
+    replays, inputs cycled past the L2), each held against the plain
+    version; logs the crossover m, the fewest rows from which the tensor
+    cores are at least as fast at every larger m of the sweep (the wrapper
+    takes them at every m)."""
+    from bpe_transformer_tpu_torch.kernels import swiglu as sw
+
+    dm, ff, dtype = 768, 2048, torch.bfloat16
+    rows = []
+    for m in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        sets = [tuple((torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+                      for shape, std in (((m, dm), 1.0), ((ff, dm), 0.02), ((dm, ff), 0.02),
+                                         ((ff, dm), 0.02)))
+                for _ in range(copies_for(3 * ff * dm * 2))]
+        row = {"name": "swiglu", "dtype": "bfloat16", "shape": f"m={m} d={dm} ff={ff}"}
+        for path in ("tensor_cores", "cuda_cores"):
+            def fwd(x, w1, w2, w3, path=path):
+                return sw._swiglu_forward(x, w1, w2, w3, path)
+
+            err = _max_err(fwd(*sets[0]), sw.swiglu_plain(*sets[0]))
+            require(err <= TOL_BF16, f"swiglu {path} m={m}: max error {err:.3e} > {TOL_BF16:g}")
+            row[f"{path}_ms"] = time_ms(torch, fwd, sets, 50, graph=True)
+            row[f"{path}_err"] = err
+        rows.append(row)
+        log(f"swiglu crossover bf16 m={m:4d} d={dm} ff={ff}: tensor cores "
+            f"{row['tensor_cores_ms']:.4f} ms, CUDA cores {row['cuda_cores_ms']:.4f} ms")
+    wins = [r["tensor_cores_ms"] <= r["cuda_cores_ms"] for r in rows]
+    first = next((i for i in range(len(rows)) if all(wins[i:])), None)
+    crossover = None if first is None else int(rows[first]["shape"].split()[0][2:])
+    log(f"swiglu crossover m: {crossover} (the wrapper takes the tensor cores at every m)")
+    return rows
+
+
 def phase_kernels(torch) -> dict:
     """Kernel vs plain on the card.  Returns the bf16 rows of the main-path
     representatives, keyed by kernel name."""
@@ -568,6 +612,7 @@ def phase_kernels(torch) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for case in kernel_cases(torch, dtype, gen):
             rows.append(measure_case(torch, dtype, case))
+    rows += swiglu_crossover(torch, gen)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(rows, indent=1))
     main_shapes = {
@@ -579,7 +624,7 @@ def phase_kernels(torch) -> dict:
     }
     return {
         r["name"]: r for r in rows
-        if r["dtype"] == "bfloat16" and main_shapes[r["name"]] in r["shape"]
+        if r["dtype"] == "bfloat16" and main_shapes[r["name"]] in r["shape"] and "ms" in r
     }
 
 
@@ -828,6 +873,8 @@ TRAIN_SHAPES_OFF = {
     "ragged S 1000 d 64": (1, 2, 1000, 64),
     "S 64 d 96 (padded)": (2, 2, 64, 96),
     "ragged S 130 d 256": (1, 2, 130, 256),
+    "ragged S 70 d 320 (chunks)": (1, 2, 70, 320),
+    "S 40 d 512 (chunks)": (1, 1, 40, 512),
 }
 
 
@@ -859,6 +906,13 @@ def training_kernel_errors(torch, fa, q, k, v, g, cos, sin) -> dict:
     }
     limits = {"flash_attention": tol["out"], "lse": tol["lse"],
               "flash_attention_bwd_dkdv": tol["grad"], "flash_attention_bwd_dq": tol["grad"]}
+
+    # The RoPE forward's lse, held to the float32 statistic's tolerance in
+    # bf16 too (the kernel keeps the rotated tiles above bf16 precision).
+    _, rlse = fa._forward(q, k, v, cos, sin, with_lse=True)
+    _, ref_rlse = fa.flash_attention_rope_plain(q, k, v, cos, sin, return_lse=True)
+    errs["rope_lse"] = _max_err(rlse, ref_rlse.reshape(rlse.shape))
+    limits["rope_lse"] = tol["lse"]
 
     kern = leaves(q, k, v, cos, sin)
     rout = fa.FlashAttentionRope.apply(*kern)
@@ -961,6 +1015,10 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "bytes": nbytes, "flops": flops,
         })
+        if name.startswith("flash_attention") and "bwd" not in name:
+            # The forward without its Python enqueue (which the events above
+            # include): device time by CUDA-graph replay.
+            rows[-1]["device_ms"] = time_ms(torch, kern, one, iters, graph=True)
     return rows
 
 
@@ -1031,8 +1089,9 @@ def phase_training_kernels(torch) -> dict:
                 row["max_abs_err"] = errs[row["name"]]
                 rows.append(row)
                 lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+                dev = f" (device {row['device_ms']:.4f})" if "device_ms" in row else ""
                 log(f"kernel {row['name']:24s} {dname:8s} {row['shape']:44s} "
-                    f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} library {lib} "
+                    f"ms {row['ms']:.4f}{dev} plain {row['plain_ms']:.4f} library {lib} "
                     f"(SDPA fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f}) "
                     f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
         log(f"training kernels {dname}: largest errors {worst}")
@@ -2386,8 +2445,12 @@ def ring_kernel_timings(torch, fa, shape, gen) -> list[dict]:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes,
             "flops": flops,
         })
+        dev = ""
+        if name == "flash_attention_nc":  # the forward without its Python enqueue
+            rows[-1]["device_ms"] = time_ms(torch, kern, one, 20, graph=True)
+            dev = f" (device {rows[-1]['device_ms']:.4f})"
         lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        log(f"kernel {name:28s} bfloat16 {rows[-1]['shape']:36s} ms {ms:.4f} plain "
+        log(f"kernel {name:28s} bfloat16 {rows[-1]['shape']:36s} ms {ms:.4f}{dev} plain "
             f"{plain_ms:.4f} library {lib_s} bound {rows[-1]['bound_ms']:.4f} "
             f"({rows[-1]['bound_by']})")
     return rows

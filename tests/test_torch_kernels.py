@@ -28,9 +28,10 @@ zig-zag, flash and plain, ``kv_chunk`` too) against the JAX rings inside
 ``shard_map`` over the 8-device CPU mesh ``{"data": 2, "seq": 4}``, forward
 and gradients through one seeded cotangent.  The kernels' geometry (head
 dims padded to an instantiated width, decode query groups cut into chunks,
-the non-causal block check) is pinned as pure functions, and the shapes the
-port once refused (head dim 96, groups of 3 and 12) run through the plain
-versions against JAX's.
+the non-causal block check, the SwiGLU forward's choice of design) is
+pinned as pure functions, and the shapes the port once refused (head dims
+96, 320 and 384, groups of 3 and 12) run through the plain versions against
+JAX's.
 """
 
 from functools import partial
@@ -483,18 +484,44 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         parallel.zigzag_positions(ring.index(), s // 4, 4).numpy(),
         np.stack([np.asarray(jax_ring.zigzag_positions(i, s // 4, 4)) for i in range(4)]))
 
-    # Kernel geometry: head dims run at the next instantiated width (up to
-    # 256), decode query groups in chunks of 1, 2, 4 or 8 heads (4 at width
-    # 256), and a non-causal call needs seq divisible by the JAX blocks.
+    # Kernel geometry: head dims run at the next instantiated width up to
+    # 256 and above it at a multiple of 256 in output-column chunks of 256
+    # (one block each), the bf16 forward at width 64 at least (the tensor
+    # cores), decode query groups in chunks of 1, 2, 4 or 8 heads (4 from
+    # width 256), and a non-causal call needs seq divisible by the JAX blocks.
     assert [fa.padded_head_dim(d) for d in (1, 16, 17, 40, 64, 96, 128, 129, 256)] == [
         16, 16, 32, 64, 64, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="at most 256"):
-        fa.padded_head_dim(257)
-    for args, want in [((4, 4, 64), (64, 1, 1)), ((8, 2, 32), (32, 4, 1)),
-                       ((12, 1, 64), (64, 8, 2)), ((6, 2, 96), (128, 4, 1)),
-                       ((4, 4, 96), (128, 1, 1)), ((16, 1, 256), (256, 4, 4)),
-                       ((40, 4, 16), (16, 8, 2)), ((5, 1, 200), (256, 4, 2))]:
+    for d, width, chunks in [(257, 512, 2), (320, 512, 2), (384, 512, 2), (512, 512, 2),
+                             (1000, 1024, 4), (1024, 1024, 4)]:
+        assert fa.padded_head_dim(d) == width and fa.col_chunks(width) == chunks, d
+        t = torch.zeros(2, 3, 5, width)
+        assert fa._geometry(t, t, t) == (6, 5, width, chunks), d
+        assert da.decode_geometry(8, 2, d) == (width, 4, 1, chunks), d
+        assert da.decode_geometry(12, 1, d) == (width, 4, 3, chunks), d
+    for d, dtype, width in [(16, torch.float32, 16), (16, torch.bfloat16, 64),
+                            (96, torch.bfloat16, 128), (320, torch.bfloat16, 512)]:
+        assert fa.forward_width(d, dtype) == width, (d, dtype)
+    with pytest.raises(ValueError, match="not a launch width"):
+        t = torch.zeros(1, 4, 320)
+        fa._geometry(t, t, t)
+    with pytest.raises(ValueError, match="must be positive"):
+        fa.padded_head_dim(0)
+    for args, want in [((4, 4, 64), (64, 1, 1, 1)), ((8, 2, 32), (32, 4, 1, 1)),
+                       ((12, 1, 64), (64, 8, 2, 1)), ((6, 2, 96), (128, 4, 1, 1)),
+                       ((4, 4, 96), (128, 1, 1, 1)), ((16, 1, 256), (256, 4, 4, 1)),
+                       ((40, 4, 16), (16, 8, 2, 1)), ((5, 1, 200), (256, 4, 2, 1))]:
         assert da.decode_geometry(*args) == want, args
+    # The SwiGLU forward's design by type and widths: bf16 on the tensor
+    # cores (at every m: they win from one row up on the card) when d and
+    # d_ff are multiples of 8; float32 and other widths on the CUDA cores.
+    for d, ff, dtype, want in [
+        (768, 2048, torch.bfloat16, "tensor_cores"),
+        (64, 200, torch.bfloat16, "tensor_cores"),
+        (768, 2048, torch.float32, "cuda_cores"),
+        (256, 683, torch.bfloat16, "cuda_cores"),
+        (2500, 200, torch.bfloat16, "cuda_cores"),
+    ]:
+        assert sw.swiglu_path(d, ff, dtype) == want, (d, ff, dtype)
     with pytest.raises(ValueError, match="not divisible"):
         da.decode_geometry(12, 5, 64)
     fa.check_blocks(24, True, 16, 16)  # causal calls pad
@@ -520,6 +547,62 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         got = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, pos)))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                    err_msg=f"decode H={heads} KV={kv_heads} d={d}")
+
+    # Head dims above 256 (fault C2's repair): the plain versions of the
+    # flash forward with its lse and its backward, the RoPE forward and its
+    # gradients, and decode attention (dense and paged) against JAX's at
+    # d 320 and 384, which the kernels run in output-column chunks.
+    for d in (320, 384):
+        shape = (1, 2, 24, d)
+        q, k, v, ct = normal(*shape), normal(*shape), normal(*shape), normal(*shape)
+        jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        want_out, want_lse = jax_flash_attention_with_lse(jq, jk, jv, True, 8, 8, True)
+        _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, True, 8, 8, True),
+                         jq, jk, jv)
+        want_grads = vjp(jnp.asarray(ct))
+        tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, ct))
+        out, lse = fa.flash_attention_with_lse(tq, tk, tv, True, 8, 8)
+        what = f"flash_attention d={d}"
+        np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5, err_msg=what)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5,
+                                   err_msg=f"{what} lse")
+        got = fa.flash_attention_block_bwd(tq, tk, tv, out, lse, tg, True, 8, 8)
+        for g_, w_, name in zip(got, want_grads, "qkv"):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), atol=3e-5,
+                                       err_msg=f"{what} d{name}")
+        cos_t, sin_t = (np.array(t) for t in jax_rope_tables(d, 24))
+        args = tuple(jnp.asarray(a) for a in (q, k, v, cos_t, sin_t))
+        want_out, vjp = jax.vjp(
+            lambda *a: jax_flash_attention_with_rope(*a, True, 8, 8, True), *args)
+        want_grads = vjp(jnp.asarray(ct))
+        targs = tuple(torch.from_numpy(a).requires_grad_() for a in (q, k, v, cos_t, sin_t))
+        out = fa.flash_attention_rope(*targs)
+        (out * tg).sum().backward()
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=2e-5,
+                                   err_msg=f"flash_attention_rope d={d}")
+        for got, want, name in zip(targs, want_grads, ("q", "k", "v", "cos", "sin")):
+            np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), atol=3e-5,
+                                       err_msg=f"flash_attention_rope d={d} d{name}")
+        batch, heads, kv_heads, ctx = 2, 6, 2, 40
+        pos = np.array([0, 39])
+        q = normal(batch, heads, d)
+        k, v = normal(batch, kv_heads, ctx, d), normal(batch, kv_heads, ctx, d)
+        want = jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)), block_k=32,
+                                    interpret=True)
+        got = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, pos)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   err_msg=f"decode_attention d={d}")
+        slots, bs, nbs = 2, 8, 3
+        tables = (rng.permutation(np.arange(1, slots * nbs + 1)).reshape(slots, nbs)
+                  .astype(np.int32))
+        pos = np.array([bs, nbs * bs - 1], np.int32)
+        k_pool, v_pool = (normal(slots * nbs + 1, kv_heads, bs, d) for _ in range(2))
+        want = jax_paged_decode_attention(
+            *(jnp.asarray(a) for a in (q, k_pool, v_pool, tables, pos)), interpret=True)
+        got = da.paged_decode_attention(
+            *(torch.from_numpy(a) for a in (q, k_pool, v_pool, tables, pos)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   err_msg=f"paged_decode_attention d={d}")
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before
