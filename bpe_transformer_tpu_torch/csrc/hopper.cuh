@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: mbarrier
-// waits, TMA tile loads described by tensor maps, and warpgroup matrix
+// waits, TMA tile loads described by tensor maps (bf16 tiles, and int8 tiles
+// copied as bytes) and bulk copies of contiguous bytes, and warpgroup matrix
 // multiplies (wgmma) on bf16 tiles in the 128-byte swizzle, float32
-// accumulators in registers.
+// accumulators in registers, with A from shared memory or from registers.
 //
 // Tile layout in shared memory (what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box 64 elements wide writes): rows of 64 bf16 (128 bytes), the 16-byte
@@ -84,6 +85,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; src and dst 16-byte aligned) from global
+// to shared memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -174,6 +185,57 @@ __device__ __forceinline__ void wgmma_64_rs_mn(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+
+// D (64 x N, float32 in registers) += A B: A a bf16 fragment in registers
+// (as above), B a bf16 tile in shared memory stored K-major (N rows of 16
+// K values, 128-byte swizzle).  N in {8, 16, 32, 64}.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_k<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 }  // namespace sm90
 
 // ------------------------------------------------------------ host side
@@ -215,27 +277,39 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes, int& ready) {
   return err;
 }
 
-// Tensor map of a row-major bf16 tensor of `rank` (2 or 3) dims, dims[0]
-// innermost (elements), read in boxes of box[0] x box[1] (x 1) in the
-// 128-byte swizzle.  box[0] * 2 must be 128 bytes; dims[0] * 2 a multiple of
-// 16.  Returns false when the encoder is missing or refuses.
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                        const uint32_t* box) {
+// Tensor map of a row-major tensor of `rank` (2 or 3) dims of `esize`-byte
+// elements, dims[0] innermost (elements), read in boxes of box[0] x box[1]
+// (x 1) in the 128-byte swizzle.  box[0] * esize must be 128 bytes;
+// dims[0] * esize a multiple of 16.  Returns false when the encoder is
+// missing or refuses.
+inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+                         int rank, const uint64_t* dims, const uint32_t* box) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t gdim[3], gstride[2];
   cuuint32_t bdim[3], estride[3] = {1, 1, 1};
-  uint64_t stride = 2;
+  uint64_t stride = esize;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = i < 2 ? box[i] : 1;
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
-            gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), gdim, gstride, bdim, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 tiles: box[0] = 64 elements.
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                        const uint32_t* box) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims, box);
+}
+
+// int8 tiles (copied as bytes): box[0] = 128 elements.
+inline bool encode_u8(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                      const uint32_t* box) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rank, dims, box);
 }
 
 }  // namespace port

@@ -13,13 +13,15 @@ softmax scale of the true ``d_head``.  Above 256 the kernels split the
 output columns into chunks of 256 over a grid axis (:func:`_geometry`), so
 their registers do not grow with the head dim.
 
-The forward is bound by operations at training lengths.  In bf16 it runs
-on the tensor cores (``wgmma`` with TMA-fed K/V tiles; a head below 64 is
-padded to 64, and RoPE keeps its rotated tiles as a bf16 pair, high part and
-residual, so the scores stay at float32 accuracy); in float32, which must
-keep float32 accuracy, and in bf16 above width 256, on the CUDA cores
-(``csrc/flash_attention.cu`` says why and how).  The backward kernels run
-on the CUDA cores.
+The forward and the backward are bound by operations at training lengths.
+In bf16 the forward runs on the tensor cores (``wgmma`` with TMA-fed K/V
+tiles; a head below 64 is padded to 64, and RoPE keeps its rotated tiles as
+a bf16 pair, high part and residual, so the scores stay at float32
+accuracy), and so does the backward at widths 64 and 128
+(:func:`backward_width`, :func:`backward_path`); in float32, which must keep
+float32 accuracy, and in bf16 above width 128 (backward) or 256 (forward),
+both run on the CUDA cores (``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` say why and how).
 
 * :func:`flash_attention` launches ``csrc/flash_attention.cu``.  When a
   gradient is wanted it goes through :class:`FlashAttention`, whose forward
@@ -62,8 +64,16 @@ from bpe_transformer_tpu_torch.ops.rope import apply_rope
 #: last of them in output-column chunks of that width.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 COL_CHUNK = HEAD_DIMS[-1]
-#: Narrowest width of the bf16 tensor-core forward (one 128-byte row).
+#: Narrowest width of the bf16 tensor-core kernels (one 128-byte row).
 TC_MIN_WIDTH = 64
+#: Widths of the bf16 tensor-core backward: at 256 its dK and dV
+#: accumulators alone would take 256 registers a thread.
+TC_BWD_WIDTHS = (64, 128)
+#: Query tile of the tensor-core backward, whose lse and delta rows it
+#: stages whole: rows are padded to a multiple of it (lse with a value that
+#: makes every padded query's P exactly 0).
+TC_BWD_TILE = 64
+_LSE_PAD = 1e30
 
 
 def padded_head_dim(d: int) -> int:
@@ -190,6 +200,21 @@ def forward_width(d: int, dtype) -> int:
     return width
 
 
+def backward_width(d: int, dtype) -> int:
+    """The width the backward kernels run a head dim ``d`` at: as the
+    forward (:func:`forward_width`), bf16 from :data:`TC_MIN_WIDTH` up."""
+    return forward_width(d, dtype)
+
+
+def backward_path(width: int, dtype) -> str:
+    """The design the backward kernels run at a launch ``width``:
+    ``"tensor_cores"`` for bf16 at :data:`TC_BWD_WIDTHS`, else
+    ``"cuda_cores"`` (float32 at every width, bf16 from 256 up)."""
+    if dtype == torch.bfloat16 and width in TC_BWD_WIDTHS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _forward(q, k, v, cos=None, sin=None, with_lse: bool = False, causal: bool = True):
     """Launch the forward kernel on CUDA tensors of any head dim
     (zero-padded to :func:`forward_width` for the launch); returns
@@ -231,24 +256,39 @@ def _forward(q, k, v, cos=None, sin=None, with_lse: bool = False, causal: bool =
     return out, lse
 
 
+def _bwd_stats(lse, delta, bh: int, s: int, width: int, dtype):
+    """lse and delta as contiguous ``(bh, rows)`` float32: ``rows`` is ``s``,
+    or ``s`` padded to a multiple of :data:`TC_BWD_TILE` for the tensor
+    cores (lse padded with a value whose ``exp(score - lse)`` is 0, delta
+    with 0).  No copy when ``s`` is already a multiple."""
+    lse, delta = lse.reshape(bh, s), delta.reshape(bh, s)
+    pad = -s % TC_BWD_TILE if backward_path(width, dtype) == "tensor_cores" else 0
+    if pad:
+        lse = F.pad(lse, (0, pad), value=_LSE_PAD)
+        delta = F.pad(delta, (0, pad))
+    return lse.contiguous(), delta.contiguous()
+
+
 def _launch_bwd(which: str, q, k, v, g, lse, delta, causal: bool = True, d: int | None = None):
     """Launch one backward kernel (``"dkdv"`` -> ``(dk, dv)``, ``"dq"`` ->
     ``dq``) on contiguous CUDA tensors of one geometry whose head dim is a
     launch width; ``d`` is the true head dim (the softmax scale's) when the
-    tensors are zero-padded past it."""
+    tensors are zero-padded past it.  The design is
+    :func:`backward_path`'s."""
     bh, s, width, _ = _geometry(q, k, v)
     name = _name(f"flash_attention_bwd_{which}", causal)
+    lse, delta = _bwd_stats(lse, delta, bh, s, width, q.dtype)
     if which == "dkdv":
         grads = (torch.empty_like(k), torch.empty_like(v))
     else:
         grads = (torch.empty_like(q),)
     code, stream = _build.kernel_args(name, q, k, v, g, *grads, f32=(lse, delta))
     fn = _build.entry("flash_attention_bwd", f"flash_attention_bwd_{which}_launch",
-                      6 + len(grads), 5)
+                      6 + len(grads), 6)
     rc = fn(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in grads), bh, s, width, d or width,
-        int(causal), stream,
+        lse.shape[1], int(causal), stream,
     )
     _build.check(rc, name)
     _build.count(name)
@@ -257,13 +297,12 @@ def _launch_bwd(which: str, q, k, v, g, lse, delta, causal: bool = True, d: int 
 
 def _backward(q, k, v, out, lse, g, causal: bool = True):
     """dq, dk, dv from the forward's residuals through the two backward
-    kernels (head dims padded as in :func:`_forward`).  ``delta =
+    kernels (head dims padded to :func:`backward_width`).  ``delta =
     rowsum(dO * O)`` is one plain float32 reduction, as it is one XLA pass
     in the JAX package."""
     d = q.shape[-1]
-    width = padded_head_dim(d)
-    delta = (g.float() * out.float()).sum(-1).reshape(lse.shape).contiguous()
-    lse = lse.contiguous()
+    width = backward_width(d, q.dtype)
+    delta = (g.float() * out.float()).sum(-1)
     q, k, v, g = (_pad_head(t, width) for t in (q, k, v, g))
     dk, dv = _launch_bwd("dkdv", q, k, v, g, lse, delta, causal, d)
     (dq,) = _launch_bwd("dq", q, k, v, g, lse, delta, causal, d)

@@ -15,12 +15,14 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and at a prefill chunk for every matrix of the model): max error against
    the stated tolerance, kernel / plain / one-library-call device times
    (CUDA graph replays; the kernel also as launched from Python), and the
-   least time the card could take (the bound); the SwiGLU forward's two
-   designs (tensor cores, CUDA cores) timed side by side from 1 to 256 rows
-   and the crossover m where the tensor cores win; and, for correctness
-   only, at shapes off that path (other head dims, among them 320 and 512,
-   which run in output-column chunks, GQA groups, block sizes, ragged
-   lengths, odd d_ff, int8 rows not a multiple of 16 bytes);
+   least time the card could take (the bound); the SwiGLU forward's and
+   the int8 matmul's two designs (tensor cores, CUDA cores) timed side by
+   side from 1 to 256 rows and the crossover m where the tensor cores win;
+   and, for correctness only, at shapes off that path (other head dims,
+   among them 320 and 512, which run in output-column chunks, GQA groups,
+   block sizes, ragged lengths, odd d_ff, int8 rows not a multiple of 16
+   bytes), with the tensor-core int8 matmul's widening of all 256 byte
+   values held bit for bit;
 3. the whole path in float32 on the trained 3-layer fixture
    (``tests/fixtures/trained_3l64d.npz``): prefill logits against the
    fixture's pinned logits, and greedy tokens served on the card identical
@@ -36,9 +38,10 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    kernels, the RoPE-in-kernel forward) against autograd through their
    plain versions, in float32 and bfloat16, at the ``TINYSTORIES_4L`` and
    ``GPT2_SMALL_32K`` training shapes and, for correctness only, at ragged
-   S and head dims 16, 96, 128, 256, 320 and 512; with kernel / plain / SDPA
-   times and bounds; and the SwiGLU forward at the training m of both
-   configs;
+   S and head dims 16, 96, 128, 256, 320 and 512, two backward calls on the
+   same inputs bit-identical; with kernel / plain / SDPA times (the kernels
+   also by CUDA-graph replay) and bounds; and the SwiGLU forward at the
+   training m of both configs;
 6. the pinned 5-step AdamW trajectory of the trained fixture, trained on the
    card in float32 through the flash kernels and then through the RoPE
    kernel, against ``pin/traj_losses`` and ``pin/traj_lm_head``;
@@ -94,7 +97,9 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    forward with its lse and the non-causal block backward, with their
    causal twins, against the plain versions at the sp path's launch shapes
    (4 x (8, 12, 256, 64) contiguous, 4 x (8, 12, 128, 64) zig-zag),
-   float32 and bfloat16, with kernel / plain / library ms and the bound;
+   float32 and bfloat16, two block backward calls bit-identical, with
+   kernel / plain / library ms (the kernels also by graph replay) and the
+   bound;
    (b) the contiguous and zig-zag rings, forward and backward, against one
    full-length causal flash call and its gradients at (8, 12, 1024, 64);
    (c) ``make_sp_train_step`` at GPT2_SMALL_32K (phase 8's batch and
@@ -503,9 +508,13 @@ def check_other_shapes(torch) -> None:
                         q, k, v, t, p, k_scale=ks, v_scale=vs),
                     da.paged_decode_attention_plain, (q, k, v, tb, ps, ks, vs)))
         # int8 matmul: rows of 683 and 1365 bytes (d_ff of TINYSTORIES_4L
-        # and GPT2_MEDIUM's 12-layer kin), m 1 and 1000, ragged d_out.
+        # and GPT2_MEDIUM's 12-layer kin), m 1 and 1000, ragged d_out; in
+        # bf16 the last six run on the tensor cores at each block width
+        # (8 to 64 rows) with and without a split K axis, the last with a
+        # partial 128-column K slice.
         for m, k_in, n_out in ((1, 683, 256), (37, 683, 300), (5, 1365, 768), (1000, 64, 100),
-                               (1000, 768, 77)):
+                               (1000, 768, 77), (13, 1024, 300), (30, 4096, 520),
+                               (40, 768, 2048), (64, 256, 64), (9, 400, 130)):
             x, q, s, _ = quant_inputs(torch, gen, m, k_in, n_out, dtype)
             cases.append(("quant_matmul", f"m={m} {k_in}->{n_out}", qm.quant_matmul,
                           qm.quant_matmul_plain, (x, q, s)))
@@ -521,6 +530,29 @@ def check_other_shapes(torch) -> None:
             worst = max(worst, err / tol)
         log(f"kernels off the main path, {dname}: {len(cases)} shapes within tolerance "
             f"(largest error {worst:.3f} of its tolerance)")
+    quant_bytes_exact(torch)
+
+
+def quant_bytes_exact(torch) -> None:
+    """The tensor-core int8 matmul's widening of every int8 byte value to
+    bf16, held exactly: x = I (bf16) against q holding all 256 values,
+    scale 1, so y = q^T must come out bit for bit, with the K axis split
+    (m 64) and whole (m 256)."""
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+
+    k_in, n_out = 256, 256
+    idx = torch.arange(n_out, device="cuda")[:, None] + torch.arange(k_in, device="cuda")[None, :]
+    q = (idx % 256 - 128).to(torch.int8)
+    scale = torch.ones(n_out, device="cuda")
+    for m in (64, 256):
+        x = torch.eye(m, k_in, device="cuda", dtype=torch.bfloat16)
+        require(qm.quant_path(m, k_in, x.dtype) == "tensor_cores", "quant_path: bf16 not on wgmma")
+        y = qm.quant_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        require(torch.equal(y, q[:, :m].t().float()),
+                f"quant_matmul m={m}: int8 bytes not widened exactly "
+                f"({int((y != q[:, :m].t().float()).sum())} of {y.numel()} differ)")
+    log("quant_matmul tensor cores: all 256 int8 byte values widened exactly (m 64 split, 256)")
 
 
 def measure_case(torch, dtype, case) -> dict:
@@ -568,39 +600,68 @@ def measure_case(torch, dtype, case) -> dict:
     return row
 
 
-def swiglu_crossover(torch, gen) -> list[dict]:
-    """The SwiGLU forward's two designs side by side in bf16 at the
-    GPT2_SMALL_32K widths (d 768, d_ff 2048) from 1 to 256 rows (CUDA-graph
-    replays, inputs cycled past the L2), each held against the plain
-    version; logs the crossover m, the fewest rows from which the tensor
-    cores are at least as fast at every larger m of the sweep (the wrapper
-    takes them at every m)."""
-    from bpe_transformer_tpu_torch.kernels import swiglu as sw
-
-    dm, ff, dtype = 768, 2048, torch.bfloat16
+def crossover_sweep(torch, name: str, label: str, sets_for, run, plain, tol: float,
+                    rule: str) -> list[dict]:
+    """A kernel's two designs side by side in bf16 from 1 to 256 rows
+    (``run(*inputs, path=...)``, CUDA-graph replays of ``sets_for(m)``,
+    inputs cycled past the L2), each held against ``plain``; logs the
+    crossover m, the fewest rows from which the tensor cores are at least
+    as fast at every larger m of the sweep, beside the wrapper's ``rule``."""
     rows = []
     for m in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-        sets = [tuple((torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
-                      for shape, std in (((m, dm), 1.0), ((ff, dm), 0.02), ((dm, ff), 0.02),
-                                         ((ff, dm), 0.02)))
-                for _ in range(copies_for(3 * ff * dm * 2))]
-        row = {"name": "swiglu", "dtype": "bfloat16", "shape": f"m={m} d={dm} ff={ff}"}
+        sets = sets_for(m)
+        row = {"name": name, "dtype": "bfloat16", "shape": f"m={m} {label}"}
         for path in ("tensor_cores", "cuda_cores"):
-            def fwd(x, w1, w2, w3, path=path):
-                return sw._swiglu_forward(x, w1, w2, w3, path)
+            def fwd(*inputs, path=path):
+                return run(*inputs, path=path)
 
-            err = _max_err(fwd(*sets[0]), sw.swiglu_plain(*sets[0]))
-            require(err <= TOL_BF16, f"swiglu {path} m={m}: max error {err:.3e} > {TOL_BF16:g}")
+            err = _max_err(fwd(*sets[0]), plain(*sets[0]))
+            require(err <= tol, f"{name} {path} m={m}: max error {err:.3e} > {tol:g}")
             row[f"{path}_ms"] = time_ms(torch, fwd, sets, 50, graph=True)
             row[f"{path}_err"] = err
         rows.append(row)
-        log(f"swiglu crossover bf16 m={m:4d} d={dm} ff={ff}: tensor cores "
-            f"{row['tensor_cores_ms']:.4f} ms, CUDA cores {row['cuda_cores_ms']:.4f} ms")
+        log(f"{name} crossover bf16 m={m:4d} {label}: tensor cores {row['tensor_cores_ms']:.4f} "
+            f"ms (err {row['tensor_cores_err']:.2e}), CUDA cores {row['cuda_cores_ms']:.4f} ms "
+            f"(err {row['cuda_cores_err']:.2e})")
     wins = [r["tensor_cores_ms"] <= r["cuda_cores_ms"] for r in rows]
     first = next((i for i in range(len(rows)) if all(wins[i:])), None)
     crossover = None if first is None else int(rows[first]["shape"].split()[0][2:])
-    log(f"swiglu crossover m: {crossover} (the wrapper takes the tensor cores at every m)")
+    log(f"{name} crossover m: {crossover} ({rule})")
     return rows
+
+
+def swiglu_crossover(torch, gen) -> list[dict]:
+    """The SwiGLU forward's two designs at the GPT2_SMALL_32K widths (d 768,
+    d_ff 2048); the wrapper takes the tensor cores at every m."""
+    from bpe_transformer_tpu_torch.kernels import swiglu as sw
+
+    dm, ff, dtype = 768, 2048, torch.bfloat16
+
+    def sets_for(m):
+        return [tuple((torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+                      for shape, std in (((m, dm), 1.0), ((ff, dm), 0.02), ((dm, ff), 0.02),
+                                         ((ff, dm), 0.02)))
+                for _ in range(copies_for(3 * ff * dm * 2))]
+
+    return crossover_sweep(torch, "swiglu", f"d={dm} ff={ff}", sets_for, sw._swiglu_forward,
+                           sw.swiglu_plain, TOL_BF16,
+                           "the wrapper takes the tensor cores at every m")
+
+
+def quant_crossover(torch, gen) -> list[dict]:
+    """The int8 matmul's two designs with bf16 x at 768 -> 2048;
+    :func:`quant_path` takes the tensor cores at every m."""
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+
+    k_in, n_out = 768, 2048
+
+    def sets_for(m):
+        return [quant_inputs(torch, gen, m, k_in, n_out, torch.bfloat16)[:3]
+                for _ in range(copies_for(n_out * k_in))]
+
+    return crossover_sweep(torch, "quant_matmul", f"{k_in}->{n_out}", sets_for, qm.quant_matmul,
+                           qm.quant_matmul_plain, TOL[("quant_matmul", "bfloat16")],
+                           "quant_path takes the tensor cores at every m")
 
 
 def phase_kernels(torch) -> dict:
@@ -613,6 +674,7 @@ def phase_kernels(torch) -> dict:
         for case in kernel_cases(torch, dtype, gen):
             rows.append(measure_case(torch, dtype, case))
     rows += swiglu_crossover(torch, gen)
+    rows += quant_crossover(torch, gen)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(rows, indent=1))
     main_shapes = {
@@ -897,7 +959,10 @@ def training_kernel_errors(torch, fa, q, k, v, g, cos, sin) -> dict:
     ref = leaves(q, k, v)
     ref_grads = grad(fa.flash_attention_plain(*ref), ref, g)
     dq, dk, dv = fa._backward(q, k, v, out, lse, g)
+    again = fa._backward(q, k, v, out, lse, g)
     torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+            f"{dname} {tuple(q.shape)}: two backward calls on the same inputs differ")
     errs = {
         "flash_attention": _max_err(out, ref_out),
         "lse": _max_err(lse, ref_lse.reshape(lse.shape)),
@@ -957,6 +1022,9 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
     bh = b * h
     pairs = bh * s * (s + 1) // 2
     elems = bh * s * d
+    # The backward kernels run at backward_width (bf16 d 32 at 64, as
+    # _backward pads it), timed on inputs padded to it.
+    width = fa.backward_width(d, dtype)
     sets = []
     for _ in range(copies_for(4 * elems * isz)):
         q, k, v, g, cos, sin = training_inputs(torch, shape, dtype, gen)
@@ -964,8 +1032,9 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
         delta = (g.float() * out.float()).sum(-1).reshape(bh, s).contiguous()
         qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        qp, kp, vp, gp = (fa._pad_head(t, width) for t in (q, k, v, g))
         sets.append(dict(q=q, k=k, v=v, g=g, cos=cos, sin=sin, out=out, lse=lse, delta=delta,
-                         qq=qq, kk=kk, vv=vv, sdpa_out=sdpa_out))
+                         qq=qq, kk=kk, vv=vv, sdpa_out=sdpa_out, qp=qp, kp=kp, vp=vp, gp=gp))
 
     def sdpa_fwd_bwd(t):
         o = F.scaled_dot_product_attention(t["qq"], t["kk"], t["vv"], is_causal=True)
@@ -988,12 +1057,14 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
          None, 4 * elems * isz + bh * s * 4 + table_bytes, 4 * d * pairs + 6 * elems,
          "fwd + lse, RoPE in kernel"),
         ("flash_attention_bwd_dkdv",
-         lambda t: fa._launch_bwd("dkdv", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"]),
+         lambda t: fa._launch_bwd("dkdv", t["qp"], t["kp"], t["vp"], t["gp"], t["lse"],
+                                  t["delta"], d=d),
          lambda t: fa.flash_attention_bwd_dkdv_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
                                                      t["g"]),
          sdpa_bwd, 6 * elems * isz + 2 * bh * s * 4, 8 * d * pairs, "dK, dV"),
         ("flash_attention_bwd_dq",
-         lambda t: fa._launch_bwd("dq", t["q"], t["k"], t["v"], t["g"], t["lse"], t["delta"]),
+         lambda t: fa._launch_bwd("dq", t["qp"], t["kp"], t["vp"], t["gp"], t["lse"], t["delta"],
+                                  d=d),
          lambda t: fa.flash_attention_bwd_dq_plain(t["q"], t["k"], t["v"], t["out"], t["lse"],
                                                    t["g"]),
          sdpa_bwd, 5 * elems * isz + 2 * bh * s * 4, 6 * d * pairs, "dQ"),
@@ -1001,6 +1072,24 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
     iters = 10 if s >= 1024 else 30
     one = [(t,) for t in sets]
     sdpa_fb_ms = time_ms(torch, sdpa_fwd_bwd, one, iters)
+    # PyTorch's flash backward (bf16) as one call, by graph replay: the
+    # device-time yardstick of the two backward kernels together.
+    lib_bwd_dev = None
+    if dtype == torch.bfloat16:
+        aten = torch.ops.aten
+
+        def flash_bwd(t):
+            o, l_, cq, ck, mq, mk, seed, offset, _ = t["flash"]
+            return aten._scaled_dot_product_flash_attention_backward(
+                t["g"], t["q"], t["k"], t["v"], o, l_, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+        try:
+            for t in sets:
+                t["flash"] = aten._scaled_dot_product_flash_attention(t["q"], t["k"], t["v"],
+                                                                      0.0, True)
+            lib_bwd_dev = time_ms(torch, flash_bwd, one, iters, graph=True)
+        except (RuntimeError, TypeError) as exc:
+            log(f"library flash backward not timed at {shape}: {str(exc).splitlines()[0]}")
     rows = []
     for name, kern, plain, lib, nbytes, flops, what in cases:
         ms = time_ms(torch, kern, one, iters)
@@ -1015,10 +1104,11 @@ def training_timings(torch, fa, shape, dtype, gen) -> list[dict]:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "bytes": nbytes, "flops": flops,
         })
-        if name.startswith("flash_attention") and "bwd" not in name:
-            # The forward without its Python enqueue (which the events above
-            # include): device time by CUDA-graph replay.
-            rows[-1]["device_ms"] = time_ms(torch, kern, one, iters, graph=True)
+        # The kernel without its Python enqueue (which the events above
+        # include): device time by CUDA-graph replay.
+        rows[-1]["device_ms"] = time_ms(torch, kern, one, iters, graph=True)
+        if "bwd" in name:
+            rows[-1]["library_device_ms"] = lib_bwd_dev
     return rows
 
 
@@ -1089,7 +1179,9 @@ def phase_training_kernels(torch) -> dict:
                 row["max_abs_err"] = errs[row["name"]]
                 rows.append(row)
                 lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-                dev = f" (device {row['device_ms']:.4f})" if "device_ms" in row else ""
+                dev = f" (device {row['device_ms']:.4f})"
+                if row.get("library_device_ms") is not None:
+                    lib += f" (flash backward, device {row['library_device_ms']:.4f})"
                 log(f"kernel {row['name']:24s} {dname:8s} {row['shape']:44s} "
                     f"ms {row['ms']:.4f}{dev} plain {row['plain_ms']:.4f} library {lib} "
                     f"(SDPA fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f}) "
@@ -2354,7 +2446,10 @@ def ring_kernel_errors(torch, fa, q, k, v, g) -> dict:
     for causal in (False, True):
         out, lse = fa.flash_attention_with_lse(q, k, v, causal)
         grads = fa.flash_attention_block_bwd(q, k, v, out, lse, g, causal)
+        again = fa.flash_attention_block_bwd(q, k, v, out, lse, g, causal)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"B6 {dname} {tuple(q.shape)} causal={causal}: two block backward calls differ")
         ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
         ref = (fa.flash_attention_bwd_dq_plain(q, k, v, out, lse, g, causal),
                *fa.flash_attention_bwd_dkdv_plain(q, k, v, out, lse, g, causal))
@@ -2445,11 +2540,17 @@ def ring_kernel_timings(torch, fa, shape, gen) -> list[dict]:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes,
             "flops": flops,
         })
-        dev = ""
-        if name == "flash_attention_nc":  # the forward without its Python enqueue
-            rows[-1]["device_ms"] = time_ms(torch, kern, one, 20, graph=True)
-            dev = f" (device {rows[-1]['device_ms']:.4f})"
+        # Without the Python enqueue: device time by CUDA-graph replay, the
+        # library call's too.
+        rows[-1]["device_ms"] = time_ms(torch, kern, one, 20, graph=True)
+        dev = f" (device {rows[-1]['device_ms']:.4f})"
         lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        if lib is not None:
+            try:
+                rows[-1]["library_device_ms"] = time_ms(torch, lib, one, 20, graph=True)
+                lib_s += f" (device {rows[-1]['library_device_ms']:.4f})"
+            except (RuntimeError, TypeError) as exc:
+                log(f"library call not captured at {shape}: {str(exc).splitlines()[0]}")
         log(f"kernel {name:28s} bfloat16 {rows[-1]['shape']:36s} ms {ms:.4f}{dev} plain "
             f"{plain_ms:.4f} library {lib_s} bound {rows[-1]['bound_ms']:.4f} "
             f"({rows[-1]['bound_by']})")
@@ -2606,14 +2707,17 @@ def phase_sp(torch, smi: str) -> tuple[dict, dict]:
     b, h, s, d = TRAIN_SHAPES["GPT2_SMALL_32K"]
     shard = (SP_RANKS, b, h, s // SP_RANKS, d)
     half = (SP_RANKS, b, h, s // SP_RANKS // 2, d)
+    # Correctness only: a ragged shard at head dim 96 (bf16 runs it at
+    # width 128 on the tensor cores, with padded lse/delta rows).
+    ragged = (2, 3, 77, 96)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
-        for shape in (shard, half):
+        for shape in (shard, half, ragged):
             errs = ring_kernel_errors(torch, fa, *(
                 torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4)))
             log(f"B6 {dname:8s} {shape}: " + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and shape != ragged:
                 for row in ring_kernel_timings(torch, fa, shape, gen):
                     row["max_abs_err"] = errs[row["name"]]
                     rows.append(row)

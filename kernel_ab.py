@@ -9,9 +9,12 @@ directory), each in a fresh process that imports that checkout's
 CUDA-graph replay (device time, inputs cycled past the 50 MB L2) at the
 GPT2_SMALL_32K serving and training shapes and the TINYSTORIES_4L float32
 training shape: the flash forward with its lse (and with RoPE in the
-kernel), the prefill forward, the ring's non-causal forward, the SwiGLU
-forward at a decode tick and at the training m, and the decode kernels at a
-tick.  Prints one line per run and writes them to
+kernel), the prefill forward, the ring's non-causal forward, the bf16 flash
+backward kernels (dK/dV and dQ, causal at the training shape and
+non-causal at the ring's launch shape), the SwiGLU forward at a decode tick
+and at the training m, the int8 matmul with bf16 x at a tick (m 8) and a
+prefill chunk (m 256) of 768 -> 2048 and at a tick of the 768 -> 32000
+head, and the decode kernels at a tick.  Prints one line per run and writes them to
 ``chiprun_out/kernel_ab.jsonl``.  Two versions are compared only inside one
 call, on one card, as the turns above do.
 """
@@ -19,6 +22,7 @@ call, on one card, as the turns above do.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -51,7 +55,9 @@ def worker(root: str) -> dict:
     from bpe_transformer_tpu_torch.kernels import _build
     from bpe_transformer_tpu_torch.kernels import decode_attention as da
     from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
+    from bpe_transformer_tpu_torch.ops.quant import quantize_weight
     from bpe_transformer_tpu_torch.ops.rope import rope_tables
 
     _build.build_all()
@@ -77,6 +83,24 @@ def worker(root: str) -> dict:
     sets = [tuple(rnd(4, 8, 12, 256, 64) for _ in range(3)) for _ in range(4)]
     times["flash nc fwd+lse bf16 4 x (8, 12, 256, 64)"] = graph_ms(
         torch, lambda q, k, v: fa._forward(q, k, v, with_lse=True, causal=False), sets)
+    for shape, causal in (((8, 12, 1024, 64), True), ((4, 8, 12, 256, 64), False)):
+        sets = []
+        for _ in range(4):
+            q, k, v, g = (rnd(*shape) for _ in range(4))
+            out, lse = fa._forward(q, k, v, with_lse=True, causal=causal)
+            sets.append((q, k, v, g, lse, (g.float() * out.float()).sum(-1).contiguous()))
+        for which in ("dkdv", "dq"):
+            times[f"flash bwd {which}{'' if causal else ' nc'} bf16 {shape}"] = graph_ms(
+                torch, lambda q, k, v, g, lse, delta, which=which, causal=causal: fa._launch_bwd(
+                    which, q, k, v, g, lse, delta, causal), sets)
+    for m, k_in, n_out in ((8, 768, 2048), (256, 768, 2048), (8, 768, 32000)):
+        sets = []
+        for _ in range(max(2, min(16, math.ceil(128e6 / (n_out * k_in))))):
+            w = torch.randn(n_out, k_in, generator=gen, device="cuda") * 0.02
+            qw = quantize_weight(w)
+            sets.append((rnd(m, k_in), qw["q"], qw["scale"]))
+        times[f"quant_matmul bf16 m={m} {k_in}->{n_out}"] = graph_ms(
+            torch, qm.quant_matmul, sets, 48)
     for m in (8, 8192):
         sets = [(rnd(m, 768), rnd(2048, 768, std=0.02), rnd(768, 2048, std=0.02),
                  rnd(2048, 768, std=0.02)) for _ in range(4)]

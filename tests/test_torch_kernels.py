@@ -522,6 +522,63 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         (2500, 200, torch.bfloat16, "cuda_cores"),
     ]:
         assert sw.swiglu_path(d, ff, dtype) == want, (d, ff, dtype)
+    # The backward's width and design: bf16 as the forward (64 at least),
+    # on the tensor cores at widths 64 and 128; float32 at its own width on
+    # the CUDA cores, as bf16 from 256 up.
+    for d in range(16, 1025, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            width = fa.backward_width(d, dtype)
+            want = fa.forward_width(d, dtype) if dtype == torch.bfloat16 else fa.padded_head_dim(d)
+            assert width == want, (d, dtype)
+            tc = dtype == torch.bfloat16 and width in (64, 128)
+            assert fa.backward_path(width, dtype) == ("tensor_cores" if tc else "cuda_cores")
+    assert [fa.backward_width(d, torch.bfloat16) for d in (16, 64, 96, 128, 200)] == [
+        64, 64, 128, 128, 256]
+    # Its staged lse/delta rows: padded to whole 64-query tiles for the
+    # tensor cores only, lse with a value whose exp(score - lse) is 0.
+    gen = torch.Generator().manual_seed(8)
+    lse_in, delta_in = torch.randn(6, 77, generator=gen), torch.randn(6, 77, generator=gen)
+    lse_p, delta_p = fa._bwd_stats(lse_in, delta_in, 6, 77, 64, torch.bfloat16)
+    assert lse_p.shape == delta_p.shape == (6, 128)
+    assert torch.equal(lse_p[:, :77], lse_in) and torch.equal(delta_p[:, :77], delta_in)
+    assert torch.exp(torch.tensor(30.0) - lse_p[:, 77:]).max() == 0 and not delta_p[:, 77:].any()
+    for width, dtype in ((64, torch.float32), (256, torch.bfloat16)):
+        assert fa._bwd_stats(lse_in, delta_in, 6, 77, width, dtype)[0].shape == (6, 77)
+    # The int8 matmul's design: bf16 x on the tensor cores when d_in is a
+    # multiple of 16 (int8 weight rows TMA can describe), at every m;
+    # float32 x and rows of 683 or 1365 bytes on the CUDA cores.
+    for m in (1, 2, 7, 8, 9, 40, 64, 65, 256, 1000):
+        for k_in in (64, 683, 768, 1365, 2048):
+            for dtype in (torch.float32, torch.bfloat16):
+                tc = dtype == torch.bfloat16 and k_in % 16 == 0
+                assert qm.quant_path(m, k_in, dtype) == ("tensor_cores" if tc else "cuda_cores")
+            for n_out in (64, 768, 2048, 32000):
+                bn, nsplit, per = qm.tc_geometry(m, n_out, k_in, 132)
+                steps = -(-k_in // 128)
+                assert bn == next((b for b in (8, 16, 32, 64) if m <= b), 64), m
+                assert nsplit * per >= steps > (nsplit - 1) * per, (m, k_in, n_out)
+                assert nsplit == 1 or m <= 64
+    assert qm.tc_geometry(8, 2048, 768, 132) == (8, 6, 1)
+    assert qm.tc_geometry(8, 32000, 768, 132) == (8, 1, 6)
+    assert qm.tc_geometry(256, 2048, 768, 132) == (64, 1, 6)
+    # The premise of the tensor-core design: every int8 value is exact in
+    # bf16, and a product of a bf16 and an int8 value is exact in float32.
+    # And the kernel's widening, mirrored bit for bit: 0x4300 | (b & 0x7F)
+    # minus 0x4300 | (b & 0x80), as bf16 values, is the int8 value of b.
+    all_q = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(all_q.to(torch.bfloat16).float(), all_q.float())
+    xs = torch.randn(4096, generator=gen).to(torch.bfloat16)
+    prod = xs.float()[:, None] * all_q.float()[None, :]
+    assert torch.equal(prod.double(), xs.double()[:, None] * all_q.double()[None, :])
+    byte = all_q.numpy().view(np.uint8).astype(np.uint32)
+
+    def bf16_bits(bits):
+        return (bits << 16).astype(np.uint32).view(np.float32)
+
+    lo, hi = bf16_bits(0x4300 | (byte & 0x7F)), bf16_bits(0x4300 | (byte & 0x80))
+    widened = torch.from_numpy(lo - hi)
+    assert torch.equal(widened, all_q.float())
+    assert torch.equal(widened.to(torch.bfloat16).float(), widened)  # exact in bf16 too
     with pytest.raises(ValueError, match="not divisible"):
         da.decode_geometry(12, 5, 64)
     fa.check_blocks(24, True, 16, 16)  # causal calls pad
