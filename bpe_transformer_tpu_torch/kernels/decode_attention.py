@@ -30,9 +30,12 @@ It launches ``csrc/paged_decode_attention.cu`` for CUDA tensors and runs
 Both kernels take any ``d_head`` and any group ``num_heads // kv_heads``,
 as the JAX functions do (:func:`decode_geometry`: the head dim runs at the
 next instantiated register width, or above 256 in output-column chunks of
-256, the group in chunks of 1, 2, 4 or 8 heads).  Launches are counted
-in ``kernels/_build.py`` under ``decode_attention`` and
-``paged_decode_attention``.
+256, the group in chunks of 1, 2, 4 or 8 heads).  The dense kernel also
+splits each slot's keys into spans (:func:`decode_splits`), one block each,
+merged in the same launch through a float32 workspace and arrival counters
+that the wrapper keeps per device and stream (:func:`_split_workspace`).
+Launches are counted in ``kernels/_build.py`` under ``decode_attention``
+and ``paged_decode_attention``.
 """
 
 from __future__ import annotations
@@ -63,11 +66,71 @@ def decode_geometry(num_heads: int, kv_heads: int, d: int) -> tuple[int, int, in
     return width, chunk, -(-group // chunk), col_chunks(width)
 
 
+#: Keys a dense decode block owns (one split of a slot's cache), the most
+#: splits a slot is cut into before the span grows (in steps of
+#: SPLIT_KEYS), and the most keys a span may have (csrc/decode_common.cuh
+#: MAX_SPAN: the kernel keeps a span's scores in shared memory).  Spans of
+#: 32 to 256 keys were timed side by side at the GPT2_SMALL_32K tick: 64
+#: was the fastest (PERF.md, B1).
+SPLIT_KEYS = 64
+MAX_SPLITS = 32
+MAX_SPAN = 256
+
+
+def decode_splits(ctx: int) -> tuple[int, int]:
+    """``(n_splits, span)`` of a dense decode launch over a cache of ``ctx``
+    rows: spans of :data:`SPLIT_KEYS` keys, widened by multiples of it up
+    to :data:`MAX_SPAN` where more than :data:`MAX_SPLITS` would be
+    needed."""
+    if ctx < 1:
+        raise ValueError(f"ctx={ctx}: need ctx >= 1")
+    span = min(MAX_SPAN, SPLIT_KEYS * -(-ctx // (SPLIT_KEYS * MAX_SPLITS)))
+    return -(-ctx // span), span
+
+
+#: (counters, workspace) of the dense decode kernel's split merge, per
+#: (device, stream): the counters are zero between launches (the merging
+#: block resets its own), the workspace holds no state between them.
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: Outgrown workspaces, kept alive: a captured CUDA graph may still use them.
+_retired: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+
+def _split_workspace(device, n_counters: int, n_floats: int):
+    """The cached ``(counters, workspace)`` of ``device`` and its current
+    stream, grown (never shrunk) to ``n_counters`` int32 and ``n_floats``
+    float32.  Calls on one stream run in order, so they can share them;
+    calls on two streams get one each.  Growing inside a CUDA graph capture
+    allocates from the graph's pool and zeroes the counters at every
+    replay."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device.index, stream.cuda_stream)
+    counters, ws = _workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters or ws.numel() < n_floats:
+        old_c, old_w = (0, 0) if counters is None else (counters.numel(), ws.numel())
+        if counters is not None:
+            _retired.append((counters, ws))
+        counters = torch.zeros(max(n_counters, 2 * old_c), dtype=torch.int32, device=device)
+        ws = torch.empty(max(n_floats, 2 * old_w), dtype=torch.float32, device=device)
+        _workspaces[key] = (counters, ws)
+    return counters, ws
+
+
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     pos = torch.as_tensor(pos, device=device).reshape(-1)
     if pos.numel() not in (1, batch):
         raise ValueError(f"pos has {pos.numel()} entries for a batch of {batch}")
     return pos.expand(batch)
+
+
+def _pos_arg(pos, batch: int, device) -> tuple[torch.Tensor, int]:
+    """``pos`` as the dense kernel reads it, with its code (0 int32, 1
+    int64): an engine's contiguous int32/int64 position vector as it is (no
+    conversion launch), anything else converted to int32."""
+    pos_b = _pos_vector(pos, batch, device)
+    if pos_b.dtype in (torch.int32, torch.int64) and pos_b.is_contiguous():
+        return pos_b, int(pos_b.dtype == torch.int64)
+    return pos_b.to(torch.int32).contiguous(), 0
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos) -> torch.Tensor:
@@ -88,7 +151,15 @@ def decode_attention_plain(q, k_cache, v_cache, pos) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     """One decode step of attention (see module docstring): the CUDA kernel
-    for CUDA tensors, :func:`decode_attention_plain` for CPU tensors."""
+    for CUDA tensors, :func:`decode_attention_plain` for CPU tensors.
+
+    The kernel merges its key spans through a workspace and arrival
+    counters that every call on the same device and stream shares
+    (:func:`_split_workspace`); the counters must be zero when a launch
+    starts, and the launch leaves them so.  So two launches that share them
+    must not overlap: replays of CUDA graphs captured on one stream must not
+    run at once on two streams, and a launch that did not run to its end
+    (a device fault) leaves them unusable, as it leaves the context."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos)
     batch, num_heads, d = q.shape
@@ -98,16 +169,20 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
             f"shape mismatch: q {tuple(q.shape)}, k_cache {tuple(k_cache.shape)}, "
             f"v_cache {tuple(v_cache.shape)}"
         )
-    width, chunk, n_chunks, _ = decode_geometry(num_heads, kv_heads, d)
+    width, chunk, n_chunks, n_cols = decode_geometry(num_heads, kv_heads, d)
+    n_splits, span = decode_splits(ctx)
     q = q.contiguous()
-    pos_b = _pos_vector(pos, batch, q.device).to(torch.int32).contiguous()
+    pos_b, pos_code = _pos_arg(pos, batch, q.device)
     out = torch.empty_like(q)
     code, stream = _build.kernel_args("decode_attention", q, k_cache, v_cache, out)
-    fn = _build.entry("decode_attention", "decode_attention_launch", 5, 8)
+    n_groups = batch * kv_heads * n_chunks * n_cols
+    counters, ws = _split_workspace(
+        q.device, n_groups, n_groups * n_splits * chunk * (min(width, 256) + 2))
+    fn = _build.entry("decode_attention", "decode_attention_launch", 7, 11)
     rc = fn(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_b.data_ptr(), out.data_ptr(), batch, num_heads, kv_heads, ctx, width, d,
-        chunk, n_chunks, stream,
+        pos_b.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), pos_code,
+        batch, num_heads, kv_heads, ctx, width, d, chunk, n_chunks, n_splits, span, stream,
     )
     _build.check(rc, "decode_attention")
     _build.count("decode_attention")

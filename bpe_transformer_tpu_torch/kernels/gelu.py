@@ -35,7 +35,9 @@ from bpe_transformer_tpu_torch.kernels import _build
 
 _SQRT_2_OVER_PI = 0.79788456
 _C = 0.044715
-_MAX_ELEMS = 2**31 - 1  # the C entry points take the element count as an int
+#: The C entry points take the element count as an int, with room for the
+#: 32-bit index of a chunk's last vector past the end (csrc/gelu.cu MAX_N).
+_MAX_ELEMS = 2**31 - 1 - 4 * 256 * 8
 
 
 def gelu_plain(x: torch.Tensor) -> torch.Tensor:

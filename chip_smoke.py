@@ -18,11 +18,14 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    least time the card could take (the bound); the SwiGLU forward's and
    the int8 matmul's two designs (tensor cores, CUDA cores) timed side by
    side from 1 to 256 rows and the crossover m where the tensor cores win;
-   and, for correctness only, at shapes off that path (other head dims,
-   among them 320 and 512, which run in output-column chunks, GQA groups,
-   block sizes, ragged lengths, odd d_ff, int8 rows not a multiple of 16
-   bytes), with the tensor-core int8 matmul's widening of all 256 byte
-   values held bit for bit;
+   B1 also two calls bit-identical; and, for correctness only, at shapes
+   off that path (other head dims, among them 320 and 512, which run in
+   output-column chunks, GQA groups, block sizes, ragged lengths, odd
+   d_ff, int8 rows not a multiple of 16 bytes; for B1 frontiers at 0 and
+   on a span boundary +-1, ctx 1000, 4096 and 8192, batches of 1 and 64,
+   bf16 head dims 17 and 40, int32 and int64 frontiers, two calls
+   bit-identical), with the tensor-core int8 matmul's widening of all 256
+   byte values held bit for bit;
 3. the whole path in float32 on the trained 3-layer fixture
    (``tests/fixtures/trained_3l64d.npz``): prefill logits against the
    fixture's pinned logits, and greedy tokens served on the card identical
@@ -81,7 +84,8 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
 11. the two-matrix FFNs and the GeLU kernels (``csrc/gelu.cu``): (a) the
    forward and backward kernels against their plain versions and
    ``F.gelu(approximate="tanh")`` / its backward at the tick, chunk and
-   training shapes of a d_ff 3072 FFN, float32 and bfloat16, and for
+   training shapes of a d_ff 3072 FFN, float32 and bfloat16 (with the
+   elements that differ from the plain version counted), and for
    correctness at sizes with a scalar tail, an unaligned view and
    magnitudes up to 1000; (b) small seeded float32 gelu and silu models
    served on the card by the dense, paged (act, int8 KV + int8 weights)
@@ -480,6 +484,30 @@ def check_other_shapes(torch) -> None:
             cases.append(("decode_attention", f"B={B} H={H} KV={KV} ctx={ctx} d={d}",
                           da.decode_attention, da.decode_attention_plain,
                           (rnd(B, H, d), rnd(B, KV, ctx, d), rnd(B, KV, ctx, d), pos)))
+        # The split-KV design where it can break: frontiers at 0 and on a
+        # span boundary +-1 (one, two and three live spans), a ctx that is no
+        # multiple of the span (1000), ctx 4096 and 8192 (spans of 128 and 256
+        # keys, up to 8 tiles: the ring refills where it holds fewer, as at d
+        # 128 and in float32), batches of 1 and 64,
+        # and head dims whose rows are no whole 16-byte units in bf16 (17: no
+        # bulk copy; 40: bulk copy of rows narrower than the register width);
+        # int64 frontiers (the engines' own) except the last two cases (int32).
+        span = da.decode_splits(1024)[1]
+        edge = [0, 1, span - 1, span, span + 1, 2 * span - 1, 2 * span, 2 * span + 1]
+        for B, H, KV, ctx, d, pos in (
+                (8, 4, 4, 1024, 64, edge), (8, 16, 4, 1024, 64, edge),
+                (4, 12, 12, 1000, 64, [0, 999, 500, 2 * span]),
+                (3, 8, 2, 4096, 64, [4095, 1000, 128]), (2, 4, 4, 8192, 64, [8191, 3000]),
+                (2, 16, 4, 8192, 128, [8191, 257]), (1, 12, 12, 1024, 64, [1023]),
+                (64, 12, 12, 1024, 64, None), (4, 8, 2, 300, 17, [299, 0, 64, 65]),
+                (4, 6, 3, 300, 40, [299, 0, 64, 65]), (3, 4, 1, 1000, 17, [999, 128, 129])):
+            pos = (torch.randint(0, ctx, (B,), generator=gen, device="cuda") if pos is None
+                   else torch.tensor(pos, device="cuda"))
+            if d in (17, 40) and KV > 1:
+                pos = pos.to(torch.int32)
+            cases.append(("decode_attention", f"B={B} H={H} KV={KV} ctx={ctx} d={d} split edges",
+                          da.decode_attention, da.decode_attention_plain,
+                          (rnd(B, H, d), rnd(B, KV, ctx, d), rnd(B, KV, ctx, d), pos)))
         for shape in ((2, 3, 77, 16), (1, 2, 200, 32), (2, 1, 300, 128), (2, 64, 96),
                       (1, 2, 130, 256), (1, 2, 70, 320), (1, 1, 40, 512)):
             cases.append(("flash_attention", f"{shape}", fa.flash_attention,
@@ -527,6 +555,9 @@ def check_other_shapes(torch) -> None:
             tol = TOL.get((name, dname), TOL_BF16)
             require(out.shape == ref.shape and bool(torch.isfinite(out).all()) and err <= tol,
                     f"{name} {dname} {label}: max error {err:.3e} (tol {tol:g})")
+            if name == "decode_attention":  # the split merge takes a fixed order
+                require(torch.equal(out, kern(*args)),
+                        f"{name} {dname} {label}: two calls differ")
             worst = max(worst, err / tol)
         log(f"kernels off the main path, {dname}: {len(cases)} shapes within tolerance "
             f"(largest error {worst:.3f} of its tolerance)")
@@ -571,6 +602,8 @@ def measure_case(torch, dtype, case) -> dict:
                 f"{name} {label}: output {tuple(out.shape)} {out.dtype}")
         require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
         errs.append((out.float() - ref.float()).abs().max().item())
+        if name == "decode_attention":
+            require(torch.equal(out, kern(*inputs)), f"{name} {label}: two calls differ")
     err = max(errs)
     tol = TOL.get((name, dname), TOL_BF16)
     iters = 50 if name != "flash_attention" or "S=1024" not in label else 20
@@ -596,8 +629,26 @@ def measure_case(torch, dtype, case) -> dict:
         f"ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
         f"library {lib} bound {row['bound_ms']:.4f} ({row['bound_by']}){extra}"
     )
+    if name == "decode_attention":
+        log(f"decode_attention {dname} {label}: kernel {ms:.4f} ms against SDPA's {lib_ms:.4f} "
+            f"({'below' if ms < lib_ms else 'NOT below'} it; {ms / row['bound_ms']:.1f}x the "
+            f"bound)")
     require(err <= tol, f"{name} {dname} {label}: max error {err:.3e} > {tol:g}")
     return row
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    """Set module attributes for the block (a kernel entry routed to its
+    plain version), and restore them after."""
+    old = {name: getattr(module, name) for name in values}
+    for name, value in values.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
 
 
 def crossover_sweep(torch, name: str, label: str, sets_for, run, plain, tol: float,
@@ -1457,18 +1508,12 @@ PAGED_KNOBS = dict(KERNEL_KNOBS, decode_attention_impl="paged")
 PAGED_WIDTHS = (("act", None, None), ("int8 KV", "int8", None), ("int8 KV + int8 weights", "int8", "int8"))
 
 
-@contextlib.contextmanager
 def plain_quant_matmul():
     """Route the int8 matmul to its plain version on the card (the
     reference run of phase 9b); nothing else changes."""
     from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
 
-    kernel = qm.quant_matmul
-    qm.quant_matmul = qm.quant_matmul_plain
-    try:
-        yield
-    finally:
-        qm.quant_matmul = kernel
+    return patched(qm, quant_matmul=qm.quant_matmul_plain)
 
 
 def phase_paged_fixture(torch) -> None:
@@ -2098,18 +2143,12 @@ def interleaved_ticks(torch, engines: dict, vocab: int, rng, label: str,
     return times
 
 
-@contextlib.contextmanager
 def plain_gelu():
     """Route the GeLU forward to its plain version on the card (the
     reference run of phase 11c); nothing else changes."""
     from bpe_transformer_tpu_torch.kernels import gelu as ge
 
-    kernel = ge._gelu_forward
-    ge._gelu_forward = ge.gelu_plain
-    try:
-        yield
-    finally:
-        ge._gelu_forward = kernel
+    return patched(ge, _gelu_forward=ge.gelu_plain)
 
 
 def gelu_cases(torch, dtype, gen) -> list:
@@ -2190,7 +2229,7 @@ def phase_gelu_kernels(torch) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for name, label, kern, plain, lib, sets, nbytes, flops in gelu_cases(torch, dtype, gen):
-            errs = []
+            errs, differ = [], 0
             for inputs in sets[:2]:
                 out = kern(*inputs)
                 torch.cuda.synchronize()
@@ -2198,6 +2237,7 @@ def phase_gelu_kernels(torch) -> dict:
                 require(out.shape == ref.shape and out.dtype == ref.dtype
                         and bool(torch.isfinite(out).all()), f"{name} {label}: bad output")
                 errs.append(gelu_error(torch, out, ref))
+                differ += int((out != ref).sum())
             err, rel = max(e for e, _ in errs), max(r for _, r in errs)
             ms = time_ms(torch, kern, sets, 50, graph=True)
             loop_ms = time_ms(torch, kern, sets, 50)
@@ -2211,12 +2251,13 @@ def phase_gelu_kernels(torch) -> dict:
                 "tol": tol, "err_over_tol": rel, "ms": ms, "loop_ms": loop_ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                "bytes": nbytes, "flops": flops,
+                "bytes": nbytes, "flops": flops, "elements_differing_from_plain": differ,
             }
             rows.append(row)
             log(f"kernel {name:8s} {dname:8s} {label:14s} err {err:.3e} ({rel:.3f} of tol "
-                f"{tol}) ms {ms:.4f} (enqueued from Python {loop_ms:.4f}) plain {plain_ms:.4f} "
-                f"library {lib_ms:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+                f"{tol}; {differ} elements differ from plain) ms {ms:.4f} (enqueued from Python "
+                f"{loop_ms:.4f}) plain {plain_ms:.4f} library {lib_ms:.4f} bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
             require(rel <= 1, f"{name} {dname} {label}: max error {err:.3e} over {tol}")
     # B8 at the int8 GeLU FFN's shapes: the down projection reduces over
     # K = 3072, which _splits cuts into slices for the tick's m = 8.
@@ -2233,7 +2274,7 @@ def phase_gelu_kernels(torch) -> dict:
     (OUT_DIR / "chip_smoke_gelu.json").write_text(json.dumps(rows, indent=1))
     return {r["name"]: r for r in rows
             if r["name"].startswith("gelu") and r["dtype"] == "bfloat16"
-            and "m=8192" in r["shape"]}
+            and "m=8192" in r["shape"] and "ms" in r}
 
 
 def scaled_params(torch, cfg, seed: int, scale: float = 1.0) -> dict:

@@ -14,7 +14,13 @@ backward kernels (dK/dV and dQ, causal at the training shape and
 non-causal at the ring's launch shape), the SwiGLU forward at a decode tick
 and at the training m, the int8 matmul with bf16 x at a tick (m 8) and a
 prefill chunk (m 256) of 768 -> 2048 and at a tick of the 768 -> 32000
-head, and the decode kernels at a tick.  Prints one line per run and writes them to
+head, the decode kernels at a tick (B1 with 12 heads on 12 KV heads and 16
+on 4), and the GeLU forward and backward at the training shape (8192 x 3072
+bf16).  Each run also counts the static SASS instructions of each GeLU
+kernel of its tree, whole and per element copy in the code (``cuobjdump
+-sass`` on the built library; :func:`sass_counts`), and the first line
+gives the card's name, power limit and top SM clock.  Prints one line per
+run and writes them to
 ``chiprun_out/kernel_ab.jsonl``.  Two versions are compared only inside one
 call, on one card, as the turns above do.
 """
@@ -23,6 +29,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +54,38 @@ def graph_ms(torch, fn, sets, iters=20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_counts(lib: Path) -> dict:
+    """Static SASS instructions of each GeLU kernel in ``lib``
+    (``cuobjdump -sass``), and per element copy in the code: the kernel's
+    instructions over its ``MUFU.EX2`` (each element's exp, or tanh's in
+    the backward, issues one).  That share includes the kernel's index
+    arithmetic, its scalar tail and the code of branches an element does
+    not take (the division's slow path, tanhf's second range), so it is an
+    upper bound on the instructions one element issues.  Empty without
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    counts = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        kind = re.search(r"gelu_(fwd|bwd)_kernel", name)
+        if not kind:
+            continue
+        insts = [m.group(1) for m in (re.match(r"^/\*[0-9a-f]+\*/\s+(\S.*)", line.strip())
+                                      for line in chunk.splitlines())
+                 if m and not m.group(1).startswith("NOP")]  # NOP: alignment padding
+        copies = sum(bool(re.search(r"\bMUFU\.EX2\b", inst)) for inst in insts)
+        dtype = "bf16" if "bfloat16" in name else "f32"
+        counts[f"{kind.group(1)} {dtype}"] = {
+            "instructions": len(insts), "element_copies": copies,
+            "per_element": len(insts) / copies if copies else None}
+    return counts
 
 
 def worker(root: str) -> dict:
@@ -129,7 +169,18 @@ def worker(root: str) -> dict:
         times[f"paged decode bf16 {'int8' if kv_int8 else 'act'} KV"] = graph_ms(
             torch, lambda q, k, v, t, p, ks, vs: da.paged_decode_attention(
                 q, k, v, t, p, k_scale=ks, v_scale=vs), sets, 48)
-    return {"root": root, "device": torch.cuda.get_device_name(0), "ms": times}
+    from bpe_transformer_tpu_torch.kernels import gelu as ge
+
+    F = torch.nn.functional
+    sets = [(rnd(8192, 3072, std=3.0), rnd(8192, 3072)) for _ in range(4)]
+    times["gelu bf16 m=8192 ff=3072"] = graph_ms(torch, lambda x, g: ge._gelu_forward(x), sets, 48)
+    times["gelu_bwd bf16 m=8192 ff=3072"] = graph_ms(torch, ge._gelu_backward, sets, 48)
+    times["F.gelu tanh bf16 m=8192 (library)"] = graph_ms(
+        torch, lambda x, g: F.gelu(x, approximate="tanh"), sets, 48)
+    times["aten.gelu_backward tanh bf16 m=8192 (library)"] = graph_ms(
+        torch, lambda x, g: torch.ops.aten.gelu_backward(g, x, approximate="tanh"), sets, 48)
+    sass = sass_counts(_build.build_dir() / "libgelu.so")
+    return {"root": root, "device": torch.cuda.get_device_name(0), "ms": times, "sass": sass}
 
 
 def main() -> int:
@@ -141,7 +192,8 @@ def main() -> int:
         return 2
     parent = str(Path(sys.argv[1]).resolve())
     change = str(Path(sys.argv[2]).resolve()) if len(sys.argv) > 2 else str(HERE)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     out = HERE / "chiprun_out"
@@ -157,6 +209,9 @@ def main() -> int:
             row = {"label": label, "card": smi, **json.loads(run.stdout.strip().splitlines()[-1])}
             sink.write(json.dumps(row) + "\n")
             print(label, " | ".join(f"{k} {v:.4f}" for k, v in row["ms"].items()), flush=True)
+            print(label, "gelu SASS instructions per element copy:", " | ".join(
+                f"{k} {v['per_element']} ({v['instructions']} over {v['element_copies']})"
+                for k, v in row.get("sass", {}).items()), flush=True)
     return 0
 
 

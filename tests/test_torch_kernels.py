@@ -511,6 +511,13 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
                        ((4, 4, 96), (128, 1, 1, 1)), ((16, 1, 256), (256, 4, 4, 1)),
                        ((40, 4, 16), (16, 8, 2, 1)), ((5, 1, 200), (256, 4, 2, 1))]:
         assert da.decode_geometry(*args) == want, args
+    # The dense decode kernel's key splits: spans of 64 keys up to ctx 2048,
+    # then 32 spans of a multiple of 64 keys (up to 256 keys a span).
+    for ctx, want in [(1, (1, 64)), (16, (1, 64)), (1000, (16, 64)), (1024, (16, 64)),
+                      (4096, (32, 128)), (8192, (32, 256))]:
+        assert da.decode_splits(ctx) == want, ctx
+        n_splits, span = want
+        assert span % 32 == 0 and n_splits * span >= ctx > (n_splits - 1) * span, ctx
     # The SwiGLU forward's design by type and widths: bf16 on the tensor
     # cores (at every m: they win from one row up on the card) when d and
     # d_ff are multiples of 8; float32 and other widths on the CUDA cores.
