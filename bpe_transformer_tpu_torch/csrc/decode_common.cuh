@@ -31,7 +31,8 @@
 // a ring of `stages` tiles each for K and V, all issued up front when they
 // fit) where rows are whole 16-byte units at a 16-byte aligned base, else
 // direct loads by every thread.  A dense cache hands a tile over as one
-// contiguous run of rows; a paged pool as one run per pool block.
+// contiguous run of rows; a paged pool as one run per pool block (an int8
+// pool's per-block scales enter through softmax_span's Scales).
 
 #pragma once
 
@@ -102,6 +103,12 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, floa
   const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   a = v.x;
   b = v.y;
+}
+template <>
+__device__ __forceinline__ void load_pair(const int8_t* p, float& a, float& b) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  a = (float)v.x;
+  b = (float)v.y;
 }
 
 // q of the chunk's heads into q_sh ([G][dt], scaled by qscale; heads past ng
@@ -188,20 +195,36 @@ __device__ __forceinline__ void score_general(const T* kt, int rows, int off, in
   for (int g = 0; g < G; ++g) sh.p[g][off + key] = s[g];
 }
 
+// Per-key factors of a span with no scales (dense or float pools).
+struct Unscaled {
+  static constexpr bool on = false;
+  __device__ float k(int) const { return 1.f; }
+  __device__ float v(int) const { return 1.f; }
+};
+
 // The span's softmax: warp w takes heads w, w + WARPS, ..., lane j the keys
 // j, j + 32, ... of the span's n; leaves m, l and the probabilities
-// exp2(s - m) in place of the scores.
-template <int G>
-__device__ __forceinline__ void softmax_span(int n, Shared<G>& sh) {
+// exp2(s - m) in place of the scores.  With scales (an int8 pool), key j's
+// score is first multiplied by sc.k(j) and its probability then by sc.v(j);
+// l sums the probabilities before that second factor.
+template <int G, typename Scales = Unscaled>
+__device__ __forceinline__ void softmax_span(int n, Shared<G>& sh, const Scales& sc = Scales()) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int g = warp; g < G; g += WARPS) {
     float mx = MASK;
-    for (int k = lane; k < n; k += 32) mx = fmaxf(mx, sh.p[g][k]);
+    for (int k = lane; k < n; k += 32) {
+      float s = sh.p[g][k];
+      if constexpr (Scales::on) {
+        s *= sc.k(k);
+        sh.p[g][k] = s;
+      }
+      mx = fmaxf(mx, s);
+    }
     mx = warp_max(mx);
     float sum = 0.f;
     for (int k = lane; k < n; k += 32) {
       const float e = sm90::fast_exp2(sh.p[g][k] - mx);
-      sh.p[g][k] = e;
+      sh.p[g][k] = Scales::on ? e * sc.v(k) : e;
       sum += e;
     }
     sum = warp_sum(sum);

@@ -30,10 +30,14 @@ It launches ``csrc/paged_decode_attention.cu`` for CUDA tensors and runs
 Both kernels take any ``d_head`` and any group ``num_heads // kv_heads``,
 as the JAX functions do (:func:`decode_geometry`: the head dim runs at the
 next instantiated register width, or above 256 in output-column chunks of
-256, the group in chunks of 1, 2, 4 or 8 heads).  The dense kernel also
-splits each slot's keys into spans (:func:`decode_splits`), one block each,
+256, the group in chunks of 1, 2, 4 or 8 heads).  Both split each slot's
+keys into spans (:func:`decode_splits`; the paged kernel over the
+``blocks_per_slot * block_size`` keys a slot can hold), one block each,
 merged in the same launch through a float32 workspace and arrival counters
-that the wrapper keeps per device and stream (:func:`_split_workspace`).
+that the wrapper keeps per device and stream (:func:`_split_workspace`,
+shared by the two kernels).  Both read the engines' int32 or int64 position
+vectors and the paged engine's int32 table as they are (no conversion
+launch).
 Launches are counted in ``kernels/_build.py`` under ``decode_attention``
 and ``paged_decode_attention``.
 """
@@ -66,29 +70,30 @@ def decode_geometry(num_heads: int, kv_heads: int, d: int) -> tuple[int, int, in
     return width, chunk, -(-group // chunk), col_chunks(width)
 
 
-#: Keys a dense decode block owns (one split of a slot's cache), the most
-#: splits a slot is cut into before the span grows (in steps of
-#: SPLIT_KEYS), and the most keys a span may have (csrc/decode_common.cuh
-#: MAX_SPAN: the kernel keeps a span's scores in shared memory).  Spans of
-#: 32 to 256 keys were timed side by side at the GPT2_SMALL_32K tick: 64
-#: was the fastest (PERF.md, B1).
+#: Keys a decode block owns (one split of a slot's keys), the most splits a
+#: slot is cut into before the span grows (in steps of SPLIT_KEYS), and the
+#: most keys a span may have (csrc/decode_common.cuh MAX_SPAN: the kernels
+#: keep a span's scores in shared memory).  Spans of 32 to 256 keys were
+#: timed side by side at the GPT2_SMALL_32K tick: 64 was the fastest, for
+#: the dense kernel and for the paged one at int8 and act width (PERF.md,
+#: B1 and B7).
 SPLIT_KEYS = 64
 MAX_SPLITS = 32
 MAX_SPAN = 256
 
 
 def decode_splits(ctx: int) -> tuple[int, int]:
-    """``(n_splits, span)`` of a dense decode launch over a cache of ``ctx``
-    rows: spans of :data:`SPLIT_KEYS` keys, widened by multiples of it up
-    to :data:`MAX_SPAN` where more than :data:`MAX_SPLITS` would be
-    needed."""
+    """``(n_splits, span)`` of a decode launch over ``ctx`` keys a slot (a
+    dense cache's rows, or a paged slot's ``blocks_per_slot * block_size``):
+    spans of :data:`SPLIT_KEYS` keys, widened by multiples of it up to
+    :data:`MAX_SPAN` where more than :data:`MAX_SPLITS` would be needed."""
     if ctx < 1:
         raise ValueError(f"ctx={ctx}: need ctx >= 1")
     span = min(MAX_SPAN, SPLIT_KEYS * -(-ctx // (SPLIT_KEYS * MAX_SPLITS)))
     return -(-ctx // span), span
 
 
-#: (counters, workspace) of the dense decode kernel's split merge, per
+#: (counters, workspace) of the decode kernels' split merge, per
 #: (device, stream): the counters are zero between launches (the merging
 #: block resets its own), the workspace holds no state between them.
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
@@ -241,22 +246,23 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """One decode step of attention read through the block table (see module
     docstring): the CUDA kernel for CUDA tensors,
-    :func:`paged_decode_attention_plain` for CPU tensors."""
+    :func:`paged_decode_attention_plain` for CPU tensors.  The kernel shares
+    :func:`decode_attention`'s split workspace and its rules for
+    overlapping launches."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
     _check_paged(q, k_pool, v_pool, tables, k_scale, v_scale)
     slots, num_heads, d = q.shape
     _, kv_heads, block_size, _ = k_pool.shape
     nbs = tables.shape[1]
-    width, chunk, n_chunks, _ = decode_geometry(num_heads, kv_heads, d)
-    if nbs > 4096:
-        raise ValueError(f"blocks_per_slot={nbs} unsupported by the kernel (at most 4096)")
+    width, chunk, n_chunks, n_cols = decode_geometry(num_heads, kv_heads, d)
     quantized = k_pool.dtype == torch.int8
     if not quantized and k_pool.dtype != q.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype} must be q's ({q.dtype}) or int8")
+    n_splits, span = decode_splits(nbs * block_size)
     q = q.contiguous()
-    tables32 = tables.to(torch.int32).contiguous()
-    pos_b = _pos_vector(pos, slots, q.device).to(torch.int32).contiguous()
+    tables32 = tables.to(torch.int32).contiguous()  # the engine's own table: no copy
+    pos_b, pos_code = _pos_arg(pos, slots, q.device)
     out = torch.empty_like(q)
     scales = (k_scale, v_scale) if quantized else ()
     for s in scales:
@@ -266,13 +272,17 @@ def paged_decode_attention(
         "paged_decode_attention", q, out, f32=scales,
         others=(k_pool, v_pool, tables32, pos_b),
     )
+    n_groups = slots * kv_heads * n_chunks * n_cols
+    counters, ws = _split_workspace(
+        q.device, n_groups, n_groups * n_splits * chunk * (min(width, 256) + 2))
     kv_code = _build.INT8_CODE if quantized else code
-    fn = _build.entry("paged_decode_attention", "paged_decode_attention_launch", 8, 10)
+    fn = _build.entry("paged_decode_attention", "paged_decode_attention_launch", 10, 13)
     rc = fn(
         code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables32.data_ptr(),
         pos_b.data_ptr(), k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None, out.data_ptr(), kv_code, slots,
-        num_heads, kv_heads, block_size, nbs, width, d, chunk, n_chunks, stream,
+        v_scale.data_ptr() if quantized else None, out.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), kv_code, pos_code, slots, num_heads, kv_heads, block_size, nbs,
+        width, d, chunk, n_chunks, n_splits, span, stream,
     )
     _build.check(rc, "paged_decode_attention")
     _build.count("paged_decode_attention")

@@ -5,11 +5,13 @@ Unfused, a tick ends with the head projection to ``(rows, vocab)`` float32
 logits, ``serving.engine.filter_logits`` (two full sorts for runtime top-k
 and top-p) and a gumbel argmax.  :func:`fused_head_sample` does the same in
 two launches of ``csrc/sample.cu``: a hand-written head projection into a
-float32 logit workspace, then one block per row that filters with the TPU
-kernel's sort-free radix descent and samples.  :func:`fused_verify_head` is
-the speculative-decoding verify tail (``serving/spec/engine.py``): per row
-the raw-argmax token, the filtered target probability ``p_d`` of the judged
-draft token, and a sample of the residual ``max(p - q, 0)``.
+float32 logit workspace (on the tensor cores where :func:`head_path` says
+so), then one thread block cluster per row (:func:`finalize_geometry`) that
+filters by a sort-free radix select over the row's keys and samples.
+:func:`fused_verify_head` is the speculative-decoding verify tail
+(``serving/spec/engine.py``): per row the raw-argmax token, the filtered
+target probability ``p_d`` of the judged draft token, and a sample of the
+residual ``max(p - q, 0)``.
 
 ``head`` is the LM head, a ``(vocab, d)`` tensor or the int8 dict of
 ``ops/quant.py``; knobs are ``(rows,)`` tensors (``temps`` 0 = greedy,
@@ -31,8 +33,42 @@ from __future__ import annotations
 import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
+from bpe_transformer_tpu_torch.kernels.quant_matmul import _sm_count
 from bpe_transformer_tpu_torch.ops.core import head_logits
 from bpe_transformer_tpu_torch.serving.engine import filter_logits, sample_tokens
+
+
+#: Blocks a row's finalize cluster may have (the portable cluster size).
+MAX_CLUSTER = 8
+
+
+def head_path(x_dtype, head_dtype, d: int) -> str:
+    """The projection a call runs: ``"tensor_cores"`` for bf16 hidden rows
+    against a bf16 or int8 head when ``d`` is a multiple of 16 (rows TMA can
+    describe), else ``"cuda_cores"`` (float32 rows, which keep float32
+    accuracy, and a float32 head, which the CUDA-core kernel rounds to bf16
+    as it loads it)."""
+    if x_dtype == torch.bfloat16 and head_dtype in (torch.bfloat16, torch.int8) and d % 16 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def head_tile_rows(rows: int) -> int:
+    """Hidden rows a tensor-core projection block takes: ``rows`` rounded up
+    to a multiple of 8 (the wgmma's N), at most 64 (more rows run 64-row
+    tiles side by side)."""
+    return min(64, -(-rows // 8) * 8)
+
+
+def finalize_geometry(rows: int, vocab: int, sms: int) -> tuple[int, int]:
+    """``(cluster, chunk)`` of the finalize launch: each row's cluster of
+    blocks, as many as keep ``rows * cluster`` within two blocks on each of
+    the card's ``sms`` SMs (1 to :data:`MAX_CLUSTER`), and the columns each
+    block owns.  At 40 rows one block an SM finishes top-k rows faster but
+    top-p-only rows much slower than two (PERF.md, B10)."""
+    cluster = max(1, min(MAX_CLUSTER, 2 * sms // rows, vocab))
+    chunk = -(-vocab // cluster)
+    return -(-vocab // chunk), chunk  # no block without a column
 
 
 def verify_rows(logits, temps, top_ks, top_ps, judge, q, gumbel):
@@ -96,6 +132,8 @@ def _launch(name, hidden, head, temps, top_ks, top_ps, ins, outs, logits_out):
     rows, d = hidden.shape
     vocab = ins[-1].shape[-1]
     hq, scale, head_code = _head_operands(head, vocab, d)
+    tensor_cores = head_path(hidden.dtype, hq.dtype, d) == "tensor_cores"
+    cluster, chunk = finalize_geometry(rows, vocab, _sm_count(hidden.device))
     if logits_out is None:
         logits_out = torch.empty((rows, vocab), dtype=torch.float32, device=hidden.device)
     if logits_out.shape != (rows, vocab):
@@ -114,9 +152,9 @@ def _launch(name, hidden, head, temps, top_ks, top_ps, ins, outs, logits_out):
         f32=(() if scale is None else (scale,)) + tuple(t for t in rest if t.is_floating_point()),
         others=(hq,) + tuple(t for t in rest if not t.is_floating_point()),
     )
-    fn = _build.entry("sample", f"{name}_launch", len(ptrs), 4)
+    fn = _build.entry("sample", f"{name}_launch", len(ptrs), 7)
     rc = fn(code, *(None if t is None else t.data_ptr() for t in ptrs), head_code, rows, vocab,
-            d, stream)
+            d, head_tile_rows(rows) if tensor_cores else 0, cluster, chunk, stream)
     _build.check(rc, name)
     _build.count(name)
 

@@ -18,12 +18,16 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    least time the card could take (the bound); the SwiGLU forward's and
    the int8 matmul's two designs (tensor cores, CUDA cores) timed side by
    side from 1 to 256 rows and the crossover m where the tensor cores win;
-   B1 also two calls bit-identical; and, for correctness only, at shapes
-   off that path (other head dims, among them 320 and 512, which run in
-   output-column chunks, GQA groups, block sizes, ragged lengths, odd
+   B1 and B7 also two calls bit-identical; and, for correctness only, at
+   shapes off that path (other head dims, among them 320 and 512, which run
+   in output-column chunks, GQA groups, block sizes, ragged lengths, odd
    d_ff, int8 rows not a multiple of 16 bytes; for B1 frontiers at 0 and
    on a span boundary +-1, ctx 1000, 4096 and 8192, batches of 1 and 64,
-   bf16 head dims 17 and 40, int32 and int64 frontiers, two calls
+   bf16 head dims 17 and 40, int32 and int64 frontiers; for B7 pool blocks
+   of 1 to 128 keys, frontiers at 0 and at span and pool-block boundaries
+   +-1, ctx 4096 and 8192, groups of 3 and 16 heads on 4, head dims 17, 40
+   and 320, float32, bf16 and int8 pools, with the trash block 0 holding
+   NaN and every table entry past a frontier on it; two calls
    bit-identical), with the tensor-core int8 matmul's widening of all 256
    byte values held bit for bit;
 3. the whole path in float32 on the trained 3-layer fixture
@@ -72,7 +76,9 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and bfloat16 with heads at their width and int8, every knob, and off the
    path at other vocabularies, rows and widths: the logit workspace within
    tolerance, tokens identical to the plain chain run on the kernel's own
-   logits, p_d within 2e-6, kernel / plain ms and the bound; (b) the
+   logits, p_d within 2e-6, two calls bit-identical, kernel / plain ms,
+   each launch's own device time (projection, finalize) from a profile,
+   and the bound; (b) the
    fixture served by the speculative engine (one-layer draft, K 4), fused
    and unfused, at act width and int8 KV + int8 weights, greedy tokens
    identical to the CPU's and to the non-speculative engine's; (c)
@@ -233,6 +239,9 @@ KERNEL_META = {
     },
 }
 SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
+#: The split-KV kernels, whose two calls on the same inputs must give the
+#: same bits.
+SPLIT_KERNELS = ("decode_attention", "paged_decode_attention")
 PAGED_KERNELS = ("paged_decode_attention", "quant_matmul")
 TRAINING_KERNELS = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
@@ -317,6 +326,33 @@ def paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype, kv_int8, pos=None, tra
                 for _ in range(2))
         ks = vs = None
     return q, k, v, tables, pos, ks, vs
+
+
+def paged_call(q, k, v, t, p, ks, vs):
+    from bpe_transformer_tpu_torch.kernels import decode_attention as da
+
+    return da.paged_decode_attention(q, k, v, t, p, k_scale=ks, v_scale=vs)
+
+
+def paged_nan_inputs(torch, gen, H, KV, bs, nbs, d, dtype, kv_int8, pos, int32=False):
+    """Inputs of one slot per frontier in ``pos`` whose table entries past
+    the frontier point at the trash block 0, which holds NaN (an int8
+    pool's NaN is in block 0's scales), and the same inputs with block 0
+    finite for the plain version (which reads every entry)."""
+    S = len(pos)
+    pos_t = torch.tensor(pos, device="cuda", dtype=torch.int32 if int32 else torch.int64)
+    q, k, v, tables, _, ks, vs = paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype, kv_int8,
+                                              pos=pos_t)
+    live = torch.arange(nbs, device="cuda")[None, :] <= (pos_t[:, None] // bs)
+    tables = torch.where(live, tables, torch.zeros_like(tables))
+    clean = (q, k, v, tables, pos_t, ks, vs)
+    if kv_int8:
+        ks, vs = ks.clone(), vs.clone()
+        ks[0] = vs[0] = float("nan")
+    else:
+        k, v = k.clone(), v.clone()
+        k[0] = v[0] = float("nan")
+    return (q, k, v, tables, pos_t, ks, vs), clean
 
 
 def quant_inputs(torch, gen, m, k, n, dtype):
@@ -532,9 +568,29 @@ def check_other_shapes(torch) -> None:
                 cases.append((
                     "paged_decode_attention",
                     f"S={S} H={H} KV={KV} bs={bs} d={d} {'int8' if kv_int8 else 'act'}",
-                    lambda q, k, v, t, p, ks, vs: da.paged_decode_attention(
-                        q, k, v, t, p, k_scale=ks, v_scale=vs),
-                    da.paged_decode_attention_plain, (q, k, v, tb, ps, ks, vs)))
+                    paged_call, da.paged_decode_attention_plain, (q, k, v, tb, ps, ks, vs)))
+        # The split-KV design where it can break: pool blocks of 1 to 128
+        # keys, frontiers at 0 and at span and pool-block boundaries +-1, ctx
+        # 4096 and 8192, groups of 3 and 16 heads on 4, head dims 17 (no bulk
+        # copy in bf16), 40 and 320, with the trash block 0 holding NaN and
+        # every table entry past a slot's frontier on it (so any read of them
+        # would show); int64 frontiers but in the two int32 cases.
+        for H, KV, bs, nbs, d in ((4, 4, 1, 300, 64), (12, 4, 8, 64, 64), (16, 4, 16, 64, 64),
+                                  (16, 4, 32, 128, 128), (4, 4, 64, 128, 64),
+                                  (6, 2, 128, 8, 40), (8, 4, 16, 16, 17), (6, 2, 16, 4, 320)):
+            ctx = nbs * bs
+            span = da.decode_splits(ctx)[1]
+            pos = sorted({min(ctx - 1, max(0, p)) for base in (0, bs, span, 2 * span, ctx - 1)
+                          for p in (base - 1, base, base + 1)})
+            for kv_int8 in (False, True):
+                inputs, clean = paged_nan_inputs(torch, gen, H, KV, bs, nbs, d, dtype, kv_int8,
+                                                 pos, int32=d in (17, 40))
+                cases.append((
+                    "paged_decode_attention",
+                    f"S={len(pos)} H={H} KV={KV} bs={bs} ctx={ctx} d={d} "
+                    f"{'int8' if kv_int8 else 'act'} NaN past frontiers",
+                    paged_call, lambda *a, clean=clean: da.paged_decode_attention_plain(*clean),
+                    inputs))
         # int8 matmul: rows of 683 and 1365 bytes (d_ff of TINYSTORIES_4L
         # and GPT2_MEDIUM's 12-layer kin), m 1 and 1000, ragged d_out; in
         # bf16 the last six run on the tensor cores at each block width
@@ -555,7 +611,7 @@ def check_other_shapes(torch) -> None:
             tol = TOL.get((name, dname), TOL_BF16)
             require(out.shape == ref.shape and bool(torch.isfinite(out).all()) and err <= tol,
                     f"{name} {dname} {label}: max error {err:.3e} (tol {tol:g})")
-            if name == "decode_attention":  # the split merge takes a fixed order
+            if name in SPLIT_KERNELS:  # the split merge takes a fixed order
                 require(torch.equal(out, kern(*args)),
                         f"{name} {dname} {label}: two calls differ")
             worst = max(worst, err / tol)
@@ -602,7 +658,7 @@ def measure_case(torch, dtype, case) -> dict:
                 f"{name} {label}: output {tuple(out.shape)} {out.dtype}")
         require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
         errs.append((out.float() - ref.float()).abs().max().item())
-        if name == "decode_attention":
+        if name in SPLIT_KERNELS:
             require(torch.equal(out, kern(*inputs)), f"{name} {label}: two calls differ")
     err = max(errs)
     tol = TOL.get((name, dname), TOL_BF16)
@@ -715,6 +771,36 @@ def quant_crossover(torch, gen) -> list[dict]:
                            "quant_path takes the tensor cores at every m")
 
 
+def paged_span_sweep(torch, gen) -> list[dict]:
+    """B7 at the paged tick of kernel_cases (bf16 q, int8 and act pools)
+    with each slot's keys in spans of 64, 128 and 256 (the wrapper's
+    decode_splits patched), by CUDA-graph replay, beside the span
+    decode_splits picks; each held against the shipped span's output."""
+    from bpe_transformer_tpu_torch.kernels import decode_attention as da
+
+    S, H, bs, nbs, d = 8, 12, 16, 64, 64
+    pos = torch.tensor([0, 15, 100, 257, 511, 700, 900, 1023], device="cuda")
+    rows = []
+    for kv_int8 in (True, False):
+        sets = [paged_inputs(torch, gen, S, H, H, bs, nbs, d, torch.bfloat16, kv_int8, pos=pos)
+                for _ in range(copies_for((S * nbs + 1) * H * bs * d * 2 * (1 if kv_int8 else 2)))]
+        ref = paged_call(*sets[0])
+        row = {"name": "paged_decode_attention", "dtype": "bfloat16",
+               "shape": f"S={S} H=KV={H} bs={bs} nbs={nbs} d={d} "
+                        f"{'int8' if kv_int8 else 'act'} KV span sweep",
+               "shipped_span": da.decode_splits(nbs * bs)[1]}
+        for span in (64, 128, 256):
+            with patched(da, decode_splits=lambda ctx, span=span: (-(-ctx // span), span)):
+                err = _max_err(paged_call(*sets[0]), ref)
+                require(err <= TOL_BF16, f"paged span {span}: max error {err:.3e}")
+                row[f"span_{span}_ms"] = time_ms(torch, paged_call, sets, 48, graph=True)
+        rows.append(row)
+        log(f"paged_decode_attention span sweep {row['shape']}: " + ", ".join(
+            f"{span} keys {row[f'span_{span}_ms']:.4f} ms" for span in (64, 128, 256))
+            + f" (decode_splits picks {row['shipped_span']})")
+    return rows
+
+
 def phase_kernels(torch) -> dict:
     """Kernel vs plain on the card.  Returns the bf16 rows of the main-path
     representatives, keyed by kernel name."""
@@ -726,6 +812,7 @@ def phase_kernels(torch) -> dict:
             rows.append(measure_case(torch, dtype, case))
     rows += swiglu_crossover(torch, gen)
     rows += quant_crossover(torch, gen)
+    rows += paged_span_sweep(torch, gen)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(rows, indent=1))
     main_shapes = {
@@ -1754,6 +1841,8 @@ KNOB_MIX = ((0.0, 0, 2.0), (1.0, 0, 2.0), (0.8, 50, 0.95), (1.3, 1, 0.5), (0.7, 
             (1.0, 0, 0.3), (0.5, 0, 0.0), (1.0, 40, 0.9))
 #: Phase 9c's serving mix: greedy and temperature 0.8 / top-k 50 / top-p 0.95.
 SERVING_MIX = ((0.0, 0, 2.0), (0.8, 50, 0.95))
+#: The serving mix with top-k off (the finalize's radix nucleus path).
+NUCLEUS_MIX = ((0.0, 0, 2.0), (0.8, 0, 0.95))
 
 
 def sample_inputs(torch, gen, rows, vocab, d, dtype, head_kind, mix, copies=1):
@@ -1831,6 +1920,14 @@ def check_sample_case(torch, inp, what: str) -> dict:
     greedy, p_d, bonus = smp.fused_verify_head(inp["hidden"], inp["head"], *knobs, inp["judge"],
                                                inp["q"], inp["gumbel"], logits_out=ws)
     torch.cuda.synchronize()
+    # Sums and counts reduce in a fixed order: a second call gives the same bits.
+    ws2 = torch.empty_like(ws)
+    again = smp.fused_verify_head(inp["hidden"], inp["head"], *knobs, inp["judge"], inp["q"],
+                                  inp["gumbel"], logits_out=ws2)
+    tok2 = smp.fused_head_sample(inp["hidden"], inp["head"], *knobs, inp["gumbel"])
+    require(torch.equal(ws, ws2) and torch.equal(tok, tok2)
+            and all(torch.equal(x, y) for x, y in zip((greedy, p_d, bonus), again)),
+            f"{what}: two calls differ")
     r_greedy, r_pd, r_bonus = smp.verify_rows(ws, *knobs, inp["judge"], inp["q"], inp["gumbel"])
     pd_err = (p_d - r_pd).abs().max().item()
     require(torch.equal(greedy, r_greedy), f"{what}: verify greedy tokens differ")
@@ -1840,6 +1937,49 @@ def check_sample_case(torch, inp, what: str) -> dict:
     return {"logit_err": logit_err, "pd_err": pd_err, "edge_flips": edges}
 
 
+def fused_tail(name: str):
+    """The fused tail ``name`` as a function of one sample_inputs set."""
+    from bpe_transformer_tpu_torch.kernels import sample as smp
+
+    if name == "fused_head_sample":
+        return lambda t: smp.fused_head_sample(t["hidden"], t["head"], t["temps"], t["top_ks"],
+                                               t["top_ps"], t["gumbel"], logits_out=t["ws"])
+    return lambda t: smp.fused_verify_head(t["hidden"], t["head"], t["temps"], t["top_ks"],
+                                           t["top_ps"], t["judge"], t["q"], t["gumbel"],
+                                           logits_out=t["ws"])
+
+
+def launch_split(torch, fn, input_sets, calls: int = 20) -> dict:
+    """Device ms per call of each of a fused tail's two launches, from a
+    ``torch.profiler`` trace of ``calls`` calls cycling through
+    ``input_sets``: the projection (and which design ran) and the
+    finalize.  The profiler here at times records no device events: such a
+    trace is taken again, up to three times in all, and after that the
+    split is not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(*input_sets[i % len(input_sets)])
+            torch.cuda.synchronize()
+        # Each kernel's time over the launches the trace holds of it (a
+        # trace may drop events).
+        by_name, _ = _device_breakdown(prof, 1)
+        proj = [(name, us / k) for name, (us, k) in by_name.items()
+                if "wgemm_kernel" in name or "head_logits_kernel" in name]
+        fin = [us / k for name, (us, k) in by_name.items() if "finalize_kernel" in name]
+        if len(proj) == 1 and len(fin) == 1:
+            return {"projection_ms": proj[0][1] / 1e3, "finalize_ms": fin[0] / 1e3,
+                    "projection": "tensor cores" if "wgemm" in proj[0][0] else "CUDA cores"}
+    return {"projection_ms": None, "finalize_ms": None, "projection": None}
+
+
+def ms_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def phase_sample_kernels(torch) -> dict:
     """10a: the fused head + sample (B9) and verify (B10) tails against their
     plain versions on the card, at the GPT2_SMALL_32K tick (8 rows) and
@@ -1847,8 +1987,9 @@ def phase_sample_kernels(torch) -> dict:
     heads at their width and int8, every knob of KNOB_MIX; off the path at
     vocabularies of 257, 101 and 10000, rows 1, 3 and 33, a bf16 hidden
     state against a float32 head, and widths whose rows are not a multiple
-    of 16 bytes.  Then kernel / plain ms (CUDA graph replay) and the bound
-    at the main shapes.  Returns the bf16 rows of the main shapes."""
+    of 16 bytes; two calls bit-identical.  Then kernel / plain ms (CUDA
+    graph replay), each launch's device ms (:func:`launch_split`) and the
+    bound at the main shapes.  Returns the bf16 rows of the main shapes."""
     from bpe_transformer_tpu_torch.kernels import sample as smp
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1879,23 +2020,14 @@ def phase_sample_kernels(torch) -> dict:
                 sets = sample_inputs(torch, gen, rows, vocab, d, dtype, head_kind, SERVING_MIX,
                                      copies=copies_for(head_bytes))
                 err = check_sample_case(torch, sets[0], f"{name} R={rows} {dname} {head_kind}")
+                kern = fused_tail(name)
                 if name == "fused_head_sample":
-                    def kern(t):
-                        return smp.fused_head_sample(t["hidden"], t["head"], t["temps"],
-                                                     t["top_ks"], t["top_ps"], t["gumbel"],
-                                                     logits_out=t["ws"])
-
                     def plain(t):
                         return smp.fused_head_sample_plain(t["hidden"], t["head"], t["temps"],
                                                            t["top_ks"], t["top_ps"], t["gumbel"])
                     # hidden, head, knobs and gumbel in; tokens out.
                     nbytes = rows * d * isz + head_bytes + rows * 12 + rows * vocab * 4 + rows * 8
                 else:
-                    def kern(t):
-                        return smp.fused_verify_head(t["hidden"], t["head"], t["temps"],
-                                                     t["top_ks"], t["top_ps"], t["judge"], t["q"],
-                                                     t["gumbel"], logits_out=t["ws"])
-
                     def plain(t):
                         return smp.fused_verify_head_plain(t["hidden"], t["head"], t["temps"],
                                                            t["top_ks"], t["top_ps"], t["judge"],
@@ -1907,28 +2039,39 @@ def phase_sample_kernels(torch) -> dict:
                 one = [(t,) for t in sets]
                 ms = time_ms(torch, kern, one, 20, graph=True)
                 plain_ms = time_ms(torch, plain, one, 10, graph=True)
-                # All rows greedy: the finalize takes one pass per row, so
-                # this is about the projection's time alone.
-                greedy = [(dict(t, temps=torch.zeros_like(t["temps"])),) for t in sets]
-                greedy_ms = time_ms(torch, kern, greedy, 20, graph=True)
+                split = launch_split(torch, kern, one)
                 byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
                 row = {
                     "name": name, "dtype": dname, "shape": f"R={rows} V={vocab} d={d} "
                     f"{'int8' if head_kind == 'int8' else dname} head, serving knobs",
                     "max_abs_err": err["pd_err"] if name == "fused_verify_head"
                     else err["logit_err"], "logit_err": err["logit_err"], "ms": ms,
-                    "plain_ms": plain_ms, "greedy_rows_ms": greedy_ms, "library_ms": None,
+                    "plain_ms": plain_ms, **split, "library_ms": None,
                     "bound_ms": max(byte_ms, op_ms),
                     "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes,
                     "flops": flops,
                 }
                 rows_out.append(row)
                 log(f"kernel {name:18s} {dname:8s} {row['shape']:44s} logit err "
-                    f"{err['logit_err']:.3e} p_d err {err['pd_err']:.3e} ms {ms:.4f} (all rows "
-                    f"greedy {greedy_ms:.4f}) plain {plain_ms:.4f} library null bound "
+                    f"{err['logit_err']:.3e} p_d err {err['pd_err']:.3e} ms {ms:.4f} (by launch: "
+                    f"projection {ms_or_not(split['projection_ms'])} on {split['projection']}, "
+                    f"finalize {ms_or_not(split['finalize_ms'])}) plain {plain_ms:.4f} library "
+                    f"null bound "
                     f"{row['bound_ms']:.4f} ({row['bound_by']})")
                 if dname == "bfloat16" and head_kind == "act":
                     main[name] = row
+    # The finalize's other path: the serving mix with top-k off, so the
+    # nucleus takes its four radix passes over every column.
+    for name, rows in (("fused_head_sample", 8), ("fused_verify_head", 40)):
+        sets = sample_inputs(torch, gen, rows, 32000, 768, torch.bfloat16, "act", NUCLEUS_MIX,
+                             copies=copies_for(32000 * 768 * 2))
+        err = check_sample_case(torch, sets[0], f"{name} R={rows} bf16 top-k off")
+        split = launch_split(torch, fused_tail(name), [(t,) for t in sets])
+        rows_out.append({"name": name, "dtype": "bfloat16", "shape": f"R={rows} V=32000 d=768 "
+                         "bfloat16 head, serving knobs with top-k off", **err, **split})
+        log(f"kernel {name:18s} bfloat16 R={rows} serving knobs with top-k off: finalize "
+            f"{ms_or_not(split['finalize_ms'])} ms (projection "
+            f"{ms_or_not(split['projection_ms'])}), nucleus-edge flips {err['edge_flips']}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_sample.json").write_text(json.dumps(rows_out, indent=1))
     return main

@@ -15,9 +15,11 @@ non-causal at the ring's launch shape), the SwiGLU forward at a decode tick
 and at the training m, the int8 matmul with bf16 x at a tick (m 8) and a
 prefill chunk (m 256) of 768 -> 2048 and at a tick of the 768 -> 32000
 head, the decode kernels at a tick (B1 with 12 heads on 12 KV heads and 16
-on 4), and the GeLU forward and backward at the training shape (8192 x 3072
-bf16).  Each run also counts the static SASS instructions of each GeLU
-kernel of its tree, whole and per element copy in the code (``cuobjdump
+on 4; B7 through a block table at act width and int8), the fused tails at
+the serving knobs (B9 at 8 rows, B10 at 40, bf16 and int8 heads of
+GPT2_SMALL_32K), and the GeLU forward and backward at the training shape
+(8192 x 3072 bf16).  Each run also counts the static SASS instructions of
+each GeLU kernel of its tree, whole and per element copy in the code (``cuobjdump
 -sass`` on the built library; :func:`sass_counts`), and the first line
 gives the card's name, power limit and top SM clock.  Prints one line per
 run and writes them to
@@ -169,6 +171,34 @@ def worker(root: str) -> dict:
         times[f"paged decode bf16 {'int8' if kv_int8 else 'act'} KV"] = graph_ms(
             torch, lambda q, k, v, t, p, ks, vs: da.paged_decode_attention(
                 q, k, v, t, p, k_scale=ks, v_scale=vs), sets, 48)
+    from bpe_transformer_tpu_torch.kernels import sample as smp
+
+    vocab, d = 32000, 768
+    for name, rows in (("fused_head_sample", 8), ("fused_verify_head", 40)):
+        knobs = [((0.0, 0, 2.0), (0.8, 50, 0.95))[i % 2] for i in range(rows)]
+        temps = torch.tensor([k[0] for k in knobs], device="cuda")
+        top_ks = torch.tensor([k[1] for k in knobs], dtype=torch.int32, device="cuda")
+        top_ps = torch.tensor([k[2] for k in knobs], device="cuda")
+        for head_kind in ("bf16", "int8"):
+            sets = []
+            for _ in range(4 if head_kind == "bf16" else 8):
+                w = torch.randn(vocab, d, generator=gen, device="cuda") * 0.02
+                u = torch.rand(rows, vocab, generator=gen, device="cuda").clamp(min=1e-20)
+                sets.append((rnd(rows, d), quantize_weight(w) if head_kind == "int8" else w.to(bf),
+                             -torch.log(-torch.log(u)),
+                             torch.randint(0, vocab, (rows,), generator=gen, device="cuda"),
+                             torch.softmax(torch.randn(rows, vocab, generator=gen,
+                                                       device="cuda") * 2, dim=-1),
+                             torch.empty(rows, vocab, device="cuda")))
+            if name == "fused_head_sample":
+                def fn(x, h, g, j, q, ws):
+                    return smp.fused_head_sample(x, h, temps, top_ks, top_ps, g, logits_out=ws)
+            else:
+                def fn(x, h, g, j, q, ws):
+                    return smp.fused_verify_head(x, h, temps, top_ks, top_ps, j, q, g,
+                                                 logits_out=ws)
+            times[f"{name} bf16 R={rows} V={vocab} d={d} {head_kind} head"] = graph_ms(
+                torch, fn, sets, 24)
     from bpe_transformer_tpu_torch.kernels import gelu as ge
 
     F = torch.nn.functional

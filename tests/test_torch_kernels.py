@@ -28,8 +28,10 @@ zig-zag, flash and plain, ``kv_chunk`` too) against the JAX rings inside
 ``shard_map`` over the 8-device CPU mesh ``{"data": 2, "seq": 4}``, forward
 and gradients through one seeded cotangent.  The kernels' geometry (head
 dims padded to an instantiated width, decode query groups cut into chunks,
-the non-causal block check, the SwiGLU forward's choice of design) is
-pinned as pure functions, and the shapes the port once refused (head dims
+the decode kernels' key spans, the non-causal block check, the SwiGLU
+forward's and the fused tails' projection's choice of design, the fused
+tails' finalize clusters) is pinned as pure functions, and the shapes the
+port once refused (head dims
 96, 320 and 384, groups of 3 and 12) run through the plain versions against
 JAX's.
 """
@@ -511,8 +513,10 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
                        ((4, 4, 96), (128, 1, 1, 1)), ((16, 1, 256), (256, 4, 4, 1)),
                        ((40, 4, 16), (16, 8, 2, 1)), ((5, 1, 200), (256, 4, 2, 1))]:
         assert da.decode_geometry(*args) == want, args
-    # The dense decode kernel's key splits: spans of 64 keys up to ctx 2048,
-    # then 32 spans of a multiple of 64 keys (up to 256 keys a span).
+    # The decode kernels' key splits (the paged kernel's over the
+    # blocks_per_slot * block_size keys a slot can hold): spans of 64 keys
+    # up to ctx 2048, then 32 spans of a multiple of 64 keys (up to 256 keys
+    # a span).
     for ctx, want in [(1, (1, 64)), (16, (1, 64)), (1000, (16, 64)), (1024, (16, 64)),
                       (4096, (32, 128)), (8192, (32, 256))]:
         assert da.decode_splits(ctx) == want, ctx
@@ -568,6 +572,31 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
     assert qm.tc_geometry(8, 2048, 768, 132) == (8, 6, 1)
     assert qm.tc_geometry(8, 32000, 768, 132) == (8, 1, 6)
     assert qm.tc_geometry(256, 2048, 768, 132) == (64, 1, 6)
+    # The fused tails' projection: bf16 rows against a bf16 or int8 head
+    # with d a multiple of 16 on the tensor cores, the rows rounded up to a
+    # multiple of 8 (the wgmma's N, at most 64 a block); float32 rows, a
+    # float32 head and other widths on the CUDA cores.
+    bf, f32 = torch.bfloat16, torch.float32
+    for x_dtype, h_dtype, d, want in [(bf, bf, 768, "tensor_cores"),
+                                      (bf, torch.int8, 768, "tensor_cores"),
+                                      (bf, bf, 64, "tensor_cores"), (bf, f32, 768, "cuda_cores"),
+                                      (f32, f32, 768, "cuda_cores"),
+                                      (f32, torch.int8, 768, "cuda_cores"),
+                                      (bf, bf, 100, "cuda_cores"), (bf, torch.int8, 40, "cuda_cores")]:
+        assert smp.head_path(x_dtype, h_dtype, d) == want, (x_dtype, h_dtype, d)
+    assert [smp.head_tile_rows(r) for r in (1, 3, 8, 9, 33, 40, 64, 65, 200)] == [
+        8, 8, 8, 16, 40, 40, 64, 64, 64]
+    # The finalize: one cluster of up to 8 blocks a row, as many as keep
+    # rows x cluster within two blocks an SM (8 rows x 8, 40 rows x 6 on
+    # 132 SMs), each block one chunk of the row's columns.
+    assert smp.finalize_geometry(8, 32000, 132) == (8, 4000)
+    assert smp.finalize_geometry(40, 32000, 132) == (6, 5334)
+    for rows in (1, 3, 8, 33, 40, 132, 200):
+        for vocab in (5, 101, 257, 10000, 32000):
+            cluster, chunk = smp.finalize_geometry(rows, vocab, 132)
+            assert 1 <= cluster <= min(smp.MAX_CLUSTER, vocab), (rows, vocab)
+            assert rows * cluster <= max(2 * 132, rows), (rows, vocab)
+            assert cluster * chunk >= vocab > (cluster - 1) * chunk, (rows, vocab)
     # The premise of the tensor-core design: every int8 value is exact in
     # bf16, and a product of a bf16 and an int8 value is exact in float32.
     # And the kernel's widening, mirrored bit for bit: 0x4300 | (b & 0x7F)
