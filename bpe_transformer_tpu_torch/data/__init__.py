@@ -6,6 +6,8 @@ from bpe_transformer_tpu_torch.data.dataset import (
     check_dataset_geometry,
     get_batch,
     load_token_file,
+    tokenize_to_memmap,
 )
 
-__all__ = ["BatchLoader", "check_dataset_geometry", "get_batch", "load_token_file"]
+__all__ = ["BatchLoader", "check_dataset_geometry", "get_batch", "load_token_file",
+           "tokenize_to_memmap"]

@@ -1,6 +1,7 @@
 """Token datasets and batch sampling on the host (the port's own copy of
 ``bpe_transformer_tpu/data/dataset.py``: ``load_token_file``,
-``check_dataset_geometry``, ``get_batch``, ``BatchLoader``; numpy only).
+``check_dataset_geometry``, ``get_batch``, ``BatchLoader`` and
+``tokenize_to_memmap``; numpy only).
 
 A tokenized corpus is a flat binary token file opened with ``np.memmap``;
 the sampler gathers ``(B, ctx)`` windows at uniform random starts in
@@ -13,6 +14,39 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+
+def tokenize_to_memmap(
+    tokenizer,
+    text_path: str | Path,
+    out_path: str | Path,
+    dtype: str = "uint16",
+) -> np.ndarray:
+    """Stream-encode ``text_path`` and write a flat binary token file.
+
+    ``uint16`` covers vocabularies up to 65,535 (all BASELINE configs);
+    pass ``uint32`` beyond that.  Returns a read-only memmap of the result.
+    """
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    dt = np.dtype(dtype)
+    vocab = getattr(tokenizer, "vocab", None)
+    if vocab and max(vocab) > np.iinfo(dt).max:
+        raise ValueError(
+            f"vocab ids up to {max(vocab)} do not fit dtype {dt.name} "
+            f"(max {np.iinfo(dt).max}); pass dtype='uint32'"
+        )
+    with open(text_path, encoding="utf-8") as src, open(out_path, "wb") as dst:
+        # Written in runs of ~1M tokens, not a syscall per line.
+        buffer: list[int] = []
+        for token_id in tokenizer.encode_iterable(src):
+            buffer.append(token_id)
+            if len(buffer) >= 1 << 20:
+                np.asarray(buffer, dtype=dt).tofile(dst)
+                buffer.clear()
+        if buffer:
+            np.asarray(buffer, dtype=dt).tofile(dst)
+    return load_token_file(out_path, dtype)
 
 
 def load_token_file(path: str | Path, dtype: str = "uint16") -> np.ndarray:

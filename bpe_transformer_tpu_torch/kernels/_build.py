@@ -37,6 +37,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: Sources compiled by this process and the wall seconds of those builds
+#: (``telemetry/resources.py`` reports them as the compile counters).
+_builds = {"count": 0, "seconds": 0.0}
 
 
 def kernel_names() -> list[str]:
@@ -99,6 +102,9 @@ def build_all() -> dict[str, float]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, lib)
+        if procs:
+            _builds["count"] += len(procs) - len(failed)
+            _builds["seconds"] += time.perf_counter() - t0
         if failed:
             details = "\n".join(
                 f"--- {n} ---\n" + (out / f"{n}.log").read_text()[-4000:]
@@ -106,6 +112,13 @@ def build_all() -> dict[str, float]:
             )
             raise RuntimeError(f"nvcc failed for {failed}:\n{details}")
         return times
+
+
+def build_stats() -> dict[str, float]:
+    """Kernel-library accounting of this process: ``built`` sources
+    compiled, ``build_s`` their wall seconds, ``loaded`` libraries loaded.
+    Reads without the build lock, so a reader never waits out a build."""
+    return {"built": _builds["count"], "build_s": _builds["seconds"], "loaded": len(_libs)}
 
 
 def library(name: str) -> ctypes.CDLL:

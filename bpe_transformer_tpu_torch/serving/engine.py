@@ -207,6 +207,12 @@ class SlotPoolEngine:
         self._cache = init_kv_cache(
             config, slots, dtype=activation_dtype(config), device=self.device
         )
+        kv_heads = config.num_kv_heads or config.num_heads
+        #: KV bytes per token position across layers (k + v) at the cache
+        #: width: the unit of the decode roofline's attention read stream.
+        self.kv_bytes_per_token = (
+            2 * config.num_layers * kv_heads * config.d_head * activation_dtype(config).itemsize
+        )
 
         self._tokens = np.zeros(slots, np.int64)
         self._positions = np.zeros(slots, np.int64)
@@ -217,6 +223,7 @@ class SlotPoolEngine:
         self._generators: list[torch.Generator | None] = [None] * slots
         self._slots: list[SlotInfo | None] = [None] * slots
         self.ticks = 0
+        self.tokens_emitted = 0
 
     # ------------------------------------------------------------- queries
 
@@ -380,6 +387,7 @@ class SlotPoolEngine:
         )
         self._slots[slot] = info
         self._active[slot] = True
+        self.tokens_emitted += 1
 
         finished = self._finish_reason(info, token)
         if finished:
@@ -420,6 +428,7 @@ class SlotPoolEngine:
             self._tokens[slot] = token
             self._positions[slot] += 1
             info.generated += 1
+            self.tokens_emitted += 1
             finished = self._finish_reason(info, token)
             if finished:
                 self.release(slot)

@@ -88,6 +88,10 @@ class PagedEngine:
     :meth:`admit`, which runs a whole prefill at once.
     """
 
+    #: Optional flight recorder (``telemetry/flightrecorder.py``), attached
+    #: by the serving front end: KV rewinds are logged as decisions.
+    recorder = None
+
     # The dense engine's sampler and retirement rule, shared: they read
     # ``_temps``/``_top_ks``/``_top_ps``/``_generators``, which this engine
     # keeps under the same names.
@@ -540,6 +544,12 @@ class PagedEngine:
                 self._tables[slot, idx] = fresh
                 cow = True
         info.shared_len = min(info.shared_len, new_len)
+        if self.recorder is not None:
+            # Coalesced per slot: spec verify passes rewind every tick.
+            self.recorder.record(
+                "rewind", coalesce=True, request_id=info.request_id, slot=slot,
+                new_len=new_len, released=released or None, cow=cow or None,
+            )
         return {"released": released, "cow": cow}
 
     def release(self, slot: int) -> None:

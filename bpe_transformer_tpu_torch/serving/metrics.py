@@ -1,0 +1,555 @@
+"""Live serving counters + Prometheus text exposition (the port's copy of
+``bpe_transformer_tpu/serving/metrics.py``; the metric names stay
+``bpe_tpu_*``, so the JAX package's router, fleet and monitor read a port
+replica's ``/metrics``).
+
+``ServingMetrics`` is the in-process aggregate behind ``GET /metrics`` and
+``ServingEngine.stats()``: monotone request/finish/rejection counters and
+fixed-bucket latency histograms for the three request phases (queue wait,
+prefill, decode), fed from the same measurements the ``serve/*`` span
+records carry — the HTTP endpoint and the JSONL stream can never disagree.
+
+Deliberately stdlib-only and jax-free (``bpe-tpu monitor`` parses the
+exposition on hosts with no accelerator runtime), and cheap enough to
+update inline in the engine worker loop: one lock, a few integer adds.
+
+Prometheus exposition format (text/plain; version=0.0.4): ``# HELP`` /
+``# TYPE`` comments, counters suffixed ``_total``, histograms as
+cumulative ``_bucket{le=...}`` series plus ``_sum``/``_count`` — the
+subset every Prometheus/VictoriaMetrics/Grafana-agent scraper accepts.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+
+__all__ = [
+    "LatencyHistogram",
+    "ServingMetrics",
+    "emit_prometheus",
+    "render_prometheus",
+]
+
+#: Default latency buckets (seconds): sub-ms queue pops up to minute-long
+#: decodes, roughly x2.5 per step — 14 buckets keeps the exposition small.
+DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+    0.5, 1.0, 2.5, 5.0, 15.0, 60.0,
+)
+
+#: Request finish reasons (serving/server.py Result.finish_reason) — the
+#: label set is closed so counter series never explode.  ``migrated``:
+#: the request's finished prefix left this replica as a KV payload
+#: (disaggregated prefill role, or drain evacuation) — the generation
+#: continues elsewhere, so it is neither a success nor a failure here.
+FINISH_REASONS = ("stop", "length", "deadline", "cancelled", "error",
+                  "migrated")
+
+
+class LatencyHistogram:
+    """Fixed-bucket cumulative histogram (Prometheus semantics): bucket
+    counts are *cumulative* at render time, ``sum``/``count`` track every
+    observation including those beyond the last finite bucket (+Inf)."""
+
+    def __init__(self, buckets: tuple[float, ...] = DEFAULT_BUCKETS):
+        self.buckets = tuple(sorted(buckets))
+        self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf overflow
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        if not isinstance(value, (int, float)) or not math.isfinite(value):
+            return
+        value = max(0.0, float(value))
+        self.sum += value
+        self.count += 1
+        for i, bound in enumerate(self.buckets):
+            if value <= bound:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+    def cumulative(self) -> list[tuple[float, int]]:
+        """``(le, cumulative_count)`` pairs ending with ``(inf, count)``."""
+        out = []
+        running = 0
+        for bound, n in zip(self.buckets, self.counts):
+            running += n
+            out.append((bound, running))
+        out.append((math.inf, self.count))
+        return out
+
+    def percentile(self, q: float) -> float | None:
+        """Bucket-upper-bound estimate of the q-quantile (None when empty).
+        Coarse by construction — the JSONL spans hold exact durations; this
+        exists so ``monitor`` can show a live p95 from /metrics alone."""
+        if not self.count:
+            return None
+        rank = max(1, math.ceil(q * self.count))
+        for bound, cum in self.cumulative():
+            if cum >= rank:
+                return bound if math.isfinite(bound) else self.buckets[-1]
+        return self.buckets[-1]
+
+
+class ServingMetrics:
+    """Thread-safe aggregate of everything a scrape needs.
+
+    The engine worker observes phase latencies and finish reasons;
+    transport threads count submissions/rejections; errors land in a
+    bounded ring buffer for ``/statusz``.
+    """
+
+    def __init__(self, clock=time.monotonic, max_errors: int = 16):
+        self._lock = threading.Lock()
+        self._clock = clock
+        self.started_at = clock()
+        self.requests_submitted = 0
+        self.requests_rejected = 0
+        self.finished: dict[str, int] = {r: 0 for r in FINISH_REASONS}
+        #: Marginal phase histograms plus two REQUEST-level ones the fleet
+        #: SLO layer (telemetry/slo.py) counts good events from: ``ttfb``
+        #: (queue wait + prefill — time to the first token) and ``total``
+        #: (the whole request).  Request-level latencies live ONLY here,
+        #: never as spans: the report's per-request assembly sums a
+        #: request's phase spans, and a total span would double-count.
+        #: ``migration`` observes the end-to-end export->transfer->import
+        #: wall of each INBOUND graft (the importing side holds the whole
+        #: timeline) — the compare gate's migration_p99_s row.
+        self.phases: dict[str, LatencyHistogram] = {
+            phase: LatencyHistogram()
+            for phase in ("queue_wait", "prefill", "decode", "ttfb",
+                          "total", "migration")
+        }
+        #: Per-prefill-bucket work accounting: bucket length ->
+        #: [requests, prompt tokens, seconds, compiles] — the /metrics
+        #: per-bucket token-throughput series (bounded label set: the
+        #: engine's bucket ladder is fixed at construction).  A bucket's
+        #: FIRST admission pays its XLA compile; that sample is counted as
+        #: a request + compile but its tokens/seconds are excluded, so a
+        #: low-volume bucket's throughput gauge reflects steady-state
+        #: prefill, not one multi-second compile amortized forever.
+        self.prefill_buckets: dict[int, list] = {}
+        #: Cumulative decode work: tokens sampled across ticks and the
+        #: wall seconds those ticks took (throughput = tokens / seconds).
+        self.decode_tokens = 0
+        self.decode_seconds = 0.0
+        #: KV migration traffic: sessions and payload bytes
+        #: that LEFT this replica (prefill-role exports + drain
+        #: evacuations) and that ARRIVED (grafted imports).
+        self.migrations_out = 0
+        self.migrations_in = 0
+        self.migration_bytes_out = 0
+        self.migration_bytes_in = 0
+        self._max_errors = max_errors
+        self._errors: list[dict] = []
+
+    # ------------------------------------------------------------ recording
+
+    def on_submit(self) -> None:
+        with self._lock:
+            self.requests_submitted += 1
+
+    def on_reject(self) -> None:
+        with self._lock:
+            self.requests_rejected += 1
+
+    def on_finish(self, reason: str) -> None:
+        with self._lock:
+            self.finished[reason] = self.finished.get(reason, 0) + 1
+
+    def observe_phase(self, phase: str, seconds: float) -> None:
+        with self._lock:
+            hist = self.phases.get(phase)
+            if hist is not None:
+                hist.observe(seconds)
+
+    def on_prefill(
+        self,
+        bucket: int,
+        prompt_tokens: int,
+        seconds: float,
+        compiled: bool = False,
+    ) -> None:
+        """Account one admission's prefill against its length bucket.
+        ``compiled=True`` marks an admission that paid an XLA compile: it
+        counts as a request (and a compile) but its tokens/seconds stay
+        out of the throughput accumulator — compile wall lives in the
+        process-wide ``compile_time_seconds_total`` gauge instead."""
+        with self._lock:
+            counts = self.prefill_buckets.setdefault(
+                int(bucket), [0, 0, 0.0, 0]
+            )
+            counts[0] += 1
+            if compiled:
+                counts[3] += 1
+            else:
+                counts[1] += int(prompt_tokens)
+                counts[2] += max(float(seconds), 0.0)
+
+    def on_decode_tick(self, tokens: int, seconds: float) -> None:
+        """Account one batched decode tick (tokens sampled, wall time)."""
+        with self._lock:
+            self.decode_tokens += int(tokens)
+            self.decode_seconds += max(float(seconds), 0.0)
+
+    def on_migration(self, direction: str, nbytes: int) -> None:
+        """Account one KV-slot migration: ``direction`` is ``"out"``
+        (export/evacuation leaving this replica) or ``"in"`` (graft)."""
+        with self._lock:
+            if direction == "out":
+                self.migrations_out += 1
+                self.migration_bytes_out += int(nbytes)
+            else:
+                self.migrations_in += 1
+                self.migration_bytes_in += int(nbytes)
+
+    def record_error(self, error: str, **attrs) -> None:
+        """Append to the last-error ring buffer (oldest evicted)."""
+        with self._lock:
+            self._errors.append(
+                {
+                    "t": round(self._clock() - self.started_at, 3),
+                    "time_unix": round(time.time(), 3),
+                    "error": error,
+                    **attrs,
+                }
+            )
+            if len(self._errors) > self._max_errors:
+                self._errors = self._errors[-self._max_errors:]
+
+    # ------------------------------------------------------------- querying
+
+    def uptime_s(self) -> float:
+        return self._clock() - self.started_at
+
+    def last_errors(self) -> list[dict]:
+        with self._lock:
+            return list(self._errors)
+
+    def snapshot(self) -> dict:
+        """JSON-ready counter snapshot (the ``stats()``/statusz view)."""
+        with self._lock:
+            return {
+                "uptime_s": round(self.uptime_s(), 3),
+                "requests_submitted": self.requests_submitted,
+                "requests_rejected": self.requests_rejected,
+                "finish_reasons": dict(self.finished),
+                "phase_p50_s": {
+                    p: h.percentile(0.50) for p, h in self.phases.items()
+                },
+                "phase_p95_s": {
+                    p: h.percentile(0.95) for p, h in self.phases.items()
+                },
+                "prefill_bucket_work": {
+                    bucket: {
+                        "requests": counts[0],
+                        "tokens": counts[1],
+                        "seconds": round(counts[2], 6),
+                        "compiles": counts[3],
+                        "tokens_per_sec": (
+                            round(counts[1] / counts[2], 3)
+                            if counts[2] > 0
+                            else None
+                        ),
+                    }
+                    for bucket, counts in sorted(self.prefill_buckets.items())
+                },
+                "decode_tokens": self.decode_tokens,
+                "decode_seconds": round(self.decode_seconds, 6),
+                "decode_tokens_per_sec": (
+                    round(self.decode_tokens / self.decode_seconds, 3)
+                    if self.decode_seconds > 0
+                    else None
+                ),
+                "migrations_out": self.migrations_out,
+                "migrations_in": self.migrations_in,
+                "migration_bytes_out": self.migration_bytes_out,
+                "migration_bytes_in": self.migration_bytes_in,
+            }
+
+
+def _fmt_le(bound: float) -> str:
+    if math.isinf(bound):
+        return "+Inf"
+    formatted = f"{bound:g}"
+    return formatted
+
+
+def emit_prometheus(
+    lines: list, prefix: str, name: str, kind: str, help_text: str, samples
+) -> None:
+    """Append one metric family (HELP/TYPE + samples) in Prometheus text
+    exposition.  ``samples`` is ``[(labels_dict, value), ...]``; None
+    values are skipped.  Shared by the serving exposition below and the
+    fleet router's (`serving/router.py`) — one formatter, no drift."""
+    lines.append(f"# HELP {prefix}_{name} {help_text}")
+    lines.append(f"# TYPE {prefix}_{name} {kind}")
+    for labels, value in samples:
+        if value is None:
+            continue
+        label_str = (
+            "{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}"
+            if labels
+            else ""
+        )
+        if isinstance(value, float):
+            value = f"{value:.9g}"
+        lines.append(f"{prefix}_{name}{label_str} {value}")
+
+
+def render_prometheus(
+    metrics: ServingMetrics,
+    engine_stats: dict | None = None,
+    resources: dict | None = None,
+    prefix: str = "bpe_tpu",
+) -> str:
+    """The ``GET /metrics`` body: counters, gauges, and phase histograms.
+
+    ``engine_stats`` is ``ServingEngine.stats()`` (gauges: queue depth,
+    slot occupancy, compile counter, token/tick totals); ``resources`` an
+    optional ``telemetry.resources.sample_resources()`` record whose
+    non-null fields become gauges (HBM/RSS on a CUDA host).
+    """
+    lines: list[str] = []
+
+    def emit(name, kind, help_text, samples):
+        emit_prometheus(lines, prefix, name, kind, help_text, samples)
+
+    with metrics._lock:
+        submitted = metrics.requests_submitted
+        rejected = metrics.requests_rejected
+        finished = dict(metrics.finished)
+        phase_data = {
+            phase: (hist.cumulative(), hist.sum, hist.count)
+            for phase, hist in metrics.phases.items()
+        }
+        bucket_data = {
+            bucket: tuple(counts)
+            for bucket, counts in sorted(metrics.prefill_buckets.items())
+        }
+        decode_tokens = metrics.decode_tokens
+        decode_seconds = metrics.decode_seconds
+        migrations = (
+            metrics.migrations_out, metrics.migrations_in,
+            metrics.migration_bytes_out, metrics.migration_bytes_in,
+        )
+    emit("uptime_seconds", "gauge", "Seconds since the serving engine started.",
+         [({}, round(metrics.uptime_s(), 3))])
+    emit("requests_submitted_total", "counter",
+         "Requests accepted into the admission queue.", [({}, submitted)])
+    emit("requests_rejected_total", "counter",
+         "Requests rejected at submit time (queue full backpressure).",
+         [({}, rejected)])
+    emit("requests_finished_total", "counter",
+         "Finished requests by finish reason.",
+         [({"reason": reason}, count) for reason, count in sorted(finished.items())])
+
+    samples = []
+    for phase, (cumulative, total, count) in sorted(phase_data.items()):
+        for bound, cum in cumulative:
+            samples.append((
+                "bucket", {"phase": phase, "le": _fmt_le(bound)}, cum
+            ))
+        samples.append(("sum", {"phase": phase}, round(total, 9)))
+        samples.append(("count", {"phase": phase}, count))
+    lines.append(
+        f"# HELP {prefix}_request_phase_seconds "
+        "Per-request phase latency (queue_wait | prefill | decode | "
+        "ttfb | total | migration; ttfb/total are request-level: "
+        "wait+prefill and the whole request — the fleet SLO layer's "
+        "good-event evidence; migration is the export->transfer->import "
+        "wall of each inbound KV graft)."
+    )
+    lines.append(f"# TYPE {prefix}_request_phase_seconds histogram")
+    for suffix, labels, value in samples:
+        label_str = ",".join(f'{k}="{v}"' for k, v in labels.items())
+        if isinstance(value, float):
+            value = f"{value:.9g}"
+        lines.append(
+            f"{prefix}_request_phase_seconds_{suffix}{{{label_str}}} {value}"
+        )
+
+    # Per-bucket prefill work + aggregate decode throughput: which rungs of
+    # the bucket ladder the traffic actually lands on, and what the chip
+    # delivers per phase (a scraper rate()s the counters; the _per_sec
+    # gauges are the cumulative ratio for humans and the jax-free monitor).
+    emit("prefill_requests_total", "counter",
+         "Admissions prefilled per prompt-length bucket.",
+         [({"bucket": b}, c[0]) for b, c in bucket_data.items()])
+    emit("prefill_tokens_total", "counter",
+         "Prompt tokens prefilled per prompt-length bucket.",
+         [({"bucket": b}, c[1]) for b, c in bucket_data.items()])
+    emit("prefill_seconds_total", "counter",
+         "Wall seconds spent in prefill per prompt-length bucket "
+         "(compile-paying admissions excluded; see compile_time gauge).",
+         [({"bucket": b}, round(c[2], 6)) for b, c in bucket_data.items()])
+    emit("prefill_compiles_total", "counter",
+         "Admissions that paid an XLA prefill compile, per bucket.",
+         [({"bucket": b}, c[3]) for b, c in bucket_data.items()])
+    emit("prefill_tokens_per_sec", "gauge",
+         "Cumulative prefill token throughput per bucket.",
+         [({"bucket": b}, round(c[1] / c[2], 3))
+          for b, c in bucket_data.items() if c[2] > 0])
+    emit("decode_tokens_total", "counter",
+         "Tokens sampled by batched decode ticks.",
+         [({}, decode_tokens)])
+    emit("decode_seconds_total", "counter",
+         "Wall seconds spent in batched decode ticks.",
+         [({}, round(decode_seconds, 6))])
+    if decode_seconds > 0:
+        emit("decode_tokens_per_sec", "gauge",
+             "Cumulative decode token throughput.",
+             [({}, round(decode_tokens / decode_seconds, 3))])
+
+    # KV migration traffic: how many sessions left/arrived as
+    # KV payloads, and the bytes moved — the disaggregated fleet's
+    # transport volume, foldable by `bpe-tpu fleet`.
+    emit("migrations_out_total", "counter",
+         "Sessions exported as KV payloads (prefill-role handoffs + "
+         "drain evacuations).", [({}, migrations[0])])
+    emit("migrations_in_total", "counter",
+         "Sessions grafted from KV payloads (/kv/import).",
+         [({}, migrations[1])])
+    emit("migration_bytes_out_total", "counter",
+         "KV payload bytes exported.", [({}, migrations[2])])
+    emit("migration_bytes_in_total", "counter",
+         "KV payload bytes grafted.", [({}, migrations[3])])
+
+    if engine_stats:
+        emit("queue_depth", "gauge", "Requests waiting in the admission queue.",
+             [({}, engine_stats.get("queue_depth"))])
+        emit("active_slots", "gauge", "KV-cache slots currently decoding.",
+             [({}, engine_stats.get("active_slots"))])
+        emit("slots", "gauge", "KV-cache slot pool capacity.",
+             [({}, engine_stats.get("slots"))])
+        emit("ticks_total", "counter", "Batched decode ticks executed.",
+             [({}, engine_stats.get("ticks"))])
+        emit("tokens_generated_total", "counter",
+             "Tokens sampled across all requests.",
+             [({}, engine_stats.get("tokens_emitted"))])
+        emit("engine_compiled_programs", "gauge",
+             "XLA programs compiled by this engine (bounded: buckets + 1).",
+             [({}, engine_stats.get("compiled_programs"))])
+        emit("alerts_firing", "gauge",
+             "Serving anomaly-watchdog rules currently firing "
+             "(telemetry/alerts.py; details in /statusz 'alerts').",
+             [({}, engine_stats.get("alerts_firing"))])
+        role = engine_stats.get("role")
+        if role:
+            emit("replica_role", "gauge",
+                 "Disaggregated-fleet role of this replica (1 for the "
+                 "labeled role: prefill | decode | both).",
+                 [({"role": role}, 1)])
+        # Quantized-decode + tick-roofline gauges: resident
+        # weight bytes (labeled by storage width), the per-tick weight
+        # sweep int8 halves, and the analytic tick roofline's headline
+        # numbers — kv stream, arithmetic intensity, memory-bound floor.
+        wd = engine_stats.get("weight_dtype")
+        emit("params_bytes", "gauge",
+             "Resident serving weight bytes (params tree + LM head copy; "
+             "int8 weight quantization shrinks this ~2x vs bf16).",
+             [({"weight_dtype": wd} if wd else {},
+               engine_stats.get("params_bytes"))])
+        emit("decode_tick_weight_bytes", "gauge",
+             "Weight bytes ONE decode tick streams from HBM (block stack "
+             "+ final norm + LM head at storage width).",
+             [({}, engine_stats.get("tick_weight_bytes"))])
+        roof = engine_stats.get("decode_roofline") or {}
+        emit("decode_tick_kv_bytes", "gauge",
+             "Live KV bytes one decode tick streams at current occupancy "
+             "(positions x per-position footprint, read + write row).",
+             [({}, roof.get("kv_bytes"))])
+        emit("decode_tick_arithmetic_intensity", "gauge",
+             "Decode-tick FLOPs per HBM byte (weights + KV + activations) "
+             "— below the chip ridge point the tick is memory-bound.",
+             [({}, roof.get("arithmetic_intensity"))])
+        emit("decode_tick_projected_seconds", "gauge",
+             "Memory-bound latency floor of one tick: total tick bytes / "
+             "peak HBM bandwidth (null where the peak table has no row for the card).",
+             [({}, roof.get("projected_tick_s"))])
+        # Paged-KV pool gauges (present only when the engine is paged):
+        # block occupancy drives the fleet router's health weighting,
+        # prefix counters quantify the radix cache, pending tokens the
+        # chunked-prefill backlog.
+        emit("kv_blocks_total", "gauge",
+             "KV block pool capacity (trash block excluded).",
+             [({}, engine_stats.get("kv_blocks_total"))])
+        emit("kv_blocks_free", "gauge", "KV blocks currently free.",
+             [({}, engine_stats.get("kv_blocks_free"))])
+        emit("kv_blocks_shared", "gauge",
+             "KV blocks referenced by more than one holder "
+             "(prefix sharing at work).",
+             [({}, engine_stats.get("kv_blocks_shared"))])
+        emit("prefix_cache_hits_total", "counter",
+             "Prompt tokens reused from the radix prefix cache "
+             "(prefill compute avoided).",
+             [({}, engine_stats.get("prefix_cache_hits"))])
+        emit("prefix_cache_misses_total", "counter",
+             "Prompt tokens prefilled because no cached prefix covered "
+             "them.",
+             [({}, engine_stats.get("prefix_cache_misses"))])
+        emit("prefill_pending_tokens", "gauge",
+             "Prompt tokens queued in chunked prefill (the prefill/decode "
+             "interleave backlog).",
+             [({}, engine_stats.get("prefill_pending_tokens"))])
+        emit("kv_pool_bytes", "gauge",
+             "Resident bytes of the paged KV block pool (int8 pools "
+             "include their scale pools).",
+             [({}, engine_stats.get("kv_pool_bytes"))])
+        emit("kv_bytes_per_token", "gauge",
+             "KV footprint per token position at pool dtype width across "
+             "layers — the unit of the attention read stream (int8 halves "
+             "bf16, quarters f32).",
+             [({}, engine_stats.get("kv_bytes_per_token"))])
+        # Speculative-decoding gauges (present only when the engine is a
+        # SpecEngine): acceptance rate and emitted-tokens-per-verify-pass
+        # are the whole subsystem's health in two numbers.
+        emit("spec_k", "gauge",
+             "Speculation window: draft tokens proposed per slot per tick.",
+             [({}, engine_stats.get("spec_k"))])
+        emit("spec_proposed_tokens_total", "counter",
+             "Draft tokens judged by target verify passes.",
+             [({}, engine_stats.get("spec_proposed_tokens"))])
+        emit("spec_accepted_tokens_total", "counter",
+             "Judged draft tokens the target accepted.",
+             [({}, engine_stats.get("spec_accepted_tokens"))])
+        emit("spec_accept_rate", "gauge",
+             "Cumulative draft-token acceptance rate "
+             "(accepted / proposed).",
+             [({}, engine_stats.get("spec_accept_rate"))])
+        emit("spec_tokens_per_target_step", "gauge",
+             "Decode tokens emitted per target verify pass (1.0 = "
+             "non-speculative; k+1 = every guess accepted + bonus).",
+             [({}, engine_stats.get("spec_tokens_per_target_step"))])
+        emit("spec_rewound_tokens_total", "counter",
+             "Stale KV positions rolled back after rejected speculation.",
+             [({}, engine_stats.get("spec_rewound_tokens"))])
+        emit("spec_draft_frac", "gauge",
+             "Fraction of spec-tick wall time spent in the draft propose.",
+             [({}, engine_stats.get("spec_draft_frac"))])
+
+    if resources:
+        emit("compile_events_total", "counter",
+             "Process-wide kernel-library builds and loads.",
+             [({}, resources.get("compile_events"))])
+        emit("compile_time_seconds_total", "counter",
+             "Cumulative wall seconds spent building kernel libraries.",
+             [({}, resources.get("compile_time_s"))])
+        emit("host_rss_bytes", "gauge", "Host resident set size.",
+             [({}, resources.get("host_rss_bytes"))])
+        emit("live_buffer_bytes", "gauge",
+             "Device bytes held by live tensors (torch.cuda.memory_allocated).",
+             [({}, resources.get("live_buffer_bytes"))])
+        emit("hbm_bytes_in_use", "gauge",
+             "Device memory in use, summed over local devices.",
+             [({}, resources.get("hbm_bytes_in_use"))])
+        emit("hbm_peak_bytes_in_use", "gauge",
+             "Peak device memory in use, summed over local devices.",
+             [({}, resources.get("hbm_peak_bytes_in_use"))])
+        emit("hbm_bytes_limit", "gauge",
+             "Device memory capacity, summed over local devices.",
+             [({}, resources.get("hbm_bytes_limit"))])
+    return "\n".join(lines) + "\n"

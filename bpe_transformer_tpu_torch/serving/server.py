@@ -1,56 +1,97 @@
-"""In-process serving front end (port of the dense and paged engines'
-subset of ``bpe_transformer_tpu/serving/server.py``): ``Request``/``Result``
-types and the blocking + streaming :class:`ServingEngine`.
+"""Serving front end (the port of ``bpe_transformer_tpu/serving/server.py``'s
+single-replica surface): ``Request``/``Result`` types, the blocking +
+streaming :class:`ServingEngine`, an offline batch mode, and the stdlib HTTP
+JSON endpoint behind the ``serve`` command.
 
 Layering (one thread owns the card):
 
-* callers (``generate``, ``stream``, ``run_batch``) only touch the
-  :class:`FifoScheduler` and per-request completion events;
+* transports (HTTP handler threads, ``generate()`` callers, the batch
+  runner) only touch the :class:`FifoScheduler` and per-request completion
+  events;
 * ONE worker thread runs the engine loop: admit queued requests into free
   slots, run prefill (the dense engine's whole prompt at admission, or the
   paged engine's chunks under a per-tick token budget), a decode tick
   across every occupied slot, deliver tokens to the per-request streams,
   retire finished slots;
-* backpressure surfaces at submit time as :class:`QueueFullError`.
+* backpressure surfaces at submit time as :class:`QueueFullError` (HTTP
+  503), never blocking a transport.
 
 With ``paged=True`` the engine is the paged
 :class:`~bpe_transformer_tpu_torch.serving.kvpool.PagedEngine`: an
 admission the block pool cannot cover yet is PARKED and retried first,
-strictly in FIFO order, as retirements free blocks (newer requests wait
-behind it), and parked requests still expire at their deadline and can be
-cancelled.  ``speculate_k`` with a ``draft_spec`` (and ``paged=True``)
-serves through the speculative
-:class:`~bpe_transformer_tpu_torch.serving.spec.SpecEngine`, whose tick may
-deliver several tokens of one request; ``fused_sampling=True`` ends every
-tick with the fused head + sample kernel.
+strictly in FIFO order, as retirements free blocks, and parked requests
+still expire at their deadline and can be cancelled.  ``speculate_k`` with a
+``draft_spec`` (and ``paged=True``) serves through the speculative
+:class:`~bpe_transformer_tpu_torch.serving.spec.SpecEngine`;
+``fused_sampling=True`` ends every tick with the fused head + sample kernel.
 
-KV migration, roles, telemetry, alerts, the flight recorder and the HTTP
-transport are not ported yet.
+Telemetry is the JAX package's: per-request ``serve/queue_wait``,
+``serve/prefill`` and ``serve/decode`` spans, periodic ``kind="engine"``,
+``resources`` and ``roofline`` records (plus ``kvpool`` and ``spec`` on the
+paged engines), alert transitions, black-box dumps and the footer, through
+one ``telemetry.Telemetry``, so the JAX package's ``report`` and
+``monitor`` read a port server's stream.  Every gauge a handler thread reads
+is host-side (the engines keep numpy mirrors of their slot state), so
+``stats()``/``statusz()``/``/metrics`` never synchronise the card.
+
+Not ported yet (the serving-fleet slice): KV migration (``/kv/export``,
+``/kv/import``), replica roles, drain evacuation and relays,
+``/admin/evacuate``, fault injection and idempotency keys.  The server
+offers none of them.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 import queue
 import threading
 import time
 import uuid
+from pathlib import Path
 from typing import Iterator
 
 import torch
 
-from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine, TickEvent
+from bpe_transformer_tpu_torch.serving.engine import SlotPoolEngine, TickEvent, activation_dtype
 from bpe_transformer_tpu_torch.serving.kvpool import NoFreeBlocksError, PagedEngine
+from bpe_transformer_tpu_torch.serving.metrics import ServingMetrics, render_prometheus
 from bpe_transformer_tpu_torch.serving.scheduler import (
     FifoScheduler,
     PrefillBudget,
     QueueFullError,
 )
 from bpe_transformer_tpu_torch.serving.spec import SpecEngine
+from bpe_transformer_tpu_torch.telemetry.alerts import AlertEngine, default_serving_rules
+from bpe_transformer_tpu_torch.telemetry.attribution import decode_tick_roofline
+from bpe_transformer_tpu_torch.telemetry.flightrecorder import FlightRecorder
+from bpe_transformer_tpu_torch.telemetry.resources import (
+    compile_events,
+    kernel_libraries_loaded,
+    sample_resources,
+)
+from bpe_transformer_tpu_torch.utils.flops import decode_tick_flops
 
-__all__ = ["Request", "Result", "RequestHandle", "ServingEngine", "QueueFullError"]
+__all__ = [
+    "Request",
+    "Result",
+    "RequestHandle",
+    "ServingEngine",
+    "QueueFullError",
+    "DuplicateRequestError",
+    "make_http_server",
+]
 
 _STREAM_END = object()
+
+
+class DuplicateRequestError(ValueError):
+    """A request id already in flight on this replica.  Subclasses
+    ValueError for direct ``submit()`` callers, but the HTTP layer maps it
+    to a retryable 503, not a 400: the canonical producer is a client
+    retrying with the same ``X-Request-Id`` while the original still runs,
+    and a peer replica can serve that retry."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +108,9 @@ class Request:
     #: Seconds the request may wait IN THE QUEUE before it fails fast with
     #: ``finish_reason="deadline"`` (None: wait indefinitely).
     deadline_s: float | None = None
+    #: Optional session key (multi-turn conversations): request metadata a
+    #: fleet router hashes to a sticky replica; the replica only carries it.
+    session: str | None = None
     request_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
 
 
@@ -81,13 +125,21 @@ class Result:
     prefill_s: float = 0.0
     decode_s: float = 0.0
 
+    def timings(self) -> dict:
+        return {
+            "queue_wait_s": round(self.queue_wait_s, 6),
+            "prefill_s": round(self.prefill_s, 6),
+            "decode_s": round(self.decode_s, 6),
+        }
+
 
 class _Entry:
     """Worker-side state for one submitted request."""
 
     __slots__ = (
         "request", "tokens", "stream", "done", "result", "slot", "t_submit",
-        "t_decode_start", "queue_wait_s", "prefill_s", "cancel_requested",
+        "t_decode_start", "queue_wait_s", "prefill_s", "cancel_requested", "bucket",
+        "t_prefill_start", "compiles_before", "shared_tokens",
     )
 
     def __init__(self, request: Request, t_submit: float):
@@ -102,6 +154,10 @@ class _Entry:
         self.queue_wait_s = 0.0
         self.prefill_s = 0.0
         self.cancel_requested = False
+        self.bucket: int | None = None  # prefill bucket, set at admission
+        self.t_prefill_start = t_submit  # first chunk start (paged engine)
+        self.compiles_before = 0  # kernel-library events at admission (paged)
+        self.shared_tokens = 0  # prefix-cache-reused prompt tokens (paged)
 
 
 class RequestHandle:
@@ -147,6 +203,7 @@ class ServingEngine:
         params,
         config,
         *,
+        tokenizer=None,
         slots: int = 8,
         max_queue: int = 64,
         max_wait_s: float = 0.0,
@@ -154,8 +211,11 @@ class ServingEngine:
         min_bucket: int = 16,
         default_stop_id: int | None = None,
         default_max_new_tokens: int = 128,
+        telemetry=None,
+        engine_record_every_s: float = 1.0,
         idle_poll_s: float = 0.02,
         clock=time.monotonic,
+        manifest: dict | None = None,
         weight_dtype: str | None = None,
         paged: bool = False,
         block_size: int = 16,
@@ -167,6 +227,8 @@ class ServingEngine:
         fused_sampling: bool = False,
         speculate_k: int = 0,
         draft_spec=None,
+        alert_rules=None,
+        flightrecorder_capacity: int = 256,
         device: str | torch.device = "cuda",
     ):
         if kv_dtype is not None and not paged:
@@ -200,26 +262,62 @@ class ServingEngine:
                 fused_sampling=fused_sampling, device=device,
             )
         self.paged = paged
-        #: Speculative decoding is on (the engine is a SpecEngine).
+        #: Speculative decoding is on (the engine is a SpecEngine): the
+        #: stats/statusz/metrics surfaces grow the acceptance gauges and the
+        #: engine-record cadence emits kind="spec" records.
         self.spec = bool(speculate_k)
+        dev = self.engine.device
+        #: The card's name for the decode roofline's peak lookup ("cpu" on
+        #: the CPU, which has no peak row).
+        self.device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        #: Always-on decision ring: every admit/park/reject/deadline/finish,
+        #: rewind, drain and worker-error decision lands here as host-side
+        #: bookkeeping, flushed as a kind="blackbox" dump on alert, manual
+        #: and worker-error triggers.
+        self.flightrecorder = FlightRecorder("serve", capacity=flightrecorder_capacity,
+                                             clock=clock)
+        if paged:
+            self.engine.recorder = self.flightrecorder
         #: Prefill tokens allowed between consecutive decode ticks (paged
         #: only; None runs each prefill to completion, the dense schedule).
-        self._prefill_budget = PrefillBudget(prefill_token_budget if paged else None)
+        self._prefill_budget = PrefillBudget(
+            prefill_token_budget if paged else None, recorder=self.flightrecorder
+        )
         #: Admissions parked on KV-block exhaustion (paged), retried in FIFO
         #: order before any newer queue pop.
         self._admit_backlog: list[_Entry] = []
         #: Slots mid-chunked-prefill -> their entries (paged).
         self._prefill_entries: dict[int, _Entry] = {}
         self.scheduler = FifoScheduler(max_queue=max_queue, max_wait_s=max_wait_s, clock=clock)
+        self.tokenizer = tokenizer
         self.default_stop_id = default_stop_id
         self.default_max_new_tokens = default_max_new_tokens
+        self.manifest = manifest
+        #: Live counter/histogram aggregate behind /metrics and stats(), fed
+        #: from the same measurements the serve/* spans carry.
+        self.metrics = ServingMetrics(clock=clock)
+        self._telemetry = telemetry
+        self._record_every_s = engine_record_every_s
         self._idle_poll_s = idle_poll_s
         self._clock = clock
+        self._t0 = clock()
+        self._last_record_t = self._t0
+        self._last_record_tokens = 0
         self._entries: dict[str, _Entry] = {}
         self._entries_lock = threading.Lock()
         self._slot_entries: dict[int, _Entry] = {}
+        #: Finished requests' phase timelines (newest last) behind /statusz
+        #: "recent_requests".
+        self._recent: collections.deque = collections.deque(maxlen=32)
+        #: Serving anomaly watchdog, fed on the engine-record cadence whether
+        #: or not a telemetry sink exists (/statusz shows active alerts).
+        self._alerts = AlertEngine(
+            alert_rules if alert_rules is not None else default_serving_rules()
+        )
+        self._requests_finished = 0
         self._thread: threading.Thread | None = None
         self._running = False
+        self._draining = False
         self._worker_error: BaseException | None = None
 
     # ------------------------------------------------------------ lifecycle
@@ -228,13 +326,44 @@ class ServingEngine:
         if self._thread is not None:
             return self
         self._running = True
+        self._t0 = self._clock()
+        self._last_record_t = self._t0
         self._thread = threading.Thread(target=self._run, name="serving-engine", daemon=True)
         self._thread.start()
         return self
 
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown, phase 1: stop ADMITTING (new submits raise
+        ``RuntimeError``, HTTP 503) but keep the worker running until every
+        queued and in-flight request finishes (the SIGTERM path of
+        ``serve``).  Returns True when fully drained, False on timeout (the
+        caller's ``close()`` then cancels the stragglers)."""
+        self._draining = True
+        self.flightrecorder.record(
+            "drain", queue_depth=self.scheduler.depth, active_slots=self.engine.active_count,
+            evacuating=False,
+        )
+        if self._telemetry is not None:
+            self._telemetry.event(
+                "serve_drain", queue_depth=self.scheduler.depth,
+                active_slots=self.engine.active_count, evacuating=False,
+            )
+        deadline = self._clock() + timeout_s
+        while True:
+            # The entries registry is the superset of unfinished work: a
+            # request the worker has popped but not yet slotted is in
+            # neither the queue depth nor the active count.
+            with self._entries_lock:
+                pending = len(self._entries)
+            if not pending and not self.engine.active_count and not self.scheduler.depth:
+                return True
+            if self._worker_error is not None or not self._running or self._clock() >= deadline:
+                return False
+            time.sleep(min(self._idle_poll_s, 0.05))
+
     def close(self) -> None:
         """Stop the worker; in-flight and queued requests finish as
-        ``cancelled``."""
+        ``cancelled``, and the telemetry stream gets its footer."""
         self._running = False
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -243,6 +372,13 @@ class ServingEngine:
         for qe in drain.admit + drain.expired + drain.cancelled:
             self._finish(qe.item, "cancelled")
         self._release_all("cancelled")
+        if self._telemetry is not None:
+            self._telemetry.footer(
+                clean=self._worker_error is None,
+                requests=self._requests_finished,
+                ticks=self.engine.ticks,
+                tokens=self.engine.tokens_emitted,
+            )
 
     def __enter__(self) -> "ServingEngine":
         return self.start()
@@ -250,16 +386,21 @@ class ServingEngine:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    # ------------------------------------------------------- caller side
+    # ------------------------------------------------------- transport side
 
     def submit(self, request: Request) -> RequestHandle:
         """Validate and enqueue; raises :class:`QueueFullError`
-        (backpressure) or ``ValueError`` (a prompt the context window cannot
-        serve)."""
+        (backpressure), :class:`DuplicateRequestError` (its id is in
+        flight), ``ValueError`` (a prompt the context window cannot serve)
+        or ``RuntimeError`` (not running, draining, or the worker died)."""
         if self._worker_error is not None:
             raise RuntimeError("serving engine worker died") from self._worker_error
         if not self._running:
             raise RuntimeError("serving engine is not running (use start())")
+        if self._draining:
+            raise RuntimeError(
+                "serving engine is draining (shutting down); not accepting new requests"
+            )
         plen = len(request.prompt_ids)
         ctx = self.engine.config.context_length
         if plen < 1:
@@ -282,16 +423,27 @@ class ServingEngine:
         entry = _Entry(request, self._clock())
         with self._entries_lock:
             if request.request_id in self._entries:
-                raise ValueError(f"request id {request.request_id!r} is already in flight")
+                # Client-supplied ids (X-Request-Id) key the registry and the
+                # trace streams: a duplicate would orphan the first caller.
+                raise DuplicateRequestError(
+                    f"request id {request.request_id!r} is already in flight on this replica"
+                )
             self._entries[request.request_id] = entry
         try:
             self.scheduler.submit(
                 entry, request_id=request.request_id, deadline_s=request.deadline_s
             )
-        except BaseException:
+        except BaseException as exc:
+            # Any enqueue failure must unregister the entry.
             with self._entries_lock:
                 self._entries.pop(request.request_id, None)
+            if isinstance(exc, QueueFullError):
+                self.metrics.on_reject()
+                self.flightrecorder.record(
+                    "reject", request_id=request.request_id, queue_depth=self.scheduler.depth
+                )
             raise
+        self.metrics.on_submit()
         return RequestHandle(self, entry)
 
     def generate(
@@ -305,10 +457,12 @@ class ServingEngine:
         seed: int = 0,
         stop_id: int | None = None,
         deadline_s: float | None = None,
+        session: str | None = None,
         request_id: str | None = None,
         timeout: float | None = None,
     ) -> Result:
-        """Blocking one-call generation."""
+        """Blocking one-call generation.  ``request_id`` adopts a
+        caller-supplied trace id (``X-Request-Id``)."""
         kwargs = {} if request_id is None else {"request_id": request_id}
         handle = self.submit(
             Request(
@@ -322,6 +476,7 @@ class ServingEngine:
                 seed=seed,
                 stop_id=self.default_stop_id if stop_id is None else stop_id,
                 deadline_s=deadline_s,
+                session=session,
                 **kwargs,
             )
         )
@@ -341,6 +496,127 @@ class ServingEngine:
             entry.cancel_requested = True
             return True
         return False
+
+    # ------------------------------------------------------------ gauges
+
+    def _engine_kind(self) -> str:
+        return "spec" if self.spec else "paged" if self.paged else "dense"
+
+    def decode_roofline(self) -> dict:
+        """The decode tick's analytic roofline at CURRENT occupancy
+        (``telemetry.attribution.decode_tick_roofline``): per tick, the
+        weight sweep is the engine's streamed matmul-weight bytes, the KV
+        stream is the live positions times the per-position footprint, and
+        activations are an estimate (about 12 ``d_model``-sized transients
+        per token per block, plus the vocab-sized tail: about three float32
+        round trips unfused, one, the noise the kernel reads, fused).  Read
+        from the engine's host-side mirrors only."""
+        engine = self.engine
+        config = engine.config
+        active = engine.active_count
+        live = int(((engine._positions + 1) * engine._active).sum())
+        act_bytes = active * config.num_layers * 12 * config.d_model * (
+            activation_dtype(config).itemsize
+        )
+        vocab_trip = 2 * active * config.vocab_size * 4
+        act_bytes += vocab_trip if engine.fused_sampling else 3 * vocab_trip
+        row = decode_tick_roofline(
+            flops=decode_tick_flops(config, active, live),
+            weight_bytes=engine.tick_weight_bytes,
+            kv_bytes=engine.kv_bytes_per_token * (live + active),
+            act_bytes=act_bytes,
+            device_kind=self.device_kind,
+        )
+        row.update(
+            {
+                "active_slots": active,
+                "live_positions": live,
+                "weight_dtype": engine.weight_dtype,
+                "fused_sampling": engine.fused_sampling,
+            }
+        )
+        return row
+
+    def stats(self) -> dict:
+        """Engine/queue gauges + the live request counters: the aggregate
+        ``GET /healthz`` and ``/metrics`` render.  A paged engine adds the
+        kvpool gauges.  ``compiled_programs`` counts the kernel libraries
+        loaded in this process (the port compiles no XLA programs)."""
+        stats = {
+            "engine_kind": self._engine_kind(),
+            "slots": self.engine.n_slots,
+            "active_slots": self.engine.active_count,
+            "queue_depth": self.scheduler.depth,
+            "ticks": self.engine.ticks,
+            "tokens_emitted": self.engine.tokens_emitted,
+            "requests_finished": self._requests_finished,
+            "compiled_programs": kernel_libraries_loaded(),
+            "prefill_buckets": list(self.engine.buckets),
+            "weight_dtype": self.engine.weight_dtype,
+            "params_bytes": self.engine.params_bytes,
+            "tick_weight_bytes": self.engine.tick_weight_bytes,
+            "fused_sampling": self.engine.fused_sampling,
+            "decode_roofline": self.decode_roofline(),
+            "alerts_firing": len(self._alerts.active()),
+            # The KV-migration counters belong to the serving-fleet slice.
+            **{k: v for k, v in self.metrics.snapshot().items() if not k.startswith("migration")},
+        }
+        if self.paged:
+            stats.update(self.engine.gauges())
+            stats["block_size"] = self.engine.block_size
+            stats["kv_dtype"] = self.engine.kv_dtype
+            stats["admit_backlog"] = len(self._admit_backlog)
+        return stats
+
+    def statusz(self) -> dict:
+        """The ``GET /statusz`` payload: run manifest, uptime, kernel-library
+        accounting, per-slot state, queue depth, the recent-request ring,
+        alerts, the flight recorder's counters, resources and the
+        last-error ring."""
+        resources = sample_resources()
+        page = {
+            "manifest": self.manifest,
+            "uptime_s": round(self.metrics.uptime_s(), 3),
+            "engine_kind": self._engine_kind(),
+            # A fleet router routes around a draining replica and weights by
+            # OCCUPANCY: a slot mid-chunked-prefill is busy, a parked
+            # admission is queued work.
+            "draining": self._draining,
+            "speculate_k": self.engine.k if self.spec else None,
+            "weight_dtype": self.engine.weight_dtype,
+            "params_bytes": self.engine.params_bytes,
+            "fused_sampling": self.engine.fused_sampling,
+            "decode_roofline": self.decode_roofline(),
+            "compiled_programs": kernel_libraries_loaded(),
+            "compile_events": resources["compile_events"],
+            "prefill_buckets": list(self.engine.buckets),
+            "queue_depth": self.scheduler.depth + len(self._admit_backlog),
+            "slots": self.engine.n_slots,
+            "active_slots": self.engine.n_slots - self.engine.free_slots,
+            "requests_finished": self._requests_finished,
+            "worker_alive": self._thread is not None and self._worker_error is None,
+            "slot_states": self.engine.slot_states(),
+            "recent_requests": list(self._recent),
+            "alerts": self._alerts.active(),
+            "alert_history": self._alerts.history(16),
+            "flightrecorder": self.flightrecorder.stats(),
+            "resources": resources,
+            "last_errors": self.metrics.last_errors(),
+        }
+        if self.paged:
+            page["kvpool"] = {
+                **self.engine.gauges(),
+                "block_size": self.engine.block_size,
+                "kv_dtype": self.engine.kv_dtype,
+                "admit_backlog": len(self._admit_backlog),
+            }
+        return page
+
+    def prometheus_metrics(self) -> str:
+        """The ``GET /metrics`` body (Prometheus text exposition)."""
+        return render_prometheus(self.metrics, self.stats(), sample_resources())
+
+    # ------------------------------------------------------------ batch mode
 
     def run_batch(self, prompts: list, **knobs) -> list[Result]:
         """Offline batch: submit every prompt (waiting out backpressure
@@ -363,6 +639,36 @@ class ServingEngine:
                     time.sleep(0.005)  # the worker is draining the queue
         return [h.result() for h in handles]
 
+    def serve_batch_file(self, prompts_path, output_path, **knobs) -> list[Result]:
+        """Offline file mode: one prompt per input line -> one JSONL result
+        line per prompt (input order), tokenizing/detokenizing with the
+        attached tokenizer."""
+        if self.tokenizer is None:
+            raise ValueError("batch file mode needs a tokenizer")
+        lines = [
+            ln for ln in Path(prompts_path).read_text(encoding="utf-8").splitlines()
+            if ln.strip()
+        ]
+        prompts = [self.tokenizer.encode(ln) for ln in lines]
+        results = self.run_batch(prompts, **knobs)
+        with open(output_path, "w", encoding="utf-8") as f:
+            for text, result in zip(lines, results):
+                f.write(json.dumps({
+                    "prompt": text,
+                    "completion": self._completion(result),
+                    "finish_reason": result.finish_reason,
+                    "n_tokens": len(result.token_ids),
+                    **result.timings(),
+                }) + "\n")
+        return results
+
+    def _completion(self, result: Result) -> str:
+        """The result's text; a stop token is not rendered."""
+        ids = list(result.token_ids)
+        if result.finish_reason == "stop":
+            ids = ids[:-1]
+        return self.tokenizer.decode(ids)
+
     # ---------------------------------------------------------- worker loop
 
     def _run(self) -> None:
@@ -373,6 +679,13 @@ class ServingEngine:
         except BaseException as exc:  # noqa: BLE001 -- fail loudly, unblock callers
             self._worker_error = exc
             self._running = False
+            self.metrics.record_error(repr(exc), source="worker")
+            self.flightrecorder.record("worker_error", error=repr(exc))
+            if self._telemetry is not None:
+                self._telemetry.event("serve_worker_error", error=repr(exc))
+            # A dead worker is a terminal incident: flush the decision ring
+            # while the evidence is warm (past the cooldown).
+            self.blackbox_dump("worker_error", force=True)
             self._release_all("error")
             drain = self.scheduler.pop_ready(self.scheduler.max_queue)
             for qe in drain.admit + drain.expired + drain.cancelled:
@@ -449,8 +762,18 @@ class ServingEngine:
 
         worked |= self._advance_prefills()
         if self.engine.active_count:
-            self._deliver(self.engine.tick())
+            t0 = self._clock()
+            events = self.engine.tick()
+            tick_s = self._clock() - t0
+            self._deliver(events, tick_s)
+            # Consecutive ticks merge into one ring entry, so decode chatter
+            # cannot evict the rarer decisions around it.
+            self.flightrecorder.record(
+                "tick", coalesce=True, n_events=len(events), tick_s=round(tick_s, 6),
+                active_slots=self.engine.active_count, queue_depth=self.scheduler.depth,
+            )
             worked = True
+        self._maybe_emit_engine_record()
         return worked
 
     def _try_admit(self, entry: _Entry) -> bool:
@@ -471,18 +794,54 @@ class ServingEngine:
             request_id=request.request_id,
         )
         if self.paged:
+            entry.compiles_before = compile_events()
             try:
                 slot = self.engine.begin(request.prompt_ids, **knobs)
             except NoFreeBlocksError:
+                # Coalesced: the backlog head retries every step while the
+                # pool stays dry.
+                self.flightrecorder.record(
+                    "park", coalesce=True, request_id=request.request_id,
+                    prompt_len=len(request.prompt_ids), backlog=len(self._admit_backlog),
+                )
                 return False
             entry.queue_wait_s = t0 - entry.t_submit
+            self._span("queue_wait", entry.t_submit, entry.queue_wait_s, request)
             entry.slot = slot
+            entry.bucket = self.engine.slot_bucket(slot)
+            entry.shared_tokens = self.engine.slot_shared_len(slot)
+            entry.t_prefill_start = t0
             entry.prefill_s = 0.0
             self._prefill_entries[slot] = entry
+            self.flightrecorder.record(
+                "admit", request_id=request.request_id, slot=slot,
+                prompt_len=len(request.prompt_ids), queue_wait_s=round(entry.queue_wait_s, 6),
+                shared_tokens=entry.shared_tokens or None,
+            )
             return True
+
         entry.queue_wait_s = t0 - entry.t_submit
+        entry.bucket = self.engine.bucket_for(len(request.prompt_ids))
+        compiles_before = compile_events()
         event = self.engine.admit(request.prompt_ids, **knobs)
-        entry.prefill_s = self._clock() - t0
+        now = self._clock()
+        entry.prefill_s = now - t0
+        self.metrics.on_prefill(
+            entry.bucket, len(request.prompt_ids), entry.prefill_s,
+            # An admission that built or loaded a kernel library pays that
+            # wall: keep it out of the bucket's steady-state throughput.
+            compiled=compile_events() > compiles_before,
+        )
+        self._span("queue_wait", entry.t_submit, entry.queue_wait_s, request)
+        self._span("prefill", t0, entry.prefill_s, request)
+        # Time to first token, observed request-level for the ttfb SLO
+        # histogram (never as a span).
+        self.metrics.observe_phase("ttfb", entry.queue_wait_s + entry.prefill_s)
+        self.flightrecorder.record(
+            "admit", request_id=request.request_id, slot=event.slot,
+            prompt_len=len(request.prompt_ids), bucket=entry.bucket,
+            queue_wait_s=round(entry.queue_wait_s, 6),
+        )
         self._start_decode(entry, event)
         return True
 
@@ -510,9 +869,23 @@ class ServingEngine:
                 worked = True
                 if event is not None:
                     del self._prefill_entries[slot]
-                    self._start_decode(entry, event)
+                    self._complete_prefill(entry, event)
                     break
         return worked
+
+    def _complete_prefill(self, entry: _Entry, event: TickEvent) -> None:
+        request = entry.request
+        self.metrics.on_prefill(
+            entry.bucket,
+            # COMPUTED prompt tokens: the prefix-cache-shared prefix paid
+            # no compute.
+            len(request.prompt_ids) - entry.shared_tokens,
+            entry.prefill_s,
+            compiled=compile_events() > entry.compiles_before,
+        )
+        self._span("prefill", entry.t_prefill_start, entry.prefill_s, request)
+        self.metrics.observe_phase("ttfb", entry.queue_wait_s + entry.prefill_s)
+        self._start_decode(entry, event)
 
     def _start_decode(self, entry: _Entry, event: TickEvent) -> None:
         """Deliver an admission's first token; the slot then decodes."""
@@ -525,10 +898,11 @@ class ServingEngine:
         else:
             self._slot_entries[event.slot] = entry
 
-    def _deliver(self, events: list[TickEvent]) -> None:
+    def _deliver(self, events: list[TickEvent], tick_s: float) -> None:
         """Hand each event's token to its request, in order: a speculative
         tick may carry several events of one slot, ``finished`` on its
         last."""
+        self.metrics.on_decode_tick(len(events), tick_s)
         for event in events:
             entry = self._slot_entries.get(event.slot)
             if entry is None:
@@ -543,12 +917,13 @@ class ServingEngine:
         if entry.done.is_set():
             return
         now = self._clock()
+        decode_s = now - entry.t_decode_start if entry.slot is not None else 0.0
         if entry.slot is not None:
-            decode_s = now - entry.t_decode_start
-        else:
-            decode_s = 0.0
-            if reason in ("deadline", "cancelled"):
-                entry.queue_wait_s = now - entry.t_submit  # never admitted
+            self._span("decode", entry.t_decode_start, decode_s, entry.request)
+        elif reason in ("deadline", "cancelled"):
+            # Never admitted: the whole life was queue wait.
+            entry.queue_wait_s = now - entry.t_submit
+            self._span("queue_wait", entry.t_submit, entry.queue_wait_s, entry.request)
         entry.result = Result(
             request_id=entry.request.request_id,
             token_ids=tuple(entry.tokens),
@@ -557,7 +932,311 @@ class ServingEngine:
             prefill_s=entry.prefill_s,
             decode_s=decode_s,
         )
+        self._requests_finished += 1
+        self.metrics.on_finish(reason)
+        self.flightrecorder.record(
+            "deadline" if reason == "deadline" else "finish",
+            request_id=entry.request.request_id,
+            reason=reason if reason != "deadline" else None,
+            n_tokens=len(entry.tokens) or None,
+            slot=entry.slot,
+        )
+        # Whole-request latency for the total SLO histogram (request-level
+        # only: a total SPAN would double-count in the report).
+        self.metrics.observe_phase("total", entry.queue_wait_s + entry.prefill_s + decode_s)
+        self._recent.append(
+            {
+                "request_id": entry.request.request_id,
+                "finish_reason": reason,
+                "n_tokens": len(entry.tokens),
+                "prompt_len": len(entry.request.prompt_ids),
+                "bucket": entry.bucket,
+                "slot": entry.slot,
+                "t_submit": round(entry.t_submit - self._t0, 6),
+                "queue_wait_s": round(entry.queue_wait_s, 6),
+                "prefill_s": round(entry.prefill_s, 6),
+                "decode_s": round(decode_s, 6),
+            }
+        )
         with self._entries_lock:
             self._entries.pop(entry.request.request_id, None)
         entry.stream.put(_STREAM_END)
         entry.done.set()
+
+    # ------------------------------------------------------------ telemetry
+
+    def _span(self, name: str, start: float, dur: float, request: Request) -> None:
+        """Emit one request-phase span record (directly, not through the
+        Telemetry nesting stack: concurrent requests interleave).  The same
+        duration feeds the live /metrics histogram."""
+        self.metrics.observe_phase(name, dur)
+        if self._telemetry is None:
+            return
+        self._telemetry.emit(
+            {
+                "kind": "span",
+                "name": name,
+                "path": f"serve/{name}",
+                "t": round(start - self._t0, 6),
+                "dur_s": round(dur, 6),
+                "request_id": request.request_id,
+                # Absolute span START time (spans are emitted at phase end).
+                "time_unix": round(time.time() - dur, 6),
+            }
+        )
+
+    def _feed_alerts(self, t: float, resources: dict | None) -> None:
+        """One watchdog sample on the engine-record cadence; transitions go
+        to the telemetry stream when one is attached."""
+        sample: dict = {
+            "queue_depth": self.scheduler.depth + len(self._admit_backlog),
+            "active_slots": self.engine.active_count,
+        }
+        if resources is not None:
+            sample["compile_events"] = resources.get("compile_events")
+        if self.paged:
+            gauges = self.engine.gauges()
+            sample["kv_blocks_free"] = gauges.get("kv_blocks_free")
+            sample["kv_blocks_total"] = gauges.get("kv_blocks_total")
+            if self.spec:
+                sample["spec_accept_rate"] = gauges.get("spec_accept_rate")
+                sample["spec_proposed"] = gauges.get("spec_proposed_tokens")
+        for transition in self._alerts.feed(sample, round(t, 6)):
+            self.flightrecorder.record(
+                "alert", rule=transition.get("rule"), state=transition.get("state"),
+                severity=transition.get("severity"),
+            )
+            if self._telemetry is not None:
+                self._telemetry.emit(transition)
+            if transition.get("state") == "firing":
+                # An alert edge flushes the ring; the recorder's cooldown
+                # folds a storm of edges into one dump.
+                self.blackbox_dump(f"alert:{transition.get('rule')}")
+
+    def blackbox_dump(self, trigger: str, force: bool = False) -> dict | None:
+        """Flush the decision ring as a ``kind="blackbox"`` record with the
+        host-side context an incident needs (queue/slot/kvpool state, the
+        alerts), emitted into the telemetry stream when a sink is attached
+        and kept on the recorder for ``GET /debug/flightrecorder``.  Returns
+        the dump, or None while the post-dump cooldown holds (``force``
+        bypasses it)."""
+        context: dict = {
+            "queue_depth": self.scheduler.depth + len(self._admit_backlog),
+            "active_slots": self.engine.active_count,
+            "draining": self._draining,
+            "requests_finished": self._requests_finished,
+            "slot_states": self.engine.slot_states(),
+            "alerts": self._alerts.active(),
+            "alert_history": self._alerts.history(16),
+        }
+        if self.paged:
+            context["kvpool"] = {**self.engine.gauges(), "admit_backlog": len(self._admit_backlog)}
+        dump = self.flightrecorder.blackbox(trigger, context=context, force=force)
+        if dump is not None and self._telemetry is not None:
+            self._telemetry.emit(dump)
+        return dump
+
+    def _maybe_emit_engine_record(self) -> None:
+        now = self._clock()
+        elapsed = now - self._last_record_t
+        if elapsed < self._record_every_s:
+            return
+        # Sampled whether or not a sink exists: the compile-storm rule reads
+        # the counter on a server run without --metrics-jsonl too.
+        resources = sample_resources(t=round(now - self._t0, 6))
+        # The watchdog samples before the idle short-circuit: an idle engine
+        # is when a queue-growth alert must clear.
+        self._feed_alerts(now - self._t0, resources)
+        if self._telemetry is None:
+            self._last_record_t = now
+            return
+        tokens = self.engine.tokens_emitted
+        # A fully idle engine stays silent: an idle server must not grow its
+        # JSONL.
+        if (
+            tokens == self._last_record_tokens
+            and not self.engine.active_count
+            and not self.scheduler.depth
+        ):
+            self._last_record_t = now
+            return
+        t = round(now - self._t0, 6)
+        self._telemetry.emit(
+            {
+                "kind": "engine",
+                "t": t,
+                "active_slots": self.engine.active_count,
+                "queue_depth": self.scheduler.depth,
+                "tokens_per_sec": round(
+                    (tokens - self._last_record_tokens) / max(elapsed, 1e-9), 3
+                ),
+                "tokens_total": tokens,
+                "ticks": self.engine.ticks,
+                "requests_finished": self._requests_finished,
+                "compiled_programs": kernel_libraries_loaded(),
+            }
+        )
+        self._telemetry.emit(resources)
+        roof = self.decode_roofline()
+        self._telemetry.emit(
+            {
+                "kind": "roofline",
+                "t": t,
+                **{
+                    key: roof[key]
+                    for key in (
+                        "weight_bytes", "kv_bytes", "act_bytes", "flops",
+                        "arithmetic_intensity", "ridge_flops_per_byte", "bound",
+                        "projected_tick_s", "weight_frac", "active_slots", "weight_dtype",
+                        "fused_sampling",
+                    )
+                },
+            }
+        )
+        if self.paged:
+            gauges = self.engine.gauges()
+            self._telemetry.emit(
+                {
+                    "kind": "kvpool",
+                    "t": t,
+                    "blocks_total": gauges["kv_blocks_total"],
+                    "blocks_free": gauges["kv_blocks_free"],
+                    "blocks_shared": gauges["kv_blocks_shared"],
+                    "prefix_hits": gauges["prefix_cache_hits"],
+                    "prefix_misses": gauges["prefix_cache_misses"],
+                    "prefix_hit_rate": gauges["prefix_hit_rate"],
+                    "prefill_pending_tokens": gauges["prefill_pending_tokens"],
+                    "kv_pool_bytes": gauges["kv_pool_bytes"],
+                    "kv_bytes_per_token": gauges["kv_bytes_per_token"],
+                }
+            )
+            if self.spec:
+                self._telemetry.emit(
+                    {
+                        "kind": "spec",
+                        "t": t,
+                        "k": gauges["spec_k"],
+                        "proposed": gauges["spec_proposed_tokens"],
+                        "accepted": gauges["spec_accepted_tokens"],
+                        "emitted": self.engine.spec_emitted,
+                        "target_steps": gauges["spec_target_steps"],
+                        "accept_rate": gauges["spec_accept_rate"],
+                        "tokens_per_target_step": gauges["spec_tokens_per_target_step"],
+                        "rewound": gauges["spec_rewound_tokens"],
+                        "draft_frac": gauges["spec_draft_frac"],
+                    }
+                )
+        self._last_record_t = now
+        self._last_record_tokens = tokens
+
+
+# ------------------------------------------------------------------ HTTP
+
+
+def make_http_server(serving: ServingEngine, host: str = "127.0.0.1", port: int = 8000):
+    """A ``ThreadingHTTPServer`` exposing the serving engine as JSON over
+    HTTP (stdlib only):
+
+    * ``POST /generate``: body ``{"prompt": str | "prompt_ids": [int],
+      "max_new_tokens"?, "temperature"?, "top_k"?, "top_p"?, "seed"?,
+      "stop_id"?, "deadline_s"?, "session"?}`` -> ``{"completion"?,
+      "token_ids", "finish_reason", "timings", "request_id"}``; 400 on bad
+      input, 503 on a full queue, an id already in flight, or a draining or
+      dead engine.  An inbound ``X-Request-Id`` becomes the request's trace
+      id and is echoed on every response, errors included.
+    * ``GET /healthz``: engine/queue stats (JSON).
+    * ``GET /metrics``: Prometheus text exposition.
+    * ``GET /statusz``: the JSON operator page.
+    * ``GET /debug/flightrecorder``: the decision ring and retained dumps.
+    * ``POST /debug/dump``: force a black-box flush; answers with the dump.
+
+    ``port=0`` binds an ephemeral port; the caller owns ``serve_forever()``
+    and ``shutdown()``.
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # noqa: D102 -- telemetry is the log
+            pass
+
+        def _reply(self, code: int, payload: dict, request_id: str | None = None) -> None:
+            self._reply_text(code, json.dumps(payload), "application/json", request_id)
+
+        def _reply_text(
+            self, code: int, text: str, content_type: str, request_id: str | None = None
+        ) -> None:
+            body = text.encode("utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            if request_id is not None:
+                self.send_header("X-Request-Id", request_id)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (stdlib API)
+            path = self.path.split("?", 1)[0]
+            if path == "/healthz":
+                return self._reply(200, {"ok": True, **serving.stats()})
+            if path == "/metrics":
+                return self._reply_text(
+                    200, serving.prometheus_metrics(), "text/plain; version=0.0.4; charset=utf-8"
+                )
+            if path == "/statusz":
+                return self._reply(200, serving.statusz())
+            if path == "/debug/flightrecorder":
+                return self._reply(200, serving.flightrecorder.debug_page())
+            return self._reply(404, {"error": "unknown path"})
+
+        def do_POST(self):  # noqa: N802 (stdlib API)
+            if self.path == "/debug/dump":
+                return self._reply(200, serving.blackbox_dump("manual", force=True))
+            if self.path != "/generate":
+                return self._reply(404, {"error": "unknown path"})
+            trace_id = (self.headers.get("X-Request-Id") or "").strip()
+            trace_id = trace_id[:128] or uuid.uuid4().hex
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(body, dict):
+                    raise ValueError("body must be a JSON object")
+                prompt_ids = body.get("prompt_ids")
+                if prompt_ids is None:
+                    prompt = body.get("prompt")
+                    if prompt is None:
+                        raise ValueError("need 'prompt' or 'prompt_ids'")
+                    if serving.tokenizer is None:
+                        raise ValueError("'prompt' needs a tokenizer; send 'prompt_ids'")
+                    prompt_ids = serving.tokenizer.encode(prompt)
+                result = serving.generate(
+                    prompt_ids,
+                    max_new_tokens=body.get("max_new_tokens"),
+                    temperature=float(body.get("temperature", 1.0)),
+                    top_k=body.get("top_k"),
+                    top_p=body.get("top_p"),
+                    seed=int(body.get("seed", 0)),
+                    stop_id=body.get("stop_id"),
+                    deadline_s=body.get("deadline_s"),
+                    session=body.get("session"),
+                    request_id=trace_id,
+                )
+            except (QueueFullError, DuplicateRequestError) as exc:
+                # "This replica can't take THIS request now": 503, so a
+                # router fails over instead of judging the caller.
+                return self._reply(503, {"error": str(exc), "request_id": trace_id}, trace_id)
+            except (ValueError, TypeError) as exc:  # json.JSONDecodeError is a ValueError
+                return self._reply(400, {"error": str(exc), "request_id": trace_id}, trace_id)
+            except RuntimeError as exc:
+                # Not running, draining or a dead worker.
+                return self._reply(503, {"error": str(exc), "request_id": trace_id}, trace_id)
+            payload = {
+                "request_id": result.request_id,
+                "token_ids": list(result.token_ids),
+                "finish_reason": result.finish_reason,
+                "timings": result.timings(),
+            }
+            if serving.tokenizer is not None:
+                payload["completion"] = serving._completion(result)
+            self._reply(200, payload, result.request_id)
+
+    return ThreadingHTTPServer((host, port), Handler)

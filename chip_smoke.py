@@ -117,14 +117,29 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    loss and gradients against the dense step's, then 10 steps on one batch
    with exact launch counts, host ms per step, a step profile and peak
    memory;
+13. the port served as a user runs it, through its CLI: (a)
+   ``train-tokenizer`` on the repo's markdown (vocabulary 2000,
+   ``<|endoftext|>``), encode/decode byte-exact with no ``regex`` imported,
+   ``tokenize``; (b) ``serve`` on a seeded ``GPT2_SMALL_32K`` checkpoint
+   (bf16, the kernel knobs) in a subprocess answering 16 concurrent text
+   requests over HTTP (half greedy, half top-k 50 / top-p 0.95, 64 new
+   tokens), ``/healthz``, ``/metrics`` and ``/statusz`` read (HBM fields,
+   the card's name, the decode roofline's peaks), a clean SIGTERM drain and
+   a schema-valid telemetry JSONL; the same requests in-process, greedy ids
+   equal to the server's, B1, B2 and B3 launched and nothing else; (c) the
+   same with ``--paged --kv-dtype int8 --weight-dtype int8
+   --fused-sampling --decode-attention paged`` on 8 requests, B7, B8 and B9
+   launched; (d) ``generate`` against ``generate_ids`` and ``eval`` against
+   the in-process loss; the HTTP and in-process tok/s and TTFT are printed
+   with the card's name and power limit;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
 ``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
-fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels) and
-``chip_smoke_sp.json`` (B6).
+fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6)
+and ``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures).
 """
 
 from __future__ import annotations
@@ -2913,6 +2928,363 @@ def phase_sp(torch, smi: str) -> tuple[dict, dict]:
     return main, totals
 
 
+# ------------------------------------------------------------ phase 13
+
+#: Phase 13's working files (tokenizer, token file, checkpoint, telemetry),
+#: inside the checkout and removed at the end of the phase.
+SERVE_WORK = ROOT / ".scratch" / "chip_smoke_serve"
+PORT_CLI = ("-m", "bpe_transformer_tpu_torch.training.cli")
+SERVE_VOCAB = 2000
+SERVE_SPECIAL = "<|endoftext|>"
+
+
+def port_cli(*argv: str, timeout: float = 600) -> str:
+    """Run one command of the port's CLI in a fresh process (as a user
+    would); fails the phase on a non-zero exit.  Returns its stdout."""
+    proc = subprocess.run([sys.executable, *PORT_CLI, *argv], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    require(proc.returncode == 0,
+            f"cli {argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+class ServeProcess:
+    """``serve`` in a subprocess: started, its banner read, stopped with
+    SIGTERM (a clean drain and exit 0 required), killed on any failure and
+    by a timer."""
+
+    def __init__(self, argv: list, log_path: Path, timeout: float = 900):
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen([sys.executable, *PORT_CLI, "serve", *argv], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=self._log, text=True)
+        self._killer = threading.Timer(timeout, self.proc.kill)
+        self._killer.start()
+        self._log_path = log_path
+        line = self.proc.stdout.readline()
+        if not line.startswith("serving on http://"):
+            self.kill()
+            raise SmokeFailure(f"serve printed no banner ({line!r}): "
+                               f"{log_path.read_text()[-3000:]}")
+        self.base = line.split()[2]
+
+    def stop(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = self.proc.communicate(timeout=300)
+        finally:
+            self.kill()
+        require(self.proc.returncode == 0 and "drained cleanly" in out,
+                f"serve did not drain cleanly (rc {self.proc.returncode}, {out!r}): "
+                f"{self._log_path.read_text()[-3000:]}")
+
+    def kill(self) -> None:
+        self._killer.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+
+def http_json(url: str, body: dict | None = None, timeout: float = 600):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read().decode()
+    except urllib.error.HTTPError as err:
+        raise SmokeFailure(f"{url}: HTTP {err.code}: {err.read().decode()[:500]}") from None
+    return raw if url.endswith("/metrics") else json.loads(raw)
+
+
+def histogram_buckets(metrics_text: str, family: str, labels: str) -> list:
+    """``[(le, cumulative count)]`` of one Prometheus histogram series."""
+    buckets = []
+    prefix = f"{family}_bucket{{{labels},le=\""
+    for line in metrics_text.splitlines():
+        if line.startswith(prefix):
+            le, value = line[len(prefix):].split("\"} ")
+            buckets.append((math.inf if le == "+Inf" else float(le), float(value)))
+    return buckets
+
+
+def histogram_quantile(after: str, before: str, family: str, labels: str, q: float):
+    """The ``q`` quantile of the observations one Prometheus histogram
+    series gained between two scrapes (``before``, ``after``), interpolated
+    linearly inside its bucket as Prometheus's ``histogram_quantile``
+    does."""
+    base = dict(histogram_buckets(before, family, labels))
+    buckets = [(le, n - base.get(le, 0.0)) for le, n in histogram_buckets(after, family, labels)]
+    if not buckets or buckets[-1][1] == 0:
+        return None
+    rank = q * buckets[-1][1]
+    lo, below = 0.0, 0.0
+    for le, count in buckets:
+        if count >= rank:
+            if le == math.inf:
+                return lo
+            return lo + (le - lo) * (rank - below) / max(count - below, 1e-12)
+        lo, below = le, count
+    return None
+
+
+def serve_requests(tokenizer, corpus: str, n: int) -> list:
+    """``n`` text prompts cut from the corpus (about 15 to 900 tokens), half
+    greedy, half temperature 0.8 / top-k 50 / top-p 0.95 seeded, 64 new
+    tokens each, as ``/generate`` bodies."""
+    chars = [40, 3000, 300, 1500, 120, 2400, 700, 1900, 60, 2700, 500, 1100, 200, 2200, 900, 80]
+    bodies = []
+    for i in range(n):
+        start = (i * 7919) % (len(corpus) - 4000)
+        text = corpus[start: start + chars[i % len(chars)]].replace(SERVE_SPECIAL, " ")
+        while len(tokenizer.encode(text)) > 900:
+            text = text[: len(text) * 9 // 10]
+        knobs = {"temperature": 0.0} if i % 2 == 0 else {
+            "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": i}
+        bodies.append({"prompt": text, "max_new_tokens": 64, **knobs})
+    return bodies
+
+
+def pcts(values) -> str:
+    import numpy as np
+
+    return f"p50 {np.percentile(values, 50):.4f} s, p95 {np.percentile(values, 95):.4f} s"
+
+
+def serve_over_http(torch, smi: str, label: str, ckpt: Path, tokenizer, cfg, bodies: list,
+                    flags: list, engine_kw: dict, kernels: tuple) -> dict:
+    """Serve ``bodies`` through ``serve`` (a subprocess on ``ckpt`` with
+    ``flags``), all at once over HTTP; read /healthz, /metrics and /statusz;
+    stop it with SIGTERM and check its telemetry JSONL.  Then serve the same
+    requests in-process through a ``ServingEngine`` built as the command
+    builds it (``engine_kw``), with every launch count at 0 before and
+    ``kernels`` launched after.  Greedy requests must give the same ids on
+    both."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.checkpointing import load_checkpoint
+    from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+    from bpe_transformer_tpu_torch.telemetry import validate_record
+
+    jsonl = SERVE_WORK / f"{label}.jsonl"
+    server = ServeProcess(
+        ["--checkpoint", str(ckpt), "--tokenizer-dir", str(SERVE_WORK / "tok"), "--port", "0",
+         "--slots", "8", "--metrics-jsonl", str(jsonl), *flags],
+        SERVE_WORK / f"{label}.log",
+    )
+    try:
+        # Warm-up request (kernel libraries load, allocator pools), outside
+        # the measured burst.
+        http_json(server.base + "/generate", {"prompt_ids": list(range(20)),
+                                               "max_new_tokens": 4, "temperature": 0.0})
+        metrics_before = http_json(server.base + "/metrics")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            answers = list(pool.map(lambda b: http_json(server.base + "/generate", b), bodies))
+        http_wall = time.perf_counter() - t0
+        health = http_json(server.base + "/healthz")
+        metrics = http_json(server.base + "/metrics")
+        statusz = http_json(server.base + "/statusz")
+        # Engine records come once a second: a burst shorter than that
+        # leaves its record to the worker's next step.
+        deadline = time.monotonic() + 10
+        while '"kind": "engine"' not in jsonl.read_text() and time.monotonic() < deadline:
+            time.sleep(0.2)
+    except BaseException:
+        server.kill()
+        raise
+    server.stop()
+
+    kind = torch.cuda.get_device_name(0)
+    res = statusz["resources"]
+    roof = statusz["decode_roofline"]
+    require(health["ok"] and health["requests_finished"] == len(bodies) + 1, f"healthz {health}")
+    require(all(res[k] is not None for k in ("hbm_bytes_in_use", "hbm_peak_bytes_in_use",
+                                             "hbm_bytes_limit", "live_buffer_bytes")),
+            f"/statusz resources without HBM fields: {res}")
+    require(statusz["manifest"]["device_kind"] == kind, f"manifest {statusz['manifest']}")
+    require(roof["peak_flops_per_sec"] and roof["peak_hbm_bytes_per_sec"]
+            and roof["ridge_flops_per_byte"], f"decode roofline without peaks: {roof}")
+    require(statusz["compiled_programs"] >= 1, "no kernel library loaded in the server")
+    for answer in answers:
+        require(answer["finish_reason"] in ("length", "stop") and answer["token_ids"]
+                and isinstance(answer["completion"], str), f"answer {answer}")
+    records = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    bad = [(r.get("kind"), validate_record(r)) for r in records if validate_record(r)]
+    require(not bad, f"{label} JSONL records fail the schema: {bad[:5]}")
+    kinds = {r.get("kind") for r in records}
+    paths = {r.get("path") for r in records if r.get("kind") == "span"}
+    require({"manifest", "span", "engine", "footer"} <= kinds, f"{label} JSONL kinds {kinds}")
+    require({"serve/queue_wait", "serve/prefill", "serve/decode"} <= paths, f"spans {paths}")
+    require(records[-1]["kind"] == "footer" and records[-1]["clean"], "no clean footer")
+
+    payload = load_checkpoint(ckpt)
+    stop_id = tokenizer.encode(SERVE_SPECIAL)[0]
+    with ServingEngine(params_from_jax(payload["params"], "cuda"), cfg, slots=8,
+                       default_stop_id=stop_id, device="cuda", **engine_kw) as serving:
+        serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [serving.submit(Request(
+            prompt_ids=tuple(tokenizer.encode(b["prompt"])), max_new_tokens=64, stop_id=stop_id,
+            **{k: b[k] for k in ("temperature", "top_k", "top_p", "seed") if k in b}))
+            for b in bodies]
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        local_wall = time.perf_counter() - t0
+        counts = read_counts(tuple(KERNEL_META))
+    log(f"{label} in-process launches: {counts}")
+    for name in KERNEL_META:
+        want_launched = name in kernels
+        require((counts[name] >= 1) == want_launched,
+                f"{label}: kernel {name} launched {counts[name]} times")
+    for body, answer, result in zip(bodies, answers, results):
+        if body["temperature"] == 0.0:
+            require(answer["token_ids"] == list(result.token_ids),
+                    f"{label}: greedy ids over HTTP {answer['token_ids'][:8]}... != in-process "
+                    f"{list(result.token_ids)[:8]}...")
+
+    http_tokens = sum(len(a["token_ids"]) for a in answers)
+    local_tokens = sum(len(r.token_ids) for r in results)
+    http_ttft = [a["timings"]["queue_wait_s"] + a["timings"]["prefill_s"] for a in answers]
+    local_ttft = [r.queue_wait_s + r.prefill_s for r in results]
+    # TTFT of the burst alone: the warm-up request's is scraped out.
+    p50, p95 = (histogram_quantile(metrics, metrics_before, "bpe_tpu_request_phase_seconds",
+                                   'phase="ttfb"', q) for q in (0.5, 0.95))
+    row = {
+        "label": label, "card": smi, "requests": len(bodies),
+        "http_tokens": http_tokens, "http_wall_s": http_wall,
+        "http_tok_s": http_tokens / http_wall,
+        "http_ttft_p50_s_metrics": p50, "http_ttft_p95_s_metrics": p95,
+        "http_ttft_p50_s": float(np.percentile(http_ttft, 50)),
+        "http_ttft_p95_s": float(np.percentile(http_ttft, 95)),
+        "local_tokens": local_tokens, "local_wall_s": local_wall,
+        "local_tok_s": local_tokens / local_wall,
+        "local_ttft_p50_s": float(np.percentile(local_ttft, 50)),
+        "local_ttft_p95_s": float(np.percentile(local_ttft, 95)),
+        "counts": counts,
+    }
+    log(f"{smi}: {label} over HTTP: {len(bodies)} requests, {http_tokens} tokens in "
+        f"{http_wall:.3f} s = {row['http_tok_s']:.1f} tok/s; TTFT from /metrics p50 "
+        f"{p50:.4f} s, p95 {p95:.4f} s (responses: {pcts(http_ttft)})")
+    log(f"{smi}: {label} in-process: {len(bodies)} requests, {local_tokens} tokens in "
+        f"{local_wall:.3f} s = {row['local_tok_s']:.1f} tok/s; TTFT {pcts(local_ttft)}")
+    return row
+
+
+def phase_serve_http(torch, smi: str) -> list[dict]:
+    """Phase 13: the port served as a user runs it.  (a) ``train-tokenizer``
+    on the repo's markdown (vocabulary 2000, ``<|endoftext|>`` special),
+    encode/decode byte-exact, no ``regex`` imported, ``tokenize``; (b)
+    ``serve`` on a seeded GPT2_SMALL_32K checkpoint (bf16, the kernel
+    knobs) answering 16 concurrent text requests over HTTP, against the
+    same requests in-process (B1, B2, B3 launched); (c) the same at
+    ``--paged --kv-dtype int8 --weight-dtype int8 --fused-sampling
+    --decode-attention paged`` with 8 requests (B7, B8, B9 launched); (d)
+    ``generate`` against ``generate_ids`` and ``eval`` against the
+    in-process loss.  Returns the HTTP/in-process rows."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.checkpointing import load_checkpoint, save_checkpoint
+    from bpe_transformer_tpu_torch.data import get_batch, load_token_file
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params, params_from_jax
+    from bpe_transformer_tpu_torch.tokenization import BPETokenizer
+    from bpe_transformer_tpu_torch.training.sampling import generate_ids
+    from bpe_transformer_tpu_torch.training.train_step import make_eval_step
+
+    shutil.rmtree(SERVE_WORK, ignore_errors=True)
+    SERVE_WORK.mkdir(parents=True)
+    try:
+        # 13a: the tokenizer.
+        corpus = SERVE_SPECIAL.join(p.read_text(encoding="utf-8")
+                                    for p in sorted(ROOT.glob("*.md")))
+        (SERVE_WORK / "corpus.txt").write_text(corpus, encoding="utf-8")
+        t0 = time.perf_counter()
+        port_cli("train-tokenizer", "--input", str(SERVE_WORK / "corpus.txt"), "--vocab-size",
+                 str(SERVE_VOCAB), "--output-dir", str(SERVE_WORK / "tok"))
+        tok = BPETokenizer.from_files(SERVE_WORK / "tok" / "vocab.pkl",
+                                      SERVE_WORK / "tok" / "merges.pkl", [SERVE_SPECIAL])
+        require(len(tok.vocab) == SERVE_VOCAB, f"vocabulary of {len(tok.vocab)}")
+        ids = tok.encode(corpus)
+        require(tok.decode(ids).encode() == corpus.encode(), "encode/decode not byte-exact")
+        require("regex" not in sys.modules, "the regex package was imported")
+        out = port_cli("tokenize", "--input", str(SERVE_WORK / "corpus.txt"), "--tokenizer-dir",
+                       str(SERVE_WORK / "tok"), "--output", str(SERVE_WORK / "tokens.bin"))
+        tokens = np.fromfile(SERVE_WORK / "tokens.bin", np.uint16)
+        with open(SERVE_WORK / "corpus.txt", encoding="utf-8") as f:
+            streamed = list(tok.encode_iterable(f))
+        require(tokens.tolist() == streamed, "the token file differs from encode_iterable()")
+        log(f"13a tokenizer: {len(corpus)} chars -> {len(ids)} tokens, vocabulary "
+            f"{len(tok.vocab)}, round trip byte-exact, no regex "
+            f"({time.perf_counter() - t0:.1f} s); {out.strip()}")
+
+        # 13b: dense serving over HTTP.
+        cfg = dataclasses.replace(GPT2_SMALL_32K, **KERNEL_KNOBS)
+        ckpt = SERVE_WORK / "gpt2_small_32k.ckpt"
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(13), device="cuda")
+        save_checkpoint(ckpt, params=params, extra={"model_config": dataclasses.asdict(cfg)})
+        del params
+        bodies = serve_requests(tok, corpus, 16)
+        rows = [serve_over_http(torch, smi, "13b dense", ckpt, tok, cfg, bodies, [], {},
+                                SERVING_KERNELS)]
+
+        # 13c: paged int8 with the fused tail.
+        paged_cfg = dataclasses.replace(cfg, decode_attention_impl="paged")
+        rows.append(serve_over_http(
+            torch, smi, "13c paged int8", ckpt, tok, paged_cfg, bodies[:8],
+            ["--paged", "--kv-dtype", "int8", "--weight-dtype", "int8", "--fused-sampling",
+             "--decode-attention", "paged"],
+            dict(paged=True, kv_dtype="int8", weight_dtype="int8", fused_sampling=True),
+            ("paged_decode_attention", "quant_matmul", "fused_head_sample")))
+
+        # 13d: generate and eval.
+        payload = load_checkpoint(ckpt)
+        prompt = corpus[:400].replace(SERVE_SPECIAL, " ")
+        out = json.loads(port_cli(
+            "generate", "--checkpoint", str(ckpt), "--tokenizer-dir", str(SERVE_WORK / "tok"),
+            "--prompt", prompt, "--max-new-tokens", "32", "--temperature", "0",
+            "--print-ids"))
+        want = generate_ids(payload["params"], cfg, tok.encode(prompt), max_new_tokens=32,
+                            temperature=0.0, stop_id=tok.encode(SERVE_SPECIAL)[0],
+                            device="cuda")
+        require(out["token_ids"] == want and len(want) >= 1,
+                f"generate ids {out['token_ids']} != {want}")
+        out = json.loads(port_cli(
+            "eval", "--checkpoint", str(ckpt), "--data", str(SERVE_WORK / "tokens.bin"),
+            "--batches", "2", "--batch-size", "4"))
+        params = params_from_jax(payload["params"], "cuda")
+        data = load_token_file(SERVE_WORK / "tokens.bin")
+        rng = np.random.default_rng(0)
+        eval_step = make_eval_step(cfg)
+        losses = []
+        for _ in range(2):
+            x, y = get_batch(data, 4, cfg.context_length, rng)
+            losses.append(float(eval_step(params, torch.as_tensor(x, device="cuda"),
+                                          torch.as_tensor(y, device="cuda"))))
+        want = float(np.mean(losses))
+        require(math.isfinite(out["val_loss"]) and abs(out["val_loss"] - want) <= 1e-4,
+                f"eval val_loss {out['val_loss']} vs in-process {want}")
+        log(f"13d generate: 32 greedy ids equal generate_ids; eval val_loss "
+            f"{out['val_loss']:.6f} (in-process {want:.6f})")
+    finally:
+        shutil.rmtree(SERVE_WORK, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_serve.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2990,6 +3362,9 @@ def main() -> int:
     sp_main, sp_counts = phase_sp(torch, smi)
     counts.update(sp_counts)
     log(f"phase 12 ring-flash sequence-parallel training: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_serve_http(torch, smi)
+    log(f"phase 13 serving over HTTP: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its entry points run on the card unless the caller asks for the CPU, and
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+nor ``regex``, its entry points (the ``serve``, ``generate`` and ``eval``
+commands too) run on the card unless the caller asks for the CPU, and
 ``chip_smoke.py`` refuses to report without a card or without the repo.
 The jax-free run also serves through the paged engine with int8 KV blocks
 and int8 weights and through the speculative engine with the fused
@@ -7,7 +8,8 @@ sampling tail, serves a ``gelu`` FFN model dense and paged (int8), and
 drives the ``train`` CLI on the CPU, resuming from its own checkpoint, and
 on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``, and takes a
 sequence-parallel step on a stacked ring of two shards, on the device of the
-tensors it is given."""
+tensors it is given; and runs the ``train-tokenizer``, ``tokenize``,
+``generate``, ``eval`` and offline ``serve`` commands on the CPU."""
 
 import re
 import shutil
@@ -18,12 +20,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "bpe_transformer_tpu_torch"
 
-# Runs in a fresh interpreter where importing jax, or anything of the JAX
-# package, fails.
+# Runs in a fresh interpreter where importing jax, regex, or anything of the
+# JAX package, fails.
 _JAX_FREE_SCRIPT = r"""
 import dataclasses, importlib, importlib.abc, pkgutil, sys
 
 sys.modules["jax"] = None
+sys.modules["regex"] = None
 
 class RefuseJaxPackage(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -47,6 +50,12 @@ expected = {
         "parallel.mesh", "parallel.ring_attention", "parallel.sp", "resilience.integrity", "serving.kvpool.blocks", "serving.kvpool.paged_engine",
         "serving.kvpool.radix", "serving.spec", "serving.spec.draft", "serving.spec.engine",
         "training.cli", "training.loop", "training.train_step", "tree",
+        "settings", "tokenization.pretokenization", "tokenization.tokenizer",
+        "tokenization.trainer", "tokenization.gpt2", "tokenization.unicode_classes",
+        "telemetry.schema", "telemetry.spans", "telemetry.sinks", "telemetry.alerts",
+        "telemetry.flightrecorder", "telemetry.manifest", "telemetry.resources",
+        "telemetry.attribution", "utils.flops", "serving.metrics", "serving.server",
+        "training.sampling",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -110,6 +119,38 @@ assert cli_main(gelu_argv + ["--steps", "2"]) == 0
 summary = json.loads((work / "ck_gelu" / "summary.json").read_text())
 assert [r["step"] for r in summary["history"]] == [1, 2], summary
 
+# The serving CLIs, regex-free: train a tokenizer and tokenize with it; then
+# generate, eval and offline-batch serve on the trained checkpoint (64-token
+# vocabulary) with a tokenizer of the bytes below 63 and one special token.
+import contextlib, io, pickle
+(work / "corpus.txt").write_text("the cat sat on the mat. it's 42 \u4e2d\u6587!\n" * 50)
+assert cli_main(["train-tokenizer", "--input", str(work / "corpus.txt"), "--vocab-size", "300",
+                 "--output-dir", str(work / "tok300"), "--workers", "1"]) == 0
+assert cli_main(["tokenize", "--input", str(work / "corpus.txt"), "--tokenizer-dir",
+                 str(work / "tok300"), "--output", str(work / "corpus.bin")]) == 0
+assert 256 < int(np.fromfile(work / "corpus.bin", np.uint16).max()) < 300
+(work / "tok").mkdir()
+(work / "tok" / "vocab.pkl").write_bytes(pickle.dumps({i: bytes([i]) for i in range(63)}))
+(work / "tok" / "merges.pkl").write_bytes(pickle.dumps([]))
+tok_argv = ["--tokenizer-dir", str(work / "tok")]
+ckpt = ["--checkpoint", str(work / "ck" / "step_00000003.ckpt")]
+(work / "prompts.txt").write_text("12 34\n5\n")
+model_cmds = {
+    "generate": ["generate", *ckpt, *tok_argv, "--prompt", "12", "--max-new-tokens", "4",
+                 "--print-ids"],
+    "eval": ["eval", *ckpt, "--data", str(work / "tokens.bin"), "--batches", "1",
+             "--batch-size", "2"],
+    "serve": ["serve", *ckpt, *tok_argv, "--prompts-file", str(work / "prompts.txt"),
+              "--output", str(work / "out.jsonl"), "--max-new-tokens", "3"],
+}
+for name, argv in model_cmds.items():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli_main(argv + ["--device", "cpu"]) == 0, name
+    assert out.getvalue().strip(), name
+assert len((work / "out.jsonl").read_text().splitlines()) == 2
+assert "regex" not in sys.modules or sys.modules["regex"] is None
+
 from bpe_transformer_tpu_torch.optim import adamw_init
 from bpe_transformer_tpu_torch.parallel import StackedRing, make_sp_train_step, shard_sp_batch
 
@@ -132,6 +173,7 @@ if not torch.cuda.is_available():
         lambda: DraftModel(params, cfg, DraftSpec(truncate_layers=1)),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2), tokens),
         lambda: shard_sp_batch((batch[0], batch[1]), ring),
+        *[lambda argv=argv: cli_main(argv) for argv in model_cmds.values()],
     ):
         try:
             call()

@@ -13,6 +13,18 @@ verify tail giving JAX's ``(out, n_emit)`` on JAX's own noise, and the
 ``silu`` and ``gelu`` FFNs served by the dense, paged (act, int8) and
 speculative engines with JAX's greedy tokens and weight gauges.
 
+The serving surface is held against the JAX package's too: the regex-free
+host tokenizer (its class tables against ``regex`` itself, pre-tokens and
+special-token splits on a seeded multilingual corpus, a trained vocabulary
+and merge list, encode/decode and the token file), the HTTP server (greedy
+``/generate`` ids and completions, ``stop_id``, the 400/503 paths with
+``X-Request-Id`` echoed, the ``/healthz``/``/statusz`` keys and the
+Prometheus families apart from the serving-fleet keys, drain, offline batch
+files, a schema-valid telemetry stream), and the CLIs on a JAX-written
+checkpoint (``serve`` in a subprocess read by the JAX package's ``report``
+and ``monitor``, ``generate`` against ``generate_ids``, ``eval`` against
+``cmd_eval`` within 1e-5).
+
 Both packages run a GQA model with the kernel knobs of the ported serving
 path, on random JAX weights at 8 times the init scale (the greedy tokens
 then vary, and the top two logits of every step differ by about 0.02,
@@ -21,10 +33,15 @@ Pallas kernels in interpret mode on the CPU, the port runs on the CPU
 (``device="cpu"``) through its plain versions.
 """
 
+import contextlib
 import dataclasses
 import functools
+import io
+import json
+import os
 import sys
 import threading
+from pathlib import Path
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -80,7 +97,10 @@ def _drive(engine, prompts, max_new_tokens, **knobs):
     return [outs[i] for i in range(len(prompts))]
 
 
-def test_torch_serving_matches_jax_engine():
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_torch_serving_matches_jax_engine(tmp_path):
     cfg = ModelConfig.from_dict(dataclasses.asdict(JAX_CFG))
     jax_params = jax.tree_util.tree_map(
         lambda a: a * 8, jax_init_params(jax.random.PRNGKey(0), JAX_CFG)
@@ -451,3 +471,352 @@ def test_torch_serving_matches_jax_engine():
                           device="cpu", **knobs)
         assert spec.draft.config.ffn_type == ffn_type
         assert _drive(spec, paged_prompts[:4], 6) == want, ffn_type
+
+    # The serving surface: the regex-free host tokenizer, the HTTP server and
+    # its telemetry, and the CLIs, each against the JAX package's.
+    _check_tokenizer_matches_jax(tmp_path)
+    _check_http_server_matches_jax(jax_params, params, cfg, prompts, tmp_path)
+    _check_cli_matches_jax(jax_params, tmp_path)
+
+
+# ------------------------------------------------------------------------
+# The serving surface: host tokenizer, HTTP server, telemetry and CLIs.
+
+_SLICE9_KEYS = {"role", "import_backlog", "migrations_out", "migrations_in",
+                "migration_bytes_out", "migration_bytes_in", "kv_accept", "relays_ok",
+                "relays_failed", "rebalanced_out"}
+
+
+def _tokenizer_corpus() -> str:
+    """A seeded corpus over the pre-tokenizer's hard cases: Latin, CJK,
+    Devanagari, non-ASCII digits, contractions, mixed whitespace runs (with
+    the \\x1c-\\x1f separators and U+0085, which ``str.isspace`` calls
+    space and ``regex`` does not / does), emoji, and overlapping specials."""
+    pieces = ["the", "The", "quick", "brown", "fox", "naïve", "café", "Σίσυφος", "中文",
+              "日本語", "नमस्ते", "दुनिया", "٣٤٥", "४२", "Ⅻ", "½", "2026", "3.14", "don't",
+              "we'll", "they've", "you're", "I'm", "it'd", "'S", "''", "😀", "👍🏽", "🇺🇳",
+              "!!", "...", "--", "$", "@#", "\t", "\n", "\r\n", "  ", "   ", "\x0b", "\x0c",
+              "\x1c", "\x1d", "\x1e", "\x1f", "\x85", "\xa0", " ", "　", "​",
+              "<|endoftext|>", "<|endoftext|><|endoftext|>", "<|end"]
+    rng = np.random.default_rng(0)
+    words = [pieces[i] for i in rng.integers(0, len(pieces), 3000)]
+    seps = [" ", "", "  ", "\n"]
+    return "".join(w + seps[i] for w, i in zip(words, rng.integers(0, len(seps), 3000)))
+
+
+def _check_tokenizer_matches_jax(tmp_path):
+    """The port's regex-free host tokenizer against the JAX package's: the
+    class tables against ``regex`` itself, pre-tokens and special-token
+    splits, a trained vocabulary and merge list, encode/decode, and the token
+    file ``tokenize_to_memmap`` writes."""
+    from bpe_transformer_tpu.data import tokenize_to_memmap as jax_tokenize_to_memmap
+    from bpe_transformer_tpu.native.gen_unicode_tables import _class_ranges
+    from bpe_transformer_tpu.tokenization import BPETokenizer as JaxBPETokenizer
+    from bpe_transformer_tpu.tokenization import BPETrainer as JaxBPETrainer
+    from bpe_transformer_tpu.tokenization import pretokenize_text as jax_pretokenize_text
+    from bpe_transformer_tpu.tokenization import (
+        split_on_special_tokens as jax_split_on_special_tokens,
+    )
+    from bpe_transformer_tpu_torch.data import tokenize_to_memmap
+    from bpe_transformer_tpu_torch.tokenization import (
+        BPETokenizer,
+        BPETrainer,
+        pretokenize_text,
+        split_on_special_tokens,
+        unicode_classes,
+    )
+
+    for pattern, ranges in ((r"\p{L}", unicode_classes.LETTER_RANGES),
+                            (r"\p{N}", unicode_classes.NUMBER_RANGES),
+                            (r"\s", unicode_classes.SPACE_RANGES)):
+        assert list(ranges) == _class_ranges(pattern), pattern
+
+    corpus = _tokenizer_corpus()
+    specials = ["<|endoftext|>", "<|endoftext|><|endoftext|>"]
+    lines = corpus.split("\n")
+    for text in lines + [corpus, "", " ", "  x", "a  \x1c\x1db", "it's'll", " \x85\x85"]:
+        assert pretokenize_text(text) == jax_pretokenize_text(text), repr(text)
+        for training in (True, False):
+            assert split_on_special_tokens(text, specials, training=training) == (
+                jax_split_on_special_tokens(text, specials, training=training)), repr(text)
+
+    path = tmp_path / "corpus.txt"
+    path.write_text(corpus, encoding="utf-8")
+    want = JaxBPETrainer(vocab_size=600, special_tokens=specials[:1])
+    want.train(path)
+    got = BPETrainer(vocab_size=600, special_tokens=specials[:1])
+    got.train(path, n_workers=1)
+    assert got.vocab == want.vocab and got.merges == want.merges
+    assert len(got.merges) > 250
+    tok = BPETokenizer(dict(got.vocab), got.merges, specials)
+    jax_tok = JaxBPETokenizer(dict(want.vocab), want.merges, specials)
+    ids = tok.encode(corpus)
+    assert ids == jax_tok.encode(corpus)
+    assert tok.decode(ids) == jax_tok.decode(ids) == corpus
+    assert tok.decode([5000, ids[0]]) == jax_tok.decode([5000, ids[0]])
+    tokenize_to_memmap(tok, path, tmp_path / "port.bin")
+    jax_tokenize_to_memmap(jax_tok, path, tmp_path / "jax.bin")
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
+    assert "regex" not in {m.split(".")[0] for m in sys.modules
+                           if m.startswith("bpe_transformer_tpu_torch")}
+
+
+def _byte_tokenizers():
+    """The JAX package's and the port's tokenizer over plain ASCII bytes and
+    one special stop token (id 127, the model's last)."""
+    from bpe_transformer_tpu.tokenization import BPETokenizer as JaxBPETokenizer
+    from bpe_transformer_tpu_torch.tokenization import BPETokenizer
+
+    return tuple(cls(vocab={i: bytes([i]) for i in range(127)}, merges=[],
+                     special_tokens=["<|eot|>"]) for cls in (JaxBPETokenizer, BPETokenizer))
+
+
+def _http(url, payload=None, request_id=None, timeout=60.0):
+    """``(status, headers, body)`` of a GET (``payload`` None) or a JSON
+    POST; HTTP errors are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if request_id is not None:
+        headers["X-Request-Id"] = request_id
+    data = None if payload is None else json.dumps(payload).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data, headers=headers),
+                                    timeout=timeout) as resp:
+            return resp.status, resp.headers, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers, err.read().decode()
+
+
+@contextlib.contextmanager
+def _http_server(make_server, serving):
+    server = make_server(serving, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def _prom_families(text: str) -> set:
+    return {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+
+
+def _check_http_server_matches_jax(jax_params, params, cfg, prompts, tmp_path):
+    """The port's ServingEngine + make_http_server against the JAX
+    package's on the same weights and byte tokenizer: greedy /generate ids
+    and completions, stop_id, 400/503 paths with X-Request-Id echoed, the
+    /healthz and /statusz keys and /metrics families (apart from the
+    serving-fleet keys), drain, offline batch files, and the telemetry
+    stream."""
+    from bpe_transformer_tpu.serving import Request as JaxRequest
+    from bpe_transformer_tpu.serving import ServingEngine as JaxServingEngine
+    from bpe_transformer_tpu.serving import make_http_server as jax_make_http_server
+    from bpe_transformer_tpu_torch.serving.server import DuplicateRequestError, make_http_server
+    from bpe_transformer_tpu_torch.telemetry import Telemetry, validate_record
+
+    jax_tok, tok = _byte_tokenizers()
+    records = []
+    sides = (
+        ("jax", lambda **kw: JaxServingEngine(jax_params, JAX_CFG, tokenizer=jax_tok, **kw),
+         jax_make_http_server, JaxRequest),
+        ("port", lambda **kw: ServingEngine(params, cfg, tokenizer=tok, device="cpu", **kw),
+         make_http_server, Request),
+    )
+    seen = {}
+    for side, build, make_server, request_cls in sides:
+        telemetry = Telemetry(sink=records.append) if side == "port" else None
+        out = seen[side] = {}
+        with build(slots=2, min_bucket=8, default_max_new_tokens=5, telemetry=telemetry,
+                   engine_record_every_s=0.0) as serving, \
+                _http_server(make_server, serving) as base:
+            for i, text in enumerate(("ab cd", "hello, world", "x")):
+                code, headers, body = _http(f"{base}/generate",
+                                            {"prompt": text, "temperature": 0.0,
+                                             "max_new_tokens": 6}, request_id=f"g{i}")
+                assert code == 200 and headers["X-Request-Id"] == f"g{i}", (side, body)
+                body = json.loads(body)
+                out[text] = (body["token_ids"], body["completion"], body["finish_reason"])
+                assert body["request_id"] == f"g{i}"
+            ids = out["ab cd"][0]
+            code, _, body = _http(f"{base}/generate", {"prompt": "ab cd", "temperature": 0.0,
+                                                       "max_new_tokens": 6, "stop_id": ids[2]})
+            body = json.loads(body)
+            out["stop"] = (body["token_ids"], body["completion"], body["finish_reason"])
+            assert body["finish_reason"] == "stop" and body["token_ids"] == ids[:3]
+            for bad in ({"bogus": 1}, {"prompt_ids": []}, {"prompt": "a", "seed": "x"}):
+                code, headers, body = _http(f"{base}/generate", bad, request_id="bad")
+                assert code == 400 and headers["X-Request-Id"] == "bad", (side, bad, body)
+            for path in ("/healthz", "/statusz", "/debug/flightrecorder"):
+                code, _, body = _http(base + path)
+                assert code == 200, (side, path)
+                out[path] = json.loads(body)
+            assert _http(base + "/debug/dump", {})[0] == 200
+            out["/metrics"] = _http(base + "/metrics")[2]
+            if side == "port":
+                # drain: queued and in-flight work finishes, new work is
+                # refused (503 over HTTP).
+                handles = [serving.submit(Request(prompt_ids=tuple(p), max_new_tokens=6,
+                                                  temperature=0.0)) for p in prompts[:3]]
+                assert serving.drain(timeout_s=60.0)
+                assert all(h.result(timeout=5).finish_reason == "length" for h in handles)
+                code, headers, _ = _http(f"{base}/generate", {"prompt": "ab"}, request_id="late")
+                assert code == 503 and headers["X-Request-Id"] == "late"
+                with pytest.raises(RuntimeError, match="draining"):
+                    serving.submit(Request(prompt_ids=(1, 2), max_new_tokens=2))
+
+        # 503 on a full queue and on an id already in flight: an engine whose
+        # worker never runs keeps what it queued.
+        serving = build(slots=1, min_bucket=8, max_queue=1)
+        serving._running = True
+        with _http_server(make_server, serving) as base:
+            serving.submit(request_cls(prompt_ids=(1, 2), max_new_tokens=2, request_id="dup"))
+            for rid in ("dup", "full"):
+                code, headers, body = _http(f"{base}/generate", {"prompt": "ab"},
+                                            request_id=rid)
+                assert code == 503 and headers["X-Request-Id"] == rid, (side, rid, body)
+        serving._running = False
+        serving.close()
+
+        # Offline batch file mode.
+        prompts_path = tmp_path / "prompts.txt"
+        prompts_path.write_text("ab\ncdef\n\nxy\n", encoding="utf-8")
+        with build(slots=2, min_bucket=8) as serving:
+            serving.serve_batch_file(prompts_path, tmp_path / f"{side}.jsonl",
+                                     max_new_tokens=4, temperature=0.0)
+        out["batch"] = [
+            {k: v for k, v in json.loads(line).items() if not k.endswith("_s")}
+            for line in (tmp_path / f"{side}.jsonl").read_text().splitlines()
+        ]
+
+    jax_out, port_out = seen["jax"], seen["port"]
+    for key in ("ab cd", "hello, world", "x", "stop", "batch"):
+        assert port_out[key] == jax_out[key], key
+    for path in ("/healthz", "/statusz"):
+        assert set(port_out[path]) == set(jax_out[path]) - _SLICE9_KEYS, path
+    assert set(port_out["/debug/flightrecorder"]) == set(jax_out["/debug/flightrecorder"])
+    assert _prom_families(port_out["/metrics"]) == (
+        _prom_families(jax_out["/metrics"]) - {"bpe_tpu_replica_role"})
+    assert issubclass(DuplicateRequestError, ValueError)
+
+    # The telemetry stream: schema-valid spans, engine/resources/roofline
+    # records and a clean footer, which the JAX package's report renders.
+    from bpe_transformer_tpu.telemetry.report import render_report
+
+    assert all(not validate_record(r) for r in records), [
+        (r.get("kind"), validate_record(r)) for r in records if validate_record(r)]
+    kinds = {r.get("kind") for r in records}
+    assert {"span", "engine", "resources", "roofline", "footer"} <= kinds, kinds
+    assert {r["path"] for r in records if r.get("kind") == "span"} >= {
+        "serve/queue_wait", "serve/prefill", "serve/decode"}
+    assert records[-1]["kind"] == "footer" and records[-1]["clean"] is True
+    report = render_report(records)
+    assert "== serving ==" in report and "queue_wait" in report
+
+
+def _check_cli_matches_jax(jax_params, tmp_path):
+    """The port's CLIs on a checkpoint the JAX package wrote: ``serve`` as a
+    subprocess (banner, /generate, /metrics, /statusz, drain on SIGINT, a
+    kill timer), its JSONL rendered by the JAX package's own ``report`` and
+    ``monitor``; ``generate`` against JAX's ``generate_ids``; ``eval``
+    against JAX's ``cmd_eval``; ``--device`` and the rc-2 flag checks."""
+    import pickle
+    import signal
+    import subprocess
+
+    from bpe_transformer_tpu.checkpointing import save_checkpoint as jax_save_checkpoint
+    from bpe_transformer_tpu.telemetry import monitor as jax_monitor
+    from bpe_transformer_tpu.telemetry import report as jax_report
+    from bpe_transformer_tpu.training import cli as jax_cli
+    from bpe_transformer_tpu.training.sampling import generate_ids as jax_generate_ids
+    from bpe_transformer_tpu_torch.training import cli as port_cli
+
+    ckpt = tmp_path / "model.ckpt"
+    jax_save_checkpoint(ckpt, params=jax_params,
+                        extra={"model_config": dataclasses.asdict(JAX_CFG)})
+    tok_dir = tmp_path / "tok"
+    tok_dir.mkdir()
+    with open(tok_dir / "vocab.pkl", "wb") as f:
+        pickle.dump({i: bytes([i]) for i in range(127)}, f)
+    with open(tok_dir / "merges.pkl", "wb") as f:
+        pickle.dump([], f)
+    common = ["--checkpoint", str(ckpt), "--tokenizer-dir", str(tok_dir),
+              "--special-token", "<|eot|>"]
+
+    def run_cli(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        return rc, out.getvalue()
+
+    metrics = tmp_path / "serve.jsonl"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bpe_transformer_tpu_torch.training.cli", "serve", *common,
+         "--port", "0", "--slots", "2", "--max-new-tokens", "6", "--metrics-jsonl",
+         str(metrics), "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    killer = threading.Timer(240, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://"), (line, proc.stderr.read()[-3000:])
+        base = line.split()[2]
+        code, _, body = _http(f"{base}/generate", {"prompt": "ab", "temperature": 0.0},
+                              timeout=120)
+        assert code == 200 and len(json.loads(body)["token_ids"]) >= 1, body
+        prom = _http(f"{base}/metrics")[2]
+        assert "bpe_tpu_requests_submitted_total 1" in prom
+        statusz = json.loads(_http(f"{base}/statusz")[2])
+        assert statusz["manifest"]["run_kind"] == "serve"
+        assert statusz["manifest"]["devices"]["platform"] == "cpu"
+        assert statusz["compiled_programs"] == 0  # no kernel library on the CPU
+    finally:
+        killer.cancel()
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate(timeout=10)
+    assert proc.returncode == 0 and "drained cleanly" in out, (out, err[-3000:])
+
+    rc, report = run_cli(jax_report.main, [str(metrics)])
+    assert rc == 0 and "kind=serve" in report and "== serving ==" in report, report
+    for phase in ("serve/queue_wait", "serve/prefill", "serve/decode"):
+        assert phase in report, report
+    assert "clean footer" in report
+    rc, frame = run_cli(jax_monitor.main, [str(metrics), "--once", "--plain"])
+    assert rc == 0 and "serve on 1xcpu" in frame, frame
+
+    # generate: the JAX package's greedy ids for the same prompt.
+    rc, out = run_cli(port_cli.main, ["generate", *common, "--prompt", "hello", "--max-new-tokens",
+                                      "8", "--temperature", "0", "--print-ids", "--device",
+                                      "cpu"])
+    got = json.loads(out)
+    want = jax_generate_ids(jax_params, JAX_CFG, [ord(c) for c in "hello"], max_new_tokens=8,
+                            temperature=0.0, stop_id=127)
+    assert rc == 0 and got["token_ids"] == want, (got, want)
+
+    # eval: JAX's cmd_eval loss on the same token file and batches.
+    tokens = np.random.default_rng(3).integers(0, 128, 400).astype(np.uint16)
+    tokens.tofile(tmp_path / "val.bin")
+    argv = ["eval", "--checkpoint", str(ckpt), "--data", str(tmp_path / "val.bin"),
+            "--batches", "2", "--batch-size", "2"]
+    rc, out = run_cli(port_cli.main, argv + ["--device", "cpu"])
+    jax_rc, jax_out = run_cli(jax_cli.main, argv)
+    assert rc == jax_rc == 0
+    got, want = json.loads(out)["val_loss"], json.loads(jax_out)["val_loss"]
+    assert np.isfinite(got) and abs(got - want) <= 1e-5, (got, want)
+
+    # Flag combinations refused before anything loads (rc 2).
+    for extra in (["--kv-dtype", "int8"], ["--speculate", "2"], ["--draft-config", "d.json"],
+                  ["--speculate", "2", "--paged"], ["--prompts-file", "p.txt"],
+                  ["--decode-attention", "paged"]):
+        rc, _ = run_cli(port_cli.main, ["serve", *common, "--device", "cpu", *extra])
+        assert rc == 2, extra
