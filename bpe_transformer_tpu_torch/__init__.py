@@ -15,6 +15,10 @@ host without CUDA they raise unless the caller passes ``device="cpu"``
 (:func:`bpe_transformer_tpu_torch.device.resolve_device`).
 """
 
-from bpe_transformer_tpu_torch.device import resolve_device
+from bpe_transformer_tpu_torch._lazy import lazy_attrs
 
 __all__ = ["resolve_device"]
+
+# Lazy: the fleet's front-end modules (router, controller, fleet, incident,
+# the KV wire codec) import without torch.
+__getattr__ = lazy_attrs(__name__, {"resolve_device": "device"})

@@ -1,2 +1,3 @@
-"""Checkpoint integrity (the port's own copy of the checksum parts of
-``bpe_transformer_tpu/resilience``)."""
+"""Resilience (the port's counterparts of ``bpe_transformer_tpu/resilience``):
+checkpoint integrity (``integrity``), deterministic fault injection
+(``faults``) and the exit descriptions of the supervisor (``supervisor``)."""

@@ -1,9 +1,7 @@
 """Paged KV memory for serving: the block allocator (``blocks``), the radix
 prefix cache (``radix``) and the paged engine (``paged_engine``)."""
 
-from bpe_transformer_tpu_torch.serving.kvpool.blocks import BlockAllocator, NoFreeBlocksError
-from bpe_transformer_tpu_torch.serving.kvpool.paged_engine import PagedEngine, PagedSlotInfo
-from bpe_transformer_tpu_torch.serving.kvpool.radix import RadixPrefixCache
+from bpe_transformer_tpu_torch._lazy import lazy_attrs
 
 __all__ = [
     "BlockAllocator",
@@ -12,3 +10,12 @@ __all__ = [
     "PagedSlotInfo",
     "RadixPrefixCache",
 ]
+
+# Lazy: the wire codec (``migrate``) imports without torch.
+__getattr__ = lazy_attrs(__name__, {
+    "BlockAllocator": "blocks",
+    "NoFreeBlocksError": "blocks",
+    "PagedEngine": "paged_engine",
+    "PagedSlotInfo": "paged_engine",
+    "RadixPrefixCache": "radix",
+})

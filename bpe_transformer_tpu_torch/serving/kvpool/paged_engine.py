@@ -29,6 +29,22 @@ the first token (on the final chunk only) and once per tick after that, so a
 seeded request gives the same tokens on both engines.  Eager PyTorch
 compiles no programs, so the JAX engine's ``compiled_programs`` has no
 counterpart here.
+
+**Migration** (:meth:`export_slot`, :meth:`validate_import_meta`,
+:meth:`validate_import_payload`, :meth:`import_slot`): a slot leaves as a
+payload of ``serving/kvpool/migrate.py`` (the JAX package's meta keys and
+wire format) and is grafted into another engine's pool.  Only written blocks
+travel, gathered with one indexed copy per pool array and scattered the same
+way.  The port samples from a per-slot ``torch.Generator``, where JAX carries
+a threefry key, so the payload holds both: ``torch_rng`` (the generator's
+state and its device type), which a port importer on the same kind of device
+restores, so a seeded sampled request continues token-identically; and
+``key``, the threefry ``PRNGKey(seed)`` pair computed without jax, so the
+JAX package's ``import_slot`` reads a port payload.  A JAX payload carries no
+generator state, and the port then seeds the slot's generator from
+``meta["seed"]`` as an admission does.  Migration between the two packages
+is therefore exact for greedy rows only; a sampled row continues with the
+importer's own random stream.
 """
 
 from __future__ import annotations
@@ -55,9 +71,50 @@ from bpe_transformer_tpu_torch.serving.engine import (
     prepare_serving_weights,
 )
 from bpe_transformer_tpu_torch.serving.kvpool.blocks import BlockAllocator, NoFreeBlocksError
+from bpe_transformer_tpu_torch.serving.kvpool.migrate import BF16, bf16_bits, wire_dtype
 from bpe_transformer_tpu_torch.serving.kvpool.radix import RadixPrefixCache
 
 __all__ = ["PagedEngine", "PagedSlotInfo", "NoFreeBlocksError"]
+
+
+def threefry_key(seed: int) -> list[int]:
+    """``jax.random.PRNGKey(seed)`` as the two uint32 words JAX's payloads
+    carry under ``"key"`` (32-bit seeds: the high word is 0)."""
+    seed = int(seed)
+    return [(seed >> 32) & 0xFFFFFFFF if seed >= 0 else 0, seed & 0xFFFFFFFF]
+
+
+def generator_state(gen: torch.Generator) -> dict:
+    """A generator's state as a JSON-able payload field."""
+    return {"device_type": gen.device.type, "state": gen.get_state().numpy().tobytes().hex()}
+
+
+def restore_generator(field: dict | None, seed: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` in the state ``field`` holds when it was
+    taken on the same kind of device, else seeded from ``seed`` as an
+    admission seeds it."""
+    gen = torch.Generator(device=device)
+    if field and field.get("device_type") == device.type:
+        gen.set_state(torch.frombuffer(bytearray.fromhex(field["state"]), dtype=torch.uint8))
+    else:
+        gen.manual_seed(int(seed))
+    return gen
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a pool tensor as a payload array (bf16 as its bits)."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return bf16_bits(t.view(torch.int16).numpy())
+    return t.numpy()
+
+
+def _from_wire(arr) -> torch.Tensor:
+    """A payload array as a host tensor (bf16 bits reinterpreted)."""
+    if wire_dtype(arr) == BF16:
+        bits = np.require(np.asarray(arr).view(np.int16), requirements=["C", "W"])
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.require(np.asarray(arr), requirements=["C", "W"]))
 
 
 @dataclasses.dataclass
@@ -296,6 +353,203 @@ class PagedEngine:
         if shortfall > 0 and self.prefix_cache is not None:
             self.prefix_cache.evict(shortfall)
         return self.allocator.alloc(n)
+
+    # ------------------------------------------------------------ migration
+
+    def export_slot(self, slot: int, extra_meta: dict | None = None) -> dict:
+        """Serialize ``slot`` into a migration payload: the slot's written
+        pool rows (one gather per pool array; int8 pools ship their scale
+        rows beside them) and everything another replica needs to continue
+        the generation: the prompt, the prefill frontier (mid-prefill
+        exports at a block-aligned frontier), and, for a finished prefix,
+        the decode state with the sampling generator's state.
+
+        Read-only: refcounts, the radix index and every pool row are
+        untouched, so a radix-shared block is never written or released by
+        exporting a slot that references it.  The caller releases the slot
+        once the payload has landed.  ``extra_meta`` (serving-layer fields:
+        emitted tokens, timings, the token history a speculative importer
+        re-prefills its draft from) is merged into the meta."""
+        info = self._slots[slot]
+        if info is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        decoding = bool(self._active[slot])
+        if not decoding and slot not in self._prefilling:
+            raise ValueError(f"slot {slot} has no exportable state")
+        # Only WRITTEN blocks travel: the rest of the chain is the
+        # admission's reservation, which the importer re-reserves.
+        frontier = int(self._positions[slot]) if decoding else info.next_pos
+        ids = info.block_ids[: -(-frontier // self.block_size)]
+        index = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            layers = [
+                {name: _to_wire(arr.index_select(0, index)) for name, arr in layer.items()}
+                for layer in self._pool
+            ]
+        kv_heads = self.config.num_kv_heads or self.config.num_heads
+        meta = {
+            "format": 1,
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+            "num_layers": self.config.num_layers,
+            "kv_heads": kv_heads,
+            "d_head": self.config.d_head,
+            "context_length": self.config.context_length,
+            "n_blocks": len(ids),
+            "prompt": [int(t) for t in info.prompt],
+            "prompt_len": info.prompt_len,
+            "next_pos": info.next_pos,
+            "decoding": decoding,
+            "generated": info.generated,
+            "max_new_tokens": info.max_new_tokens,
+            "stop_id": info.stop_id,
+            "seed": info.seed,
+            # float32-rounded, as the JAX engine keeps its knobs.
+            "temperature": float(np.float32(info.temperature)),
+            "top_k": int(info.top_k),
+            "top_p": float(np.float32(info.top_p)),
+            "token": int(self._tokens[slot]),
+            "position": int(self._positions[slot]),
+            "key": threefry_key(info.seed),
+            "request_id": info.request_id,
+        }
+        gen = self._generators[slot]
+        if decoding and gen is not None:
+            meta["torch_rng"] = generator_state(gen)
+        if extra_meta:
+            meta.update(extra_meta)
+        return {"meta": meta, "layers": layers}
+
+    def validate_import_meta(self, meta: dict) -> None:
+        """Refuse a payload this engine cannot graft: a geometry or pool
+        dtype mismatch is a configuration error, caught before any block is
+        allocated (HTTP 400, never a half-grafted slot)."""
+        if meta.get("format") != 1:
+            raise ValueError(f"unsupported payload format {meta.get('format')!r}")
+        kv_heads = self.config.num_kv_heads or self.config.num_heads
+        expect = {
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+            "num_layers": self.config.num_layers,
+            "kv_heads": kv_heads,
+            "d_head": self.config.d_head,
+            "context_length": self.config.context_length,
+        }
+        for key, want in expect.items():
+            got = meta.get(key)
+            if got != want:
+                raise ValueError(f"payload {key}={got!r} does not match this engine's {want!r}")
+        if meta["n_blocks"] > self.blocks_per_slot:
+            raise ValueError(
+                f"payload carries {meta['n_blocks']} blocks; a slot here holds at most "
+                f"{self.blocks_per_slot}"
+            )
+        need = max(meta["n_blocks"], self.blocks_needed(meta["prompt_len"], meta["max_new_tokens"]))
+        if need > self.allocator.usable_blocks:
+            # Could never land (parking it would deadlock the import queue).
+            raise ValueError(
+                f"grafting needs {need} KV blocks; the pool holds {self.allocator.usable_blocks}"
+            )
+        if not meta["decoding"] and meta["next_pos"] % self.block_size:
+            raise ValueError(
+                f"mid-prefill frontier {meta['next_pos']} is not block-aligned "
+                f"(block_size={self.block_size})"
+            )
+
+    def validate_import_payload(self, payload: dict) -> None:
+        """:meth:`validate_import_meta` plus a structural check of the
+        shipped arrays against the meta (names, shapes, wire dtypes), so an
+        inconsistent payload fails at the transport (HTTP 400) and never in
+        the worker thread."""
+        meta = payload["meta"]
+        self.validate_import_meta(meta)
+        layers = payload["layers"]
+        if len(layers) != self.config.num_layers:
+            raise ValueError(
+                f"payload ships {len(layers)} layers; this engine has {self.config.num_layers}"
+            )
+        names = set(self._pool[0])
+        n = int(meta["n_blocks"])
+        for li, (layer, pool_layer) in enumerate(zip(layers, self._pool)):
+            if set(layer) != names:
+                raise ValueError(
+                    f"payload layer {li} arrays {sorted(layer)} do not match the pool's "
+                    f"{sorted(names)}"
+                )
+            for name, arr in layer.items():
+                want_shape = (n,) + tuple(pool_layer[name].shape[1:])
+                want_dtype = str(pool_layer[name].dtype).removeprefix("torch.")
+                got_dtype = wire_dtype(arr)
+                if tuple(arr.shape) != want_shape or got_dtype != want_dtype:
+                    raise ValueError(
+                        f"payload layer {li} array {name!r} is {got_dtype}{tuple(arr.shape)}; "
+                        f"this pool wants {want_dtype}{want_shape}"
+                    )
+
+    def import_slot(self, payload: dict) -> int:
+        """Graft a migration payload into this pool and return its slot:
+        fresh blocks (prefix-cache LRU leaves evicted to cover a shortfall,
+        :class:`NoFreeBlocksError` when the pool still cannot: the caller
+        parks and retries), the rows scattered with one indexed copy per
+        pool array, the rest of the admission's chain re-reserved, and the
+        generation state restored so the next :meth:`tick` (or
+        :meth:`prefill_step`, mid-prefill) continues where the exporter
+        stopped.  A finished prefix's full prompt blocks are indexed into
+        the radix cache."""
+        meta = payload["meta"]
+        self.validate_import_payload(payload)
+        free = [s for s in range(self.n_slots) if self._slots[s] is None]
+        if not free:
+            raise RuntimeError("no free slot")
+        slot = free[0]
+        n = int(meta["n_blocks"])
+        chain = max(n, self.blocks_needed(int(meta["prompt_len"]), int(meta["max_new_tokens"])))
+        fresh = self._alloc_blocks(chain)
+        self._tables[slot, :chain] = fresh
+        self._tables[slot, chain:] = 0
+        if n:
+            index = torch.as_tensor(fresh[:n], dtype=torch.long, device=self.device)
+            with torch.inference_mode():
+                for layer, pool_layer in zip(payload["layers"], self._pool):
+                    for name, arr in pool_layer.items():
+                        arr.index_copy_(0, index, _from_wire(layer[name]).to(self.device))
+
+        prompt = np.asarray(meta["prompt"], np.int64)
+        plen = int(meta["prompt_len"])
+        info = PagedSlotInfo(
+            prompt=prompt,
+            prompt_len=plen,
+            bucket=self.bucket_for(min(plen, self.prefill_chunk)),
+            max_new_tokens=int(meta["max_new_tokens"]),
+            stop_id=meta["stop_id"],
+            seed=int(meta["seed"]),
+            temperature=float(meta["temperature"]),
+            top_k=int(meta["top_k"]),
+            top_p=float(meta["top_p"]),
+            block_ids=fresh,
+            shared_len=0,
+            next_pos=int(meta["next_pos"]),
+            generated=int(meta["generated"]),
+            request_id=meta.get("request_id"),
+        )
+        self._slots[slot] = info
+        if meta["decoding"]:
+            self._tokens[slot] = int(meta["token"])
+            self._positions[slot] = int(meta["position"])
+            self._temps[slot] = info.temperature
+            self._top_ks[slot] = info.top_k
+            self._top_ps[slot] = info.top_p
+            self._generators[slot] = restore_generator(meta.get("torch_rng"), info.seed,
+                                                       self.device)
+            self._active[slot] = True
+            if self.prefix_cache is not None:
+                full = plen // self.block_size
+                if full:
+                    self.prefix_cache.insert([int(t) for t in prompt[: full * self.block_size]],
+                                             fresh[:full])
+        else:
+            self._prefilling.append(slot)
+        return slot
 
     def begin(
         self,

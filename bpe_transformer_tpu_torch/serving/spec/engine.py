@@ -31,7 +31,13 @@ second generator per slot, seeded ``seed ^ 0x5BEC`` as in JAX.
 ``fused_sampling=True`` runs the verify tail (head projection, filter,
 ``p(d)``, residual sample) in the fused kernel
 (``kernels/sample.py::fused_verify_head``) on the verify pass's hidden
-states.  Export and import of a slot (the fleet) are not ported yet.
+states.
+
+**Migration**: :meth:`SpecEngine.export_slot` adds the draft generator's
+state (``torch_draft_rng``) and, for JAX readers, the threefry
+``PRNGKey(seed ^ 0x5BEC)`` pair as ``draft_key``; :meth:`import_slot`
+re-prefills the draft's dense cache from ``meta["history"]`` (the draft
+cache does not travel), so greedy migration is token-identical either way.
 """
 
 from __future__ import annotations
@@ -50,7 +56,12 @@ from bpe_transformer_tpu_torch.serving.engine import (
     gumbel_noise,
 )
 from bpe_transformer_tpu_torch.serving.kvpool.blocks import NoFreeBlocksError
-from bpe_transformer_tpu_torch.serving.kvpool.paged_engine import PagedEngine
+from bpe_transformer_tpu_torch.serving.kvpool.paged_engine import (
+    PagedEngine,
+    generator_state,
+    restore_generator,
+    threefry_key,
+)
 from bpe_transformer_tpu_torch.serving.spec.draft import (
     DraftModel,
     DraftSpec,
@@ -188,6 +199,44 @@ class SpecEngine(PagedEngine):
         out = super().gauges()
         out.update(self.spec_gauges())
         return out
+
+    # ------------------------------------------------------------ migration
+
+    def export_slot(self, slot: int, extra_meta: dict | None = None) -> dict:
+        """The paged payload plus the slot's draft sampling state, so a
+        speculative importer's proposal chain continues where this one's
+        left off (greedy migration is exact regardless: the emitted chain is
+        the target's argmax chain)."""
+        extra = dict(extra_meta or {})
+        if self._active[slot]:
+            extra.setdefault("draft_key", threefry_key(int(self._slots[slot].seed) ^ 0x5BEC))
+            gen = self._draft_generators[slot]
+            if gen is not None:
+                extra.setdefault("torch_draft_rng", generator_state(gen))
+        return super().export_slot(slot, extra)
+
+    def import_slot(self, payload: dict) -> int:
+        """Graft, then bring the draft up: its dense cache does not travel,
+        so it re-prefills from the grafted prefix's token history
+        (``meta["history"]``: the prompt and every emitted token), the
+        catch-up a fresh admission's final chunk performs.  A decoding
+        payload without a history is refused."""
+        meta = payload["meta"]
+        if meta.get("decoding") and meta.get("history") is None:
+            raise ValueError(
+                "speculative import needs meta['history'] (prompt + emitted tokens) to "
+                "re-prefill the draft cache"
+            )
+        slot = super().import_slot(payload)
+        if meta["decoding"]:
+            pos = int(meta["position"])
+            history = np.asarray([int(t) for t in meta["history"]][:pos], np.int64)
+            with torch.inference_mode():
+                draft_prefill(self.draft, self._draft_cache, history, slot,
+                              self._draft_bucket_for(pos))
+            self._draft_generators[slot] = restore_generator(
+                meta.get("torch_draft_rng"), int(meta["seed"]) ^ 0x5BEC, self.device)
+        return slot
 
     # ------------------------------------------------------------ lifecycle
 

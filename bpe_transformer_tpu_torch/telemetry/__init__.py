@@ -4,13 +4,7 @@ alert watchdog, the flight recorder, run manifests, resource sampling and the
 decode roofline.  The record kinds and their required fields are the JAX
 package's, so its ``report`` and ``monitor`` read the port's streams."""
 
-from bpe_transformer_tpu_torch.telemetry.alerts import AlertEngine, default_serving_rules
-from bpe_transformer_tpu_torch.telemetry.flightrecorder import FlightRecorder
-from bpe_transformer_tpu_torch.telemetry.manifest import git_sha, run_manifest
-from bpe_transformer_tpu_torch.telemetry.resources import sample_resources
-from bpe_transformer_tpu_torch.telemetry.schema import RECORD_SCHEMAS, validate_record
-from bpe_transformer_tpu_torch.telemetry.sinks import MetricsLogger
-from bpe_transformer_tpu_torch.telemetry.spans import Telemetry
+from bpe_transformer_tpu_torch._lazy import lazy_attrs
 
 __all__ = [
     "AlertEngine",
@@ -24,3 +18,18 @@ __all__ = [
     "sample_resources",
     "validate_record",
 ]
+
+# Lazy: ``resources`` imports torch, and the fleet tools (``fleet``,
+# ``slo``, ``monitor``, ``incident``) run on hosts without it.
+__getattr__ = lazy_attrs(__name__, {
+    "AlertEngine": "alerts",
+    "FlightRecorder": "flightrecorder",
+    "MetricsLogger": "sinks",
+    "RECORD_SCHEMAS": "schema",
+    "Telemetry": "spans",
+    "default_serving_rules": "alerts",
+    "git_sha": "manifest",
+    "run_manifest": "manifest",
+    "sample_resources": "resources",
+    "validate_record": "schema",
+})

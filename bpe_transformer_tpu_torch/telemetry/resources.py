@@ -53,6 +53,12 @@ def kernel_libraries_loaded() -> int:
     return int(_build.build_stats()["loaded"])
 
 
+def kernel_launches() -> dict[str, int]:
+    """This process's launches per kernel so far (``kernels/_build.py``
+    ``launches``; the plain versions the CPU runs count none)."""
+    return dict(sorted(dict(_build.launches).items()))
+
+
 def host_rss_bytes() -> int | None:
     """Current resident set size of this process in bytes (Linux
     ``/proc/self/status`` VmRSS; ``getrusage`` *peak* RSS as a portable

@@ -1,5 +1,6 @@
 """The port's command line: ``python -m bpe_transformer_tpu_torch.training.cli
-{train,train-tokenizer,tokenize,eval,generate,serve} [...]``.
+{train,train-tokenizer,tokenize,eval,generate,serve,route,control,fleet,incident}
+[...]``.
 
 ``train`` takes the JAX package's ``bpe-tpu train`` flags that the
 single-device loop supports (data, model, schedule and cadence flags, see
@@ -17,8 +18,14 @@ Differences from the JAX package:
   card and its plain version on the CPU, so none of them can fail to
   lower; only the training knobs (remat, scan) are reset, as JAX does;
 * ``generate --print-ids`` prints ``{"text", "token_ids"}`` as one JSON line;
-* ``serve`` has no ``--compile-cache`` (no XLA programs), no TPU block-size
-  check, and no ``--role``/``--evacuate-to`` (the serving-fleet slice).
+* ``serve`` has no ``--compile-cache`` (no XLA programs) and no TPU
+  block-size check.
+
+``route``, ``control``, ``fleet`` and ``incident`` hand the rest of the
+command line to the ``main`` of the torch-free fleet modules
+(``serving/router.py``, ``serving/controller.py``, ``telemetry/fleet.py``,
+``telemetry/incident.py``), whose parsers define their flags; they run on a
+host without a card.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import dataclasses
 import json
 import signal
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -210,6 +218,14 @@ def _serve_flag_error(args) -> str | None:
         return "--kv-dtype int8 needs --paged (the int8 scale pools live in the block pool)"
     if args.decode_attention == "paged" and not args.paged:
         return "--decode-attention paged needs --paged (the kernel reads through the block table)"
+    if args.role != "both" and not args.paged:
+        return f"--role {args.role} needs --paged (KV migration payloads are block chains)"
+    if args.evacuate_to and not args.paged:
+        return ("--evacuate-to needs --paged (drain evacuation exports in-flight sessions as "
+                "KV block chains)")
+    if args.role == "prefill" and args.prompts_file:
+        return ("--role prefill cannot run offline batch mode (it never decodes; prefixes "
+                "stream out over /kv/export)")
     return None
 
 
@@ -266,8 +282,8 @@ def cmd_serve(args) -> int:
             kv_dtype=None if args.kv_dtype == "act" else args.kv_dtype,
             weight_dtype=None if args.weight_dtype == "act" else args.weight_dtype,
             fused_sampling=args.fused_sampling, speculate_k=args.speculate,
-            draft_spec=draft_spec, flightrecorder_capacity=args.flightrecorder_capacity,
-            device=args.device,
+            draft_spec=draft_spec, role=args.role,
+            flightrecorder_capacity=args.flightrecorder_capacity, device=args.device,
         )
         with serving:
             if args.prompts_file:
@@ -294,8 +310,8 @@ def cmd_serve(args) -> int:
             signal.signal(signal.SIGTERM, _sigterm)
             print(
                 f"serving on http://{host}:{port}  (slots={args.slots}, "
-                f"queue={args.max_queue}; POST /generate, GET /healthz /metrics /statusz; "
-                "Ctrl-C/SIGTERM drains then stops)",
+                f"queue={args.max_queue}, role={args.role}; POST /generate /kv/export "
+                "/kv/import, GET /healthz /metrics /statusz; Ctrl-C/SIGTERM drains then stops)",
                 flush=True,
             )
             try:
@@ -304,9 +320,17 @@ def cmd_serve(args) -> int:
                 pass
             finally:
                 server.shutdown()
-                drained = serving.drain(timeout_s=args.drain_timeout)
+                drained = serving.drain(timeout_s=args.drain_timeout,
+                                        evacuate_urls=args.evacuate_to)
+                # Every finished request's answer is written before exit
+                # (an evacuated session's comes back from its relay).
+                deadline = time.monotonic() + 10.0
+                while drained and server.handlers_in_flight() and time.monotonic() < deadline:
+                    time.sleep(0.01)
                 print(
-                    "drained cleanly" if drained
+                    "drained cleanly"
+                    + (" (sessions evacuated over the wire)" if args.evacuate_to else "")
+                    if drained
                     else f"drain timed out after {args.drain_timeout}s; cancelling stragglers",
                     flush=True,
                 )
@@ -314,6 +338,24 @@ def cmd_serve(args) -> int:
             return 0
     finally:
         logger.close()
+
+
+#: Commands served by a torch-free fleet module: the rest of the command
+#: line goes to the module's ``main(argv)``, whose parser alone defines the
+#: command's flags.
+FLEET_COMMANDS = {
+    "route": ("bpe_transformer_tpu_torch.serving.router",
+              "health-aware HTTP router over serve replicas, with two-tier "
+              "prefill/decode scheduling"),
+    "control": ("bpe_transformer_tpu_torch.serving.controller",
+                "self-healing fleet control loop over the fleet aggregator and the router"),
+    "fleet": ("bpe_transformer_tpu_torch.telemetry.fleet",
+              "fleet aggregator over serve replicas and the router: fleet/slo/alert "
+              "telemetry, fleet /statusz and /metrics"),
+    "incident": ("bpe_transformer_tpu_torch.telemetry.incident",
+                 "postmortem bundler: sweep the router's and replicas' flight recorders "
+                 "into one JSONL bundle"),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -437,9 +479,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="speculative decoding (with --paged + --draft-config)")
     p.add_argument("--draft-config", default=None, metavar="JSON",
                    help="DraftSpec JSON for --speculate")
+    p.add_argument("--role", choices=("prefill", "decode", "both"), default="both",
+                   help="fleet role (with --paged): 'prefill' runs the chunk machine and hands "
+                   "finished prefixes out over POST /kv/export; 'decode' grafts them from POST "
+                   "/kv/import; 'both' (default) serves everything; pair with route "
+                   "--prefill-threshold")
+    p.add_argument("--evacuate-to", action="append", default=None, metavar="HOST:PORT",
+                   help="peer replica base URL for drain evacuation (repeatable, with "
+                   "--paged): on Ctrl-C/SIGTERM in-flight sessions relay to a peer's "
+                   "/kv/import and queued requests replay on its /generate")
     p.add_argument("--special-token", **special)
     p.add_argument("--device", **device)
     p.set_defaults(fn=cmd_serve)
+
+    for name, (_, text) in FLEET_COMMANDS.items():
+        # Its flags are the module's: ``main`` hands them over unparsed.
+        sub.add_parser(name, help=f"{text}; torch-free", add_help=False)
+
     p = sub.add_parser("train", help="pretrain a transformer LM on one device")
     p.add_argument("--data", required=True)
     p.add_argument("--val-data", default=None)
@@ -472,7 +528,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    import importlib
+
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if args.command in FLEET_COMMANDS:
+        module = importlib.import_module(FLEET_COMMANDS[args.command][0])
+        return module.main(rest)
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 
 

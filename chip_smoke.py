@@ -132,14 +132,38 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    launched; (d) ``generate`` against ``generate_ids`` and ``eval`` against
    the in-process loss; the HTTP and in-process tok/s and TTFT are printed
    with the card's name and power limit;
+14. the serving fleet (KV migration, prefill/decode roles, drain
+   evacuation, the router and the fleet tools) at ``GPT2_SMALL_32K`` with
+   int8 KV + int8 weights, the fused tick tail and blocks of 16: (a) two
+   in-process ``PagedEngine``s on phase 9c's first 8 requests, 4 moved
+   mid-decode and 2 mid-prefill through the zlib wire format, every
+   request's tokens (greedy and seeded sampled) equal to one engine's that
+   never migrated, B7, B8 and B9 launched and nothing else; then the
+   speculative engine (K 4, a two-layer draft) migrating greedy requests,
+   B10 launched; raw and zlib bytes, export and import ms per session;
+   (b) ``serve --role prefill``, two ``serve --role decode`` and ``route
+   --prefill-threshold 256`` as subprocesses on the card answering phase
+   13's 16 text requests (greedy ids equal to one in-process engine's, no
+   failed request, migrations counted on both sides); a burst of 8
+   requests with 256 new tokens (half sent to A, half through the router)
+   during which decode replica A, started
+   with ``--evacuate-to`` B, gets SIGTERM and evacuates its sessions (no
+   failed request, greedy ids equal, "drained cleanly"); a prefill replica
+   restarted with ``BT_FAULTS`` ``corrupt_payload``, whose payload B
+   refuses with a 400 and whose clean re-export, sent twice under one
+   ``X-Idempotency-Key``, B grafts once; (c) ``fleet --once``
+   (schema-valid fleet and SLO records), ``control`` observe-only over a
+   running ``fleet`` for a few ticks, ``incident`` over the flight
+   recorders; fleet tok/s and TTFT beside one replica's;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
 ``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
-fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6)
-and ``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures).
+fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6),
+``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures) and
+``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures).
 """
 
 from __future__ import annotations
@@ -2949,21 +2973,26 @@ def port_cli(*argv: str, timeout: float = 600) -> str:
 
 
 class ServeProcess:
-    """``serve`` in a subprocess: started, its banner read, stopped with
-    SIGTERM (a clean drain and exit 0 required), killed on any failure and
-    by a timer."""
+    """A command of the port's CLI in a subprocess (``serve`` unless
+    ``command`` says otherwise): started, its banner read, stopped with
+    SIGTERM (for ``serve``, a clean drain and exit 0 required), killed on
+    any failure and by a timer."""
 
-    def __init__(self, argv: list, log_path: Path, timeout: float = 900):
+    def __init__(self, argv: list, log_path: Path, timeout: float = 900, command: str = "serve",
+                 banner: str = "serving on http://", env: dict | None = None):
+        import os
+
         self._log = open(log_path, "w")
-        self.proc = subprocess.Popen([sys.executable, *PORT_CLI, "serve", *argv], cwd=ROOT,
-                                     stdout=subprocess.PIPE, stderr=self._log, text=True)
+        self.proc = subprocess.Popen([sys.executable, *PORT_CLI, command, *argv], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=self._log, text=True,
+                                     env=None if env is None else {**os.environ, **env})
         self._killer = threading.Timer(timeout, self.proc.kill)
         self._killer.start()
         self._log_path = log_path
         line = self.proc.stdout.readline()
-        if not line.startswith("serving on http://"):
+        if not line.startswith(banner):
             self.kill()
-            raise SmokeFailure(f"serve printed no banner ({line!r}): "
+            raise SmokeFailure(f"{command} printed no banner ({line!r}): "
                                f"{log_path.read_text()[-3000:]}")
         self.base = line.split()[2]
 
@@ -2979,12 +3008,24 @@ class ServeProcess:
                 f"serve did not drain cleanly (rc {self.proc.returncode}, {out!r}): "
                 f"{self._log_path.read_text()[-3000:]}")
 
+    def terminate(self) -> None:
+        """SIGTERM, for the commands without a drain (router, fleet,
+        controller); killed if it has not ended within 30 s."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        self.kill()
+
     def kill(self) -> None:
         self._killer.cancel()
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait(timeout=60)
-        self._log.close()
+        if not self._log.closed:
+            self._log.close()
 
 
 def http_json(url: str, body: dict | None = None, timeout: float = 600):
@@ -3180,7 +3221,7 @@ def serve_over_http(torch, smi: str, label: str, ckpt: Path, tokenizer, cfg, bod
     return row
 
 
-def phase_serve_http(torch, smi: str) -> list[dict]:
+def phase_serve_http(torch, smi: str, keep_work: bool = False) -> list[dict]:
     """Phase 13: the port served as a user runs it.  (a) ``train-tokenizer``
     on the repo's markdown (vocabulary 2000, ``<|endoftext|>`` special),
     encode/decode byte-exact, no ``regex`` imported, ``tokenize``; (b)
@@ -3190,7 +3231,9 @@ def phase_serve_http(torch, smi: str) -> list[dict]:
     ``--paged --kv-dtype int8 --weight-dtype int8 --fused-sampling
     --decode-attention paged`` with 8 requests (B7, B8, B9 launched); (d)
     ``generate`` against ``generate_ids`` and ``eval`` against the
-    in-process loss.  Returns the HTTP/in-process rows."""
+    in-process loss.  Returns the HTTP/in-process rows.  ``keep_work``
+    leaves the tokenizer, corpus and checkpoint in ``SERVE_WORK`` for phase
+    14 (which removes them); a failure removes them here."""
     import dataclasses
     import shutil
 
@@ -3278,11 +3321,676 @@ def phase_serve_http(torch, smi: str) -> list[dict]:
                 f"eval val_loss {out['val_loss']} vs in-process {want}")
         log(f"13d generate: 32 greedy ids equal generate_ids; eval val_loss "
             f"{out['val_loss']:.6f} (in-process {want:.6f})")
+    except BaseException:
+        keep_work = False
+        raise
     finally:
-        shutil.rmtree(SERVE_WORK, ignore_errors=True)
+        if not keep_work:
+            shutil.rmtree(SERVE_WORK, ignore_errors=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_serve.json").write_text(json.dumps(rows, indent=1))
     return rows
+
+
+# ------------------------------------------------------------ phase 14
+
+#: Phase 14's replicas serve phase 13's checkpoint with phase 13c's flags.
+FLEET_FLAGS = ["--paged", "--kv-dtype", "int8", "--weight-dtype", "int8", "--fused-sampling",
+               "--decode-attention", "paged"]
+FLEET_ENGINE_KW = dict(paged=True, kv_dtype="int8", weight_dtype="int8", fused_sampling=True)
+FLEET_KERNELS = ("paged_decode_attention", "quant_matmul", "fused_head_sample")
+#: Phase 14a's migrations over phase 9c's first 8 requests: an int
+#: migrates after that many tokens, "prefill" after the first 256-token
+#: chunk; the other requests never move.  The speculative run's plan indexes
+#: the 4 greedy ones among them.
+MIGRATION_PLAN = {0: 16, 2: 16, 5: 16, 7: 16, 1: "prefill", 6: "prefill"}
+SPEC_MIGRATION_PLAN = {0: 16, 1: "prefill", 2: 16}
+#: Phase 14b's burst: 8 prompts of 15-300 tokens cut from the corpus at
+#: other offsets than phase 13's (a prompt served before would hit the
+#: replicas' prefix caches, and a prefill that starts after shared blocks
+#: rounds its bf16 KV differently), 256 new tokens each.
+BURST_OFFSET = 7777
+BURST = (0, 2, 4, 6, 8, 10, 11, 15)
+#: The greedy request among the same 16 that decode B moves to decode C
+#: (``/admin/evacuate``) through a relay whose first attempt is dropped.
+REBALANCED = 12
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive_migrating(torch, src, dst, requests, plan: dict, sessions: list | None = None,
+                    dst_launches: dict | None = None) -> list:
+    """Serve ``requests`` on the engine ``src`` through begin /
+    prefill_step / tick, all admitted at once, and move the ones ``plan``
+    names to ``dst`` (an int: after that many tokens; ``"prefill"``: after
+    the first prefill chunk): export_slot, payload_to_bytes (zlib),
+    payload_from_bytes, import_slot.  ``sessions`` gets each move's raw and
+    zlib bytes and its export and import ms (host clock, the card
+    synchronized); ``dst_launches`` the kernel launches of ``dst``'s own
+    calls (its imports, prefill chunks and ticks).  Returns every request's
+    tokens."""
+    from bpe_transformer_tpu_torch.serving.kvpool.migrate import (
+        payload_from_bytes,
+        payload_to_bytes,
+    )
+
+    names = tuple(KERNEL_META)
+    if dst_launches is not None:
+        dst_launches.update({name: 0 for name in names})
+
+    def on(side: int, fn, *args):
+        """``fn(*args)``, its launches added to ``dst_launches`` when
+        ``side`` is the importing engine's."""
+        if side == 0 or dst_launches is None:
+            return fn(*args)
+        before = read_counts(names)
+        try:
+            return fn(*args)
+        finally:
+            for name, n in read_counts(names).items():
+                dst_launches[name] += n - before[name]
+
+    outs = {i: [] for i in range(len(requests))}
+    owner = {}
+    for i, r in enumerate(requests):
+        slot = src.begin(list(r.prompt_ids), max_new_tokens=r.max_new_tokens,
+                         temperature=r.temperature, top_k=r.top_k, top_p=r.top_p, seed=r.seed,
+                         request_id=f"r{i}")
+        owner[(0, slot)] = i
+    moved = set()
+
+    def migrate(slot: int, i: int) -> None:
+        sync(torch, src.device)
+        t0 = time.perf_counter()
+        payload = src.export_slot(slot, {"history": list(requests[i].prompt_ids) + outs[i],
+                                         "emitted": list(outs[i])})
+        export_ms = (time.perf_counter() - t0) * 1e3
+        raw = len(payload_to_bytes(payload, codec="raw"))
+        t0 = time.perf_counter()
+        data = payload_to_bytes(payload, codec="zlib")
+        zlib_ms = (time.perf_counter() - t0) * 1e3
+        src.release(slot)
+        del owner[(0, slot)]
+        payload = payload_from_bytes(data)
+        sync(torch, dst.device)
+        t0 = time.perf_counter()
+        owner[(1, on(1, dst.import_slot, payload))] = i
+        sync(torch, dst.device)
+        import_ms = (time.perf_counter() - t0) * 1e3
+        moved.add(i)
+        if sessions is not None:
+            sessions.append({
+                "request": i, "prompt_len": len(requests[i].prompt_ids),
+                "at": plan[i], "tokens_before": len(outs[i]),
+                "blocks": payload["meta"]["n_blocks"], "raw_bytes": raw, "zlib_bytes": len(data),
+                "export_ms": export_ms, "zlib_ms": zlib_ms, "import_ms": import_ms,
+            })
+
+    engines = (src, dst) if dst is not None else (src,)
+    while owner:
+        for side, eng in enumerate(engines):
+            for slot in list(eng.pending_prefills()):
+                i = owner[(side, slot)]
+                event = on(side, eng.prefill_step, slot)
+                if event is None:
+                    if side == 0 and plan.get(i) == "prefill" and i not in moved:
+                        migrate(slot, i)
+                    continue
+                outs[i].append(event.token)
+                if event.finished:
+                    del owner[(side, slot)]
+            for event in on(side, eng.tick):
+                i = owner[(side, event.slot)]
+                outs[i].append(event.token)
+                if event.finished:
+                    del owner[(side, event.slot)]
+        for (side, slot), i in list(owner.items()):
+            at = plan.get(i)
+            if (side == 0 and isinstance(at, int) and i not in moved and len(outs[i]) >= at
+                    and src._active[slot]):
+                migrate(slot, i)
+    require(moved == set(plan), f"planned migrations {sorted(plan)} but moved {sorted(moved)}")
+    return [outs[i] for i in range(len(requests))]
+
+
+def phase_fleet_engines(torch, smi: str, cfg=None, device: str = "cuda") -> dict:
+    """14a: KV migration between two in-process engines at full width
+    (GPT2_SMALL_32K, int8 KV + int8 weights, the fused tick tail, blocks of
+    16, chunks of 256): phase 9c's first 8 requests, 4 moved mid-decode and
+    2 mid-prefill, tokens equal to one engine's that never migrated (greedy
+    and seeded sampled alike); then the speculative engine's greedy
+    migration (K 4, a two-layer draft).  Launches are counted apart for the
+    unmigrated run, the migrated run and the importing engine's own calls
+    in it: B7, B8 and B9 in each and nothing else (the speculative runs:
+    B10 in each).  Returns the per-session figures."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.serving.kvpool import PagedEngine
+    from bpe_transformer_tpu_torch.serving.server import Request
+    from bpe_transformer_tpu_torch.serving.spec import DraftSpec, SpecEngine
+
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, **PAGED_KNOBS)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(14), device=device)
+    requests = paged_mix(np.random.default_rng(14), cfg.vocab_size)[:8]
+    kw = dict(slots=8, block_size=16, prefill_chunk=256, kv_dtype="int8", weight_dtype="int8",
+              fused_sampling=True, device=device)
+    on_card = torch.device(device).type == "cuda"
+    out = {"card": smi}
+
+    for label, build, plan, reqs in (
+        ("paged", lambda: PagedEngine(params, cfg, **kw), MIGRATION_PLAN, requests),
+        ("spec", lambda: SpecEngine(params, cfg, draft=DraftSpec(truncate_layers=2),
+                                    speculate_k=4, **kw),
+         SPEC_MIGRATION_PLAN, [r for r in requests if r.temperature == 0.0]),
+    ):
+        ref_engine, src, dst = build(), build(), build()
+        # Warm-up outside the counted run (cuBLAS handles, allocator pools).
+        for eng in (ref_engine, src, dst):
+            drive_migrating(torch, eng, None, [Request(prompt_ids=tuple(range(20)),
+                                                       max_new_tokens=4, temperature=0.0)], {})
+        sync(torch, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        want = drive_migrating(torch, ref_engine, None, reqs, {})
+        sync(torch, device)
+        ref_wall = time.perf_counter() - t0
+        ref_counts = read_counts(tuple(KERNEL_META))
+        sessions: list = []
+        dst_counts: dict = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        got = drive_migrating(torch, src, dst, reqs, plan, sessions, dst_counts)
+        sync(torch, device)
+        mig_wall = time.perf_counter() - t0
+        counts = read_counts(tuple(KERNEL_META))
+        for i, (a, b) in enumerate(zip(want, got)):
+            require(a == b and len(a) == reqs[i].max_new_tokens,
+                    f"14a {label} request {i} (temperature {reqs[i].temperature}): migrated "
+                    f"tokens {b[:8]}... != unmigrated {a[:8]}... ({len(b)} vs {len(a)})")
+        runs = {"unmigrated run": ref_counts, "migrated run": counts,
+                "importing engine": dst_counts}
+        log(f"14a {label} launches: "
+            + "; ".join(f"{k} {launched(v)}" for k, v in runs.items()))
+        for what, c in runs.items():
+            if on_card and label == "paged":
+                for name in KERNEL_META:
+                    require((c[name] >= 1) == (name in FLEET_KERNELS),
+                            f"14a paged {what}: kernel {name} launched {c[name]} times")
+            elif on_card:
+                require(c["fused_verify_head"] >= 1, f"14a spec {what}: B10 never launched")
+        for row in sessions:
+            log(f"{smi}: 14a {label} session {row['request']} (prompt {row['prompt_len']}, "
+                f"moved at {row['at']}, {row['tokens_before']} tokens emitted, "
+                f"{row['blocks']} blocks): raw {row['raw_bytes']} B, zlib {row['zlib_bytes']} B "
+                f"({row['zlib_ms']:.1f} ms), export {row['export_ms']:.2f} ms, import "
+                f"{row['import_ms']:.2f} ms")
+        log(f"{smi}: 14a {label}: {len(reqs)} requests token-identical after "
+            f"{len(sessions)} migrations; unmigrated run {ref_wall:.3f} s, migrated run "
+            f"{mig_wall:.3f} s")
+        out[label] = {"sessions": sessions, "counts": counts, "ref_counts": ref_counts,
+                      "importer_counts": dst_counts, "ref_wall_s": ref_wall,
+                      "migrated_wall_s": mig_wall}
+        del ref_engine, src, dst
+    return out
+
+
+def replica_launches(base: str) -> dict:
+    """A serve replica's kernel launches so far, per kernel (its
+    ``/statusz``)."""
+    counts = http_json(base + "/statusz")["resources"]["kernel_launches"]
+    return {name: counts.get(name, 0) for name in KERNEL_META}
+
+
+def launches_since(before: dict, after: dict) -> dict:
+    return {name: after[name] - before[name] for name in KERNEL_META}
+
+
+def launched(counts: dict) -> dict:
+    """The kernels launched at least once, for a log line."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def require_fleet_launches(what: str, grown: dict, need=FLEET_KERNELS) -> None:
+    """One replica's (or replicas') launches in a window: each of ``need``
+    launched, and no kernel off the fleet's path."""
+    missing = [name for name in need if grown[name] < 1]
+    stray = {name: n for name, n in grown.items() if n and name not in FLEET_KERNELS}
+    require(not missing and not stray,
+            f"14b {what}: launches {grown}; never launched {missing}, off the path {stray}")
+
+
+def http_raw(url: str, data: bytes, headers: dict, timeout: float = 600) -> tuple[int, bytes]:
+    """POST ``data``; returns (status, body) for errors too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def fleet_reference(torch, cfg, ckpt: Path, tokenizer, bodies: list, device: str) -> tuple:
+    """The fleet's requests on one in-process paged int8 engine (phase
+    13c's), all at once: greedy ids to hold the fleet to, its tok/s and
+    TTFT, and the launch counts."""
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.checkpointing import load_checkpoint
+    from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+
+    stop_id = tokenizer.encode(SERVE_SPECIAL)[0]
+    payload = load_checkpoint(ckpt)
+    with ServingEngine(params_from_jax(payload["params"], device), cfg, slots=8,
+                       default_stop_id=stop_id, device=device, **FLEET_ENGINE_KW) as serving:
+        serving.generate(list(range(20)), max_new_tokens=4, temperature=0.0)
+        runs = []
+        for group in bodies:
+            sync(torch, device)
+            reset_counts()
+            t0 = time.perf_counter()
+            handles = [serving.submit(Request(
+                prompt_ids=tuple(tokenizer.encode(b["prompt"])), stop_id=stop_id,
+                **{k: b[k] for k in ("max_new_tokens", "temperature", "top_k", "top_p", "seed")
+                   if k in b})) for b in group]
+            results = [h.result(timeout=900) for h in handles]
+            sync(torch, device)
+            wall = time.perf_counter() - t0
+            ttft = [r.queue_wait_s + r.prefill_s for r in results]
+            runs.append({
+                "ids": [list(r.token_ids) for r in results],
+                "tokens": sum(len(r.token_ids) for r in results), "wall_s": wall,
+                "tok_s": sum(len(r.token_ids) for r in results) / wall,
+                "ttft_p50_s": float(np.percentile(ttft, 50)),
+                "ttft_p95_s": float(np.percentile(ttft, 95)),
+                "counts": read_counts(tuple(KERNEL_META)),
+            })
+    return runs
+
+
+def phase_fleet_http(torch, smi: str, cfg, work: Path, rows13: list | None = None,
+                     device: str = "cuda") -> dict:
+    """14b and 14c: the fleet as subprocesses of the port's CLI on one card.
+    ``serve --role prefill``, two ``serve --role decode`` (A drains with
+    ``--evacuate-to`` B) and ``route --prefill-threshold 256`` over them
+    answer phase 13's 16 text requests (greedy ids equal to one in-process
+    engine's, no failed request, migrations counted on both sides); a burst
+    of 8 requests with 256 new tokens, half sent to A and half through the
+    router, during which A gets SIGTERM and evacuates its sessions to B (no
+    failed request, greedy ids equal, "drained cleanly"); a prefill replica
+    restarted with a corrupting ``BT_FAULTS`` plan, whose payload B refuses
+    with a 400 and whose clean re-export, sent twice under one idempotency
+    key, B grafts once; a session B moves to a third decode replica C that
+    drops its first ``/kv/import``, so that B's relay retries under one key
+    (C grafts once, greedy ids equal).  Each replica's own kernel launches
+    (``/statusz``) hold B7, B8 and B9 and nothing else.  14c: ``fleet
+    --once`` (schema-valid fleet and SLO records), ``control`` observe-only
+    over a running ``fleet`` for a few ticks, and ``incident`` over the
+    replicas' flight recorders."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.telemetry import validate_record
+    from bpe_transformer_tpu_torch.tokenization import BPETokenizer
+
+    on_card = torch.device(device).type == "cuda"
+    tok = BPETokenizer.from_files(work / "tok" / "vocab.pkl", work / "tok" / "merges.pkl",
+                                  [SERVE_SPECIAL])
+    corpus = (work / "corpus.txt").read_text(encoding="utf-8")
+    ckpt = work / "gpt2_small_32k.ckpt"
+    bodies = serve_requests(tok, corpus, 16)
+    fresh = serve_requests(tok, corpus[BURST_OFFSET:], 16)
+    burst = [dict(fresh[i], max_new_tokens=256) for i in BURST]
+    rebalanced = dict(fresh[REBALANCED], max_new_tokens=256)
+    ref16, ref_burst, ref_moved = fleet_reference(torch, cfg, ckpt, tok,
+                                                  [bodies, burst, [rebalanced]], device)
+    if on_card:
+        for name in KERNEL_META:
+            require((ref16["counts"][name] >= 1) == (name in FLEET_KERNELS),
+                    f"14b reference: kernel {name} launched {ref16['counts'][name]} times")
+    log(f"{smi}: 14b single engine in-process: 16 requests, {ref16['tokens']} tokens in "
+        f"{ref16['wall_s']:.3f} s = {ref16['tok_s']:.1f} tok/s; TTFT p50 "
+        f"{ref16['ttft_p50_s']:.4f} s, p95 {ref16['ttft_p95_s']:.4f} s; launches "
+        f"{launched(ref16['counts'])}")
+
+    base = ["--checkpoint", str(ckpt), "--tokenizer-dir", str(work / "tok"), "--slots", "8",
+            *FLEET_FLAGS] + ([] if on_card else ["--device", "cpu"])
+
+    procs: dict = {}
+
+    def start(**specs) -> None:
+        """Start serve replicas together, each on a port of its own choosing:
+        ``name=(log name, extra argv, extra environment)``, into ``procs``."""
+        with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+            futures = {name: pool.submit(
+                ServeProcess, [*base, "--port", "0", "--metrics-jsonl",
+                               str(work / f"{log_name}.jsonl"), *extra],
+                work / f"{log_name}.log", env=env)
+                for name, (log_name, extra, env) in specs.items()}
+            errors = []
+            for name, fut in futures.items():
+                try:
+                    procs[name] = fut.result()
+                except BaseException as exc:  # noqa: BLE001 -- stop the others first
+                    errors.append(exc)
+        if errors:
+            raise errors[0]
+
+    out: dict = {"card": smi, "reference": {k: v for k, v in ref16.items() if k != "ids"}}
+    try:
+        # Decode B first: A's --evacuate-to names the address B bound.
+        t0 = time.perf_counter()
+        start(prefill=("prefill", ("--role", "prefill"), None),
+              decode_b=("decode_b", ("--role", "decode"), None))
+        start(decode_a=("decode_a", ("--role", "decode", "--evacuate-to",
+                                     procs["decode_b"].base), None))
+        log(f"14b three serve replicas up in {time.perf_counter() - t0:.1f} s")
+        pre, dec_a, dec_b = procs["prefill"].base, procs["decode_a"].base, procs["decode_b"].base
+        procs["router"] = ServeProcess(
+            ["--replica", pre, "--replica", dec_a, "--replica", dec_b, "--port", "0",
+             "--prefill-threshold", "256", "--poll-interval", "0.5", "--metrics-jsonl",
+             str(work / "router.jsonl")], work / "router.log", command="route",
+            banner="routing on http://")
+        router = procs["router"].base
+        deadline = time.monotonic() + 60
+        while http_json(router + "/statusz")["available"] < 3:
+            require(time.monotonic() < deadline, "the router never saw three replicas")
+            time.sleep(0.2)
+
+        # Warm-up outside the measured burst: each decode replica serves a
+        # request, and a prefix moves prefill -> decode A and B.
+        warm = {"prompt_ids": list(range(300)), "max_new_tokens": 4, "temperature": 0.0}
+        for dec in (dec_a, dec_b):
+            http_json(dec + "/generate", dict(warm, prompt_ids=list(range(20))))
+            code, data = http_raw(pre + "/kv/export", json.dumps(warm).encode(),
+                                  {"Content-Type": "application/json", "X-KV-Accept": "zlib"})
+            require(code == 200, f"warm-up export: HTTP {code}")
+            code, _ = http_raw(dec + "/kv/import", data,
+                               {"Content-Type": "application/octet-stream"})
+            require(code == 200, f"warm-up import: HTTP {code}")
+
+        # The 16 requests through the router.
+        before = {n: http_json(procs[n].base + "/healthz") for n in ("prefill", "decode_a",
+                                                                       "decode_b")}
+        launches0 = {n: replica_launches(procs[n].base) for n in before}
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            answers = list(pool.map(lambda b: http_json(router + "/generate", b), bodies))
+        wall = time.perf_counter() - t0
+        after = {n: http_json(procs[n].base + "/healthz") for n in before}
+        launches16 = {n: replica_launches(procs[n].base) for n in before}
+        rstat = http_json(router + "/statusz")
+        for body, answer, want in zip(bodies, answers, ref16["ids"]):
+            require(answer["finish_reason"] in ("length", "stop") and answer["token_ids"],
+                    f"14b answer {answer}")
+            if body["temperature"] == 0.0:
+                require(answer["token_ids"] == want,
+                        f"14b greedy ids through the fleet {answer['token_ids'][:8]}... != "
+                        f"single engine {want[:8]}...")
+        require(rstat["requests_failed"] == 0, f"14b router failed {rstat['requests_failed']}")
+        require(rstat["requests_migrated"] > 0, "14b: no request took the two-tier path")
+
+        def moved(n, key):
+            return after[n][key] - before[n][key]
+
+        for key in ("migrations_out", "migration_bytes_out"):
+            require(moved("prefill", key) > 0, f"14b prefill replica: {key} did not grow")
+        for key in ("migrations_in", "migration_bytes_in"):
+            require(moved("decode_a", key) + moved("decode_b", key) > 0,
+                    f"14b decode replicas: {key} did not grow")
+        # Each process's own launches: the prefill replica's chunks run B8's
+        # projections; the decode replicas' ticks B7, B8 and B9.
+        grown = {n: launches_since(launches0[n], launches16[n]) for n in before}
+        decoders = {k: grown["decode_a"][k] + grown["decode_b"][k] for k in KERNEL_META}
+        log(f"14b launches in the replicas' processes, 16 requests: prefill "
+            f"{launched(grown['prefill'])}; decode A {launched(grown['decode_a'])}; decode B "
+            f"{launched(grown['decode_b'])}")
+        if on_card:
+            require_fleet_launches("prefill replica, 16 requests", grown["prefill"],
+                                   need=("quant_matmul",))
+            require_fleet_launches("decode replicas, 16 requests", decoders)
+        tokens = sum(len(a["token_ids"]) for a in answers)
+        ttft = [a["timings"]["queue_wait_s"] + a["timings"]["prefill_s"] for a in answers]
+        fleet_row = {
+            "requests": len(bodies), "tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p95_s": float(np.percentile(ttft, 95)),
+            "requests_migrated": rstat["requests_migrated"],
+            "migrations_out": moved("prefill", "migrations_out"),
+            "migration_bytes_out": moved("prefill", "migration_bytes_out"),
+            "replicas": sorted({str(a.get("replica")) for a in answers}),
+            "launches": grown,
+        }
+        out["fleet"] = fleet_row
+        log(f"{smi}: 14b fleet (1 prefill + 2 decode replicas behind the router, threshold "
+            f"256): 16 requests, {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; "
+            f"TTFT p50 {fleet_row['ttft_p50_s']:.4f} s, p95 {fleet_row['ttft_p95_s']:.4f} s; "
+            f"{rstat['requests_migrated']} requests migrated, "
+            f"{fleet_row['migration_bytes_out']} payload bytes out of the prefill replica")
+        if rows13:
+            c = next((r for r in rows13 if r["label"] == "13c paged int8"), None)
+            if c is not None:
+                log(f"{smi}: 14b beside 13c (one paged int8 replica, its 8 requests): HTTP "
+                    f"{c['http_tok_s']:.1f} tok/s, TTFT p50 {c['http_ttft_p50_s']:.4f} s, p95 "
+                    f"{c['http_ttft_p95_s']:.4f} s; in-process {c['local_tok_s']:.1f} tok/s")
+                out["13c"] = {k: c[k] for k in ("http_tok_s", "http_ttft_p50_s",
+                                                  "http_ttft_p95_s", "local_tok_s")}
+
+        # The burst, and decode replica A drained mid-burst with evacuation.
+        # Half of it goes to A itself, so that A holds sessions when the
+        # signal comes (the router alone may send a burst elsewhere).
+        results: dict = {}
+
+        def send(i_body):
+            i, body = i_body
+            try:
+                results[i] = http_json((dec_a if i % 2 == 0 else router) + "/generate", body)
+            except BaseException as exc:  # noqa: BLE001 -- reported below
+                results[i] = exc
+
+        threads = [threading.Thread(target=send, args=((i, b),)) for i, b in enumerate(burst)]
+        for t in threads:
+            t.start()
+        # SIGTERM once A holds its four direct requests (and whatever the
+        # router sent it) in slots.
+        deadline = time.monotonic() + 120
+        while http_json(dec_a + "/statusz")["active_slots"] < 4:
+            require(time.monotonic() < deadline, "14b: decode replica A never held 4 sessions")
+            time.sleep(0.02)
+        t_stop = time.perf_counter()
+        a_proc = procs.pop("decode_a")
+        a_proc.stop()
+        drain_s = time.perf_counter() - t_stop
+        for t in threads:
+            t.join(timeout=900)
+        a_records = [json.loads(line) for line in
+                     (work / "decode_a.jsonl").read_text().splitlines()]
+        evacuated = [r for r in a_records if r.get("kind") == "migration"
+                     and r.get("direction") == "evacuate"]
+        relayed = [r for r in a_records if r.get("kind") == "migration"
+                   and r.get("direction") == "evacuate_relay"]
+        require(evacuated and len(relayed) >= len(evacuated),
+                f"14b: A evacuated {len(evacuated)} sessions, relayed {len(relayed)}")
+        for i, body in enumerate(burst):
+            answer = results.get(i)
+            require(isinstance(answer, dict), f"14b burst request {i} failed: {answer!r}")
+            if body["temperature"] == 0.0:
+                require(answer["token_ids"] == ref_burst["ids"][i],
+                        f"14b burst greedy ids {answer['token_ids'][:8]}... != unmigrated "
+                        f"{ref_burst['ids'][i][:8]}...")
+        rstat = http_json(router + "/statusz")
+        require(rstat["requests_failed"] == 0, f"14b burst: router failed "
+                f"{rstat['requests_failed']}")
+        b_grown = launches_since(launches16["decode_b"], replica_launches(dec_b))
+        log(f"14b launches in decode B's process, burst and evacuation: {launched(b_grown)}")
+        if on_card:
+            require_fleet_launches("decode B, burst and evacuation", b_grown)
+        out["evacuation"] = {"sessions": len(evacuated),
+                             "bytes": sum(r.get("bytes", 0) for r in evacuated),
+                             "drain_s": drain_s,
+                             "relay_s": [r.get("transfer_s") for r in relayed],
+                             "decode_b_launches": b_grown}
+        log(f"{smi}: 14b burst of 8 x 256 tokens: decode A drained in {drain_s:.3f} s after "
+            f"evacuating {len(evacuated)} sessions "
+            f"({out['evacuation']['bytes']} payload bytes) to B; no request failed, greedy ids "
+            f"equal the unmigrated run's")
+
+        # A prefill replica that corrupts its next export, and a decode
+        # replica C that drops its first /kv/import unanswered.
+        procs.pop("prefill").stop()
+        once = work / "faults_c"
+        start(prefill=("prefill2", ("--role", "prefill"),
+                       {"BT_FAULTS": json.dumps({"corrupt_payload": "flip"})}),
+              decode_c=("decode_c", ("--role", "decode"), {"BT_FAULTS": json.dumps({
+                  "http_blackhole": True, "http_fault_path": "/kv/import",
+                  "once_dir": str(once)})}))
+        pre, dec_c = procs["prefill"].base, procs["decode_c"].base
+        body = json.dumps(bodies[0]).encode()
+        export_headers = {"Content-Type": "application/json", "X-KV-Accept": "zlib"}
+        import_headers = {"Content-Type": "application/octet-stream",
+                          "X-Idempotency-Key": "chip-smoke-14b"}
+        grafts0 = http_json(dec_b + "/healthz")["migrations_in"]
+        code, bad = http_raw(pre + "/kv/export", body, export_headers)
+        require(code == 200, f"14b corrupt export: HTTP {code}")
+        code, reply = http_raw(dec_b + "/kv/import", bad, import_headers)
+        require(code == 400, f"14b: a corrupted payload got HTTP {code}: {reply[:200]!r}")
+        require(http_json(dec_b + "/healthz")["migrations_in"] == grafts0,
+                "14b: a corrupted payload was grafted")
+        code, good = http_raw(pre + "/kv/export", body, export_headers)
+        require(code == 200 and good != bad, f"14b clean re-export: HTTP {code}")
+        answers = []
+        for _ in range(2):
+            code, reply = http_raw(dec_b + "/kv/import", good, import_headers)
+            require(code == 200, f"14b retried import: HTTP {code}: {reply[:200]!r}")
+            answers.append(json.loads(reply))
+        require(answers[0]["token_ids"] == answers[1]["token_ids"] == ref16["ids"][0],
+                "14b: the retried graft's ids differ from the single engine's")
+        grafts = http_json(dec_b + "/healthz")["migrations_in"] - grafts0
+        require(grafts == 1, f"14b: one idempotency key grafted {grafts} times")
+        log("14b corrupt payload: 400 from the importer, nothing grafted; the clean re-export "
+            "sent twice under one idempotency key grafted once, ids equal the single engine's")
+
+        # The server's relay retrying on its own: B moves a decoding session
+        # to C (POST /admin/evacuate); C drops the first /kv/import, B's relay
+        # backs off and sends the payload again under the same idempotency
+        # key, C grafts it once and decodes the rest.
+        stat0 = http_json(dec_b + "/statusz")
+        emitted0 = http_json(dec_b + "/healthz")["tokens_emitted"]
+        moved_answer: dict = {}
+
+        def send_moved():
+            try:
+                moved_answer["r"] = http_json(dec_b + "/generate", rebalanced)
+            except BaseException as exc:  # noqa: BLE001 -- reported below
+                moved_answer["r"] = exc
+
+        sender = threading.Thread(target=send_moved)
+        sender.start()
+        deadline = time.monotonic() + 120
+        while http_json(dec_b + "/healthz")["tokens_emitted"] < emitted0 + 8:
+            require(time.monotonic() < deadline, "14b: decode B never decoded the request")
+            time.sleep(0.02)
+        reply = http_json(dec_b + "/admin/evacuate", {"target": dec_c, "max_sessions": 1})
+        require(reply["moved"] == 1, f"14b /admin/evacuate moved {reply}")
+        sender.join(timeout=900)
+        answer = moved_answer.get("r")
+        require(isinstance(answer, dict) and answer["token_ids"] == ref_moved["ids"][0],
+                f"14b: the session relayed to C answered {answer!r:.300}, not the single "
+                f"engine's ids")
+        stat1 = http_json(dec_b + "/statusz")
+        require((once / "http_blackhole.fired").exists(), "14b: C's blackhole never fired")
+        require(stat1["relays_ok"] - stat0["relays_ok"] == 1
+                and stat1["relays_failed"] == stat0["relays_failed"],
+                f"14b relay: ok {stat0['relays_ok']} -> {stat1['relays_ok']}, failed "
+                f"{stat0['relays_failed']} -> {stat1['relays_failed']}")
+        c_grafts = http_json(dec_c + "/healthz")["migrations_in"]
+        require(c_grafts == 1, f"14b: C grafted the relayed session {c_grafts} times")
+        c_launches = replica_launches(dec_c)
+        log(f"14b relay retry: C dropped the first /kv/import, B's relay retried under one "
+            f"idempotency key, C grafted once and its ids equal the single engine's; C's "
+            f"launches {launched(c_launches)}")
+        if on_card:
+            require_fleet_launches("decode C after the graft", c_launches)
+        out["relay_retry"] = {"rebalanced_out": stat1["rebalanced_out"] - stat0["rebalanced_out"],
+                              "c_launches": c_launches}
+        procs.pop("decode_c").stop()
+
+        # 14c: the host tooling.
+        replicas = ["--replica", pre, "--replica", dec_b]
+        port_cli("fleet", *replicas, "--router", router, "--once", "--metrics-jsonl",
+                 str(work / "fleet_once.jsonl"), "--poll-timeout", "30")
+        records = [json.loads(line) for line in
+                   (work / "fleet_once.jsonl").read_text().splitlines()]
+        bad_records = [(r.get("kind"), validate_record(r)) for r in records
+                       if validate_record(r)]
+        kinds = {r.get("kind") for r in records}
+        require(not bad_records, f"14c fleet records fail the schema: {bad_records[:5]}")
+        require({"fleet", "slo"} <= kinds, f"14c fleet --once wrote kinds {kinds}")
+        procs["fleet"] = ServeProcess(
+            [*replicas, "--router", router, "--port", "0", "--interval", "0.5",
+             "--metrics-jsonl", str(work / "fleet.jsonl")], work / "fleet.log",
+            command="fleet", banner="fleet view on http://")
+        procs["control"] = ServeProcess(
+            ["--fleet", procs["fleet"].base, "--router", router, "--port", "0", "--interval",
+             "0.5", "--observe-only", "--metrics-jsonl", str(work / "control.jsonl")],
+            work / "control.log", command="control", banner="controlling on http://")
+        deadline = time.monotonic() + 60
+        while (ctl := http_json(procs["control"].base + "/statusz"))["ticks"] < 3:
+            require(time.monotonic() < deadline, f"14c control ticked {ctl['ticks']} times")
+            time.sleep(0.2)
+        require(ctl["breaker"] == "closed" and ctl["observe_only"], f"14c control {ctl}")
+        for name in ("control", "fleet"):
+            procs.pop(name).terminate()
+        out_incident = work / "incident.jsonl"
+        port_cli("incident", *replicas, "--router", router, "--out", str(out_incident))
+        bundle = [json.loads(line) for line in out_incident.read_text().splitlines()]
+        require(bundle and bundle[-1]["kind"] == "incident"
+                and bundle[-1]["hosts_online"] == 3, f"14c incident summary {bundle[-1:]}")
+        out["tools"] = {"fleet_once_kinds": sorted(kinds), "control_ticks": ctl["ticks"],
+                        "incident_records": len(bundle),
+                        "incident_timeline": len(bundle[-1]["timeline"])}
+        log(f"14c host tooling: fleet --once wrote {len(records)} schema-valid records "
+            f"({sorted(kinds)}); control ticked {ctl['ticks']} times observe-only (breaker "
+            f"{ctl['breaker']}); incident bundled {len(bundle)} records, "
+            f"{len(bundle[-1]['timeline'])} timeline entries from 3 hosts")
+
+        procs.pop("router").terminate()
+        for name in ("prefill", "decode_b"):
+            procs.pop(name).stop()
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    return out
+
+
+def phase_fleet(torch, smi: str, rows13: list) -> None:
+    """Phase 14: the serving fleet (14a in-process migration, 14b and 14c
+    the fleet over HTTP on phase 13's checkpoint and tokenizer); writes
+    ``chip_smoke_fleet.json``."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+
+    t0 = time.perf_counter()
+    out = {"14a": phase_fleet_engines(torch, smi)}
+    log(f"14a in-process migration: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_SMALL_32K, **PAGED_KNOBS)
+    out["14b"] = phase_fleet_http(torch, smi, cfg, SERVE_WORK, rows13)
+    log(f"14b-c the fleet over HTTP: ok ({time.perf_counter() - t0:.1f} s)")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_fleet.json").write_text(json.dumps(out, indent=1, default=str))
 
 
 # ------------------------------------------------------------ main
@@ -3363,8 +4071,16 @@ def main() -> int:
     counts.update(sp_counts)
     log(f"phase 12 ring-flash sequence-parallel training: ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    phase_serve_http(torch, smi)
+    rows13 = phase_serve_http(torch, smi, keep_work=True)
     log(f"phase 13 serving over HTTP: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    try:
+        phase_fleet(torch, smi, rows13)
+    finally:
+        import shutil
+
+        shutil.rmtree(SERVE_WORK, ignore_errors=True)
+    log(f"phase 14 the serving fleet: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -9,7 +9,12 @@ drives the ``train`` CLI on the CPU, resuming from its own checkpoint, and
 on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``, and takes a
 sequence-parallel step on a stacked ring of two shards, on the device of the
 tensors it is given; and runs the ``train-tokenizer``, ``tokenize``,
-``generate``, ``eval`` and offline ``serve`` commands on the CPU."""
+``generate``, ``eval`` and offline ``serve`` commands on the CPU.  The
+serving fleet's front-end modules (the router, the controller, the fleet
+aggregator, the SLO layer, the incident bundler, the monitor and the KV wire
+codec) import with ``torch`` refused as well; the ``route``, ``control``,
+``fleet`` and ``incident`` commands exist, and ``serve --role`` or
+``--evacuate-to`` without ``--paged`` exits with 2 as in the JAX package."""
 
 import re
 import shutil
@@ -55,7 +60,9 @@ expected = {
         "telemetry.schema", "telemetry.spans", "telemetry.sinks", "telemetry.alerts",
         "telemetry.flightrecorder", "telemetry.manifest", "telemetry.resources",
         "telemetry.attribution", "utils.flops", "serving.metrics", "serving.server",
-        "training.sampling",
+        "training.sampling", "_lazy", "serving.kvpool.migrate", "serving.router",
+        "serving.controller", "telemetry.slo", "telemetry.monitor", "telemetry.fleet",
+        "telemetry.incident", "resilience.faults", "resilience.supervisor",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -151,6 +158,17 @@ for name, argv in model_cmds.items():
 assert len((work / "out.jsonl").read_text().splitlines()) == 2
 assert "regex" not in sys.modules or sys.modules["regex"] is None
 
+# The fleet's commands exist; roles and evacuation need the block pool.
+from bpe_transformer_tpu_torch.training.cli import build_parser
+assert {"route", "control", "fleet", "incident"} <= set(
+    build_parser()._subparsers._group_actions[0].choices)
+for extra in (["--role", "decode"], ["--role", "prefill"], ["--evacuate-to", "127.0.0.1:9"]):
+    assert cli_main(["serve", *ckpt, *tok_argv, "--device", "cpu", *extra]) == 2, extra
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli_main(["control", "--fleet", "127.0.0.1:9", "--observe-only", "--once"]) == 0
+assert json.loads(out.getvalue().splitlines()[0])["action"] == "hold"
+
 from bpe_transformer_tpu_torch.optim import adamw_init
 from bpe_transformer_tpu_torch.parallel import StackedRing, make_sp_train_step, shard_sp_batch
 
@@ -187,6 +205,21 @@ print("JAX-FREE OK", len(names))
 """
 
 
+# The fleet's front-end modules run on hosts with neither torch nor jax.
+_TORCH_FREE_SCRIPT = r"""
+import importlib, sys
+
+sys.modules["torch"] = None
+sys.modules["jax"] = None
+for name in ("serving.router", "serving.controller", "telemetry.fleet", "telemetry.slo",
+             "telemetry.incident", "telemetry.monitor", "serving.kvpool.migrate"):
+    importlib.import_module("bpe_transformer_tpu_torch." + name)
+assert not any(m == "bpe_transformer_tpu" or m.startswith("bpe_transformer_tpu.")
+               for m in sys.modules)
+print("TORCH-FREE OK")
+"""
+
+
 def test_torch_port_is_jax_free_and_card_first(tmp_path):
     # Statically: no import of jax or of the JAX package in the port's
     # sources or in chip_smoke.py.
@@ -204,6 +237,9 @@ def test_torch_port_is_jax_free_and_card_first(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX-FREE OK" in proc.stdout
+    proc = subprocess.run([sys.executable, "-c", _TORCH_FREE_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "TORCH-FREE OK" in proc.stdout, proc.stderr[-3000:]
 
     # chip_smoke.py fails, printing no result, on a host without a card (or
     # in a directory holding nothing else of the repo).

@@ -19,11 +19,24 @@ special-token splits on a seeded multilingual corpus, a trained vocabulary
 and merge list, encode/decode and the token file), the HTTP server (greedy
 ``/generate`` ids and completions, ``stop_id``, the 400/503 paths with
 ``X-Request-Id`` echoed, the ``/healthz``/``/statusz`` keys and the
-Prometheus families apart from the serving-fleet keys, drain, offline batch
-files, a schema-valid telemetry stream), and the CLIs on a JAX-written
-checkpoint (``serve`` in a subprocess read by the JAX package's ``report``
-and ``monitor``, ``generate`` against ``generate_ids``, ``eval`` against
-``cmd_eval`` within 1e-5).
+Prometheus families, drain, offline batch files, a schema-valid telemetry
+stream), and the CLIs on a JAX-written checkpoint (``serve`` in a
+subprocess read by the JAX package's ``report`` and ``monitor``,
+``generate`` against ``generate_ids``, ``eval`` against ``cmd_eval`` within
+1e-5, the rc-2 flag checks, ``--role`` and ``--evacuate-to`` among them).
+
+And the serving fleet: the KV payload frames byte-identical to the JAX
+package's (float32, int8 with scales, bfloat16, v1, corrupt bodies
+refused, codec negotiation), migration mid-decode and mid-prefill
+token-identical to the unmigrated run (port to port, greedy and seeded;
+port to JAX and back, greedy; the speculative engine too), export
+read-only on shared blocks, malformed payloads refused by both packages;
+and with in-process HTTP replicas, prefill and decode roles behind the
+port's router and JAX's, a JAX prefill replica feeding a port decode
+replica, drain evacuation and ``/admin/evacuate`` with no failed request,
+a ``BT_FAULTS`` corrupted payload answered 400 and its clean retry under one
+idempotency key grafted once, the controller deciding as JAX's on the same
+evidence, and fleet records that JAX's ``report`` renders.
 
 Both packages run a GQA model with the kernel knobs of the ported serving
 path, on random JAX weights at 8 times the init scale (the greedy tokens
@@ -41,6 +54,9 @@ import json
 import os
 import sys
 import threading
+import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from concurrent.futures import ThreadPoolExecutor
 
@@ -478,14 +494,14 @@ def test_torch_serving_matches_jax_engine(tmp_path):
     _check_http_server_matches_jax(jax_params, params, cfg, prompts, tmp_path)
     _check_cli_matches_jax(jax_params, tmp_path)
 
+    # The serving fleet: KV migration and its wire format, roles,
+    # evacuation, the router, the controller and the fleet tools.
+    _check_migration_matches_jax(jax_params, params)
+    _check_fleet_matches_jax(jax_params, params)
+
 
 # ------------------------------------------------------------------------
 # The serving surface: host tokenizer, HTTP server, telemetry and CLIs.
-
-_SLICE9_KEYS = {"role", "import_backlog", "migrations_out", "migrations_in",
-                "migration_bytes_out", "migration_bytes_in", "kv_accept", "relays_ok",
-                "relays_failed", "rebalanced_out"}
-
 
 def _tokenizer_corpus() -> str:
     """A seeded corpus over the pre-tokenizer's hard cases: Latin, CJK,
@@ -610,9 +626,8 @@ def _check_http_server_matches_jax(jax_params, params, cfg, prompts, tmp_path):
     """The port's ServingEngine + make_http_server against the JAX
     package's on the same weights and byte tokenizer: greedy /generate ids
     and completions, stop_id, 400/503 paths with X-Request-Id echoed, the
-    /healthz and /statusz keys and /metrics families (apart from the
-    serving-fleet keys), drain, offline batch files, and the telemetry
-    stream."""
+    /healthz and /statusz keys and /metrics families (the serving fleet's
+    included), drain, offline batch files, and the telemetry stream."""
     from bpe_transformer_tpu.serving import Request as JaxRequest
     from bpe_transformer_tpu.serving import ServingEngine as JaxServingEngine
     from bpe_transformer_tpu.serving import make_http_server as jax_make_http_server
@@ -697,10 +712,9 @@ def _check_http_server_matches_jax(jax_params, params, cfg, prompts, tmp_path):
     for key in ("ab cd", "hello, world", "x", "stop", "batch"):
         assert port_out[key] == jax_out[key], key
     for path in ("/healthz", "/statusz"):
-        assert set(port_out[path]) == set(jax_out[path]) - _SLICE9_KEYS, path
+        assert set(port_out[path]) == set(jax_out[path]), path
     assert set(port_out["/debug/flightrecorder"]) == set(jax_out["/debug/flightrecorder"])
-    assert _prom_families(port_out["/metrics"]) == (
-        _prom_families(jax_out["/metrics"]) - {"bpe_tpu_replica_role"})
+    assert _prom_families(port_out["/metrics"]) == _prom_families(jax_out["/metrics"])
     assert issubclass(DuplicateRequestError, ValueError)
 
     # The telemetry stream: schema-valid spans, engine/resources/roofline
@@ -776,6 +790,7 @@ def _check_cli_matches_jax(jax_params, tmp_path):
         assert statusz["manifest"]["run_kind"] == "serve"
         assert statusz["manifest"]["devices"]["platform"] == "cpu"
         assert statusz["compiled_programs"] == 0  # no kernel library on the CPU
+        assert statusz["resources"]["kernel_launches"] == {}  # plain versions count none
     finally:
         killer.cancel()
         proc.send_signal(signal.SIGINT)
@@ -817,6 +832,423 @@ def _check_cli_matches_jax(jax_params, tmp_path):
     # Flag combinations refused before anything loads (rc 2).
     for extra in (["--kv-dtype", "int8"], ["--speculate", "2"], ["--draft-config", "d.json"],
                   ["--speculate", "2", "--paged"], ["--prompts-file", "p.txt"],
-                  ["--decode-attention", "paged"]):
+                  ["--decode-attention", "paged"], ["--role", "decode"], ["--role", "prefill"],
+                  ["--evacuate-to", "127.0.0.1:9"],
+                  ["--paged", "--role", "prefill", "--prompts-file", "p.txt", "--output", "o"]):
         rc, _ = run_cli(port_cli.main, ["serve", *common, "--device", "cpu", *extra])
         assert rc == 2, extra
+        if extra[0] in ("--role", "--evacuate-to", "--paged"):
+            assert run_cli(jax_cli.main, ["serve", *common, *extra])[0] == 2, extra
+
+
+# ------------------------------------------------------------------------
+# The serving fleet: KV migration (wire v2), roles, evacuation, the router
+# and the fleet tools.
+
+
+def _drive_migrating(src, dst, prompts, knobs, max_new_tokens, plan, ship):
+    """Serve ``prompts`` on ``src`` (all admitted at once, ``knobs[i]`` each)
+    and move the ones ``plan`` names to ``dst``: an int after that many
+    tokens, ``"prefill"`` after the first prefill chunk.  ``ship`` carries
+    an exported payload to ``dst`` (bytes and back).  Works on either
+    package's engines; returns every prompt's tokens."""
+    outs = {i: [] for i in range(len(prompts))}
+    owner = {}
+    for i, prompt in enumerate(prompts):
+        owner[(0, src.begin(prompt, max_new_tokens=max_new_tokens, **knobs[i]))] = i
+    moved = set()
+
+    def migrate(slot, i):
+        payload = src.export_slot(slot, {"history": list(prompts[i]) + outs[i],
+                                         "emitted": list(outs[i])})
+        src.release(slot)
+        del owner[(0, slot)]
+        owner[(1, dst.import_slot(ship(payload)))] = i
+        moved.add(i)
+
+    engines = (src,) if dst is None else (src, dst)
+    while owner:
+        for side, eng in enumerate(engines):
+            for slot in list(eng.pending_prefills()):
+                i = owner[(side, slot)]
+                event = eng.prefill_step(slot)
+                if event is None:
+                    if side == 0 and plan.get(i) == "prefill" and i not in moved:
+                        migrate(slot, i)
+                    continue
+                outs[i].append(int(event.token))
+                if event.finished:
+                    del owner[(side, slot)]
+            for event in eng.tick():
+                i = owner[(side, event.slot)]
+                outs[i].append(int(event.token))
+                if event.finished:
+                    del owner[(side, event.slot)]
+        for (side, slot), i in list(owner.items()):
+            at = plan.get(i)
+            if (side == 0 and isinstance(at, int) and i not in moved and len(outs[i]) >= at
+                    and src._active[slot]):
+                migrate(slot, i)
+    assert moved == set(plan), (sorted(plan), sorted(moved))
+    return [outs[i] for i in range(len(prompts))]
+
+
+def _check_migration_matches_jax(jax_params, params):
+    """KV migration against the JAX package's: the wire frames byte for
+    byte (float32, int8 with scales, bfloat16; v1 frames; flipped and
+    truncated bodies refused; codec negotiation); port -> port migration
+    mid-decode and mid-prefill token-identical to the unmigrated run,
+    greedy and seeded sampled, act and int8 KV; a port payload grafted into
+    a JAX ``PagedEngine`` and a JAX payload into the port's (and a port
+    ``SpecEngine`` payload into a JAX ``SpecEngine``) with JAX's unmigrated
+    greedy ids; export leaving shared radix blocks, refcounts and the pool
+    untouched; every malformed payload refused by both packages."""
+    import ml_dtypes
+
+    from bpe_transformer_tpu.serving.kvpool import migrate as jax_migrate
+    from bpe_transformer_tpu_torch.serving.kvpool import migrate
+
+    # Wire frames: the same payload gives the same bytes in both packages
+    # and decodes to the same arrays.
+    rng = np.random.default_rng(12)
+    values = rng.standard_normal((3, 2, 4, 8)).astype(np.float32)
+    bf16 = values.astype(ml_dtypes.bfloat16)
+    meta = {"format": 1, "num_layers": 2, "note": "é", "x": 0.1}
+    cases = {
+        "float32": ([{"k": values, "v": values * 2} for _ in range(2)],) * 2,
+        "int8": ([{"k": (values * 20).astype(np.int8), "v": (values * 9).astype(np.int8),
+                   "k_scale": values[:, :, 0, 0], "v_scale": values[:, :, 1, 0]}
+                  for _ in range(2)],) * 2,
+        "bfloat16": ([{"k": bf16, "v": bf16} for _ in range(2)],
+                     [{"k": migrate.bf16_bits(bf16.view(np.uint16)),
+                       "v": migrate.bf16_bits(bf16.view(np.uint16))} for _ in range(2)]),
+    }
+    codecs = ("raw", "zlib") + (("zstd",) if migrate.HAVE_ZSTD else ())
+    assert jax_migrate.HAVE_ZSTD == migrate.HAVE_ZSTD
+    for name, (jax_layers, port_layers) in cases.items():
+        for codec in codecs:
+            frame = jax_migrate.payload_to_bytes({"meta": meta, "layers": jax_layers},
+                                                 codec=codec)
+            assert migrate.payload_to_bytes({"meta": meta, "layers": port_layers},
+                                            codec=codec) == frame, (name, codec)
+            got = migrate.payload_from_bytes(frame)
+            assert got["meta"] == meta and migrate.payload_nbytes(got) == (
+                jax_migrate.payload_nbytes({"meta": meta, "layers": jax_layers}))
+            for layer, want in zip(got["layers"], jax_layers):
+                for key, arr in want.items():
+                    assert migrate.wire_dtype(layer[key]) == str(arr.dtype), (name, key)
+                    assert layer[key].tobytes() == np.ascontiguousarray(arr).tobytes()
+            assert migrate.payload_to_bytes(got, codec=codec) == frame
+            # A flipped byte in the array section or a cut body: refused.
+            flipped = bytearray(frame)
+            flipped[len(frame) * 3 // 4] ^= 0xFF
+            for bad in (bytes(flipped), frame[: len(frame) // 2], b"BPEKV009" + frame[8:],
+                        b"nonsense"):
+                for decode in (jax_migrate.payload_from_bytes, migrate.payload_from_bytes):
+                    with pytest.raises(ValueError):
+                        decode(bad)
+        # Version-1 frames (no CRC, no codec) still decode.
+        header = json.dumps({"meta": meta, "arrays": [
+            {"key": f"L{i}/{k}", "dtype": str(a.dtype), "shape": list(a.shape)}
+            for i, layer in enumerate(jax_layers) for k, a in sorted(layer.items())]}).encode()
+        v1 = b"".join([jax_migrate.PAYLOAD_MAGIC_V1, len(header).to_bytes(8, "little"),
+                       header] + [np.ascontiguousarray(a).tobytes()
+                                  for layer in jax_layers for _, a in sorted(layer.items())])
+        a, b = jax_migrate.payload_from_bytes(v1), migrate.payload_from_bytes(v1)
+        assert [{k: v.tobytes() for k, v in la.items()} for la in a["layers"]] == [
+            {k: v.tobytes() for k, v in lb.items()} for lb in b["layers"]]
+    for accept in (None, "", "raw", "zlib", "zstd", "zstd,zlib", " ZLIB , raw", "gzip",
+                   "br,zlib,zstd", "raw,zstd"):
+        assert migrate.negotiate_codec(accept) == jax_migrate.negotiate_codec(accept), accept
+    assert migrate.supported_codecs() == jax_migrate.supported_codecs()
+    synth = migrate.synthetic_decode_payload(JAX_CFG, block_size=4, kv_dtype="bfloat16")
+    assert migrate.payload_to_bytes(synth) == jax_migrate.payload_to_bytes(
+        jax_migrate.synthetic_decode_payload(JAX_CFG, block_size=4, kv_dtype="bfloat16"))
+
+    def port_wire(payload):
+        return migrate.payload_from_bytes(migrate.payload_to_bytes(payload, codec="zlib"))
+
+    def port_to_jax(payload):
+        return jax_migrate.payload_from_bytes(migrate.payload_to_bytes(payload, codec="zlib"))
+
+    def jax_to_port(payload):
+        return migrate.payload_from_bytes(jax_migrate.payload_to_bytes(payload, codec="zlib"))
+
+    # Engines: five requests at once, migrated mid-decode and mid-prefill
+    # (chunks of 8, blocks of 4).
+    paged_cfg = dataclasses.replace(JAX_CFG, decode_attention_impl="paged")
+    tcfg = ModelConfig.from_dict(dataclasses.asdict(paged_cfg))
+    prompts = [[int(t) for t in rng.integers(0, 128, size=n)] for n in (5, 12, 19, 26, 9)]
+    sampled = [dict(temperature=0.0), dict(temperature=0.9, top_k=20, seed=3),
+               dict(temperature=0.8, top_p=0.9, seed=7), dict(temperature=0.0),
+               dict(temperature=1.0, seed=11)]
+    greedy = [dict(temperature=0.0)] * 5
+    plan = {0: 3, 1: "prefill", 2: 2, 3: "prefill", 4: 4}
+    knobs = dict(slots=5, block_size=4, prefill_chunk=8, min_bucket=8)
+    for kv_dtype in (None, "int8"):
+        def port(cls=PagedEngine, **kw):
+            return cls(params, tcfg, kv_dtype=kv_dtype, device="cpu", **knobs, **kw)
+
+        def jax_engine(cls=JaxPagedEngine, **kw):
+            return cls(jax_params, paged_cfg, kv_dtype=kv_dtype, **knobs, **kw)
+
+        for knob_set in (sampled, greedy):
+            want = _drive_migrating(port(), None, prompts, knob_set, 6, {}, None)
+            got = _drive_migrating(port(), port(), prompts, knob_set, 6, plan, port_wire)
+            assert got == want, (kv_dtype, knob_set is sampled)
+        jax_want = _drive_migrating(jax_engine(), None, prompts, greedy, 6, {}, None)
+        assert jax_want == want, kv_dtype  # the port's greedy ids are JAX's
+        assert _drive_migrating(port(), jax_engine(), prompts, greedy, 6, plan,
+                                port_to_jax) == jax_want, kv_dtype
+        assert _drive_migrating(jax_engine(), port(), prompts, greedy, 6, plan,
+                                jax_to_port) == jax_want, kv_dtype
+        spec_kw = dict(draft=DraftSpec(truncate_layers=1), speculate_k=3)
+        jax_spec_kw = dict(draft=JaxDraftSpec(truncate_layers=1), speculate_k=3)
+        spec_plan = {0: 3, 1: "prefill", 3: 2}
+        # (Under int8 KV a speculative run's rejected writes stay in their
+        # blocks' scales, so its ids are its own, not the paged engine's.)
+        spec_want = _drive_migrating(port(SpecEngine, **spec_kw), None, prompts, greedy, 6,
+                                     {}, None)
+        assert _drive_migrating(port(SpecEngine, **spec_kw), port(SpecEngine, **spec_kw),
+                                prompts, greedy, 6, spec_plan, port_wire) == spec_want
+        assert _drive_migrating(port(SpecEngine, **spec_kw),
+                                jax_engine(JaxSpecEngine, **jax_spec_kw), prompts, greedy, 6,
+                                spec_plan, port_to_jax) == spec_want
+
+    # Export reads and never writes: a slot holding radix-shared blocks
+    # leaves the pool, the refcounts and the radix index as they were.
+    eng = PagedEngine(params, tcfg, kv_dtype="int8", device="cpu", **knobs)
+    shared = prompts[3][:12]
+    eng.admit(shared + [1, 2], max_new_tokens=4, temperature=0.0)
+    event = eng.admit(shared + [3], max_new_tokens=4, temperature=0.0)
+    assert eng.slot_shared_len(event.slot) == 12
+    eng.tick()
+    pool = [{k: v.clone() for k, v in layer.items()} for layer in eng._pool]
+    refs = [eng.allocator.refcount(b) for b in range(eng.allocator.num_blocks)]
+    radix = eng.prefix_cache.gauges()
+    payload = eng.export_slot(event.slot)
+    assert payload["meta"]["n_blocks"] == 4 and payload["meta"]["torch_rng"]["device_type"] == "cpu"
+    assert [eng.allocator.refcount(b) for b in range(eng.allocator.num_blocks)] == refs
+    assert eng.prefix_cache.gauges() == radix
+    assert all(torch.equal(a, layer[k]) for layer, old in zip(eng._pool, pool)
+               for k, a in old.items())
+
+    # Malformed payloads: refused by both packages' validation.
+    eng = PagedEngine(params, tcfg, device="cpu", **knobs)
+    jax_eng = JaxPagedEngine(jax_params, paged_cfg, **knobs)
+    event = eng.admit(prompts[2], max_new_tokens=4, temperature=0.0)
+    good = eng.export_slot(event.slot)
+    jax_eng.validate_import_payload(good)
+    eng.validate_import_payload(good)
+
+    def variant(meta=None, layers=None):
+        return {"meta": {**good["meta"], **(meta or {})},
+                "layers": good["layers"] if layers is None else layers}
+
+    n = good["meta"]["n_blocks"]
+    bad_payloads = [variant(meta=m) for m in (
+        {"format": 2}, {"block_size": 8}, {"kv_dtype": "bfloat16"}, {"num_layers": 4},
+        {"kv_heads": 4}, {"d_head": 8}, {"context_length": 64}, {"n_blocks": 99},
+        {"decoding": False, "next_pos": 5})] + [
+        variant(layers=good["layers"][:1]),
+        variant(layers=[{"k": layer["k"]} for layer in good["layers"]]),
+        variant(layers=[{k: a[: n - 1] for k, a in layer.items()} for layer in good["layers"]]),
+        variant(layers=[{k: a.astype(np.float64) for k, a in layer.items()}
+                        for layer in good["layers"]]),
+    ]
+    for bad in bad_payloads:
+        for engine in (eng, jax_eng):
+            with pytest.raises(ValueError):
+                engine.validate_import_payload(bad)
+    with pytest.raises(ValueError, match="history"):
+        SpecEngine(params, tcfg, draft=DraftSpec(truncate_layers=1), speculate_k=2,
+                   device="cpu", **knobs).import_slot(
+            {"meta": {k: v for k, v in good["meta"].items() if k != "history"},
+             "layers": good["layers"]})
+
+
+def _check_fleet_matches_jax(jax_params, params):
+    """The fleet over HTTP with in-process replicas on the CPU: port
+    prefill and decode replicas behind the port's router and behind the
+    JAX package's (ids equal to one replica's, seeded sampling included), a
+    JAX prefill replica handing off to a port decode replica (greedy ids),
+    drain evacuation in process and over the wire and ``/admin/evacuate``
+    with no failed request, a ``BT_FAULTS`` corrupted payload answered 400
+    and its clean retry under one idempotency key grafted once, the
+    controller's decisions equal to JAX's on the same evidence, and the
+    fleet aggregator's records schema-valid and rendered by JAX's
+    ``report``."""
+    from bpe_transformer_tpu.serving import ServingEngine as JaxServingEngine
+    from bpe_transformer_tpu.serving import make_http_server as jax_make_http_server
+    from bpe_transformer_tpu.serving.controller import FleetController as JaxFleetController
+    from bpe_transformer_tpu.serving.router import Router as JaxRouter
+    from bpe_transformer_tpu.serving.router import (
+        make_router_http_server as jax_make_router_http_server,
+    )
+    from bpe_transformer_tpu.telemetry.report import render_report
+    from bpe_transformer_tpu_torch.serving.controller import FleetController
+    from bpe_transformer_tpu_torch.serving.router import Router, make_router_http_server
+    from bpe_transformer_tpu_torch.serving.server import make_http_server
+    from bpe_transformer_tpu_torch.telemetry import Telemetry, validate_record
+    from bpe_transformer_tpu_torch.telemetry.fleet import FleetAggregator
+
+    paged_cfg = dataclasses.replace(JAX_CFG, decode_attention_impl="paged")
+    tcfg = ModelConfig.from_dict(dataclasses.asdict(paged_cfg))
+    knobs = dict(slots=2, paged=True, block_size=4, prefill_chunk=8, min_bucket=8)
+
+    def port(slow_ticks=False, **kw):
+        serving = ServingEngine(params, tcfg, device="cpu", **knobs, **kw)
+        if slow_ticks:  # keep sessions in flight long enough to move them
+            tick = serving.engine.tick
+            serving.engine.tick = lambda: (time.sleep(0.02), tick())[1]
+        return serving
+
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(0, 128, size=n)] for n in (5, 12, 19, 26, 9, 14)]
+    bodies = [dict(prompt_ids=p, max_new_tokens=5, temperature=0.0) if i % 2 == 0 else
+              dict(prompt_ids=p, max_new_tokens=5, temperature=0.9, top_k=20, seed=i)
+              for i, p in enumerate(prompts)]
+    long_bodies = [dict(b, max_new_tokens=min(20, 31 - len(b["prompt_ids"]))) for b in bodies]
+    with port() as mono:
+        want = {k: [list(mono.generate(**b).token_ids) for b in group]
+                for k, group in (("short", bodies), ("long", long_bodies))}
+
+    def ids_through(base, group):
+        with ThreadPoolExecutor(max_workers=len(group)) as pool:
+            answers = list(pool.map(lambda b: _http(f"{base}/generate", b, timeout=120), group))
+        assert all(code == 200 for code, _, _ in answers), answers
+        return [json.loads(body)["token_ids"] for _, _, body in answers]
+
+    # Port prefill + decode replicas behind the port's router and JAX's.
+    with port(role="prefill") as pre, port(role="decode") as dec, \
+            _http_server(make_http_server, pre) as pre_url, \
+            _http_server(make_http_server, dec) as dec_url:
+        for router_cls, make_router in ((Router, make_router_http_server),
+                                        (JaxRouter, jax_make_router_http_server)):
+            router = router_cls([pre_url, dec_url], prefill_threshold=10)
+            router.poll_once()
+            assert [r["role"] for r in router.statusz()["replicas"]] == ["prefill", "decode"]
+            with _http_server(make_router, router) as router_url:
+                assert ids_through(router_url, bodies) == want["short"], router_cls.__module__
+            stat = router.statusz()
+            assert stat["requests_failed"] == 0 and stat["requests_migrated"] == 4, stat
+        assert pre.metrics.migrations_out == dec.metrics.migrations_in == 8
+        assert pre.stats()["migration_bytes_out"] == dec.stats()["migration_bytes_in"] > 0
+        code, _, body = _http(f"{pre_url}/generate", bodies[0])
+        assert code == 503 and "prefill-role" in body
+
+        # The fleet aggregator over them: schema-valid records that JAX's
+        # report renders; the controller decides as JAX's on its evidence.
+        records = []
+        fleet = FleetAggregator([pre_url, dec_url], telemetry=Telemetry(sink=records.append))
+        for _ in range(3):
+            fleet.poll_once()
+        assert records and all(not validate_record(r) for r in records), [
+            validate_record(r) for r in records]
+        assert {"fleet", "slo"} <= {r["kind"] for r in records}
+        report = render_report(records)
+        assert "== fleet" in report and "== slo" in report, report
+        evidence = [{"fleet": fleet.statusz(), "router": router.statusz(), "errors": {}}]
+
+    # A JAX prefill replica hands off to a port decode replica.
+    with JaxServingEngine(jax_params, paged_cfg, role="prefill", **knobs) as jax_pre, \
+            port(role="decode") as dec, \
+            _http_server(jax_make_http_server, jax_pre) as pre_url, \
+            _http_server(make_http_server, dec) as dec_url:
+        router = Router([pre_url, dec_url], prefill_threshold=10)
+        router.poll_once()
+        greedy = [b for b in bodies if b["temperature"] == 0.0]
+        with _http_server(make_router_http_server, router) as router_url:
+            assert ids_through(router_url, greedy) == want["short"][::2]
+        assert router.statusz()["requests_migrated"] == 1 and dec.metrics.migrations_in == 1
+
+    # Drain evacuation, in process and over the wire, and /admin/evacuate:
+    # every session finishes with the ids of a replica that never moved it.
+    for mode in ("in_process", "wire", "admin"):
+        with port(slow_ticks=True) as a, port() as b, _http_server(make_http_server, b) as b_url, \
+                _http_server(make_http_server, a) as a_url:
+            handles = [a.submit(Request(prompt_ids=tuple(body["prompt_ids"]), **{
+                k: v for k, v in body.items() if k != "prompt_ids"})) for body in long_bodies]
+            while a.engine.active_count < 2:
+                time.sleep(0.01)
+            if mode == "admin":
+                code, _, body = _http(f"{a_url}/admin/evacuate",
+                                      {"target": b_url, "max_sessions": 1})
+                assert code == 200 and json.loads(body)["moved"] == 1, body
+            else:
+                assert a.drain(timeout_s=120, **(
+                    {"evacuate_to": [b]} if mode == "in_process" else {"evacuate_urls": [b_url]}))
+            results = [h.result(timeout=120) for h in handles]
+            assert [r.finish_reason for r in results] == ["length"] * len(results), mode
+            assert [list(r.token_ids) for r in results] == want["long"], mode
+            assert b.metrics.migrations_in >= 1 and a.metrics.migrations_out >= 1, mode
+            if mode != "in_process":
+                assert a._relays_failed == 0 and a._relays_ok >= 1, mode
+            evidence.append({"fleet": {"fleet": {"kind": "fleet", "t": 10.0,
+                                                 "time_unix": time.time()},
+                                       "replicas": [], "alerts": []},
+                             "router": None, "errors": {}})
+
+    # A corrupted payload (BT_FAULTS) is answered 400 and grafts nothing;
+    # the clean re-export sent twice under one idempotency key grafts once.
+    os.environ["BT_FAULTS"] = json.dumps({"corrupt_payload": "flip"})
+    try:
+        pre = port(role="prefill")
+    finally:
+        del os.environ["BT_FAULTS"]
+    with pre, port(role="decode") as dec, _http_server(make_http_server, pre) as pre_url, \
+            _http_server(make_http_server, dec) as dec_url:
+        def post(url, data, headers):
+            try:
+                with urllib.request.urlopen(urllib.request.Request(url, data=data,
+                                                                   headers=headers)) as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as err:
+                return err.code, err.read()
+
+        def export():
+            return post(f"{pre_url}/kv/export", json.dumps(bodies[2]).encode(),
+                        {"Content-Type": "application/json", "X-KV-Accept": "zlib"})
+
+        key = {"X-Idempotency-Key": "k1", "Content-Type": "application/octet-stream"}
+        code, bad = export()
+        assert code == 200 and post(f"{dec_url}/kv/import", bad, key)[0] == 400
+        assert dec.metrics.migrations_in == 0
+        code, good = export()
+        answers = [post(f"{dec_url}/kv/import", good, key) for _ in range(2)]
+        assert [c for c, _ in answers] == [200, 200]
+        assert [json.loads(a)["token_ids"] for _, a in answers] == [want["short"][2]] * 2
+        assert dec.metrics.migrations_in == 1
+
+    # The controller: the same decisions as JAX's on the same evidence (the
+    # fleet's own, and load gaps, KV starvation, a partial sweep, a prompt
+    # mix that retunes the tier threshold).
+    def snap(url, **kw):
+        return {"url": url, "online": True, "draining": False, "role": "both",
+                "queue_depth": 0, "slots": 2, "active_slots": 0, "kv_blocks_free": None,
+                "kv_blocks_total": None, "error": None, **kw}
+
+    for snaps, router_page in (
+        ([snap("http://h", queue_depth=5, active_slots=2), snap("http://c", active_slots=1)],
+         None),
+        ([snap("http://h", queue_depth=1, active_slots=1, kv_blocks_free=1,
+               kv_blocks_total=32), snap("http://c", kv_blocks_free=30, kv_blocks_total=32)],
+         None),
+        ([snap("http://h", queue_depth=6, active_slots=2), snap("http://c"),
+          snap("http://gone", online=False, error="refused")], None),
+        ([], {"prompt_mix": {"count": 20, "p75": 48}, "prefill_threshold": 8,
+              "replicas": [{"role": "prefill", "available": True},
+                           {"role": "both", "available": True}]}),
+    ):
+        evidence.append({"fleet": {"fleet": {"kind": "fleet", "t": 100.0, "time_unix": 1000.0,
+                                             "queue_depth": 0, "active_slots": 0},
+                                   "replicas": snaps, "alerts": []},
+                         "router": router_page, "errors": {}})
+    for ev in evidence:
+        decisions = [ctl_cls("http://127.0.0.1:1", wall_clock=lambda: 1000.0,
+                             sleep=lambda s: None, rebalance_batch=2).decide(ev)
+                     for ctl_cls in (JaxFleetController, FleetController)]
+        assert decisions[0] == decisions[1], decisions
+    assert sum(bool(ev_d) for ev_d in (
+        FleetController("http://127.0.0.1:1", wall_clock=lambda: 1000.0).decide(ev)
+        for ev in evidence)) >= 3
