@@ -1,6 +1,7 @@
 """Single-file checkpoints (counterpart of ``bpe_transformer_tpu/checkpointing``)."""
 
 from bpe_transformer_tpu_torch.checkpointing.checkpoint import (
+    AsyncCheckpointer,
     CheckpointCorruptionError,
     load_checkpoint,
     load_checkpoint_with_fallback,
@@ -9,6 +10,7 @@ from bpe_transformer_tpu_torch.checkpointing.checkpoint import (
 )
 
 __all__ = [
+    "AsyncCheckpointer",
     "CheckpointCorruptionError",
     "load_checkpoint",
     "load_checkpoint_with_fallback",

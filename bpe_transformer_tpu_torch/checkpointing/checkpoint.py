@@ -24,6 +24,7 @@ import os
 import pickle
 import sys
 import tempfile
+import threading
 from pathlib import Path
 from typing import Any, BinaryIO
 
@@ -45,22 +46,30 @@ from bpe_transformer_tpu_torch.tree import tree_map
 _FORMAT_VERSION = 1
 
 
-def _host_array(t) -> np.ndarray:
+def _host_array(t, copy: bool = False) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         if t.dtype == torch.bfloat16:
             raise ValueError("bfloat16 tensors have no numpy dtype; checkpoint float32 masters")
-        return t.detach().cpu().numpy()
+        host = t.detach().cpu()
+        if copy and t.device.type == "cpu":
+            # A CPU tensor's .cpu() is the tensor itself: copy it when the
+            # snapshot must outlive the next in-place update.
+            host = host.clone()
+        return host.numpy()
     return np.asarray(t)
 
 
-def _to_host(state):
+def _to_host(state, copy: bool = False):
+    """The state as numpy arrays; ``copy`` guarantees arrays that share no
+    memory with the live tensors."""
+    host = lambda t: _host_array(t, copy)  # noqa: E731
     if isinstance(state, AdamWState):
         return AdamWState(
             step=np.asarray(int(state.step), dtype=np.int32),
-            m=tree_map(_host_array, state.m),
-            v=tree_map(_host_array, state.v),
+            m=tree_map(host, state.m),
+            v=tree_map(host, state.v),
         )
-    return tree_map(_host_array, state)
+    return tree_map(host, state)
 
 
 def save_checkpoint(
@@ -239,3 +248,56 @@ def load_checkpoint_with_fallback(src: str | os.PathLike, loader=None) -> tuple[
         "candidate(s) failed; corrupt snapshots were quarantined with a .corrupt suffix)",
         failures,
     )
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writing with training (the port of the JAX
+    package's dense ``AsyncCheckpointer``).
+
+    ``save()`` copies every tensor to host numpy SYNCHRONOUSLY (a blocking
+    copy: the port's AdamW rewrites the parameters and moments in place at
+    the next step, so the snapshot must be complete before ``save``
+    returns) and hands pickling, the CRC and the file IO to one background
+    thread.  At most one write is in flight: the next ``save()`` (or
+    ``wait()``/``close()``) joins the previous one first and re-raises any
+    error it hit.  The snapshot holds one host copy of the state for the
+    duration of the write.
+    """
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def wait(self) -> None:
+        """Block until the in-flight write (if any) finishes; re-raise its
+        error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, out: str | os.PathLike, *, params: Any, opt_state: AdamWState | None = None,
+             iteration: int = 0, extra: dict | None = None, on_complete=None) -> None:
+        """Snapshot now, write in the background.  ``on_complete()`` runs on
+        the writer thread after a successful write (the loop points
+        ``latest.ckpt`` at the new file there)."""
+        self.wait()
+        host_params = _to_host(params, copy=True)
+        host_opt = _to_host(opt_state, copy=True) if opt_state is not None else None
+
+        def work():
+            try:
+                save_checkpoint(out, params=host_params, opt_state=host_opt,
+                                iteration=iteration, extra=extra)
+                if on_complete is not None:
+                    on_complete()
+            except BaseException as exc:  # noqa: BLE001 - re-raised in wait()
+                self._error = exc
+
+        self._thread = threading.Thread(target=work, name="async-checkpoint", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.wait()

@@ -3,11 +3,12 @@
 
 from bpe_transformer_tpu_torch.data.dataset import (
     BatchLoader,
+    BatchPrefetcher,
     check_dataset_geometry,
     get_batch,
     load_token_file,
     tokenize_to_memmap,
 )
 
-__all__ = ["BatchLoader", "check_dataset_geometry", "get_batch", "load_token_file",
-           "tokenize_to_memmap"]
+__all__ = ["BatchLoader", "BatchPrefetcher", "check_dataset_geometry", "get_batch",
+           "load_token_file", "tokenize_to_memmap"]

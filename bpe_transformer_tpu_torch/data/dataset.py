@@ -1,7 +1,7 @@
 """Token datasets and batch sampling on the host (the port's own copy of
 ``bpe_transformer_tpu/data/dataset.py``: ``load_token_file``,
-``check_dataset_geometry``, ``get_batch``, ``BatchLoader`` and
-``tokenize_to_memmap``; numpy only).
+``check_dataset_geometry``, ``get_batch``, ``BatchPrefetcher``,
+``BatchLoader`` and ``tokenize_to_memmap``; numpy only).
 
 A tokenized corpus is a flat binary token file opened with ``np.memmap``;
 the sampler gathers ``(B, ctx)`` windows at uniform random starts in
@@ -108,6 +108,93 @@ def get_batch(
     offsets = np.arange(context_length + 1)
     windows = np.asarray(dataset[starts[:, None] + offsets[None, :]], dtype=np.int64)
     return windows[:, :-1], windows[:, 1:]
+
+
+class BatchPrefetcher:
+    """Lookahead pipeline for per-iteration batch construction.
+
+    The training loop's host-side batch work per step — memmap window
+    gather, numpy stacking/reshaping — is host time between the step's
+    launches.  This prefetcher moves it onto a single worker thread: while
+    the card runs step *i*, the worker is already sampling the batch for
+    step *i+1*, so the main thread finds it ready and only pays the copy to
+    the card.
+
+    The worker stays torch-free: ``make_batch`` returns host (numpy) arrays
+    and the copy to the card stays on the main thread, in the order of the
+    loop's own launches on its stream.
+
+    ``make_batch(iteration)`` must be a pure function of the iteration (the
+    loop's per-iteration seeding makes it one), so prefetched batches are
+    byte-identical to synchronously-built ones — determinism, resume, and
+    the chaos harness's per-iteration faults are unaffected.  A worker
+    exception (e.g. an injected dataset-read fault) surfaces on the main
+    thread at the matching :meth:`get`.
+
+    ``depth=0`` disables the thread entirely (synchronous fallback).
+    """
+
+    def __init__(self, make_batch, depth: int = 1):
+        if depth < 0:
+            raise ValueError(f"prefetch depth must be >= 0, got {depth}")
+        self._make = make_batch
+        self._depth = depth
+        self._pool = None
+        if depth > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="batch-prefetch"
+            )
+        self._pending: dict[int, object] = {}
+
+    def get(self, iteration: int):
+        """The device batch for ``iteration``: the prefetched one when the
+        worker built it, else built synchronously (first step, or after an
+        :meth:`invalidate`)."""
+        future = self._pending.pop(iteration, None)
+        if future is not None:
+            return future.result()
+        return self._make(iteration)
+
+    def schedule(self, iteration: int) -> None:
+        """Start building ``iteration``'s batch in the background (no-op
+        when disabled, already pending, or the pipeline is full)."""
+        if (
+            self._pool is None
+            or iteration in self._pending
+            or len(self._pending) >= self._depth
+        ):
+            return
+        self._pending[iteration] = self._pool.submit(self._make, iteration)
+
+    def invalidate(self, reraise: bool = False) -> None:
+        """Drop every pending batch (rollback/seed-salt changes make them
+        stale); in-flight work is drained first.
+
+        ``reraise=True`` re-raises the first worker exception instead of
+        discarding it — the rollback path uses this so a fault consumed by
+        a prefetched-then-discarded batch (e.g. a fire-once injected
+        dataset-read fault) still surfaces instead of vanishing with the
+        pipeline.  The default (shutdown/close) swallows: a pending error
+        for an iteration the run will never reach must not break a
+        graceful exit."""
+        pending, self._pending = self._pending, {}
+        first_error: Exception | None = None
+        for future in pending.values():
+            try:
+                future.result()
+            except Exception as exc:  # noqa: BLE001 - optionally re-raised
+                if first_error is None:
+                    first_error = exc
+        if reraise and first_error is not None:
+            raise first_error
+
+    def close(self) -> None:
+        self.invalidate()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
 
 class BatchLoader:

@@ -38,11 +38,14 @@ from torch.utils.checkpoint import (
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.ops.core import (
+    attention_entropy,
+    causal_mask,
     embedding,
     head_logits,
     linear,
     multihead_self_attention,
     rmsnorm,
+    scaled_dot_product_attention,
     silu,
     swiglu,
 )
@@ -218,8 +221,10 @@ def _maybe_norm(x, weight, config: ModelConfig):
 
 
 def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, positions,
-               attention_fn=None):
-    """Self-attention of one block with the config's ``attention_impl``."""
+               attention_fn=None, entropy_tap: dict | None = None):
+    """Self-attention of one block with the config's ``attention_impl``.
+    ``entropy_tap`` (a dict, dynamics introspection) receives this layer's
+    mean attention entropy under ``"attn_entropy"``."""
     if attention_fn is None and config.attention_impl == "flash":
         from bpe_transformer_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -252,6 +257,22 @@ def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, position
             attention_fn = lambda q, k, v: flash_attention_rope(q, k, v, cos_p, sin_p)  # noqa: E731
     elif attention_fn is None and config.attention_impl != "xla":
         raise ValueError(f"unknown attention_impl: {config.attention_impl!r}")
+    if entropy_tap is not None:
+        # The entropy of the q/k handed to the attention callable: post-RoPE
+        # for xla and flash, un-rotated under flash_fused above the
+        # crossover (RoPE lives in the kernel there), as in the JAX package.
+        # Batch element 0 only: the tap materializes an (S, S) score matrix.
+        inner = attention_fn
+
+        def tapped(q, k, v):
+            entropy_tap["attn_entropy"] = attention_entropy(
+                q[:1] if q.ndim > 3 else q, k[:1] if k.ndim > 3 else k
+            )
+            if inner is not None:
+                return inner(q, k, v)
+            return scaled_dot_product_attention(q, k, v, causal_mask(q.shape[-2], q.device))
+
+        attention_fn = tapped
     return multihead_self_attention(
         x,
         attn_params["q_proj"],
@@ -268,12 +289,12 @@ def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, position
 
 
 def _attn_half(x, block_params: dict, config: ModelConfig, rope_cos_sin, positions,
-               attention_fn=None):
+               attention_fn=None, entropy_tap: dict | None = None):
     """The residual attention half of one block: ``x + attn(norm(x))``
     pre-norm, ``norm(x + attn(x))`` post-norm."""
     h = x if config.use_post_norm else _maybe_norm(x, block_params["ln1"], config)
     attn_out = _attention(
-        h, block_params["attn"], config, rope_cos_sin, positions, attention_fn
+        h, block_params["attn"], config, rope_cos_sin, positions, attention_fn, entropy_tap
     )
     if config.use_post_norm:
         return _maybe_norm(x + attn_out, block_params["ln1"], config)
@@ -291,20 +312,23 @@ def _ffn_half(x, block_params: dict, config: ModelConfig):
 
 
 def transformer_block_aux(x, block_params: dict, config: ModelConfig, rope_cos_sin,
-                          positions, attention_fn=None):
-    """One block; returns ``(x, aux_loss)`` (aux is 0: dense FFNs only)."""
-    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn)
+                          positions, attention_fn=None, entropy_tap: dict | None = None):
+    """One block; returns ``(x, aux_loss)`` (aux is 0: dense FFNs only).
+    ``entropy_tap``: see :func:`_attention`."""
+    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
+                   entropy_tap)
     return _ffn_half(x, block_params, config)
 
 
 def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,
-                     positions, attention_fn=None):
+                     positions, attention_fn=None, entropy_tap: dict | None = None):
     """One block under ``remat_policy="save_attn"``: the attention half runs
     outside any checkpoint, so the flash autograd Function keeps its
     residuals (q/k/v, output, lse) and the attention forward runs once; the
     FFN half (ln2, FFN, residual) is checkpointed, its ``d_ff`` wide
     intermediates dropped and recomputed on the backward."""
-    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn)
+    x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
+                   entropy_tap)
     return checkpoint(_ffn_half, x, block_params, config, use_reentrant=False)
 
 
@@ -378,6 +402,22 @@ def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConf
     return x, compute_params, rope_cos_sin, positions
 
 
+def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, positions,
+                attention_fn, per_layer: list | None = None):
+    """The blocks under the remat policy, then the final norm; returns
+    ``(hidden, aux_total)``.  ``per_layer``, a list, receives each block's
+    activation statistics (:func:`_block_stats`)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = policy_block(config)
+    for block_params in compute_params["layers"]:
+        tap = None if per_layer is None else {}
+        x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn, tap)
+        aux_total = aux_total + aux
+        if per_layer is not None:
+            per_layer.append(_block_stats(x, tap))
+    return _maybe_norm(x, compute_params["ln_final"], config), aux_total
+
+
 def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
                    positions: torch.Tensor | None = None, attention_fn=None):
     """Final-norm hidden states ``(batch, seq, d_model)`` and the summed aux
@@ -388,12 +428,42 @@ def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
     x, compute_params, rope_cos_sin, positions = _forward_prologue(
         params, token_ids, config, positions
     )
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = policy_block(config)
-    for block_params in compute_params["layers"]:
-        x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn)
-        aux_total = aux_total + aux
-    return _maybe_norm(x, compute_params["ln_final"], config), aux_total
+    return _run_blocks(x, compute_params, config, rope_cos_sin, positions, attention_fn)
+
+
+def _block_stats(x: torch.Tensor, tap: dict) -> dict:
+    """A block output's activation statistics (no graph)."""
+    with torch.no_grad():
+        x32 = x.detach().float()
+        return {
+            "rms": torch.sqrt(torch.mean(x32 * x32)),
+            "absmax": torch.max(torch.abs(x32)),
+            "nonfinite": torch.sum(~torch.isfinite(x.detach())).to(torch.int32),
+            "attn_entropy": tap.get(
+                "attn_entropy", torch.zeros((), dtype=torch.float32, device=x.device)
+            ),
+        }
+
+
+def forward_hidden_stats(params: Params, token_ids: torch.Tensor, config: ModelConfig,
+                         positions: torch.Tensor | None = None, attention_fn=None):
+    """:func:`forward_hidden` plus per-block activation statistics.
+
+    Returns ``(hidden, aux_total, act_stats)``; ``act_stats`` stacks one
+    value per layer: ``{"rms": (L,), "absmax": (L,), "nonfinite": (L,)
+    int32, "attn_entropy": (L,)}``, the block output's RMS, absmax and
+    non-finite count and the mean attention entropy of batch element 0.
+    They come from the same forward the step differentiates, under the
+    same ``remat_policy`` (a recomputed block rewrites its tap with the
+    same value), and stay on the device."""
+    x, compute_params, rope_cos_sin, positions = _forward_prologue(
+        params, token_ids, config, positions
+    )
+    per_layer: list = []
+    hidden, aux_total = _run_blocks(x, compute_params, config, rope_cos_sin, positions,
+                                    attention_fn, per_layer)
+    act_stats = {key: torch.stack([stats[key] for stats in per_layer]) for key in per_layer[0]}
+    return hidden, aux_total, act_stats
 
 
 def forward(params: Params, token_ids: torch.Tensor, config: ModelConfig,

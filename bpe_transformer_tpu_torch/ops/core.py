@@ -7,6 +7,8 @@ whatever the activation dtype; masks are boolean with True = keep.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bpe_transformer_tpu_torch.ops.rope import apply_rope, rope_tables
@@ -91,6 +93,28 @@ def scaled_dot_product_attention(q, k, v, mask: torch.Tensor | None = None) -> t
 def causal_mask(seq_len: int, device: str | torch.device = "cpu") -> torch.Tensor:
     """Lower-triangular ``(seq, seq)`` keep-mask."""
     return torch.ones(seq_len, seq_len, dtype=torch.bool, device=device).tril()
+
+
+def attention_entropy(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Mean Shannon entropy (nats) of the softmax attention distribution.
+
+    ``q (..., Sq, d)``, ``k (..., Sk, d)``, the tensors an ``attention_fn``
+    receives; scores and the log-softmax accumulate in float32, averaged
+    over every leading axis and query position (~0: heads collapsed onto
+    single keys; ~log(Sk): uniform).  The dynamics tap calls it on one batch
+    element: it materializes the (Sq, Sk) score matrix the flash kernels
+    exist to avoid.  No graph is built."""
+    with torch.no_grad():
+        q32, k32 = q.detach().float(), k.detach().float()
+        # A Python scale: a tensor made from a host scalar on the card would
+        # be a synchronising copy.
+        scores = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        if causal:
+            keep = causal_mask(scores.shape[-1], scores.device)[: scores.shape[-2]]
+            scores = scores.masked_fill(~keep, MASK_VALUE)
+        logp = torch.log_softmax(scores, dim=-1)
+        # exp(logp) is exactly 0 at masked entries: they add -0.0, never NaN.
+        return -torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

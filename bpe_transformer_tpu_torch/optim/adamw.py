@@ -42,12 +42,16 @@ def adamw_update(
     betas: tuple[float, float] = (0.9, 0.999),
     eps: float = 1e-8,
     weight_decay: float = 0.01,
+    delta_norms: list | None = None,
 ):
     """One AdamW step; returns ``(params, new_state)``.
 
     Bias correction uses ``step + 1``.  The parameters and moments are
     updated in place (the JAX package donates their buffers to the same
-    effect) and returned in the same trees.
+    effect) and returned in the same trees.  ``delta_norms``, a list,
+    receives each leaf's float32 ``||new - old||`` (0-d tensors, in
+    tree-leaf order), taken before the new values are written: the update
+    norm that the dynamics tap reads without a copy of the old weights.
     """
     b1, b2 = betas
     step = int(state.step) + 1
@@ -60,8 +64,10 @@ def adamw_update(
         m.mul_(b1).add_(g32, alpha=1.0 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
         update = (m / bias1) / (torch.sqrt(v / bias2) + eps)
-        p32 = p.float() * (1.0 - lr * weight_decay) - lr * update
-        p.copy_(p32.to(p.dtype))
+        new = (p.float() * (1.0 - lr * weight_decay) - lr * update).to(p.dtype)
+        if delta_norms is not None:
+            delta_norms.append(torch.dist(new.float(), p.float()))
+        p.copy_(new)
     return params, AdamWState(
         step=torch.tensor(step, dtype=torch.int32), m=state.m, v=state.v
     )

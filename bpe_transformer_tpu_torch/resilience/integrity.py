@@ -10,8 +10,9 @@ unpickling it; :func:`quarantine` renames a snapshot that failed to
 ``<name>.corrupt`` (never deleting it); :func:`candidate_snapshots` and
 :func:`latest_valid_checkpoint` find the loop's ``step_*.ckpt`` snapshots.
 ``checkpointing.checkpoint.load_checkpoint_with_fallback`` builds the
-resume path on these.  The sharded directory format is not ported (it
-comes with the multi-GPU training slice).
+resume path on these, and :func:`main` is the torch-free
+``verify-checkpoint`` command.  The sharded directory format is not ported
+(it comes with the multi-GPU training slice).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 import json
 import os
 import re
+import sys
 import tempfile
 import zlib
 from pathlib import Path
@@ -113,6 +115,9 @@ class VerifyResult:
     problems: list[str] = dataclasses.field(default_factory=list)
     warnings: list[str] = dataclasses.field(default_factory=list)
     files_checked: int = 0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 def _verify_dense(path: Path, deep: bool) -> VerifyResult:
@@ -225,3 +230,35 @@ def quarantine(path: str | os.PathLike) -> Path:
     if side.exists():
         os.rename(side, target.with_name(target.name + SIDECAR_SUFFIX))
     return target
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``verify-checkpoint PATH [--json]``: the JAX package's command and
+    exit codes (0 valid, 1 corrupt), without unpickling or importing
+    torch."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="verify-checkpoint",
+        description="Verify a dense checkpoint's integrity (CRC32 against its sidecar; "
+        "torch-free, loads no arrays).",
+    )
+    parser.add_argument("path", help="dense .ckpt file")
+    parser.add_argument("--json", action="store_true", help="machine-readable verdict")
+    args = parser.parse_args(argv)
+
+    result = verify_checkpoint(args.path)
+    if args.json:
+        print(json.dumps(result.to_dict(), indent=2))
+    else:
+        verdict = "OK" if result.ok else "CORRUPT"
+        print(f"{result.path}: {verdict} ({result.format}, {result.files_checked} file(s) checked)")
+        for problem in result.problems:
+            print(f"  problem: {problem}")
+        for warning in result.warnings:
+            print(f"  warning: {warning}")
+    return 0 if result.ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -117,6 +117,15 @@ def live_buffer_bytes() -> int | None:
     return int(sum(torch.cuda.memory_allocated(d) for d in range(torch.cuda.device_count())))
 
 
+def tree_bytes_per_device(tree) -> int:
+    """Bytes of every tensor in a tree (an ``AdamWState`` included): on one
+    device, the JAX package's per-device byte count."""
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    return int(sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(tree)
+                   if isinstance(leaf, torch.Tensor)))
+
+
 def sample_resources(**extra) -> dict:
     """One ``kind="resources"`` record: host RSS, live-tensor bytes, summed
     device-memory stats (None fields without CUDA), and the kernel-library
@@ -128,6 +137,9 @@ def sample_resources(**extra) -> dict:
         "live_buffer_bytes": live_buffer_bytes(),
         "compile_events": compile_events(),
         "compile_time_s": round(compile_time_s(), 3),
+        # The JAX package counts persistent-compilation-cache hits here; the
+        # port keeps no such cache, so the count stays 0.
+        "compile_cache_hits": 0,
     }
     mem = device_memory_stats()
     record["hbm_bytes_in_use"] = mem["bytes_in_use"] if mem else None

@@ -1,12 +1,22 @@
 """The port's command line: ``python -m bpe_transformer_tpu_torch.training.cli
-{train,train-tokenizer,tokenize,eval,generate,serve,route,control,fleet,incident}
-[...]``.
+{train,train-tokenizer,tokenize,eval,generate,serve,route,control,fleet,incident,
+report,monitor,verify-checkpoint} [...]``.
 
 ``train`` takes the JAX package's ``bpe-tpu train`` flags that the
-single-device loop supports (data, model, schedule and cadence flags, see
-:func:`build_parser`), plus ``--resume``, ``--device`` (default ``cuda``) and
-the kernel knobs ``--attention-impl`` / ``--ffn-impl``, and prints the
-summary as one JSON line.
+single-device loop supports (see :func:`build_parser`): data, model,
+schedule and cadence flags, the telemetry stream and its taps
+(``--metrics-jsonl``, ``--wandb-project``, ``--health-stats``,
+``--dynamics-every``), the watchdog and NaN rollback (``--watchdog*``,
+``--max-rollbacks``, ``--recovery-min-progress``), ``--supervise`` with
+``--max-restarts`` and ``--restart-backoff``, ``--profile-trace``,
+``--inner-steps``, ``--prefetch``, ``--async-checkpoint`` and
+``--grad-accum-steps``; plus ``--resume``, ``--device`` (default ``cuda``)
+and the kernel knobs ``--attention-impl`` / ``--ffn-impl``.  It prints the
+summary as one JSON line and exits with ``EXIT_PREEMPTED`` (75) after a
+SIGTERM/SIGINT stop.  ``--supervise`` turns the process into the torch-free
+parent of ``resilience/supervisor.py``, which re-enters this command without
+``--supervise`` in a child and respawns it with ``--resume`` on a crash or a
+preemption.
 
 ``train-tokenizer``, ``tokenize``, ``eval``, ``generate`` and ``serve`` take
 the JAX package's flags and exit codes (2 on a flag combination it refuses
@@ -21,16 +31,18 @@ Differences from the JAX package:
 * ``serve`` has no ``--compile-cache`` (no XLA programs) and no TPU
   block-size check.
 
-``route``, ``control``, ``fleet`` and ``incident`` hand the rest of the
-command line to the ``main`` of the torch-free fleet modules
-(``serving/router.py``, ``serving/controller.py``, ``telemetry/fleet.py``,
-``telemetry/incident.py``), whose parsers define their flags; they run on a
-host without a card.
+``route``, ``control``, ``fleet``, ``incident``, ``report``, ``monitor`` and
+``verify-checkpoint`` hand the rest of the command line to the ``main`` of
+a torch-free module (``serving/router.py``, ``serving/controller.py``,
+``telemetry/fleet.py``, ``telemetry/incident.py``, ``telemetry/report.py``,
+``telemetry/monitor.py``, ``resilience/integrity.py``), whose parser
+defines the command's flags; they run on a host without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import signal
@@ -64,7 +76,20 @@ def _model_config(args) -> ModelConfig:
 
 
 def cmd_train(args) -> int:
+    if args.supervise:
+        # This process becomes the torch-free parent; the child owns the card.
+        from bpe_transformer_tpu_torch.resilience.supervisor import supervise
+
+        if not args.checkpoint_dir:
+            print("train --supervise needs --checkpoint-dir (restart-with-resume is the "
+                  "whole point)", file=sys.stderr)
+            return 2
+        return supervise(getattr(args, "_argv", None) or ["train"], args.checkpoint_dir,
+                         max_restarts=args.max_restarts, backoff_s=args.restart_backoff)
+
     from bpe_transformer_tpu_torch.data import load_token_file
+    from bpe_transformer_tpu_torch.resilience.signals import EXIT_PREEMPTED
+    from bpe_transformer_tpu_torch.telemetry.timing import profile_trace
     from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
     from bpe_transformer_tpu_torch.training.train_step import TrainHParams
 
@@ -84,17 +109,36 @@ def cmd_train(args) -> int:
         eval_every=args.eval_every,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
+        metrics_jsonl=args.metrics_jsonl,
+        wandb_project=args.wandb_project,
+        health_stats=args.health_stats,
+        dynamics_every=args.dynamics_every,
+        attribution_every=args.attribution_every,
+        watchdog=args.watchdog,
+        watchdog_factor=args.watchdog_factor,
+        watchdog_policy=args.watchdog_policy,
+        max_rollbacks=args.max_rollbacks,
+        recovery_min_progress=args.recovery_min_progress,
         keep_checkpoints=args.keep_checkpoints,
         seed=args.seed,
+        inner_steps=args.inner_steps,
+        prefetch=args.prefetch,
+        grad_accum_steps=args.grad_accum_steps,
+        async_checkpoint=args.async_checkpoint,
     )
     train_data = load_token_file(args.data, args.dtype)
     val_data = load_token_file(args.val_data, args.dtype) if args.val_data else None
-    summary = train(
-        model_config, hparams, loop, train_data, val_data,
-        resume_from=args.resume, device=args.device,
-    )
+    trace = (profile_trace(args.profile_trace, args.device) if args.profile_trace
+             else contextlib.nullcontext())
+    with trace:
+        summary = train(
+            model_config, hparams, loop, train_data, val_data,
+            resume_from=args.resume, device=args.device,
+        )
     print(json.dumps({k: v for k, v in summary.items() if k != "history"}))
-    return 0
+    # A SIGTERM/SIGINT stop (emergency checkpoint written) exits with its own
+    # code, so a supervisor respawns with --resume.
+    return EXIT_PREEMPTED if summary.get("preempted") else 0
 
 
 def _specials(args) -> list[str]:
@@ -340,10 +384,10 @@ def cmd_serve(args) -> int:
         logger.close()
 
 
-#: Commands served by a torch-free fleet module: the rest of the command
-#: line goes to the module's ``main(argv)``, whose parser alone defines the
-#: command's flags.
-FLEET_COMMANDS = {
+#: Commands served by a torch-free module: the rest of the command line goes
+#: to the module's ``main(argv)``, whose parser alone defines the command's
+#: flags.
+TORCH_FREE_COMMANDS = {
     "route": ("bpe_transformer_tpu_torch.serving.router",
               "health-aware HTTP router over serve replicas, with two-tier "
               "prefill/decode scheduling"),
@@ -355,6 +399,15 @@ FLEET_COMMANDS = {
     "incident": ("bpe_transformer_tpu_torch.telemetry.incident",
                  "postmortem bundler: sweep the router's and replicas' flight recorders "
                  "into one JSONL bundle"),
+    "report": ("bpe_transformer_tpu_torch.telemetry.report",
+               "summarize a telemetry metrics.jsonl; --compare/--baseline gate regressions "
+               "with a nonzero exit, --trace writes a Chrome trace"),
+    "monitor": ("bpe_transformer_tpu_torch.telemetry.monitor",
+                "live view: tail a metrics.jsonl or poll a server's /metrics or a fleet's "
+                "/statusz"),
+    "verify-checkpoint": ("bpe_transformer_tpu_torch.resilience.integrity",
+                          "verify a checkpoint against its CRC32 sidecar (exit 0 valid, "
+                          "1 corrupt)"),
 }
 
 
@@ -492,7 +545,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", **device)
     p.set_defaults(fn=cmd_serve)
 
-    for name, (_, text) in FLEET_COMMANDS.items():
+    for name, (_, text) in TORCH_FREE_COMMANDS.items():
         # Its flags are the module's: ``main`` hands them over unparsed.
         sub.add_parser(name, help=f"{text}; torch-free", add_help=False)
 
@@ -518,7 +571,57 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-every", type=int, default=500)
     p.add_argument("--checkpoint-every", type=int, default=1000)
     p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--keep-checkpoints", type=int, default=None, metavar="N")
+    p.add_argument("--keep-checkpoints", type=int, default=None, metavar="N",
+                   help="retention: keep the newest N step_*.ckpt snapshots (latest.ckpt's "
+                   "target is never deleted, *.corrupt quarantines are kept)")
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="write the telemetry stream (manifest, steps, spans, resources, "
+                   "health/dynamics, footer) to this JSONL file; summarize with report")
+    p.add_argument("--wandb-project", default=None,
+                   help="log step metrics to this wandb project (requires wandb)")
+    p.add_argument("--health-stats", action="store_true",
+                   help="non-finite counts and per-layer-group grad/param norms in the step, "
+                   "logged every --log-every")
+    p.add_argument("--dynamics-every", type=int, default=0, metavar="N",
+                   help='kind="dynamics" records every N steps (a multiple of --log-every): '
+                   "per-layer norms, update ratios, activation stats, attention entropy, "
+                   "NaN/Inf localization")
+    p.add_argument("--attribution-every", type=int, default=0, metavar="N",
+                   help="performance attribution (not ported yet: raises)")
+    p.add_argument("--watchdog", action="store_true",
+                   help="flag hung steps and apply --watchdog-policy to a non-finite state "
+                   "found at a log boundary")
+    p.add_argument("--watchdog-factor", type=float, default=10.0)
+    p.add_argument("--watchdog-policy", choices=["raise", "skip", "rollback"],
+                   default="raise",
+                   help='"raise": dump, then stop; "skip": record and go on; "rollback": '
+                   "reload the last valid checkpoint and retry on other batches (needs "
+                   "--checkpoint-dir)")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="abort after this many rollbacks without --recovery-min-progress "
+                   "steps between them")
+    p.add_argument("--recovery-min-progress", type=int, default=1, metavar="STEPS")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under a torch-free parent that respawns a crashed or preempted "
+                   "child with --resume from the newest valid checkpoint (needs "
+                   "--checkpoint-dir)")
+    p.add_argument("--max-restarts", type=int, default=5,
+                   help="consecutive child failures without checkpoint progress before the "
+                   "supervisor gives up")
+    p.add_argument("--restart-backoff", type=float, default=1.0, metavar="SECONDS",
+                   help="first restart delay, doubled per consecutive failure "
+                   "(preemptions respawn at once)")
+    p.add_argument("--profile-trace", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to DIR/trace.json")
+    p.add_argument("--inner-steps", type=int, default=1,
+                   help="optimizer updates a step call, with no host sync between them")
+    p.add_argument("--prefetch", type=int, default=1, metavar="N",
+                   help="batches sampled ahead on a worker thread (0: synchronous)")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write checkpoints on a background thread after a synchronous copy "
+                   "to the host")
+    p.add_argument("--grad-accum-steps", type=int, default=1,
+                   help="microbatches per optimizer update (must divide --batch-size)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", default=None,
                    help="checkpoint file, or a directory holding latest.ckpt")
@@ -530,13 +633,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     import importlib
 
+    raw_argv = list(argv) if argv is not None else sys.argv[1:]
     parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    if args.command in FLEET_COMMANDS:
-        module = importlib.import_module(FLEET_COMMANDS[args.command][0])
+    args, rest = parser.parse_known_args(raw_argv)
+    if args.command in TORCH_FREE_COMMANDS:
+        module = importlib.import_module(TORCH_FREE_COMMANDS[args.command][0])
         return module.main(rest)
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    # `train --supervise` respawns this exact command line as its child.
+    args._argv = raw_argv
     return args.fn(args)
 
 

@@ -7,9 +7,13 @@ PyTorch runs eagerly, so the ``make_*`` builders return plain Python
 functions where the JAX package returns jitted ones.  ``loss`` and
 ``grad_norm`` stay on the step's device (reading them is the caller's sync
 point, as a metric fetch is in the JAX loop); ``lr`` is a Python float.
-The multi-device variants (``reduce_axis``, ZeRO-1) and the health and
-dynamics taps belong to later slices and raise; sequence parallelism on one
-card is ``parallel/sp.py``.
+``health=True`` and ``dynamics=True`` append the taps of
+``telemetry/health.py`` and ``telemetry/dynamics.py`` to the metrics, as
+device tensors: no tap reads a value back.  :func:`make_scanned_train_step`
+runs ``n`` updates a call (the JAX package's ``lax.scan``; here a Python
+loop with no host sync between the updates).  The multi-device variants
+(``reduce_axis``, ZeRO-1) belong to the multi-GPU slice and raise; sequence
+parallelism on one card is ``parallel/sp.py``.
 """
 
 from __future__ import annotations
@@ -23,12 +27,16 @@ from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import (
     forward,
     forward_hidden,
+    forward_hidden_stats,
     lm_head_weight,
 )
+from bpe_transformer_tpu_torch.ops.core import head_logits
 from bpe_transformer_tpu_torch.ops.grad import clip_by_global_norm
 from bpe_transformer_tpu_torch.ops.losses import cross_entropy, lm_loss
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_update
 from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
+from bpe_transformer_tpu_torch.telemetry.dynamics import dynamics_from_parts, per_tensor_nonfinite
+from bpe_transformer_tpu_torch.telemetry.health import health_metrics
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -57,13 +65,27 @@ class TrainHParams:
             )
 
 
-def make_loss_fn(config: ModelConfig) -> Callable:
+def make_loss_fn(config: ModelConfig, with_stats: bool = False) -> Callable:
     """``loss_fn(params, x, y)``: mean LM cross-entropy, through the chunked
-    loss when ``config.loss_chunk`` is set."""
+    loss when ``config.loss_chunk`` is set.  ``with_stats=True`` returns
+    ``(loss, act_stats)`` with the per-layer activation statistics of
+    :func:`forward_hidden_stats` (the same forward, plus the taps)."""
     if config.ffn_type == "moe":
         raise NotImplementedError(
             'ffn_type="moe" is not ported yet: it comes with the multi-GPU training slice'
         )
+    if with_stats:
+
+        def stats_loss_fn(params, x, y):
+            hidden, _, act_stats = forward_hidden_stats(params, x, config)
+            head_w = lm_head_weight(params, config)
+            if config.loss_chunk:
+                loss = lm_loss(hidden, head_w, y, config.loss_chunk)
+            else:
+                loss = cross_entropy(head_logits(hidden, head_w), y)
+            return loss, act_stats
+
+        return stats_loss_fn
     if config.loss_chunk:
 
         def loss_fn(params, x, y):
@@ -78,22 +100,27 @@ def make_loss_fn(config: ModelConfig) -> Callable:
     return loss_fn
 
 
-def value_and_grad(loss_fn: Callable) -> Callable:
+def value_and_grad(loss_fn: Callable, has_aux: bool = False) -> Callable:
     """``(params, x, y) -> (loss, grads)``, ``grads`` in the parameter
-    tree's structure (the counterpart of ``jax.value_and_grad``).  The
-    parameters are the graph's leaves; no ``.grad`` is accumulated.  A leaf
-    the loss does not read (``w3`` of a two-matrix FFN) gets a zero
-    gradient, as in JAX."""
+    tree's structure (the counterpart of ``jax.value_and_grad``; with
+    ``has_aux`` the loss function returns ``(loss, aux)`` and the result is
+    ``((loss, aux), grads)``).  The parameters are the graph's leaves; no
+    ``.grad`` is accumulated.  A leaf the loss does not read (``w3`` of a
+    two-matrix FFN) gets a zero gradient, as in JAX."""
 
     def wrapped(params, x, y):
         leaves = tree_leaves(params)
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = loss_fn(params, x, y)
+            out = loss_fn(params, x, y)
+            loss = out[0] if has_aux else out
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        grads = tree_unflatten(params, grads)
+        if has_aux:
+            return (loss.detach(), out[1]), grads
+        return loss.detach(), grads
 
     return wrapped
 
@@ -111,13 +138,21 @@ def _not_ported(**options) -> None:
     for name, value in options.items():
         if value:
             raise NotImplementedError(
-                f"{name} is not ported yet: the port trains on one device without the "
-                "health/dynamics taps (multi-GPU and telemetry are later slices)"
+                f"{name} is not ported yet: it comes with the multi-GPU training slice "
+                "(the port trains on one device)"
             )
 
 
-def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams):
+def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
+            health: bool = False, dynamics: bool = False, act_stats=None):
+    """Clip, schedule and AdamW, with the optional taps.  The dynamics tap
+    counts the input params' non-finites before AdamW rewrites them in
+    place and takes the update norms from ``adamw_update``'s
+    ``delta_norms``: no copy of the weights is kept."""
     grads = _reduce_grads(grads, hparams.grads_dtype)
+    # Dynamics reports the pre-clip gradient magnitudes.
+    raw_grads = grads
+    nonfinite_params = per_tensor_nonfinite(params) if dynamics else None
     grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
     lr = cosine_schedule(
         int(opt_state.step),
@@ -126,11 +161,21 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams):
         hparams.warmup_iters,
         hparams.cosine_cycle_iters,
     )
+    delta_norms = [] if dynamics else None
     params, opt_state = adamw_update(
         params, grads, opt_state, lr,
         betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+        delta_norms=delta_norms,
     )
-    return params, opt_state, {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
+    metrics = {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
+    if health:
+        # Post-update params: an optimizer-made non-finite shows the same step.
+        metrics["health"] = health_metrics(loss, grads, params)
+    if dynamics:
+        metrics["dynamics"] = dynamics_from_parts(
+            raw_grads, params, delta_norms, nonfinite_params, act_stats
+        )
+    return params, opt_state, metrics
 
 
 def train_step_fn(
@@ -143,14 +188,20 @@ def train_step_fn(
 ) -> Callable:
     """The update ``(params, opt_state, x, y) -> (params, opt_state,
     metrics)`` on one device.  The learning rate is read at
-    ``opt_state.step`` before AdamW increments it."""
-    _not_ported(reduce_axis=reduce_axis, health=health, dynamics=dynamics,
-                zero1_shards=zero1_shards)
-    grad_fn = value_and_grad(make_loss_fn(config))
+    ``opt_state.step`` before AdamW increments it.  ``health`` adds
+    ``metrics["health"]`` (``telemetry/health.py``), ``dynamics``
+    ``metrics["dynamics"]`` (``telemetry/dynamics.py``, with the activation
+    statistics tapped from the differentiated forward)."""
+    _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)
+    grad_fn = value_and_grad(make_loss_fn(config, with_stats=dynamics), has_aux=dynamics)
 
     def step(params, opt_state: AdamWState, x, y):
-        loss, grads = grad_fn(params, x, y)
-        return _update(params, opt_state, loss, grads, hparams)
+        act_stats = None
+        if dynamics:
+            (loss, act_stats), grads = grad_fn(params, x, y)
+        else:
+            loss, grads = grad_fn(params, x, y)
+        return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats)
 
     return step
 
@@ -201,16 +252,17 @@ def grad_accum_step_fn(
 ) -> Callable:
     """One optimizer update from ``accum_steps`` microbatch gradients:
     ``(params, opt_state, xs, ys) -> (params, opt_state, metrics)`` with
-    ``xs, ys (accum_steps, micro_batch, seq)``."""
+    ``xs, ys (accum_steps, micro_batch, seq)``.  The taps read the
+    accumulated gradients; dynamics carries no activation statistics on
+    this path, as in the JAX package."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    _not_ported(reduce_axis=reduce_axis, health=health, dynamics=dynamics,
-                zero1_shards=zero1_shards)
+    _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)
     grad_fn = value_and_grad(make_loss_fn(config))
 
     def step(params, opt_state: AdamWState, xs, ys):
         loss, grads = accumulate_grads(grad_fn, params, xs, ys, accum_steps)
-        return _update(params, opt_state, loss, grads, hparams)
+        return _update(params, opt_state, loss, grads, hparams, health, dynamics)
 
     return step
 
@@ -224,6 +276,53 @@ def make_grad_accum_train_step(
 ) -> Callable:
     """The single-device grad-accumulation step (:func:`grad_accum_step_fn`)."""
     return grad_accum_step_fn(config, hparams, accum_steps, health=health, dynamics=dynamics)
+
+
+def scanned_step_fn(
+    config: ModelConfig,
+    hparams: TrainHParams,
+    inner_steps: int,
+    reduce_axis: str | None = None,
+    body: Callable | None = None,
+    health: bool = False,
+    dynamics: bool = False,
+    zero1_shards: int | None = None,
+) -> Callable:
+    """``inner_steps`` optimizer updates a call: ``(params, opt_state, xs,
+    ys) -> (params, opt_state, metrics)`` with a leading ``(inner_steps,)``
+    dim on ``xs``/``ys``; ``metrics`` are the last update's, as the JAX
+    package's ``lax.scan`` returns them.  The updates are dispatched back to
+    back with no host sync between them.  ``body`` replaces the default
+    single-update body."""
+    if inner_steps < 1:
+        raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
+    if body is None:
+        body = train_step_fn(config, hparams, reduce_axis, health=health, dynamics=dynamics,
+                             zero1_shards=zero1_shards)
+
+    def multi(params, opt_state: AdamWState, xs, ys):
+        if xs.shape[0] != inner_steps or ys.shape[0] != inner_steps:
+            raise ValueError(
+                f"scanned step wants (inner_steps={inner_steps}, batch, seq) token ids, "
+                f"got xs {tuple(xs.shape)}"
+            )
+        metrics = None
+        for i in range(inner_steps):
+            params, opt_state, metrics = body(params, opt_state, xs[i], ys[i])
+        return params, opt_state, metrics
+
+    return multi
+
+
+def make_scanned_train_step(
+    config: ModelConfig,
+    hparams: TrainHParams,
+    inner_steps: int,
+    health: bool = False,
+    dynamics: bool = False,
+) -> Callable:
+    """The single-device scanned step (:func:`scanned_step_fn`)."""
+    return scanned_step_fn(config, hparams, inner_steps, health=health, dynamics=dynamics)
 
 
 def make_eval_step(config: ModelConfig) -> Callable:

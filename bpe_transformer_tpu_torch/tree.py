@@ -14,6 +14,24 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_flatten_with_path(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order; ``path`` is the
+    tuple of dict keys and list indices from the root (the counterpart of
+    ``jax.tree_util.tree_flatten_with_path``)."""
+    if isinstance(tree, dict):
+        return [pair for key in sorted(tree)
+                for pair in tree_flatten_with_path(tree[key], prefix + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, item in enumerate(tree)
+                for pair in tree_flatten_with_path(item, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def path_str(path: tuple) -> str:
+    """A key path as a dotted tensor path (``layers.3.attn.q_proj``)."""
+    return ".".join(str(part) for part in path)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf across trees of one structure."""
     if isinstance(tree, dict):

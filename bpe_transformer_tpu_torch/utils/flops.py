@@ -1,6 +1,6 @@
 """Model-FLOPs accounting and the card's peak rates (the port's rewrite of
-``bpe_transformer_tpu/utils/flops.py``: the decode-tick FLOPs and the peak
-tables the decode roofline reads).
+``bpe_transformer_tpu/utils/flops.py``: the training-step and decode-tick
+FLOPs, and the peak tables that MFU and the decode roofline read).
 
 The FLOPs estimate is the JAX package's ("6ND + attention"):
 
@@ -65,6 +65,16 @@ def matmul_param_count(config: ModelConfig) -> int:
         ffn = 3 * d * ff
     lm_head = d * config.vocab_size
     return L * (attn + ffn) + lm_head
+
+
+def train_step_flops(config: ModelConfig, batch: int, seq: int | None = None) -> float:
+    """Model FLOPs of one full training step (forward + backward) at the
+    given shape: three times the forward estimate above."""
+    S = seq or config.context_length
+    tokens = batch * S
+    matmul = 2.0 * matmul_param_count(config) * tokens
+    attention = 4.0 * config.num_layers * S * config.d_model * tokens
+    return 3.0 * (matmul + attention)
 
 
 def decode_tick_flops(config: ModelConfig, n_tokens: int, kv_positions: int) -> float:

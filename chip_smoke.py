@@ -155,6 +155,28 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    (schema-valid fleet and SLO records), ``control`` observe-only over a
    running ``fleet`` for a few ticks, ``incident`` over the flight
    recorders; fleet tok/s and TTFT beside one replica's;
+15. the training loop as a user runs it, at ``GPT2_SMALL_32K`` with phase
+   8's knobs on a seeded Zipf-distributed uint16 token file: (a) ``train``
+   in-process with every tap (the JSONL stream, health stats, dynamics
+   every 4 steps, the watchdog, checkpoints every 4 kept 2 deep, prefetch
+   2, async checkpoints) for 16 steps with eval every 8: the stream valid
+   against the schema, health and dynamics records present, the loss
+   finite and falling, launches equal to 16 of phase 8's steps plus the
+   eval batches' own, 2 snapshots and a ``latest.ckpt`` symlink, then
+   ``verify-checkpoint``, ``report --trace`` and ``monitor --once``; (b)
+   ``torch.cuda.set_sync_debug_mode`` counts of the plain, health and
+   dynamics steps and of the loop with prefetch 0 and 2 (no tap may add a
+   sync), and each step's device time from ``torch.profiler``; (c)
+   ``nan_at_step`` 5 under the rollback policy (the event localised to a
+   tensor at step 6, the rollback to step 4, a finite end), and ``raise`` in a
+   subprocess (a non-zero exit, the dump in the stream); (d) ``train`` as a
+   subprocess preempted at step 6 (exit 75, an emergency snapshot), then
+   ``--resume`` to step 8 against an uninterrupted run (1e-5 relative);
+   (e) ``--supervise`` with a child killed at step 6; (f) ``--inner-steps
+   4`` against 1, and a read fault under prefetch 2 surfacing on the main
+   thread; (g) host ms a step of the plain loop, each tap, inner steps and
+   prefetch, the sync and async checkpoint stalls, the emergency save and
+   the phase's wall time;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
@@ -162,8 +184,9 @@ cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
 ``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
 fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6),
-``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures) and
-``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures).
+``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures),
+``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures) and
+``chip_smoke_loop.json`` (phase 15's training-loop figures).
 """
 
 from __future__ import annotations
@@ -283,6 +306,8 @@ SERVING_KERNELS = ("decode_attention", "flash_attention", "swiglu")
 SPLIT_KERNELS = ("decode_attention", "paged_decode_attention")
 PAGED_KERNELS = ("paged_decode_attention", "quant_matmul")
 TRAINING_KERNELS = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+#: The kernels of phase 15's training loop (B5, B4's pair, B3).
+TRAIN_KERNELS_15 = TRAINING_KERNELS + ("swiglu",)
 
 
 class SmokeFailure(RuntimeError):
@@ -3993,6 +4018,330 @@ def phase_fleet(torch, smi: str, rows13: list) -> None:
     (OUT_DIR / "chip_smoke_fleet.json").write_text(json.dumps(out, indent=1, default=str))
 
 
+# ------------------------------------------------------------ phase 15
+
+#: Phase 15's working files (token file, checkpoints, streams), inside the
+#: checkout and removed at the end of the phase.
+TRAIN_WORK = ROOT / ".scratch" / "chip_smoke_train"
+
+
+def train_subprocess(argv: list, faults: dict | None = None, timeout: float = 600):
+    """The port's ``train`` CLI in a fresh process, as a user runs it;
+    returns the finished process (the caller checks its exit code)."""
+    import os
+
+    env = {**os.environ, "BT_FAULTS": json.dumps(faults)} if faults else None
+    return subprocess.run([sys.executable, *PORT_CLI, "train", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def step_records(records: list) -> list:
+    return [r for r in records if r.get("kind") is None and "loss" in r]
+
+
+def span_seconds(records: list, name: str, **attrs) -> list:
+    return [r["dur_s"] for r in records if r.get("kind") == "span" and r.get("name") == name
+            and all(r.get(k) == v for k, v in attrs.items())]
+
+
+def count_syncs(torch, fn, n: int) -> tuple[int, list]:
+    """Synchronising CUDA calls that ``torch.cuda.set_sync_debug_mode`` flags
+    while ``fn`` runs ``n`` times: the count and where each was raised."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    found = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    return len(found), sorted({f"{Path(w.filename).name}:{w.lineno}" for w in found})
+
+
+def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 8) -> dict:
+    """Phase 15: the training loop as a user runs it, at GPT2_SMALL_32K with
+    phase 8's knobs; returns the launch counts of (a), the slice's main
+    path, and writes ``chip_smoke_loop.json``."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.resilience.faults import FaultInjector, FaultPlan
+    from bpe_transformer_tpu_torch.telemetry.schema import validate_record
+    from bpe_transformer_tpu_torch.telemetry.watchdog import NonFiniteError
+    from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = cfg or dataclasses.replace(
+        GPT2_SMALL_32K, attention_impl="flash_fused", flash_fused_min_seq=0, ffn_impl="pallas",
+        remat_policy="save_attn",
+    )
+    L, ctx = cfg.num_layers, cfg.context_length
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    TRAIN_WORK.mkdir(parents=True)
+    data_path = TRAIN_WORK / "tokens.bin"
+    # Zipf-distributed tokens: a unigram law the loss can fall towards
+    # within a few steps.
+    zipf = 1.0 / np.arange(1, cfg.vocab_size + 1) ** 1.1
+    data = np.random.default_rng(15).choice(cfg.vocab_size, size=2_000_000,
+                                            p=zipf / zipf.sum()).astype(np.uint16)
+    data.tofile(data_path)
+    cfg.to_json(TRAIN_WORK / "model.json")
+    hp = dict(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=2)
+    quiet = lambda *a: None  # noqa: E731
+    out: dict = {"smi": smi}
+
+    def loop(**kw):
+        base = dict(steps=8, batch_size=batch, log_every=4, eval_every=1000, seed=0)
+        return LoopConfig(**{**base, **kw})
+
+    def run(lc, **kw):
+        return train(cfg, TrainHParams(**hp, cosine_cycle_iters=lc.steps), lc, data,
+                     log_fn=quiet, device=device, **kw)
+
+    def cli_args(steps: int, ck: Path, *extra, every: int = 4) -> list:
+        return ["--data", str(data_path), "--model-config", str(TRAIN_WORK / "model.json"),
+                "--steps", str(steps), "--batch-size", str(batch), "--log-every", "2",
+                "--eval-every", "1000", "--checkpoint-every", str(every), "--checkpoint-dir", str(ck),
+                "--lr", "6e-4", "--min-lr", "6e-5", "--warmup", "2", "--prefetch", "0",
+                "--device", device, *extra]
+
+    # (a) Every tap at once, with eval boundaries counted apart.
+    t0 = time.perf_counter()
+    ck_a, jsonl_a = TRAIN_WORK / "a_ck", TRAIN_WORK / "a.jsonl"
+    steps_a, eval_every, eval_batches = 16, 8, 2
+    reset_counts()
+    summary = run(loop(steps=steps_a, log_every=2, eval_every=eval_every,
+                       eval_batches=eval_batches, checkpoint_every=4,
+                       checkpoint_dir=str(ck_a), metrics_jsonl=str(jsonl_a), health_stats=True,
+                       dynamics_every=4, watchdog=True, keep_checkpoints=2, prefetch=2,
+                       async_checkpoint=True), val_data=data)
+    counts_a = read_counts(tuple(KERNEL_META))
+    per_step = only(flash_attention_rope=L, flash_attention_bwd_dkdv=L,
+                    flash_attention_bwd_dq=L, swiglu=2 * L)
+    evals = eval_batches * steps_a // eval_every
+    want = {name: per_step[name] * steps_a for name in KERNEL_META}
+    want["flash_attention_rope"] += L * evals
+    want["swiglu"] += L * evals
+    records = read_jsonl(jsonl_a)
+    bad = [(r.get("kind"), validate_record(r)) for r in records if validate_record(r)]
+    require(not bad, f"15a: stream records fail the schema: {bad[:3]}")
+    kinds = {r.get("kind") for r in records}
+    steps = step_records(records)
+    losses = [r["loss"] for r in steps]
+    log(f"15a loop with every tap, {steps_a} steps (B={batch} S={ctx}): losses "
+        f"{[round(v, 4) for v in losses]}; kinds {sorted(map(str, kinds))}; launches "
+        f"{ {k: v for k, v in counts_a.items() if v} } (a train step "
+        f"{ {k: v for k, v in per_step.items() if v} }, {evals} eval batches apart)")
+    require("dynamics" in kinds and all("grad_norm/attn" in r and "nonfinite_grads" in r
+                                        for r in steps), "15a: no health or dynamics records")
+    require([r["step"] for r in records if r.get("kind") == "dynamics"] == [4, 8, 12, 16],
+            "15a: dynamics records not every 4 steps")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"15a: loss not finite or not falling: {losses}")
+    if on_card:
+        require(counts_a == want, f"15a: launches {counts_a} != {want}")
+    snaps = sorted(p.name for p in ck_a.glob("step_*.ckpt"))
+    require(snaps == ["step_00000012.ckpt", "step_00000016.ckpt"]
+            and (ck_a / "latest.ckpt").is_symlink()
+            and (ck_a / "latest.ckpt").resolve().name == "step_00000016.ckpt",
+            f"15a: checkpoint dir {sorted(p.name for p in ck_a.iterdir())}")
+    for snap in snaps:
+        port_cli("verify-checkpoint", str(ck_a / snap))
+    text = port_cli("report", str(jsonl_a), "--trace", str(TRAIN_WORK / "trace.json"))
+    trace = json.loads((TRAIN_WORK / "trace.json").read_text())
+    frame = port_cli("monitor", str(jsonl_a), "--once", "--plain")
+    require("== steps" in text and trace["traceEvents"] and "train" in frame,
+            "15a: report, trace or monitor output unreadable")
+    async_stall = span_seconds(records, "checkpoint", async_save=True)
+    out["a"] = {"losses": losses, "launches": counts_a, "async_stall_s": async_stall,
+                "step_wall_s": [r["step_wall_s"] for r in steps]}
+    log(f"15a verify-checkpoint ok on {snaps}; report {len(text.splitlines())} lines, trace "
+        f"{len(trace['traceEvents'])} events, monitor frame ok; async checkpoint stall "
+        f"{[round(s * 1e3, 1) for s in async_stall]} ms ({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(ck_a)
+
+    # (b) Sync audit: each tap against the plain step, between log boundaries.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    x, y = (torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(batch, ctx)), device=device)
+            for _ in range(2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    opt_state = adamw_init(params)
+    hparams = TrainHParams(**hp, cosine_cycle_iters=100)
+    steps_fn = {"plain": make_train_step(cfg, hparams),
+                "health": make_train_step(cfg, hparams, health=True),
+                "dynamics": make_train_step(cfg, hparams, dynamics=True)}
+    syncs, where, device_us = {}, {}, {}
+    for fn in steps_fn.values():  # the first call of each variant, before any count
+        fn(params, opt_state, x, y)
+    if on_card:
+        # The debug mode's own first use is flagged once, whatever runs.
+        first = count_syncs(torch, lambda: None, 1)
+        log(f"15b set_sync_debug_mode's first use: {first}")
+    for name, fn in steps_fn.items():
+        if on_card:
+            syncs[name], where[name] = count_syncs(
+                torch, lambda fn=fn: fn(params, opt_state, x, y), 4)
+            device_us[name] = profile_step(torch, f"15b {name} GPT2_SMALL_32K",
+                                           lambda fn=fn: fn(params, opt_state, x, y),
+                                           n_top=3)["device_us"]
+    del params, opt_state, steps_fn
+    if on_card:
+        for depth in (0, 2):
+            def feed(depth=depth):
+                run(loop(steps=6, log_every=6, prefetch=depth))
+            syncs[f"loop, prefetch {depth}"], where[f"loop, prefetch {depth}"] = \
+                count_syncs(torch, feed, 1)
+        added = {k: syncs[k] - syncs["plain"] for k in ("health", "dynamics")}
+        added["prefetch"] = syncs["loop, prefetch 2"] - syncs["loop, prefetch 0"]
+        log(f"15b syncs flagged by set_sync_debug_mode (4 steps of each step variant; one "
+            f"6-step loop run with its set-up and its one log boundary): {syncs}; added over "
+            f"the plain step: {added}; raised at {where}")
+        require(all(v == 0 for v in added.values()), f"15b: a tap adds syncs: {added}")
+        extra = {k: (None if device_us[k] is None or device_us['plain'] is None
+                     else device_us[k] - device_us["plain"]) for k in ("health", "dynamics")}
+        log(f"15b device us a step: {device_us}; added by the taps {extra} on {smi} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out["b"] = {"syncs": syncs, "added_syncs": added, "raised_at": where,
+                    "device_us": device_us}
+
+    # (c) NaN rollback in-process (sync checkpoints), then `raise` as a process.
+    t0 = time.perf_counter()
+    ck_c, jsonl_c = TRAIN_WORK / "c_ck", TRAIN_WORK / "c.jsonl"
+    summary = run(loop(steps=8, log_every=2, checkpoint_every=4, checkpoint_dir=str(ck_c),
+                       metrics_jsonl=str(jsonl_c), dynamics_every=2, health_stats=True,
+                       watchdog=True, watchdog_policy="rollback"),
+                  fault_injector=FaultInjector(FaultPlan(nan_at_step=5)))
+    records = read_jsonl(jsonl_c)
+    nonfinite = [r for r in records if r.get("kind") == "event" and r.get("name") == "nonfinite"]
+    recovery = [r for r in records if r.get("kind") == "recovery"]
+    losses = [r["loss"] for r in step_records(records)]
+    log(f"15c rollback: nonfinite events {[(r['step'], r.get('path')) for r in nonfinite]}, "
+        f"recovery {[(r['step'], r['restored_step'], r.get('nonfinite_path')) for r in recovery]}, "
+        f"losses {[round(v, 4) for v in losses]}, summary rollbacks {summary.get('rollbacks')}")
+    require(len(nonfinite) == 1 and nonfinite[0]["step"] == 6
+            and nonfinite[0].get("path", "").startswith("params/"),
+            "15c: the nonfinite event is missing or not localised to a tensor")
+    require([(r["step"], r["restored_step"]) for r in recovery] == [(6, 4)],
+            f"15c: recovery records {recovery}")
+    require(summary["history"][-1]["step"] == 8 and math.isfinite(summary["final_train_loss"]),
+            "15c: the run did not finish with a finite loss")
+    sync_stall = span_seconds(records, "checkpoint", async_save=False)
+    shutil.rmtree(ck_c)
+    ck_r, jsonl_r = TRAIN_WORK / "r_ck", TRAIN_WORK / "r.jsonl"
+    proc = train_subprocess(cli_args(4, ck_r, "--watchdog", "--metrics-jsonl", str(jsonl_r)),
+                            faults={"nan_at_step": 1})
+    records = read_jsonl(jsonl_r)
+    events = [r.get("name") or r.get("kind") for r in records
+              if r.get("kind") in ("event", "blackbox")]
+    log(f"15c raise: exit {proc.returncode}, stream events {events}, stderr tail "
+        f"{proc.stderr.strip().splitlines()[-1][:160] if proc.stderr.strip() else ''!r}")
+    require(proc.returncode not in (0, 75) and "nonfinite" in events and "blackbox" in events
+            and "NonFiniteError" in proc.stderr,
+            f"15c: raise policy exit {proc.returncode}: {proc.stderr[-2000:]}")
+    out["c"] = {"losses": losses, "sync_stall_s": sync_stall, "raise_rc": proc.returncode}
+    log(f"15c sync checkpoint stall {[round(s * 1e3, 1) for s in sync_stall]} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (d) Preemption: exit 75 and an emergency snapshot, then --resume.
+    t0 = time.perf_counter()
+    ck_d, jsonl_d = TRAIN_WORK / "d_ck", TRAIN_WORK / "d.jsonl"
+    proc = train_subprocess(cli_args(8, ck_d, "--metrics-jsonl", str(jsonl_d), every=8),
+                            faults={"preempt_at_step": 6})
+    require(proc.returncode == 75, f"15d: preempted run exit {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    records = read_jsonl(jsonl_d)
+    pre = [r for r in records if r.get("kind") == "preemption"]
+    require(len(pre) == 1 and pre[0]["step"] == 6 and pre[0]["checkpoint"]
+            and Path(pre[0]["checkpoint"]).name == "step_00000006.ckpt",
+            f"15d: preemption record {pre}")
+    emergency_s = span_seconds(records, "checkpoint", async_save=False)[-1]
+    proc = train_subprocess(cli_args(8, ck_d, "--resume", str(ck_d), every=8))
+    require(proc.returncode == 0, f"15d: resume exit {proc.returncode}: {proc.stderr[-2000:]}")
+    resumed = json.loads((ck_d / "summary.json").read_text())["history"]
+    straight = run(loop(steps=8, log_every=2))["history"]
+    want = {r["step"]: r["loss"] for r in straight}
+    got = {r["step"]: r["loss"] for r in resumed}
+    rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+    log(f"15d preempted at step 6 (exit 75, emergency save {emergency_s * 1e3:.1f} ms), resumed "
+        f"to 8: losses {got} vs uninterrupted {want}; max rel diff {rel:.2e}, bit-equal "
+        f"{all(got[s] == want[s] for s in got)} ({time.perf_counter() - t0:.1f} s)")
+    require(sorted(got) == [8] and rel <= 1e-5, f"15d: resumed losses {got} vs {want}")
+    out["d"] = {"emergency_save_s": emergency_s, "resumed": got, "straight": want,
+                "max_rel": rel}
+    shutil.rmtree(ck_d)
+
+    # (e) --supervise: a child killed at step 6 is respawned with --resume.
+    t0 = time.perf_counter()
+    ck_e = TRAIN_WORK / "e_ck"
+    proc = train_subprocess(cli_args(8, ck_e, "--supervise", "--max-restarts", "2",
+                                     "--restart-backoff", "0.1"),
+                            faults={"kill_at_step": 6, "once_dir": str(TRAIN_WORK / "once")})
+    require(proc.returncode == 0 and "spawn #2" in proc.stdout,
+            f"15e: supervised run exit {proc.returncode}: {proc.stdout[-2000:]}")
+    history = json.loads((ck_e / "summary.json").read_text())["history"]
+    got = {r["step"]: r["loss"] for r in history}
+    rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+    log(f"15e supervised: killed at step 6, respawned once, losses {got}; max rel diff to the "
+        f"uninterrupted run {rel:.2e} ({time.perf_counter() - t0:.1f} s)")
+    require(sorted(got) == [6, 8] and rel <= 1e-5, f"15e: losses {got} vs {want}")
+    shutil.rmtree(ck_e)
+
+    # (f) Inner steps, and a read fault under prefetch.
+    t0 = time.perf_counter()
+    inner = {n: run(loop(inner_steps=n, log_every=4))["history"] for n in (1, 4)}
+    l1, l4 = ([r["loss"] for r in inner[n]] for n in (1, 4))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    log(f"15f inner steps 4 vs 1: losses at steps 4, 8 {l4} vs {l1}, max rel diff {rel:.2e}")
+    require([r["step"] for r in inner[4]] == [4, 8] and rel <= 1e-5,
+            "15f: inner-step losses differ")
+    try:
+        run(loop(steps=6, prefetch=2), fault_injector=FaultInjector(FaultPlan(fail_read_at_step=3)))
+        raised = None
+    except OSError as exc:
+        raised = str(exc)
+    require(raised is not None and "injected dataset read failure at step 3" in raised,
+            f"15f: the read fault did not surface on the main thread: {raised}")
+    log(f"15f prefetch 2 read fault surfaced on the main thread: {raised!r} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (g) Host ms a step of each feed and tap.
+    t0 = time.perf_counter()
+    host_ms = {"plain": inner[1][-1]["step_wall_s"] * 1e3,
+               "inner steps 4": inner[4][-1]["step_wall_s"] * 1e3}
+    for name, kw in (("health", dict(health_stats=True)), ("dynamics", dict(dynamics_every=4)),
+                     ("prefetch 2", dict(prefetch=2))):
+        host_ms[name] = run(loop(**kw))["history"][-1]["step_wall_s"] * 1e3
+    out["g"] = {"host_ms": host_ms, "sync_stall_s": sync_stall, "async_stall_s": async_stall,
+                "emergency_save_s": emergency_s, "phase_s": time.perf_counter() - t_phase}
+    log(f"15g host ms a step (steps 5-8, one log window): "
+        f"{ {k: round(v, 2) for k, v in host_ms.items()} }; checkpoint stall sync "
+        f"{[round(s * 1e3, 1) for s in sync_stall]} ms, async "
+        f"{[round(s * 1e3, 1) for s in async_stall]} ms; emergency save "
+        f"{emergency_s * 1e3:.1f} ms; phase wall {out['g']['phase_s']:.1f} s on {smi} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_loop.json").write_text(json.dumps(out, indent=1, default=str))
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    return {name: counts_a[name] for name in TRAIN_KERNELS_15}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4081,6 +4430,14 @@ def main() -> int:
 
         shutil.rmtree(SERVE_WORK, ignore_errors=True)
     log(f"phase 14 the serving fleet: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    try:
+        counts.update(phase_training_loop(torch, smi))
+    finally:
+        import shutil
+
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    log(f"phase 15 the training loop as a user runs it: ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -14,7 +14,12 @@ serving fleet's front-end modules (the router, the controller, the fleet
 aggregator, the SLO layer, the incident bundler, the monitor and the KV wire
 codec) import with ``torch`` refused as well; the ``route``, ``control``,
 ``fleet`` and ``incident`` commands exist, and ``serve --role`` or
-``--evacuate-to`` without ``--paged`` exits with 2 as in the JAX package."""
+``--evacuate-to`` without ``--paged`` exits with 2 as in the JAX package.
+The jax-free ``train`` writes the telemetry stream with every tap, async
+checkpoints and prefetch; ``report``, ``monitor`` and ``verify-checkpoint``
+run on it jax-free, and their output is the JAX package's tools' byte for
+byte; the report, trace, watchdog, supervisor and retention modules and
+the CLI module import with ``torch`` refused too."""
 
 import re
 import shutil
@@ -63,6 +68,9 @@ expected = {
         "training.sampling", "_lazy", "serving.kvpool.migrate", "serving.router",
         "serving.controller", "telemetry.slo", "telemetry.monitor", "telemetry.fleet",
         "telemetry.incident", "resilience.faults", "resilience.supervisor",
+        "resilience.signals", "resilience.rollback", "resilience.retention",
+        "telemetry.watchdog", "telemetry.timing", "telemetry.health", "telemetry.dynamics",
+        "telemetry.report", "telemetry.trace", "utils.profiling", "utils.metrics",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -98,7 +106,7 @@ for kw in ({}, dict(paged=True, block_size=4, kv_dtype="int8", weight_dtype="int
         result = serving.generate([1, 2, 3, 4, 5], max_new_tokens=3, temperature=0.0)
     assert len(result.token_ids) == 3 and result.finish_reason == "length", (kw, result)
 
-import json, numpy as np
+import contextlib, io, json, numpy as np
 from pathlib import Path
 from bpe_transformer_tpu_torch.training.cli import main as cli_main
 from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
@@ -112,8 +120,20 @@ argv = ["train", "--data", str(work / "tokens.bin"), "--val-data", str(work / "t
         "--model-config", str(work / "cfg.json"), "--batch-size", "2", "--log-every", "1",
         "--eval-every", "2", "--checkpoint-every", "2", "--checkpoint-dir", str(work / "ck"),
         "--device", "cpu"]
-assert cli_main(argv + ["--steps", "2"]) == 0
+stream = ["--metrics-jsonl", str(work / "m.jsonl"), "--health-stats", "--dynamics-every", "1",
+          "--watchdog", "--prefetch", "2", "--async-checkpoint"]
+assert cli_main(argv + ["--steps", "2"] + stream) == 0
 assert cli_main(argv + ["--steps", "3", "--resume", str(work / "ck")]) == 0
+# The training tools, jax-free: report (its trace export too), monitor and
+# verify-checkpoint on the stream and checkpoints just written.
+for tool in (["report", str(work / "m.jsonl"), "--trace", str(work / "trace.json")],
+             ["monitor", str(work / "m.jsonl"), "--once", "--plain"],
+             ["verify-checkpoint", str(work / "ck" / "latest.ckpt")]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli_main(tool) == 0, tool
+    assert out.getvalue().strip(), tool
+assert json.loads((work / "trace.json").read_text())["traceEvents"]
 summary = json.loads((work / "ck" / "summary.json").read_text())
 assert [r["step"] for r in summary["history"]] == [3], summary
 assert (work / "ck" / "step_00000003.ckpt.crc32.json").exists()
@@ -129,7 +149,7 @@ assert [r["step"] for r in summary["history"]] == [1, 2], summary
 # The serving CLIs, regex-free: train a tokenizer and tokenize with it; then
 # generate, eval and offline-batch serve on the trained checkpoint (64-token
 # vocabulary) with a tokenizer of the bytes below 63 and one special token.
-import contextlib, io, pickle
+import pickle
 (work / "corpus.txt").write_text("the cat sat on the mat. it's 42 \u4e2d\u6587!\n" * 50)
 assert cli_main(["train-tokenizer", "--input", str(work / "corpus.txt"), "--vocab-size", "300",
                  "--output-dir", str(work / "tok300"), "--workers", "1"]) == 0
@@ -212,12 +232,63 @@ import importlib, sys
 sys.modules["torch"] = None
 sys.modules["jax"] = None
 for name in ("serving.router", "serving.controller", "telemetry.fleet", "telemetry.slo",
-             "telemetry.incident", "telemetry.monitor", "serving.kvpool.migrate"):
+             "telemetry.incident", "telemetry.monitor", "serving.kvpool.migrate",
+             "telemetry.report", "telemetry.trace", "telemetry.watchdog",
+             "resilience.supervisor", "resilience.signals", "resilience.retention",
+             "resilience.rollback", "resilience.integrity", "training.cli"):
     importlib.import_module("bpe_transformer_tpu_torch." + name)
 assert not any(m == "bpe_transformer_tpu" or m.startswith("bpe_transformer_tpu.")
                for m in sys.modules)
 print("TORCH-FREE OK")
 """
+
+
+def _tools_match_jax(work):
+    """The port's report (text, ``--trace``, ``--compare`` exit codes) and
+    ``monitor --once`` give the JAX package's tools' bytes on the stream the
+    jax-free run wrote and on the repo's compare fixtures; verify-checkpoint
+    gives the same exit codes on a good and a corrupted checkpoint."""
+    import contextlib
+    import io
+
+    from bpe_transformer_tpu.resilience.integrity import main as jax_verify
+    from bpe_transformer_tpu.telemetry.monitor import main as jax_monitor
+    from bpe_transformer_tpu.telemetry.report import main as jax_report
+    from bpe_transformer_tpu_torch.resilience.integrity import main as port_verify
+    from bpe_transformer_tpu_torch.telemetry.monitor import main as port_monitor
+    from bpe_transformer_tpu_torch.telemetry.report import main as port_report
+
+    stream = str(work / "m.jsonl")
+    fixtures = REPO / "tests" / "fixtures"
+    bad = work / "bad.ckpt"
+    raw = bytearray((work / "ck" / "step_00000002.ckpt").read_bytes())
+    raw[len(raw) // 2] ^= 1
+    bad.write_bytes(bytes(raw))
+    shutil.copyfile(work / "ck" / "step_00000002.ckpt.crc32.json", work / "bad.ckpt.crc32.json")
+    calls = [
+        ("report", [stream], 0),
+        ("report", [stream, "--trace", "{out}"], 0),
+        ("report", [stream, "--compare", stream], 0),
+        ("report", [str(fixtures / "compare_regressed.jsonl"), "--compare",
+                    str(fixtures / "compare_base.jsonl")], 3),
+        ("monitor", [stream, "--once", "--plain"], 0),
+        ("verify", [str(work / "ck" / "latest.ckpt")], 0),
+        ("verify", [str(bad)], 1),
+    ]
+    mains = {"report": (jax_report, port_report), "monitor": (jax_monitor, port_monitor),
+             "verify": (jax_verify, port_verify)}
+    for name, argv, rc_want in calls:
+        results = []
+        for i, fn in enumerate(mains[name]):
+            out = io.StringIO()
+            args = [a.replace("{out}", str(work / f"trace{i}.json")) for a in argv]
+            with contextlib.redirect_stdout(out):
+                rc = fn(args)
+            results.append((rc, out.getvalue().replace(str(work / f"trace{i}.json"), "{out}")))
+        assert results[0] == results[1], (name, argv, results)
+        assert results[0][0] == rc_want and results[0][1], (name, argv, results[0])
+        if "--trace" in argv:
+            assert (work / "trace0.json").read_bytes() == (work / "trace1.json").read_bytes()
 
 
 def test_torch_port_is_jax_free_and_card_first(tmp_path):
@@ -237,6 +308,7 @@ def test_torch_port_is_jax_free_and_card_first(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX-FREE OK" in proc.stdout
+    _tools_match_jax(tmp_path)
     proc = subprocess.run([sys.executable, "-c", _TORCH_FREE_SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "TORCH-FREE OK" in proc.stdout, proc.stderr[-3000:]

@@ -18,6 +18,8 @@ the JAX package does on the same directory.
 """
 
 import dataclasses
+import json
+import os
 import pickle
 import shutil
 from pathlib import Path
@@ -258,6 +260,13 @@ def _resume_through_verification(tmp_path):
     train(TS_TEST_CONFIG, TrainHParams(),
           LoopConfig(steps=4, batch_size=4, checkpoint_every=2, seed=0,
                      checkpoint_dir=str(src)), data, log_fn=lambda *a: None, device="cpu")
+    # The port links latest.ckpt to the newest snapshot; the JAX package's
+    # dense loop writes it as a byte copy.  Lay the directory out as the
+    # JAX package does, so the flipped bit lands in latest.ckpt alone.
+    for name in ("latest.ckpt", "latest.ckpt.crc32.json"):
+        target = (src / name).resolve()
+        (src / name).unlink()
+        shutil.copyfile(target, src / name)
     emb = load_checkpoint(src / "latest.ckpt")["params"]["token_embeddings"]
     raw = bytearray((src / "latest.ckpt").read_bytes())
     at = raw.find(emb.tobytes()[:256]) + 4 * 1000  # the low byte of element 1000
@@ -417,6 +426,415 @@ def _sp_step():
               np.zeros(100, np.uint16), device="cpu")
 
 
+def _same_flat(got: dict, want: dict, what: str) -> None:
+    """Flat health/dynamics records: the same keys in the same order, values
+    within 1e-5 relative (attention entropy within 1e-4), paths equal."""
+    assert list(got) == list(want), (what, list(got), list(want))
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, str):
+            assert g == w, (what, key, g, w)
+        elif key.startswith("attn_entropy/"):
+            _close(g, w, 1e-4, f"{what} {key}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7, equal_nan=True,
+                                       err_msg=f"{what} {key}")
+
+
+def _taps_and_scan():
+    """(g) The training taps and the scanned step against the JAX package's:
+    ``health_metrics``/``flatten_health`` and ``dynamics_metrics``/
+    ``flatten_dynamics`` on the same trees (one param layer seeded with a
+    NaN: the same ``first_nonfinite``), then ``health=True, dynamics=True``
+    steps in the plain, grad-accum and scanned (n 4) variants, over the
+    attention kernels and remat policies that move the entropy tap: the
+    flat records, loss, grad norm and every parameter after the call within
+    1e-5 (attention entropy 1e-4)."""
+    from bpe_transformer_tpu.telemetry import dynamics as jax_dynamics
+    from bpe_transformer_tpu.telemetry import health as jax_health
+    from bpe_transformer_tpu.training.train_step import (
+        make_grad_accum_train_step as jax_make_accum_step,
+    )
+    from bpe_transformer_tpu.training.train_step import (
+        make_scanned_train_step as jax_make_scanned_step,
+    )
+    from bpe_transformer_tpu_torch.telemetry import dynamics, health
+    from bpe_transformer_tpu_torch.training.loop import _fetch
+    from bpe_transformer_tpu_torch.training.train_step import make_scanned_train_step
+
+    base = ModelConfig(vocab_size=97, context_length=32, d_model=64, num_layers=2, num_heads=4,
+                       d_ff=96)
+    rng = np.random.default_rng(21)
+    host = jax.device_get(jax_init_params(jax.random.PRNGKey(6), _jax_config(base)))
+    grads = jax.tree_util.tree_map(lambda a: rng.standard_normal(a.shape).astype(np.float32),
+                                   host)
+    after = jax.tree_util.tree_map(lambda a: a * np.float32(0.99) + np.float32(1e-3), host)
+    before = jax.tree_util.tree_map(np.copy, host)
+    before["layers"][1]["ffn"]["w2"][3, 5] = np.nan
+    t = lambda tree: params_from_jax(tree, device="cpu")  # noqa: E731
+    _same_flat(health.flatten_health(_fetch(health.health_metrics(torch.tensor(2.5), t(grads),
+                                                                  t(after)))),
+               jax_health.flatten_health(jax.device_get(jax_health.health_metrics(
+                   jnp.float32(2.5), grads, after))), "health_metrics")
+    got = dynamics.flatten_dynamics(_fetch(dynamics.dynamics_metrics(t(grads), t(before),
+                                                                     t(after))))
+    want = jax_dynamics.flatten_dynamics(jax.device_get(jax_dynamics.dynamics_metrics(
+        grads, before, after)))
+    _same_flat(got, want, "dynamics_metrics")
+    assert got["first_nonfinite"] == "params/layers.1.ffn.w2", got["first_nonfinite"]
+
+    xs, ys = rng.integers(0, base.vocab_size, size=(2, 4, 4, 32))
+    hp = dict(warmup_iters=0, cosine_cycle_iters=10)
+    variants = [
+        ("plain", dict(), None),
+        ("plain", dict(loss_chunk_size=8, **KERNEL_KNOBS), None),
+        ("plain", dict(remat_policy="save_attn", **FUSED_KNOBS), None),
+        ("plain", dict(remat_policy="dots_saveable", num_kv_heads=2), None),
+        ("accum", dict(**KERNEL_KNOBS), 2),
+        ("scanned", dict(remat_policy="full", **KERNEL_KNOBS), 4),
+    ]
+    for kind, knobs, n in variants:
+        cfg = dataclasses.replace(base, **knobs)
+        jcfg = _jax_config(cfg)
+        jax_params = jax.tree_util.tree_map(jnp.asarray, host) if "num_kv_heads" not in knobs \
+            else jax_init_params(jax.random.PRNGKey(6), jcfg)
+        start = jax.device_get(jax_params)
+        x, y = xs[0], ys[0]
+        if kind == "plain":
+            j_step = jax_make_train_step(jcfg, JaxTrainHParams(**hp), health=True, dynamics=True)
+            step = make_train_step(cfg, TrainHParams(**hp), health=True, dynamics=True)
+        elif kind == "accum":
+            x, y = x.reshape(n, -1, 32), y.reshape(n, -1, 32)
+            j_step = jax_make_accum_step(jcfg, JaxTrainHParams(**hp), n, health=True,
+                                         dynamics=True)
+            step = make_grad_accum_train_step(cfg, TrainHParams(**hp), n, health=True,
+                                              dynamics=True)
+        else:
+            x, y = xs, ys
+            j_step = jax_make_scanned_step(jcfg, JaxTrainHParams(**hp), n, health=True,
+                                           dynamics=True)
+            step = make_scanned_train_step(cfg, TrainHParams(**hp), n, health=True,
+                                           dynamics=True)
+        j_params, _, j_m = j_step(jax_params, jax_adamw_init(jax_params), jnp.asarray(x),
+                                  jnp.asarray(y))
+        j_m = jax.device_get(j_m)
+        params = params_from_jax(start, device="cpu")
+        params, _, m = step(params, adamw_init(params), torch.as_tensor(x), torch.as_tensor(y))
+        m = _fetch(m)
+        what = f"{kind} {knobs}"
+        _close(m["loss"], float(j_m["loss"]), 1e-5, f"loss {what}")
+        _close(m["grad_norm"], float(j_m["grad_norm"]), 1e-5, f"grad norm {what}")
+        _same_flat(health.flatten_health(m["health"]),
+                   jax_health.flatten_health(j_m["health"]), f"health {what}")
+        flat = dynamics.flatten_dynamics(m["dynamics"])
+        _same_flat(flat, jax_dynamics.flatten_dynamics(j_m["dynamics"]), f"dynamics {what}")
+        assert any(k.startswith("attn_entropy/") for k in flat) == (kind != "accum"), what
+        for got_leaf, want in zip(tree_leaves(params),
+                                  tree_leaves(jax.tree_util.tree_map(np.asarray, j_params)),
+                                  strict=True):
+            _close(got_leaf.detach(), want, 1e-5, f"params {what}")
+
+    # A NaN in the input params: the same localization.
+    bad = jax.tree_util.tree_map(np.copy, host)
+    bad["layers"][0]["ffn"]["w1"][0, 0] = np.nan
+    j_step = jax_make_train_step(_jax_config(base), JaxTrainHParams(**hp), dynamics=True)
+    _, _, j_m = j_step(jax.tree_util.tree_map(jnp.asarray, bad),
+                       jax_adamw_init(jax.tree_util.tree_map(jnp.asarray, bad)),
+                       jnp.asarray(xs[0]), jnp.asarray(ys[0]))
+    params = params_from_jax(bad, device="cpu")
+    _, _, m = make_train_step(base, TrainHParams(**hp), dynamics=True)(
+        params, adamw_init(params), torch.as_tensor(xs[0]), torch.as_tensor(ys[0]))
+    got = dynamics.flatten_dynamics(_fetch(m)["dynamics"])
+    want = jax_dynamics.flatten_dynamics(jax.device_get(j_m["dynamics"]))
+    _same_flat(got, want, "dynamics on NaN params")
+    assert got["first_nonfinite"] == "params/layers.0.ffn.w1", got["first_nonfinite"]
+
+
+def _read_jsonl(path) -> list[dict]:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def _kind_keys(records: list[dict]) -> dict:
+    """Record kind (events and spans by name) -> the union of their keys."""
+    kinds: dict = {}
+    for r in records:
+        kind = r.get("kind") or ("step" if "loss" in r else "val")
+        if kind in ("event", "span"):
+            kind = f"{kind}:{r['name']}"
+        kinds.setdefault(kind, set()).update(r)
+    return kinds
+
+
+#: The tiny loop model and its byte-level token file (this file's bytes).
+LOOP_CFG = ModelConfig(vocab_size=256, context_length=32, d_model=64, num_layers=2, num_heads=4,
+                       d_ff=128)
+
+
+def _byte_tokens() -> np.ndarray:
+    return np.frombuffer(Path(__file__).read_bytes(), np.uint8).astype(np.uint16)
+
+
+def _loop_telemetry_and_faults(tmp_path):
+    """(h) The loop's telemetry and resilience against the JAX loop, both
+    resumed from one JAX-written step-0 checkpoint on a byte-level token
+    file: the stream with every tap (the same record kinds and, per kind,
+    the same keys, manifest aside; losses within 1e-4); one ``nan_at_step``
+    plan under the rollback, skip and raise policies and the rollback
+    breaker (the same events, steps, paths and errors, final losses within
+    1e-4, so the same salted batches); the config errors; retention and the
+    ``latest.ckpt`` symlink read by both packages' ``gc_checkpoints`` and
+    ``load_checkpoint_with_fallback``; then the port alone: prefetch 0 and
+    2, inner steps 4 and 1 (with a 2-step tail), async and sync checkpoints
+    give the same batches, losses and saved state."""
+    from bpe_transformer_tpu.resilience.faults import FaultInjector as JaxInjector
+    from bpe_transformer_tpu.resilience.faults import FaultPlan as JaxPlan
+    from bpe_transformer_tpu.resilience.retention import gc_checkpoints as jax_gc
+    from bpe_transformer_tpu.telemetry.watchdog import NonFiniteError as JaxNonFiniteError
+    from bpe_transformer_tpu_torch.data import BatchPrefetcher, get_batch
+    from bpe_transformer_tpu_torch.resilience.faults import FaultInjector, FaultPlan
+    from bpe_transformer_tpu_torch.resilience.retention import gc_checkpoints
+    from bpe_transformer_tpu_torch.telemetry.watchdog import NonFiniteError
+
+    cfg, jcfg, data = LOOP_CFG, _jax_config(LOOP_CFG), _byte_tokens()
+    jax_params = jax_init_params(jax.random.PRNGKey(9), jcfg)
+    init = tmp_path / "init.ckpt"
+    jax_save_checkpoint(init, params=jax_params, opt_state=jax_adamw_init(jax_params), iteration=0)
+    hp = dict(warmup_iters=2, cosine_cycle_iters=40)
+    quiet = lambda *a: None  # noqa: E731
+
+    def run_both(tag, plan=None, **kw):
+        out = {}
+        for pkg in ("jax", "port"):
+            d = tmp_path / f"{tag}_{pkg}"
+            lp = dict(steps=12, batch_size=4, log_every=2, eval_every=1000, checkpoint_every=4,
+                      checkpoint_dir=str(d / "ck"), metrics_jsonl=str(d / "m.jsonl"), seed=5)
+            lp.update(kw)
+            if pkg == "jax":
+                call = lambda: jax_train(  # noqa: E731
+                    jcfg, JaxTrainHParams(**hp), JaxLoopConfig(**lp), data, resume_from=init,
+                    log_fn=quiet, fault_injector=JaxInjector(JaxPlan(**(plan or {}))))
+            else:
+                call = lambda: train(  # noqa: E731
+                    cfg, TrainHParams(**hp), LoopConfig(**lp), data, resume_from=init,
+                    log_fn=quiet, device="cpu",
+                    fault_injector=FaultInjector(FaultPlan(**(plan or {}))))
+            try:
+                result = call()
+            except (NonFiniteError, JaxNonFiniteError) as exc:
+                result = f"NonFiniteError: {exc}"
+            out[pkg] = (result, _read_jsonl(d / "m.jsonl"), d / "ck")
+        return out
+
+    def steps_of(records):
+        return [(r["step"], r["loss"]) for r in records if r.get("kind") is None and "loss" in r]
+
+    def events(records):
+        return [(r.get("kind"), r.get("name"), r.get("step"), r.get("restored_step"),
+                 r.get("lost_steps"), r.get("fields"), r.get("policy"),
+                 r.get("path") or r.get("nonfinite_path"))
+                for r in records if r.get("kind") in ("event", "recovery", "preemption")]
+
+    cases = [
+        ("stream", None, dict(health_stats=True, dynamics_every=4, watchdog=True,
+                              keep_checkpoints=2, eval_every=4, eval_batches=2)),
+        ("rollback", dict(nan_at_step=5), dict(dynamics_every=2, health_stats=True,
+                                                watchdog=True, watchdog_policy="rollback")),
+        ("skip", dict(nan_at_step=5), dict(dynamics_every=2, watchdog=True,
+                                           watchdog_policy="skip")),
+        ("raise", dict(nan_at_step=5), dict(health_stats=True, watchdog=True)),
+        ("breaker", dict(nan_at_step=5), dict(watchdog=True, watchdog_policy="rollback",
+                                              max_rollbacks=0)),
+    ]
+    port_dirs = {}
+    for tag, plan, kw in cases:
+        val = dict(val_data=data) if "eval_every" in kw else {}
+        if val:  # both loops evaluate on the same token file
+            out = {}
+            for pkg, fn in (("jax", jax_train), ("port", train)):
+                d = tmp_path / f"{tag}_{pkg}"
+                lp = dict(steps=12, batch_size=4, log_every=2, checkpoint_every=4,
+                          checkpoint_dir=str(d / "ck"), metrics_jsonl=str(d / "m.jsonl"),
+                          seed=5, **kw)
+                extra = {} if pkg == "jax" else {"device": "cpu"}
+                out[pkg] = (fn(jcfg if pkg == "jax" else cfg,
+                               (JaxTrainHParams if pkg == "jax" else TrainHParams)(**hp),
+                               (JaxLoopConfig if pkg == "jax" else LoopConfig)(**lp), data,
+                               data, resume_from=init, log_fn=quiet, **extra),
+                            _read_jsonl(d / "m.jsonl"), d / "ck")
+        else:
+            out = run_both(tag, plan, **kw)
+        (want, want_recs, _), (got, got_recs, port_dirs[tag]) = out["jax"], out["port"]
+        want_kinds, got_kinds = _kind_keys(want_recs), _kind_keys(got_recs)
+        assert set(got_kinds) == set(want_kinds), (tag, set(got_kinds) ^ set(want_kinds))
+        for kind in want_kinds.keys() - {"manifest"}:
+            assert got_kinds[kind] == want_kinds[kind], (tag, kind,
+                                                         got_kinds[kind] ^ want_kinds[kind])
+        assert events(got_recs) == events(want_recs), (tag, events(got_recs))
+        g_steps, w_steps = steps_of(got_recs), steps_of(want_recs)
+        assert [s for s, _ in g_steps] == [s for s, _ in w_steps], tag
+        np.testing.assert_allclose([v for _, v in g_steps], [v for _, v in w_steps], rtol=0,
+                                   atol=1e-4, equal_nan=True, err_msg=tag)
+        if isinstance(want, str):
+            assert got == want, (tag, got, want)
+        else:
+            np.testing.assert_allclose(got["final_train_loss"], want["final_train_loss"],
+                                       atol=1e-4, equal_nan=True, err_msg=tag)
+            assert got.get("rollbacks") == want.get("rollbacks"), tag
+    assert events(got_recs)[-1][1] == "recovery_abort"
+
+    # Retention and the symlinked latest.ckpt, read by both packages.
+    ck = port_dirs["stream"]
+    assert (ck / "latest.ckpt").is_symlink()
+    assert sorted(p.name for p in ck.glob("step_*.ckpt")) == ["step_00000008.ckpt",
+                                                             "step_00000012.ckpt"]
+    assert os.readlink(ck / "latest.ckpt") == "step_00000012.ckpt"
+    for name, gc_fn, fallback in (("jax", jax_gc, jax_fallback),
+                                  ("port", gc_checkpoints, load_checkpoint_with_fallback)):
+        d = tmp_path / f"latest_{name}"
+        shutil.copytree(ck, d, symlinks=True)
+        assert [p.name for p in gc_fn(d, 1)] == ["step_00000008.ckpt"], name
+        payload, used = fallback(d / "latest.ckpt")
+        assert used.name == "latest.ckpt" and payload["iteration"] == 12, name
+        assert sorted(p.name for p in d.iterdir()) == [
+            "latest.ckpt", "latest.ckpt.crc32.json", "step_00000012.ckpt",
+            "step_00000012.ckpt.crc32.json", "summary.json"], name
+    # One seeded directory (an old latest target, a quarantined snapshot,
+    # stale crash debris): both packages' GC remove the same files.
+    seeded = tmp_path / "seeded"
+    for step in (2, 4, 6, 8):
+        save_checkpoint(seeded / f"step_{step:08d}.ckpt", params={"w": torch.ones(2)},
+                        iteration=step)
+    (seeded / "latest.ckpt").symlink_to("step_00000004.ckpt")
+    integrity.quarantine(seeded / "step_00000002.ckpt")
+    debris = seeded / "step_00000004.ckpt.tmpXYZ"
+    debris.write_bytes(b"partial")
+    os.utime(debris, (1e9, 1e9))
+    listings = []
+    for name, gc_fn in (("jax", jax_gc), ("port", gc_checkpoints)):
+        d = tmp_path / f"seeded_{name}"
+        shutil.copytree(seeded, d, symlinks=True)
+        removed = sorted(p.name for p in gc_fn(d, 1))
+        listings.append((removed, sorted(p.name for p in d.iterdir())))
+    assert listings[0] == listings[1], listings
+    assert "step_00000004.ckpt.tmpXYZ" in listings[0][0]
+
+    # The config errors of the JAX loop, then what other slices hold.
+    base = dict(steps=4, batch_size=4, log_every=2)
+    for kw in (dict(dynamics_every=-1), dict(dynamics_every=3), dict(attribution_every=-1),
+               dict(attribution_every=3), dict(prefetch=-1),
+               dict(watchdog=True, watchdog_policy="bogus"),
+               dict(watchdog=True, watchdog_policy="rollback"),
+               dict(watchdog=True, watchdog_policy="rollback", checkpoint_dir=str(tmp_path),
+                    checkpoint_every=3),
+               dict(inner_steps=4), dict(inner_steps=2, grad_accum_steps=2),
+               dict(grad_accum_steps=3)):
+        messages = []
+        for fn, loop_cls, c, extra in ((jax_train, JaxLoopConfig, jcfg, {}),
+                                       (train, LoopConfig, cfg, {"device": "cpu"})):
+            with pytest.raises(ValueError) as exc:
+                fn(c, TrainHParams() if fn is train else JaxTrainHParams(),
+                   loop_cls(**{**base, **kw}), data, log_fn=quiet, **extra)
+            messages.append(str(exc.value).split(" — ")[0])
+        assert messages[0] == messages[1], (kw, messages)
+    for kw in (dict(attribution_every=2), dict(parallel="dp"), dict(opt_sharding="zero1"),
+               dict(mesh_axes={"data": 1}), dict(sp_zigzag=True), dict(sp_ulysses=True)):
+        with pytest.raises(NotImplementedError, match="slice 1"):
+            train(cfg, TrainHParams(), LoopConfig(**{**base, **kw}), data, device="cpu")
+
+    # The port alone: prefetch, inner steps, async checkpoints.
+    made = lambda it: get_batch(data, 4, 32, np.random.default_rng((5, it)))  # noqa: E731
+    fetcher = BatchPrefetcher(made, depth=2)
+    for it in range(6):
+        for ahead in (1, 2):
+            fetcher.schedule(it + ahead)
+        for got_arr, want_arr in zip(fetcher.get(it), made(it)):
+            assert np.array_equal(got_arr, want_arr), it
+    fetcher.close()
+    runs = {}
+    for tag, kw in (("sync", dict(prefetch=0)), ("prefetch", dict(prefetch=2)),
+                    ("async", dict(prefetch=2, async_checkpoint=True)),
+                    ("inner1", dict(steps=10, log_every=4, checkpoint_every=4)),
+                    ("inner4", dict(steps=10, log_every=4, checkpoint_every=4, inner_steps=4))):
+        d = tmp_path / f"feed_{tag}"
+        runs[tag] = (train(cfg, TrainHParams(**hp),
+                           LoopConfig(**{**dict(steps=12, batch_size=4, log_every=2,
+                                                checkpoint_every=4, checkpoint_dir=str(d),
+                                                seed=5), **kw}),
+                           data, resume_from=init, log_fn=quiet, device="cpu"), d)
+    losses = {tag: [r["loss"] for r in run["history"]] for tag, (run, _) in runs.items()}
+    assert losses["prefetch"] == losses["sync"] == losses["async"], losses
+    assert [r["step"] for r in runs["inner4"][0]["history"]] == [4, 8, 10]
+    np.testing.assert_allclose(losses["inner4"], losses["inner1"], rtol=1e-5)
+    for step in (4, 8, 12):
+        a = load_checkpoint(runs["async"][1] / f"step_{step:08d}.ckpt")
+        b = load_checkpoint(runs["sync"][1] / f"step_{step:08d}.ckpt")
+        for x, y in zip(tree_leaves(a["params"]) + tree_leaves(a["opt_state"]),
+                        tree_leaves(b["params"]) + tree_leaves(b["opt_state"]), strict=True):
+            assert np.array_equal(np.asarray(x), np.asarray(y)), step
+
+
+def _preemption_and_supervisor(tmp_path):
+    """(i) The port's ``train`` CLI on the CPU in subprocesses (each under a
+    timeout): ``BT_FAULTS`` ``preempt_at_step`` 6 exits 75 with an
+    emergency snapshot at step 6, and ``--resume`` finishes with the losses
+    of an uninterrupted run; a NaN before the signal skips the emergency
+    save (the clean step-4 snapshot stays the resume target); ``--supervise``
+    respawns a child killed at step 6 and the run finishes with the same
+    losses."""
+    import subprocess
+    import sys
+
+    data = tmp_path / "tokens.bin"
+    _byte_tokens().tofile(data)
+    LOOP_CFG.to_json(tmp_path / "model.json")
+    common = ["--data", str(data), "--model-config", str(tmp_path / "model.json"), "--steps",
+              "12", "--batch-size", "4", "--log-every", "2", "--eval-every", "1000",
+              "--checkpoint-every", "4", "--warmup", "2", "--device", "cpu"]
+
+    def cli(*argv, faults=None):
+        env = {**os.environ, "BT_FAULTS": json.dumps(faults)} if faults else None
+        return subprocess.run(
+            [sys.executable, "-m", "bpe_transformer_tpu_torch.training.cli", "train", *common,
+             *argv], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+
+    ck = tmp_path / "ck"
+    proc = cli("--checkpoint-dir", str(ck), "--metrics-jsonl", str(tmp_path / "m.jsonl"),
+               faults={"preempt_at_step": 6})
+    assert proc.returncode == 75, proc.stderr[-3000:]
+    pre = [r for r in _read_jsonl(tmp_path / "m.jsonl") if r.get("kind") == "preemption"]
+    assert [(r["step"], Path(r["checkpoint"]).name) for r in pre] == [(6, "step_00000006.ckpt")]
+    assert os.readlink(ck / "latest.ckpt") == "step_00000006.ckpt"
+    assert integrity.verify_checkpoint(ck / "latest.ckpt").ok
+    proc = cli("--checkpoint-dir", str(ck), "--resume", str(ck))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    resumed = json.loads((ck / "summary.json").read_text())["history"]
+    want = train(LOOP_CFG, TrainHParams(max_learning_rate=3e-4, min_learning_rate=3e-5,
+                                        warmup_iters=2, cosine_cycle_iters=12),
+                 LoopConfig(steps=12, batch_size=4, log_every=2, eval_every=1000),
+                 np.fromfile(data, np.uint16), log_fn=lambda *a: None, device="cpu")["history"]
+    assert [r["step"] for r in resumed] == [8, 10, 12]
+    np.testing.assert_allclose([r["loss"] for r in resumed], [r["loss"] for r in want[3:]],
+                               rtol=1e-6)
+
+    ck = tmp_path / "ck_nan"
+    proc = cli("--checkpoint-dir", str(ck), "--log-every", "1000", "--metrics-jsonl",
+               str(tmp_path / "nan.jsonl"), faults={"nan_at_step": 5, "preempt_at_step": 6})
+    assert proc.returncode == 75, proc.stderr[-3000:]
+    pre = [r for r in _read_jsonl(tmp_path / "nan.jsonl") if r.get("kind") == "preemption"]
+    assert pre[0]["checkpoint"] is None and pre[0]["skipped_nonfinite_state"] is True
+    assert load_checkpoint(ck / "latest.ckpt")["iteration"] == 4
+
+    ck, once = tmp_path / "ck_sup", tmp_path / "once"
+    proc = cli("--checkpoint-dir", str(ck), "--supervise", "--max-restarts", "2",
+               "--restart-backoff", "0.1", faults={"kill_at_step": 6, "once_dir": str(once)})
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert (once / "kill.fired").exists() and "spawn #2" in proc.stdout
+    history = json.loads((ck / "summary.json").read_text())["history"]
+    assert [r["step"] for r in history] == [6, 8, 10, 12]
+    np.testing.assert_allclose([r["loss"] for r in history], [r["loss"] for r in want[2:]],
+                               rtol=1e-6)
+
+
 def test_torch_training_matches_jax(tmp_path):
     _pinned_trajectory()
     _one_step_grads()
@@ -424,3 +842,6 @@ def test_torch_training_matches_jax(tmp_path):
     _two_matrix_ffns(tmp_path)
     _resume_through_verification(tmp_path)
     _sp_step()
+    _taps_and_scan()
+    _loop_telemetry_and_faults(tmp_path)
+    _preemption_and_supervisor(tmp_path)
