@@ -21,8 +21,8 @@ weights.  It keeps none: the input params' non-finite counts are taken
 before the update, and ``adamw_update(..., delta_norms=...)`` hands back
 the norm of each leaf's delta, computed from the old and new values before
 the new ones are written (:func:`dynamics_from_parts`).  Norms are one
-multi-tensor reduction a tree and counts a few launches a tree
-(``telemetry/health.py``), not launches a leaf.
+multi-tensor reduction a tree; counts are a mask and a sum a leaf
+(``telemetry/health.py``), whose only temporary is one leaf's mask.
 :func:`dynamics_metrics` takes the two trees, as the JAX function does.
 
 Every value is a tensor on the step's device and rides the loop's
@@ -33,11 +33,9 @@ once-per-``log_every`` read: no extra host sync.  Host-side,
 
 from __future__ import annotations
 
-import itertools
-
 import torch
 
-from bpe_transformer_tpu_torch.telemetry.health import flat_values, grouped_norm, leaf_norms
+from bpe_transformer_tpu_torch.telemetry.health import grouped_norm, leaf_nonfinite, leaf_norms
 from bpe_transformer_tpu_torch.tree import path_str, tree_flatten_with_path, tree_leaves
 
 
@@ -70,14 +68,8 @@ def per_layer_norms(tree) -> dict:
 
 def per_tensor_nonfinite(tree) -> dict:
     """Non-finite element count of every leaf, keyed by dotted tensor path
-    (int32 0-d tensors): one running count over the flattened tree, read at
-    each leaf's end, so a few launches for the whole tree."""
-    leaves = tree_leaves(tree)
-    running = torch.cumsum(~torch.isfinite(flat_values(leaves)), 0)
-    zero = running.new_zeros(())
-    ends = itertools.accumulate(leaf.numel() for leaf in leaves)
-    upto = torch.stack([running[end - 1] if end else zero for end in ends])
-    counts = torch.diff(upto, prepend=zero.reshape(1)).to(torch.int32)
+    (int32 0-d tensors)."""
+    counts = leaf_nonfinite(tree_leaves(tree)).to(torch.int32)
     return {path: counts[i] for i, path in enumerate(tensor_paths(tree))}
 
 

@@ -3,8 +3,8 @@
 
 Every stat is a 0-d tensor on the step's device, appended to the step's
 ``metrics``: nothing here reads a value back, so an opt-in health-enabled
-step adds a few reductions per step on the card and no host sync; the
-values ride the loop's existing once-per-``log_every`` read.
+step adds reductions on the card and no host sync; the values ride the
+loop's existing once-per-``log_every`` read.
 
 - non-finite detection: a 0/1 flag for the loss plus element counts over the
   gradient and (post-update) parameter trees;
@@ -53,10 +53,11 @@ def grouped_norm(norms: list, index: list[int]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([norms[i] for i in index]))
 
 
-def flat_values(leaves) -> torch.Tensor:
-    """Every element of ``leaves`` in one 1-D tensor (one copy), so a count
-    over the tree is a few launches, not a few a leaf."""
-    return torch.cat([leaf.detach().reshape(-1) for leaf in leaves])
+def leaf_nonfinite(leaves) -> torch.Tensor:
+    """The non-finite element count of each tensor, stacked (int64): a mask
+    and a sum a leaf, so the only temporary is one leaf's bool mask, never
+    a copy of the tree."""
+    return torch.stack([torch.sum(~torch.isfinite(leaf.detach())) for leaf in leaves])
 
 
 def group_norms(tree) -> dict:
@@ -71,7 +72,7 @@ def group_norms(tree) -> dict:
 
 def nonfinite_count(tree) -> torch.Tensor:
     """Total count of non-finite elements over every leaf (int32 0-d)."""
-    return torch.sum(~torch.isfinite(flat_values(tree_leaves(tree)))).to(torch.int32)
+    return torch.sum(leaf_nonfinite(tree_leaves(tree))).to(torch.int32)
 
 
 def health_metrics(loss, grads, params) -> dict:

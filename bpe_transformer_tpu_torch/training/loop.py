@@ -8,7 +8,8 @@ rollback, of the rollback salt), as in the JAX loop, so a resumed run
 samples exactly the batches an uninterrupted run would, and the same seed
 gives the same batches in both packages.  The metrics are read back once
 per ``log_every`` steps: that read is the loop's only sync with the card
-between evals and checkpoints, and the health and dynamics taps ride it.
+between evals and checkpoints, and the health and dynamics taps ride it
+(they run on the updates that end on a log boundary only).
 
 What the loop wires, as the JAX loop does:
 
@@ -323,18 +324,24 @@ def train(
     health = loop.health_stats
     dynamics = loop.dynamics_every > 0
 
-    def build_step(n: int = stride):
-        """The step for ``n`` updates a call (a tail shorter than
-        ``inner_steps`` gets its own)."""
+    def build_steps(n: int = stride):
+        """``(plain, tapped)`` steps for ``n`` updates a call (a tail shorter
+        than ``inner_steps`` gets its own).  The tapped one runs only the
+        updates that end on a log boundary, the only ones whose health and
+        dynamics values are read: the records are those of a step tapped
+        every time, without the cost on the others."""
         if n > 1:
-            return make_scanned_train_step(model_config, hparams, n, health=health,
-                                           dynamics=dynamics)
-        if accum > 1:
-            return make_grad_accum_train_step(model_config, hparams, accum, health=health,
-                                              dynamics=dynamics)
-        return make_train_step(model_config, hparams, health=health, dynamics=dynamics)
+            make, args = make_scanned_train_step, (n,)
+        elif accum > 1:
+            make, args = make_grad_accum_train_step, (accum,)
+        else:
+            make, args = make_train_step, ()
+        plain = make(model_config, hparams, *args)
+        if not (health or dynamics):
+            return plain, plain
+        return plain, make(model_config, hparams, *args, health=health, dynamics=dynamics)
 
-    step_fn = build_step()
+    plain_step, tapped_step = build_steps()
     async_saver = (
         AsyncCheckpointer() if loop.async_checkpoint and loop.checkpoint_dir is not None else None
     )
@@ -411,24 +418,22 @@ def train(
         return np.random.default_rng((loop.seed, it))
 
     def make_host_batch(it: int):
-        """``(x, y, n, plain)`` for iteration ``it``, numpy only (the
-        prefetch worker runs it): ``n`` updates' batches (fewer than the
-        stride only on the tail), ``plain`` for a 1-update tail, which a
-        plain step takes unstacked."""
+        """``(x, y, n)`` for iteration ``it``, numpy only (the prefetch
+        worker runs it): ``n`` updates' batches, fewer than the stride only
+        on the tail (a 1-update tail unstacked, as a plain step takes it)."""
         injector.on_batch_read(it)
         if stride > 1:
             n = min(stride, loop.steps - it)
             batches = [get_batch(train_data, loop.batch_size, ctx, batch_rng(it + j))
                        for j in range(n)]
             if n == 1:
-                return batches[0][0], batches[0][1], n, True
-            return (np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches]),
-                    n, False)
+                return batches[0][0], batches[0][1], n
+            return np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches]), n
         x, y = get_batch(train_data, loop.batch_size, ctx, batch_rng(it))
         if accum > 1:  # (B, S) -> (accum, B / accum, S) microbatches
             x = x.reshape(accum, loop.batch_size // accum, -1)
             y = y.reshape(accum, loop.batch_size // accum, -1)
-        return x, y, 1, False
+        return x, y, 1
 
     prefetcher = BatchPrefetcher(make_host_batch, depth=loop.prefetch)
 
@@ -478,11 +483,13 @@ def train(
             if stop.triggered:
                 preempted = stop.signame or "signal"
                 break
-            hx, hy, n, plain = prefetcher.get(iteration)
+            hx, hy, n = prefetcher.get(iteration)
             if stride > 1 and n != stride:
-                # The tail, shorter than the stride, gets its own step.
-                step_fn = build_step(n)
+                # The tail, shorter than the stride, gets its own steps.
+                plain_step, tapped_step = build_steps(n)
                 first_dispatch = True
+            on_log = (iteration + n) % loop.log_every == 0 or iteration + n == loop.steps
+            step_fn = tapped_step if on_log else plain_step
             for ahead in range(1, loop.prefetch + 1):
                 if iteration + ahead * n < loop.steps:
                     prefetcher.schedule(iteration + ahead * n)

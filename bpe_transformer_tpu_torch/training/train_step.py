@@ -74,28 +74,16 @@ def make_loss_fn(config: ModelConfig, with_stats: bool = False) -> Callable:
         raise NotImplementedError(
             'ffn_type="moe" is not ported yet: it comes with the multi-GPU training slice'
         )
-    if with_stats:
+    hidden_fn = forward_hidden_stats if with_stats else forward_hidden
 
-        def stats_loss_fn(params, x, y):
-            hidden, _, act_stats = forward_hidden_stats(params, x, config)
-            head_w = lm_head_weight(params, config)
-            if config.loss_chunk:
-                loss = lm_loss(hidden, head_w, y, config.loss_chunk)
-            else:
-                loss = cross_entropy(head_logits(hidden, head_w), y)
-            return loss, act_stats
-
-        return stats_loss_fn
-    if config.loss_chunk:
-
-        def loss_fn(params, x, y):
-            hidden, _ = forward_hidden(params, x, config)
-            return lm_loss(hidden, lm_head_weight(params, config), y, config.loss_chunk)
-
-    else:
-
-        def loss_fn(params, x, y):
-            return cross_entropy(forward(params, x, config), y)
+    def loss_fn(params, x, y):
+        hidden, _, *act_stats = hidden_fn(params, x, config)
+        head_w = lm_head_weight(params, config)
+        if config.loss_chunk:
+            loss = lm_loss(hidden, head_w, y, config.loss_chunk)
+        else:
+            loss = cross_entropy(head_logits(hidden, head_w), y)
+        return (loss, act_stats[0]) if with_stats else loss
 
     return loss_fn
 
@@ -278,42 +266,6 @@ def make_grad_accum_train_step(
     return grad_accum_step_fn(config, hparams, accum_steps, health=health, dynamics=dynamics)
 
 
-def scanned_step_fn(
-    config: ModelConfig,
-    hparams: TrainHParams,
-    inner_steps: int,
-    reduce_axis: str | None = None,
-    body: Callable | None = None,
-    health: bool = False,
-    dynamics: bool = False,
-    zero1_shards: int | None = None,
-) -> Callable:
-    """``inner_steps`` optimizer updates a call: ``(params, opt_state, xs,
-    ys) -> (params, opt_state, metrics)`` with a leading ``(inner_steps,)``
-    dim on ``xs``/``ys``; ``metrics`` are the last update's, as the JAX
-    package's ``lax.scan`` returns them.  The updates are dispatched back to
-    back with no host sync between them.  ``body`` replaces the default
-    single-update body."""
-    if inner_steps < 1:
-        raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
-    if body is None:
-        body = train_step_fn(config, hparams, reduce_axis, health=health, dynamics=dynamics,
-                             zero1_shards=zero1_shards)
-
-    def multi(params, opt_state: AdamWState, xs, ys):
-        if xs.shape[0] != inner_steps or ys.shape[0] != inner_steps:
-            raise ValueError(
-                f"scanned step wants (inner_steps={inner_steps}, batch, seq) token ids, "
-                f"got xs {tuple(xs.shape)}"
-            )
-        metrics = None
-        for i in range(inner_steps):
-            params, opt_state, metrics = body(params, opt_state, xs[i], ys[i])
-        return params, opt_state, metrics
-
-    return multi
-
-
 def make_scanned_train_step(
     config: ModelConfig,
     hparams: TrainHParams,
@@ -321,8 +273,28 @@ def make_scanned_train_step(
     health: bool = False,
     dynamics: bool = False,
 ) -> Callable:
-    """The single-device scanned step (:func:`scanned_step_fn`)."""
-    return scanned_step_fn(config, hparams, inner_steps, health=health, dynamics=dynamics)
+    """``inner_steps`` optimizer updates a call: ``(params, opt_state, xs,
+    ys) -> (params, opt_state, metrics)`` with a leading ``(inner_steps,)``
+    dim on ``xs``/``ys``; ``metrics`` are the last update's, as the JAX
+    package's ``lax.scan`` returns them.  The updates are dispatched back to
+    back with no host sync between them, and only the last one runs the
+    taps: the others' values would be thrown away."""
+    if inner_steps < 1:
+        raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
+    plain = train_step_fn(config, hparams)
+    last = train_step_fn(config, hparams, health=health, dynamics=dynamics)
+
+    def multi(params, opt_state: AdamWState, xs, ys):
+        if xs.shape[0] != inner_steps or ys.shape[0] != inner_steps:
+            raise ValueError(
+                f"scanned step wants (inner_steps={inner_steps}, batch, seq) token ids, "
+                f"got xs {tuple(xs.shape)}"
+            )
+        for i in range(inner_steps - 1):
+            params, opt_state, _ = plain(params, opt_state, xs[i], ys[i])
+        return last(params, opt_state, xs[-1], ys[-1])
+
+    return multi
 
 
 def make_eval_step(config: ModelConfig) -> Callable:

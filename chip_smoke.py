@@ -166,7 +166,8 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    ``verify-checkpoint``, ``report --trace`` and ``monitor --once``; (b)
    ``torch.cuda.set_sync_debug_mode`` counts of the plain, health and
    dynamics steps and of the loop with prefetch 0 and 2 (no tap may add a
-   sync), and each step's device time from ``torch.profiler``; (c)
+   sync), and each step's device time from ``torch.profiler`` and peak
+   device memory; (c)
    ``nan_at_step`` 5 under the rollback policy (the event localised to a
    tensor at step 6, the rollback to step 4, a finite end), and ``raise`` in a
    subprocess (a non-zero exit, the dump in the stream); (d) ``train`` as a
@@ -4187,7 +4188,7 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     steps_fn = {"plain": make_train_step(cfg, hparams),
                 "health": make_train_step(cfg, hparams, health=True),
                 "dynamics": make_train_step(cfg, hparams, dynamics=True)}
-    syncs, where, device_us = {}, {}, {}
+    syncs, where, device_us, peak_gb = {}, {}, {}, {}
     for fn in steps_fn.values():  # the first call of each variant, before any count
         fn(params, opt_state, x, y)
     if on_card:
@@ -4201,6 +4202,12 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
             device_us[name] = profile_step(torch, f"15b {name} GPT2_SMALL_32K",
                                            lambda fn=fn: fn(params, opt_state, x, y),
                                            n_top=3)["device_us"]
+            # Peak device memory of one step, the state included.
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn(params, opt_state, x, y)
+            torch.cuda.synchronize()
+            peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
     del params, opt_state, steps_fn
     if on_card:
         for depth in (0, 2):
@@ -4216,10 +4223,12 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
         require(all(v == 0 for v in added.values()), f"15b: a tap adds syncs: {added}")
         extra = {k: (None if device_us[k] is None or device_us['plain'] is None
                      else device_us[k] - device_us["plain"]) for k in ("health", "dynamics")}
-        log(f"15b device us a step: {device_us}; added by the taps {extra} on {smi} "
+        log(f"15b device us a step: {device_us}; added by the taps {extra}; peak device GB "
+            f"a step {peak_gb}, added by the taps "
+            f"{ {k: peak_gb[k] - peak_gb['plain'] for k in ('health', 'dynamics')} } on {smi} "
             f"({time.perf_counter() - t0:.1f} s)")
         out["b"] = {"syncs": syncs, "added_syncs": added, "raised_at": where,
-                    "device_us": device_us}
+                    "device_us": device_us, "peak_gb": peak_gb}
 
     # (c) NaN rollback in-process (sync checkpoints), then `raise` as a process.
     t0 = time.perf_counter()

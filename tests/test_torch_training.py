@@ -254,12 +254,17 @@ def _resume_through_verification(tmp_path):
     package's ``load_checkpoint_with_fallback`` on copies of one directory
     quarantine the same file under the same name and load the same
     snapshot; a fallback never moves past the requested step; a snapshot
-    whose bytes verify but whose load raises re-raises and stays."""
+    whose bytes verify but whose load raises re-raises and stays.  Then the
+    port's own layout, ``latest.ckpt`` a symlink: the flipped bit in the
+    snapshot it links to is quarantined alike by both packages, and the
+    next save repoints both links."""
     data = np.random.default_rng(0).integers(0, 10_000, 4096).astype(np.uint16)
     src = tmp_path / "c1"
-    train(TS_TEST_CONFIG, TrainHParams(),
-          LoopConfig(steps=4, batch_size=4, checkpoint_every=2, seed=0,
-                     checkpoint_dir=str(src)), data, log_fn=lambda *a: None, device="cpu")
+    loop = dict(steps=4, batch_size=4, checkpoint_every=2, seed=0)
+    train(TS_TEST_CONFIG, TrainHParams(), LoopConfig(**loop, checkpoint_dir=str(src)), data,
+          log_fn=lambda *a: None, device="cpu")
+    linked = tmp_path / "c1_linked"
+    shutil.copytree(src, linked, symlinks=True)
     # The port links latest.ckpt to the newest snapshot; the JAX package's
     # dense loop writes it as a byte copy.  Lay the directory out as the
     # JAX package does, so the flipped bit lands in latest.ckpt alone.
@@ -267,11 +272,15 @@ def _resume_through_verification(tmp_path):
         target = (src / name).resolve()
         (src / name).unlink()
         shutil.copyfile(target, src / name)
-    emb = load_checkpoint(src / "latest.ckpt")["params"]["token_embeddings"]
-    raw = bytearray((src / "latest.ckpt").read_bytes())
-    at = raw.find(emb.tobytes()[:256]) + 4 * 1000  # the low byte of element 1000
-    raw[at] ^= 0x40
-    (src / "latest.ckpt").write_bytes(bytes(raw))
+
+    def flip_bit(path):
+        emb = load_checkpoint(path)["params"]["token_embeddings"]
+        raw = bytearray(path.read_bytes())
+        at = raw.find(emb.tobytes()[:256]) + 4 * 1000  # the low byte of element 1000
+        raw[at] ^= 0x40
+        path.write_bytes(bytes(raw))
+
+    flip_bit(src / "latest.ckpt")
     for name in ("latest.ckpt", "step_00000004.ckpt"):
         got, want = integrity.verify_checkpoint(src / name), jax_integrity.verify_checkpoint(
             src / name)
@@ -326,6 +335,36 @@ def _resume_through_verification(tmp_path):
         with pytest.raises(RuntimeError, match="cannot place step_00000004.ckpt"):
             fallback(src / "step_00000004.ckpt", loader=failing_loader)
     assert "step_00000004.ckpt" in listing(src)
+
+    # The port's layout: the bit flipped in the snapshot latest.ckpt links to.
+    assert os.readlink(linked / "latest.ckpt") == "step_00000004.ckpt"
+    flip_bit(linked / "step_00000004.ckpt")
+    outcomes = []
+    for name, fallback in (("jax", jax_fallback), ("port", load_checkpoint_with_fallback)):
+        d = tmp_path / f"c1_linked_{name}"
+        shutil.copytree(linked, d, symlinks=True)
+        payload, used = fallback(d / "latest.ckpt")
+        outcomes.append((used.name, payload["iteration"], listing(d)))
+    assert outcomes[0] == outcomes[1], outcomes
+    assert outcomes[1][:2] == ("step_00000002.ckpt", 2), outcomes[1]
+    # The link goes, its target is quarantined with its sidecar, and the
+    # sidecar's link is left dangling.
+    assert outcomes[1][2] == [
+        "latest.ckpt.crc32.json", "step_00000002.ckpt", "step_00000002.ckpt.crc32.json",
+        "step_00000004.ckpt.corrupt", "step_00000004.ckpt.corrupt.crc32.json", "summary.json"]
+    assert not (d / "latest.ckpt.crc32.json").exists()
+    # The next save, after a resume through the fallback, repoints both links.
+    logs = []
+    train(TS_TEST_CONFIG, TrainHParams(), LoopConfig(**loop, checkpoint_dir=str(d)), data,
+          resume_from=d, log_fn=logs.append, device="cpu")
+    assert logs[0] == f"resumed from {d / 'step_00000002.ckpt'} at iteration 2", logs
+    assert os.readlink(d / "latest.ckpt") == "step_00000004.ckpt"
+    assert os.readlink(d / "latest.ckpt.crc32.json") == "step_00000004.ckpt.crc32.json"
+    assert integrity.verify_checkpoint(d / "latest.ckpt").ok
+    assert jax_integrity.verify_checkpoint(d / "latest.ckpt").ok
+    for fallback in (jax_fallback, load_checkpoint_with_fallback):
+        payload, used = fallback(d / "latest.ckpt")
+        assert (used.name, payload["iteration"]) == ("latest.ckpt", 4)
 
 
 def _sp_step():
@@ -628,6 +667,12 @@ def _loop_telemetry_and_faults(tmp_path):
     def steps_of(records):
         return [(r["step"], r["loss"]) for r in records if r.get("kind") is None and "loss" in r]
 
+    def tap_records(records):
+        """Per step and dynamics record, its health and dynamics values."""
+        return [{k: v for k, v in r.items() if "/" in k or k.startswith("nonfinite")}
+                for r in records if r.get("kind") == "dynamics"
+                or (r.get("kind") is None and "loss" in r)]
+
     def events(records):
         return [(r.get("kind"), r.get("name"), r.get("step"), r.get("restored_step"),
                  r.get("lost_steps"), r.get("fields"), r.get("policy"),
@@ -674,6 +719,14 @@ def _loop_telemetry_and_faults(tmp_path):
         assert [s for s, _ in g_steps] == [s for s, _ in w_steps], tag
         np.testing.assert_allclose([v for _, v in g_steps], [v for _, v in w_steps], rtol=0,
                                    atol=1e-4, equal_nan=True, err_msg=tag)
+        if tag == "stream":
+            # The taps' values too: the port taps only the updates that end
+            # on a log boundary, the JAX step every update.
+            for got_r, want_r in zip(tap_records(got_recs), tap_records(want_recs),
+                                     strict=True):
+                assert got_r.keys() == want_r.keys(), (got_r.keys() ^ want_r.keys())
+                for key, want_v in want_r.items():
+                    _close(got_r[key], want_v, 1e-4, f"{tag} {key}")
         if isinstance(want, str):
             assert got == want, (tag, got, want)
         else:
