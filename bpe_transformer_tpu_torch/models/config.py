@@ -111,10 +111,10 @@ class ModelConfig:
     flash_block_size: int = 256  # q/k tile size for the flash kernel
     #: attention_impl="flash_fused" auto-falls-back to the plain flash
     #: kernel (RoPE outside) below this sequence length: the in-kernel RoPE
-    #: rematerialization only pays off once the sequence is long enough
-    #: (round-2 v5e measurements: plain wins at 1k — 2.168 vs 2.330 ms —
-    #: fused wins at 4k — 2.468 vs 5.256 ms; benchmarks/RESULTS.md).
-    #: Set to 0 to force the fused kernel at every length.
+    #: rematerialization only pays off once the sequence is long enough.
+    #: The default is the JAX package's value, chosen on a TPU; it is kept as
+    #: part of the config's definition and is not a crossover measured on
+    #: the card.  Set to 0 to force the fused kernel at every length.
     flash_fused_min_seq: int = 2048
     # Sequence-chunked LM loss: cap peak logits memory at
     # O(batch * chunk * vocab) instead of O(batch * seq * vocab).
@@ -286,8 +286,8 @@ GPT2_SMALL_32K = ModelConfig(
 )
 
 #: Sparse counterpart of TINYSTORIES_12L: 8-expert top-2 MoE FFNs with the
-#: same d_model/attention; train with an ep strategy (dp_ep/fsdp_ep) so the
-#: expert stacks shard over the expert mesh axis.
+#: same d_model/attention.  The JAX package also trains it with the expert
+#: stacks sharded over an expert mesh axis; the port trains it on one card.
 TINYSTORIES_MOE = ModelConfig(
     vocab_size=10_000,
     context_length=512,
@@ -300,10 +300,11 @@ TINYSTORIES_MOE = ModelConfig(
     n_experts=8,
     router_top_k=2,
     capacity_factor=1.25,
-    # Chip-confirmed 2026-08-02 (TPU v5 lite0, bench.py --config
-    # tinystories-moe): gather 118,025 tok/s / MFU 26.7% vs einsum 69,896 /
-    # 15.8% — the dense dispatch/combine einsums cost more than the expert
-    # FFN itself at this shape.  Identical routing; einsum stays selectable.
+    # The JAX package chose "gather" on a TPU, where the dense dispatch and
+    # combine einsums cost more than the expert FFN itself at this shape.  It
+    # stays as the model's definition; chip_smoke.py phase 16 times both
+    # dispatches on the card (PERF.md).  Identical routing; einsum stays
+    # selectable.
     moe_dispatch="gather",
 )
 

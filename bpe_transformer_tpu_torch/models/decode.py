@@ -18,7 +18,8 @@ prefill, ``ffn_impl="pallas"`` the fused SwiGLU kernel in every FFN (a
 ``decode_attention_impl`` "pallas"/"paged" the flash-decoding kernel in
 every step (the dense cache has no block table, so "paged" means "pallas"
 here, as in the JAX package).  int8 quantized weights send every linear and
-the head to the int8 matmul kernel.
+the head to the int8 matmul kernel.  An MoE FFN routes each call's tokens
+with the capacity of :func:`_ffn_decode`, so a decode step drops no token.
 
 The paged twins (:func:`init_kv_pool`, :func:`paged_decode_step`,
 :func:`paged_chunk_prefill`, and the speculative verify pass
@@ -37,13 +38,15 @@ package runs no kernel there either).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
+from bpe_transformer_tpu_torch.models.moe import expert_capacity
 from bpe_transformer_tpu_torch.models.transformer import (
     Params,
-    _check_dense,
     _ffn,
     _maybe_norm,
     lm_head_weight,
@@ -90,17 +93,39 @@ def _rope_qk(q, k, positions, config: ModelConfig):
     return apply_rope(q, pos, cos, sin), apply_rope(k, pos, cos, sin)
 
 
+def _ffn_decode(x, ffn, config: ModelConfig):
+    """The training forward's FFN with the aux loss discarded.
+
+    An MoE FFN gets the capacity the full forward at ``context_length``
+    would use, ``expert_capacity(batch * context_length)``, floored at the
+    batch (a one-token step of many experts over a tiny context) and clamped
+    to this call's token count (a token fills at most one slot per expert,
+    so that many slots drop nothing).  A per-call default (``batch`` tokens
+    at a decode step, the prompt at prefill) would drop tokens the full
+    forward keeps.  With this one a decode step never drops, and a prefill
+    or chunk of more tokens than the capacity drops only what a full
+    forward's capacity would.
+    """
+    moe_capacity = None
+    if config.ffn_type == "moe":
+        full_forward_cap = expert_capacity(
+            x.shape[0] * config.context_length, config.n_experts, config.capacity_factor
+        )
+        moe_capacity = min(math.prod(x.shape[:-1]), max(full_forward_cap, x.shape[0]))
+    return _ffn(x, ffn, config, moe_capacity=moe_capacity)[0]
+
+
 def _block_apply(x, block_params, config: ModelConfig, attend):
     """One block around ``attend(h)``: pre-norm by default, post-norm under
     the ``use_post_norm`` ablation."""
     if config.use_post_norm:
         x = _maybe_norm(x + attend(x), block_params["ln1"], config)
-        f = _ffn(x, block_params["ffn"], config)
+        f = _ffn_decode(x, block_params["ffn"], config)
         return _maybe_norm(x + f, block_params["ln2"], config)
     h = _maybe_norm(x, block_params["ln1"], config)
     x = x + attend(h)
     h = _maybe_norm(x, block_params["ln2"], config)
-    return x + _ffn(h, block_params["ffn"], config)
+    return x + _ffn_decode(h, block_params["ffn"], config)
 
 
 def _project_qkv(h, attn, config: ModelConfig):
@@ -132,7 +157,6 @@ def prefill(
     ``(batch, vocab)`` of the last position, or of position ``last_pos[b]``
     per sequence (the serving engine pads prompts to a bucket; causal
     masking keeps positions ``<= last_pos`` clear of the padding)."""
-    _check_dense(config)
     batch, plen = token_ids.shape
     positions = torch.arange(plen, device=token_ids.device)
     x = embedding(params["token_embeddings"], token_ids)
@@ -201,7 +225,6 @@ def decode_step(
     ``return_hidden=True`` skips the head projection and returns the
     final-norm hidden state ``(batch, d_model)`` instead: the fused
     head + sample kernel (``kernels/sample.py``) projects it itself."""
-    _check_dense(config)
     batch = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).reshape(-1).expand(batch)
     positions = pos_b[:, None]  # (B, 1)
@@ -340,7 +363,6 @@ def paged_decode_step(
     then attention per ``config.decode_attention_impl`` (module
     docstring).  Writes the pool in place and returns float32 logits
     ``(slots, vocab)``."""
-    _check_dense(config)
     x = embedding(params["token_embeddings"], token[:, None])  # (S, 1, d)
     positions = pos[:, None]
     offsets = pos % block_size
@@ -431,7 +453,6 @@ def paged_chunk_prefill(
     it, then the rows quantize against it.  Returns float32 logits ``(1,
     vocab)`` at the chunk's last real position (the pool is written in
     place)."""
-    _check_dense(config)
     start, chunk_len = int(start), int(chunk_len)
     cb = chunk_tokens.shape[1]
     ctx = config.context_length
@@ -538,7 +559,6 @@ def paged_verify_step(
     quantizer's scale reset would corrupt.  Readers then see each block's
     final scale, so int8 verify logits match K+1 plain ticks within the
     quantization error, not bit for bit (act width is exact)."""
-    _check_dense(config)
     s, k1 = tokens.shape
     ctx = config.context_length
     nb = tables.shape[1]

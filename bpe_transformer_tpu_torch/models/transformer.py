@@ -18,9 +18,11 @@ graduated ``remat_policy`` through ``torch.utils.checkpoint``.
 ``attention_impl`` selects the materialized attention (``"xla"``), the flash
 kernels (``"flash"``) or RoPE inside the flash kernel (``"flash_fused"``,
 from ``flash_fused_min_seq`` up); ``ffn_impl="pallas"`` the fused SwiGLU
-kernel.  The dense FFNs are ported: SwiGLU and the two-matrix ``silu`` and
-``gelu`` FFNs (the GeLU kernel runs in every ``gelu`` FFN); MoE belongs to
-the multi-GPU slice.
+kernel.  Every FFN kind is ported: SwiGLU, the two-matrix ``silu`` and
+``gelu`` FFNs (the GeLU kernel runs in every ``gelu`` FFN) and the routed
+experts of ``ffn_type="moe"`` (``models/moe.py``), whose layers hold
+``{"router": (e, d), "w1": (e, ff, d), "w2": (e, d, ff), "w3": (e, ff, d)}``
+and whose load-balance losses the blocks sum into the aux loss.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from torch.utils.checkpoint import (
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
+from bpe_transformer_tpu_torch.models.moe import init_moe_params, switch_ffn
 from bpe_transformer_tpu_torch.ops.core import (
     attention_entropy,
     causal_mask,
@@ -65,7 +68,8 @@ def init_params(
     truncated normal (std 0.02, cut at 3 std) projections, unit norms.
     Every dense FFN kind gets ``w1``, ``w2`` and ``w3``: the JAX package
     builds ``w3`` for the two-matrix ``silu``/``gelu`` FFNs too, which never
-    read it.
+    read it.  An MoE layer gets the router and the stacked experts of
+    :func:`models.moe.init_moe_params`.
 
     Draws come from ``generator`` on the generator's own device and are then
     moved to ``device`` (a seed gives the same weights whatever the target).
@@ -73,7 +77,6 @@ def init_params(
     weights across with :func:`params_from_jax` instead.
     """
     dev = resolve_device(device)
-    _check_dense(config)
     gen_dev = generator.device
 
     def dense(d_out, d_in, std=0.02):
@@ -90,19 +93,17 @@ def init_params(
     head = dense(v, d)
     layers = []
     for _ in range(config.num_layers):
-        layers.append(
-            {
-                "attn": {
-                    "q_proj": dense(d, d),
-                    "k_proj": dense(d_kv, d),
-                    "v_proj": dense(d_kv, d),
-                    "output_proj": dense(d, d),
-                },
-                "ln1": ones(d),
-                "ln2": ones(d),
-                "ffn": {"w1": dense(ff, d), "w2": dense(d, ff), "w3": dense(ff, d)},
-            }
-        )
+        attn = {
+            "q_proj": dense(d, d),
+            "k_proj": dense(d_kv, d),
+            "v_proj": dense(d_kv, d),
+            "output_proj": dense(d, d),
+        }
+        if config.ffn_type == "moe":
+            ffn = init_moe_params(config, generator, dev, dtype)
+        else:
+            ffn = {"w1": dense(ff, d), "w2": dense(d, ff), "w3": dense(ff, d)}
+        layers.append({"attn": attn, "ln1": ones(d), "ln2": ones(d), "ffn": ffn})
     params = {"token_embeddings": embed, "layers": layers, "ln_final": ones(d)}
     if not config.tie_embeddings:
         params["lm_head"] = head
@@ -116,16 +117,13 @@ def lm_head_weight(params: Params, config: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
-def _check_dense(config: ModelConfig) -> None:
-    if config.ffn_type == "moe":
-        raise NotImplementedError(
-            'ffn_type="moe" is not ported yet: it comes with the multi-GPU training '
-            "slice (expert parallelism)"
-        )
-
-
-def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig) -> torch.Tensor:
-    """FFN dispatch, the JAX package's ``_ffn`` for the dense kinds:
+def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig,
+         moe_capacity: int | None = None, moe_groups: int = 1):
+    """FFN dispatch, the JAX package's ``_ffn``; returns ``(output,
+    aux_loss)``.  The aux is MoE's load-balance loss and ``None`` for the
+    dense kinds, where the JAX package returns 0: the training blocks make
+    that 0 themselves, so the decode path, which drops the aux, launches no
+    fill for it:
 
     * SwiGLU (``ffn_type`` None or ``"swiglu"``): ``ffn_impl="pallas"`` runs
       the fused kernel (``kernels/swiglu.py``), anything else the plain
@@ -137,23 +135,31 @@ def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig) -> torch.Tensor
       (``kernels/gelu.py``) whatever ``ffn_impl`` says, as the JAX branch
       always calls its Pallas kernel.
 
+    * ``"moe"``: :func:`models.moe.switch_ffn`, plain (its expert products
+      are batched matmuls, as the JAX package's are einsums outside any
+      kernel; ``ffn_impl`` does not apply).  ``moe_capacity`` overrides the
+      per-call expert capacity (the decode path's), ``moe_groups`` routes
+      that many equal slices of the tokens as separate dispatch groups (the
+      stacked sequence-parallel ring's ranks).
+
     The two-matrix kinds leave ``w3`` unread; it stays in the tree, as in
     the JAX package's."""
-    _check_dense(config)
+    if config.ffn_type == "moe":
+        return switch_ffn(x, ffn_params, config, capacity=moe_capacity, groups=moe_groups)
     w1, w2 = ffn_params["w1"], ffn_params["w2"]
     if config.ffn_type in (None, "swiglu"):
         w3 = ffn_params["w3"]
         if config.ffn_impl == "pallas" and not isinstance(w1, dict):
             from bpe_transformer_tpu_torch.kernels.swiglu import swiglu_fused
 
-            return swiglu_fused(x, w1, w2, w3)
-        return swiglu(x, w1, w2, w3)
+            return swiglu_fused(x, w1, w2, w3), None
+        return swiglu(x, w1, w2, w3), None
     if config.ffn_type == "silu":
-        return linear(silu(linear(x, w1)), w2)
+        return linear(silu(linear(x, w1)), w2), None
     if config.ffn_type == "gelu":
         from bpe_transformer_tpu_torch.kernels.gelu import gelu
 
-        return linear(gelu(linear(x, w1)), w2)
+        return linear(gelu(linear(x, w1)), w2), None
     raise ValueError(f"unknown ffn_type: {config.ffn_type!r}")
 
 
@@ -301,27 +307,34 @@ def _attn_half(x, block_params: dict, config: ModelConfig, rope_cos_sin, positio
     return x + attn_out
 
 
-def _ffn_half(x, block_params: dict, config: ModelConfig):
+def _ffn_half(x, block_params: dict, config: ModelConfig, moe_groups: int = 1):
     """The residual FFN half of one block; returns ``(x, aux_loss)``."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if config.use_post_norm:
-        f = _ffn(x, block_params["ffn"], config)
-        return _maybe_norm(x + f, block_params["ln2"], config), aux
-    h = _maybe_norm(x, block_params["ln2"], config)
-    return x + _ffn(h, block_params["ffn"], config), aux
+        f, aux = _ffn(x, block_params["ffn"], config, moe_groups=moe_groups)
+        x = _maybe_norm(x + f, block_params["ln2"], config)
+    else:
+        f, aux = _ffn(_maybe_norm(x, block_params["ln2"], config), block_params["ffn"], config,
+                      moe_groups=moe_groups)
+        x = x + f
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def transformer_block_aux(x, block_params: dict, config: ModelConfig, rope_cos_sin,
-                          positions, attention_fn=None, entropy_tap: dict | None = None):
-    """One block; returns ``(x, aux_loss)`` (aux is 0: dense FFNs only).
-    ``entropy_tap``: see :func:`_attention`."""
+                          positions, attention_fn=None, entropy_tap: dict | None = None,
+                          moe_groups: int = 1):
+    """One block; returns ``(x, aux_loss)`` (aux nonzero only for MoE FFNs).
+    ``entropy_tap``: see :func:`_attention`; ``moe_groups``: see
+    :func:`_ffn`."""
     x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
                    entropy_tap)
-    return _ffn_half(x, block_params, config)
+    return _ffn_half(x, block_params, config, moe_groups)
 
 
 def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,
-                     positions, attention_fn=None, entropy_tap: dict | None = None):
+                     positions, attention_fn=None, entropy_tap: dict | None = None,
+                     moe_groups: int = 1):
     """One block under ``remat_policy="save_attn"``: the attention half runs
     outside any checkpoint, so the flash autograd Function keeps its
     residuals (q/k/v, output, lse) and the attention forward runs once; the
@@ -329,7 +342,7 @@ def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,
     intermediates dropped and recomputed on the backward."""
     x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
                    entropy_tap)
-    return checkpoint(_ffn_half, x, block_params, config, use_reentrant=False)
+    return checkpoint(_ffn_half, x, block_params, config, moe_groups, use_reentrant=False)
 
 
 #: Operators whose outputs ``remat_policy="dots_saveable"`` keeps (the
@@ -377,7 +390,6 @@ def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConf
     master weights to ``activation_dtype`` (a differentiable ``.to``, so
     gradients reach the float32 masters), the embedding lookup and the RoPE
     tables.  Returns ``(x, compute_params, rope_cos_sin, positions)``."""
-    _check_dense(config)
     seq_len = token_ids.shape[-1]
     if seq_len > config.context_length:
         raise ValueError(
@@ -403,7 +415,7 @@ def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConf
 
 
 def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, positions,
-                attention_fn, per_layer: list | None = None):
+                attention_fn, per_layer: list | None = None, moe_groups: int = 1):
     """The blocks under the remat policy, then the final norm; returns
     ``(hidden, aux_total)``.  ``per_layer``, a list, receives each block's
     activation statistics (:func:`_block_stats`)."""
@@ -411,7 +423,8 @@ def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, posi
     block = policy_block(config)
     for block_params in compute_params["layers"]:
         tap = None if per_layer is None else {}
-        x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn, tap)
+        x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn, tap,
+                       moe_groups)
         aux_total = aux_total + aux
         if per_layer is not None:
             per_layer.append(_block_stats(x, tap))
@@ -419,16 +432,21 @@ def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, posi
 
 
 def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
-                   positions: torch.Tensor | None = None, attention_fn=None):
-    """Final-norm hidden states ``(batch, seq, d_model)`` and the summed aux
-    loss (0: dense FFNs only): everything of :func:`forward` but the LM
-    head.  ``scan_layers`` (one ``lax.scan`` over the blocks in the JAX
-    package, for XLA compile time) is accepted and runs the same per-layer
-    loop: eager PyTorch compiles nothing."""
+                   positions: torch.Tensor | None = None, attention_fn=None,
+                   moe_groups: int = 1):
+    """Final-norm hidden states ``(batch, seq, d_model)`` and the summed MoE
+    aux loss (0 for dense FFNs): everything of :func:`forward` but the LM
+    head.  ``moe_groups`` routes that many equal slices of the batch's
+    tokens as separate MoE dispatch groups (the stacked sp ring's ranks;
+    each layer's aux is then the groups' mean).  ``scan_layers`` (one
+    ``lax.scan`` over the blocks in the JAX package, for XLA compile time)
+    is accepted and runs the same per-layer loop: eager PyTorch compiles
+    nothing."""
     x, compute_params, rope_cos_sin, positions = _forward_prologue(
         params, token_ids, config, positions
     )
-    return _run_blocks(x, compute_params, config, rope_cos_sin, positions, attention_fn)
+    return _run_blocks(x, compute_params, config, rope_cos_sin, positions, attention_fn,
+                       moe_groups=moe_groups)
 
 
 def _block_stats(x: torch.Tensor, tap: dict) -> dict:
@@ -446,7 +464,8 @@ def _block_stats(x: torch.Tensor, tap: dict) -> dict:
 
 
 def forward_hidden_stats(params: Params, token_ids: torch.Tensor, config: ModelConfig,
-                         positions: torch.Tensor | None = None, attention_fn=None):
+                         positions: torch.Tensor | None = None, attention_fn=None,
+                         moe_groups: int = 1):
     """:func:`forward_hidden` plus per-block activation statistics.
 
     Returns ``(hidden, aux_total, act_stats)``; ``act_stats`` stacks one
@@ -461,18 +480,19 @@ def forward_hidden_stats(params: Params, token_ids: torch.Tensor, config: ModelC
     )
     per_layer: list = []
     hidden, aux_total = _run_blocks(x, compute_params, config, rope_cos_sin, positions,
-                                    attention_fn, per_layer)
+                                    attention_fn, per_layer, moe_groups)
     act_stats = {key: torch.stack([stats[key] for stats in per_layer]) for key in per_layer[0]}
     return hidden, aux_total, act_stats
 
 
 def forward(params: Params, token_ids: torch.Tensor, config: ModelConfig,
             positions: torch.Tensor | None = None, attention_fn=None,
-            return_aux: bool = False):
+            return_aux: bool = False, moe_groups: int = 1):
     """Float32 logits ``(batch, seq, vocab)`` for ``token_ids (batch, seq)``
     (``seq`` up to ``context_length``); with ``return_aux`` also the summed
-    aux loss."""
-    x, aux_total = forward_hidden(params, token_ids, config, positions, attention_fn)
+    MoE aux loss."""
+    x, aux_total = forward_hidden(params, token_ids, config, positions, attention_fn,
+                                  moe_groups)
     logits = head_logits(x, lm_head_weight(params, config))
     if return_aux:
         return logits, aux_total

@@ -13,6 +13,13 @@ regroups the ranks for the ring.
 The loss is the mean of the shards' mean losses, as the JAX step's
 ``pmean`` over (data, seq) takes it; on one device the data axis is the
 batch, whose shards are equal, so the mean over them is the batch mean.
+An MoE FFN routes each rank's tokens as a dispatch group of its own (its
+capacity from the rank's token count, its own load-balance loss), as every
+shard routes only its local tokens under the JAX package's ``shard_map``;
+the ranks' aux losses are averaged, as the ``pmean`` averages the shards'.
+The stacked batch is rank-major, so a rank's tokens are one contiguous
+slice of it.  (The data axis is not split: a rank's group holds the whole
+batch's tokens of its shard, which equals a JAX mesh whose data axis is 1.)
 Parameters and optimizer state are one copy.  ``attention_impl="flash"``
 runs the ring-flash schedules (the flash kernels inside each shard);
 anything else, ``"flash_fused"`` included, the plain online-softmax rings,
@@ -114,7 +121,8 @@ def sp_forward(params, local_token_ids: torch.Tensor, config: ModelConfig, ring,
     sees the true token positions, and the exact ring attention."""
     ids, positions, attention_fn = _stacked_inputs(local_token_ids, config, ring, False,
                                                    ulysses)
-    logits = forward(params, ids, config, positions=positions, attention_fn=attention_fn)
+    logits = forward(params, ids, config, positions=positions, attention_fn=attention_fn,
+                     moe_groups=local_token_ids.shape[0])
     return logits.reshape(*local_token_ids.shape, -1)
 
 
@@ -122,17 +130,20 @@ def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable
     """``loss_fn(params, x, y)`` on rank-stacked shards ``(local, batch,
     S_local)``: the mean over shards of each shard's mean LM loss (the
     JAX step's ``pmean``), through the chunked loss when ``loss_chunk`` is
-    set."""
+    set, plus ``router_aux_weight`` times the ranks' mean MoE aux loss."""
 
     def loss_fn(params, x, y):
         ids, positions, attention_fn = _stacked_inputs(x, config, ring, zigzag)
-        hidden, _ = forward_hidden(params, ids, config, positions=positions,
-                                   attention_fn=attention_fn)
+        hidden, aux = forward_hidden(params, ids, config, positions=positions,
+                                     attention_fn=attention_fn, moe_groups=x.shape[0])
         hidden = hidden.reshape(*x.shape, -1)
         head = lm_head_weight(params, config)
         shard_losses = [lm_loss(hidden[i], head, y[i], config.loss_chunk)
                         for i in range(x.shape[0])]
-        return torch.stack(shard_losses).mean()
+        loss = torch.stack(shard_losses).mean()
+        if config.ffn_type == "moe":
+            loss = loss + config.router_aux_weight * aux
+        return loss
 
     return loss_fn
 
@@ -189,8 +200,6 @@ def make_sp_train_step(
         )
     if config.attention_impl == "flash" and config.ring_kv_chunk:
         raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
-    if config.ffn_type == "moe":
-        raise NotImplementedError(f'ffn_type="moe" is not ported yet: {_MULTI_GPU}')
     grad_fn = make_sp_grad_fn(config, ring, zigzag)
 
     def step(params, opt_state: AdamWState, x, y):

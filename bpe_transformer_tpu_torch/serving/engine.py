@@ -19,6 +19,12 @@ the request's ``seed`` and takes the argmax of filtered logits plus noise
 The same request with the same seed replays the same tokens; greedy
 (temperature 0) is the raw argmax.
 
+An MoE model serves at the activation width (its expert stacks are cast
+with the other weights and counted in the weight bytes; int8 weights are
+refused).  All slots' tokens of a tick route together, as in the JAX
+package, with the decode capacity (``models/decode.py`` ``_ffn_decode``),
+which drops none.
+
 The engine is single-threaded: one caller (the serving worker loop) calls
 :meth:`admit` / :meth:`tick` / :meth:`release`.
 """

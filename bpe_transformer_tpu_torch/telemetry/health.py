@@ -9,12 +9,14 @@ loop's existing once-per-``log_every`` read.
 - non-finite detection: a 0/1 flag for the loss plus element counts over the
   gradient and (post-update) parameter trees;
 - per-layer-group grad/param L2 norms: leaves bucketed into ``embed`` /
-  ``attn`` / ``ffn`` / ``norm`` / ``head`` groups by their key path.
+  ``attn`` / ``ffn`` / ``norm`` / ``head`` groups by their key path (an MoE
+  layer's router and expert stacks are ``ffn``);
+- MoE expert-load balance: the router's load-balance loss (``n_experts *
+  sum_e f_e * P_e``, exactly 1.0 at perfectly uniform routing), exported as
+  ``moe_aux`` by the health-enabled train step of an MoE config.
 
-The JAX package also exports MoE's ``moe_aux`` here; the port's MoE comes
-with the multi-GPU slice.  Host-side, :func:`flatten_health` turns the
-fetched values into the flat JSONL keys (``grad_norm/attn``,
-``nonfinite_grads``).
+Host-side, :func:`flatten_health` turns the fetched values into the flat
+JSONL keys (``grad_norm/attn``, ``nonfinite_grads``, ``moe_aux``).
 """
 
 from __future__ import annotations

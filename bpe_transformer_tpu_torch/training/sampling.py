@@ -7,6 +7,10 @@ one :func:`~bpe_transformer_tpu_torch.models.decode.decode_step` a token, at
 the config's activation dtype (the config's kernel knobs pick the kernels).
 Longer generations slide a ``context_length`` window and re-run the full
 :func:`~bpe_transformer_tpu_torch.models.transformer.forward` each token.
+An MoE model's cached path routes with the decode capacity (from
+``context_length``: a decode step drops no token), the sliding window with
+the full forward's default capacity, as in the JAX package; the two differ
+only where the full forward itself drops tokens.
 
 Sampling is the serving engine's (``serving/engine.py`` ``sample_tokens``):
 temperature 0 is the raw argmax; otherwise top-k/top-p filtered logits plus

@@ -65,25 +65,29 @@ class TrainHParams:
             )
 
 
-def make_loss_fn(config: ModelConfig, with_stats: bool = False) -> Callable:
+def make_loss_fn(config: ModelConfig, with_aux: bool = False, with_stats: bool = False) -> Callable:
     """``loss_fn(params, x, y)``: mean LM cross-entropy, through the chunked
-    loss when ``config.loss_chunk`` is set.  ``with_stats=True`` returns
-    ``(loss, act_stats)`` with the per-layer activation statistics of
+    loss when ``config.loss_chunk`` is set, plus ``router_aux_weight`` times
+    the MoE load-balance loss for an MoE config.  ``with_aux=True`` returns
+    ``(loss, aux)`` with the raw aux (0 for dense FFNs), which the health
+    step exports; ``with_stats=True`` (supersedes ``with_aux``) returns
+    ``(loss, (aux, act_stats))`` with the per-layer activation statistics of
     :func:`forward_hidden_stats` (the same forward, plus the taps)."""
-    if config.ffn_type == "moe":
-        raise NotImplementedError(
-            'ffn_type="moe" is not ported yet: it comes with the multi-GPU training slice'
-        )
+    is_moe = config.ffn_type == "moe"
     hidden_fn = forward_hidden_stats if with_stats else forward_hidden
 
     def loss_fn(params, x, y):
-        hidden, _, *act_stats = hidden_fn(params, x, config)
+        hidden, aux, *act_stats = hidden_fn(params, x, config)
         head_w = lm_head_weight(params, config)
         if config.loss_chunk:
             loss = lm_loss(hidden, head_w, y, config.loss_chunk)
         else:
             loss = cross_entropy(head_logits(hidden, head_w), y)
-        return (loss, act_stats[0]) if with_stats else loss
+        if is_moe:
+            loss = loss + config.router_aux_weight * aux
+        if with_stats:
+            return loss, (aux, act_stats[0])
+        return (loss, aux) if with_aux else loss
 
     return loss_fn
 
@@ -132,11 +136,12 @@ def _not_ported(**options) -> None:
 
 
 def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
-            health: bool = False, dynamics: bool = False, act_stats=None):
+            health: bool = False, dynamics: bool = False, act_stats=None, moe_aux=None):
     """Clip, schedule and AdamW, with the optional taps.  The dynamics tap
     counts the input params' non-finites before AdamW rewrites them in
     place and takes the update norms from ``adamw_update``'s
-    ``delta_norms``: no copy of the weights is kept."""
+    ``delta_norms``: no copy of the weights is kept.  ``moe_aux``, when
+    given, joins the health stats as ``moe_aux``."""
     grads = _reduce_grads(grads, hparams.grads_dtype)
     # Dynamics reports the pre-clip gradient magnitudes.
     raw_grads = grads
@@ -159,6 +164,8 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
     if health:
         # Post-update params: an optimizer-made non-finite shows the same step.
         metrics["health"] = health_metrics(loss, grads, params)
+        if moe_aux is not None:
+            metrics["health"]["moe_aux"] = moe_aux.detach().float()
     if dynamics:
         metrics["dynamics"] = dynamics_from_parts(
             raw_grads, params, delta_norms, nonfinite_params, act_stats
@@ -179,17 +186,24 @@ def train_step_fn(
     ``opt_state.step`` before AdamW increments it.  ``health`` adds
     ``metrics["health"]`` (``telemetry/health.py``), ``dynamics``
     ``metrics["dynamics"]`` (``telemetry/dynamics.py``, with the activation
-    statistics tapped from the differentiated forward)."""
+    statistics tapped from the differentiated forward).  An MoE config's
+    health stats also carry ``moe_aux``, the raw load-balance loss."""
     _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)
-    grad_fn = value_and_grad(make_loss_fn(config, with_stats=dynamics), has_aux=dynamics)
+    with_aux = health and config.ffn_type == "moe"
+    grad_fn = value_and_grad(make_loss_fn(config, with_aux=with_aux, with_stats=dynamics),
+                             has_aux=dynamics or with_aux)
 
     def step(params, opt_state: AdamWState, x, y):
-        act_stats = None
+        act_stats = moe_aux = None
         if dynamics:
-            (loss, act_stats), grads = grad_fn(params, x, y)
+            (loss, (aux, act_stats)), grads = grad_fn(params, x, y)
+            moe_aux = aux if with_aux else None
+        elif with_aux:
+            (loss, moe_aux), grads = grad_fn(params, x, y)
         else:
             loss, grads = grad_fn(params, x, y)
-        return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats)
+        return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats,
+                       moe_aux)
 
     return step
 
@@ -241,8 +255,8 @@ def grad_accum_step_fn(
     """One optimizer update from ``accum_steps`` microbatch gradients:
     ``(params, opt_state, xs, ys) -> (params, opt_state, metrics)`` with
     ``xs, ys (accum_steps, micro_batch, seq)``.  The taps read the
-    accumulated gradients; dynamics carries no activation statistics on
-    this path, as in the JAX package."""
+    accumulated gradients; dynamics carries no activation statistics and
+    health no ``moe_aux`` on this path, as in the JAX package."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)

@@ -178,6 +178,27 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    thread; (g) host ms a step of the plain loop, each tap, inner steps and
    prefetch, the sync and async checkpoint stalls, the emergency save and
    the phase's wall time;
+16. the MoE family at ``TINYSTORIES_MOE`` width (12 layers, d 512, 8
+   experts, top-2, capacity factor 1.25): (a) ``switch_ffn`` on 16 x 512
+   tokens in float32 and bfloat16, the gather and einsum dispatches
+   against each other, the card's routing against the CPU's on the same
+   inputs (a token may change its experts only at a router near-tie), the
+   outputs of the tokens routed alike against the CPU's, the drop share,
+   and each dispatch's ms split into router, dispatch, experts and
+   combine, as launched and by CUDA-graph replay; (b) ``train`` (the loop) for 10 steps at batch 16 x 512 with
+   RoPE in the flash kernel and health stats: the loss falling,
+   ``moe_aux`` in the stream, exact launches (B5 and B4's pair, no
+   SwiGLU, GeLU or int8 kernel), the checkpoint through
+   ``verify-checkpoint``, and the gather and einsum steps' synchronising
+   calls (none allowed), host and device ms, device time by kernel and by
+   MoE stage, peak memory and the stream's MFU; (c) ``make_sp_train_step`` on a stacked ring of 4 with the
+   ring-flash kernels: step 1 against the dense step with no drop and the
+   aux weight 0, then 3 steps with exact B6 launches; (d) (b)'s checkpoint
+   served with the fused tick tail by the dense, paged (act and int8 KV)
+   and speculative engines on 8 greedy requests: the same tokens from
+   every engine at act width, int8 KV's agreement, exact launches, tok/s
+   and TTFT; ``generate --temperature 0`` gives the dense engine's tokens
+   and ``serve --weight-dtype int8`` exits 2;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
@@ -186,8 +207,9 @@ cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``chip_smoke_training.json`` (training), ``chip_smoke_sample.json`` (the
 fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6),
 ``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures),
-``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures) and
-``chip_smoke_loop.json`` (phase 15's training-loop figures).
+``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures),
+``chip_smoke_loop.json`` (phase 15's training-loop figures) and
+``chip_smoke_moe.json`` (phase 16's MoE figures).
 """
 
 from __future__ import annotations
@@ -4351,6 +4373,490 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     return {name: counts_a[name] for name in TRAIN_KERNELS_15}
 
 
+# ------------------------------------------------------------ phase 16
+
+#: Phase 16's working files (token file, checkpoint, telemetry stream,
+#: tokenizer), inside the checkout and removed at the end of the phase.
+MOE_WORK = ROOT / ".scratch" / "chip_smoke_moe"
+#: 16a: every token whose expert set differs between the card and the CPU
+#: must have had its k-th and (k+1)-th router probabilities (on the CPU)
+#: within this of each other: a flip only at a near-tie.
+ROUTE_MARGIN = 1e-4
+#: 16a: the gather and einsum dispatches on the card, max abs error of the
+#: output (the issue's bounds; both share one routing).
+MOE_DISPATCH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MOE_STAGES = ("router", "dispatch", "experts", "combine")
+
+
+def moe_stage_ms(torch, tokens, params, cfg, iters: int = 5) -> dict:
+    """Ms of each stage of one ``switch_ffn`` call on ``tokens (1, n, d)``
+    (``iters`` calls of the stage alone, on the previous stage's outputs),
+    and of the whole call: ``{"events": ..., "device": ...}``, CUDA events
+    around the calls as Python enqueues them (the router's small kernels
+    are timed at the enqueue rate) and around a CUDA graph of them (device
+    time alone; the capture also shows that no stage syncs with the
+    host)."""
+    from bpe_transformer_tpu_torch.models import moe
+
+    e, mode, k = cfg.n_experts, cfg.moe_dispatch, cfg.router_top_k
+    cap = moe.expert_capacity(tokens.shape[1], e, cfg.capacity_factor)
+    r = moe.route(tokens, params["router"], k, cap)
+    expert_in, plan = moe.dispatch(tokens, r, e, cap, mode)
+    expert_out = moe.experts(expert_in, params)
+    stages = {
+        "router": lambda: moe.route(tokens, params["router"], k, cap),
+        "dispatch": lambda: moe.dispatch(tokens, r, e, cap, mode),
+        "experts": lambda: moe.experts(expert_in, params),
+        "combine": lambda: moe.combine(expert_out, r, plan, 1, mode),
+        "switch_ffn": lambda: moe.switch_ffn(tokens, params, cfg),
+    }
+    return {how: {name: time_ms(torch, fn, [()], iters, graph=how == "device")
+                  for name, fn in stages.items()} for how in ("events", "device")}
+
+
+def route_flips(torch, r_dev, r_cpu, top_k: int) -> tuple[int, float, int]:
+    """Tokens whose expert set differs between two routings of the same
+    tokens, the largest CPU top-k / top-(k+1) probability margin among them,
+    and the assignments whose kept flag differs."""
+    n = r_cpu["probs"].shape[1]
+
+    def sets(r):
+        return torch.sort(r["expert"][0].reshape(top_k, n).t().cpu(), dim=1).values
+
+    flipped = (sets(r_dev) != sets(r_cpu)).any(dim=1)
+    top = torch.topk(r_cpu["probs"][0], top_k + 1, dim=-1).values
+    margin = float((top[:, top_k - 1] - top[:, top_k])[flipped].max()) if flipped.any() else 0.0
+    kept_diff = int((r_dev["kept"][0].cpu() != r_cpu["kept"][0]).sum())
+    return int(flipped.sum()), margin, kept_diff
+
+
+def moe_ffn_alone(torch, smi: str, cfg, batch: int, device: str) -> dict:
+    """16a: ``switch_ffn`` at TINYSTORIES_MOE width on ``batch`` x 512
+    tokens (weights at the init law, inputs standard normal), float32 and
+    bfloat16: gather against einsum on the card, the card's routing against
+    the CPU's on the same inputs (flips only at near-ties), the outputs of
+    the tokens routed alike within the dispatch tolerance, the drop share,
+    and the device ms of each stage of each dispatch."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.models import moe
+
+    on_card = device == "cuda"
+    e, k, d = cfg.n_experts, cfg.router_top_k, cfg.d_model
+    n = batch * cfg.context_length
+    cap = moe.expert_capacity(n, e, cfg.capacity_factor)
+    params32 = moe.init_moe_params(cfg, torch.Generator().manual_seed(16), device)
+    x32 = torch.randn(batch, cfg.context_length, d, generator=torch.Generator().manual_seed(17))
+    out: dict = {"tokens": n, "capacity": cap}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            params = {name: w.to(dtype) for name, w in params32.items()}
+            x = x32.to(device=device, dtype=dtype)
+            r = moe.route(x.reshape(1, n, d), params["router"], k, cap)
+            got = {mode: moe.switch_ffn(x, params, dataclasses.replace(cfg, moe_dispatch=mode))
+                   for mode in ("gather", "einsum")}
+            err = _max_err(got["gather"][0], got["einsum"][0])
+            aux_err = abs(float(got["gather"][1]) - float(got["einsum"][1]))
+            drop = 1.0 - float(r["kept"].float().mean())
+            # The same inputs through the port on the CPU.
+            params_cpu = {name: w.cpu() for name, w in params.items()}
+            r_cpu = moe.route(x.cpu().reshape(1, n, d), params_cpu["router"], k, cap)
+            flips, margin, kept_diff = route_flips(torch, r, r_cpu, k)
+            ref, _ = moe.switch_ffn(x.cpu(), params_cpu, dataclasses.replace(
+                cfg, moe_dispatch="gather"))
+            alike = ((r["expert"][0].cpu() == r_cpu["expert"][0])
+                     & (r["kept"][0].cpu() == r_cpu["kept"][0])).reshape(k, n).all(dim=0)
+            cpu_err = _max_err(got["gather"][0].reshape(n, d).cpu()[alike],
+                               ref.reshape(n, d)[alike])
+            log(f"16a switch_ffn {dname} ({batch}x{cfg.context_length} tokens, e {e}, top-{k}, "
+                f"cap {cap}): gather vs einsum max abs err {err:.3e} (tol "
+                f"{MOE_DISPATCH_TOL[dname]:g}), aux |d| {aux_err:.2e}; drop share {drop:.4f}; "
+                f"card vs CPU: {flips} tokens route to another expert set (largest CPU top-{k}/"
+                f"top-{k + 1} margin among them {margin:.2e}, bound {ROUTE_MARGIN:g}), "
+                f"{kept_diff} kept flags differ, tokens routed alike {int(alike.sum())}/{n} "
+                f"max abs err {cpu_err:.3e}; on {smi}")
+            require(err <= MOE_DISPATCH_TOL[dname] and aux_err <= 1e-6,
+                    f"16a {dname}: the gather and einsum dispatches disagree ({err}, {aux_err})")
+            require(margin < ROUTE_MARGIN, f"16a {dname}: a token flipped its experts at a "
+                    f"router margin of {margin}")
+            require(cpu_err <= MOE_DISPATCH_TOL[dname],
+                    f"16a {dname}: card vs CPU outputs of tokens routed alike differ by {cpu_err}")
+            row = {"gather_vs_einsum": err, "drop_share": drop, "flips": flips,
+                   "flip_margin": margin, "kept_diff": kept_diff, "card_vs_cpu": cpu_err}
+            if on_card:
+                for mode in ("gather", "einsum"):
+                    ms = moe_stage_ms(torch, x.reshape(1, n, d), params,
+                                      dataclasses.replace(cfg, moe_dispatch=mode))
+                    row[f"{mode}_ms"] = ms
+                    for how, label in (("device", "device ms (graph replay)"),
+                                       ("events", "ms as launched (events)")):
+                        log(f"16a {dname} {mode} dispatch {label}: "
+                            + ", ".join(f"{name} {v:.3f}" for name, v in ms[how].items())
+                            + f" (stages sum {sum(ms[how][st] for st in MOE_STAGES):.3f}) "
+                            f"on {smi}")
+            out[dname] = row
+            del got, ref
+    return out
+
+
+def labelled_moe_stages(torch):
+    """``models.moe``'s four stages wrapped in ``record_function`` ranges
+    ``moe/<stage>`` (``switch_ffn`` looks them up at each call), for a
+    profile of where the MoE forward's device time goes."""
+    from bpe_transformer_tpu_torch.models import moe
+
+    def labelled(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(f"moe/{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    return patched(moe, route=labelled("router", moe.route),
+                   dispatch=labelled("dispatch", moe.dispatch),
+                   experts=labelled("experts", moe.experts),
+                   combine=labelled("combine", moe.combine))
+
+
+def moe_part_profile(torch, run_step) -> dict:
+    """Device us of one step's MoE forward by stage: the kernels launched
+    inside each ``moe/<stage>`` range (the backward's kernels run outside
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with labelled_moe_stages(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(MOE_STAGES, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe/"):
+            total = getattr(e, "device_time_total", None)
+            parts[e.name[4:]] += total if total is not None else e.cuda_time_total
+    return parts
+
+
+def moe_training(torch, smi: str, cfg, batch: int, device: str, data) -> dict:
+    """16b: ``train`` (the loop) at ``batch`` x 512 with health stats and the
+    flash kernels, 10 steps; exact launches; ``moe_aux`` in the stream; the
+    checkpoint through ``verify-checkpoint``; then for the gather and the
+    einsum dispatch a step's synchronising calls (none allowed), step
+    profile (kernels and MoE stages), peak memory, and the stream's MFU."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
+    on_card = device == "cuda"
+    L, steps = cfg.num_layers, 10
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=2,
+                           cosine_cycle_iters=steps)
+    ck, jsonl = MOE_WORK / "ck", MOE_WORK / "b.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    train(cfg, hparams, LoopConfig(steps=steps, batch_size=batch, log_every=1, eval_every=1000,
+                                   checkpoint_every=steps, checkpoint_dir=str(ck),
+                                   metrics_jsonl=str(jsonl), health_stats=True, seed=0),
+          data, log_fn=lambda *a: None, device=device)
+    wall = time.perf_counter() - t0
+    counts = read_counts(tuple(KERNEL_META))
+    per_step = only(flash_attention_rope=L, flash_attention_bwd_dkdv=L, flash_attention_bwd_dq=L)
+    want = {name: v * steps for name, v in per_step.items()}
+    records = step_records(read_jsonl(jsonl))
+    losses = [r["loss"] for r in records]
+    aux = [r.get("moe_aux") for r in records]
+    mfu = [r["mfu"] for r in records if "mfu" in r]
+    log(f"16b train {steps} steps (B={batch} S={cfg.context_length}, float32, "
+        f"{cfg.attention_impl}, health) in {wall:.1f} s: losses {[round(v, 4) for v in losses]}; "
+        f"moe_aux {[round(v, 4) for v in aux]}; stream mfu "
+        f"{[round(v, 4) for v in mfu] or 'not measured'} on {smi}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(len(records) == steps and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0], f"16b: loss not finite or not falling: {losses}")
+    require(all(v is not None and math.isfinite(v) for v in aux),
+            f"16b: moe_aux missing or not finite in the stream: {aux}")
+    if on_card:
+        require(counts == want, f"16b: launches {counts} != {want}")
+    text = port_cli("verify-checkpoint", str(ck / "latest.ckpt"))
+    log(f"16b verify-checkpoint: {text.strip().splitlines()[-1] if text.strip() else 'ok'}")
+
+    out = {"losses": losses, "moe_aux": aux, "mfu": mfu, "launches": counts, "wall_s": wall}
+    if not on_card:
+        return out
+    rng = np.random.default_rng(16)
+    x, y = (torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)),
+                            device=device) for _ in range(2))
+    count_syncs(torch, lambda: None, 1)  # the debug mode's own first use is flagged once
+    for mode in ("gather", "einsum"):
+        c = dataclasses.replace(cfg, moe_dispatch=mode)
+        params = init_params(c, torch.Generator().manual_seed(0), device=device)
+        opt_state = adamw_init(params)
+        step = make_train_step(c, hparams)
+        step(params, opt_state, x, y)  # warm-up
+        syncs, where = count_syncs(torch, lambda: step(params, opt_state, x, y), 2)
+        log(f"16b {mode} step: {syncs} synchronising calls in 2 steps {where}")
+        require(syncs == 0, f"16b: the {mode} MoE step syncs with the host at {where}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_step(torch, f"16b TINYSTORIES_MOE {mode} step (B={batch})",
+                            lambda: step(params, opt_state, x, y))
+        peak = torch.cuda.max_memory_allocated()
+        parts = moe_part_profile(torch, lambda: step(params, opt_state, x, y))
+        log(f"16b {mode} step: host {prof['host_us'] / 1e3:.2f} ms, device "
+            f"{(prof['device_us'] or 0) / 1e3:.2f} ms, peak memory {peak / 2**30:.2f} GiB; MoE "
+            f"forward device ms a step by stage (12 layers) "
+            f"{ {k: round(v / 1e3, 3) for k, v in parts.items()} } on {smi}")
+        out[mode] = {**prof, "peak_bytes": peak, "moe_forward_us": parts, "syncs": syncs}
+        del params, opt_state, step
+    return out
+
+
+def moe_ring(torch, smi: str, cfg, batch: int, device: str) -> dict:
+    """16c: ``make_sp_train_step`` on ``StackedRing(4)`` with the ring-flash
+    kernels: step 1's loss and gradients against the dense step's with no
+    drop and the aux weight 0 (each rank then routes exactly its tokens of
+    the dense routing), then 3 steps of the config's own routing with exact
+    launches each."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.parallel import (
+        StackedRing,
+        make_sp_grad_fn,
+        make_sp_train_step,
+        shard_sp_batch,
+    )
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        make_loss_fn,
+        value_and_grad,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    on_card = device == "cuda"
+    ring = StackedRing(SP_RANKS)
+    rng = np.random.default_rng(17)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)) for _ in range(2))
+    xs, ys = shard_sp_batch((x, y), ring, device=device)
+    # A capacity factor of n_experts holds every token of a group: no drop.
+    exact = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts), router_aux_weight=0.0)
+    params = init_params(exact, torch.Generator().manual_seed(0), device=device)
+    tol = TRAIN_TOL["float32"]
+    dense_loss, dense_grads = value_and_grad(make_loss_fn(exact))(
+        params, torch.as_tensor(x, device=device), torch.as_tensor(y, device=device))
+    loss, grads = make_sp_grad_fn(exact, ring)(params, xs, ys)
+    pairs = list(zip(tree_leaves(grads), tree_leaves(dense_grads), strict=True))
+    loss_err = abs(float(loss) - float(dense_loss))
+    grad_err = max(_max_err(a, b) for a, b in pairs)
+    rel_err = max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in pairs)
+    label = f"16c TINYSTORIES_MOE sp contiguous x{SP_RANKS} (B={batch})"
+    log(f"{label} step 1 vs the dense step (no drop, aux weight 0): loss {float(loss):.6f} vs "
+        f"{float(dense_loss):.6f} (|d| {loss_err:.3e}, tol {tol['out']:g}); grads max abs "
+        f"error {grad_err:.3e} (tol {tol['grad']:g}), largest per-leaf relative error "
+        f"{rel_err:.3e}; on {smi}")
+    require(loss_err <= tol["out"] and grad_err <= tol["grad"] and rel_err <= tol["grad"],
+            f"{label}: step 1 disagrees with the dense step")
+    del grads, dense_grads, pairs
+
+    per_step = {**sp_launches_per_step(cfg.num_layers, SP_RANKS, False), "swiglu": 0}
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=3)
+    opt_state = adamw_init(params)
+    step = make_sp_train_step(cfg, hparams, ring)
+    totals, losses, host_ms = dict.fromkeys(KERNEL_META, 0), [], []
+    for _ in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, xs, ys)
+        losses.append(float(m["loss"]))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(tuple(KERNEL_META))
+        if on_card:
+            require(counts == per_step, f"{label}: launches of one step {counts} != {per_step}")
+        for name in KERNEL_META:
+            totals[name] += counts[name]
+    log(f"{label} 3 steps of the config's routing: losses {[round(v, 4) for v in losses]}, host "
+        f"ms {[round(v, 1) for v in host_ms]} on {smi}; launches a step "
+        f"{ {k: v for k, v in per_step.items() if v} }")
+    require(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
+    return totals
+
+
+def moe_serving(torch, smi: str, cfg, device: str) -> dict:
+    """16d: 16b's checkpoint served with the fused tick tail by the dense
+    engine (B2 prefill, B1, B9), the paged engine at act and int8 KV (B7,
+    B9) and the speculative engine (a two-layer truncated draft, K 4, B10):
+    8 greedy requests of at most 64 prompt tokens (no prefill there drops a
+    token, so every engine must give the same tokens; longer prompts drop by
+    design) and 4 seeded-sampled ones (the same tokens from the dense and
+    paged engines), exact launches, tok/s and TTFT; int8 KV's agreement is
+    reported.  Then ``generate --temperature 0`` in a subprocess gives the
+    dense engine's tokens, and ``serve --weight-dtype int8`` exits 2."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.checkpointing import load_checkpoint
+    from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+    from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
+    from bpe_transformer_tpu_torch.serving.spec import DraftSpec
+
+    on_card = device == "cuda"
+    L, K, new = cfg.num_layers, 4, 32
+    ckpt = MOE_WORK / "ck" / "latest.ckpt"
+    params = params_from_jax(load_checkpoint(ckpt)["params"], device)
+    prompt_text = "Once upon a time"
+    rng = np.random.default_rng(18)
+    prompts = [[ord(c) for c in prompt_text]] + [
+        [int(t) for t in rng.integers(0, cfg.vocab_size, size=m)]
+        for m in (5, 9, 20, 33, 47, 60, 64)]
+    # Each prompt greedy, and the last four also seeded-sampled: the dense
+    # and paged engines draw the same noise a slot.
+    requests = [Request(prompt_ids=tuple(p), max_new_tokens=new, temperature=0.0)
+                for p in prompts] + [
+        Request(prompt_ids=tuple(p), max_new_tokens=new, temperature=0.8, top_k=50, seed=i)
+        for i, p in enumerate(prompts[4:])]
+    greedy = len(prompts)
+    engines = {
+        "dense": (dict(attention_impl="flash", decode_attention_impl="pallas"), {}),
+        "paged act": (dict(attention_impl="flash", decode_attention_impl="paged"),
+                      dict(paged=True, block_size=16, prefill_chunk=64)),
+        "paged int8 KV": (dict(attention_impl="flash", decode_attention_impl="paged"),
+                          dict(paged=True, block_size=16, prefill_chunk=64, kv_dtype="int8")),
+        "spec": (dict(attention_impl="flash", decode_attention_impl="paged"),
+                 dict(paged=True, block_size=16, prefill_chunk=64, speculate_k=K,
+                      draft_spec=DraftSpec(truncate_layers=2))),
+    }
+    tokens, out, totals = {}, {}, dict.fromkeys(KERNEL_META, 0)
+    for name, (knobs, kw) in engines.items():
+        c = dataclasses.replace(cfg, **knobs)
+        with ServingEngine(params, c, slots=8, fused_sampling=True, device=device,
+                           **kw) as serving:
+            serving.generate(list(range(1, 20)), max_new_tokens=4, temperature=0.0)  # warm-up
+            engine = serving.engine
+            ticks0 = engine.ticks
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = [h.result(timeout=600) for h in [serving.submit(r) for r in requests]]
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(tuple(KERNEL_META))
+            ticks = engine.ticks - ticks0
+        tokens[name] = [list(r.token_ids) for r in results]
+        n_tok = sum(len(t) for t in tokens[name])
+        ttft = sorted(r.queue_wait_s + r.prefill_s for r in results)
+        if name == "dense":
+            want = only(flash_attention=L * len(requests), decode_attention=L * ticks,
+                        fused_head_sample=ticks)
+        elif name == "spec":
+            want = only(fused_verify_head=ticks)
+        else:
+            want = only(paged_decode_attention=L * ticks, fused_head_sample=ticks)
+        log(f"16d {name}: {len(results)} requests, {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tok/s, TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
+            f"{ttft[-1] * 1e3:.1f} ms, {ticks} ticks on {smi}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if on_card:
+            require(counts == want, f"16d {name}: launches {counts} != {want}")
+        require(all(len(t) == new for t in tokens[name]), f"16d {name}: short generations")
+        out[name] = {"tok_s": n_tok / wall, "ttft_s": ttft, "ticks": ticks, "launches": counts}
+        for k2 in KERNEL_META:
+            totals[k2] += counts[k2]
+    require(tokens["paged act"] == tokens["dense"],
+            "16d: the paged engine's tokens differ from the dense engine's")
+    require(tokens["spec"][:greedy] == tokens["dense"][:greedy],
+            "16d: the speculative engine's greedy tokens differ from the dense engine's")
+    agree = sum(a == b for p, q in zip(tokens["paged int8 KV"], tokens["dense"])
+                for a, b in zip(p, q)) / sum(len(p) for p in tokens["dense"])
+    distinct = len({t for p in tokens["dense"] for t in p})
+    log(f"16d greedy tokens equal across dense, paged act and spec, seeded-sampled ones "
+        f"across dense and paged act ({distinct} distinct tokens); int8 KV agrees on "
+        f"{agree:.4f} of the tokens; on {smi}")
+    out["int8_kv_agreement"] = agree
+
+    # The CLIs on the checkpoint: a byte tokenizer padded to the model's
+    # vocabulary (ids past 255 decode to a marker of their own).
+    tok = MOE_WORK / "tok"
+    tok.mkdir(exist_ok=True)
+    vocab = {i: bytes([i]) for i in range(256)}
+    vocab.update({i: f"<{i}>".encode() for i in range(256, cfg.vocab_size)})
+    (tok / "vocab.pkl").write_bytes(pickle.dumps(vocab))
+    (tok / "merges.pkl").write_bytes(pickle.dumps([]))
+    text = port_cli("generate", "--checkpoint", str(ckpt), "--tokenizer-dir", str(tok),
+                    "--prompt", prompt_text, "--max-new-tokens", str(new), "--temperature", "0",
+                    "--decode-attention", "pallas", "--print-ids", "--device", device)
+    ids = json.loads(text.strip().splitlines()[-1])["token_ids"]
+    log(f"16d generate --temperature 0: {ids[:8]}... equal to the dense engine's "
+        f"{ids == tokens['dense'][0]}")
+    require(ids == tokens["dense"][0], f"16d: generate gave {ids}, the dense engine "
+            f"{tokens['dense'][0]}")
+    proc = subprocess.run([sys.executable, *PORT_CLI, "serve", "--checkpoint", str(ckpt),
+                           "--tokenizer-dir", str(tok), "--weight-dtype", "int8", "--device",
+                           device], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 2 and "MoE" in proc.stdout + proc.stderr,
+            f"16d: serve --weight-dtype int8 on MoE exited {proc.returncode}")
+    out["totals"] = totals
+    return out
+
+
+def phase_moe(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 16) -> dict:
+    """Phase 16: the MoE family at TINYSTORIES_MOE width (12 layers, d 512,
+    8 experts, top-2, capacity factor 1.25, gather); returns the launches
+    of (b), (c) and (d) summed, and writes ``chip_smoke_moe.json``.  (b)
+    runs RoPE inside the flash kernel (``flash_fused`` from sequence 0), as
+    phases 8 and 15 do, so a step launches exactly ``TRAINING_KERNELS``."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import TINYSTORIES_MOE
+
+    cfg = cfg or dataclasses.replace(TINYSTORIES_MOE, attention_impl="flash_fused",
+                                     flash_fused_min_seq=0)
+    shutil.rmtree(MOE_WORK, ignore_errors=True)
+    MOE_WORK.mkdir(parents=True)
+    zipf = 1.0 / np.arange(1, cfg.vocab_size + 1) ** 1.1
+    data = np.random.default_rng(16).choice(cfg.vocab_size, size=1_000_000,
+                                            p=zipf / zipf.sum()).astype(np.uint16)
+    out: dict = {"smi": smi}
+    t0 = time.perf_counter()
+    out["a"] = moe_ffn_alone(torch, smi, cfg, batch, device)
+    log(f"16a done ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["b"] = moe_training(torch, smi, cfg, batch, device, data)
+    log(f"16b done ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ring_counts = moe_ring(torch, smi, dataclasses.replace(cfg, attention_impl="flash"),
+                           batch // 2, device)
+    log(f"16c done ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["d"] = moe_serving(torch, smi, cfg, device)
+    log(f"16d done ({time.perf_counter() - t0:.1f} s)")
+    totals = {name: out["b"]["launches"][name] + ring_counts[name] + out["d"]["totals"][name]
+              for name in KERNEL_META}
+    if device == "cuda":
+        for name in ("swiglu", "quant_matmul", "gelu", "gelu_bwd"):
+            require(totals[name] == 0, f"16: {name} launched {totals[name]} times on the MoE path")
+    out["launches"] = totals
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_moe.json").write_text(json.dumps(out, indent=1, default=str))
+    shutil.rmtree(MOE_WORK, ignore_errors=True)
+    return totals
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4447,6 +4953,16 @@ def main() -> int:
 
         shutil.rmtree(TRAIN_WORK, ignore_errors=True)
     log(f"phase 15 the training loop as a user runs it: ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    try:
+        moe_counts = phase_moe(torch, smi)
+    finally:
+        import shutil
+
+        shutil.rmtree(MOE_WORK, ignore_errors=True)
+    # The kernels the MoE path launches report its counts.
+    counts.update({name: n for name, n in moe_counts.items() if n})
+    log(f"phase 16 the MoE family (TINYSTORIES_MOE): ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -16,7 +16,10 @@ values within 1 (a value rounding at the other side of a .5 boundary) and
 their scales to a relative 1e-5 (the verify pass quantizes its rows one
 after another as JAX's sequential quantizer does, so the same bounds hold);
 hidden states to 1e-4.  The trash block 0 takes masked writes in no fixed
-order, so it is left out of the pool comparison.
+order, so it is left out of the pool comparison.  The MoE FFN runs both
+dispatches at a capacity factor of 1, where a per-call default capacity
+would drop tokens in a 3-token decode step: the port's decode capacity rule
+(``_ffn_decode``, from ``context_length``) must give JAX's logits and pools.
 """
 
 import dataclasses
@@ -313,3 +316,27 @@ def test_torch_prefill_and_decode_match_jax():
         )
         _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=2,
                    impls=("paged",))
+
+    # The MoE FFN (4 experts, capacity factor 1): top-2 gather and top-1
+    # einsum, dense and paged.  The decode capacity comes from the context
+    # length: at 3 tokens a step the per-call default (1 slot an expert)
+    # would drop tokens, the decode rule keeps them all.  Matrices at 8
+    # times the init scale (the 3-D expert stacks and the router too).
+    for top_k, dispatch in ((2, "gather"), (1, "einsum")):
+        jax_cfg = dataclasses.replace(
+            JAX_TS_TEST_CONFIG, vocab_size=96, context_length=24, ffn_type="moe", n_experts=4,
+            router_top_k=top_k, capacity_factor=1.0, moe_dispatch=dispatch, **KERNEL_KNOBS,
+        )
+        cfg = ModelConfig.from_dict(dataclasses.asdict(jax_cfg))
+        jax_params = jax.tree_util.tree_map(
+            lambda a: a * 8 if a.ndim >= 2 else a, jax_init_params(jax.random.PRNGKey(6), jax_cfg)
+        )
+        torch_params = params_from_jax(jax.device_get(jax_params), device="cpu")
+        assert torch_params["layers"][0]["ffn"]["w2"].shape == (4, cfg.d_model, cfg.d_ff)
+        _run_both(
+            jax_params, torch_params, jax_cfg, cfg, ids,
+            last_pos=np.array([11, 4, 8], np.int32), steps=2,
+        )
+        if dispatch == "gather":
+            _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=2,
+                       impls=("paged",))

@@ -6,7 +6,9 @@ The jax-free run also serves through the paged engine with int8 KV blocks
 and int8 weights and through the speculative engine with the fused
 sampling tail, serves a ``gelu`` FFN model dense and paged (int8), and
 drives the ``train`` CLI on the CPU, resuming from its own checkpoint, and
-on a ``--model-config`` whose ``ffn_type`` is ``"gelu"``, and takes a
+on a ``--model-config`` whose ``ffn_type`` is ``"gelu"`` and one whose
+``ffn_type`` is ``"moe"`` (``moe_aux`` in its stream, its checkpoint through
+``verify-checkpoint``), and takes a
 sequence-parallel step on a stacked ring of two shards, on the device of the
 tensors it is given; and runs the ``train-tokenizer``, ``tokenize``,
 ``generate``, ``eval`` and offline ``serve`` commands on the CPU.  The
@@ -71,6 +73,7 @@ expected = {
         "resilience.signals", "resilience.rollback", "resilience.retention",
         "telemetry.watchdog", "telemetry.timing", "telemetry.health", "telemetry.dynamics",
         "telemetry.report", "telemetry.trace", "utils.profiling", "utils.metrics",
+        "models.moe",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -145,6 +148,20 @@ gelu_argv[gelu_argv.index(str(work / "ck"))] = str(work / "ck_gelu")
 assert cli_main(gelu_argv + ["--steps", "2"]) == 0
 summary = json.loads((work / "ck_gelu" / "summary.json").read_text())
 assert [r["step"] for r in summary["history"]] == [1, 2], summary
+# An MoE config trains with health stats (moe_aux in the stream) and its
+# checkpoint passes verify-checkpoint.
+moe_cfg = dataclasses.replace(cfg, ffn_type="moe", n_experts=4, router_top_k=2,
+                              moe_dispatch="gather")
+moe_cfg.to_json(work / "moe.json")
+moe_argv = [str(work / "moe.json") if a == str(work / "gelu.json") else
+            str(work / "ck_moe") if a == str(work / "ck_gelu") else a for a in gelu_argv]
+assert cli_main(moe_argv + ["--steps", "2", "--health-stats", "--metrics-jsonl",
+                            str(work / "moe.jsonl")]) == 0
+moe_steps = [json.loads(line) for line in (work / "moe.jsonl").read_text().splitlines()]
+moe_steps = [r for r in moe_steps if r.get("kind") is None and "loss" in r]
+assert len(moe_steps) == 2 and all(np.isfinite(r["moe_aux"]) for r in moe_steps), moe_steps
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli_main(["verify-checkpoint", str(work / "ck_moe" / "latest.ckpt")]) == 0
 
 # The serving CLIs, regex-free: train a tokenizer and tokenize with it; then
 # generate, eval and offline-batch serve on the trained checkpoint (64-token

@@ -11,7 +11,9 @@ JAX ``SpecEngine``'s (fused and unfused tails, act width and int8), its
 verify tail giving JAX's ``(out, n_emit)`` on JAX's own noise, and the
 ``rewind``/``extend_blocks`` bookkeeping equal to JAX's; and the two-matrix
 ``silu`` and ``gelu`` FFNs served by the dense, paged (act, int8) and
-speculative engines with JAX's greedy tokens and weight gauges.
+speculative engines with JAX's greedy tokens and weight gauges, as is the
+MoE FFN (act weights, act and int8 KV; int8 weights refused by both), also
+through ``generate`` on a JAX-written MoE checkpoint.
 
 The serving surface is held against the JAX package's too: the regex-free
 host tokenizer (its class tables against ``regex`` itself, pre-tokens and
@@ -488,6 +490,8 @@ def test_torch_serving_matches_jax_engine(tmp_path):
         assert spec.draft.config.ffn_type == ffn_type
         assert _drive(spec, paged_prompts[:4], 6) == want, ffn_type
 
+    _check_moe_matches_jax(paged_cfg, paged_prompts, knobs, tmp_path)
+
     # The serving surface: the regex-free host tokenizer, the HTTP server and
     # its telemetry, and the CLIs, each against the JAX package's.
     _check_tokenizer_matches_jax(tmp_path)
@@ -498,6 +502,72 @@ def test_torch_serving_matches_jax_engine(tmp_path):
     # evacuation, the router, the controller and the fleet tools.
     _check_migration_matches_jax(jax_params, params)
     _check_fleet_matches_jax(jax_params, params)
+
+
+def _check_moe_matches_jax(paged_cfg, paged_prompts, knobs, tmp_path):
+    """The MoE FFN (4 experts, top-2, gather, capacity factor 1: the 32-token
+    prefill bucket drops assignments, decode steps drop none) served by the
+    dense, paged (act and int8 KV) and speculative engines with the JAX
+    engines' greedy tokens, the weight gauges (3-D expert stacks) equal to
+    JAX's, int8 weights refused with JAX's message; and the CLIs on a
+    JAX-written MoE checkpoint: ``generate`` gives JAX's ``generate_ids``
+    and ``serve --weight-dtype int8`` exits 2 in both packages."""
+    import pickle
+
+    from bpe_transformer_tpu.checkpointing import save_checkpoint as jax_save_checkpoint
+    from bpe_transformer_tpu.training import cli as jax_cli
+    from bpe_transformer_tpu.training.sampling import generate_ids as jax_generate_ids
+    from bpe_transformer_tpu_torch.training import cli as port_cli
+
+    jcfg = dataclasses.replace(paged_cfg, ffn_type="moe", n_experts=4, router_top_k=2,
+                               capacity_factor=1.0, moe_dispatch="gather")
+    cfg = ModelConfig.from_dict(dataclasses.asdict(jcfg))
+    j_params = jax.tree_util.tree_map(lambda a: a * 8, jax_init_params(jax.random.PRNGKey(1), jcfg))
+    params = params_from_jax(jax.device_get(j_params), device="cpu")
+    prompts = paged_prompts[:4]
+    want = _drive(JaxSlotPoolEngine(j_params, jcfg, slots=2, min_bucket=8), prompts, 6)
+    assert _drive(SlotPoolEngine(params, cfg, slots=2, min_bucket=8, device="cpu"),
+                  prompts, 6) == want
+    for kv_dtype in (None, "int8"):
+        jax_paged = JaxPagedEngine(j_params, jcfg, kv_dtype=kv_dtype, **knobs)
+        want_paged = _drive(jax_paged, prompts, 6)
+        paged = PagedEngine(params, cfg, kv_dtype=kv_dtype, device="cpu", **knobs)
+        assert _drive(paged, prompts, 6) == want_paged, kv_dtype
+        _, _, label, params_bytes, tick_bytes = jax_prepare_serving_weights(j_params, jcfg, None)
+        assert (paged.weight_dtype, paged.params_bytes, paged.tick_weight_bytes) == (
+            label, params_bytes, tick_bytes), kv_dtype
+    jax_spec = JaxSpecEngine(j_params, jcfg, draft=JaxDraftSpec(truncate_layers=1),
+                             speculate_k=3, **knobs)
+    spec = SpecEngine(params, cfg, draft=DraftSpec(truncate_layers=1), speculate_k=3,
+                      device="cpu", **knobs)
+    assert spec.draft.config.ffn_type == "moe"
+    assert _drive(spec, prompts, 6) == _drive(jax_spec, prompts, 6)
+    messages = []
+    for make in (lambda: JaxPagedEngine(j_params, jcfg, weight_dtype="int8", **knobs),
+                 lambda: PagedEngine(params, cfg, weight_dtype="int8", device="cpu", **knobs)):
+        with pytest.raises(ValueError) as exc:
+            make()
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1] and "MoE" in messages[0], messages
+
+    ckpt = tmp_path / "moe.ckpt"
+    jax_save_checkpoint(ckpt, params=j_params, extra={"model_config": dataclasses.asdict(jcfg)})
+    tok_dir = tmp_path / "moe_tok"
+    tok_dir.mkdir()
+    (tok_dir / "vocab.pkl").write_bytes(pickle.dumps({i: bytes([i]) for i in range(127)}))
+    (tok_dir / "merges.pkl").write_bytes(pickle.dumps([]))
+    common = ["--checkpoint", str(ckpt), "--tokenizer-dir", str(tok_dir),
+              "--special-token", "<|eot|>"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_cli.main(["generate", *common, "--prompt", "hello", "--max-new-tokens", "8",
+                            "--temperature", "0", "--print-ids", "--device", "cpu"])
+    want = jax_generate_ids(j_params, jcfg, [ord(c) for c in "hello"], max_new_tokens=8,
+                            temperature=0.0, stop_id=127)
+    assert rc == 0 and json.loads(out.getvalue())["token_ids"] == want, (out.getvalue(), want)
+    for main, extra in ((port_cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["serve", *common, "--weight-dtype", "int8", *extra]) == 2, main
 
 
 # ------------------------------------------------------------------------

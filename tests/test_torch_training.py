@@ -14,7 +14,10 @@ The sequence-parallel step (``parallel/sp.py``, four shards on a stacked
 ring) is held to 1e-4 against JAX's ``make_sp_train_step`` on the 8-device
 CPU mesh ``{"data": 2, "seq": 4}`` and against the port's own dense step.
 Resuming from a corrupt checkpoint must quarantine and fall back exactly as
-the JAX package does on the same directory.
+the JAX package does on the same directory.  The MoE family (loops (j) and
+(k)): ``switch_ffn`` and its gradients, the tapped and scanned steps, the sp
+step with each ring rank routing its own tokens, and the loop resumed from
+a JAX-written MoE checkpoint, each against the JAX package's.
 """
 
 import dataclasses
@@ -888,6 +891,241 @@ def _preemption_and_supervisor(tmp_path):
                                rtol=1e-6)
 
 
+#: The MoE test model: tests/test_moe.py's ``MOE_CFG`` (4 experts, capacity
+#: factor 2) at two layers.
+MOE_CFG = dataclasses.replace(TS_TEST_CONFIG, vocab_size=512, num_layers=2, ffn_type="moe",
+                              n_experts=4, capacity_factor=2.0)
+
+
+def _jax_routing(tokens, router, top_k, cap):
+    """The JAX package's routing of ``tokens (n, d)``, written out: each
+    token's ``top_k`` experts by ``jax.lax.top_k`` of the float32 router
+    softmax, rank-major (row ``r * n + t``), and whether the assignment is
+    under capacity when every first choice queues before any second."""
+    probs = jax.nn.softmax(jnp.asarray(tokens, jnp.float32) @ jnp.asarray(router, jnp.float32).T)
+    expert = np.asarray(jax.lax.top_k(probs, top_k)[1]).T.reshape(-1)
+    taken, kept = {}, []
+    for e in expert:
+        kept.append(taken.get(int(e), 0) < cap)
+        taken[int(e)] = taken.get(int(e), 0) + 1
+    return expert, np.array(kept)
+
+
+def _moe():
+    """(j) The MoE FFN and its training paths against the JAX package's.
+
+    ``switch_ffn`` at top-1 and top-2, einsum and gather, capacity factors
+    of 2 a choice (no drop here) and 0.5 (drops), float32 and bfloat16:
+    the routing (each assignment's expert, and whether it is kept) exactly
+    JAX's; output and aux within 1e-5 (bfloat16: within 2% of the largest
+    output, about four bf16 ulps there: XLA rounds the fused SiLU gate once
+    where PyTorch rounds each op, and a top-2 output sums two such terms);
+    the input and weight gradients of ``sum(out * g) + aux`` within 1e-5
+    plus 1e-5 relative of ``jax.grad`` (router gradients reach 14).
+
+    ``make_train_step`` with health and dynamics (remat ``none``) and the
+    scanned step (n 2, remat ``full``, the flash kernels, the einsum
+    dispatch): loss, grad norm, the flat health (``moe_aux`` among them)
+    and dynamics records and every parameter after the call within 2e-5.
+
+    The sp step on a stacked ring of four: without drops and with the aux
+    weight 0 against JAX's over ``{"data": 2, "seq": 4}`` (as
+    tests/test_moe.py holds it against the dense step), and with drops and
+    the aux loss on against JAX's over ``{"data": 1, "seq": 4}``, whose
+    shards route the same token groups as the ring's ranks (a data axis of
+    2 would halve each group), all within 1e-4 (matrices at 8 times the
+    init scale, so the logits and the routing are of order 1).  The dense
+    step on that batch, which routes all ranks as one group, must then
+    differ in loss or grad norm by more than that."""
+    from bpe_transformer_tpu.models.moe import init_moe_params as jax_init_moe
+    from bpe_transformer_tpu.models.moe import switch_ffn as jax_switch_ffn
+    from bpe_transformer_tpu.telemetry import dynamics as jax_dynamics
+    from bpe_transformer_tpu.telemetry import health as jax_health
+    from bpe_transformer_tpu.training.train_step import (
+        make_scanned_train_step as jax_make_scanned_step,
+    )
+    from bpe_transformer_tpu_torch.models.moe import expert_capacity, route, switch_ffn
+    from bpe_transformer_tpu_torch.telemetry import dynamics, health
+    from bpe_transformer_tpu_torch.training.loop import _fetch
+    from bpe_transformer_tpu_torch.training.train_step import make_scanned_train_step
+
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(4, 8, MOE_CFG.d_model)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    for top_k in (1, 2):
+        # Weights at 8 times the init scale: outputs of order 1, soft routing.
+        host = jax.device_get(jax.tree_util.tree_map(
+            lambda a: a * 8, jax_init_moe(jax.random.PRNGKey(top_k), _jax_config(MOE_CFG))))
+        for dispatch in ("einsum", "gather"):
+            for factor in (2.0 * top_k, 0.5):
+                cfg = dataclasses.replace(MOE_CFG, router_top_k=top_k, moe_dispatch=dispatch,
+                                          capacity_factor=factor)
+                jcfg = _jax_config(cfg)
+                what = f"switch_ffn top-{top_k} {dispatch} factor {factor}"
+                cap = expert_capacity(32, 4, factor)
+                jax_ffn = jax.jit(lambda xj, p, jcfg=jcfg: jax_switch_ffn(xj, p, jcfg))
+                for dtype in ("float32", "bfloat16"):
+                    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+                    xj = jnp.asarray(x).astype(jdt)
+                    want, want_aux = jax_ffn(
+                        xj, jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(jdt), host))
+                    params = {k: v.to(tdt) for k, v in params_from_jax(host, "cpu").items()}
+                    xt = torch.as_tensor(np.array(xj.astype(jnp.float32))).to(tdt)
+                    r = route(xt.reshape(1, 32, -1), params["router"], top_k, cap)
+                    expert, kept = _jax_routing(np.asarray(xj.astype(jnp.float32)).reshape(32, -1),
+                                                np.asarray(host["router"]).astype(jdt), top_k, cap)
+                    assert np.array_equal(r["expert"][0].numpy(), expert), (what, dtype)
+                    assert np.array_equal(r["kept"][0].numpy(), kept), (what, dtype)
+                    assert kept.all() == (factor > 1), (what, kept)
+                    out, aux = switch_ffn(xt, params, cfg)
+                    want = np.asarray(want.astype(jnp.float32))
+                    if dtype == "float32":
+                        _close(out, want, 1e-5, f"{what} {dtype}")
+                    else:
+                        err = np.abs(out.float().numpy() - want).max()
+                        assert err <= 2e-2 * np.abs(want).max(), (what, dtype, err)
+                    _close(float(aux), float(want_aux), 1e-5, f"{what} {dtype} aux")
+
+                def jax_objective(p, xj):
+                    out, aux = jax_switch_ffn(xj, p, jcfg)
+                    return jnp.sum(out * g) + aux
+
+                want_gx, want_gp = jax.jit(jax.grad(jax_objective, argnums=(1, 0)))(
+                    jax.tree_util.tree_map(jnp.asarray, host), jnp.asarray(x))
+                params = params_from_jax(host, "cpu")
+                xt = torch.as_tensor(x).requires_grad_(True)
+                leaves = [params[k].requires_grad_(True) for k in sorted(params)]
+                out, aux = switch_ffn(xt, params, cfg)
+                grads = torch.autograd.grad(torch.sum(out * torch.as_tensor(g)) + aux,
+                                            [xt] + leaves)
+                for name, got, want in zip(["x"] + sorted(params), grads,
+                                           [want_gx] + [want_gp[k] for k in sorted(params)]):
+                    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                               atol=1e-5, err_msg=f"{what} {name} grad")
+
+    # The train step with every tap, and the scanned step.
+    xs, ys = rng.integers(0, MOE_CFG.vocab_size, size=(2, 2, 4, MOE_CFG.context_length))
+    hp = dict(warmup_iters=0, cosine_cycle_iters=10)
+    base = dataclasses.replace(MOE_CFG, router_top_k=2, moe_dispatch="gather",
+                               capacity_factor=1.0)
+    host = jax.device_get(jax_init_params(jax.random.PRNGKey(8), _jax_config(base)))
+    for kind, knobs in (("plain", dict()),
+                        ("scanned", dict(remat_policy="full", moe_dispatch="einsum",
+                                         **KERNEL_KNOBS))):
+        cfg = dataclasses.replace(base, **knobs)
+        jcfg = _jax_config(cfg)
+        x, y = (xs[0], ys[0]) if kind == "plain" else (xs, ys)
+        if kind == "plain":
+            j_step = jax_make_train_step(jcfg, JaxTrainHParams(**hp), health=True, dynamics=True)
+            step = make_train_step(cfg, TrainHParams(**hp), health=True, dynamics=True)
+        else:
+            j_step = jax_make_scanned_step(jcfg, JaxTrainHParams(**hp), 2, health=True,
+                                           dynamics=True)
+            step = make_scanned_train_step(cfg, TrainHParams(**hp), 2, health=True,
+                                           dynamics=True)
+        jax_params = jax.tree_util.tree_map(jnp.asarray, host)
+        j_params, _, j_m = j_step(jax_params, jax_adamw_init(jax_params), jnp.asarray(x),
+                                  jnp.asarray(y))
+        j_m = jax.device_get(j_m)
+        params = params_from_jax(host, device="cpu")
+        params, _, m = step(params, adamw_init(params), torch.as_tensor(x), torch.as_tensor(y))
+        m = _fetch(m)
+        what = f"moe {kind} {knobs}"
+        _close(m["loss"], float(j_m["loss"]), 2e-5, f"loss {what}")
+        _close(m["grad_norm"], float(j_m["grad_norm"]), 2e-5, f"grad norm {what}")
+        flat = health.flatten_health(m["health"])
+        assert "moe_aux" in flat and np.isfinite(flat["moe_aux"]), what
+        _close(flat["moe_aux"], float(j_m["health"]["moe_aux"]), 2e-5, f"moe_aux {what}")
+        _same_flat(flat, jax_health.flatten_health(j_m["health"]), f"health {what}")
+        _same_flat(dynamics.flatten_dynamics(m["dynamics"]),
+                   jax_dynamics.flatten_dynamics(j_m["dynamics"]), f"dynamics {what}")
+        for got_leaf, want in zip(tree_leaves(params),
+                                  tree_leaves(jax.tree_util.tree_map(np.asarray, j_params)),
+                                  strict=True):
+            _close(got_leaf.detach(), want, 2e-5, f"params {what}")
+
+    # The sp step: per-rank routing on the stacked ring.
+    ring = StackedRing(4)
+    x, y = (rng.integers(0, MOE_CFG.vocab_size, size=(4, MOE_CFG.context_length))
+            for _ in range(2))
+    devices = jax.devices()
+    for name, knobs, axes in (
+        ("no drops, aux 0", dict(capacity_factor=16.0, router_aux_weight=0.0),
+         {"data": 2, "seq": 4}),
+        ("drops, aux on", dict(capacity_factor=0.5, router_top_k=2, moe_dispatch="gather"),
+         {"data": 1, "seq": 4}),
+    ):
+        cfg = dataclasses.replace(MOE_CFG, attention_impl="flash", **knobs)
+        jcfg = _jax_config(cfg)
+        # Matrices at 8 times the init scale: logits of order 1, soft routing.
+        host = jax.device_get(jax.tree_util.tree_map(
+            lambda a: a * 8 if a.ndim >= 2 else a, jax_init_params(jax.random.PRNGKey(10), jcfg)))
+        mesh = make_mesh(axes, devices=devices[: axes["data"] * axes["seq"]])
+        jax_params = jax.tree_util.tree_map(jnp.asarray, host)
+        jx, jy = jax_shard_sp_batch((jnp.asarray(x), jnp.asarray(y)), mesh)
+        j_params, _, j_m = jax_make_sp_train_step(jcfg, JaxTrainHParams(**hp), mesh)(
+            jax_params, jax_adamw_init(jax_params), jx, jy)
+        params = params_from_jax(host, device="cpu")
+        tx, ty = shard_sp_batch((x, y), ring, device="cpu")
+        p1, _, m = make_sp_train_step(cfg, TrainHParams(**hp), ring)(params, adamw_init(params),
+                                                                    tx, ty)
+        what = f"moe sp step, {name}"
+        _close(float(m["loss"]), float(j_m["loss"]), 1e-4, f"loss {what}")
+        _close(float(m["grad_norm"]), float(j_m["grad_norm"]), 1e-4, f"grad norm {what}")
+        for got, want in zip(tree_leaves(p1),
+                             tree_leaves(jax.tree_util.tree_map(np.asarray, j_params)),
+                             strict=True):
+            _close(got.detach(), want, 1e-4, f"params {what}")
+        params = params_from_jax(host, device="cpu")
+        _, _, d_m = make_train_step(cfg, TrainHParams(**hp))(
+            params, adamw_init(params), torch.as_tensor(x), torch.as_tensor(y))
+        gap = max(abs(float(d_m["loss"]) - float(m["loss"])),
+                  abs(float(d_m["grad_norm"]) - float(m["grad_norm"])))
+        assert (gap < 1e-4) == (name == "no drops, aux 0"), (what, gap)
+
+
+def _moe_loop(tmp_path):
+    """(k) The JAX ``train()`` and the port's on the MoE model, both resumed
+    from one JAX-written step-0 checkpoint, with health stats on: the same
+    step records, ``moe_aux`` among them (losses and ``moe_aux`` within
+    1e-4), and the port's MoE checkpoint verifies in both packages and
+    resumes in the port."""
+    cfg = dataclasses.replace(MOE_CFG, router_top_k=2, moe_dispatch="gather", capacity_factor=1.0)
+    jcfg = _jax_config(cfg)
+    data = np.random.default_rng(13).integers(0, cfg.vocab_size, 4000).astype(np.uint16)
+    jax_params = jax_init_params(jax.random.PRNGKey(12), jcfg)
+    init = tmp_path / "moe_init.ckpt"
+    jax_save_checkpoint(init, params=jax_params, opt_state=jax_adamw_init(jax_params), iteration=0)
+    hp = dict(warmup_iters=1, cosine_cycle_iters=4, max_learning_rate=1e-2)
+    records = {}
+    for pkg in ("jax", "port"):
+        d = tmp_path / f"moe_{pkg}"
+        lp = dict(steps=2, batch_size=4, log_every=1, eval_every=1000, checkpoint_every=2,
+                  checkpoint_dir=str(d / "ck"), metrics_jsonl=str(d / "m.jsonl"), seed=4,
+                  health_stats=True)
+        if pkg == "jax":
+            jax_train(jcfg, JaxTrainHParams(**hp), JaxLoopConfig(**lp), data, resume_from=init,
+                      log_fn=lambda *a: None)
+        else:
+            train(cfg, TrainHParams(**hp), LoopConfig(**lp), data, resume_from=init,
+                  log_fn=lambda *a: None, device="cpu")
+        records[pkg] = [r for r in _read_jsonl(d / "m.jsonl")
+                        if r.get("kind") is None and "loss" in r]
+    assert [r["step"] for r in records["port"]] == [r["step"] for r in records["jax"]] == [1, 2]
+    for got, want in zip(records["port"], records["jax"], strict=True):
+        assert got.keys() == want.keys(), got.keys() ^ want.keys()
+        _close([got["loss"], got["moe_aux"]], [want["loss"], want["moe_aux"]], 1e-4,
+               f"moe loop step {want['step']}")
+    ck = tmp_path / "moe_port" / "ck" / "latest.ckpt"
+    assert integrity.verify_checkpoint(ck).ok and jax_integrity.verify_checkpoint(ck).ok
+    payload = load_checkpoint(ck)
+    assert payload["params"]["layers"][0]["ffn"]["w1"].shape == (4, cfg.d_ff, cfg.d_model)
+    resumed = train(cfg, TrainHParams(**hp), LoopConfig(steps=3, batch_size=4, seed=4), data,
+                    resume_from=ck, log_fn=lambda *a: None, device="cpu")
+    assert [r["step"] for r in resumed["history"]] == [3] and np.isfinite(
+        resumed["history"][0]["loss"])
+
+
 def test_torch_training_matches_jax(tmp_path):
     _pinned_trajectory()
     _one_step_grads()
@@ -898,3 +1136,5 @@ def test_torch_training_matches_jax(tmp_path):
     _taps_and_scan()
     _loop_telemetry_and_faults(tmp_path)
     _preemption_and_supervisor(tmp_path)
+    _moe()
+    _moe_loop(tmp_path)
