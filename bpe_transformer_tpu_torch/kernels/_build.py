@@ -67,19 +67,20 @@ def _nvcc() -> str:
     )
 
 
-def build_all() -> dict[str, float]:
-    """Compile every source whose library is missing, all in parallel.
-    Returns ``{name: seconds}`` for the sources compiled by this call
-    (empty when everything was built already).  The ptxas report of each
-    build (registers, shared memory, spills) is kept beside its library
-    as ``<name>.log``."""
+def build_all(names=None) -> dict[str, float]:
+    """Compile every source whose library is missing (of ``names`` when
+    given, else of all of ``csrc/*.cu``), all in parallel.  Returns
+    ``{name: seconds}`` for the sources compiled by this call (empty when
+    everything was built already).  The ptxas report of each build
+    (registers, shared memory, spills) is kept beside its library as
+    ``<name>.log``."""
     with _lock:
         out = build_dir()
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
         t0 = time.perf_counter()
-        for name in kernel_names():
+        for name in kernel_names() if names is None else sorted(names):
             lib = out / f"lib{name}.so"
             if lib.exists():
                 continue

@@ -19,8 +19,10 @@ each field differs:
 - **Compile events**: the port compiles no XLA programs.  What it builds and
   loads are its kernel libraries (``kernels/_build.py``): ``compile_events``
   counts the sources this process compiled with ``nvcc`` plus the libraries
-  it loaded, and ``compile_time_s`` is the wall time of those builds.  A
-  server's count settles once every kernel of its path is loaded.
+  it loaded, ``compile_time_s`` is the wall time of those builds, and
+  ``compile_cache_hits`` counts the libraries it loaded without building
+  them (a warm build root).  A server's count settles once every kernel of
+  its path is loaded.
 
 Everything here reads host-side allocator state or the process table and
 never synchronises the card.
@@ -45,6 +47,14 @@ def compile_events() -> int:
 def compile_time_s() -> float:
     """Cumulative wall seconds of this process's kernel-library builds."""
     return float(_build.build_stats()["build_s"])
+
+
+def compile_cache_hits() -> int:
+    """Kernel libraries this process loaded without compiling them: found
+    built in the build root (``--compile-cache DIR``, filled by ``warmup``
+    or an earlier run)."""
+    stats = _build.build_stats()
+    return max(int(stats["loaded"] - stats["built"]), 0)
 
 
 def kernel_libraries_loaded() -> int:
@@ -137,9 +147,7 @@ def sample_resources(**extra) -> dict:
         "live_buffer_bytes": live_buffer_bytes(),
         "compile_events": compile_events(),
         "compile_time_s": round(compile_time_s(), 3),
-        # The JAX package counts persistent-compilation-cache hits here; the
-        # port keeps no such cache, so the count stays 0.
-        "compile_cache_hits": 0,
+        "compile_cache_hits": compile_cache_hits(),
     }
     mem = device_memory_stats()
     record["hbm_bytes_in_use"] = mem["bytes_in_use"] if mem else None

@@ -30,6 +30,10 @@ the runs are found by the stdlib ``re`` on that class string.
 Special tokens are split with the stdlib ``re`` on escaped literals; chunking,
 counting and the process pool are the JAX package's.  The counts, and
 therefore a trained vocabulary, are identical to the JAX package's.
+
+:func:`count_pretokens` runs each chunk through the port's native C++ scanner
+(``native/``, the same classes from ``unicode_classes.inc``) when it builds
+on this host, or through the scanner above; ``engine`` forces one.
 """
 
 from __future__ import annotations
@@ -224,6 +228,56 @@ def count_pretokens_in_chunk(
     return count_pretokens_in_text(text, special_tokens, training=training)
 
 
+def count_pretokens_in_chunk_native(
+    file_path: str | Path,
+    start: int,
+    end: int,
+    training: bool = True,
+    special_tokens: list[str] | None = None,
+) -> Counter[Pretoken]:
+    """:func:`count_pretokens_in_chunk` through the C++ scanner: special
+    tokens split here, each specials-free part scanned and counted
+    natively; the same ``Counter`` comes back."""
+    from bpe_transformer_tpu_torch.native import NativePretokenCounter
+
+    with open(file_path, "rb") as f:
+        f.seek(start)
+        text = f.read(end - start).decode(ENCODING, errors="ignore")
+    native = NativePretokenCounter()
+    out: Counter[Pretoken] = Counter()
+    specials = set(special_tokens) if special_tokens else set()
+    for part in split_on_special_tokens(text, special_tokens, training=training):
+        if not part:
+            continue
+        if part in specials:
+            out[tuple(part.encode(ENCODING))] += 1
+            continue
+        native.add(part)
+    for data, count in native.items():
+        out[tuple(data)] += count
+    return out
+
+
+def resolve_engine(engine: str) -> str:
+    """``"native"`` or ``"python"`` for an ``engine`` argument: ``"auto"``
+    takes the native engine when it is available and ``BT_NATIVE`` is not
+    ``"0"`` (checked at every call, even after the library loaded);
+    ``"native"`` raises ``RuntimeError`` on a host where it is not."""
+    if engine not in ("auto", "python", "native"):
+        raise ValueError(f"unknown engine: {engine!r}")
+    if engine == "python":
+        return engine
+    from bpe_transformer_tpu_torch.native import is_available, unavailable_reason
+
+    if engine == "auto":
+        if os.environ.get("BT_NATIVE", "1") == "0":
+            return "python"
+        return "native" if is_available() else "python"
+    if not is_available():
+        raise RuntimeError(f"native engine unavailable: {unavailable_reason()}")
+    return engine
+
+
 def count_pretokens(
     file_path: str | Path,
     special_tokens: list[str] | None = None,
@@ -231,13 +285,18 @@ def count_pretokens(
     training: bool = True,
     n_workers: int | None = None,
     parallel: bool = True,
+    engine: str = "auto",
 ) -> Counter[Pretoken]:
     """Pre-token counts for a whole file, optionally fanned out over
     processes (the BPE trainer's entry point).  ``n_workers`` defaults to 4
-    and is clamped to the host CPU count; workers are spawned, not forked."""
+    and is clamped to the host CPU count; workers are spawned, not forked.
+    ``engine``: ``"auto"``, ``"python"`` or ``"native"``
+    (:func:`resolve_engine`); both engines give identical counts."""
     if n_workers is None or n_workers <= 0:
         n_workers = 4
     n_workers = min(n_workers, os.cpu_count() or 1)
+    chunk_fn = (count_pretokens_in_chunk_native if resolve_engine(engine) == "native"
+                else count_pretokens_in_chunk)
 
     with open(file_path, "rb") as f:
         boundaries = find_chunk_boundaries(f, n_workers if parallel else 4, special_tokens)
@@ -246,10 +305,10 @@ def count_pretokens(
     if not parallel or n_workers == 1 or len(spans) <= 1:
         total: Counter[Pretoken] = Counter()
         for start, end in spans:
-            total += count_pretokens_in_chunk(file_path, start, end, training, special_tokens)
+            total += chunk_fn(file_path, start, end, training, special_tokens)
         return total
 
     args = [(file_path, start, end, training, special_tokens) for start, end in spans]
     with multiprocessing.get_context("spawn").Pool(processes=n_workers) as pool:
-        per_chunk = pool.starmap(count_pretokens_in_chunk, args)
+        per_chunk = pool.starmap(chunk_fn, args)
     return reduce(lambda a, b: a + b, per_chunk, Counter())

@@ -1,6 +1,7 @@
 """Byte-pair-encoding tokenizer: encode/decode + bounded-memory streaming (the
-port's copy of ``bpe_transformer_tpu/tokenization/tokenizer.py``, pure-Python
-encode path only: the JAX package's native C++ encoder has no port yet).
+port's copy of ``bpe_transformer_tpu/tokenization/tokenizer.py``).  Encode
+runs through the port's native C++ engine (``native/``) when it builds on
+this host, else through the pure-Python path below; both give the same ids.
 
 Behavioral parity targets (all host CPU):
 
@@ -39,7 +40,7 @@ _REPLACEMENT = "�".encode(ENCODING)
 
 # Per-process tokenizer for Pool workers: the parent pickles the tokenizer
 # ONCE per worker (initializer) instead of once per task, so each worker
-# builds its merge tables a single time and reuses them.
+# builds its merge tables / native engine a single time and reuses them.
 _WORKER_TOKENIZER: "BPETokenizer | None" = None
 
 
@@ -117,10 +118,30 @@ class BPETokenizer(Tokenizer):
         # Byte-value -> id table for seeding pre-tokens.
         self._byte_id = [self._id_of.get(bytes([b])) for b in range(256)]
         self._cache: dict[bytes, tuple[int, ...]] = {}
+        # The native (C++) fused pretokenize+encode path, built lazily so
+        # pickling to Pool workers stays cheap (see __getstate__).
+        self._native = None
+        self._native_tried = False
+
+    def _native_encoder(self):
+        """The C++ engine for this vocab/merge table, or None."""
+        if not self._native_tried:
+            self._native_tried = True
+            try:
+                from bpe_transformer_tpu_torch.native import NativeBPEEncoder, is_available
+
+                if is_available():
+                    self._native = NativeBPEEncoder(self._byte_id, self._pair_rank)
+            except Exception:
+                self._native = None
+        return self._native
 
     def __getstate__(self):
+        # The ctypes handle does not pickle: a worker builds its own.
         state = self.__dict__.copy()
         state["_cache"] = {}
+        state["_native"] = None
+        state["_native_tried"] = False
         return state
 
     # ---------------------------------------------------------------- props
@@ -181,6 +202,7 @@ class BPETokenizer(Tokenizer):
 
     def encode(self, text: str) -> list[int]:
         """Encode ``text`` into token ids (specials map directly)."""
+        native = self._native_encoder()
         out: list[int] = []
         parts = split_on_special_tokens(text, self._special_tokens, training=False)
         for part in parts:
@@ -189,6 +211,9 @@ class BPETokenizer(Tokenizer):
             special_id = self._special_ids.get(part)
             if special_id is not None:
                 out.append(special_id)
+                continue
+            if native is not None:
+                out.extend(native.encode_part(part))
                 continue
             for pretoken in iter_pretoken_strings(part):
                 out.extend(self._encode_pretoken(pretoken.encode(ENCODING)))
@@ -200,8 +225,8 @@ class BPETokenizer(Tokenizer):
             return cached
 
         byte_id = self._byte_id
-        # Bytes absent from the vocab are skipped (the JAX package's policy
-        # on both of its encode paths).
+        # Bytes absent from the vocab are skipped (the native engine's
+        # policy too, so both paths emit identical streams on any vocab).
         ids = [i for b in pretoken if (i := byte_id[b]) is not None]
         rank_of = self._pair_rank
         while len(ids) > 1:
@@ -275,6 +300,9 @@ class BPETokenizer(Tokenizer):
     ) -> Iterator[int]:
         batch: list[str] = []
         batch_size = n_workers * 10
+        # Build (and disk-cache) the native engine once before the workers
+        # start, so they load the cached library instead of racing builds.
+        self._native_encoder()
         with multiprocessing.get_context("spawn").Pool(
             processes=n_workers,
             initializer=_stream_worker_init,

@@ -1,6 +1,8 @@
 """Greedy byte-pair-encoding trainer (host CPU; the port's copy of
-``bpe_transformer_tpu/tokenization/trainer.py`` with its Python counting and
-merge path only: the JAX package's native C++ loop has no port yet).
+``bpe_transformer_tpu/tokenization/trainer.py``).  With a C++ compiler on the
+host the whole pipeline (scan, count, merge loop) runs in the port's native
+engine (``native/``); the Python counting and merge path is the fallback
+and gives the same vocabulary and merges.
 
 Produces the same vocabulary and the same *ordered* merge list as the
 reference trainer (``bpe_transformer/tokenization/bpe_trainer.py``), which
@@ -28,7 +30,17 @@ from collections import Counter
 from pathlib import Path
 
 from bpe_transformer_tpu_torch.settings import DEFAULT_OUTPUT_DIR, ENCODING
-from bpe_transformer_tpu_torch.tokenization.pretokenization import Pretoken, count_pretokens
+from bpe_transformer_tpu_torch.tokenization.pretokenization import (
+    Pretoken,
+    count_pretokens,
+    resolve_engine,
+    split_on_special_tokens,
+)
+
+#: Streaming read size and the pending-buffer cap that triggers the exact
+#: incremental add_prefix flush (module-level so tests can shrink them).
+STREAM_CHUNK_CHARS = 1 << 22
+PENDING_FLUSH_CHARS = 1 << 26
 
 Pair = tuple[int, int]
 
@@ -115,22 +127,124 @@ class BPETrainer:
     def vocab_size(self) -> int:
         return self._target_vocab_size
 
-    def train(self, input_path: str | Path, n_workers: int | None = None) -> None:
+    def train(
+        self, input_path: str | Path, n_workers: int | None = None, engine: str = "auto"
+    ) -> None:
         """Pre-tokenize ``input_path`` and learn merges to the target size.
 
-        Counting fans out over worker processes
+        ``engine`` (``"auto"``, ``"python"`` or ``"native"``, see
+        :func:`~bpe_transformer_tpu_torch.tokenization.pretokenization.resolve_engine`):
+        the native engine streams the file in bounded-memory chunks through
+        the C++ scan, count and merge loop; the Python path fans counting
+        out over worker processes
         (:func:`~bpe_transformer_tpu_torch.tokenization.pretokenization.count_pretokens`).
         """
+        if resolve_engine(engine) == "native" and self._train_native_file(input_path):
+            return
         pretoken_counts = count_pretokens(
             input_path,
             self._special_tokens,
             training=True,
             n_workers=n_workers,
+            engine="python",
         )
-        self.train_from_pretokens(pretoken_counts)
+        self.train_from_pretokens(pretoken_counts, engine="python")
 
-    def train_from_pretokens(self, pretoken_counts: Counter[Pretoken]) -> None:
-        """Learn merges from pre-token multiplicities (already counted)."""
+    def _train_native_file(self, input_path: str | Path) -> bool:
+        """Stream-count + train via the C++ engine; False when unavailable."""
+        try:
+            from bpe_transformer_tpu_torch.native import engine as native_engine
+
+            if not native_engine.is_available():
+                return False
+            counter = native_engine.NativePretokenCounter()
+        except Exception:
+            return False
+
+        specials = self._special_tokens
+
+        def feed(text: str) -> None:
+            for part in split_on_special_tokens(text, specials, training=True):
+                if part:
+                    counter.add(part)
+
+        # newline="" disables universal-newline translation so CRLF corpora
+        # count identically to the binary-read Python path.
+        with open(input_path, encoding=ENCODING, errors="ignore", newline="") as f:
+            if specials:
+                # Cut the stream only at complete special-token occurrences:
+                # pre-tokens never span a special, so these cuts are exactly
+                # lossless (mirrors find_chunk_boundaries' invariant).
+                max_keep = max(len(s) for s in specials) - 1
+                pending = ""
+                while True:
+                    chunk = f.read(STREAM_CHUNK_CHARS)
+                    if not chunk:
+                        break
+                    pending += chunk
+                    cut = max(pending.rfind(s) for s in specials)
+                    if cut > 0:
+                        feed(pending[:cut])
+                        pending = pending[cut:]
+                    elif len(pending) > PENDING_FLUSH_CHARS:
+                        if cut == 0:
+                            # The only special occurrence sits at index 0:
+                            # strip it (training=True discards specials) so
+                            # its bytes never reach add_prefix as ordinary
+                            # text.  Longest-first mirrors
+                            # split_on_special_tokens' overlap handling.
+                            for s in sorted(specials, key=len, reverse=True):
+                                if pending.startswith(s):
+                                    pending = pending[len(s):]
+                                    break
+                        # No special in sight: keep memory bounded by exact
+                        # token streaming, retaining enough characters to
+                        # cover a special straddling the boundary.
+                        head = pending[: len(pending) - max_keep]
+                        data = head.encode(ENCODING)
+                        consumed = counter.add_prefix(data)
+                        pending = (
+                            data[consumed:].decode(ENCODING)
+                            + pending[len(pending) - max_keep :]
+                        )
+                if pending:
+                    feed(pending)
+            else:
+                # No specials: exact incremental scan — the C++ side counts
+                # every pre-token that provably cannot change with more
+                # input, and returns the undecided tail to carry over.
+                tail = b""
+                while True:
+                    chunk = f.read(STREAM_CHUNK_CHARS)
+                    if not chunk:
+                        break
+                    data = tail + chunk.encode(ENCODING)
+                    consumed = counter.add_prefix(data)
+                    tail = data[consumed:]
+                if tail:
+                    counter.add(tail)
+
+        vocab = self._vocab
+        base = len(vocab)
+        pairs = counter.train_bpe(
+            [vocab[i] for i in range(base)], self._target_vocab_size
+        )
+        next_id = base
+        for a, b in pairs:
+            self._merges.append((vocab[a], vocab[b]))
+            vocab[next_id] = vocab[a] + vocab[b]
+            next_id += 1
+        return True
+
+    def train_from_pretokens(
+        self, pretoken_counts: Counter[Pretoken], engine: str = "auto"
+    ) -> None:
+        """Learn merges from pre-token multiplicities (already counted),
+        through the C++ merge loop (``bt_train_bpe``, the same selection
+        rule) when ``engine`` resolves to the native engine, else the Python
+        loop below."""
+        if resolve_engine(engine) == "native" and self._train_native(pretoken_counts):
+            return
         words: list[list[int]] = []
         counts: list[int] = []
         for pretoken, count in pretoken_counts.items():
@@ -196,6 +310,38 @@ class BPETrainer:
                 c = pair_counts.get(p, 0)
                 if c > 0:
                     heapq.heappush(heap, _HeapEntry(c, p, (vocab[p[0]], vocab[p[1]])))
+
+    def _train_native(self, pretoken_counts: Counter[Pretoken]) -> bool:
+        """Learn merges via the C++ loop; False when unavailable."""
+        try:
+            from bpe_transformer_tpu_torch.native import engine as native_engine
+
+            if not native_engine.is_available():
+                return False
+            vocab = self._vocab
+            base = len(vocab)
+            words: list[Pretoken] = []
+            counts: list[int] = []
+            for pretoken, count in pretoken_counts.items():
+                if len(pretoken) < 2:
+                    continue
+                words.append(pretoken)
+                counts.append(count)
+            pairs = native_engine.train_bpe_merges(
+                words,
+                counts,
+                [vocab[i] for i in range(base)],
+                self._target_vocab_size,
+            )
+        except Exception:
+            return False
+        next_id = base
+        for a, b in pairs:
+            self._merges.append((vocab[a], vocab[b]))
+            vocab[next_id] = vocab[a] + vocab[b]
+            next_id += 1
+        return True
+
 
     def save_trainer(self, output_dir: Path | None = None) -> None:
         """Pickle ``vocab.pkl`` and ``merges.pkl`` under ``output_dir``.

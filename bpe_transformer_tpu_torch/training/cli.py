@@ -1,22 +1,36 @@
 """The port's command line: ``python -m bpe_transformer_tpu_torch.training.cli
-{train,train-tokenizer,tokenize,eval,generate,serve,route,control,fleet,incident,
-report,monitor,verify-checkpoint} [...]``.
+{train,train-tokenizer,tokenize,eval,generate,serve,warmup,profile,route,control,
+fleet,incident,report,monitor,verify-checkpoint} [...]``.
 
 ``train`` takes the JAX package's ``bpe-tpu train`` flags that the
 single-device loop supports (see :func:`build_parser`): data, model,
-schedule and cadence flags, the telemetry stream and its taps
+schedule and cadence flags, the MFU knobs (``--remat-policy``,
+``--scan-layers``, ``--grads-dtype``), the telemetry stream and its taps
 (``--metrics-jsonl``, ``--wandb-project``, ``--health-stats``,
-``--dynamics-every``), the watchdog and NaN rollback (``--watchdog*``,
-``--max-rollbacks``, ``--recovery-min-progress``), ``--supervise`` with
-``--max-restarts`` and ``--restart-backoff``, ``--profile-trace``,
-``--inner-steps``, ``--prefetch``, ``--async-checkpoint`` and
-``--grad-accum-steps``; plus ``--resume``, ``--device`` (default ``cuda``)
-and the kernel knobs ``--attention-impl`` / ``--ffn-impl``.  It prints the
-summary as one JSON line and exits with ``EXIT_PREEMPTED`` (75) after a
-SIGTERM/SIGINT stop.  ``--supervise`` turns the process into the torch-free
-parent of ``resilience/supervisor.py``, which re-enters this command without
+``--dynamics-every``, ``--attribution-every``), the watchdog and NaN
+rollback (``--watchdog*``, ``--max-rollbacks``, ``--recovery-min-progress``),
+``--supervise`` with ``--max-restarts`` and ``--restart-backoff``,
+``--profile-trace``, ``--inner-steps``, ``--prefetch``,
+``--async-checkpoint``, ``--grad-accum-steps`` and ``--compile-cache``; plus
+``--resume``, ``--device`` (default ``cuda``) and the kernel knobs
+``--attention-impl`` / ``--ffn-impl``.  It prints the summary as one JSON
+line and exits with ``EXIT_PREEMPTED`` (75) after a SIGTERM/SIGINT stop.
+``--supervise`` turns the process into the torch-free parent of
+``resilience/supervisor.py``, which re-enters this command without
 ``--supervise`` in a child and respawns it with ``--resume`` on a crash or a
 preemption.
+
+``profile`` is the JAX package's performance attribution without a training
+job: the analytic roofline of the train step (and, with ``--serve``, of the
+serving prefill ladder and decode tick), with the card's verdicts from the
+``utils/flops.py`` peak table, and the measured compute / host-gap split
+(``--measure N``).  ``warmup`` builds the CUDA sources that the given
+serving flags (or ``--train``) launch into ``--compile-cache DIR``, where
+``train --compile-cache`` and ``serve --compile-cache`` then find them
+(``utils/compile_cache.py``: the port's compiled artifacts are its ``nvcc``
+builds, not XLA programs); it prints the JAX package's JSON keys, with
+``programs_compiled`` the sources built now and ``cache_hits`` those found
+built.
 
 ``train-tokenizer``, ``tokenize``, ``eval``, ``generate`` and ``serve`` take
 the JAX package's flags and exit codes (2 on a flag combination it refuses
@@ -28,8 +42,9 @@ Differences from the JAX package:
   card and its plain version on the CPU, so none of them can fail to
   lower; only the training knobs (remat, scan) are reset, as JAX does;
 * ``generate --print-ids`` prints ``{"text", "token_ids"}`` as one JSON line;
-* ``serve`` has no ``--compile-cache`` (no XLA programs) and no TPU
-  block-size check.
+* ``serve`` and ``warmup`` have no TPU block-size check;
+* ``warmup`` and ``profile`` take ``--device``: on the CPU the plain
+  versions run and no kernel is built.
 
 ``route``, ``control``, ``fleet``, ``incident``, ``report``, ``monitor`` and
 ``verify-checkpoint`` hand the rest of the command line to the ``main`` of
@@ -75,6 +90,34 @@ def _model_config(args) -> ModelConfig:
     return dataclasses.replace(cfg, **knobs) if knobs else cfg
 
 
+def _add_mfu_knob_flags(p) -> None:
+    """The training execution knobs that ``train``, ``warmup --train`` and
+    ``profile`` share (the JAX package's flags)."""
+    p.add_argument("--remat-policy", default=None,
+                   choices=["none", "full", "dots_saveable", "save_attn"],
+                   help="activation rematerialization in the backward; default: the model "
+                   "config's")
+    p.add_argument("--scan-layers", action="store_true",
+                   help="run the layer stack as one loop over stacked block params")
+    p.add_argument("--grads-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="gradient width at the reduction boundary")
+
+
+def _apply_mfu_knobs(model_config: ModelConfig, args) -> ModelConfig:
+    """Fold ``--remat-policy`` / ``--scan-layers`` into the config, with the
+    JAX package's note for a config still using the deprecated ``remat``."""
+    if model_config.remat and not args.remat_policy:
+        print('note: ModelConfig.remat is deprecated — treating remat=true as '
+              'remat_policy="full"; set remat_policy (or --remat-policy) explicitly',
+              file=sys.stderr)
+    overrides = {}
+    if args.remat_policy:
+        overrides.update(remat_policy=args.remat_policy, remat=False)
+    if args.scan_layers:
+        overrides["scan_layers"] = True
+    return dataclasses.replace(model_config, **overrides) if overrides else model_config
+
+
 def cmd_train(args) -> int:
     if args.supervise:
         # This process becomes the torch-free parent; the child owns the card.
@@ -93,7 +136,11 @@ def cmd_train(args) -> int:
     from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
     from bpe_transformer_tpu_torch.training.train_step import TrainHParams
 
-    model_config = _model_config(args)
+    if args.compile_cache:
+        from bpe_transformer_tpu_torch.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
+    model_config = _apply_mfu_knobs(_model_config(args), args)
     hparams = TrainHParams(
         max_learning_rate=args.lr,
         min_learning_rate=args.min_lr if args.min_lr is not None else args.lr / 10,
@@ -101,6 +148,7 @@ def cmd_train(args) -> int:
         cosine_cycle_iters=args.lr_cycle if args.lr_cycle else args.steps,
         weight_decay=args.weight_decay,
         grad_clip_norm=args.grad_clip,
+        grads_dtype=args.grads_dtype,
     )
     loop = LoopConfig(
         steps=args.steps,
@@ -291,6 +339,10 @@ def cmd_serve(args) -> int:
     if error is not None:
         print(f"serve: {error}", file=sys.stderr)
         return 2
+    if args.compile_cache:
+        from bpe_transformer_tpu_torch.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
     payload, model_config, tokenizer = _load_inference_state(args, need_tokenizer=True)
     if args.decode_attention:
         model_config = dataclasses.replace(model_config,
@@ -382,6 +434,237 @@ def cmd_serve(args) -> int:
             return 0
     finally:
         logger.close()
+
+
+def _warmup_flag_error(args) -> str | None:
+    """The flag combinations ``warmup`` refuses (the JAX package's)."""
+    if args.train:
+        if args.speculate or args.paged or args.role != "both":
+            return ("--train warms the training-step programs; it composes with serving "
+                    "flags in separate invocations, not one")
+        if args.grad_accum_steps > 1 and args.inner_steps > 1:
+            return "--grad-accum-steps and --inner-steps are mutually exclusive (as in train)"
+        if args.grad_accum_steps > 1 and args.batch_size % args.grad_accum_steps:
+            return (f"--batch-size {args.batch_size} must be a multiple of "
+                    f"--grad-accum-steps {args.grad_accum_steps}")
+        return None
+    if args.role != "both" and not args.paged:
+        return f"--role {args.role} needs --paged"
+    if args.role == "prefill" and args.speculate:
+        return ("--role prefill never ticks; speculation lives on decode replicas (warm "
+                "them with --role decode)")
+    if args.speculate:
+        if not args.paged:
+            return "--speculate needs --paged"
+        if not args.draft_config:
+            return "--speculate needs --draft-config"
+    elif args.draft_config:
+        return "--draft-config needs --speculate K"
+    return None
+
+
+def cmd_warmup(args) -> int:
+    """Build the CUDA sources that ``serve`` with the same flags (or, with
+    ``--train``, ``train``) launches into the ``--compile-cache`` directory,
+    so a restarted replica or a respawned trainer loads them instead of
+    compiling; prints one JSON line with the JAX package's keys."""
+    from bpe_transformer_tpu_torch.device import resolve_device
+    from bpe_transformer_tpu_torch.serving.engine import default_prefill_buckets
+    from bpe_transformer_tpu_torch.utils.compile_cache import (
+        enable_compile_cache,
+        kernel_sources,
+    )
+
+    error = _warmup_flag_error(args)
+    draft_spec = None
+    if error is None and args.speculate:
+        from bpe_transformer_tpu_torch.serving.spec import DraftSpec
+
+        try:
+            draft_spec = DraftSpec.from_json(args.draft_config)
+        except (OSError, ValueError, TypeError) as exc:
+            error = f"bad --draft-config: {exc}"
+    if error is not None:
+        print(f"warmup: {error}", file=sys.stderr)
+        return 2
+    stored = None
+    if args.checkpoint:
+        from bpe_transformer_tpu_torch.checkpointing import load_checkpoint
+
+        stored = load_checkpoint(args.checkpoint).get("extra", {}).get("model_config")
+    model_config = _load_model_config(args, stored=stored)
+    if args.train:
+        model_config = _apply_mfu_knobs(model_config, args)
+    elif args.decode_attention:
+        model_config = dataclasses.replace(model_config,
+                                           decode_attention_impl=args.decode_attention)
+    widths = {"act": [None], "int8": ["int8"], "both": [None, "int8"]}
+    weight_dtypes = widths[args.weight_dtype]
+    if not args.train:
+        if args.weight_dtype in ("int8", "both") and model_config.ffn_type == "moe":
+            print("warmup: --weight-dtype int8 does not cover MoE expert stacks",
+                  file=sys.stderr)
+            return 2
+        if draft_spec is not None:
+            try:
+                draft_spec.validate_against(model_config)
+            except ValueError as exc:
+                print(f"warmup: {exc}", file=sys.stderr)
+                return 2
+
+    device = resolve_device(args.device)
+    cache_dir = enable_compile_cache(args.compile_cache)
+    needed = set()
+    if device.type == "cuda":
+        # On the CPU the plain versions run: there is nothing to build.
+        needed = kernel_sources(model_config, train=args.train, paged=args.paged,
+                                weight_dtypes=weight_dtypes,
+                                fused_sampling=args.fused_sampling, role=args.role)
+    from bpe_transformer_tpu_torch.kernels import _build
+
+    out = _build.build_dir()
+    found = sorted(n for n in needed if (out / f"lib{n}.so").exists())
+    built = sorted(_build.build_all(needed)) if needed else []
+    common = {
+        "programs_compiled": len(built),
+        "sources": sorted(needed),
+        "cache_dir": str(cache_dir),
+        "cache_hits": len(found),
+    }
+    if args.train:
+        print(json.dumps({
+            "mode": "train",
+            **common,
+            "batch_size": args.batch_size,
+            "grad_accum_steps": args.grad_accum_steps,
+            "inner_steps": args.inner_steps,
+            "health_stats": args.health_stats,
+            "remat_policy": model_config.resolved_remat_policy,
+            "scan_layers": model_config.scan_layers,
+            "grads_dtype": args.grads_dtype,
+        }))
+        return 0
+    ctx = model_config.context_length
+    buckets = list(default_prefill_buckets(ctx))
+    if args.paged:
+        chunk = min(args.prefill_chunk or ctx, ctx)
+        buckets = [b for b in buckets if b < chunk] + [chunk]
+    kv_dtypes = widths[args.kv_dtype]
+    print(json.dumps({
+        **common,
+        "buckets": buckets,
+        "role": args.role,
+        "engine": "spec" if args.speculate else "paged" if args.paged else "dense",
+        "speculate": args.speculate or None,
+        "decode_attention": model_config.decode_attention_impl,
+        "kv_dtypes": [d or "act" for d in kv_dtypes] if args.paged else None,
+        "weight_dtypes": [d or "act" for d in weight_dtypes],
+        "fused_sampling": args.fused_sampling,
+    }))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Performance attribution without a training job: the analytic
+    roofline of the train step (and, with ``--serve``, of the serving
+    prefill ladder and decode tick) and, with ``--measure N > 0``, the
+    measured compute / host-gap split; printed, and with
+    ``--metrics-jsonl`` written as a ``kind="attribution"`` stream that
+    ``report`` renders.  On the CPU the verdicts read ``unknown``."""
+    import torch
+
+    from bpe_transformer_tpu_torch.device import resolve_device
+    from bpe_transformer_tpu_torch.models.transformer import init_params, params_from_jax
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.telemetry import MetricsLogger, Telemetry, run_manifest
+    from bpe_transformer_tpu_torch.telemetry.attribution import (
+        StepProbe,
+        device_kind_of,
+        serving_program_costs,
+    )
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+    from bpe_transformer_tpu_torch.utils.flops import peak_flops_per_chip, peak_hbm_bytes_per_sec
+
+    device = resolve_device(args.device)
+    if args.checkpoint:
+        payload, model_config, _ = _load_inference_state(args, need_tokenizer=False)
+        params = params_from_jax(payload["params"], device)
+    else:
+        model_config = _load_model_config(args)
+        params = init_params(model_config, torch.Generator(device=device).manual_seed(args.seed),
+                             device=device)
+    model_config = _apply_mfu_knobs(model_config, args)
+    opt_state = adamw_init(params)
+    kind = device_kind_of(device)
+
+    probe = StepProbe(model_config, TrainHParams(grads_dtype=args.grads_dtype),
+                      batch_size=args.batch, iters=max(args.measure, 1), seed=args.seed,
+                      device=device)
+    rows = list(probe.program_costs(params, opt_state))
+    if args.serve:
+        rows += serving_program_costs(params, model_config, slots=args.slots)
+
+    peak_f = peak_flops_per_chip(kind)
+    peak_bw = peak_hbm_bytes_per_sec(kind)
+    header = f"== cost model ({kind or device.type}"
+    if peak_f and peak_bw:
+        header += (f", peak {peak_f / 1e12:,.0f} TF/s / {peak_bw / 1e9:,.0f} GB/s"
+                   f", ridge {peak_f / peak_bw:,.1f} flops/B")
+    print(header + ") ==")
+    print(f"  {'program':<18s}{'GFLOPs':>10s}{'MB moved':>10s}{'AI f/B':>9s}  verdict")
+
+    def fmt(value, width, scale=1.0, digits=2):
+        if value is None:
+            return f"{'-':>{width}s}"
+        return f"{value / scale:>{width},.{digits}f}"
+
+    for row in rows:
+        print(f"  {row['name']:<18s}" + fmt(row["flops"], 10, 1e9)
+              + fmt(row["bytes_accessed"], 10, 2**20, 1)
+              + fmt(row["arithmetic_intensity"], 9, 1.0, 1) + f"  {row['bound']}")
+
+    record = None
+    if args.measure > 0:
+        wall = probe.loop_wall_step_s(params, opt_state, iters=args.measure)
+        record = probe.attribution_record(params, opt_state, step=0, wall_step_s=wall, t=0.0,
+                                          include_programs=True)
+        record["programs"] = rows  # the serving ladder too, when costed
+        print(f"== measured split ({args.measure} iters) ==")
+        print(f"  wall {record['wall_step_s'] * 1e3:,.2f} ms/step  "
+              f"device {record['device_step_s'] * 1e3:,.2f} ms  "
+              f"compute {record['compute_frac']:.0%}  collective "
+              f"{record['collective_frac']:.0%}  host gap {record['host_gap_frac']:.0%}")
+
+    if args.metrics_jsonl:
+        logger = MetricsLogger(jsonl_path=args.metrics_jsonl)
+        try:
+            telemetry = Telemetry(sink=logger.log)
+            telemetry.emit(run_manifest(kind="profile", model_config=model_config,
+                                        extra={"batch": args.batch, "measure": args.measure}))
+            if record is not None:
+                record["t"] = telemetry.now()
+                telemetry.emit(record)
+            telemetry.footer(clean=True)
+        finally:
+            logger.close()
+        print(f"wrote attribution stream -> {args.metrics_jsonl}")
+
+    if args.json:
+        summary = {
+            "metric": "attribution",
+            "config": args.preset or "custom",
+            "batch": args.batch,
+            "platform": "gpu" if device.type == "cuda" else "cpu",
+            "device_kind": kind or "cpu",
+            "programs": rows,
+        }
+        if record is not None:
+            summary.update({k: record[k] for k in (
+                "wall_step_s", "device_step_s", "compute_frac", "collective_frac",
+                "host_gap_frac", "train_peak_hbm_bytes", "remat_policy", "grads_dtype",
+                "scan_layers")})
+        print(json.dumps(summary))
+    return 0
 
 
 #: Commands served by a torch-free module: the rest of the command line goes
@@ -541,9 +824,80 @@ def build_parser() -> argparse.ArgumentParser:
                    help="peer replica base URL for drain evacuation (repeatable, with "
                    "--paged): on Ctrl-C/SIGTERM in-flight sessions relay to a peer's "
                    "/kv/import and queued requests replay on its /generate")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build and load the CUDA kernels under DIR (fill it ahead with warmup)")
     p.add_argument("--special-token", **special)
     p.add_argument("--device", **device)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("warmup", help="build the CUDA sources that serve (or, with --train, "
+                       "train) launches for these flags into a --compile-cache directory, so "
+                       "a restart loads them instead of compiling")
+    p.add_argument("--compile-cache", required=True, metavar="DIR",
+                   help="kernel build directory (shared with serve/train --compile-cache)")
+    p.add_argument("--checkpoint", default=None,
+                   help="take the model config stored in this checkpoint")
+    p.add_argument("--preset", default=None, choices=sorted(PRESETS))
+    p.add_argument("--model-config", default=None, help="JSON config path")
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--paged", action="store_true",
+                   help="the paged engine's kernels instead of the dense engine's")
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--num-kv-blocks", type=int, default=None)
+    p.add_argument("--prefill-chunk", type=int, default=None)
+    p.add_argument("--kv-dtype", choices=("act", "int8", "both"), default="both",
+                   help="paged pool widths to warm (one kernel serves both)")
+    p.add_argument("--decode-attention", choices=("xla", "pallas", "paged"), default=None)
+    p.add_argument("--weight-dtype", choices=("act", "int8", "both"), default="act",
+                   help="weight widths to warm: int8 adds the int8 matmul kernel")
+    p.add_argument("--fused-sampling", action="store_true",
+                   help="the fused head + sample tick tail")
+    p.add_argument("--role", choices=("prefill", "decode", "both"), default="both",
+                   help="warm only this role's kernels (with --paged): a prefill replica "
+                   "never ticks")
+    p.add_argument("--speculate", type=int, default=0, metavar="K",
+                   help="the speculative engine's kernels (with --paged + --draft-config)")
+    p.add_argument("--draft-config", default=None, metavar="JSON")
+    p.add_argument("--train", action="store_true",
+                   help="the training step's kernels instead of a serving engine's")
+    # The JAX package's --train flags: the schedule's and the cadences'
+    # values change no kernel here, but its command lines run unchanged.
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--min-lr", type=float, default=None)
+    p.add_argument("--warmup", type=int, default=100)
+    p.add_argument("--lr-cycle", type=int, default=None)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--grad-clip", type=float, default=1.0)
+    p.add_argument("--grad-accum-steps", type=int, default=1)
+    p.add_argument("--inner-steps", type=int, default=1)
+    p.add_argument("--health-stats", action="store_true")
+    p.add_argument("--dynamics-every", type=int, default=0)
+    _add_mfu_knob_flags(p)
+    p.add_argument("--device", **device)
+    p.set_defaults(fn=cmd_warmup)
+
+    p = sub.add_parser("profile", help="performance attribution without a training job: the "
+                       "analytic roofline of the train step (and of the serving ladder with "
+                       "--serve) and the measured compute/host-gap split")
+    p.add_argument("--preset", default=None, choices=sorted(PRESETS))
+    p.add_argument("--model-config", default=None, help="JSON config path")
+    p.add_argument("--checkpoint", default=None,
+                   help="profile a checkpoint's weights instead of a seeded init")
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--measure", type=int, default=10, metavar="ITERS",
+                   help="timed iterations for the measured split (0: the roofline only)")
+    p.add_argument("--serve", action="store_true",
+                   help="also cost the serving prefill ladder and the decode tick")
+    p.add_argument("--slots", type=int, default=8, help="decode slots for --serve")
+    p.add_argument("--metrics-jsonl", default=None,
+                   help='write a manifest and a kind="attribution" record that report renders')
+    p.add_argument("--json", action="store_true", help="print a JSON summary line")
+    p.add_argument("--seed", type=int, default=0)
+    _add_mfu_knob_flags(p)
+    p.add_argument("--device", **device)
+    p.set_defaults(fn=cmd_profile)
 
     for name, (_, text) in TORCH_FREE_COMMANDS.items():
         # Its flags are the module's: ``main`` hands them over unparsed.
@@ -587,7 +941,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "per-layer norms, update ratios, activation stats, attention entropy, "
                    "NaN/Inf localization")
     p.add_argument("--attribution-every", type=int, default=0, metavar="N",
-                   help="performance attribution (not ported yet: raises)")
+                   help='kind="attribution" records every N steps (a multiple of '
+                   "--log-every): the measured compute / host-gap split of the step and, on "
+                   "the first, the analytic roofline")
     p.add_argument("--watchdog", action="store_true",
                    help="flag hung steps and apply --watchdog-policy to a non-finite state "
                    "found at a log boundary")
@@ -622,6 +978,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "to the host")
     p.add_argument("--grad-accum-steps", type=int, default=1,
                    help="microbatches per optimizer update (must divide --batch-size)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build and load the CUDA kernels under DIR (fill it ahead with "
+                   "warmup --train)")
+    _add_mfu_knob_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", default=None,
                    help="checkpoint file, or a directory holding latest.ckpt")

@@ -32,9 +32,16 @@ What the loop wires, as the JAX loop does:
 ``latest.ckpt`` is a relative symlink to the newest snapshot (and
 ``latest.ckpt.crc32.json`` to its sidecar), so the state is on disk once.
 
+* performance attribution (``attribution_every``): at every N-th step, a
+  log boundary, ``telemetry/attribution.py``'s probe times a clone of the
+  step and splits the window's wall step time into compute and host gap
+  (``kind="attribution"`` records), watchdog-paused and outside the
+  throughput window; the probe is built at the first such boundary and
+  the other steps never see it.
+
 ``LoopConfig`` keeps every field of the JAX package's.  Those that select
 another slice's machinery raise ``NotImplementedError`` when set: the
-multi-GPU strategies and optimizer sharding, and ``attribution_every``.
+multi-GPU strategies and optimizer sharding.
 """
 
 from __future__ import annotations
@@ -108,7 +115,9 @@ class LoopConfig:
     health_stats: bool = False
     #: ``kind="dynamics"`` records every N steps (a multiple of log_every).
     dynamics_every: int = 0
-    #: Not ported yet (slice 11b): raises when set.
+    #: ``kind="attribution"`` records every N steps (a multiple of
+    #: log_every; 0 = off): the probe's measured compute / host-gap split
+    #: of the step, with the analytic roofline on the first record.
     attribution_every: int = 0
     #: Hang detection and the non-finite policy (``telemetry/watchdog.py``):
     #: "raise", "skip" or "rollback" (needs checkpoint_dir).
@@ -151,7 +160,6 @@ _OTHER_SLICES = {
     "opt_sharding": _MULTI_GPU,
     "sp_zigzag": _MULTI_GPU,
     "sp_ulysses": _MULTI_GPU,
-    "attribution_every": "performance attribution (ROADMAP slice 11b)",
 }
 
 
@@ -171,7 +179,8 @@ def _check_loop(loop: LoopConfig) -> None:
     if loop.attribution_every and loop.attribution_every % loop.log_every:
         raise ValueError(
             f"attribution_every={loop.attribution_every} must be a multiple of "
-            f"log_every={loop.log_every}"
+            f"log_every={loop.log_every} — attribution probes run at log boundaries so "
+            "untouched steps pay zero extra host syncs"
         )
     if loop.prefetch < 0:
         raise ValueError(f"prefetch must be >= 0, got {loop.prefetch}")
@@ -394,6 +403,8 @@ def train(
         step, eval, a checkpoint save)."""
         return wd.pause() if wd is not None else contextlib.nullcontext()
 
+    #: Built at the first attribution boundary (telemetry/attribution.py).
+    attribution_probe = None
     last_loss = val_loss = float("nan")
     first_dispatch = True
     prev_sync_iteration = start_iteration
@@ -561,6 +572,34 @@ def train(
                     f"step {iteration:>6d}  loss {last_loss:.4f}  lr {record['lr']:.2e}  "
                     f"gnorm {record['grad_norm']:.3f}  tok/s {record['tokens_per_sec']:,.0f}"
                 )
+                if loop.attribution_every and iteration % loop.attribution_every == 0:
+                    # Exact cadence only: a run that never reaches it pays
+                    # nothing.  The probe times a clone of the step (the
+                    # live state is never touched), watchdog-paused and out
+                    # of the throughput window.
+                    from bpe_transformer_tpu_torch.telemetry.attribution import StepProbe
+
+                    attr_handle = telemetry.start_span("attribution_probe", step=iteration,
+                                                       compile_probe=attribution_probe is None)
+                    with wd_pause():
+                        if attribution_probe is None:
+                            attribution_probe = StepProbe(
+                                model_config, hparams, batch_size=loop.batch_size,
+                                accum_steps=accum, inner_steps=stride, seed=loop.seed,
+                                device=dev,
+                            )
+                        attr_record = attribution_probe.attribution_record(
+                            params, opt_state, step=iteration, wall_step_s=step_wall_s,
+                            t=telemetry.now(),
+                        )
+                    timer.exclude(attr_handle.end())
+                    telemetry.emit(attr_record)
+                    log_fn(
+                        f"step {iteration:>6d}  attribution: compute "
+                        f"{attr_record['compute_frac']:.0%}  collective "
+                        f"{attr_record['collective_frac']:.0%}  host gap "
+                        f"{attr_record['host_gap_frac']:.0%}"
+                    )
                 if wd is not None:
                     # A window of only first steps has no step time to learn.
                     wd.beat(step_wall_s if real_steps > 0 else None)

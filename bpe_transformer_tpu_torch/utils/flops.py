@@ -1,6 +1,6 @@
 """Model-FLOPs accounting and the card's peak rates (the port's rewrite of
-``bpe_transformer_tpu/utils/flops.py``: the training-step and decode-tick
-FLOPs, and the peak tables that MFU and the decode roofline read).
+``bpe_transformer_tpu/utils/flops.py``: the training-step, prefill and
+decode-tick FLOPs, and the peak tables that MFU and the rooflines read).
 
 The FLOPs estimate is the JAX package's ("6ND + attention"):
 
@@ -85,3 +85,10 @@ def decode_tick_flops(config: ModelConfig, n_tokens: int, kv_positions: int) -> 
     matmul = 2.0 * matmul_param_count(config) * n_tokens
     attention = 4.0 * config.num_layers * config.d_model * kv_positions
     return matmul + attention
+
+
+def prefill_flops(config: ModelConfig, tokens: int) -> float:
+    """Model FLOPs of one prefill of ``tokens`` positions: the forward third
+    of :func:`train_step_flops` at batch 1 and that sequence length (the
+    full-sequence attention term, as the training count has it)."""
+    return train_step_flops(config, 1, tokens) / 3.0

@@ -199,6 +199,28 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    every engine at act width, int8 KV's agreement, exact launches, tok/s
    and TTFT; ``generate --temperature 0`` gives the dense engine's tokens
    and ``serve --weight-dtype int8`` exits 2;
+17. the rest of the one-card surface at ``GPT2_SMALL_32K`` width: (a) the
+   native (C++) tokenizer engine, available on the card's host, trains phase
+   13's corpus to the Python path's vocabulary and merges and encodes it to
+   the same ids, each path's train and encode seconds printed beside phase
+   13a's (which now takes the native engine through ``engine="auto"``); (b)
+   the 21 reference adapters (``compat``) on CUDA tensors against the same
+   calls on CPU tensors from one seed (float32, 1e-4 of the largest
+   magnitude), ``run_transformer_lm`` and ``run_transformer_block`` at full
+   width on a short sequence, 3 steps of ``get_adamw_cls()`` on the same
+   gradients with its state on the parameters' card (the step on the
+   host), the checkpoint adapters
+   from the card to the CPU, ``run_get_batch`` onto the card; (c) ``train``
+   with ``attribution_every`` at phase 15's config: records with the JAX
+   probe's keys and fractions summing to 1, the checkpoint after 8 steps
+   byte-identical with the probe on and off, every sync the probe adds in
+   ``telemetry/attribution.py`` and its fences exactly two a boundary, the
+   probe's launches a whole number of one step's, the live tensors
+   untouched; ``profile --measure 5 --serve`` with H100 verdicts and
+   ``report`` rendering it; (d) ``warmup --compile-cache`` on the build root
+   this run used, for phase 13b's, 13c's and 15's flags: nothing built,
+   every needed source found, and those sources are the ones whose kernels
+   those phases launched;
 then one JSON line listing every ported kernel, and the ``ok`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
@@ -208,8 +230,9 @@ cuDNN).  Per-shape kernel numbers are also written as JSON under
 fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`` (B6),
 ``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures),
 ``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures),
-``chip_smoke_loop.json`` (phase 15's training-loop figures) and
-``chip_smoke_moe.json`` (phase 16's MoE figures).
+``chip_smoke_loop.json`` (phase 15's training-loop figures),
+``chip_smoke_moe.json`` (phase 16's MoE figures) and
+``chip_smoke_surface.json`` (phase 17's).
 """
 
 from __future__ import annotations
@@ -331,6 +354,10 @@ PAGED_KERNELS = ("paged_decode_attention", "quant_matmul")
 TRAINING_KERNELS = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 #: The kernels of phase 15's training loop (B5, B4's pair, B3).
 TRAIN_KERNELS_15 = TRAINING_KERNELS + ("swiglu",)
+
+
+#: Wall seconds of phases that a later phase prints beside its own.
+TIMINGS: dict = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -3305,6 +3332,7 @@ def phase_serve_http(torch, smi: str, keep_work: bool = False) -> list[dict]:
         t0 = time.perf_counter()
         port_cli("train-tokenizer", "--input", str(SERVE_WORK / "corpus.txt"), "--vocab-size",
                  str(SERVE_VOCAB), "--output-dir", str(SERVE_WORK / "tok"))
+        TIMINGS["13a train-tokenizer s"] = time.perf_counter() - t0
         tok = BPETokenizer.from_files(SERVE_WORK / "tok" / "vocab.pkl",
                                       SERVE_WORK / "tok" / "merges.pkl", [SERVE_SPECIAL])
         require(len(tok.vocab) == SERVE_VOCAB, f"vocabulary of {len(tok.vocab)}")
@@ -3317,9 +3345,10 @@ def phase_serve_http(torch, smi: str, keep_work: bool = False) -> list[dict]:
         with open(SERVE_WORK / "corpus.txt", encoding="utf-8") as f:
             streamed = list(tok.encode_iterable(f))
         require(tokens.tolist() == streamed, "the token file differs from encode_iterable()")
+        TIMINGS["13a tokenizer s"] = time.perf_counter() - t0
         log(f"13a tokenizer: {len(corpus)} chars -> {len(ids)} tokens, vocabulary "
             f"{len(tok.vocab)}, round trip byte-exact, no regex "
-            f"({time.perf_counter() - t0:.1f} s); {out.strip()}")
+            f"({TIMINGS['13a tokenizer s']:.1f} s); {out.strip()}")
 
         # 13b: dense serving over HTTP.
         cfg = dataclasses.replace(GPT2_SMALL_32K, **KERNEL_KNOBS)
@@ -4857,6 +4886,443 @@ def phase_moe(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 16) 
     return totals
 
 
+# ------------------------------------------------------------ phase 17
+
+#: Phase 17's working files (corpus, token file, checkpoints, streams),
+#: inside the checkout and removed at the end of the phase.
+SURFACE_WORK = ROOT / ".scratch" / "chip_smoke_surface"
+#: The keys of a ``kind="attribution"`` record, as the JAX package's probe
+#: writes them (``programs`` on the first record only).
+ATTRIBUTION_KEYS = {
+    "kind", "t", "step", "wall_step_s", "device_step_s", "compute_frac", "collective_frac",
+    "host_gap_frac", "probe_iters", "train_peak_hbm_bytes", "train_temp_hbm_bytes",
+    "remat_policy", "grads_dtype", "scan_layers",
+}
+#: CUDA against CPU for the adapters, float32 (TF32 off): the largest
+#: absolute difference over the largest magnitude of the CPU result.
+ADAPTER_REL_TOL = 1e-4
+
+
+def native_tokenizer(smi: str, work: Path) -> dict:
+    """17a: the native engine against the Python path on phase 13's corpus:
+    the same vocabulary and merges, the same ids, and each path's seconds."""
+    from bpe_transformer_tpu_torch import native
+    from bpe_transformer_tpu_torch.tokenization import BPETokenizer, BPETrainer
+
+    require(native.is_available(), f"17a: native engine unavailable: "
+                                   f"{native.unavailable_reason()}")
+    corpus = SERVE_SPECIAL.join(p.read_text(encoding="utf-8") for p in sorted(ROOT.glob("*.md")))
+    path = work / "corpus.txt"
+    path.write_text(corpus, encoding="utf-8")
+    out: dict = {"chars": len(corpus)}
+    trained = {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        trainer = BPETrainer(vocab_size=SERVE_VOCAB, special_tokens=[SERVE_SPECIAL])
+        trainer.train(path, engine=engine)
+        out[f"train_{engine}_s"] = time.perf_counter() - t0
+        trained[engine] = trainer
+    require(trained["native"].vocab == trained["python"].vocab
+            and trained["native"].merges == trained["python"].merges,
+            "17a: native and Python training differ")
+    vocab, merges = trained["native"].vocab, trained["native"].merges
+    tok = BPETokenizer(dict(vocab), merges, [SERVE_SPECIAL])
+    t0 = time.perf_counter()
+    ids = tok.encode(corpus)
+    out["encode_native_s"] = time.perf_counter() - t0
+    require(tok._native is not None, "17a: the tokenizer did not take the native encoder")
+    python_tok = BPETokenizer(dict(vocab), merges, [SERVE_SPECIAL])
+    python_tok._native_tried = True  # the pure-Python path
+    t0 = time.perf_counter()
+    python_ids = python_tok.encode(corpus)
+    out["encode_python_s"] = time.perf_counter() - t0
+    require(ids == python_ids, "17a: native and Python encodes differ")
+    require(tok.decode(ids) == corpus, "17a: decode not exact")
+    out["tokens"] = len(ids)
+    log(f"17a native tokenizer: {len(corpus)} chars, vocabulary {len(vocab)}, {len(ids)} tokens "
+        f"identical; train native {out['train_native_s']:.2f} s / python "
+        f"{out['train_python_s']:.2f} s, encode native {out['encode_native_s']:.3f} s / python "
+        f"{out['encode_python_s']:.3f} s; 13a (train-tokenizer through engine auto) "
+        f"{TIMINGS.get('13a train-tokenizer s', float('nan')):.2f} s, 13a in all "
+        f"{TIMINGS.get('13a tokenizer s', float('nan')):.2f} s on {smi}")
+    return out
+
+
+def adapters_card_vs_cpu(torch, smi: str, work: Path, device: str) -> dict:
+    """17b: every adapter on CUDA tensors against the same call on CPU
+    tensors made from one seed (``ADAPTER_REL_TOL``), ``run_transformer_lm``
+    and ``run_transformer_block`` at GPT2_SMALL_32K widths, three steps of
+    ``get_adamw_cls()``, the checkpoint adapters across devices."""
+    import numpy as np
+
+    from bpe_transformer_tpu_torch import compat
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+
+    t_all = time.perf_counter()
+    cfg = GPT2_SMALL_32K
+    d, ff, heads, vocab, layers = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.vocab_size, \
+        cfg.num_layers
+    g = torch.Generator().manual_seed(17)
+    rand = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    errors: dict = {}
+
+    def to_dev(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        if isinstance(a, dict):
+            return {k: to_dev(v) for k, v in a.items()}
+        return a
+
+    def held(name, cpu_out, dev_out):
+        require(dev_out.device.type == torch.device(device).type,
+                f"17b {name}: result on {dev_out.device}")
+        ref = cpu_out.float()
+        err = float((dev_out.float().cpu() - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-30)
+        errors[name] = err / scale
+        require(err <= ADAPTER_REL_TOL * scale,
+                f"17b {name}: max err {err:.3e} over {scale:.3e} > {ADAPTER_REL_TOL}")
+
+    def both(name, *args):
+        fn = getattr(compat, name)
+        held(name, fn(*args), fn(*(to_dev(a) for a in args)))
+
+    S = 32
+    x = rand(2, S, d)
+    positions = torch.arange(S).repeat(2, 1)
+    both("run_linear", d, ff, rand(ff, d) * 0.05, x)
+    both("run_embedding", vocab, d, rand(vocab, d), torch.randint(0, vocab, (2, S), generator=g))
+    both("run_swiglu", d, ff, rand(ff, d) * 0.05, rand(d, ff) * 0.05, rand(ff, d) * 0.05, x)
+    q, k, v = rand(2, heads, S, d // heads), rand(2, heads, S, d // heads), \
+        rand(2, heads, S, d // heads)
+    both("run_scaled_dot_product_attention", q, k, v, rand(2, heads, S, S) > 0.5)
+    projs = [rand(d, d) * 0.05 for _ in range(4)]
+    both("run_multihead_self_attention", d, heads, *projs, x)
+    both("run_multihead_self_attention_with_rope", d, heads, cfg.context_length,
+         cfg.rope_theta, *projs, x, positions)
+    both("run_rope", d // heads, cfg.rope_theta, cfg.context_length, q, positions[:, None, :])
+    both("run_rmsnorm", d, 1e-5, 1 + 0.1 * rand(d), x)
+    both("run_silu", x)
+    both("run_softmax", x * 10, -1)
+    both("run_cross_entropy", rand(64, vocab) * 5, torch.randint(0, vocab, (64,), generator=g))
+    sd = {"token_embeddings.weight": rand(vocab, d) * 0.02, "ln_final.weight": 1 + 0.1 * rand(d),
+          "lm_head.weight": rand(vocab, d) * 0.02}
+    for i in range(layers):
+        p = f"layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "output_proj"):
+            sd[p + f"attn.{name}.weight"] = rand(d, d) * 0.02
+        sd[p + "ln1.weight"] = 1 + 0.1 * rand(d)
+        sd[p + "ln2.weight"] = 1 + 0.1 * rand(d)
+        sd[p + "ffn.w1.weight"] = rand(ff, d) * 0.02
+        sd[p + "ffn.w2.weight"] = rand(d, ff) * 0.02
+        sd[p + "ffn.w3.weight"] = rand(ff, d) * 0.02
+    block = {k[len("layers.0."):]: v for k, v in sd.items() if k.startswith("layers.0.")}
+    both("run_transformer_block", d, heads, ff, cfg.context_length, cfg.rope_theta, block, x)
+    both("run_transformer_lm", vocab, cfg.context_length, d, layers, heads, ff, cfg.rope_theta,
+         sd, torch.randint(0, vocab, (2, S), generator=g))
+    del sd, block
+
+    # Gradient clipping in place, and three AdamW steps, on both devices.
+    grads = [rand(64, 64) * 3 for _ in range(3)]
+    clipped = []
+    for dev in ("cpu", device):
+        ps = [torch.nn.Parameter(t.to(dev)) for t in grads]
+        for prm, t in zip(ps, grads):
+            prm.grad = t.to(dev) * 2
+        compat.run_gradient_clipping(ps, 1.0)
+        clipped.append([prm.grad for prm in ps])
+    for i, (a, b) in enumerate(zip(*clipped)):
+        held(f"run_gradient_clipping[{i}]", a, b)
+
+    def adamw_net(dev):
+        torch.manual_seed(0)
+        net = torch.nn.Sequential(torch.nn.Linear(d, ff), torch.nn.ReLU(),
+                                  torch.nn.Linear(ff, d)).to(dev)
+        return net, compat.get_adamw_cls()(net.parameters(), lr=1e-3, weight_decay=0.01,
+                                           betas=(0.9, 0.999), eps=1e-8)
+
+    # The same gradients reach both optimizers (the CPU net's, copied to the
+    # card): AdamW divides by sqrt(v) + eps, so gradients near eps would
+    # carry the two backwards' last-place differences into whole updates.
+    (cpu_net, cpu_opt), (dev_net, dev_opt) = adamw_net("cpu"), adamw_net(device)
+    data = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        cpu_opt.zero_grad()
+        xb = torch.randn(16, d, generator=data)
+        ((cpu_net(xb) - xb) ** 2).mean().backward()
+        for cp, dp in zip(cpu_net.parameters(), dev_net.parameters()):
+            dp.grad = cp.grad.to(device)
+        cpu_opt.step()
+        dev_opt.step()
+    for key, value in cpu_net.state_dict().items():
+        held(f"get_adamw_cls {key}", value, dev_net.state_dict()[key])
+    for i, st in dev_opt.state_dict()["state"].items():
+        require(set(st) == {"step", "exp_avg", "exp_avg_sq"} and int(st["step"]) == 3
+                and st["step"].dtype == torch.int32 and st["step"].device.type == "cpu"
+                and st["exp_avg"].dtype == torch.float32
+                and st["exp_avg"].device.type == torch.device(device).type,
+                f"17b AdamW state {i}: {[(k, v.dtype, v.device) for k, v in st.items()]}")
+        held(f"get_adamw_cls exp_avg_sq[{i}]", cpu_opt.state_dict()["state"][i]["exp_avg_sq"],
+             st["exp_avg_sq"])
+
+    # The checkpoint adapters: written from the card, read into a CPU net.
+    ckpt = work / "adapters.ckpt"
+    compat.run_save_checkpoint(dev_net, dev_opt, 3, ckpt)
+    fresh = torch.nn.Sequential(torch.nn.Linear(d, ff), torch.nn.ReLU(), torch.nn.Linear(ff, d))
+    fresh_opt = compat.get_adamw_cls()(fresh.parameters(), lr=1e-3)
+    require(compat.run_load_checkpoint(ckpt, fresh, fresh_opt) == 3, "17b: iteration")
+    for key, value in dev_net.state_dict().items():
+        require(torch.equal(value.cpu(), fresh.state_dict()[key]), f"17b checkpoint {key}")
+
+    dataset = np.arange(10_000)
+    bx, by = compat.run_get_batch(dataset, 8, 64, device)
+    require(bx.device.type == by.device.type == torch.device(device).type
+            and bx.dtype == torch.int64 and torch.equal(bx + 1, by),
+            f"17b run_get_batch: {bx.device} {bx.dtype}")
+    tok = compat.get_tokenizer(*compat.run_train_bpe(work / "corpus.txt", 300, [SERVE_SPECIAL]),
+                               [SERVE_SPECIAL])
+    require(tok.decode(tok.encode("the quick fox")) == "the quick fox", "17b tokenizer")
+    worst = max(errors, key=errors.get)
+    log(f"17b adapters on {device} vs cpu: {len(errors)} comparisons within {ADAPTER_REL_TOL} "
+        f"relative, worst {worst} {errors[worst]:.2e}; AdamW state on the parameters' device, "
+        f"step on the host; run_get_batch on {bx.device} "
+        f"({time.perf_counter() - t_all:.1f} s) on {smi}")
+    return {"rel_err": errors}
+
+
+def sync_sites(torch, fn) -> list:
+    """``filename:line`` of every synchronising CUDA call that
+    ``set_sync_debug_mode`` flags while ``fn`` runs (one entry per call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message).lower()]
+
+
+def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: str) -> dict:
+    """17c: ``train`` with ``attribution_every`` at phase 15's config: the
+    records' keys and fractions, the probe's launches against one loop
+    step's, the live state bit-equal with and without the probe, no sync
+    added off a boundary; then ``profile --measure 5 --serve`` and
+    ``report`` as a user runs them."""
+    import filecmp
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.telemetry import attribution
+    from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+
+    on_card = device == "cuda"
+    L = cfg.num_layers
+    zipf = 1.0 / np.arange(1, cfg.vocab_size + 1) ** 1.1
+    data = np.random.default_rng(17).choice(cfg.vocab_size, size=500_000,
+                                            p=zipf / zipf.sum()).astype(np.uint16)
+    hp = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=2,
+                      cosine_cycle_iters=8)
+    steps, every = 8, 4
+    fences = []
+    plain_fence = attribution._fence
+
+    def counted_fence(dev):
+        fences.append(dev)
+        plain_fence(dev)
+
+    attribution._fence = counted_fence
+    runs = {}
+    try:
+        for on in (False, True):
+            tag = "attr" if on else "plain"
+            loop = LoopConfig(steps=steps, batch_size=batch, log_every=2, eval_every=1000,
+                              checkpoint_every=steps, checkpoint_dir=str(work / f"ck_{tag}"),
+                              metrics_jsonl=str(work / f"{tag}.jsonl"),
+                              attribution_every=every if on else 0, seed=0)
+            run = lambda: train(cfg, hp, loop, data, log_fn=lambda *a: None,  # noqa: E731
+                                device=device)
+            fences.clear()
+            t0 = time.perf_counter()
+            if on_card:
+                sites = sync_sites(torch, run)
+            else:
+                run()
+                sites = []
+            runs[tag] = {"sites": sites, "fences": len(fences),
+                         "wall_s": time.perf_counter() - t0}
+    finally:
+        attribution._fence = plain_fence
+    boundaries = steps // every
+    require(filecmp.cmp(work / "ck_plain" / "step_00000008.ckpt",
+                        work / "ck_attr" / "step_00000008.ckpt", shallow=False),
+            "17c: the live state differs with the probe on")
+    records = read_jsonl(work / "attr.jsonl")
+    attrs = [r for r in records if r.get("kind") == "attribution"]
+    require([r["step"] for r in attrs] == [4, 8], f"17c: attribution steps {attrs}")
+    require(set(attrs[0]) == ATTRIBUTION_KEYS | {"programs"}
+            and all(set(r) == ATTRIBUTION_KEYS for r in attrs[1:]),
+            f"17c: record keys {[sorted(r) for r in attrs]}")
+    for r in attrs:
+        require(abs(r["compute_frac"] + r["host_gap_frac"] - 1.0) <= 1e-3
+                and r["collective_frac"] == 0.0, f"17c: fractions {r}")
+    require(runs["attr"]["fences"] == boundaries * attribution.StepProbe.FETCHES_PER_MEASURE,
+            f"17c: {runs['attr']['fences']} probe fences for {boundaries} boundaries")
+    # No site outside the probe syncs more often with the probe on (the
+    # plain run goes first and also pays the process's one-time syncs).
+    from collections import Counter
+
+    extra = Counter(runs["attr"]["sites"]) - Counter(runs["plain"]["sites"])
+    require(all(site.startswith("attribution.py:") for site in extra),
+            f"17c: syncs off the probe: {dict(extra)} (plain run "
+            f"{dict(Counter(runs['plain']['sites']))})")
+    extra = dict(extra)
+    probe_s = span_seconds(records, "attribution_probe")
+    if on_card:
+        require(attrs[0]["programs"][0]["bound"] in ("compute-bound", "memory-bound"),
+                f"17c: roofline verdict {attrs[0]['programs'][0]}")
+        require(attrs[0]["train_peak_hbm_bytes"], "17c: no peak memory read")
+
+    # The probe's launches are one loop step's, and it never writes the
+    # live tensors.
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(3), device=device)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, hp)
+    x = torch.from_numpy(data[: batch * cfg.context_length].astype(np.int64)
+                         .reshape(batch, -1)).to(device)
+    reset_counts()
+    step(params, opt, x, x)
+    one_step = read_counts(tuple(KERNEL_META))
+    snapshot = [t.clone() for t in (params["lm_head"], params["layers"][0]["attn"]["q_proj"],
+                                    opt.m["lm_head"], opt.v["token_embeddings"])]
+    probe = attribution.StepProbe(cfg, hp, batch_size=batch, iters=3, device=device)
+    calls = probe.calls_per_measure
+    reset_counts()
+    measured = probe.measure(params, opt)
+    probe_counts = read_counts(tuple(KERNEL_META))
+    if on_card:
+        want = {k: v * calls for k, v in one_step.items()}
+        require(probe_counts == want and one_step["flash_attention_rope"] == L,
+                f"17c: probe launches {probe_counts} != {calls} x {one_step}")
+    after = (params["lm_head"], params["layers"][0]["attn"]["q_proj"], opt.m["lm_head"],
+             opt.v["token_embeddings"])
+    require(all(torch.equal(a, b) for a, b in zip(snapshot, after)),
+            "17c: the probe wrote the live state")
+    del params, opt, snapshot, after, probe
+
+    # profile and report, as a user runs them.
+    cfg.to_json(work / "model.json")
+    t0 = time.perf_counter()
+    text = port_cli("profile", "--model-config", str(work / "model.json"), "--batch", str(batch),
+                    "--measure", "5", "--serve", "--json", "--metrics-jsonl",
+                    str(work / "profile.jsonl"), "--device", device)
+    profile_s = time.perf_counter() - t0
+    summary = json.loads(text.strip().splitlines()[-1])
+    verdicts = {r["name"]: r["bound"] for r in summary["programs"]}
+    if on_card:
+        require(all(v in ("compute-bound", "memory-bound") for v in verdicts.values()),
+                f"17c: profile verdicts {verdicts}")
+    report = port_cli("report", str(work / "profile.jsonl"))
+    require("== attribution (1 records" in report, f"17c: report {report[:2000]}")
+    log(f"17c attribution every {every} of {steps} steps (B={batch} S={cfg.context_length}): "
+        f"records {[(r['step'], r['compute_frac'], r['host_gap_frac']) for r in attrs]}, "
+        f"device step {[round(r['device_step_s'] * 1e3, 2) for r in attrs]} ms, probe span "
+        f"{[round(s, 3) for s in probe_s]} s a boundary, peak "
+        f"{attrs[0]['train_peak_hbm_bytes']} B; run wall {runs['plain']['wall_s']:.2f} s "
+        f"plain / {runs['attr']['wall_s']:.2f} s with the probe; live state bit-equal; syncs "
+        f"{len(runs['plain']['sites'])} plain, {len(runs['attr']['sites'])} with the probe "
+        f"(extra {extra}), {runs['attr']['fences']} probe fences; probe launches "
+        f"{ {k: v for k, v in probe_counts.items() if v} } = {calls} x one step's; measure "
+        f"{measured['device_step_s'] * 1e3:.2f} ms/step on {smi}")
+    log(f"17c profile --measure 5 --serve ({profile_s:.1f} s): verdicts {verdicts}; wall "
+        f"{summary['wall_step_s'] * 1e3:.2f} ms, device {summary['device_step_s'] * 1e3:.2f} ms, "
+        f"compute {summary['compute_frac']}, host gap {summary['host_gap_frac']}; report "
+        f"renders == attribution ==")
+    return {"records": attrs, "probe_span_s": probe_s, "runs": runs, "profile": summary,
+            "profile_s": profile_s, "probe_launches": probe_counts}
+
+
+def warmup_warm(smi: str, work: Path, cfg, device: str) -> dict:
+    """17d: ``warmup`` against the build root this run already used, for
+    phase 13b's, 13c's and phase 15's flags: nothing built, every source the
+    flags need found, and those sources are the ones holding the kernels
+    that those phases launched."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.kernels import _build
+
+    root = str(_build.BUILD_ROOT)
+    serve_cfg = dataclasses.replace(cfg, **KERNEL_KNOBS, remat_policy="none")
+    serve_cfg.to_json(work / "serve.json")
+    cfg.to_json(work / "train.json")
+    stem = lambda name: Path(KERNEL_META[name]["source"]).stem  # noqa: E731
+    cases = {
+        "13b dense": (["--model-config", str(work / "serve.json")],
+                      {stem(k) for k in SERVING_KERNELS}),
+        "13c paged int8": (["--model-config", str(work / "serve.json"), "--paged",
+                            "--kv-dtype", "int8", "--weight-dtype", "int8", "--fused-sampling",
+                            "--decode-attention", "paged"],
+                           {stem(k) for k in ("paged_decode_attention", "quant_matmul",
+                                              "fused_head_sample")}),
+        "15 train": (["--model-config", str(work / "train.json"), "--train"],
+                     {stem(k) for k in TRAIN_KERNELS_15}),
+    }
+    out = {}
+    for label, (flags, want) in cases.items():
+        t0 = time.perf_counter()
+        got = json.loads(port_cli("warmup", "--compile-cache", root, *flags,
+                                  "--device", device).strip().splitlines()[-1])
+        got["wall_s"] = time.perf_counter() - t0
+        out[label] = got
+        if device == "cuda":
+            require(got["programs_compiled"] == 0 and got["cache_hits"] == len(want)
+                    and set(got["sources"]) == want,
+                    f"17d {label}: {got} (want the sources {sorted(want)} found built)")
+        log(f"17d warmup {label}: programs_compiled {got['programs_compiled']}, cache_hits "
+            f"{got['cache_hits']} of {got['sources']} ({got['wall_s']:.1f} s)")
+    return out
+
+
+def phase_surface(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 8) -> dict:
+    """Phase 17: the rest of the one-card surface at full width: (a) the
+    native tokenizer engine against the Python path, (b) the reference
+    adapters on the card against the CPU, (c) attribution in ``train``,
+    ``profile`` and ``report``, (d) ``warmup`` on the warm build root.
+    Writes ``chip_smoke_surface.json``."""
+    import dataclasses
+    import shutil
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused", flash_fused_min_seq=0,
+                             ffn_impl="pallas", remat_policy="save_attn")
+    shutil.rmtree(SURFACE_WORK, ignore_errors=True)
+    SURFACE_WORK.mkdir(parents=True)
+    out = {"smi": smi}
+    t0 = time.perf_counter()
+    for part, run in (("a", lambda: native_tokenizer(smi, SURFACE_WORK)),
+                      ("b", lambda: adapters_card_vs_cpu(torch, smi, SURFACE_WORK, device)),
+                      ("c", lambda: attribution_on_card(torch, smi, SURFACE_WORK, cfg, batch,
+                                                        device)),
+                      ("d", lambda: warmup_warm(smi, SURFACE_WORK, cfg, device))):
+        reset_counts()
+        t_part = time.perf_counter()
+        out[part] = run()
+        out[f"{part}_s"] = time.perf_counter() - t_part
+    out["wall_s"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_surface.json").write_text(json.dumps(out, indent=1, default=str))
+    return out
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4963,6 +5429,15 @@ def main() -> int:
     # The kernels the MoE path launches report its counts.
     counts.update({name: n for name, n in moe_counts.items() if n})
     log(f"phase 16 the MoE family (TINYSTORIES_MOE): ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    try:
+        phase_surface(torch, smi)
+    finally:
+        import shutil
+
+        shutil.rmtree(SURFACE_WORK, ignore_errors=True)
+    log(f"phase 17 the native tokenizer, the adapters, attribution and warmup: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():

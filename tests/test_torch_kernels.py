@@ -34,6 +34,10 @@ tails' finalize clusters) is pinned as pure functions, and the shapes the
 port once refused (head dims
 96, 320 and 384, groups of 3 and 12) run through the plain versions against
 JAX's.
+
+The same test holds the port's 21 reference adapters (``compat``) against
+the JAX package's on seeded torch inputs, with the tolerances stated in
+``_adapters_match_jax``.
 """
 
 from functools import partial
@@ -83,7 +87,7 @@ from bpe_transformer_tpu_torch.kernels import swiglu as sw
 from bpe_transformer_tpu_torch.ops.quant import quantize_weight
 
 
-def test_torch_kernel_plain_versions_match_jax_kernels():
+def test_torch_kernel_plain_versions_match_jax_kernels(tmp_path):
     rng = np.random.default_rng(0)
 
     def normal(*shape, scale=1.0):
@@ -697,5 +701,175 @@ def test_torch_kernel_plain_versions_match_jax_kernels():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                    err_msg=f"paged_decode_attention d={d}")
 
+    # The reference adapter surface, on the port's ops and models.
+    _adapters_match_jax(tmp_path)
+
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before
+
+
+# ------------------------------------------------------------------------
+# The reference adapter surface (``compat/adapters.py``).
+
+class _AdapterNet(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fc1 = torch.nn.Linear(20, 30)
+        self.fc2 = torch.nn.Linear(30, 5)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+def _adamw_run(adapters, steps: int = 3):
+    """``steps`` updates of the adapter AdamW on a seeded net: the net and
+    its optimizer."""
+    torch.manual_seed(0)
+    model = _AdapterNet()
+    opt = adapters.get_adamw_cls()(model.parameters(), lr=1e-2, weight_decay=0.01,
+                                   betas=(0.9, 0.999), eps=1e-8)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(steps):
+        opt.zero_grad()
+        x, y = torch.rand(4, 20, generator=gen), torch.rand(4, 5, generator=gen)
+        ((model(x) - y) ** 2).sum().backward()
+        opt.step()
+    return model, opt
+
+
+def _adapters_match_jax(tmp_path):
+    """All 21 adapters of the port against the JAX package's on the same
+    seeded torch inputs (CPU tensors), float32.  Tolerances: 1e-5 absolute
+    for the ops, attention, norms and the block; the LM's logits 1e-4
+    absolute (as JAX's own adapter test holds its LM); gradient clipping
+    1e-6; the AdamW weights and moments 1e-6 absolute plus 1e-5 relative
+    (the two updates round differently in the last place, and from step 2
+    the gradients see it); a checkpoint read back exactly, and one step
+    after it (the writer's optimizer against the reader's) as AdamW.  Three AdamW steps, state keys and dtypes as JAX's facade keeps
+    them; checkpoint files cross between the packages both ways; a trained
+    tokenizer is identical."""
+    from bpe_transformer_tpu import compat as jax_adapters
+    from bpe_transformer_tpu_torch import compat as adapters
+
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    d, ff, heads, vocab, layers, ctx = 32, 64, 4, 64, 2, 16
+
+    def same(name, got, want, atol=1e-5, rtol=0.0):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu", name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol, rtol=rtol,
+                                   err_msg=name)
+
+    def both(name, *args, atol=1e-5, **kw):
+        same(name, getattr(adapters, name)(*args, **kw),
+             getattr(jax_adapters, name)(*args, **kw), atol=atol)
+
+    x = rand(2, 12, d)
+    w = rand(d, d) * 0.1
+    both("run_linear", d, d, w, x)
+    both("run_embedding", vocab, d, rand(vocab, d), torch.randint(0, vocab, (2, 12), generator=g))
+    w1, w2, w3 = rand(ff, d) * 0.1, rand(d, ff) * 0.1, rand(ff, d) * 0.1
+    both("run_swiglu", d, ff, w1, w2, w3, x)
+    q, k, v = rand(2, 3, 12, 8), rand(2, 3, 16, 8), rand(2, 3, 16, 8)
+    both("run_scaled_dot_product_attention", q, k, v, rand(2, 3, 12, 16) > 0.5)
+    both("run_scaled_dot_product_attention", q, k, v)
+    projs = [rand(d, d) * 0.1 for _ in range(4)]
+    both("run_multihead_self_attention", d, heads, *projs, x)
+    positions = torch.arange(12).repeat(2, 1)
+    both("run_multihead_self_attention_with_rope", d, heads, ctx, 10000.0, *projs, x, positions)
+    both("run_rope", 8, 10000.0, ctx, rand(2, 12, 8), positions)
+    both("run_rmsnorm", d, 1e-5, 1 + 0.1 * rand(d), x)
+    both("run_silu", x)
+    both("run_softmax", x + 100, 1)
+    both("run_cross_entropy", rand(8, vocab) * 10, torch.randint(0, vocab, (8,), generator=g))
+    sd = {"token_embeddings.weight": rand(vocab, d) * 0.05,
+          "ln_final.weight": 1 + 0.1 * rand(d), "lm_head.weight": rand(vocab, d) * 0.05}
+    for i in range(layers):
+        p = f"layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "output_proj"):
+            sd[p + f"attn.{name}.weight"] = rand(d, d) * 0.05
+        sd[p + "ln1.weight"] = 1 + 0.1 * rand(d)
+        sd[p + "ln2.weight"] = 1 + 0.1 * rand(d)
+        sd[p + "ffn.w1.weight"] = rand(ff, d) * 0.05
+        sd[p + "ffn.w2.weight"] = rand(d, ff) * 0.05
+        sd[p + "ffn.w3.weight"] = rand(ff, d) * 0.05
+    block = {k[len("layers.0."):]: v for k, v in sd.items() if k.startswith("layers.0.")}
+    both("run_transformer_block", d, heads, ff, ctx, 10000.0, block, x)
+    both("run_transformer_lm", vocab, ctx, d, layers, heads, ff, 10000.0, sd,
+         torch.randint(0, vocab, (2, 12), generator=g), atol=1e-4)
+    for it in (0, 3, 7, 12, 21, 24):
+        assert adapters.run_get_lr_cosine_schedule(it, 1.0, 0.1, 7, 21) == (
+            jax_adapters.run_get_lr_cosine_schedule(it, 1.0, 0.1, 7, 21)), it
+
+    # Gradient clipping, in place, on the same gradients.
+    grads = [rand(5, 5) for _ in range(3)]
+    clipped = []
+    for module in (adapters, jax_adapters):
+        ps = [torch.nn.Parameter(t.clone()) for t in grads]
+        for p, t in zip(ps, grads):
+            p.grad = t.clone() * 10
+        ps[-1].grad = None
+        module.run_gradient_clipping(ps, 1e-2)
+        clipped.append([p.grad for p in ps[:-1]])
+    for a, b in zip(*clipped):
+        same("run_gradient_clipping", a, b, atol=1e-6)
+
+    # Three AdamW steps: the weights and the state keys, dtypes and values.
+    (port_model, port_opt), (jax_model, jax_opt) = (
+        _adamw_run(adapters), _adamw_run(jax_adapters))
+    for key, value in port_model.state_dict().items():
+        same(f"adamw {key}", value, jax_model.state_dict()[key], atol=1e-6, rtol=1e-5)
+    port_state, jax_state = port_opt.state_dict()["state"], jax_opt.state_dict()["state"]
+    assert port_state.keys() == jax_state.keys()
+    for i in port_state:
+        assert port_state[i].keys() == jax_state[i].keys() == {"step", "exp_avg", "exp_avg_sq"}
+        for sub, val in port_state[i].items():
+            assert val.dtype == jax_state[i][sub].dtype and val.device.type == "cpu", sub
+            same(f"adamw state {i}.{sub}", val, jax_state[i][sub], atol=1e-6, rtol=1e-5)
+    assert int(port_state[0]["step"]) == 3
+
+    # Checkpoint files cross both ways; training then continues alike.
+    writers = ((adapters, jax_adapters, "port.ckpt"), (jax_adapters, adapters, "jax.ckpt"))
+    for saver, loader, name in writers:
+        model, opt = _adamw_run(saver)
+        saver.run_save_checkpoint(model, opt, iteration=3, out=tmp_path / name)
+        fresh = _AdapterNet()
+        fresh_opt = loader.get_adamw_cls()(fresh.parameters(), lr=1e-2, weight_decay=0.01,
+                                           betas=(0.9, 0.999), eps=1e-8)
+        assert loader.run_load_checkpoint(tmp_path / name, fresh, fresh_opt) == 3, name
+        for key, value in model.state_dict().items():
+            same(f"{name} {key}", fresh.state_dict()[key], value, atol=0.0)
+        for i, st in opt.state_dict()["state"].items():
+            for sub, val in st.items():
+                same(f"{name} state {sub}", fresh_opt.state_dict()["state"][i][sub], val,
+                     atol=0.0)
+        x, y = torch.rand(4, 20), torch.rand(4, 5)
+        for m, o in ((model, opt), (fresh, fresh_opt)):
+            o.zero_grad()
+            ((m(x) - y) ** 2).sum().backward()
+            o.step()
+        for key, value in model.state_dict().items():
+            same(f"{name} resumed {key}", fresh.state_dict()[key], value, atol=1e-6,
+                 rtol=1e-5)
+
+    # run_get_batch on the device asked for; the JAX adapter's contract.
+    dataset = np.arange(100)
+    for module in (adapters, jax_adapters):
+        bx, by = module.run_get_batch(dataset, 8, 7, "cpu")
+        assert bx.dtype == by.dtype == torch.int64 and bx.shape == (8, 7), module
+        assert bx.device.type == "cpu" and torch.equal(bx + 1, by), module
+        with pytest.raises((RuntimeError, AssertionError)):
+            module.run_get_batch(dataset, 8, 7, "cuda:99")
+
+    # Tokenization: a trained vocabulary and its encoder.
+    corpus = tmp_path / "adapters_corpus.txt"
+    corpus.write_text("the cat sat on the mat. it's 42 中文!<|endoftext|>\n" * 40)
+    got = adapters.run_train_bpe(corpus, 300, ["<|endoftext|>"])
+    want = jax_adapters.run_train_bpe(corpus, 300, ["<|endoftext|>"])
+    assert got == want and len(got[1]) > 10
+    text = "the mat sat<|endoftext|> on 42"
+    tok, jax_tok = (m.get_tokenizer(dict(got[0]), got[1], ["<|endoftext|>"])
+                    for m in (adapters, jax_adapters))
+    assert tok.encode(text) == jax_tok.encode(text) and tok.decode(tok.encode(text)) == text
+    assert set(adapters.__all__) == set(jax_adapters.__all__) - {"ensure_shard_map"}
+    assert len(adapters.__all__) == 21

@@ -21,7 +21,11 @@ The jax-free ``train`` writes the telemetry stream with every tap, async
 checkpoints and prefetch; ``report``, ``monitor`` and ``verify-checkpoint``
 run on it jax-free, and their output is the JAX package's tools' byte for
 byte; the report, trace, watchdog, supervisor and retention modules and
-the CLI module import with ``torch`` refused too."""
+the CLI module import with ``torch`` refused too.  The native tokenizer
+engine encodes jax-free, an adapter computes, ``profile --device cpu``
+writes a stream ``report`` renders, and ``warmup`` and ``profile`` print the
+JAX package's keys; ``warmup`` refuses the JAX package's flag combinations
+with 2.  No module of the port imports ``regex``."""
 
 import re
 import shutil
@@ -73,7 +77,8 @@ expected = {
         "resilience.signals", "resilience.rollback", "resilience.retention",
         "telemetry.watchdog", "telemetry.timing", "telemetry.health", "telemetry.dynamics",
         "telemetry.report", "telemetry.trace", "utils.profiling", "utils.metrics",
-        "models.moe",
+        "models.moe", "native", "native.engine", "native.gen_unicode_tables", "compat",
+        "compat.adapters", "utils.compile_cache", "utils.debug",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -236,10 +241,72 @@ if not torch.cuda.is_available():
             assert "device='cpu'" in str(exc), exc
         else:
             raise AssertionError("an entry point without device= ran without CUDA")
+# The native engine, the adapters, profile and warmup, jax-free.
+from bpe_transformer_tpu_torch import compat, native
+from bpe_transformer_tpu_torch.tokenization import BPETokenizer
+if native.is_available():
+    tok = BPETokenizer.from_files(work / "tok300" / "vocab.pkl", work / "tok300" / "merges.pkl",
+                                  ["<|endoftext|>"])
+    assert tok._native_encoder() is not None
+    assert tok.encode("the cat sat<|endoftext|>") == native.NativeBPEEncoder(
+        tok._byte_id, tok._pair_rank).encode_part("the cat sat") + [256]
+lin = compat.run_linear(4, 3, torch.ones(3, 4), torch.ones(2, 4))
+assert lin.shape == (2, 3) and float(lin.sum()) == 24.0
+prof = ["profile", "--preset", "ts-test", "--batch", "2", "--measure", "1", "--serve",
+        "--device", "cpu", "--json", "--metrics-jsonl", str(work / "profile.jsonl")]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli_main(prof) == 0
+summary = json.loads(out.getvalue().strip().splitlines()[-1])
+assert {r["name"] for r in summary["programs"]} >= {"train_step", "decode_tick[8]"}, summary
+assert all(r["bound"] == "unknown" for r in summary["programs"]), summary
+assert abs(summary["compute_frac"] + summary["host_gap_frac"] - 1.0) <= 1e-3, summary
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli_main(["report", str(work / "profile.jsonl")]) == 0
+assert "== attribution (1 records" in out.getvalue(), out.getvalue()
+warm = {}
+for mode, extra in (("serve", ["--paged", "--kv-dtype", "int8", "--fused-sampling"]),
+                    ("train", ["--train"])):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli_main(["warmup", "--compile-cache", str(work / "cc"), "--preset", "ts-test",
+                         "--device", "cpu", *extra]) == 0, mode
+    warm[mode] = json.loads(out.getvalue())
+    assert warm[mode]["programs_compiled"] == warm[mode]["cache_hits"] == 0, warm
+print("WARMUP", json.dumps(warm))
+print("PROFILE", json.dumps(summary))
 assert not any(m == "jax" or m.startswith("bpe_transformer_tpu.") for m in sys.modules
                if sys.modules[m] is not None), "a JAX module was imported"
 print("JAX-FREE OK", len(names))
 """
+
+#: The JSON keys the JAX package's ``warmup`` prints (``cmd_warmup`` and
+#: ``_warmup_train`` in its ``training/cli.py``) and its ``profile --json``
+#: summary with a measured split (``cmd_profile``).
+_JAX_WARMUP_KEYS = {
+    "serve": {"programs_compiled", "buckets", "role", "engine", "speculate",
+              "decode_attention", "kv_dtypes", "weight_dtypes", "fused_sampling",
+              "cache_dir", "cache_hits"},
+    "train": {"mode", "programs_compiled", "batch_size", "grad_accum_steps", "inner_steps",
+              "health_stats", "remat_policy", "scan_layers", "grads_dtype", "cache_dir",
+              "cache_hits"},
+}
+_JAX_PROFILE_KEYS = {
+    "metric", "config", "batch", "platform", "device_kind", "programs", "wall_step_s",
+    "device_step_s", "compute_frac", "collective_frac", "host_gap_frac",
+    "train_peak_hbm_bytes", "remat_policy", "grads_dtype", "scan_layers",
+}
+
+#: ``warmup`` flag combinations that both packages refuse with exit code 2
+#: before anything is built.
+_WARMUP_REFUSED = (
+    ["--train", "--paged"], ["--train", "--role", "decode"], ["--train", "--speculate", "2"],
+    ["--train", "--grad-accum-steps", "2", "--inner-steps", "2"],
+    ["--train", "--batch-size", "3", "--grad-accum-steps", "2"],
+    ["--role", "prefill"], ["--paged", "--role", "prefill", "--speculate", "2"],
+    ["--speculate", "2"], ["--paged", "--speculate", "2"], ["--draft-config", "d.json"],
+)
 
 
 # The fleet's front-end modules run on hosts with neither torch nor jax.
@@ -308,10 +375,34 @@ def _tools_match_jax(work):
             assert (work / "trace0.json").read_bytes() == (work / "trace1.json").read_bytes()
 
 
+def _warmup_and_profile_match_jax(stdout: str):
+    """The jax-free run's ``warmup`` and ``profile --json`` lines carry the
+    JAX package's keys; the flag combinations the JAX ``warmup`` refuses
+    exit with 2 in both packages."""
+    import contextlib
+    import io
+    import json
+
+    from bpe_transformer_tpu.training.cli import main as jax_main
+    from bpe_transformer_tpu_torch.training.cli import main as port_main
+
+    lines = dict(line.split(" ", 1) for line in stdout.splitlines()
+                 if line.startswith(("WARMUP ", "PROFILE ")))
+    warm = json.loads(lines["WARMUP"])
+    for mode, keys in _JAX_WARMUP_KEYS.items():
+        assert keys <= set(warm[mode]), (mode, keys - set(warm[mode]))
+    assert _JAX_PROFILE_KEYS <= set(json.loads(lines["PROFILE"]))
+    for extra in _WARMUP_REFUSED:
+        argv = ["warmup", "--compile-cache", "unused", "--preset", "ts-test", *extra]
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert jax_main(argv) == 2, extra
+            assert port_main(argv + ["--device", "cpu"]) == 2, extra
+
+
 def test_torch_port_is_jax_free_and_card_first(tmp_path):
     # Statically: no import of jax or of the JAX package in the port's
     # sources or in chip_smoke.py.
-    banned = re.compile(r"^\s*(import|from)\s+(jax|bpe_transformer_tpu)\b", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|bpe_transformer_tpu|regex)\b", re.M)
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources if banned.search(p.read_text())]
     assert not offenders, offenders
@@ -326,6 +417,7 @@ def test_torch_port_is_jax_free_and_card_first(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX-FREE OK" in proc.stdout
     _tools_match_jax(tmp_path)
+    _warmup_and_profile_match_jax(proc.stdout)
     proc = subprocess.run([sys.executable, "-c", _TORCH_FREE_SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "TORCH-FREE OK" in proc.stdout, proc.stderr[-3000:]

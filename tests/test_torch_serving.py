@@ -18,7 +18,10 @@ through ``generate`` on a JAX-written MoE checkpoint.
 The serving surface is held against the JAX package's too: the regex-free
 host tokenizer (its class tables against ``regex`` itself, pre-tokens and
 special-token splits on a seeded multilingual corpus, a trained vocabulary
-and merge list, encode/decode and the token file), the HTTP server (greedy
+and merge list, encode/decode and the token file) and its native C++ engine
+(pre-tokens, counts, merges and ids against the JAX package's engine and
+the port's Python path, the generated class tables byte for byte,
+``BT_NATIVE=0``), the HTTP server (greedy
 ``/generate`` ids and completions, ``stop_id``, the 400/503 paths with
 ``X-Request-Id`` echoed, the ``/healthz``/``/statusz`` keys and the
 Prometheus families, drain, offline batch files, a schema-valid telemetry
@@ -645,6 +648,106 @@ def _check_tokenizer_matches_jax(tmp_path):
     assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
     assert "regex" not in {m.split(".")[0] for m in sys.modules
                            if m.startswith("bpe_transformer_tpu_torch")}
+    _check_native_engine_matches_jax(tmp_path, corpus, lines, specials, want)
+
+
+def _check_native_engine_matches_jax(tmp_path, corpus, lines, specials, jax_trainer):
+    """The port's native (C++) engine against the JAX package's and against
+    the port's own Python path on the seeded hard-case corpus, all exact:
+    pre-token offsets, the streaming counter's items, the merge loop's
+    merges, the fused encoder's ids, a trainer run and ``count_pretokens``
+    through each engine; the ``.inc`` regenerated from the port's tables
+    byte-equal to the committed one and to the JAX package's; a pickled
+    tokenizer (the ``encode_iterable`` workers' copy) encoding after
+    unpickling; ``BT_NATIVE=0`` and ``engine="native"`` behaving as in the
+    JAX package."""
+    import collections
+    import pickle
+    from unittest import mock
+
+    from bpe_transformer_tpu.native import engine as jax_native
+    from bpe_transformer_tpu.tokenization import count_pretokens as jax_count_pretokens
+    from bpe_transformer_tpu_torch.native import engine as native
+    from bpe_transformer_tpu_torch.native import gen_unicode_tables
+    from bpe_transformer_tpu_torch.tokenization import (
+        BPETokenizer,
+        BPETrainer,
+        count_pretokens,
+        iter_pretoken_strings,
+    )
+
+    inc = gen_unicode_tables.OUT
+    assert gen_unicode_tables.render().encode() == inc.read_bytes() == (
+        Path(jax_native.__file__).parent / "src" / "unicode_classes.inc").read_bytes()
+    assert native.is_available() == jax_native.is_available(), native.unavailable_reason()
+    path = tmp_path / "corpus.txt"
+    if native.is_available():
+        for text in lines + [corpus, "", " ", "a  \x1c\x1db", " \x85\x85"]:
+            offsets = native.pretokenize_offsets(text)
+            assert offsets == jax_native.pretokenize_offsets(text), repr(text)
+            data = text.encode("utf-8")
+            assert [data[a:b].decode("utf-8") for a, b in offsets] == list(
+                iter_pretoken_strings(text)), repr(text)
+        counters = [native.NativePretokenCounter(), jax_native.NativePretokenCounter()]
+        python_counts = collections.Counter()
+        for line in lines:
+            for counter in counters:
+                counter.add(line)
+            python_counts.update(p.encode("utf-8") for p in iter_pretoken_strings(line))
+        items = [sorted(c.items()) for c in counters]
+        assert items[0] == items[1] == sorted(python_counts.items())
+        words = [tuple(w) for w, n in items[0] if len(w) > 1]
+        counts = [n for w, n in items[0] if len(w) > 1]
+        base = [bytes([i]) for i in range(256)]
+        merges = native.train_bpe_merges(words, counts, base, 500)
+        assert merges == jax_native.train_bpe_merges(words, counts, base, 500)
+        assert merges == counters[0].train_bpe(base, 500) and len(merges) > 100
+        for engine in ("native", "python"):
+            trainer = BPETrainer(vocab_size=600, special_tokens=specials[:1])
+            trainer.train(path, n_workers=1, engine=engine)
+            assert trainer.vocab == jax_trainer.vocab and trainer.merges == jax_trainer.merges
+            assert count_pretokens(path, specials[:1], n_workers=1, engine=engine) == (
+                jax_count_pretokens(path, specials[:1], n_workers=1, engine=engine)), engine
+        tok = BPETokenizer(dict(jax_trainer.vocab), jax_trainer.merges, specials)
+        encoder = tok._native_encoder()
+        jax_encoder = jax_native.NativeBPEEncoder(tok._byte_id, tok._pair_rank)
+        python_tok = pickle.loads(pickle.dumps(tok))
+        assert python_tok._native is None
+        python_tok._native_tried = True  # the pure-Python path
+        for text in lines + [corpus]:
+            text = text.replace("<|endoftext|>", "")  # encode_part takes specials-free text
+            ids = encoder.encode_part(text)
+            assert ids == jax_encoder.encode_part(text) == python_tok.encode(text), repr(text)
+        unpickled = pickle.loads(pickle.dumps(tok))
+        assert unpickled.encode(corpus) == tok.encode(corpus) == python_tok.encode(corpus)
+        assert unpickled._native is not None
+
+    # BT_NATIVE=0 turns the engine off in both packages, from the next load.
+    saved = [(m, m._lib, m._load_failed) for m in (native, jax_native)]
+    try:
+        with mock.patch.dict(os.environ, {"BT_NATIVE": "0"}):
+            for m in (native, jax_native):
+                m._lib, m._load_failed = None, None
+            assert not native.is_available() and not jax_native.is_available()
+            assert native.unavailable_reason() == jax_native.unavailable_reason()
+            errors = []
+            for fn in (count_pretokens, jax_count_pretokens):
+                with pytest.raises(RuntimeError) as info:
+                    fn(path, specials[:1], n_workers=1, engine="native")
+                errors.append(str(info.value))
+            assert errors[0] == errors[1] == "native engine unavailable: disabled via BT_NATIVE=0"
+            assert count_pretokens(path, specials[:1], n_workers=1) == (
+                jax_count_pretokens(path, specials[:1], n_workers=1))
+            assert BPETokenizer(dict(jax_trainer.vocab), jax_trainer.merges)._native_encoder() is None
+            trainer = BPETrainer(vocab_size=600, special_tokens=specials[:1])
+            trainer.train(path, n_workers=1)
+            assert trainer.merges == jax_trainer.merges
+        for fn in (count_pretokens, jax_count_pretokens):
+            with pytest.raises(ValueError, match="unknown engine"):
+                fn(path, specials[:1], engine="rust")
+    finally:
+        for m, lib, failed in saved:
+            m._lib, m._load_failed = lib, failed
 
 
 def _byte_tokenizers():

@@ -17,7 +17,10 @@ Resuming from a corrupt checkpoint must quarantine and fall back exactly as
 the JAX package does on the same directory.  The MoE family (loops (j) and
 (k)): ``switch_ffn`` and its gradients, the tapped and scanned steps, the sp
 step with each ring rank routing its own tokens, and the loop resumed from
-a JAX-written MoE checkpoint, each against the JAX package's.
+a JAX-written MoE checkpoint, each against the JAX package's.  Loop (l):
+performance attribution in the loop (the JAX probe's record keys, the live
+state untouched by the probe, the analytic FLOPs against XLA's count) and
+the debug helpers (``check_finite``'s message equal to JAX's).
 """
 
 import dataclasses
@@ -792,7 +795,7 @@ def _loop_telemetry_and_faults(tmp_path):
                    loop_cls(**{**base, **kw}), data, log_fn=quiet, **extra)
             messages.append(str(exc.value).split(" — ")[0])
         assert messages[0] == messages[1], (kw, messages)
-    for kw in (dict(attribution_every=2), dict(parallel="dp"), dict(opt_sharding="zero1"),
+    for kw in (dict(parallel="dp"), dict(opt_sharding="zero1"),
                dict(mesh_axes={"data": 1}), dict(sp_zigzag=True), dict(sp_ulysses=True)):
         with pytest.raises(NotImplementedError, match="slice 1"):
             train(cfg, TrainHParams(), LoopConfig(**{**base, **kw}), data, device="cpu")
@@ -1126,6 +1129,100 @@ def _moe_loop(tmp_path):
         resumed["history"][0]["loss"])
 
 
+def _attribution_and_debug(tmp_path):
+    """(l) Attribution and the debug helpers.  A 4-step CPU loop with
+    ``attribution_every=2`` writes two ``kind="attribution"`` records with
+    the JAX probe's key set, their compute and host-gap fractions summing
+    to 1 (1e-3, the records' rounding), the first carrying the roofline;
+    the live state after the run is bit-equal to the same run's without
+    the probe; ``report`` renders the records.  The probe's train-step
+    FLOPs are ``train_step_flops``'s, and their ratio to XLA's count of the
+    JAX probe's compiled step on the same config is printed and held to
+    [0.8, 1.0]: both count the same matmuls and the full (unmasked)
+    attention scores, and XLA adds every elementwise op (norms, softmax,
+    the loss, clipping and AdamW), so the analytic count can only be the
+    smaller; on this 3-layer d64 config the elementwise work is about a
+    tenth of XLA's count (0.89 measured), and a dropped matmul or a wrong
+    factor in either count would leave the band.  ``check_finite``
+    raises JAX's message on params and an AdamW state; ``nan_checks``
+    restores autograd's anomaly mode."""
+    import contextlib
+    import io
+
+    from bpe_transformer_tpu.telemetry.attribution import StepProbe as JaxStepProbe
+    from bpe_transformer_tpu.utils.debug import check_finite as jax_check_finite
+    from bpe_transformer_tpu_torch.telemetry.attribution import StepProbe
+    from bpe_transformer_tpu_torch.telemetry.report import main as report_main
+    from bpe_transformer_tpu_torch.utils import check_finite, nan_checks
+    from bpe_transformer_tpu_torch.utils.flops import train_step_flops
+
+    cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=64, context_length=16)
+    jcfg = _jax_config(cfg)
+    batch = 2
+    jax_params = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    jax_probe = JaxStepProbe(jcfg, JaxTrainHParams(), batch_size=batch, iters=1)
+    jax_record = jax_probe.attribution_record(
+        jax_params, jax_adamw_init(jax_params), step=2, wall_step_s=1.0, t=0.0)
+
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, 2000).astype(np.uint16)
+    states = {}
+    for every in (0, 2):
+        loop = LoopConfig(steps=4, batch_size=batch, log_every=2, attribution_every=every,
+                          checkpoint_every=4, checkpoint_dir=str(tmp_path / f"attr_ck{every}"),
+                          metrics_jsonl=str(tmp_path / f"attr{every}.jsonl"))
+        train(cfg, TrainHParams(), loop, tokens, device="cpu", log_fn=lambda *a: None)
+        states[every] = load_checkpoint(tmp_path / f"attr_ck{every}" / "latest.ckpt")
+    for key in ("params", "opt_state"):
+        for a, b in zip(tree_leaves(states[0][key]), tree_leaves(states[2][key])):
+            assert np.array_equal(np.asarray(a), np.asarray(b)), key
+    records = [json.loads(line) for line in (tmp_path / "attr2.jsonl").read_text().splitlines()]
+    attrs = [r for r in records if r.get("kind") == "attribution"]
+    assert [r["step"] for r in attrs] == [2, 4], attrs
+    assert set(attrs[0]) == set(jax_record), set(attrs[0]) ^ set(jax_record)
+    assert set(attrs[1]) == set(jax_record) - {"programs"}
+    for r in attrs:
+        assert abs(r["compute_frac"] + r["host_gap_frac"] - 1.0) <= 1e-3, r
+        assert r["collective_frac"] == 0.0 and r["device_step_s"] > 0, r
+    row = attrs[0]["programs"][0]
+    assert row["name"] == "train_step" and row["bound"] == "unknown"
+    assert row["flops"] == train_step_flops(cfg, batch)
+    ratio = row["flops"] / jax_record["programs"][0]["flops"]
+    print(f"analytic / XLA train-step FLOPs: {ratio:.4f}")
+    assert 0.8 <= ratio <= 1.0, ratio
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert report_main([str(tmp_path / "attr2.jsonl")]) == 0
+    assert "== attribution (2 records" in out.getvalue(), out.getvalue()
+    with pytest.raises(ValueError, match="multiple of log_every"):
+        train(cfg, TrainHParams(), LoopConfig(steps=4, batch_size=batch, log_every=2,
+                                             attribution_every=3), tokens, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="dp", device="cpu")
+
+    # check_finite: the JAX package's message, on params and on an AdamW state.
+    params = params_from_jax(jax_params, "cpu")
+    params["layers"][1]["attn"]["k_proj"][0, 0] = float("nan")
+    opt = adamw_init(params)
+    opt.v["lm_head"][1, 2] = float("inf")
+    jax_opt = jax_adamw_init(jax_params)
+    jax_bad = (jax.tree_util.tree_map(np.array, jax_params), jax_opt)
+    jax_bad[0]["layers"][1]["attn"]["k_proj"][0, 0] = np.nan
+    jax_opt = jax_opt._replace(v={**jax_opt.v, "lm_head": jax_opt.v["lm_head"].at[1, 2].set(
+        jnp.inf)})
+    for tree, jax_tree, name in ((params, jax_bad[0], "params"), (opt, jax_opt, "opt_state")):
+        messages = []
+        for fn, t in ((check_finite, tree), (jax_check_finite, jax_tree)):
+            with pytest.raises(FloatingPointError) as info:
+                fn(t, name)
+            messages.append(str(info.value))
+        assert messages[0] == messages[1], messages
+    check_finite(adamw_init(params_from_jax(jax_params, "cpu")), "clean")
+    before = torch.is_anomaly_enabled()
+    with nan_checks():
+        assert torch.is_anomaly_enabled() and torch.is_anomaly_check_nan_enabled()
+    assert torch.is_anomaly_enabled() == before
+
+
 def test_torch_training_matches_jax(tmp_path):
     _pinned_trajectory()
     _one_step_grads()
@@ -1138,3 +1235,4 @@ def test_torch_training_matches_jax(tmp_path):
     _preemption_and_supervisor(tmp_path)
     _moe()
     _moe_loop(tmp_path)
+    _attribution_and_debug(tmp_path)
