@@ -17,11 +17,18 @@ stream as ``kind="attribution"`` records:
    card's ridge point (``utils/flops.py`` peaks; ``"unknown"`` on any
    device without a row, the CPU included).
 
-2. **Measured split.**  :class:`StepProbe` times a copy of the training
-   update with two fences (``torch.cuda.synchronize``) around back-to-back
-   launches: the device time of a step.  The host gap is the loop's wall
-   time per step minus that; on one device there is no collective, so
-   ``collective_frac`` is 0 and the fractions sum to 1.
+2. **Measured split.**  :class:`StepProbe` runs a copy of the training
+   update.  Its device time is the card's busy time over one call: the
+   union of the kernel and copy intervals of a ``torch.profiler`` trace
+   (CUPTI) of that call, which the host's launch rate does not inflate.
+   Then ``iters`` back-to-back calls between two fences
+   (``torch.cuda.synchronize``) give the probe's own wall time, kept as a
+   separate field: on a host-bound step the host's dispatch sets it, not
+   the card.  The host gap is the loop's wall time per step minus the
+   device time; on one device there is no collective, so
+   ``collective_frac`` is 0.  Where no device trace can be taken (the CPU,
+   or another ``torch.profiler`` already recording) the device time is the
+   fenced wall time, and the record says so (``device_time_from``).
 
 The port's AdamW writes its state in place, so the probe runs on a clone of
 the parameters and the optimizer state, made at each measure and dropped
@@ -42,6 +49,7 @@ import torch
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState
+from bpe_transformer_tpu_torch.telemetry.resources import reset_device_peak
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map
 from bpe_transformer_tpu_torch.utils.flops import (
     decode_tick_flops,
@@ -55,6 +63,7 @@ from bpe_transformer_tpu_torch.utils.flops import (
 __all__ = [
     "StepProbe",
     "decode_tick_roofline",
+    "kernel_busy_s",
     "program_cost",
     "program_memory",
     "roofline",
@@ -77,6 +86,35 @@ def _fence(device: torch.device | None) -> None:
     finished when it returns)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def kernel_busy_s(fn: Callable, *args) -> float | None:
+    """Seconds the card was busy during one call of ``fn(*args)``: the union
+    of the device intervals (kernels, copies, fills) of a ``torch.profiler``
+    trace of the call, closed by one fence inside the trace.  Reading the
+    trace builds the profiler's event list, which takes seconds at a few
+    thousand launches.  The call runs either way; None off the card, while
+    another profiler is recording, or when the trace holds no device
+    events."""
+    device = _device_of(args)
+    if device is None or device.type != "cuda" or torch.autograd._profiler_enabled():
+        fn(*args)
+        _fence(device)
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        _fence(device)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e6 if spans else None
 
 
 def time_call(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
@@ -186,9 +224,11 @@ def _memory_record(device: torch.device, before: int, args) -> dict:
 
 
 def program_memory(fn: Callable, *args) -> dict:
-    """Peak device memory of one call of ``fn(*args)``:
-    ``torch.cuda.reset_peak_memory_stats`` before it, ``max_memory_allocated``
-    after a fence.  ``peak_hbm_bytes`` is the allocator's peak over the call
+    """Peak device memory of one call of ``fn(*args)``: the allocator's peak
+    reset before it (``telemetry/resources.py`` :func:`reset_device_peak`,
+    which keeps the run's peak for the ``resources`` records) and
+    ``max_memory_allocated`` after a fence.  ``peak_hbm_bytes`` is the
+    allocator's peak over the call
     (everything resident on the card counts), ``temp_bytes`` that peak less
     what was allocated before the call, ``argument_bytes`` the bytes of the
     call's tensor arguments; ``output_bytes`` is None (the port's update
@@ -198,7 +238,7 @@ def program_memory(fn: Callable, *args) -> dict:
     if device is None or device.type != "cuda":
         return {"peak_hbm_bytes": None, "temp_bytes": None, "argument_bytes": None,
                 "output_bytes": None}
-    torch.cuda.reset_peak_memory_stats(device)
+    reset_device_peak(device)
     before = torch.cuda.memory_allocated(device)
     fn(*args)
     _fence(device)
@@ -295,7 +335,8 @@ class StepProbe:
     """
 
     #: Host syncs (``torch.cuda.synchronize``) per timed variant per
-    #: :meth:`measure`: the constant the sync-count check pins.
+    #: :meth:`measure`, one closing the traced call and one the timed calls:
+    #: the constant the sync-count check pins.
     FETCHES_PER_MEASURE = 2
 
     def __init__(
@@ -392,28 +433,38 @@ class StepProbe:
         return dict(self._memory or {})
 
     def measure(self, params, opt_state) -> dict:
-        """Fenced device timings of the probe step on a clone of the state
-        (seconds per optimizer update, inner steps divided back out):
-        ``{"device_step_s", "compute_s", "collective_s"}``, the collective
-        0.0 on one device.  The first measure also reads the step's peak
-        device memory, from the allocator, with no extra sync."""
+        """Device time and fenced wall time of the probe step on a clone of
+        the state, in seconds per optimizer update (inner steps divided back
+        out): ``{"device_step_s", "compute_s", "collective_s",
+        "probe_wall_step_s", "device_time_from"}``.  One traced call gives
+        the device time (:func:`kernel_busy_s`; ``device_time_from`` is
+        ``"kernels"``), then ``iters`` calls between two fences the wall
+        time, which stands in for the device time where no trace can be
+        taken (``"fenced_wall"``).  The collective is 0.0 on one device.
+        The first measure also reads the step's peak device memory over the
+        timed calls, from the allocator, with no extra sync."""
         if self._costs is None:
             self._build()
-        # The first measure reads the step's peak from the allocator around
-        # its timed calls (program_memory's record, without its own fence).
         read_memory = self._memory is None and self.device.type == "cuda"
         p, o = _clone_state(params, opt_state)
         x, y = self._batch
+        busy_s = kernel_busy_s(self._step, p, o, x, y)
         if read_memory:
-            torch.cuda.reset_peak_memory_stats(self.device)
+            reset_device_peak(self.device)
             before = torch.cuda.memory_allocated(self.device)
-        ms = time_call(self._step, p, o, x, y, iters=self.iters, warmup=1)
+        start = time.perf_counter()
+        for _ in range(self.iters):
+            self._step(p, o, x, y)
+        _fence(self.device)
+        wall_s = (time.perf_counter() - start) / max(self.iters, 1)
         if read_memory:
             self._memory = _memory_record(self.device, before, (p, o, x, y))
         del p, o
-        device_step_s = ms / 1e3 / max(self.inner_steps, 1)
+        updates = max(self.inner_steps, 1)
+        device_step_s = (busy_s if busy_s is not None else wall_s) / updates
         return {"device_step_s": device_step_s, "compute_s": device_step_s,
-                "collective_s": 0.0}
+                "collective_s": 0.0, "probe_wall_step_s": wall_s / updates,
+                "device_time_from": "kernels" if busy_s is not None else "fenced_wall"}
 
     def loop_wall_step_s(self, params, opt_state, iters: int | None = None) -> float:
         """Wall seconds per optimizer update of a training-shaped mini loop
@@ -450,10 +501,12 @@ class StepProbe:
     ) -> dict:
         """One ``kind="attribution"`` record: the measured compute /
         collective / host-gap split of ``wall_step_s`` (fractions sum to
-        1), the probe step's peak device memory and the knobs that set it
-        (``remat_policy``, ``grads_dtype``, ``scan_layers``), and the
-        roofline rows on the first record of the run (``include_programs``
-        overrides)."""
+        1), the probe's own fenced wall time and where its device time came
+        from (:meth:`measure`), the probe step's peak device memory and the
+        knobs that set it (``remat_policy``, ``grads_dtype``,
+        ``scan_layers``), and the roofline rows on the first record of the
+        run (``include_programs`` overrides).  The keys are the JAX
+        package's plus ``probe_wall_step_s`` and ``device_time_from``."""
         first = self._costs is None
         measured = self.measure(params, opt_state)
         device_s = measured["device_step_s"]
@@ -468,6 +521,8 @@ class StepProbe:
             "step": step,
             "wall_step_s": round(wall_step_s, 6),
             "device_step_s": round(device_s, 6),
+            "probe_wall_step_s": round(measured["probe_wall_step_s"], 6),
+            "device_time_from": measured["device_time_from"],
             "compute_frac": round(compute_s / denom, 4),
             "collective_frac": round(collective_s / denom, 4),
             "host_gap_frac": round(host_gap_s / denom, 4),

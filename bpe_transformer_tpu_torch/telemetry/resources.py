@@ -10,7 +10,10 @@ each field differs:
   allocator's current and peak allocated bytes) and
   ``torch.cuda.mem_get_info()`` (the card's total memory), summed over the
   cards the process allocates on.  ``None`` where it allocates on none (a
-  CPU run), never absent.
+  CPU run), never absent.  The peak is the process's whole run: code that
+  reads a peak of its own (the attribution probe) resets the allocator's
+  counter through :func:`reset_device_peak`, which keeps the peak before
+  the reset, so that peak also covers the probe's clone of the state.
 - **Live buffers** (``live_buffer_bytes``): ``torch.cuda.memory_allocated()``
   over the visible cards, the bytes held by live tensors; ``None`` without
   CUDA.
@@ -36,6 +39,23 @@ import time
 import torch
 
 from bpe_transformer_tpu_torch.kernels import _build
+
+
+#: Each card's allocated-bytes peak as it stood at its last
+#: :func:`reset_device_peak`, by device index.
+_peak_before_reset: dict[int, int] = {}
+
+
+def reset_device_peak(device: torch.device) -> None:
+    """``torch.cuda.reset_peak_memory_stats(device)``, keeping the peak it
+    clears: :func:`device_memory_stats` reports the larger of the kept
+    peak and the allocator's peak since, so a caller that measures its own
+    peak never shortens the run's."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    peak = int(torch.cuda.memory_stats(index).get("allocated_bytes.all.peak", 0))
+    _peak_before_reset[index] = max(_peak_before_reset.get(index, 0), peak)
+    torch.cuda.reset_peak_memory_stats(index)
 
 
 def compile_events() -> int:
@@ -111,7 +131,8 @@ def device_memory_stats() -> dict | None:
             continue
         n += 1
         totals["bytes_in_use"] += int(stats.get("allocated_bytes.all.current", 0))
-        totals["peak_bytes_in_use"] += int(stats.get("allocated_bytes.all.peak", 0))
+        totals["peak_bytes_in_use"] += max(int(stats.get("allocated_bytes.all.peak", 0)),
+                                           _peak_before_reset.get(device, 0))
         totals["bytes_limit"] += int(torch.cuda.mem_get_info(device)[1])
     if n == 0:
         return None

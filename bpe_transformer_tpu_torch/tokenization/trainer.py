@@ -25,6 +25,7 @@ a count check at pop time.
 from __future__ import annotations
 
 import heapq
+import os
 import pickle
 from collections import Counter
 from pathlib import Path
@@ -33,7 +34,6 @@ from bpe_transformer_tpu_torch.settings import DEFAULT_OUTPUT_DIR, ENCODING
 from bpe_transformer_tpu_torch.tokenization.pretokenization import (
     Pretoken,
     count_pretokens,
-    resolve_engine,
     split_on_special_tokens,
 )
 
@@ -127,31 +127,28 @@ class BPETrainer:
     def vocab_size(self) -> int:
         return self._target_vocab_size
 
-    def train(
-        self, input_path: str | Path, n_workers: int | None = None, engine: str = "auto"
-    ) -> None:
+    def train(self, input_path: str | Path, n_workers: int | None = None) -> None:
         """Pre-tokenize ``input_path`` and learn merges to the target size.
 
-        ``engine`` (``"auto"``, ``"python"`` or ``"native"``, see
-        :func:`~bpe_transformer_tpu_torch.tokenization.pretokenization.resolve_engine`):
-        the native engine streams the file in bounded-memory chunks through
-        the C++ scan, count and merge loop; the Python path fans counting
-        out over worker processes
-        (:func:`~bpe_transformer_tpu_torch.tokenization.pretokenization.count_pretokens`).
+        With a C++ toolchain the whole pipeline (scan, count, merge loop)
+        runs natively, streaming the file in bounded-memory chunks; the
+        Python counting + merge path is the fallback (``BT_NATIVE=0``
+        selects it).
         """
-        if resolve_engine(engine) == "native" and self._train_native_file(input_path):
+        if self._train_native_file(input_path):
             return
         pretoken_counts = count_pretokens(
             input_path,
             self._special_tokens,
             training=True,
             n_workers=n_workers,
-            engine="python",
         )
-        self.train_from_pretokens(pretoken_counts, engine="python")
+        self.train_from_pretokens(pretoken_counts)
 
     def _train_native_file(self, input_path: str | Path) -> bool:
         """Stream-count + train via the C++ engine; False when unavailable."""
+        if os.environ.get("BT_NATIVE", "1") == "0":
+            return False
         try:
             from bpe_transformer_tpu_torch.native import engine as native_engine
 
@@ -236,14 +233,14 @@ class BPETrainer:
             next_id += 1
         return True
 
-    def train_from_pretokens(
-        self, pretoken_counts: Counter[Pretoken], engine: str = "auto"
-    ) -> None:
-        """Learn merges from pre-token multiplicities (already counted),
-        through the C++ merge loop (``bt_train_bpe``, the same selection
-        rule) when ``engine`` resolves to the native engine, else the Python
-        loop below."""
-        if resolve_engine(engine) == "native" and self._train_native(pretoken_counts):
+    def train_from_pretokens(self, pretoken_counts: Counter[Pretoken]) -> None:
+        """Learn merges from pre-token multiplicities (already counted).
+
+        Uses the C++ merge loop (``native/src/bt_native.cpp:bt_train_bpe``,
+        same selection semantics) when a toolchain is available; the Python
+        loop below is the reference implementation and fallback.
+        """
+        if self._train_native(pretoken_counts):
             return
         words: list[list[int]] = []
         counts: list[int] = []
@@ -313,6 +310,8 @@ class BPETrainer:
 
     def _train_native(self, pretoken_counts: Counter[Pretoken]) -> bool:
         """Learn merges via the C++ loop; False when unavailable."""
+        if os.environ.get("BT_NATIVE", "1") == "0":
+            return False
         try:
             from bpe_transformer_tpu_torch.native import engine as native_engine
 
@@ -341,7 +340,6 @@ class BPETrainer:
             vocab[next_id] = vocab[a] + vocab[b]
             next_id += 1
         return True
-
 
     def save_trainer(self, output_dir: Path | None = None) -> None:
         """Pickle ``vocab.pkl`` and ``merges.pkl`` under ``output_dir``.

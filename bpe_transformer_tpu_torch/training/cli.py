@@ -631,7 +631,9 @@ def cmd_profile(args) -> int:
         record["programs"] = rows  # the serving ladder too, when costed
         print(f"== measured split ({args.measure} iters) ==")
         print(f"  wall {record['wall_step_s'] * 1e3:,.2f} ms/step  "
-              f"device {record['device_step_s'] * 1e3:,.2f} ms  "
+              f"device {record['device_step_s'] * 1e3:,.2f} ms "
+              f"({record['device_time_from']}; probe fenced wall "
+              f"{record['probe_wall_step_s'] * 1e3:,.2f} ms)  "
               f"compute {record['compute_frac']:.0%}  collective "
               f"{record['collective_frac']:.0%}  host gap {record['host_gap_frac']:.0%}")
 

@@ -201,9 +201,10 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and ``serve --weight-dtype int8`` exits 2;
 17. the rest of the one-card surface at ``GPT2_SMALL_32K`` width: (a) the
    native (C++) tokenizer engine, available on the card's host, trains phase
-   13's corpus to the Python path's vocabulary and merges and encodes it to
-   the same ids, each path's train and encode seconds printed beside phase
-   13a's (which now takes the native engine through ``engine="auto"``); (b)
+   13's corpus (required to run natively) to the Python path's
+   (``BT_NATIVE=0``) vocabulary and merges and encodes it to the same ids,
+   each path's train and encode seconds printed beside phase 13a's (which
+   takes the native engine when it builds); (b)
    the 21 reference adapters (``compat``) on CUDA tensors against the same
    calls on CPU tensors from one seed (float32, 1e-4 of the largest
    magnitude), ``run_transformer_lm`` and ``run_transformer_block`` at full
@@ -212,9 +213,12 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    host), the checkpoint adapters
    from the card to the CPU, ``run_get_batch`` onto the card; (c) ``train``
    with ``attribution_every`` at phase 15's config: records with the JAX
-   probe's keys and fractions summing to 1, the checkpoint after 8 steps
-   byte-identical with the probe on and off, every sync the probe adds in
-   ``telemetry/attribution.py`` and its fences exactly two a boundary, the
+   probe's keys (and the probe's fenced wall time), the loop's step time
+   split against the card's busy time from a ``torch.profiler`` trace,
+   which must be shorter than both wall times on this host-bound step, the
+   checkpoint after 8 steps byte-identical with the probe on and off, no
+   sync in an update off a log boundary and every sync the probe adds in
+   ``telemetry/attribution.py``, its fences exactly two a boundary, the
    probe's launches a whole number of one step's, the live tensors
    untouched; ``profile --measure 5 --serve`` with H100 verdicts and
    ``report`` rendering it; (d) ``warmup --compile-cache`` on the build root
@@ -240,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -3055,8 +3060,6 @@ class ServeProcess:
 
     def __init__(self, argv: list, log_path: Path, timeout: float = 900, command: str = "serve",
                  banner: str = "serving on http://", env: dict | None = None):
-        import os
-
         self._log = open(log_path, "w")
         self.proc = subprocess.Popen([sys.executable, *PORT_CLI, command, *argv], cwd=ROOT,
                                      stdout=subprocess.PIPE, stderr=self._log, text=True,
@@ -4080,8 +4083,6 @@ TRAIN_WORK = ROOT / ".scratch" / "chip_smoke_train"
 def train_subprocess(argv: list, faults: dict | None = None, timeout: float = 600):
     """The port's ``train`` CLI in a fresh process, as a user runs it;
     returns the finished process (the caller checks its exit code)."""
-    import os
-
     env = {**os.environ, "BT_FAULTS": json.dumps(faults)} if faults else None
     return subprocess.run([sys.executable, *PORT_CLI, "train", *argv], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
@@ -4100,9 +4101,16 @@ def span_seconds(records: list, name: str, **attrs) -> list:
             and all(r.get(k) == v for k, v in attrs.items())]
 
 
-def count_syncs(torch, fn, n: int) -> tuple[int, list]:
+#: The text of the warning that :func:`_step_marks`'s injector raises as
+#: each loop step begins, followed by the step's index.
+STEP_MARK = "loop step "
+
+
+def count_syncs(torch, fn, n: int) -> list:
     """Synchronising CUDA calls that ``torch.cuda.set_sync_debug_mode`` flags
-    while ``fn`` runs ``n`` times: the count and where each was raised."""
+    while ``fn`` runs ``n`` times: ``filename:line`` of each, in order (one
+    entry per call).  A warning whose text starts with :data:`STEP_MARK`
+    stands in the list as itself, so a caller can split it by step."""
     import warnings
 
     torch.cuda.synchronize()
@@ -4115,8 +4123,9 @@ def count_syncs(torch, fn, n: int) -> tuple[int, list]:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    found = [w for w in caught if "synchroniz" in str(w.message).lower()]
-    return len(found), sorted({f"{Path(w.filename).name}:{w.lineno}" for w in found})
+    return [str(w.message) if str(w.message).startswith(STEP_MARK)
+            else f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if str(w.message).startswith(STEP_MARK) or "synchroniz" in str(w.message).lower()]
 
 
 def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 8) -> dict:
@@ -4248,8 +4257,8 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
         log(f"15b set_sync_debug_mode's first use: {first}")
     for name, fn in steps_fn.items():
         if on_card:
-            syncs[name], where[name] = count_syncs(
-                torch, lambda fn=fn: fn(params, opt_state, x, y), 4)
+            sites = count_syncs(torch, lambda fn=fn: fn(params, opt_state, x, y), 4)
+            syncs[name], where[name] = len(sites), sorted(set(sites))
             device_us[name] = profile_step(torch, f"15b {name} GPT2_SMALL_32K",
                                            lambda fn=fn: fn(params, opt_state, x, y),
                                            n_top=3)["device_us"]
@@ -4264,8 +4273,9 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
         for depth in (0, 2):
             def feed(depth=depth):
                 run(loop(steps=6, log_every=6, prefetch=depth))
-            syncs[f"loop, prefetch {depth}"], where[f"loop, prefetch {depth}"] = \
-                count_syncs(torch, feed, 1)
+            sites = count_syncs(torch, feed, 1)
+            syncs[f"loop, prefetch {depth}"] = len(sites)
+            where[f"loop, prefetch {depth}"] = sorted(set(sites))
         added = {k: syncs[k] - syncs["plain"] for k in ("health", "dynamics")}
         added["prefetch"] = syncs["loop, prefetch 2"] - syncs["loop, prefetch 0"]
         log(f"15b syncs flagged by set_sync_debug_mode (4 steps of each step variant; one "
@@ -4627,7 +4637,8 @@ def moe_training(torch, smi: str, cfg, batch: int, device: str, data) -> dict:
         opt_state = adamw_init(params)
         step = make_train_step(c, hparams)
         step(params, opt_state, x, y)  # warm-up
-        syncs, where = count_syncs(torch, lambda: step(params, opt_state, x, y), 2)
+        sites = count_syncs(torch, lambda: step(params, opt_state, x, y), 2)
+        syncs, where = len(sites), sorted(set(sites))
         log(f"16b {mode} step: {syncs} synchronising calls in 2 steps {where}")
         require(syncs == 0, f"16b: the {mode} MoE step syncs with the host at {where}")
         torch.cuda.synchronize()
@@ -4897,7 +4908,7 @@ ATTRIBUTION_KEYS = {
     "kind", "t", "step", "wall_step_s", "device_step_s", "compute_frac", "collective_frac",
     "host_gap_frac", "probe_iters", "train_peak_hbm_bytes", "train_temp_hbm_bytes",
     "remat_policy", "grads_dtype", "scan_layers",
-}
+} | {"probe_wall_step_s", "device_time_from"}
 #: CUDA against CPU for the adapters, float32 (TF32 off): the largest
 #: absolute difference over the largest magnitude of the CPU result.
 ADAPTER_REL_TOL = 1e-4
@@ -4917,9 +4928,19 @@ def native_tokenizer(smi: str, work: Path) -> dict:
     out: dict = {"chars": len(corpus)}
     trained = {}
     for engine in ("native", "python"):
-        t0 = time.perf_counter()
         trainer = BPETrainer(vocab_size=SERVE_VOCAB, special_tokens=[SERVE_SPECIAL])
-        trainer.train(path, engine=engine)
+        t0 = time.perf_counter()
+        if engine == "native":
+            # The native path itself, required to run: a silent fallback
+            # would compare Python against Python.
+            require(trainer._train_native_file(path) is True,
+                    "17a: the native trainer did not run")
+        else:
+            os.environ["BT_NATIVE"] = "0"
+            try:
+                trainer.train(path)
+            finally:
+                os.environ.pop("BT_NATIVE", None)
         out[f"train_{engine}_s"] = time.perf_counter() - t0
         trained[engine] = trainer
     require(trained["native"].vocab == trained["python"].vocab
@@ -4942,7 +4963,7 @@ def native_tokenizer(smi: str, work: Path) -> dict:
     log(f"17a native tokenizer: {len(corpus)} chars, vocabulary {len(vocab)}, {len(ids)} tokens "
         f"identical; train native {out['train_native_s']:.2f} s / python "
         f"{out['train_python_s']:.2f} s, encode native {out['encode_native_s']:.3f} s / python "
-        f"{out['encode_python_s']:.3f} s; 13a (train-tokenizer through engine auto) "
+        f"{out['encode_python_s']:.3f} s; 13a (train-tokenizer, native when it builds) "
         f"{TIMINGS.get('13a train-tokenizer s', float('nan')):.2f} s, 13a in all "
         f"{TIMINGS.get('13a tokenizer s', float('nan')):.2f} s on {smi}")
     return out
@@ -5090,30 +5111,44 @@ def adapters_card_vs_cpu(torch, smi: str, work: Path, device: str) -> dict:
     return {"rel_err": errors}
 
 
-def sync_sites(torch, fn) -> list:
-    """``filename:line`` of every synchronising CUDA call that
-    ``set_sync_debug_mode`` flags while ``fn`` runs (one entry per call)."""
+def _step_marks():
+    """A fault injector with no plan whose ``at_step`` hook, called by the
+    loop as each step begins, raises a :data:`STEP_MARK` warning: the
+    marks split :func:`count_syncs`'s list by step."""
     import warnings
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message).lower()]
+    from bpe_transformer_tpu_torch.resilience.faults import FaultInjector
+
+    class _StepMarks(FaultInjector):
+        def at_step(self, step: int) -> None:
+            warnings.warn(f"{STEP_MARK}{step}")
+            super().at_step(step)
+
+    return _StepMarks(None)
+
+
+def syncs_by_update(sites: list) -> dict:
+    """:func:`count_syncs`'s list of a loop run split by update: update
+    ``u`` (1-based) holds the syncs from the start of step ``u - 1`` to the
+    start of the next (its log boundary's fetch and probe included; the
+    last update also holds the run's end), 0 the set-up before the first."""
+    out, update = {0: []}, 0
+    for site in sites:
+        if site.startswith(STEP_MARK):
+            update = int(site[len(STEP_MARK):]) + 1
+            out.setdefault(update, [])
+        else:
+            out[update].append(site)
+    return out
 
 
 def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: str) -> dict:
     """17c: ``train`` with ``attribution_every`` at phase 15's config: the
-    records' keys and fractions, the probe's launches against one loop
-    step's, the live state bit-equal with and without the probe, no sync
-    added off a boundary; then ``profile --measure 5 --serve`` and
-    ``report`` as a user runs them."""
+    records' keys and split (the card's busy time below the loop's and the
+    probe's wall times), the probe's launches against one loop step's, the
+    live state bit-equal with and without the probe, no sync in an update
+    off a log boundary (counted per update); then ``profile --measure 5
+    --serve`` and ``report`` as a user runs them."""
     import filecmp
 
     import numpy as np
@@ -5131,7 +5166,7 @@ def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: st
                                             p=zipf / zipf.sum()).astype(np.uint16)
     hp = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=2,
                       cosine_cycle_iters=8)
-    steps, every = 8, 4
+    steps, every, log_every = 8, 4, 2
     fences = []
     plain_fence = attribution._fence
 
@@ -5144,19 +5179,20 @@ def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: st
     try:
         for on in (False, True):
             tag = "attr" if on else "plain"
-            loop = LoopConfig(steps=steps, batch_size=batch, log_every=2, eval_every=1000,
+            loop = LoopConfig(steps=steps, batch_size=batch, log_every=log_every, eval_every=1000,
                               checkpoint_every=steps, checkpoint_dir=str(work / f"ck_{tag}"),
                               metrics_jsonl=str(work / f"{tag}.jsonl"),
                               attribution_every=every if on else 0, seed=0)
             run = lambda: train(cfg, hp, loop, data, log_fn=lambda *a: None,  # noqa: E731
-                                device=device)
+                                device=device,
+                                fault_injector=_step_marks() if on_card else None)
             fences.clear()
             t0 = time.perf_counter()
             if on_card:
-                sites = sync_sites(torch, run)
+                sites = syncs_by_update(count_syncs(torch, run, 1))
             else:
                 run()
-                sites = []
+                sites = {}
             runs[tag] = {"sites": sites, "fences": len(fences),
                          "wall_s": time.perf_counter() - t0}
     finally:
@@ -5171,25 +5207,52 @@ def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: st
     require(set(attrs[0]) == ATTRIBUTION_KEYS | {"programs"}
             and all(set(r) == ATTRIBUTION_KEYS for r in attrs[1:]),
             f"17c: record keys {[sorted(r) for r in attrs]}")
+    step_wall = {r["step"]: r["step_wall_s"] for r in step_records(records)}
     for r in attrs:
         require(abs(r["compute_frac"] + r["host_gap_frac"] - 1.0) <= 1e-3
                 and r["collective_frac"] == 0.0, f"17c: fractions {r}")
+        # The split is the loop's own step time against the card's busy
+        # time, which on this host-bound step is the shorter of the two.
+        require(abs(r["wall_step_s"] - step_wall[r["step"]]) <= 1e-6
+                and abs(r["compute_frac"] - r["device_step_s"]
+                        / max(r["wall_step_s"], r["device_step_s"])) <= 1e-3,
+                f"17c: the split is not the loop's step time against the device time: {r}")
+        if on_card:
+            require(r["device_time_from"] == "kernels"
+                    and r["device_step_s"] < r["probe_wall_step_s"]
+                    and r["device_step_s"] < r["wall_step_s"] and r["host_gap_frac"] > 0,
+                    f"17c: the device time is not the card's busy time: {r}")
     require(runs["attr"]["fences"] == boundaries * attribution.StepProbe.FETCHES_PER_MEASURE,
             f"17c: {runs['attr']['fences']} probe fences for {boundaries} boundaries")
-    # No site outside the probe syncs more often with the probe on (the
-    # plain run goes first and also pays the process's one-time syncs).
+    # Per update: none off a log boundary, and at a boundary nothing more
+    # than the plain run's outside the probe (the plain run goes first and
+    # pays the process's one-time syncs).
     from collections import Counter
 
-    extra = Counter(runs["attr"]["sites"]) - Counter(runs["plain"]["sites"])
-    require(all(site.startswith("attribution.py:") for site in extra),
-            f"17c: syncs off the probe: {dict(extra)} (plain run "
-            f"{dict(Counter(runs['plain']['sites']))})")
-    extra = dict(extra)
+    extra = {}
+    if on_card:
+        for u in range(1, steps + 1):
+            attr_u, plain_u = runs["attr"]["sites"].get(u), runs["plain"]["sites"].get(u)
+            require(attr_u is not None and plain_u is not None, f"17c: no mark for update {u}")
+            if u % log_every and u != steps:
+                require(not attr_u and not plain_u,
+                        f"17c: update {u}, off a log boundary, syncs at {attr_u} "
+                        f"(plain run {plain_u})")
+            more = Counter(attr_u) - Counter(plain_u)
+            require(all(site.startswith("attribution.py:") for site in more),
+                    f"17c: update {u} syncs off the probe: {dict(more)} (plain run "
+                    f"{dict(Counter(plain_u))})")
+            if more:
+                extra[u] = dict(more)
     probe_s = span_seconds(records, "attribution_probe")
     if on_card:
         require(attrs[0]["programs"][0]["bound"] in ("compute-bound", "memory-bound"),
                 f"17c: roofline verdict {attrs[0]['programs'][0]}")
         require(attrs[0]["train_peak_hbm_bytes"], "17c: no peak memory read")
+        # The probe reads its own peak without shortening the run's.
+        peaks = [r["hbm_peak_bytes_in_use"] for r in records if r.get("kind") == "resources"]
+        require(len(peaks) >= 2 and all(b >= a for a, b in zip(peaks, peaks[1:])),
+                f"17c: the run's peak device memory fell: {peaks}")
 
     # The probe's launches are one loop step's, and it never writes the
     # live tensors.
@@ -5234,14 +5297,21 @@ def attribution_on_card(torch, smi: str, work: Path, cfg, batch: int, device: st
     require("== attribution (1 records" in report, f"17c: report {report[:2000]}")
     log(f"17c attribution every {every} of {steps} steps (B={batch} S={cfg.context_length}): "
         f"records {[(r['step'], r['compute_frac'], r['host_gap_frac']) for r in attrs]}, "
-        f"device step {[round(r['device_step_s'] * 1e3, 2) for r in attrs]} ms, probe span "
+        f"device step ({attrs[0]['device_time_from']}) "
+        f"{[round(r['device_step_s'] * 1e3, 2) for r in attrs]} ms, "
+        f"probe fenced wall {[round(r['probe_wall_step_s'] * 1e3, 2) for r in attrs]} ms, loop "
+        f"step wall {[round(r['wall_step_s'] * 1e3, 2) for r in attrs]} ms, probe span "
         f"{[round(s, 3) for s in probe_s]} s a boundary, peak "
-        f"{attrs[0]['train_peak_hbm_bytes']} B; run wall {runs['plain']['wall_s']:.2f} s "
+        f"{attrs[0]['train_peak_hbm_bytes']} B (the run's by boundary "
+        f"{[r['hbm_peak_bytes_in_use'] for r in records if r.get('kind') == 'resources']}); "
+        f"run wall {runs['plain']['wall_s']:.2f} s "
         f"plain / {runs['attr']['wall_s']:.2f} s with the probe; live state bit-equal; syncs "
-        f"{len(runs['plain']['sites'])} plain, {len(runs['attr']['sites'])} with the probe "
-        f"(extra {extra}), {runs['attr']['fences']} probe fences; probe launches "
+        f"by update plain { {u: len(v) for u, v in runs['plain']['sites'].items()} }, with the "
+        f"probe { {u: len(v) for u, v in runs['attr']['sites'].items()} } (extra by update "
+        f"{extra}), {runs['attr']['fences']} probe fences; probe launches "
         f"{ {k: v for k, v in probe_counts.items() if v} } = {calls} x one step's; measure "
-        f"{measured['device_step_s'] * 1e3:.2f} ms/step on {smi}")
+        f"{measured['device_step_s'] * 1e3:.2f} ms/step device ({measured['device_time_from']}), "
+        f"{measured['probe_wall_step_s'] * 1e3:.2f} ms/step fenced wall on {smi}")
     log(f"17c profile --measure 5 --serve ({profile_s:.1f} s): verdicts {verdicts}; wall "
         f"{summary['wall_step_s'] * 1e3:.2f} ms, device {summary['device_step_s'] * 1e3:.2f} ms, "
         f"compute {summary['compute_frac']}, host gap {summary['host_gap_frac']}; report "
@@ -5275,19 +5345,28 @@ def warmup_warm(smi: str, work: Path, cfg, device: str) -> dict:
         "15 train": (["--model-config", str(work / "train.json"), "--train"],
                      {stem(k) for k in TRAIN_KERNELS_15}),
     }
-    out = {}
-    for label, (flags, want) in cases.items():
+    from concurrent.futures import ThreadPoolExecutor
+
+    def warm(flags):
         t0 = time.perf_counter()
         got = json.loads(port_cli("warmup", "--compile-cache", root, *flags,
                                   "--device", device).strip().splitlines()[-1])
         got["wall_s"] = time.perf_counter() - t0
-        out[label] = got
+        return got
+
+    # Independent processes that build nothing: started together.
+    with ThreadPoolExecutor(len(cases)) as pool:
+        results = dict(zip(cases, pool.map(warm, [flags for flags, _ in cases.values()])))
+    out = {}
+    for label, (flags, want) in cases.items():
+        got = out[label] = results[label]
         if device == "cuda":
             require(got["programs_compiled"] == 0 and got["cache_hits"] == len(want)
                     and set(got["sources"]) == want,
                     f"17d {label}: {got} (want the sources {sorted(want)} found built)")
         log(f"17d warmup {label}: programs_compiled {got['programs_compiled']}, cache_hits "
-            f"{got['cache_hits']} of {got['sources']} ({got['wall_s']:.1f} s)")
+            f"{got['cache_hits']} of {got['sources']} ({got['wall_s']:.1f} s, the three "
+            f"commands at once)")
     return out
 
 

@@ -1132,8 +1132,11 @@ def _moe_loop(tmp_path):
 def _attribution_and_debug(tmp_path):
     """(l) Attribution and the debug helpers.  A 4-step CPU loop with
     ``attribution_every=2`` writes two ``kind="attribution"`` records with
-    the JAX probe's key set, their compute and host-gap fractions summing
-    to 1 (1e-3, the records' rounding), the first carrying the roofline;
+    the JAX probe's key set plus the probe's own wall time and the source
+    of its device time, their compute and host-gap fractions summing to 1
+    (1e-3, the records' rounding) and splitting the loop's own step time
+    (the step record's) against the device time, which on the CPU is the
+    probe's fenced wall time; the first record carries the roofline;
     the live state after the run is bit-equal to the same run's without
     the probe; ``report`` renders the records.  The probe's train-step
     FLOPs are ``train_step_flops``'s, and their ratio to XLA's count of the
@@ -1178,11 +1181,19 @@ def _attribution_and_debug(tmp_path):
     records = [json.loads(line) for line in (tmp_path / "attr2.jsonl").read_text().splitlines()]
     attrs = [r for r in records if r.get("kind") == "attribution"]
     assert [r["step"] for r in attrs] == [2, 4], attrs
-    assert set(attrs[0]) == set(jax_record), set(attrs[0]) ^ set(jax_record)
-    assert set(attrs[1]) == set(jax_record) - {"programs"}
+    port_only = {"probe_wall_step_s", "device_time_from"}
+    assert set(attrs[0]) == set(jax_record) | port_only, set(attrs[0]) ^ set(jax_record)
+    assert set(attrs[1]) == set(jax_record) - {"programs"} | port_only
+    step_wall = {r["step"]: r["step_wall_s"] for r in records if r.get("kind") is None
+                 and "step_wall_s" in r}
     for r in attrs:
         assert abs(r["compute_frac"] + r["host_gap_frac"] - 1.0) <= 1e-3, r
         assert r["collective_frac"] == 0.0 and r["device_step_s"] > 0, r
+        assert r["device_time_from"] == "fenced_wall", r
+        assert r["device_step_s"] == r["probe_wall_step_s"], r
+        assert abs(r["wall_step_s"] - step_wall[r["step"]]) <= 1e-6, (r, step_wall)
+        assert abs(r["compute_frac"] - r["device_step_s"]
+                   / max(r["wall_step_s"], r["device_step_s"])) <= 1e-3, r
     row = attrs[0]["programs"][0]
     assert row["name"] == "train_step" and row["bound"] == "unknown"
     assert row["flops"] == train_step_flops(cfg, batch)
