@@ -4,13 +4,17 @@
 A checkpoint is a pickled dict ``{"format_version": 1, "params",
 "opt_state", "iteration", "extra"}`` whose tensors are numpy arrays, written
 to a temp file and renamed into place, with a CRC32 sidecar
-(``resilience/integrity.py``).  The port writes its own ``AdamWState``; a
-checkpoint the JAX package wrote loads here: its pickle names
-``bpe_transformer_tpu.optim.adamw.AdamWState``, which the loader maps to the
-port's class without importing the JAX package, and any other global of the
-JAX package or of JAX is refused.  The JAX package does not read the port's
-checkpoints yet, and the sharded directory format (v2) is not ported: both
-come with the multi-GPU training slice.
+(``resilience/integrity.py``).  The optimizer state is an ``AdamWState`` or,
+from a ZeRO-1 run, a ``ShardedAdamWState`` whose ``m``, ``v`` and ``master``
+are the whole ``(N, L)`` rows (``optim/sharded.py``).  Both packages read
+each other's checkpoints: the port's pickle names these two classes as the
+JAX package's (``bpe_transformer_tpu.optim.adamw.AdamWState``,
+``bpe_transformer_tpu.optim.sharded.ShardedAdamWState``) without importing
+it, and the loader maps those names to the port's classes and refuses any
+other global of the JAX package or of JAX.  Under data or sequence
+parallelism rank 0 writes the file, as the JAX loop does
+(``training/loop.py``).  The sharded directory format (v2), which the JAX
+package writes for its GSPMD strategies only, comes with slice 10c.
 
 :func:`load_checkpoint_with_fallback` is the resume path: it verifies a
 snapshot against its CRC32 sidecar before loading it, quarantines one that
@@ -33,6 +37,7 @@ import torch
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState
+from bpe_transformer_tpu_torch.optim.sharded import ShardedAdamWState
 from bpe_transformer_tpu_torch.resilience.integrity import (
     Crc32Writer,
     candidate_snapshots,
@@ -69,7 +74,61 @@ def _to_host(state, copy: bool = False):
             m=tree_map(host, state.m),
             v=tree_map(host, state.v),
         )
+    if isinstance(state, ShardedAdamWState):
+        return ShardedAdamWState(
+            step=np.asarray(int(state.step), dtype=np.int32),
+            m=host(state.m), v=host(state.v),
+            master=None if state.master is None else host(state.master),
+        )
     return tree_map(host, state)
+
+
+#: The port's optimizer states, pickled under the JAX package's names.
+_JAX_NAMES = {
+    AdamWState: ("bpe_transformer_tpu.optim.adamw", "AdamWState"),
+    ShardedAdamWState: ("bpe_transformer_tpu.optim.sharded", "ShardedAdamWState"),
+}
+
+
+class _GlobalName:
+    """A global written into the pickle by module and name, never looked up
+    here."""
+
+    def __init__(self, module: str, name: str):
+        self.module, self.name = module, name
+
+    def __call__(self, *args):  # pickle's save_reduce wants a callable
+        raise TypeError(f"{self.module}.{self.name} is only a name in a pickle")
+
+
+class _Pickler(pickle._Pickler):
+    """Pickles the optimizer states under the JAX package's class names
+    (``reducer_override``), so the JAX package's plain ``pickle.load``
+    rebuilds its own classes; the pure-Python pickler, whose dispatch table
+    can write a global that cannot be imported here."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def _save_global_name(self, obj: _GlobalName) -> None:
+        if self.proto >= 4:
+            self.save(obj.module)
+            self.save(obj.name)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{obj.module}\n{obj.name}\n".encode())
+        self.memoize(obj)
+
+    dispatch[_GlobalName] = _save_global_name
+
+    def reducer_override(self, obj):
+        name = _JAX_NAMES.get(type(obj))
+        if name is None:
+            return NotImplemented
+        return _GlobalName(*name), tuple(obj)
+
+
+def _dump(payload: dict, f) -> None:
+    _Pickler(f, protocol=pickle.DEFAULT_PROTOCOL).dump(payload)
 
 
 def save_checkpoint(
@@ -90,7 +149,7 @@ def save_checkpoint(
         "extra": extra or {},
     }
     if hasattr(out, "write"):
-        pickle.dump(payload, out)
+        _dump(payload, out)
         return
     path = Path(out)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -98,7 +157,7 @@ def save_checkpoint(
     try:
         with os.fdopen(fd, "wb") as f:
             writer = Crc32Writer(f)
-            pickle.dump(payload, writer)
+            _dump(payload, writer)
         os.replace(tmp_name, path)
         write_sidecar(path, writer.crc, writer.size)
     except BaseException:
@@ -108,12 +167,14 @@ def save_checkpoint(
 
 
 class _Unpickler(pickle.Unpickler):
-    """Maps the JAX package's ``AdamWState`` to the port's and refuses every
-    other global of the JAX package or of JAX."""
+    """Maps the JAX package's optimizer states to the port's and refuses
+    every other global of the JAX package or of JAX."""
+
+    _PORT_CLASSES = {name: cls for cls, name in _JAX_NAMES.items()}
 
     def find_class(self, module, name):
-        if (module, name) == ("bpe_transformer_tpu.optim.adamw", "AdamWState"):
-            return AdamWState
+        if (module, name) in self._PORT_CLASSES:
+            return self._PORT_CLASSES[module, name]
         if module.split(".")[0] in ("bpe_transformer_tpu", "jax", "jaxlib"):
             raise pickle.UnpicklingError(
                 f"checkpoint refers to {module}.{name}, which the port does not load"
@@ -130,8 +191,9 @@ def load_checkpoint(src: str | os.PathLike | BinaryIO) -> dict:
     else:
         if Path(src).is_dir():
             raise ValueError(
-                f"{src} is a directory: the sharded checkpoint format is not ported yet "
-                "(it comes with the multi-GPU training slice)"
+                f"{src} is a directory: the sharded checkpoint format (v2) is not ported "
+                "yet (it comes with the port's slice 10c, with the GSPMD strategies that "
+                "write it)"
             )
         with open(src, "rb") as f:
             payload = _Unpickler(f).load()
@@ -144,13 +206,15 @@ def load_checkpoint(src: str | os.PathLike | BinaryIO) -> dict:
 def training_state(payload: dict, device: str | torch.device = "cuda"):
     """``(params, opt_state)`` of a loaded payload as tensors on ``device``
     (``opt_state`` None when the checkpoint holds none; its step stays on
-    the host, as :mod:`optim.adamw` keeps it)."""
+    the host, as :mod:`optim.adamw` keeps it).  A sharded optimizer state
+    is returned as it is (numpy rows): ``optim.sharded.restore_opt_state``
+    adapts it to the run."""
     dev = resolve_device(device)
     to_dev = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     params = tree_map(to_dev, payload["params"])
     opt = payload.get("opt_state")
-    if opt is None:
-        return params, None
+    if opt is None or isinstance(opt, ShardedAdamWState):
+        return params, opt
     opt_state = AdamWState(
         step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32),
         m=tree_map(to_dev, opt.m),

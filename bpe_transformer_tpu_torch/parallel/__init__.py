@@ -1,8 +1,22 @@
-"""Sequence parallelism (counterpart of ``bpe_transformer_tpu/parallel``'s
-ring schedules and sp train step), over a ring transport
-(:mod:`parallel.mesh`): :class:`StackedRing` on one device today."""
+"""Parallel training (counterpart of ``bpe_transformer_tpu/parallel``): the
+ring schedules and the sp train step over a ring transport (a
+:class:`StackedRing` on one device, or a :class:`ProcessGroupRing`, one rank
+a card), the process-group mesh (:func:`make_mesh`,
+:func:`initialize_distributed`), the data-parallel step with ZeRO-1
+(:func:`make_dp_train_step`), and :func:`launch`, which starts a world of
+rank processes.  FSDP/tp, Ulysses and the GPipe pipeline come with slice
+10c."""
 
-from bpe_transformer_tpu_torch.parallel.mesh import RingTransport, StackedRing
+from bpe_transformer_tpu_torch.parallel.launch import launch
+from bpe_transformer_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshAxis,
+    ProcessGroupRing,
+    RingTransport,
+    StackedRing,
+    initialize_distributed,
+    make_mesh,
+)
 from bpe_transformer_tpu_torch.parallel.ring_attention import (
     ring_flash_attention,
     ring_self_attention,
@@ -18,14 +32,28 @@ from bpe_transformer_tpu_torch.parallel.sp import (
     shard_sp_batch,
     sp_forward,
 )
+from bpe_transformer_tpu_torch.parallel.train_step import (
+    make_dp_train_step,
+    make_gspmd_train_step,
+    shard_batch,
+)
 
 __all__ = [
+    "Mesh",
+    "MeshAxis",
+    "ProcessGroupRing",
     "RingTransport",
     "StackedRing",
+    "initialize_distributed",
+    "launch",
+    "make_dp_train_step",
+    "make_gspmd_train_step",
+    "make_mesh",
     "make_sp_grad_fn",
     "make_sp_train_step",
     "ring_flash_attention",
     "ring_self_attention",
+    "shard_batch",
     "shard_sp_batch",
     "sp_forward",
     "zigzag_indices",

@@ -16,17 +16,33 @@ size ``local``, so rank masks built from ``index()`` broadcast against it and
 the schedules are written once.  :class:`StackedRing` holds all n ranks on
 one device (``local = n``), the counterpart of ``shard_map`` over a size-n
 axis of one host's devices: its ``shift`` is a roll of the leading dim, and
-a kernel call of the ring runs all n ranks' blocks in one launch.  A
-process-group transport over ``torch.distributed`` (``local = 1``, ``shift``
-a send to rank + 1 and a receive from rank - 1) implements the same three
-members; it comes with the multi-GPU training slice.
+a kernel call of the ring runs all n ranks' blocks in one launch.
+:class:`ProcessGroupRing` is the same three members over a
+``torch.distributed`` process group (``local = 1``): each process is one
+rank on its own card, and ``shift`` is a send to rank + 1 and a receive
+from rank - 1, posted together.
+
+The process groups come from :func:`make_mesh`, a named grid over the
+world of processes (the counterpart of the JAX package's ``make_mesh`` over
+devices): ranks fill the grid in row-major order, the last axis fastest, as
+a ``jax.sharding.Mesh`` lays out devices in order, and each axis is one
+process group per line of the grid.  :func:`initialize_distributed` joins
+the world that ``torchrun`` describes: NCCL with one rank per card on
+CUDA, gloo for ``device="cpu"``, and nothing else (no backend is chosen
+for the caller).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Protocol
 
+import numpy as np
 import torch
+import torch.distributed as dist
+
+from bpe_transformer_tpu_torch.device import resolve_device
 
 
 class RingTransport(Protocol):
@@ -56,3 +72,194 @@ class StackedRing:
                 f"size {self.size}"
             )
         return torch.roll(x, 1, dims=0)
+
+
+# ---------------------------------------------------------- process groups
+
+
+def initialize_distributed(
+    device: str | torch.device = "cuda",
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+) -> torch.device:
+    """Join the process group of this run and return this rank's device.
+
+    The rank, the world size and the address come from ``torchrun``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) unless given: ``coordinator_address`` is ``host:port``
+    of rank 0.  On CUDA the backend is NCCL and the rank's card is
+    ``cuda:<LOCAL_RANK>`` (set as the current device); ``device="cpu"``
+    takes gloo.  A group that is already initialized is kept; its backend
+    must be the one ``device`` takes."""
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(
+                f"the process group runs {dist.get_backend()}, but device {dev.type!r} "
+                f"takes {backend}"
+            )
+        return torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else dev
+    env = os.environ
+    if process_id is None and "RANK" not in env:
+        raise RuntimeError(
+            "no process group to join: launch with torchrun --nproc-per-node N (one process "
+            "per card), or pass coordinator_address, num_processes and process_id"
+        )
+    rank = process_id if process_id is not None else int(env["RANK"])
+    world = num_processes if num_processes is not None else int(env["WORLD_SIZE"])
+    local = int(env.get("LOCAL_RANK", rank)) if process_id is None else rank
+    init_method = f"tcp://{coordinator_address}" if coordinator_address else "env://"
+    if dev.type == "cuda":
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"local rank {local} has no card: this host shows "
+                f"{torch.cuda.device_count()} (one rank per card)"
+            )
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxis:
+    """One or more mesh axes as a reduction domain: the process group that
+    joins this rank to the others of its line (or plane) of the grid, its
+    size and this rank's index in it."""
+
+    names: tuple
+    group: object
+    size: int
+    index: int
+
+    def psum_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place sum of ``t`` over the axis (JAX's ``psum``)."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def pmean_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place mean of ``t`` over the axis (JAX's ``pmean``): a sum,
+        then a division at ``t``'s own width."""
+        return self.psum_(t).div_(self.size)
+
+    def pmax_(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+
+class Mesh:
+    """A named grid of process groups over the world (``{axis: size}``,
+    the product the world size).  ``shape`` is the axes and their sizes,
+    ``coords`` this rank's index on each, ``device`` its card.
+
+    Every rank creates every group, in the same order (``new_group`` is
+    collective); a rank keeps the groups it belongs to.  A set of axes that
+    spans the grid reduces over the world group."""
+
+    def __init__(self, axes: dict, device: torch.device):
+        self.shape = {name: int(size) for name, size in axes.items()}
+        self.axis_names = tuple(self.shape)
+        self.device = device
+        self.rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        sizes = tuple(self.shape.values())
+        grid = np.arange(self.world_size).reshape(sizes)
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(self.rank, sizes))))
+        self._groups = {}
+        for i, name in enumerate(self.axis_names):
+            if self.shape[name] == self.world_size:
+                self._groups[name] = dist.group.WORLD
+                continue
+            lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    self._groups[name] = group
+
+    def axis(self, names: str | tuple = "data") -> MeshAxis:
+        """The reduction domain of one axis or a tuple of axes."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        unknown = [n for n in names if n not in self.shape]
+        if unknown:
+            raise ValueError(f"mesh {self.shape} has no axis {unknown[0]!r}")
+        size = int(np.prod([self.shape[n] for n in names]))
+        if len(names) == 1:
+            return MeshAxis(names, self._groups[names[0]], size, self.coords[names[0]])
+        if size != self.world_size:
+            raise ValueError(
+                f"axes {names} of mesh {self.shape} span {size} of {self.world_size} ranks: "
+                "only one axis, or axes that span the grid, reduce"
+            )
+        return MeshAxis(names, dist.group.WORLD, size, self.rank)
+
+
+def make_mesh(axes: dict | None = None, device: str | torch.device = "cuda") -> Mesh:
+    """A :class:`Mesh` of ``{axis_name: size}`` over the world of processes
+    (default: a 1-D ``data`` axis over every rank), joining the world first
+    if needed (:func:`initialize_distributed`); the JAX function's error
+    when the sizes do not fill the world."""
+    dev = initialize_distributed(device)
+    world = dist.get_world_size()
+    if axes is None:
+        axes = {"data": world}
+    need = int(np.prod(list(axes.values())))
+    if need != world:
+        raise ValueError(f"mesh {dict(axes)} needs {need} devices, have {world}")
+    return Mesh(axes, dev)
+
+
+class _Shift(torch.autograd.Function):
+    """The ring shift of a process-group ring, differentiable: the gradient
+    travels the other way (each rank sends it to rank - 1), as JAX's
+    ``ppermute`` transposes."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return ring.exchange(x, to=ring.next, frm=ring.prev)
+
+    @staticmethod
+    def backward(ctx, g):
+        ring = ctx.ring
+        return ring.exchange(g, to=ring.prev, frm=ring.next), None
+
+
+class ProcessGroupRing:
+    """A ring over a process group, one rank per process: tensors carry a
+    leading rank dim of 1.  ``shift`` posts its send to rank + 1 and its
+    receive from rank - 1 in one ``batch_isend_irecv``, so no rank waits
+    on a send that its neighbour has not matched; the gradient of a shift
+    is the reverse shift.  A ring of one rank shifts nothing."""
+
+    def __init__(self, group=None):
+        self.group = group if group is not None else dist.group.WORLD
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.next = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
+        self.prev = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+
+    def index(self, device: torch.device | str | None = None) -> torch.Tensor:
+        # arange, not tensor([rank]): no copy from the host to the card.
+        return torch.arange(self.rank, self.rank + 1, device=device)
+
+    def exchange(self, x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, to, self.group),
+               dist.P2POp(dist.irecv, out, frm, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] != 1:
+            raise ValueError(
+                f"leading dim {x.shape[0]} of a process-group ring tensor must be 1 (this "
+                "process is one rank)"
+            )
+        if self.size == 1:
+            return x
+        return _Shift.apply(x, self)

@@ -10,6 +10,15 @@ token batches are ``(local, batch, S_local)``, made by
 batch, S_local)`` with per-example global positions, and its attention
 regroups the ranks for the ring.
 
+The ring is either a :class:`~parallel.mesh.StackedRing` (every rank on
+this device, ``local = n``) or a process-group mesh
+(:func:`parallel.mesh.make_mesh`) with a ``seq`` axis, the JAX package's
+data x seq grid: each process is one rank on its own card, the batch is
+split on ``data`` and every sequence on ``seq`` (``local = 1``), the ring
+is a :class:`~parallel.mesh.ProcessGroupRing` over the rank's ``seq``
+group, and the loss and the gradients are all-reduced over (data, seq)
+once per update, after any accumulation.
+
 The loss is the mean of the shards' mean losses, as the JAX step's
 ``pmean`` over (data, seq) takes it; on one device the data axis is the
 batch, whose shards are equal, so the mean over them is the batch mean.
@@ -23,8 +32,8 @@ batch's tokens of its shard, which equals a JAX mesh whose data axis is 1.)
 Parameters and optimizer state are one copy.  ``attention_impl="flash"``
 runs the ring-flash schedules (the flash kernels inside each shard);
 anything else, ``"flash_fused"`` included, the plain online-softmax rings,
-as in the JAX package.  Ulysses (an all-to-all head scatter) and scanned
-inner steps come with the multi-GPU training slice.
+as in the JAX package.  Ulysses (an all-to-all head scatter) comes with
+slice 10c.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import forward, forward_hidden, lm_head_weight
 from bpe_transformer_tpu_torch.ops.losses import lm_loss
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState
+from bpe_transformer_tpu_torch.parallel.mesh import Mesh, ProcessGroupRing
 from bpe_transformer_tpu_torch.parallel.ring_attention import (
     ring_flash_attention,
     ring_self_attention,
@@ -50,8 +60,11 @@ from bpe_transformer_tpu_torch.parallel.ring_attention import (
 )
 from bpe_transformer_tpu_torch.training.train_step import (
     TrainHParams,
+    _pmean_scalars,
+    _reduce_grads,
     _update,
     accumulate_grads,
+    scanned_step_fn,
     value_and_grad,
 )
 
@@ -60,7 +73,17 @@ _FLASH_RING_KV_CHUNK_ERROR = (
     "(the flash kernel tiles each visiting shard itself); unset ring_kv_chunk or use "
     'the plain ring (attention_impl="xla")'
 )
-_MULTI_GPU = "it comes with the multi-GPU training slice (ROADMAP slice 10)"
+_SLICE_10C = "it comes with the port's slice 10c (Ulysses, FSDP/tp, GPipe, expert parallelism)"
+
+
+def _ring_of(ring):
+    """``(ring, reduce_axis)``: a mesh becomes the ring of this rank's
+    ``seq`` group and the (data, seq) reduction; a ring stays itself."""
+    if isinstance(ring, Mesh):
+        if "seq" not in ring.shape:
+            raise ValueError(f"sequence parallelism needs a 'seq' mesh axis, got {ring.shape}")
+        return ProcessGroupRing(ring.axis("seq").group), ring.axis(ring.axis_names)
+    return ring, None
 
 
 def _sp_attention_fn(config: ModelConfig, ring, zigzag: bool = False, ulysses: bool = False):
@@ -70,7 +93,7 @@ def _sp_attention_fn(config: ModelConfig, ring, zigzag: bool = False, ulysses: b
     anything else the plain online-softmax ring (kv-chunked when
     ``ring_kv_chunk`` is set; the zig-zag ring has no chunk knob)."""
     if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_MULTI_GPU}")
+        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10C}")
     if config.attention_impl == "flash":
         if config.ring_kv_chunk:
             raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
@@ -119,6 +142,7 @@ def sp_forward(params, local_token_ids: torch.Tensor, config: ModelConfig, ring,
     """Float32 logits ``(local, batch, S_local, vocab)`` of contiguous
     sequence shards ``(local, batch, S_local)``: global positions, so RoPE
     sees the true token positions, and the exact ring attention."""
+    ring, _ = _ring_of(ring)
     ids, positions, attention_fn = _stacked_inputs(local_token_ids, config, ring, False,
                                                    ulysses)
     logits = forward(params, ids, config, positions=positions, attention_fn=attention_fn,
@@ -131,6 +155,8 @@ def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable
     S_local)``: the mean over shards of each shard's mean LM loss (the
     JAX step's ``pmean``), through the chunked loss when ``loss_chunk`` is
     set, plus ``router_aux_weight`` times the ranks' mean MoE aux loss."""
+
+    ring, _ = _ring_of(ring)
 
     def loss_fn(params, x, y):
         ids, positions, attention_fn = _stacked_inputs(x, config, ring, zigzag)
@@ -148,11 +174,23 @@ def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable
     return loss_fn
 
 
-def make_sp_grad_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable:
+def make_sp_grad_fn(config: ModelConfig, ring, zigzag: bool = False,
+                    grads_dtype: str = "float32") -> Callable:
     """``(params, x, y) -> (loss, grads)`` of :func:`make_sp_loss_fn`: the
     sp step before its update (a step's gradients can be held against the
-    dense step's)."""
-    return value_and_grad(make_sp_loss_fn(config, ring, zigzag))
+    dense step's).  Over a mesh, the loss and gradients are the global
+    ones: this rank's, all-reduced over (data, seq) at ``grads_dtype``."""
+    ring, reduce_axis = _ring_of(ring)
+    local = value_and_grad(make_sp_loss_fn(config, ring, zigzag))
+    if reduce_axis is None:
+        return local
+
+    def reduced(params, x, y):
+        loss, grads = local(params, x, y)
+        (loss,) = _pmean_scalars(reduce_axis, loss)
+        return loss, _reduce_grads(grads, reduce_axis, grads_dtype)
+
+    return reduced
 
 
 def make_sp_train_step(
@@ -168,15 +206,21 @@ def make_sp_train_step(
     ``(params, opt_state, x, y) -> (params, opt_state, metrics)`` with
     ``x, y`` from :func:`shard_sp_batch` and one copy of the parameters
     and moments, updated in place (the JAX step's replicated, donated
-    state).
+    state).  ``ring`` is a :class:`~parallel.mesh.StackedRing` or a mesh
+    with a ``seq`` axis (module docstring); over a mesh each rank runs
+    this step on its shard, and the gradients' mean over (data, seq) is
+    all-reduced once per update.
 
     ``zigzag=True`` runs the balanced striped schedule; feed batches made
     with ``shard_sp_batch(..., zigzag=True)`` (targets ride the same
     permutation as inputs).  ``accum_steps > 1`` accumulates gradients over
     microbatches ``(accum_steps, local, micro_batch, S_local)``
-    (``shard_sp_batch(..., stacked=True)``) before one update.  The JAX
-    function's argument errors are kept; ``ulysses=True`` and
-    ``inner_steps > 1`` raise ``NotImplementedError``."""
+    (``shard_sp_batch(..., stacked=True)``) before one update;
+    ``inner_steps > 1`` runs that many updates a call on ``(inner_steps,
+    local, batch, S_local)`` (also ``stacked=True``), each with its own
+    reduction, and returns the last one's metrics.  The JAX function's
+    argument errors are kept; ``ulysses=True`` raises
+    ``NotImplementedError`` (slice 10c)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if inner_steps < 1:
@@ -189,9 +233,7 @@ def make_sp_train_step(
             "causal load imbalance to stripe away)"
         )
     if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_MULTI_GPU}")
-    if inner_steps > 1:
-        raise NotImplementedError(f"scanned inner steps are not ported yet: {_MULTI_GPU}")
+        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10C}")
     if zigzag and config.ring_kv_chunk:
         raise ValueError(
             "the zig-zag schedule does not honor ring_kv_chunk (its sub-blocks are already "
@@ -200,43 +242,69 @@ def make_sp_train_step(
         )
     if config.attention_impl == "flash" and config.ring_kv_chunk:
         raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
-    grad_fn = make_sp_grad_fn(config, ring, zigzag)
+    ring, reduce_axis = _ring_of(ring)
+    local_grad_fn = value_and_grad(make_sp_loss_fn(config, ring, zigzag))
 
     def step(params, opt_state: AdamWState, x, y):
         if accum_steps > 1:
-            loss, grads = accumulate_grads(grad_fn, params, x, y, accum_steps,
+            loss, grads = accumulate_grads(local_grad_fn, params, x, y, accum_steps,
                                            context="sp grad-accum step",
                                            layout="ring_rank, micro_batch, S_local")
         else:
-            loss, grads = grad_fn(params, x, y)
-        return _update(params, opt_state, loss, grads, hparams)
+            loss, grads = local_grad_fn(params, x, y)
+        return _update(params, opt_state, loss, grads, hparams, reduce_axis=reduce_axis)
 
+    if inner_steps > 1:
+        return scanned_step_fn(config, hparams, inner_steps, body=step)
     return step
 
 
 def shard_sp_batch(batch, ring, zigzag: bool = False, stacked: bool = False,
-                   device: str | torch.device = "cuda"):
+                   device: str | torch.device | None = None):
     """Token arrays ``(batch, S)`` (numpy or tensors; one array or a tuple)
     cut into ``ring.size`` sequence shards on a leading rank dim, ``(n,
-    batch, S/n)``, on ``device``.  ``zigzag=True`` first permutes the
-    sequence into the striped layout (shard ``i`` gets global chunks ``(i,
-    2n-1-i)``); ``stacked=True`` takes ``(accum_steps, micro_batch, S)`` and
-    gives ``(accum_steps, n, micro_batch, S/n)``."""
-    dev = resolve_device(device)
-    n = ring.size
+    batch, S/n)``, on ``device`` (default ``"cuda"``, or the mesh's card).
+    ``zigzag=True`` first permutes the sequence into the striped layout
+    (shard ``i`` gets global chunks ``(i, 2n-1-i)``); ``stacked=True`` takes
+    ``(accum_steps, micro_batch, S)`` and gives ``(accum_steps, n,
+    micro_batch, S/n)``.  Given a mesh, only this rank's shard: its rows of
+    the batch on the ``data`` axis and its shard of every sequence on the
+    ``seq`` axis, ``(1, batch/D, S/n)``, copied to the card alone."""
+    mesh = ring if isinstance(ring, Mesh) else None
+    if mesh is not None:
+        dev = torch.device(device) if device is not None else mesh.device
+        data = mesh.axis("data") if "data" in mesh.shape else None
+        n, me = mesh.shape["seq"], mesh.coords["seq"]
+    else:
+        dev = resolve_device(device if device is not None else "cuda")
+        n = ring.size
+    want = 3 if stacked else 2
 
     def place(a):
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
-        t = t.to(dev)
-        want = 3 if stacked else 2
-        if t.ndim != want:
-            raise ValueError(f"shard_sp_batch wants {want}-D token arrays, got {tuple(t.shape)}")
-        s = t.shape[-1]
-        if zigzag:
-            t = t[..., zigzag_indices(s, n).to(dev)]
+        if a.ndim != want:
+            raise ValueError(f"shard_sp_batch wants {want}-D token arrays, got {tuple(a.shape)}")
+        s = a.shape[-1]
         if s % n:
             raise ValueError(f"sequence length {s} must divide by the ring size {n}")
-        return t.reshape(*t.shape[:-1], n, s // n).movedim(-2, -3).contiguous()
+        if mesh is None:
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+            t = t.to(dev)
+            if zigzag:
+                t = t[..., zigzag_indices(s, n).to(dev)]
+            return t.reshape(*t.shape[:-1], n, s // n).movedim(-2, -3).contiguous()
+        if data is not None:
+            rows = a.shape[-2]
+            if rows % data.size:
+                raise ValueError(f"batch dim {rows} must divide by the 'data' mesh axis "
+                                 f"({data.size})")
+            per = rows // data.size
+            a = a[..., data.index * per:(data.index + 1) * per, :]
+        cols = zigzag_indices(s, n).numpy() if zigzag else np.arange(s)
+        cols = cols[me * (s // n):(me + 1) * (s // n)]
+        part = a[..., torch.as_tensor(cols)] if isinstance(a, torch.Tensor) else a[..., cols]
+        t = part if isinstance(part, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(part))
+        return t.unsqueeze(-3).contiguous().to(dev, non_blocking=True)
 
     if isinstance(batch, (tuple, list)):
         return tuple(place(a) for a in batch)

@@ -12,7 +12,7 @@ unpickling it; :func:`quarantine` renames a snapshot that failed to
 ``checkpointing.checkpoint.load_checkpoint_with_fallback`` builds the
 resume path on these, and :func:`main` is the torch-free
 ``verify-checkpoint`` command.  The sharded directory format is not ported
-(it comes with the multi-GPU training slice).
+(it comes with slice 10c).
 """
 
 from __future__ import annotations
@@ -164,8 +164,8 @@ def verify_checkpoint(path: str | os.PathLike, deep: bool = True) -> VerifyResul
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
-            f"{path} is a directory: the sharded checkpoint format is not ported yet "
-            "(it comes with the multi-GPU training slice)"
+            f"{path} is a directory: the sharded checkpoint format (v2) is not ported yet "
+            "(it comes with the port's slice 10c, with the GSPMD strategies that write it)"
         )
     if path.exists() or path.is_symlink():
         return _verify_dense(path, deep)

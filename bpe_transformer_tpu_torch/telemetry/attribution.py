@@ -26,9 +26,16 @@ stream as ``kind="attribution"`` records:
    separate field: on a host-bound step the host's dispatch sets it, not
    the card.  The host gap is the loop's wall time per step minus the
    device time; on one device there is no collective, so
-   ``collective_frac`` is 0.  Where no device trace can be taken (the CPU,
-   or another ``torch.profiler`` already recording) the device time is the
-   fenced wall time, and the record says so (``device_time_from``).
+   ``collective_frac`` is 0.  Under ``parallel="dp"`` (with or without
+   ZeRO-1) the probe runs the data-parallel step on every rank, each on
+   its rows of a synthetic global batch, and measures this rank's card
+   (rank 0's records are the ones written): the collective time is the
+   busy time of the trace's NCCL kernels.  Where no device trace can be
+   taken (the CPU, or another ``torch.profiler`` already recording) the
+   device time is the fenced wall time, and the record says so
+   (``device_time_from``); dense dp then times a collective-free copy of
+   the step too and takes the difference, as the JAX probe does, and
+   ZeRO-1's collective is not measured (None).
 
 The port's AdamW writes its state in place, so the probe runs on a clone of
 the parameters and the optimizer state, made at each measure and dropped
@@ -49,6 +56,7 @@ import torch
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState
+from bpe_transformer_tpu_torch.optim.sharded import ShardedAdamWState
 from bpe_transformer_tpu_torch.telemetry.resources import reset_device_peak
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map
 from bpe_transformer_tpu_torch.utils.flops import (
@@ -63,7 +71,7 @@ from bpe_transformer_tpu_torch.utils.flops import (
 __all__ = [
     "StepProbe",
     "decode_tick_roofline",
-    "kernel_busy_s",
+    "device_busy_split",
     "program_cost",
     "program_memory",
     "roofline",
@@ -88,10 +96,20 @@ def _fence(device: torch.device | None) -> None:
         torch.cuda.synchronize(device)
 
 
-def kernel_busy_s(fn: Callable, *args) -> float | None:
-    """Seconds the card was busy during one call of ``fn(*args)``: the union
-    of the device intervals (kernels, copies, fills) of a ``torch.profiler``
-    trace of the call, closed by one fence inside the trace.  Reading the
+def _union_us(spans) -> float:
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us
+
+
+def device_busy_split(fn: Callable, *args) -> tuple[float, float] | None:
+    """``(busy_s, collective_s)`` of one call of ``fn(*args)`` on the card:
+    the union of the device intervals (kernels, copies, fills) of a
+    ``torch.profiler`` trace of the call, closed by one fence inside the
+    trace, and the union of its NCCL kernels' intervals alone.  Reading the
     trace builds the profiler's event list, which takes seconds at a few
     thousand launches.  The call runs either way; None off the card, while
     another profiler is recording, or when the trace holds no device
@@ -107,14 +125,13 @@ def kernel_busy_s(fn: Callable, *args) -> float | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn(*args)
         _fence(device)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    return busy_us / 1e6 if spans else None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    nccl = [(e.time_range.start, e.time_range.end) for e in events
+            if "nccl" in e.name.lower()]
+    return _union_us(spans) / 1e6, _union_us(nccl) / 1e6
 
 
 def time_call(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
@@ -314,9 +331,13 @@ def device_kind_of(device) -> str | None:
 
 # ------------------------------------------------------------ step probe
 
-def _clone_state(params, opt_state: AdamWState):
-    """Copies of the live state that share no storage with it."""
+def _clone_state(params, opt_state):
+    """Copies of the live state (a dense or a ZeRO-1 optimizer state) that
+    share no storage with it."""
     clone = lambda t: t.detach().clone()  # noqa: E731
+    if isinstance(opt_state, ShardedAdamWState):
+        return tree_map(clone, params), ShardedAdamWState(
+            *(clone(t) for t in opt_state))
     return tree_map(clone, params), AdamWState(
         step=opt_state.step.clone(), m=tree_map(clone, opt_state.m),
         v=tree_map(clone, opt_state.v),
@@ -329,9 +350,12 @@ class StepProbe:
 
     Built once per run (lazily, at the first attribution boundary) with the
     loop's own step construction: the plain single-device step, or the
-    grad-accum / inner-steps step, on a synthetic batch of the real shape.
-    Its calls launch exactly the kernels one loop step launches.  Each
-    measure runs on a fresh clone of the state (module docstring).
+    grad-accum / inner-steps step, or the data-parallel step on a ``mesh``
+    (``parallel="dp"``, ``opt_sharding``), on a synthetic batch of the real
+    shape.  Its calls launch exactly the kernels one loop step launches.
+    Each measure runs on a fresh clone of the state (module docstring).
+    Under a mesh every rank builds and measures the probe at the same step
+    (its step has collectives).
     """
 
     #: Host syncs (``torch.cuda.synchronize``) per timed variant per
@@ -354,18 +378,30 @@ class StepProbe:
         opt_sharding: str | None = None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None or parallel is not None or opt_sharding is not None:
-            raise NotImplementedError(
-                "attribution across devices (mesh, parallel, opt_sharding) comes with the "
-                "multi-GPU training slice (ROADMAP slice 10); the port probes one device"
+        if parallel in ("sp", "pp"):
+            raise ValueError(
+                f'attribution is not supported with parallel="{parallel}" '
+                "(sp/pp build their own update bodies)"
             )
+        if parallel not in (None, "dp"):
+            raise NotImplementedError(
+                f'attribution under parallel="{parallel}" is not ported yet: it comes with '
+                "the port's slice 10c"
+            )
+        if (parallel == "dp") != (mesh is not None):
+            raise ValueError('parallel="dp" and a mesh go together')
+        if opt_sharding is not None and parallel != "dp":
+            raise ValueError('opt_sharding="zero1" needs parallel="dp" and its mesh')
+        self.mesh = mesh
+        self.parallel = parallel
+        self.opt_sharding = opt_sharding
         self.config = model_config
         self.hparams = hparams
         self.batch_size = batch_size
         self.accum_steps = accum_steps
         self.inner_steps = inner_steps
         self.iters = iters
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._rng = np.random.default_rng(seed)
         self._step = None
         self._batch = None
@@ -395,6 +431,10 @@ class StepProbe:
         elif self.inner_steps > 1:
             x = np.broadcast_to(x, (self.inner_steps, B, S)).copy()
             y = np.broadcast_to(y, (self.inner_steps, B, S)).copy()
+        if self.mesh is not None:
+            from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
+
+            return shard_batch((x, y), self.mesh, stacked=x.ndim == 3)
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
         return to(x), to(y)
 
@@ -405,7 +445,22 @@ class StepProbe:
             make_train_step,
         )
 
-        if self.inner_steps > 1:
+        self._local_step = None
+        if self.mesh is not None:
+            from bpe_transformer_tpu_torch.parallel.train_step import (
+                _multi_step_body,
+                make_dp_train_step,
+            )
+
+            self._step = make_dp_train_step(
+                self.config, self.hparams, self.mesh, accum_steps=self.accum_steps,
+                inner_steps=self.inner_steps, opt_sharding=self.opt_sharding)
+            if self.opt_sharding is None:
+                # The same update without its all-reduce: the stand-in for
+                # the compute alone where no trace splits the collective.
+                self._local_step, _ = _multi_step_body(
+                    self.config, self.hparams, self.accum_steps, self.inner_steps, None)
+        elif self.inner_steps > 1:
             self._step = make_scanned_train_step(self.config, self.hparams, self.inner_steps)
         elif self.accum_steps > 1:
             self._step = make_grad_accum_train_step(self.config, self.hparams,
@@ -413,7 +468,9 @@ class StepProbe:
         else:
             self._step = make_train_step(self.config, self.hparams)
         self._batch = self._synth_batch()
-        cost = program_cost(self.config, self.batch_size * max(self.inner_steps, 1))
+        ranks = self.mesh.axis("data").size if self.mesh is not None else 1
+        cost = program_cost(self.config,
+                            self.batch_size // ranks * max(self.inner_steps, 1))
         self._costs = [roofline(cost["flops"], cost["bytes_accessed"],
                                 device_kind_of(self.device), name="train_step")]
 
@@ -437,18 +494,22 @@ class StepProbe:
         the state, in seconds per optimizer update (inner steps divided back
         out): ``{"device_step_s", "compute_s", "collective_s",
         "probe_wall_step_s", "device_time_from"}``.  One traced call gives
-        the device time (:func:`kernel_busy_s`; ``device_time_from`` is
+        the device time (:func:`device_busy_split`; ``device_time_from`` is
         ``"kernels"``), then ``iters`` calls between two fences the wall
         time, which stands in for the device time where no trace can be
-        taken (``"fenced_wall"``).  The collective is 0.0 on one device.
-        The first measure also reads the step's peak device memory over the
-        timed calls, from the allocator, with no extra sync."""
+        taken (``"fenced_wall"``).  The collective is 0.0 on one device;
+        under dp the trace's NCCL time, or, without a trace, the fenced
+        wall time less that of the collective-free copy (None under
+        ZeRO-1).  The first measure also reads the step's peak device
+        memory over the timed calls, from the allocator, with no extra
+        sync."""
         if self._costs is None:
             self._build()
         read_memory = self._memory is None and self.device.type == "cuda"
         p, o = _clone_state(params, opt_state)
         x, y = self._batch
-        busy_s = kernel_busy_s(self._step, p, o, x, y)
+        split = device_busy_split(self._step, p, o, x, y)
+        busy_s = split[0] if split is not None else None
         if read_memory:
             reset_device_peak(self.device)
             before = torch.cuda.memory_allocated(self.device)
@@ -459,11 +520,26 @@ class StepProbe:
         wall_s = (time.perf_counter() - start) / max(self.iters, 1)
         if read_memory:
             self._memory = _memory_record(self.device, before, (p, o, x, y))
-        del p, o
         updates = max(self.inner_steps, 1)
-        device_step_s = (busy_s if busy_s is not None else wall_s) / updates
-        return {"device_step_s": device_step_s, "compute_s": device_step_s,
-                "collective_s": 0.0, "probe_wall_step_s": wall_s / updates,
+        collective_s = 0.0
+        if self.mesh is not None:
+            if split is not None:
+                collective_s = split[1]
+            elif self._local_step is not None:
+                start = time.perf_counter()
+                for _ in range(self.iters):
+                    self._local_step(p, o, x, y)
+                _fence(self.device)
+                local_s = (time.perf_counter() - start) / max(self.iters, 1)
+                collective_s = max(wall_s - local_s, 0.0)
+            else:
+                collective_s = None
+        del p, o
+        device_s = busy_s if busy_s is not None else wall_s
+        compute_s = device_s - (collective_s or 0.0)
+        return {"device_step_s": device_s / updates, "compute_s": compute_s / updates,
+                "collective_s": None if collective_s is None else collective_s / updates,
+                "probe_wall_step_s": wall_s / updates,
                 "device_time_from": "kernels" if busy_s is not None else "fenced_wall"}
 
     def loop_wall_step_s(self, params, opt_state, iters: int | None = None) -> float:
@@ -486,8 +562,11 @@ class StepProbe:
 
     @property
     def fetches_per_measure(self) -> int:
-        """Host syncs one :meth:`measure` makes (one variant on one device)."""
-        return self.FETCHES_PER_MEASURE
+        """Host syncs one :meth:`measure` makes: one variant, or two for
+        dense dp off the card (the collective-free copy is timed too)."""
+        variants = 2 if (self.mesh is not None and self.opt_sharding is None
+                         and self.device.type != "cuda") else 1
+        return variants * self.FETCHES_PER_MEASURE
 
     def attribution_record(
         self,
@@ -524,7 +603,8 @@ class StepProbe:
             "probe_wall_step_s": round(measured["probe_wall_step_s"], 6),
             "device_time_from": measured["device_time_from"],
             "compute_frac": round(compute_s / denom, 4),
-            "collective_frac": round(collective_s / denom, 4),
+            "collective_frac": (round(collective_s / denom, 4) if collective_s is not None
+                                else None),
             "host_gap_frac": round(host_gap_s / denom, 4),
             "probe_iters": self.iters,
             "train_peak_hbm_bytes": memory.get("peak_hbm_bytes"),

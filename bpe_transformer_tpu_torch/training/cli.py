@@ -11,14 +11,25 @@ schedule and cadence flags, the MFU knobs (``--remat-policy``,
 rollback (``--watchdog*``, ``--max-rollbacks``, ``--recovery-min-progress``),
 ``--supervise`` with ``--max-restarts`` and ``--restart-backoff``,
 ``--profile-trace``, ``--inner-steps``, ``--prefetch``,
-``--async-checkpoint``, ``--grad-accum-steps`` and ``--compile-cache``; plus
-``--resume``, ``--device`` (default ``cuda``) and the kernel knobs
-``--attention-impl`` / ``--ffn-impl``.  It prints the summary as one JSON
-line and exits with ``EXIT_PREEMPTED`` (75) after a SIGTERM/SIGINT stop.
-``--supervise`` turns the process into the torch-free parent of
-``resilience/supervisor.py``, which re-enters this command without
-``--supervise`` in a child and respawns it with ``--resume`` on a crash or a
-preemption.
+``--async-checkpoint``, ``--grad-accum-steps``, ``--compile-cache`` and the
+multi-card flags ``--parallel dp|sp``, ``--mesh``, ``--opt-sharding zero1``
+and ``--sp-zigzag``; plus ``--resume``, ``--device`` (default ``cuda``) and
+the kernel knobs ``--attention-impl`` / ``--ffn-impl``.  It prints the
+summary as one JSON line (rank 0's, under ``--parallel``) and exits with
+``EXIT_PREEMPTED`` (75) after a SIGTERM/SIGINT stop.  ``--supervise`` turns
+the process into the torch-free parent of ``resilience/supervisor.py``,
+which re-enters this command without ``--supervise`` in a child and
+respawns it with ``--resume`` on a crash or a preemption.
+
+Across cards, one process a card::
+
+    torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
+        --parallel dp --mesh data=N [--opt-sharding zero1] ...
+    torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
+        --parallel sp --mesh data=D,seq=S [--sp-zigzag] ...
+
+(``--device cpu`` runs the ranks on gloo; the strategies of slice 10c exit 2,
+as does ``--supervise`` with ``--parallel``.)
 
 ``profile`` is the JAX package's performance attribution without a training
 job: the analytic roofline of the train step (and, with ``--serve``, of the
@@ -118,7 +129,25 @@ def _apply_mfu_knobs(model_config: ModelConfig, args) -> ModelConfig:
     return dataclasses.replace(model_config, **overrides) if overrides else model_config
 
 
+def _parse_mesh(text: str | None) -> dict | None:
+    """``"data=2,seq=4"`` -> ``{"data": 2, "seq": 4}`` (the JAX CLI's
+    spelling)."""
+    if not text:
+        return None
+    return {name.strip(): int(size)
+            for name, size in (part.split("=") for part in text.split(","))}
+
+
 def cmd_train(args) -> int:
+    if args.parallel not in (None, "dp", "sp"):
+        print(f"--parallel {args.parallel} is not ported yet: it comes with the port's slice "
+              "10c (FSDP/tp, Ulysses, GPipe, expert parallelism)", file=sys.stderr)
+        return 2
+    if args.supervise and args.parallel:
+        print("train --supervise with --parallel is not supported: the supervisor respawns "
+              "one process, not a torchrun group; run torchrun with --max-restarts instead",
+              file=sys.stderr)
+        return 2
     if args.supervise:
         # This process becomes the torch-free parent; the child owns the card.
         from bpe_transformer_tpu_torch.resilience.supervisor import supervise
@@ -173,17 +202,30 @@ def cmd_train(args) -> int:
         prefetch=args.prefetch,
         grad_accum_steps=args.grad_accum_steps,
         async_checkpoint=args.async_checkpoint,
+        parallel=args.parallel,
+        mesh_axes=_parse_mesh(args.mesh),
+        sp_zigzag=args.sp_zigzag,
+        opt_sharding=args.opt_sharding,
     )
     train_data = load_token_file(args.data, args.dtype)
     val_data = load_token_file(args.val_data, args.dtype) if args.val_data else None
     trace = (profile_trace(args.profile_trace, args.device) if args.profile_trace
              else contextlib.nullcontext())
-    with trace:
-        summary = train(
-            model_config, hparams, loop, train_data, val_data,
-            resume_from=args.resume, device=args.device,
-        )
-    print(json.dumps({k: v for k, v in summary.items() if k != "history"}))
+    try:
+        with trace:
+            summary = train(
+                model_config, hparams, loop, train_data, val_data,
+                resume_from=args.resume, device=args.device,
+            )
+    finally:
+        if args.parallel:
+            import torch.distributed as dist
+
+            primary = not dist.is_initialized() or dist.get_rank() == 0
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    if not args.parallel or primary:
+        print(json.dumps({k: v for k, v in summary.items() if k != "history"}))
     # A SIGTERM/SIGINT stop (emergency checkpoint written) exits with its own
     # code, so a supervisor respawns with --resume.
     return EXIT_PREEMPTED if summary.get("preempted") else 0
@@ -905,7 +947,8 @@ def build_parser() -> argparse.ArgumentParser:
         # Its flags are the module's: ``main`` hands them over unparsed.
         sub.add_parser(name, help=f"{text}; torch-free", add_help=False)
 
-    p = sub.add_parser("train", help="pretrain a transformer LM on one device")
+    p = sub.add_parser("train", help="pretrain a transformer LM on one device, or on every "
+                       "card of a torchrun world")
     p.add_argument("--data", required=True)
     p.add_argument("--val-data", default=None)
     p.add_argument("--dtype", default="uint16", choices=["uint16", "uint32"])
@@ -983,6 +1026,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="build and load the CUDA kernels under DIR (fill it ahead with "
                    "warmup --train)")
+    p.add_argument("--parallel", default=None,
+                   choices=["dp", "sp", "pp", "fsdp", "tp", "fsdp_tp", "ep", "dp_ep", "fsdp_ep"],
+                   help="multi-card strategy, one process a card under torchrun (default: "
+                   "one device); dp and sp are ported, the others come with slice 10c")
+    p.add_argument("--mesh", default=None,
+                   help='mesh axes over the torchrun world, e.g. "data=8", "data=2,seq=4"')
+    p.add_argument("--sp-zigzag", action="store_true",
+                   help="balanced zig-zag ring schedule (with --parallel sp)")
+    p.add_argument("--opt-sharding", choices=["zero1"], default=None,
+                   help="ZeRO-1 optimizer-state sharding across the data axis (with "
+                   "--parallel dp): AdamW m/v and the fp32 master weights live 1/N per card; "
+                   "the step reduce-scatters grads and all-gathers fresh params instead of "
+                   "the all-reduce")
     _add_mfu_knob_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", default=None,

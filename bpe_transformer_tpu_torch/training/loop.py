@@ -1,6 +1,6 @@
-"""The single-device training loop (port of the one-device path of
-``bpe_transformer_tpu/training/loop.py``): token array -> per-iteration
-seeded batches -> train steps on one device -> periodic eval, logs and
+"""The training loop (port of ``bpe_transformer_tpu/training/loop.py``):
+token array -> per-iteration seeded batches -> train steps on one device,
+or on every rank of a process-group mesh -> periodic eval, logs and
 checkpoints, with the JAX loop's telemetry and resilience.
 
 Batches are a pure function of ``(seed, iteration)`` (and, after a NaN
@@ -39,9 +39,27 @@ What the loop wires, as the JAX loop does:
   throughput window; the probe is built at the first such boundary and
   the other steps never see it.
 
-``LoopConfig`` keeps every field of the JAX package's.  Those that select
-another slice's machinery raise ``NotImplementedError`` when set: the
-multi-GPU strategies and optimizer sharding.
+* data and sequence parallelism across cards (``parallel="dp"`` with
+  ``opt_sharding="zero1"`` or not, ``parallel="sp"`` with ``sp_zigzag``),
+  one process a card, launched by ``torchrun``: the loop joins the process
+  group (``parallel/mesh.py``; NCCL on the card, gloo on the CPU), builds
+  the ``mesh_axes`` grid (default ``data`` = the world, or ``data=1,seq=``
+  the world for sp), and every rank samples the same global batch from the
+  seed and takes its rows (and, under sp, its shard of every sequence), so
+  a run's batches are the one-device run's.  Metrics are all-reduced, so
+  every rank takes every decision (the watchdog's policy, a rollback) at
+  the same step; a SIGTERM is agreed on at the next log boundary (a max
+  all-reduce of each rank's flag that rides the metrics fetch: no sync on
+  an ordinary step).  Rank 0 alone writes the telemetry stream, wandb,
+  the footer, the flight recorder's dumps, ``summary.json`` and the
+  single-file checkpoints (a ZeRO-1 state gathered to the JAX package's
+  ``(N, L)`` layout first); every rank reads a checkpoint back, the path
+  that rank 0 verified.  Eval runs the dense forward on each data rank's
+  rows and averages over the data axis.
+
+``LoopConfig`` keeps every field of the JAX package's.  The strategies of
+slice 10c (``fsdp``, ``tp``, ``fsdp_tp``, ``ep``, ``dp_ep``, ``fsdp_ep``,
+``pp``) and ``sp_ulysses`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,13 +69,16 @@ import dataclasses
 import math
 import os
 import shutil
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bpe_transformer_tpu_torch.checkpointing.checkpoint import (
     AsyncCheckpointer,
+    load_checkpoint,
     load_checkpoint_with_fallback,
     save_checkpoint,
     training_state,
@@ -71,6 +92,11 @@ from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import init_params
 from bpe_transformer_tpu_torch.optim.adamw import adamw_init
+from bpe_transformer_tpu_torch.optim.sharded import (
+    gather_opt_state,
+    restore_opt_state,
+    sharded_adamw_init,
+)
 from bpe_transformer_tpu_torch.resilience.faults import FaultInjector
 from bpe_transformer_tpu_torch.resilience.integrity import atomic_write_json, sidecar_path
 from bpe_transformer_tpu_torch.resilience.retention import gc_checkpoints
@@ -150,24 +176,27 @@ class LoopConfig:
     async_checkpoint: bool = False
 
 
-#: LoopConfig fields that select the machinery of a later slice.  Sequence
-#: parallelism on one card is ``parallel.sp.make_sp_train_step``; the loop
-#: wiring (``parallel="sp"``) comes with the multi-GPU slice.
-_MULTI_GPU = "multi-GPU training (ROADMAP slice 10)"
-_OTHER_SLICES = {
-    "parallel": _MULTI_GPU,
-    "mesh_axes": _MULTI_GPU,
-    "opt_sharding": _MULTI_GPU,
-    "sp_zigzag": _MULTI_GPU,
-    "sp_ulysses": _MULTI_GPU,
-}
+#: The parallel strategies the port runs; the others come with slice 10c.
+_PORTED_PARALLEL = (None, "dp", "sp")
+_SLICE_10C = "slice 10c (FSDP/tp, Ulysses, GPipe, expert parallelism)"
 
 
 def _check_loop(loop: LoopConfig) -> None:
-    """The JAX loop's single-device config errors (raised before any sink
-    opens), then the refusal of other slices' fields."""
+    """The JAX loop's config errors that need no mesh (raised before any
+    sink opens), then the refusal of slice 10c's fields."""
+    if loop.health_stats and loop.parallel in ("sp", "pp"):
+        raise ValueError(
+            f'health_stats is not supported with parallel="{loop.parallel}" '
+            "(sp/pp build their own update bodies); drop --health-stats or "
+            "use a dp/GSPMD strategy"
+        )
     if loop.dynamics_every < 0:
         raise ValueError(f"dynamics_every must be >= 0, got {loop.dynamics_every}")
+    if loop.dynamics_every and loop.parallel in ("sp", "pp"):
+        raise ValueError(
+            f'dynamics_every is not supported with parallel="{loop.parallel}" (sp/pp build '
+            "their own update bodies); drop --dynamics-every or use a dp/GSPMD strategy"
+        )
     if loop.dynamics_every and loop.dynamics_every % loop.log_every:
         raise ValueError(
             f"dynamics_every={loop.dynamics_every} must be a multiple of "
@@ -176,12 +205,35 @@ def _check_loop(loop: LoopConfig) -> None:
         )
     if loop.attribution_every < 0:
         raise ValueError(f"attribution_every must be >= 0, got {loop.attribution_every}")
+    if loop.attribution_every and loop.parallel in ("sp", "pp"):
+        raise ValueError(
+            f'attribution_every is not supported with parallel="{loop.parallel}" (sp/pp build '
+            "their own update bodies); drop --attribution-every or use a dp/GSPMD strategy"
+        )
     if loop.attribution_every and loop.attribution_every % loop.log_every:
         raise ValueError(
             f"attribution_every={loop.attribution_every} must be a multiple of "
             f"log_every={loop.log_every} — attribution probes run at log boundaries so "
             "untouched steps pay zero extra host syncs"
         )
+    if loop.opt_sharding is not None:
+        if loop.opt_sharding != "zero1":
+            raise ValueError(
+                f'unknown opt_sharding: {loop.opt_sharding!r} (only "zero1" is implemented)'
+            )
+        if loop.parallel in (None, "sp", "pp"):
+            raise ValueError(
+                'opt_sharding="zero1" needs a data-parallel mesh to shard across — use '
+                "--parallel dp or a GSPMD strategy (fsdp already shards its optimizer "
+                "state with the params)"
+            )
+        if loop.parallel == "dp" and (loop.health_stats or loop.dynamics_every):
+            raise ValueError(
+                'opt_sharding="zero1" with parallel="dp" does not support '
+                "health_stats/dynamics_every — the reduce-scatter update never "
+                "materializes the global gradient tree those taps read; drop them or use "
+                "a GSPMD strategy"
+            )
     if loop.prefetch < 0:
         raise ValueError(f"prefetch must be >= 0, got {loop.prefetch}")
     if loop.watchdog and loop.watchdog_policy not in Watchdog.POLICIES:
@@ -217,13 +269,51 @@ def _check_loop(loop: LoopConfig) -> None:
             f"batch_size={loop.batch_size} must divide by "
             f"grad_accum_steps={loop.grad_accum_steps}"
         )
-    defaults = LoopConfig()
-    for name, slice_name in _OTHER_SLICES.items():
-        if getattr(loop, name) != getattr(defaults, name):
-            raise NotImplementedError(
-                f"LoopConfig.{name}={getattr(loop, name)!r} is not ported yet: it comes "
-                f"with the {slice_name} slice (the port trains on one device)"
+    if loop.parallel not in _PORTED_PARALLEL:
+        raise NotImplementedError(
+            f"LoopConfig.parallel={loop.parallel!r} is not ported yet: it comes with the "
+            f"port's {_SLICE_10C}"
+        )
+    if loop.sp_ulysses:
+        raise NotImplementedError(
+            f"LoopConfig.sp_ulysses=True is not ported yet: it comes with the port's "
+            f"{_SLICE_10C}"
+        )
+
+
+def _loop_mesh(loop: LoopConfig, model_config: ModelConfig, device: torch.device):
+    """The process-group mesh of a ``dp`` or ``sp`` run (joining the world
+    first), checked with the JAX loop's errors."""
+    from bpe_transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    initialize_distributed(device)
+    axes = loop.mesh_axes
+    if axes is None and loop.parallel == "sp":
+        # sp needs a seq axis; default to pure context parallelism.
+        axes = {"data": 1, "seq": dist.get_world_size()}
+    mesh = make_mesh(axes, device)
+    if loop.parallel == "dp" and "data" not in mesh.shape:
+        raise ValueError(
+            f'parallel="{loop.parallel}" requires a mesh with a "data" axis, e.g. '
+            "--mesh data=2,data=4"
+        )
+    if loop.opt_sharding == "zero1" and "data" not in mesh.shape:
+        raise ValueError(
+            'opt_sharding="zero1" requires a mesh with a "data" axis to shard the optimizer '
+            "state across, e.g. --mesh data=4,model=2"
+        )
+    if loop.parallel == "sp":
+        seq_size = mesh.shape.get("seq")
+        if seq_size is None:
+            raise ValueError(
+                'parallel="sp" requires a mesh with a "seq" axis, e.g. --mesh data=2,seq=4'
             )
+        if model_config.context_length % seq_size:
+            raise ValueError(
+                f"context_length {model_config.context_length} must be divisible by the "
+                f"seq mesh axis ({seq_size})"
+            )
+    return mesh
 
 
 def _fetch(metrics):
@@ -293,7 +383,9 @@ def train(
     ``latest.ckpt`` (the port's or the JAX package's), restored through
     :func:`load_checkpoint_with_fallback`.  ``fault_injector`` defaults to
     the ``BT_FAULTS`` plan of the environment (none: every hook is a
-    no-op)."""
+    no-op).  With ``loop.parallel`` ("dp" or "sp") every rank of the world
+    calls this function (module docstring); ``device`` picks NCCL on the
+    card (``cuda:<LOCAL_RANK>``) or gloo on the CPU."""
     dev = resolve_device(device)
     _check_loop(loop)
     check_dataset_geometry(
@@ -303,6 +395,24 @@ def train(
         check_dataset_geometry(
             val_data, model_config.context_length, loop.batch_size, name="val_data"
         )
+    mesh = _loop_mesh(loop, model_config, dev) if loop.parallel is not None else None
+    data_axis = None
+    if mesh is not None:
+        dev = mesh.device
+        if "data" in mesh.shape:
+            data_axis = mesh.axis("data")
+            # Each data rank takes its rows of every (micro)batch.
+            micro = loop.batch_size // max(loop.grad_accum_steps, 1)
+            if micro % data_axis.size:
+                raise ValueError(
+                    f"microbatch size {micro} must divide by the data mesh axis "
+                    f"({data_axis.size})"
+                )
+    #: Rank 0 (or the one device) writes the stream, the logs and the files.
+    primary = mesh is None or mesh.rank == 0
+    if not primary:
+        log_fn = lambda *a, **k: None  # noqa: E731
+    zero1 = loop.opt_sharding == "zero1"
     injector = fault_injector if fault_injector is not None else FaultInjector.from_env()
     telemetry = Telemetry()
     setup_span = telemetry.start_span("setup")
@@ -311,13 +421,33 @@ def train(
 
     def load_state(src: Path):
         """Fallback-aware restore shared by resume and NaN rollback:
-        ``(params, opt_state, iteration, used_path)``."""
+        ``(params, opt_state, iteration, used_path)``.  Under a mesh rank 0
+        verifies (and quarantines) and every rank then reads the snapshot
+        it settled on; the optimizer state is adapted to the run's mode
+        (dense, or this rank's ZeRO-1 row at this width)."""
         if src.is_dir():
             src = src / "latest.ckpt"
-        payload, used = load_checkpoint_with_fallback(src)
+        if mesh is None:
+            payload, used = load_checkpoint_with_fallback(src)
+        else:
+            chosen = [None]
+            if primary:
+                try:
+                    payload, used = load_checkpoint_with_fallback(src)
+                    chosen = [str(used)]
+                except Exception as exc:  # noqa: BLE001 - every rank raises it below
+                    chosen = [exc]
+            dist.broadcast_object_list(chosen, src=0)
+            if isinstance(chosen[0], Exception):
+                raise chosen[0]
+            used = Path(chosen[0])
+            if not primary:
+                payload = load_checkpoint(used)
         loaded_params, loaded_opt = training_state(payload, dev)
-        if loaded_opt is None:
-            loaded_opt = adamw_init(loaded_params)
+        loaded_opt = restore_opt_state(
+            loaded_opt, loaded_params,
+            zero1_shards=data_axis.size if zero1 else None, mesh=mesh if zero1 else None,
+        )
         return loaded_params, loaded_opt, payload["iteration"], used
 
     start_iteration = 0
@@ -326,7 +456,8 @@ def train(
         log_fn(f"resumed from {used_path} at iteration {start_iteration}")
     else:
         params = init_params(model_config, torch.Generator().manual_seed(loop.seed), device=dev)
-        opt_state = adamw_init(params)
+        opt_state = (sharded_adamw_init(params, data_axis.size, mesh=mesh) if zero1
+                     else adamw_init(params))
 
     stride = loop.inner_steps
     accum = loop.grad_accum_steps
@@ -339,7 +470,20 @@ def train(
         updates that end on a log boundary, the only ones whose health and
         dynamics values are read: the records are those of a step tapped
         every time, without the cost on the others."""
-        if n > 1:
+        if loop.parallel == "sp":
+            from bpe_transformer_tpu_torch.parallel.sp import make_sp_train_step
+
+            # sp runs no taps (refused above), so one step serves both.
+            step = make_sp_train_step(model_config, hparams, mesh, zigzag=loop.sp_zigzag,
+                                      accum_steps=accum, inner_steps=n)
+            return step, step
+        if loop.parallel == "dp":
+            from bpe_transformer_tpu_torch.parallel.train_step import make_dp_train_step
+
+            make = partial(make_dp_train_step, mesh=mesh, accum_steps=accum, inner_steps=n,
+                           opt_sharding=loop.opt_sharding)
+            args = ()
+        elif n > 1:
             make, args = make_scanned_train_step, (n,)
         elif accum > 1:
             make, args = make_grad_accum_train_step, (accum,)
@@ -352,7 +496,8 @@ def train(
 
     plain_step, tapped_step = build_steps()
     async_saver = (
-        AsyncCheckpointer() if loop.async_checkpoint and loop.checkpoint_dir is not None else None
+        AsyncCheckpointer()
+        if loop.async_checkpoint and loop.checkpoint_dir is not None and primary else None
     )
     eval_step = make_eval_step(model_config)
     ctx = model_config.context_length
@@ -361,6 +506,19 @@ def train(
     def to_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev, non_blocking=True)
 
+    def place(hx: np.ndarray, hy: np.ndarray):
+        """This rank's part of a global host batch, on the card (a batch
+        with a leading stacked dim is split on its second)."""
+        if loop.parallel == "dp":
+            from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
+
+            return shard_batch((hx, hy), mesh, stacked=hx.ndim == 3)
+        if loop.parallel == "sp":
+            from bpe_transformer_tpu_torch.parallel.sp import shard_sp_batch
+
+            return shard_sp_batch((hx, hy), mesh, zigzag=loop.sp_zigzag, stacked=hx.ndim == 3)
+        return to_device(hx), to_device(hy)
+
     def run_eval() -> float:
         handle = telemetry.start_span("eval", step=iteration, batches=loop.eval_batches)
         try:
@@ -368,25 +526,39 @@ def train(
             losses = []
             for _ in range(loop.eval_batches):
                 ex, ey = get_batch(val_data, loop.batch_size, ctx, eval_rng)
-                losses.append(float(eval_step(params, to_device(ex), to_device(ey))))
-            return float(np.mean(losses))
+                if data_axis is not None:
+                    # The dense forward on this data rank's rows (whole
+                    # sequences, in order, under sp too).
+                    from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
+
+                    losses.append(eval_step(params, *shard_batch((ex, ey), mesh)))
+                else:
+                    losses.append(eval_step(params, to_device(ex), to_device(ey)))
+            means = torch.stack(losses).float()
+            if data_axis is not None:
+                data_axis.pmean_(means)
+            return float(np.mean(means.double().cpu().numpy()))
         finally:
             # Eval time is not step time.
             timer.exclude(handle.end())
 
     history: list[dict] = []
+    n_chips = mesh.world_size if mesh is not None else 1
     timer = StepTimer(
-        n_chips=1,
+        n_chips=n_chips,
         flops_per_token=train_step_flops(model_config, loop.batch_size) / tokens_per_step,
         device_kind=torch.cuda.get_device_name(dev) if on_cuda else None,
     )
-    sinks = MetricsLogger(jsonl_path=loop.metrics_jsonl, wandb_project=loop.wandb_project)
+    sinks = MetricsLogger(jsonl_path=loop.metrics_jsonl if primary else None,
+                          wandb_project=loop.wandb_project if primary else None)
     # The manifest first, so every stream this loop writes is self-describing.
     telemetry.attach(sinks.log)
     telemetry.emit(
         run_manifest(
             kind="train", model_config=model_config, loop_config=loop,
-            extra={"start_iteration": start_iteration, "n_chips": 1},
+            parallel=loop.parallel,
+            extra={"start_iteration": start_iteration, "n_chips": n_chips,
+                   **({"mesh": dict(mesh.shape)} if mesh is not None else {})},
         )
     )
     #: The decision ring: rollbacks, preemption and watchdog transitions,
@@ -415,6 +587,8 @@ def train(
     stop = GracefulShutdown(recorder=recorder)
     stop.install()
     preempted: str | None = None
+    #: Under a mesh: every rank's stop flag, max-reduced at a log boundary.
+    agreed_stop = False
     rollback_budget = (
         RollbackBudget(loop.max_rollbacks, loop.recovery_min_progress) if rollback_mode else None
     )
@@ -457,8 +631,19 @@ def train(
         )
         ckpt_dir = Path(loop.checkpoint_dir)
         ckpt_path = ckpt_dir / f"step_{iteration:08d}.ckpt"
+        # A ZeRO-1 state is written whole: every rank's row, gathered.
+        saved_opt = gather_opt_state(opt_state, mesh) if zero1 else opt_state
+        # Under a mesh a synchronous write is followed by a barrier: every
+        # rank leaves with the file on disk.
+        barrier = mesh is not None and (sync or not loop.async_checkpoint)
+        if not primary:
+            if barrier:
+                with wd_pause():
+                    dist.barrier()
+            timer.exclude(ckpt_handle.end())
+            return ckpt_path
         state_kwargs = dict(
-            params=params, opt_state=opt_state, iteration=iteration,
+            params=params, opt_state=saved_opt, iteration=iteration,
             extra={
                 "val_loss": None if math.isnan(val_loss) else val_loss,
                 "train_loss": None if math.isnan(last_loss) else last_loss,
@@ -479,6 +664,8 @@ def train(
             else:
                 save_checkpoint(ckpt_path, **state_kwargs)
                 update_latest()
+            if barrier:
+                dist.barrier()
         # The span covers the synchronous part: save time is not step time.
         timer.exclude(ckpt_handle.end())
         return ckpt_path
@@ -491,8 +678,8 @@ def train(
             # Chaos hooks (no-ops without a BT_FAULTS plan), then the
             # preemption poll, before more compute.
             injector.at_step(iteration)
-            if stop.triggered:
-                preempted = stop.signame or "signal"
+            if agreed_stop if mesh is not None else stop.triggered:
+                preempted = stop.signame or ("peer" if mesh is not None else "signal")
                 break
             hx, hy, n = prefetcher.get(iteration)
             if stride > 1 and n != stride:
@@ -505,7 +692,7 @@ def train(
                 if iteration + ahead * n < loop.steps:
                     prefetcher.schedule(iteration + ahead * n)
             # The copy to the card stays on the main thread.
-            x, y = to_device(hx), to_device(hy)
+            x, y = place(hx, hy)
             if first_dispatch:
                 # The first step of a (re)built step function loads its
                 # kernel libraries: fenced, spanned, out of the throughput
@@ -529,7 +716,14 @@ def train(
 
             is_last = iteration == loop.steps
             if iteration % loop.log_every == 0 or is_last:
-                fetched = _fetch(metrics)  # the sync point
+                if mesh is not None:
+                    # The stop flags' max rides the fetch: no other sync.
+                    flag = torch.full((1,), float(stop.triggered), device=dev)
+                    mesh.axis(mesh.axis_names).pmax_(flag)
+                    fetched = _fetch({**metrics, "_stop": flag})
+                    agreed_stop = fetched.pop("_stop")[0] > 0
+                else:
+                    fetched = _fetch(metrics)  # the sync point
                 dyn_flat = flatten_dynamics(fetched["dynamics"]) if dynamics else None
                 last_loss = fetched["loss"]
                 rates = timer.snapshot()
@@ -585,6 +779,8 @@ def train(
                         if attribution_probe is None:
                             attribution_probe = StepProbe(
                                 model_config, hparams, batch_size=loop.batch_size,
+                                mesh=mesh, parallel=loop.parallel,
+                                opt_sharding=loop.opt_sharding,
                                 accum_steps=accum, inner_steps=stride, seed=loop.seed,
                                 device=dev,
                             )
@@ -594,10 +790,11 @@ def train(
                         )
                     timer.exclude(attr_handle.end())
                     telemetry.emit(attr_record)
+                    collective = attr_record["collective_frac"]
                     log_fn(
                         f"step {iteration:>6d}  attribution: compute "
                         f"{attr_record['compute_frac']:.0%}  collective "
-                        f"{attr_record['collective_frac']:.0%}  host gap "
+                        f"{f'{collective:.0%}' if collective is not None else 'n/a'}  host gap "
                         f"{attr_record['host_gap_frac']:.0%}"
                     )
                 if wd is not None:
@@ -742,6 +939,6 @@ def train(
         summary["stopped_at_step"] = iteration
     if rollback_budget is not None and rollback_budget.total:
         summary["rollbacks"] = rollback_budget.total
-    if loop.checkpoint_dir is not None:
+    if loop.checkpoint_dir is not None and primary:
         atomic_write_json(Path(loop.checkpoint_dir) / "summary.json", summary)
     return summary

@@ -11,9 +11,15 @@ point, as a metric fetch is in the JAX loop); ``lr`` is a Python float.
 ``telemetry/health.py`` and ``telemetry/dynamics.py`` to the metrics, as
 device tensors: no tap reads a value back.  :func:`make_scanned_train_step`
 runs ``n`` updates a call (the JAX package's ``lax.scan``; here a Python
-loop with no host sync between the updates).  The multi-device variants
-(``reduce_axis``, ZeRO-1) belong to the multi-GPU slice and raise; sequence
-parallelism on one card is ``parallel/sp.py``.
+loop with no host sync between the updates).
+
+``reduce_axis`` is a data axis of a process-group mesh
+(:meth:`parallel.mesh.Mesh.axis`): the step all-reduces the mean of the
+gradients (one collective over one flat buffer, at the ``grads_dtype``
+width), of the loss and of ``moe_aux``, and the taps' activation
+statistics reduce as JAX's do (means, a max, a sum).  ``zero1_shards``
+swaps the update for ZeRO-1 (:mod:`optim.sharded`).  These are the bodies
+that :mod:`parallel.train_step` and :mod:`parallel.sp` run on each rank.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from bpe_transformer_tpu_torch.ops.grad import clip_by_global_norm
 from bpe_transformer_tpu_torch.ops.losses import cross_entropy, lm_loss
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_update
 from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
+from bpe_transformer_tpu_torch.optim.sharded import sharded_adamw_update
 from bpe_transformer_tpu_torch.telemetry.dynamics import dynamics_from_parts, per_tensor_nonfinite
 from bpe_transformer_tpu_torch.telemetry.health import health_metrics
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -117,43 +124,111 @@ def value_and_grad(loss_fn: Callable, has_aux: bool = False) -> Callable:
     return wrapped
 
 
-def _reduce_grads(grads, grads_dtype: str):
-    """The ``grads_dtype`` round trip (the single-device half of the JAX
-    package's reduction boundary)."""
-    if grads_dtype == "float32":
-        return grads
+def _reduce_grads(grads, reduce_axis, grads_dtype: str):
+    """The gradient-reduction boundary: round to ``grads_dtype``, mean over
+    ``reduce_axis`` (one all-reduce of every leaf in one flat buffer at
+    that width), widen back to float32.  The round trip applies on one
+    device too, so one ``grads_dtype`` means one set of numerics."""
     narrow = getattr(torch, grads_dtype)
-    return tree_map(lambda g: g.to(narrow).float(), grads)
+    if reduce_axis is None:
+        if grads_dtype == "float32":
+            return grads
+        return tree_map(lambda g: g.to(narrow).float(), grads)
+    leaves = tree_leaves(grads)
+    flat = torch.cat([g.reshape(-1).to(narrow) for g in leaves])
+    reduce_axis.pmean_(flat)
+    out, offset = [], 0
+    for g in leaves:
+        out.append(flat[offset:offset + g.numel()].view(g.shape).float())
+        offset += g.numel()
+    return tree_unflatten(grads, out)
 
 
-def _not_ported(**options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name} is not ported yet: it comes with the multi-GPU training slice "
-                "(the port trains on one device)"
-            )
+def _pmean_scalars(reduce_axis, *values):
+    """The mean over ``reduce_axis`` of 0-d tensors, in one all-reduce."""
+    stacked = reduce_axis.pmean_(torch.stack([v.detach().float() for v in values]))
+    return tuple(stacked.unbind())
 
 
-def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
-            health: bool = False, dynamics: bool = False, act_stats=None, moe_aux=None):
-    """Clip, schedule and AdamW, with the optional taps.  The dynamics tap
-    counts the input params' non-finites before AdamW rewrites them in
-    place and takes the update norms from ``adamw_update``'s
-    ``delta_norms``: no copy of the weights is kept.  ``moe_aux``, when
-    given, joins the health stats as ``moe_aux``."""
-    grads = _reduce_grads(grads, hparams.grads_dtype)
-    # Dynamics reports the pre-clip gradient magnitudes.
-    raw_grads = grads
-    nonfinite_params = per_tensor_nonfinite(params) if dynamics else None
-    grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
-    lr = cosine_schedule(
+def _reduce_act_stats(act_stats: dict, reduce_axis) -> dict:
+    """Per-rank activation stats folded to global ones, as JAX's under a
+    mapped axis: means average, absmax maxes, non-finite counts sum."""
+    return {
+        "rms": reduce_axis.pmean_(act_stats["rms"].float().clone()),
+        "absmax": reduce_axis.pmax_(act_stats["absmax"].float().clone()),
+        "nonfinite": reduce_axis.psum_(act_stats["nonfinite"].clone()),
+        "attn_entropy": reduce_axis.pmean_(act_stats["attn_entropy"].float().clone()),
+    }
+
+
+def _check_zero1(zero1_shards, reduce_axis, health, dynamics, context):
+    """A ZeRO-1 request needs a data axis to scatter over and never builds
+    the global gradient tree the taps read (the JAX package's errors)."""
+    if zero1_shards is None:
+        return
+    if reduce_axis is None:
+        raise ValueError(
+            f"{context}: zero1_shards requires a mapped reduce_axis (the "
+            "sharded update reduce-scatters gradients over the dp axis)"
+        )
+    if health or dynamics:
+        raise ValueError(
+            f"{context}: health/dynamics stats are not supported with the "
+            "ZeRO-1 sharded update — they read the global gradient tree, "
+            "which the reduce-scatter path deliberately never builds; "
+            "drop --health-stats/--dynamics-every or --opt-sharding"
+        )
+
+
+def _schedule(opt_state, hparams: TrainHParams) -> float:
+    return cosine_schedule(
         int(opt_state.step),
         hparams.max_learning_rate,
         hparams.min_learning_rate,
         hparams.warmup_iters,
         hparams.cosine_cycle_iters,
     )
+
+
+def _zero1_update(params, opt_state, loss, grads, hparams: TrainHParams, reduce_axis,
+                  n_shards: int):
+    """The ZeRO-1 tail of a step: the loss's mean over the axis, the
+    schedule, then reduce-scatter, the row's AdamW and the all-gather
+    (:func:`optim.sharded.sharded_adamw_update`)."""
+    (loss,) = _pmean_scalars(reduce_axis, loss)
+    lr = _schedule(opt_state, hparams)
+    params, opt_state, grad_norm = sharded_adamw_update(
+        params, grads, opt_state, lr, axis=reduce_axis, n_shards=n_shards,
+        betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+        grad_clip_norm=hparams.grad_clip_norm, grads_dtype=hparams.grads_dtype,
+    )
+    return params, opt_state, {"loss": loss, "lr": lr, "grad_norm": grad_norm}
+
+
+def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
+            health: bool = False, dynamics: bool = False, act_stats=None, moe_aux=None,
+            reduce_axis=None):
+    """Reduce, clip, schedule and AdamW, with the optional taps.  With
+    ``reduce_axis`` the gradients, the loss, ``moe_aux`` and the activation
+    stats are first reduced over it (``grads``, ``loss`` and ``moe_aux``
+    are this rank's).  The dynamics tap counts the input params'
+    non-finites before AdamW rewrites them in place and takes the update
+    norms from ``adamw_update``'s ``delta_norms``: no copy of the weights
+    is kept.  ``moe_aux``, when given, joins the health stats as
+    ``moe_aux``."""
+    grads = _reduce_grads(grads, reduce_axis, hparams.grads_dtype)
+    if reduce_axis is not None:
+        if moe_aux is not None:
+            loss, moe_aux = _pmean_scalars(reduce_axis, loss, moe_aux)
+        else:
+            (loss,) = _pmean_scalars(reduce_axis, loss)
+        if act_stats is not None:
+            act_stats = _reduce_act_stats(act_stats, reduce_axis)
+    # Dynamics reports the pre-clip gradient magnitudes.
+    raw_grads = grads
+    nonfinite_params = per_tensor_nonfinite(params) if dynamics else None
+    grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
+    lr = _schedule(opt_state, hparams)
     delta_norms = [] if dynamics else None
     params, opt_state = adamw_update(
         params, grads, opt_state, lr,
@@ -182,16 +257,30 @@ def train_step_fn(
     zero1_shards: int | None = None,
 ) -> Callable:
     """The update ``(params, opt_state, x, y) -> (params, opt_state,
-    metrics)`` on one device.  The learning rate is read at
+    metrics)`` on this rank.  The learning rate is read at
     ``opt_state.step`` before AdamW increments it.  ``health`` adds
     ``metrics["health"]`` (``telemetry/health.py``), ``dynamics``
     ``metrics["dynamics"]`` (``telemetry/dynamics.py``, with the activation
     statistics tapped from the differentiated forward).  An MoE config's
-    health stats also carry ``moe_aux``, the raw load-balance loss."""
-    _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)
+    health stats also carry ``moe_aux``, the raw load-balance loss.
+    ``reduce_axis`` (a data axis of a mesh) all-reduces the mean of the
+    loss, the gradients and ``moe_aux`` before the update, so every rank
+    runs the same update; ``zero1_shards`` (with ``reduce_axis``) makes
+    ``opt_state`` a :class:`optim.sharded.ShardedAdamWState` row and the
+    update ZeRO-1's."""
+    _check_zero1(zero1_shards, reduce_axis, health, dynamics, "train_step_fn")
     with_aux = health and config.ffn_type == "moe"
     grad_fn = value_and_grad(make_loss_fn(config, with_aux=with_aux, with_stats=dynamics),
                              has_aux=dynamics or with_aux)
+
+    if zero1_shards is not None:
+
+        def zero1_step(params, opt_state, x, y):
+            loss, grads = grad_fn(params, x, y)
+            return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
+                                 zero1_shards)
+
+        return zero1_step
 
     def step(params, opt_state: AdamWState, x, y):
         act_stats = moe_aux = None
@@ -203,7 +292,7 @@ def train_step_fn(
         else:
             loss, grads = grad_fn(params, x, y)
         return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats,
-                       moe_aux)
+                       moe_aux, reduce_axis)
 
     return step
 
@@ -256,15 +345,21 @@ def grad_accum_step_fn(
     ``(params, opt_state, xs, ys) -> (params, opt_state, metrics)`` with
     ``xs, ys (accum_steps, micro_batch, seq)``.  The taps read the
     accumulated gradients; dynamics carries no activation statistics and
-    health no ``moe_aux`` on this path, as in the JAX package."""
+    health no ``moe_aux`` on this path, as in the JAX package.
+    ``reduce_axis`` reduces ONCE per update, after the local accumulation;
+    ``zero1_shards`` reduce-scatters the accumulated gradients."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    _not_ported(reduce_axis=reduce_axis, zero1_shards=zero1_shards)
+    _check_zero1(zero1_shards, reduce_axis, health, dynamics, "grad_accum_step_fn")
     grad_fn = value_and_grad(make_loss_fn(config))
 
-    def step(params, opt_state: AdamWState, xs, ys):
+    def step(params, opt_state, xs, ys):
         loss, grads = accumulate_grads(grad_fn, params, xs, ys, accum_steps)
-        return _update(params, opt_state, loss, grads, hparams, health, dynamics)
+        if zero1_shards is not None:
+            return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
+                                 zero1_shards)
+        return _update(params, opt_state, loss, grads, hparams, health, dynamics,
+                       reduce_axis=reduce_axis)
 
     return step
 
@@ -280,23 +375,32 @@ def make_grad_accum_train_step(
     return grad_accum_step_fn(config, hparams, accum_steps, health=health, dynamics=dynamics)
 
 
-def make_scanned_train_step(
+def scanned_step_fn(
     config: ModelConfig,
     hparams: TrainHParams,
     inner_steps: int,
+    reduce_axis=None,
+    body: Callable | None = None,
     health: bool = False,
     dynamics: bool = False,
+    zero1_shards: int | None = None,
 ) -> Callable:
     """``inner_steps`` optimizer updates a call: ``(params, opt_state, xs,
     ys) -> (params, opt_state, metrics)`` with a leading ``(inner_steps,)``
     dim on ``xs``/``ys``; ``metrics`` are the last update's, as the JAX
     package's ``lax.scan`` returns them.  The updates are dispatched back to
     back with no host sync between them, and only the last one runs the
-    taps: the others' values would be thrown away."""
+    taps: the others' values would be thrown away.  ``reduce_axis`` and
+    ``zero1_shards`` go to every update (one reduction each); ``body``
+    replaces the update (the sp step passes its own)."""
     if inner_steps < 1:
         raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
-    plain = train_step_fn(config, hparams)
-    last = train_step_fn(config, hparams, health=health, dynamics=dynamics)
+    if body is not None:
+        plain = last = body
+    else:
+        plain = train_step_fn(config, hparams, reduce_axis, zero1_shards=zero1_shards)
+        last = train_step_fn(config, hparams, reduce_axis, health=health, dynamics=dynamics,
+                             zero1_shards=zero1_shards)
 
     def multi(params, opt_state: AdamWState, xs, ys):
         if xs.shape[0] != inner_steps or ys.shape[0] != inner_steps:
@@ -309,6 +413,17 @@ def make_scanned_train_step(
         return last(params, opt_state, xs[-1], ys[-1])
 
     return multi
+
+
+def make_scanned_train_step(
+    config: ModelConfig,
+    hparams: TrainHParams,
+    inner_steps: int,
+    health: bool = False,
+    dynamics: bool = False,
+) -> Callable:
+    """The single-device scanned step (:func:`scanned_step_fn`)."""
+    return scanned_step_fn(config, hparams, inner_steps, health=health, dynamics=dynamics)
 
 
 def make_eval_step(config: ModelConfig) -> Callable:

@@ -225,7 +225,27 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    this run used, for phase 13b's, 13c's and 15's flags: nothing built,
    every needed source found, and those sources are the ones whose kernels
    those phases launched;
-then one JSON line listing every ported kernel, and the ``ok`` line.
+18. data and sequence parallelism over a process group (slice 10b): a
+   real NCCL group of world 1 on ``cuda:0`` driving ``train()`` at phase
+   15's config and seed, ZeRO-1 dp (``mesh data=1``) for 4 steps with a
+   checkpoint, resumed dense to 8, and ring-flash sp (``mesh
+   data=1,seq=1``) for 4 steps, each against ``train()`` on one device
+   within phase 15's 1e-5 relative, with exact launch counts;
+then one JSON line listing every ported kernel (launches counted over the
+main paths, phase 18's included), and the ``ok`` line.
+
+``python3 chip_smoke.py --phase 18 --world 4`` (on a host with four
+cards) builds the kernels and runs phase 18 across cards
+instead: one rank process a card (NCCL, started by the port's
+``parallel/launch.py``), dp=4 at phase 8's config and batch (2 rows a
+rank) for 3 steps against phase 8's one-card step (``DP_TOL``), ZeRO-1 at
+dp=4 against dp=4 (``ZERO1_TOL``), the sp grids seq=4 and data=2 x seq=2,
+contiguous and zig-zag, step 1 against phase 12's stacked ring of 4
+(phase 12's tolerance) and 3 steps with exact launch counts, each with
+host ms a step, tok/s a card, peak memory a rank and the NCCL time a step
+from ``torch.profiler``; then the ``train`` CLI under ``torchrun`` at dp=4
+with ZeRO-1, its step-4 checkpoint resumed at dp=2.  ``--phase 18`` alone
+runs the default run's phase 18 after the build.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
@@ -235,8 +255,10 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 ``chip_smoke_serve.json`` (phase 13's HTTP and in-process figures),
 ``chip_smoke_fleet.json`` (phase 14's migrations and fleet figures),
 ``chip_smoke_loop.json`` (phase 15's training-loop figures),
-``chip_smoke_moe.json`` (phase 16's MoE figures) and
-``chip_smoke_surface.json`` (phase 17's).
+``chip_smoke_moe.json`` (phase 16's MoE figures),
+``chip_smoke_surface.json`` (phase 17's), ``chip_smoke_parallel.json``
+(phase 18's) and, from the four-card run, ``chip_smoke_parallel4.json`` and
+``chip_smoke_parallel4_cli.json``.
 """
 
 from __future__ import annotations
@@ -5405,6 +5427,531 @@ def phase_surface(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 18
+
+#: Phase 18's working files (token file, config, checkpoints, streams),
+#: inside the checkout and removed at the end of the phase.
+PARALLEL_WORK = ROOT / ".scratch" / "chip_smoke_parallel"
+#: 18 at world 4, dp=4 against phase 8's one-card step on the same batch.
+#: Each rank's forward and backward run on 2 of the 8 rows in bf16, so
+#: cuBLAS sums each weight gradient over 2048 tokens instead of 8192 and
+#: NCCL then adds the 4 ranks' float32 means: the gradients agree to bf16
+#: rounding, not bitwise.  Step 1's loss and mean gradients (the rank's
+#: own, through the step's reduction) are held at phase 12's bf16
+#: tolerance (TRAIN_TOL), the losses of 3 steps to 2e-3 relative.  AdamW
+#: divides each gradient by its own running magnitude, so a gradient near
+#: zero that changes sign moves its weight the other way: for the first
+#: three steps |m_hat / sqrt(v_hat)| <= 1.004 (Cauchy-Schwarz on the
+#: moments' weights), so two runs' weights can drift apart by at most 2.01
+#: x the sum of the learning rates of the steps (the weight decay terms
+#: agree), and that bound is held; the measured drift is printed.
+DP_TOL = {"loss_rel": 2e-3, "adam_flip": 2.01}
+#: ZeRO-1 at dp=4 against dp=4 with the dense optimizer: the same rows on
+#: the same ranks, so the same local gradients; a reduce-scatter instead of
+#: an all-reduce, the clip norm summed in another order, the update
+#: computed on a flat row.  Step 1's grad norm (the mean gradients of the
+#: same weights) agrees to float32 rounding, the losses of 3 steps to 1e-5
+#: relative, the weights to DP_TOL's AdamW bound.
+ZERO1_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-5}
+#: 18 at world 1 (the default run): phase 15's tolerance (relative, on the
+#: logged losses) between train() over a world-1 NCCL group and train() on
+#: one device.
+LOOP_REL_TOL = 1e-5
+
+
+def zipf_tokens(vocab: int, n: int, seed: int):
+    """Phase 15's seeded Zipf-distributed uint16 token stream."""
+    import numpy as np
+
+    zipf = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    return np.random.default_rng(seed).choice(vocab, size=n, p=zipf / zipf.sum()).astype(
+        np.uint16)
+
+
+def max_rel(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want, strict=True))
+
+
+def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 8) -> dict:
+    """Phase 18 (the default run): a real process group of world 1 (NCCL
+    on ``cuda:0``, gloo with ``device="cpu"``) driving ``train()`` at phase
+    15's config, seed and batch: ZeRO-1 dp (``mesh data=1``) for 4 steps
+    with a checkpoint, resumed dense to 8, and ring-flash sp (``mesh
+    data=1,seq=1``) for 4 steps, each against ``train()`` on one device
+    (phase 15's run; ``attention_impl="flash"`` for sp, whose ring runs
+    the flash kernels) within phase 15's 1e-5 relative.  Returns the
+    launch counts of the dp and sp runs (the slice's main path)."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.parallel import initialize_distributed
+    from bpe_transformer_tpu_torch.parallel.launch import free_port
+    from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    cfg = cfg or dataclasses.replace(
+        GPT2_SMALL_32K, attention_impl="flash_fused", flash_fused_min_seq=0, ffn_impl="pallas",
+        remat_policy="save_attn",
+    )
+    sp_cfg = dataclasses.replace(cfg, attention_impl="flash")
+    L = cfg.num_layers
+    shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    PARALLEL_WORK.mkdir(parents=True)
+    data = zipf_tokens(cfg.vocab_size, 2_000_000, 15)
+    hp = dict(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=2,
+              cosine_cycle_iters=8)
+    quiet = lambda *a: None  # noqa: E731
+    base = dict(batch_size=batch, log_every=2, eval_every=1000, seed=0)
+    initialize_distributed(device, coordinator_address=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0)
+    out: dict = {"smi": smi, "backend": dist.get_backend()}
+    try:
+        def run(c, steps, resume_from=None, **kw):
+            loop = LoopConfig(**{**base, "steps": steps, **kw})
+            return train(c, TrainHParams(**hp), loop, data, log_fn=quiet, device=device,
+                         resume_from=resume_from)
+
+        def losses(summary):
+            return [r["loss"] for r in summary["history"]]
+
+        ref = losses(run(cfg, 8))
+        ref_sp = losses(run(sp_cfg, 4))
+        ck = PARALLEL_WORK / "zero1_ck"
+        reset_counts()
+        dp = run(cfg, 4, parallel="dp", mesh_axes={"data": 1}, opt_sharding="zero1",
+                 checkpoint_every=4, checkpoint_dir=str(ck))
+        dp_counts = read_counts(tuple(KERNEL_META))
+        reset_counts()
+        sp = run(sp_cfg, 4, parallel="sp", mesh_axes={"data": 1, "seq": 1})
+        sp_counts = read_counts(tuple(KERNEL_META))
+        resumed = losses(run(cfg, 8, checkpoint_every=8, checkpoint_dir=str(ck),
+                             resume_from=str(ck / "step_00000004.ckpt")))
+        rel = {"dp zero1": max_rel(losses(dp), ref[:2]), "resumed dense": max_rel(resumed,
+                                                                                  ref[2:]),
+               "sp": max_rel(losses(sp), ref_sp)}
+        log(f"18 world 1 ({out['backend']}): one device {[round(v, 5) for v in ref]}, dp zero1 "
+            f"{[round(v, 5) for v in losses(dp)]}, resumed dense {[round(v, 5) for v in resumed]}"
+            f"; one device (flash) {[round(v, 5) for v in ref_sp]}, sp "
+            f"{[round(v, 5) for v in losses(sp)]}; max rel diffs {rel} (tol {LOOP_REL_TOL:g})")
+        require(all(v <= LOOP_REL_TOL for v in rel.values()),
+                f"18: world-1 runs disagree with one device: {rel}")
+        dp_step = only(flash_attention_rope=L, flash_attention_bwd_dkdv=L,
+                       flash_attention_bwd_dq=L, swiglu=2 * L)
+        sp_step = sp_launches_per_step(L, 1, False)
+        want_dp = {k: 4 * v for k, v in dp_step.items()}
+        want_sp = {k: 4 * v for k, v in sp_step.items()}
+        log(f"18 launches: dp zero1 { {k: v for k, v in dp_counts.items() if v} }, sp "
+            f"{ {k: v for k, v in sp_counts.items() if v} }")
+        if on_card:
+            require(dp_counts == want_dp, f"18: dp launches {dp_counts} != {want_dp}")
+            require(sp_counts == want_sp, f"18: sp launches {sp_counts} != {want_sp}")
+        if on_card:
+            # Syncs of a 6-step loop with one log boundary, one device against
+            # the mesh paths (the stop flag rides the boundary's fetch).
+            syncs = {name: len(count_syncs(torch, lambda kw=kw: run(c, 6, log_every=6, **kw), 1))
+                     for name, c, kw in (
+                         ("one device", cfg, {}),
+                         ("dp zero1", cfg, dict(parallel="dp", mesh_axes={"data": 1},
+                                                opt_sharding="zero1")),
+                         ("sp", sp_cfg, dict(parallel="sp", mesh_axes={"data": 1, "seq": 1})))}
+            log(f"18 syncs flagged by set_sync_debug_mode in a 6-step loop (set-up and one log "
+                f"boundary included): {syncs}")
+            out["syncs"] = syncs
+        out.update(ref=ref, ref_sp=ref_sp, dp=losses(dp), sp=losses(sp), resumed=resumed,
+                   rel=rel, dp_step_wall_s=[r["step_wall_s"] for r in dp["history"]],
+                   sp_step_wall_s=[r["step_wall_s"] for r in sp["history"]],
+                   phase_s=time.perf_counter() - t_phase)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(out, indent=1))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    return {name: dp_counts[name] + sp_counts[name] for name in KERNEL_META}
+
+
+def leaf_drift(got: list, want: list) -> dict:
+    """The largest absolute difference of two weight lists, and the share
+    of entries that differ by more than 1e-5."""
+    worst, over, total = 0.0, 0, 0
+    for g, w in zip(got, want, strict=True):
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > 1e-5).sum())
+        total += d.numel()
+    return {"max_abs": worst, "share_over_1e-5": over / total}
+
+
+def grad_errors(got: list, want: list) -> tuple[float, float]:
+    """``(max abs error, largest per-leaf relative L2 error)``."""
+    abs_err = max(_max_err(a, b) for a, b in zip(got, want, strict=True))
+    rel_err = max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(got, want))
+    return abs_err, rel_err
+
+
+def nccl_ms(torch, fn, dev) -> tuple[float | None, float | None]:
+    """``(busy ms, NCCL ms)`` of one call from a ``torch.profiler`` trace
+    (None off the card)."""
+    from bpe_transformer_tpu_torch.telemetry.attribution import device_busy_split
+
+    split = device_busy_split(fn, torch.zeros(1, device=dev))
+    return (None, None) if split is None else (split[0] * 1e3, split[1] * 1e3)
+
+
+def parallel_rank(torch, cfg=None, device: str = "cuda", batch: int = 8) -> None:
+    """18 at world N, in each rank process (one card a rank, NCCL): dp=N
+    against phase 8's one-card step, ZeRO-1 against dp, the sp grid(s)
+    against phase 12's stacked ring, with step times, peak memory and NCCL
+    time per step; rank 0 prints and writes ``chip_smoke_parallel4.json``.
+    ``device="cpu"`` (gloo) and a small ``cfg`` rehearse it on the CPU,
+    without the launch counts and the card's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init, sharded_adamw_init
+    from bpe_transformer_tpu_torch.parallel import (
+        StackedRing,
+        initialize_distributed,
+        make_dp_train_step,
+        make_mesh,
+        make_sp_grad_fn,
+        make_sp_train_step,
+        shard_batch,
+        shard_sp_batch,
+    )
+    from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        _pmean_scalars,
+        _reduce_grads,
+        make_loss_fn,
+        make_train_step,
+        value_and_grad,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device == "cuda"
+    dev = initialize_distributed(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = log if rank == 0 else (lambda msg: None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(dev.index)], capture_output=True, text=True,
+                         check=True).stdout.strip() if on_card else "cpu"
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused",
+                                     flash_fused_min_seq=0, ffn_impl="pallas",
+                                     remat_policy="save_attn")
+    sp_cfg = dataclasses.replace(cfg, attention_impl="flash")
+    L, S = cfg.num_layers, cfg.context_length
+    n_steps = 3
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=10)
+    rng = np.random.default_rng(8)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(batch, S)) for _ in range(2))
+    out: dict = {"world": world, "smi": smi}
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=device).manual_seed(0), device=dev)
+
+    def timed_steps(step, state, xs, ys, n):
+        """``n`` synchronised steps: the state, losses, host ms a step, peak
+        memory and the grad norms."""
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms, norms = [], [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            *state, m = step(*state, xs, ys)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        return state, losses, ms, peak, norms
+
+    def gathered_peak(nbytes: int) -> list:
+        t = torch.tensor([float(nbytes)], device=dev)
+        got = [torch.zeros_like(t) for _ in range(world)]
+        dist.all_gather(got, t)
+        return [int(v.item()) for v in got]
+
+    tol = TRAIN_TOL["bfloat16"]
+    lrs = [cosine_schedule(i, hparams.max_learning_rate, hparams.min_learning_rate,
+                           hparams.warmup_iters, hparams.cosine_cycle_iters)
+           for i in range(n_steps)]
+    adam_bound = DP_TOL["adam_flip"] * sum(lrs)
+    mesh = make_mesh({"data": world}, device=device)
+    # (a) The one-card reference: phase 8's step on the whole batch; step 1's
+    # loss and gradients against the ranks' reduced ones.
+    ref_losses, ref_leaves = None, None
+    p = fresh()
+    xs, ys = shard_batch((x, y), mesh)
+    loss, grads = value_and_grad(make_loss_fn(cfg))(p, xs, ys)
+    (loss,) = _pmean_scalars(mesh.axis("data"), loss)
+    grads = tree_leaves(_reduce_grads(grads, mesh.axis("data"), "float32"))
+    if rank == 0:
+        full = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        want_loss, want_grads = value_and_grad(make_loss_fn(cfg))(p, *full)
+        abs_err, rel_err = grad_errors(grads, tree_leaves(want_grads))
+        loss_err = abs(float(loss) - float(want_loss))
+        say(f"18 dp x{world} step 1 vs the one-card step: loss {float(loss):.6f} vs "
+            f"{float(want_loss):.6f} (|d| {loss_err:.3e}, tol {tol['out']:g}); mean grads max "
+            f"abs error {abs_err:.3e} (tol {tol['grad']:g}), largest per-leaf relative error "
+            f"{rel_err:.3e}")
+        require(loss_err <= tol["out"] and abs_err <= tol["grad"] and rel_err <= tol["grad"],
+                f"18: dp x{world} step 1 disagrees with the one-card step")
+        out["dp_step1"] = {"loss_err": loss_err, "grad_abs": abs_err, "grad_rel": rel_err}
+        del want_grads
+        state, ref_losses, *_ = timed_steps(make_train_step(cfg, hparams), (p, adamw_init(p)),
+                                            *full, n_steps)
+        ref_leaves = [t.detach().clone() for t in tree_leaves(state[0])]
+        del state
+    del p, grads
+    runs = {}
+    for name, zero1 in (("dp", None), ("zero1", "zero1")):
+        p = fresh()
+        opt = sharded_adamw_init(p, world, mesh) if zero1 else adamw_init(p)
+        step = make_dp_train_step(cfg, hparams, mesh, opt_sharding=zero1)
+        xs, ys = shard_batch((x, y), mesh)
+        reset_counts()
+        state, losses, ms, peak, norms = timed_steps(step, (p, opt), xs, ys, n_steps)
+        counts = read_counts(tuple(KERNEL_META))
+        want = {k: n_steps * v for k, v in only(
+            flash_attention_rope=L, flash_attention_bwd_dkdv=L, flash_attention_bwd_dq=L,
+            swiglu=2 * L).items()}
+        require(counts == want or not on_card,
+                f"18 {name} rank {rank}: launches {counts} != {want}")
+        leaves = [t.detach().clone() for t in tree_leaves(state[0])]
+        # A fourth step, traced (after the weights were read).
+        busy, nccl = nccl_ms(torch, lambda _: step(*state, xs, ys), dev)
+        opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state[1])
+                        if isinstance(t, torch.Tensor) and t.device == dev)
+        runs[name] = {"losses": losses, "host_ms": ms, "peak": gathered_peak(peak),
+                      "busy_ms": busy, "nccl_ms": nccl, "opt_bytes": opt_bytes,
+                      "grad_norms": norms, "leaves": leaves}
+        del p, opt, state, step
+    if rank == 0:
+        dp, z1 = runs["dp"], runs["zero1"]
+        dp_rel = {"loss": max_rel(dp["losses"], ref_losses),
+                  **leaf_drift(dp["leaves"], ref_leaves)}
+        z1_rel = {"loss": max_rel(z1["losses"], dp["losses"]),
+                  # Step 1's: later steps start from weights AdamW moved apart.
+                  "grad_norm": abs(z1["grad_norms"][0] - dp["grad_norms"][0])
+                  / dp["grad_norms"][0],
+                  **leaf_drift(z1["leaves"], dp["leaves"])}
+        for name, r in runs.items():
+            mean_ms = float(np.mean(r["host_ms"][1:]))
+            say(f"18 {name} x{world} (GPT2_SMALL_32K, {batch}x{S}, {batch // world} rows a rank): "
+                f"losses {[round(v, 5) for v in r['losses']]}; host ms a step "
+                f"{[round(v, 1) for v in r['host_ms']]} (steps 2-3 mean {mean_ms:.1f} ms = "
+                f"{batch * S / mean_ms * 1e3 / world:.0f} tok/s a card); peak GB a rank "
+                f"{[round(v / 1e9, 2) for v in r['peak']]}; optimizer state on rank 0 "
+                f"{r['opt_bytes'] / 1e9:.3f} GB; device busy {r['busy_ms']} ms a step of which "
+                f"NCCL {r['nccl_ms']} ms on {smi}")
+        say(f"18 dp x{world} 3 steps vs the one-card step's: loss rel {dp_rel['loss']:.2e} "
+            f"(tol {DP_TOL['loss_rel']:g}), weights max abs diff {dp_rel['max_abs']:.3e} "
+            f"(AdamW bound {adam_bound:.3e}), share over 1e-5 {dp_rel['share_over_1e-5']:.4f}; "
+            f"one card {[round(v, 5) for v in ref_losses]}")
+        say(f"18 zero1 x{world} vs dp x{world}: loss rel {z1_rel['loss']:.2e} (tol "
+            f"{ZERO1_TOL['loss_rel']:g}), step-1 grad norm rel {z1_rel['grad_norm']:.2e} (tol "
+            f"{ZERO1_TOL['grad_norm_rel']:g}), weights max abs diff {z1_rel['max_abs']:.3e} "
+            f"(bound {adam_bound:.3e}), share over 1e-5 {z1_rel['share_over_1e-5']:.4f}")
+        require(dp_rel["loss"] <= DP_TOL["loss_rel"] and dp_rel["max_abs"] <= adam_bound,
+                f"18: dp x{world} disagrees with the one-card step: {dp_rel}")
+        require(z1_rel["loss"] <= ZERO1_TOL["loss_rel"]
+                and z1_rel["grad_norm"] <= ZERO1_TOL["grad_norm_rel"]
+                and z1_rel["max_abs"] <= adam_bound,
+                f"18: zero1 disagrees with dp: {z1_rel}")
+        out["dp"] = {k: {kk: vv for kk, vv in v.items() if kk != "leaves"}
+                     for k, v in runs.items()}
+        out["dp"]["ref_losses"] = ref_losses
+        out["dp_rel"], out["zero1_rel"] = dp_rel, z1_rel
+    del runs, ref_leaves
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) sp grids against phase 12's stacked ring of 4 on the whole batch.
+    tol = TRAIN_TOL["bfloat16"]
+    grids = [{"data": 1, "seq": world}] + ([{"data": 2, "seq": world // 2}]
+                                          if world >= 4 else [])
+    out["sp"] = []
+    for axes in grids:
+        mesh = make_mesh(axes, device=device)
+        for zigzag in (False, True):
+            label = (f"sp data={axes['data']} x seq={axes['seq']} "
+                     f"{'zig-zag' if zigzag else 'contiguous'}")
+            p = fresh()
+            want_loss = want_grads = None
+            if rank == 0:
+                ring = StackedRing(SP_RANKS)
+                want_loss, want_grads = make_sp_grad_fn(sp_cfg, ring, zigzag)(
+                    p, *shard_sp_batch((x, y), ring, zigzag=zigzag, device=dev))
+                want_grads = tree_leaves(want_grads)
+            xs, ys = shard_sp_batch((x, y), mesh, zigzag=zigzag)
+            loss, grads = make_sp_grad_fn(sp_cfg, mesh, zigzag)(p, xs, ys)
+            if rank == 0:
+                grads = tree_leaves(grads)
+                loss_err = abs(float(loss) - float(want_loss))
+                grad_err = max(_max_err(a, b) for a, b in zip(grads, want_grads, strict=True))
+                rel_err = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+                              for a, b in zip(grads, want_grads))
+                say(f"18 {label} step 1 vs the stacked ring of {SP_RANKS}: loss "
+                    f"{float(loss):.6f} vs {float(want_loss):.6f} (|d| {loss_err:.3e}, tol "
+                    f"{tol['out']:g}); grads max abs error {grad_err:.3e} (tol {tol['grad']:g}), "
+                    f"largest per-leaf relative error {rel_err:.3e}")
+                require(loss_err <= tol["out"] and grad_err <= tol["grad"]
+                        and rel_err <= tol["grad"], f"18 {label}: step 1 disagrees")
+            del grads, want_grads
+            step = make_sp_train_step(sp_cfg, hparams, mesh, zigzag=zigzag)
+            reset_counts()
+            state, losses, ms, peak, _ = timed_steps(step, (p, adamw_init(p)), xs, ys, n_steps)
+            counts = read_counts(tuple(KERNEL_META))
+            want = {k: n_steps * v for k, v in sp_launches_per_step(L, axes["seq"],
+                                                                    zigzag).items()}
+            require(counts == want or not on_card,
+                    f"18 {label} rank {rank}: launches {counts} != {want}")
+            busy, nccl = nccl_ms(torch, lambda _: step(*state, xs, ys), dev)
+            peaks = gathered_peak(peak)
+            mean_ms = float(np.mean(ms[1:]))
+            say(f"18 {label}: losses {[round(v, 4) for v in losses]}; host ms a step "
+                f"{[round(v, 1) for v in ms]} (steps 2-3 mean {mean_ms:.1f} ms = "
+                f"{batch * S / mean_ms * 1e3 / world:.0f} tok/s a card); peak GB a rank "
+                f"{[round(v / 1e9, 2) for v in peaks]}; device busy {busy} ms a step of "
+                f"which NCCL {nccl} ms; launches a step "
+                f"{ {k: v // n_steps for k, v in counts.items() if v} } on {smi}")
+            require(all(math.isfinite(v) for v in losses), f"18 {label}: non-finite loss")
+            out["sp"].append({"label": label, "losses": losses, "host_ms": ms, "peak": peaks,
+                              "busy_ms": busy, "nccl_ms": nccl})
+            del p, state, step
+            if on_card:
+                torch.cuda.empty_cache()
+    if rank == 0:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel4.json").write_text(json.dumps(out, indent=1))
+    dist.destroy_process_group()
+
+
+def cli_resume_across_widths(smi: str, world: int, cfg=None, device: str = "cuda") -> dict:
+    """18 at world N: the ``train`` CLI under ``torchrun`` at dp=N with
+    ZeRO-1 for 8 steps (checkpoints at 4 and 8), then resumed from step 4
+    at dp=N/2 with ZeRO-1 (the state re-sharded) to 8: the resumed losses
+    against the uninterrupted run's, at DP_TOL's loss tolerance (another
+    width splits the rows otherwise, as dp=N against one card)."""
+    import dataclasses
+    import shutil
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused",
+                                     flash_fused_min_seq=0, ffn_impl="pallas",
+                                     remat_policy="save_attn")
+    shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    PARALLEL_WORK.mkdir(parents=True)
+    try:
+        zipf_tokens(cfg.vocab_size, 2_000_000, 15).tofile(PARALLEL_WORK / "tokens.bin")
+        cfg.to_json(PARALLEL_WORK / "model.json")
+        ck = PARALLEL_WORK / "ck"
+
+        def torchrun(n: int, *extra) -> tuple[dict, float]:
+            argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    f"--nproc-per-node={n}", *PORT_CLI, "train", "--data",
+                    str(PARALLEL_WORK / "tokens.bin"), "--model-config",
+                    str(PARALLEL_WORK / "model.json"), "--steps", "8", "--batch-size", "8",
+                    "--log-every", "2", "--eval-every", "1000", "--checkpoint-every", "4",
+                    "--lr", "6e-4", "--min-lr", "6e-5", "--warmup", "2", "--prefetch", "0",
+                    "--parallel", "dp", "--mesh", f"data={n}", "--opt-sharding", "zero1",
+                    "--device", device, *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            require(proc.returncode == 0, f"18 torchrun x{n} exit {proc.returncode}: "
+                    f"{proc.stderr[-3000:]}")
+            ck_dir = Path(extra[extra.index("--checkpoint-dir") + 1])
+            return json.loads((ck_dir / "summary.json").read_text()), wall
+
+        full, wall_full = torchrun(world, "--checkpoint-dir", str(ck))
+        port_cli("verify-checkpoint", str(ck / "step_00000004.ckpt"))
+        ck_half = PARALLEL_WORK / "ck_half"
+        ck_half.mkdir()
+        for name in ("step_00000004.ckpt", "step_00000004.ckpt.crc32.json"):
+            shutil.copy(ck / name, ck_half / name)
+        half = max(world // 2, 1)
+        resumed, wall_resumed = torchrun(half, "--checkpoint-dir", str(ck_half), "--resume",
+                                         str(ck_half / "step_00000004.ckpt"))
+        want = {r["step"]: r["loss"] for r in full["history"]}
+        got = {r["step"]: r["loss"] for r in resumed["history"]}
+        rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+        log(f"18 train CLI under torchrun: dp={world} zero1 8 steps {want} ({wall_full:.1f} s "
+            f"wall), resumed from step 4 at dp={half} zero1 {got} ({wall_resumed:.1f} s); max "
+            f"rel diff {rel:.2e} (tol {DP_TOL['loss_rel']:g}) on {smi}")
+        require(sorted(got) == [6, 8] and rel <= DP_TOL["loss_rel"],
+                f"18: resumed at dp={half}: {got} vs {want}")
+        return {"full": want, "resumed": got, "rel": rel, "wall_s": [wall_full, wall_resumed]}
+    finally:
+        shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+
+
+def main_parallel(world: int) -> int:
+    """``chip_smoke.py --phase 18 [--world N]``: the build, then phase 18
+    alone: at world 1 the default run's phase 18, at world N > 1 one rank
+    process a card (NCCL) for dp, ZeRO-1 and the sp grids, then the
+    ``train`` CLI under ``torchrun``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 1
+    if not (ROOT / "bpe_transformer_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no port package beside {__file__}; run it from the repo",
+              file=sys.stderr)
+        return 1
+    require(torch.cuda.device_count() >= world,
+            f"--world {world} needs {world} cards, this host shows {torch.cuda.device_count()}")
+    sys.path.insert(0, str(ROOT))
+    from bpe_transformer_tpu_torch.kernels import _build
+    from bpe_transformer_tpu_torch.parallel.launch import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi_all = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    smi = smi_all[0]
+    for line in smi_all[:world]:
+        log(line)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({built})")
+    t0 = time.perf_counter()
+    if world == 1:
+        counts = phase_parallel(torch, smi)
+        log(f"18 launches {counts}")
+    else:
+        outs = launch([__file__, "--phase", "18", "--world", str(world), "--rank-child"], world,
+                      timeout=900, cwd=ROOT)
+        print(outs[0], end="", flush=True)
+        log(f"18 ranks: ok ({time.perf_counter() - t0:.1f} s)")
+        cli = cli_resume_across_widths(smi, world)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel4_cli.json").write_text(json.dumps(cli, indent=1))
+    log(f"phase 18 across {world} card(s): ok ({time.perf_counter() - t0:.1f} s)")
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": world},
+    }))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5517,6 +6064,13 @@ def main() -> int:
         shutil.rmtree(SURFACE_WORK, ignore_errors=True)
     log(f"phase 17 the native tokenizer, the adapters, attribution and warmup: ok "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    # Phase 18's main path is dp (ZeRO-1) and sp over a process group: its
+    # launches are added to every kernel's count.
+    for name, n in phase_parallel(torch, smi).items():
+        counts[name] = counts.get(name, 0) + n
+    log(f"phase 18 data and sequence parallelism over a process group (world 1): ok "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -5538,8 +6092,30 @@ def main() -> int:
     return 0
 
 
+def _args(argv: list) -> dict:
+    """``--phase 18 [--world N] [--rank-child]``, or nothing (every phase)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Run the port on the card and check it.")
+    parser.add_argument("--phase", type=int, choices=[18], default=None,
+                        help="run the build and this phase alone")
+    parser.add_argument("--world", type=int, default=1,
+                        help="cards for --phase 18 (one rank process a card)")
+    parser.add_argument("--rank-child", action="store_true", help=argparse.SUPPRESS)
+    return vars(parser.parse_args(argv))
+
+
 if __name__ == "__main__":
     try:
+        opts = _args(sys.argv[1:])
+        if opts["rank_child"]:
+            import torch
+
+            sys.path.insert(0, str(ROOT))
+            parallel_rank(torch)
+            sys.exit(0)
+        if opts["phase"] == 18:
+            sys.exit(main_parallel(opts["world"]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

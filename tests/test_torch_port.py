@@ -78,7 +78,8 @@ expected = {
         "telemetry.watchdog", "telemetry.timing", "telemetry.health", "telemetry.dynamics",
         "telemetry.report", "telemetry.trace", "utils.profiling", "utils.metrics",
         "models.moe", "native", "native.engine", "native.gen_unicode_tables", "compat",
-        "compat.adapters", "utils.compile_cache", "utils.debug",
+        "compat.adapters", "utils.compile_cache", "utils.debug", "optim.sharded",
+        "parallel.train_step", "parallel.launch",
     )
 }
 assert expected <= set(names), sorted(expected - set(names))
@@ -222,6 +223,12 @@ assert xs.shape == (2, 2, 8) and xs.device.type == "cpu", xs.shape
 sp_params, _, metrics = make_sp_train_step(cfg, TrainHParams(), ring, zigzag=True)(
     sp_params, adamw_init(sp_params), xs, ys)
 assert np.isfinite(float(metrics["loss"])) and sp_params["lm_head"].device.type == "cpu"
+# Across cards: slice 10c's strategies and a supervised torchrun group exit 2.
+from bpe_transformer_tpu_torch.parallel import initialize_distributed, make_mesh
+for extra in (["--parallel", "fsdp"], ["--parallel", "dp", "--supervise"]):
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli_main(["train", "--data", str(work / "tokens.bin"), "--model-config",
+                         str(work / "cfg.json"), "--device", "cpu", *extra]) == 2, extra
 
 if not torch.cuda.is_available():
     for call in (
@@ -233,6 +240,10 @@ if not torch.cuda.is_available():
         lambda: DraftModel(params, cfg, DraftSpec(truncate_layers=1)),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2), tokens),
         lambda: shard_sp_batch((batch[0], batch[1]), ring),
+        lambda: initialize_distributed(),
+        lambda: make_mesh({"data": 1}),
+        lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2, parallel="dp"),
+                      tokens),
         *[lambda argv=argv: cli_main(argv) for argv in model_cmds.values()],
     ):
         try:

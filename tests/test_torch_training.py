@@ -20,7 +20,11 @@ step with each ring rank routing its own tokens, and the loop resumed from
 a JAX-written MoE checkpoint, each against the JAX package's.  Loop (l):
 performance attribution in the loop (the JAX probe's record keys, the live
 state untouched by the probe, the analytic FLOPs against XLA's count) and
-the debug helpers (``check_finite``'s message equal to JAX's).
+the debug helpers (``check_finite``'s message equal to JAX's).  Loop (m):
+data parallelism, ZeRO-1 and sequence parallelism across processes, each
+rank a gloo process on the CPU started by the port's ``launch``, against
+the JAX package's steps and loop on virtual CPU devices (2e-5, the JAX
+ZeRO-1 test's tolerance) and against the port's stacked ring (1e-5).
 """
 
 import dataclasses
@@ -29,6 +33,7 @@ import os
 import pickle
 import shutil
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -449,25 +454,43 @@ def _sp_step():
     for got, want in zip(tree_leaves(grads), tree_leaves(want_grads), strict=True):
         _close(got, want, 1e-5, "zig-zag sp grads")
 
-    # JAX's argument errors; Ulysses and scanned inner steps raise for the
-    # multi-GPU slice, as does the loop's parallel="sp".
+    # JAX's argument errors; Ulysses raises for slice 10c.  Scanned inner
+    # steps run: two updates a call equal two calls of one update.
     hparams = TrainHParams(**hp)
     for kw, error, match in [
         (dict(accum_steps=0), ValueError, "accum_steps"),
         (dict(accum_steps=2, inner_steps=2), ValueError, "cannot both"),
         (dict(zigzag=True, ulysses=True), ValueError, "mutually exclusive"),
-        (dict(ulysses=True), NotImplementedError, "multi-GPU"),
-        (dict(inner_steps=2), NotImplementedError, "multi-GPU"),
+        (dict(ulysses=True), NotImplementedError, "slice 10c"),
     ]:
         with pytest.raises(error, match=match):
             make_sp_train_step(cfg, hparams, ring, **kw)
+    xs2, ys2 = shard_sp_batch((np.stack([x, y]), np.stack([y, x])), ring, stacked=True,
+                              device="cpu")
+    runs = []
+    for inner in (1, 2):
+        params = params_from_jax(host, device="cpu")
+        state = (params, adamw_init(params))
+        step = make_sp_train_step(cfg, hparams, ring, inner_steps=inner)
+        for i in range(2 // inner):
+            bx, by = (xs2, ys2) if inner == 2 else (xs2[i], ys2[i])
+            *state, m = step(*state, bx, by)
+        runs.append((state, float(m["loss"])))
+    assert runs[0][1] == runs[1][1], "sp inner_steps=2 vs two single steps: loss"
+    for a, b in zip(tree_leaves(runs[0][0]), tree_leaves(runs[1][0]), strict=True):
+        assert torch.equal(a, b), "sp inner_steps=2 vs two single steps: state"
     for c, kw in ((dataclasses.replace(cfg, ring_kv_chunk=2), {}),
                   (dataclasses.replace(cfg, attention_impl="xla", ring_kv_chunk=2),
                    dict(zigzag=True))):
         with pytest.raises(ValueError, match="ring_kv_chunk"):
             make_sp_train_step(c, hparams, ring, **kw)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    # The loop's parallel="sp" runs one rank a process (loop (m)): outside a
+    # launched world it has no group to join; sp_ulysses waits for slice 10c.
+    with pytest.raises(RuntimeError, match="torchrun"):
         train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp"),
+              np.zeros(100, np.uint16), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 10c"):
+        train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp", sp_ulysses=True),
               np.zeros(100, np.uint16), device="cpu")
 
 
@@ -786,7 +809,11 @@ def _loop_telemetry_and_faults(tmp_path):
                dict(watchdog=True, watchdog_policy="rollback", checkpoint_dir=str(tmp_path),
                     checkpoint_every=3),
                dict(inner_steps=4), dict(inner_steps=2, grad_accum_steps=2),
-               dict(grad_accum_steps=3)):
+               dict(grad_accum_steps=3), dict(opt_sharding="zero1"),
+               dict(opt_sharding="zero2", parallel="dp"),
+               dict(parallel="dp", opt_sharding="zero1", health_stats=True),
+               dict(parallel="sp", health_stats=True), dict(parallel="sp", dynamics_every=2),
+               dict(parallel="sp", attribution_every=2)):
         messages = []
         for fn, loop_cls, c, extra in ((jax_train, JaxLoopConfig, jcfg, {}),
                                        (train, LoopConfig, cfg, {"device": "cpu"})):
@@ -795,9 +822,12 @@ def _loop_telemetry_and_faults(tmp_path):
                    loop_cls(**{**base, **kw}), data, log_fn=quiet, **extra)
             messages.append(str(exc.value).split(" — ")[0])
         assert messages[0] == messages[1], (kw, messages)
-    for kw in (dict(parallel="dp"), dict(opt_sharding="zero1"),
-               dict(mesh_axes={"data": 1}), dict(sp_zigzag=True), dict(sp_ulysses=True)):
-        with pytest.raises(NotImplementedError, match="slice 1"):
+    # dp and sp run in a launched world (loop (m)); slice 10c's fields raise.
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train(cfg, TrainHParams(), LoopConfig(**base, parallel="dp"), data, device="cpu")
+    for kw in (dict(parallel="fsdp"), dict(parallel="tp"), dict(parallel="pp"),
+               dict(parallel="ep"), dict(sp_ulysses=True)):
+        with pytest.raises(NotImplementedError, match="slice 10c"):
             train(cfg, TrainHParams(), LoopConfig(**{**base, **kw}), data, device="cpu")
 
     # The port alone: prefetch, inner steps, async checkpoints.
@@ -1207,8 +1237,14 @@ def _attribution_and_debug(tmp_path):
     with pytest.raises(ValueError, match="multiple of log_every"):
         train(cfg, TrainHParams(), LoopConfig(steps=4, batch_size=batch, log_every=2,
                                              attribution_every=3), tokens, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    # The dp probe runs on a mesh (loop (m)); sp is refused with JAX's
+    # message, slice 10c's strategies for that slice.
+    with pytest.raises(ValueError, match="a mesh go together"):
         StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="dp", device="cpu")
+    with pytest.raises(ValueError, match='not supported with parallel="sp"'):
+        StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="sp", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 10c"):
+        StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="fsdp", device="cpu")
 
     # check_finite: the JAX package's message, on params and on an AdamW state.
     params = params_from_jax(jax_params, "cpu")
@@ -1234,6 +1270,363 @@ def _attribution_and_debug(tmp_path):
     assert torch.is_anomaly_enabled() == before
 
 
+# ----------------------------------------------------- (m) across processes
+
+#: The rank processes of loop (m): each imports the port alone (``jax`` and
+#: the JAX package refused), joins a gloo world through the port's
+#: ``initialize_distributed`` (the environment the port's ``launch`` sets, as
+#: torchrun does), runs its part and leaves rank 0's results in ``out/``.
+_RANK_PRELUDE = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["bpe_transformer_tpu"] = None
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from bpe_transformer_tpu_torch.checkpointing import load_checkpoint, training_state
+from bpe_transformer_tpu_torch.models import ModelConfig
+from bpe_transformer_tpu_torch.optim import adamw_init, gather_opt_state, sharded_adamw_init
+from bpe_transformer_tpu_torch.tree import tree_leaves
+from bpe_transformer_tpu_torch.training.loop import LoopConfig, _fetch, train
+from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+work = Path(sys.argv[1])
+spec = json.loads((work / "spec.json").read_text())
+cfg = ModelConfig(**spec["config"])
+hp = TrainHParams(**spec["hparams"])
+init = load_checkpoint(work / "init.ckpt")
+batch = np.load(work / "batch.npz")
+
+def leaves(tree):
+    return [np.asarray(t.detach().cpu()) for t in tree_leaves(tree)]
+"""
+
+_DP_RANK = _RANK_PRELUDE + """
+from bpe_transformer_tpu_torch.parallel import make_dp_train_step, make_mesh, shard_batch
+from bpe_transformer_tpu_torch.telemetry.attribution import StepProbe
+from bpe_transformer_tpu_torch.telemetry.dynamics import flatten_dynamics
+from bpe_transformer_tpu_torch.telemetry.health import flatten_health
+mesh = make_mesh({"data": 2}, device="cpu")
+out = {}
+for name, kw in spec["dp_cases"]:
+    params, _ = training_state(init, "cpu")
+    opt = sharded_adamw_init(params, 2, mesh) if kw.get("opt_sharding") else adamw_init(params)
+    step = make_dp_train_step(cfg, hp, mesh, **kw)
+    accum, inner = kw.get("accum_steps", 1), kw.get("inner_steps", 1)
+    xs, ys = batch["x"], batch["y"]
+    if inner > 1:
+        calls = [(xs, ys)]
+    elif accum > 1:
+        calls = [(x.reshape(accum, -1, x.shape[-1]), y.reshape(accum, -1, y.shape[-1]))
+                 for x, y in zip(xs, ys)]
+    else:
+        calls = list(zip(xs, ys))[:1 if kw.get("health") else None]
+    losses = []
+    for x, y in calls:
+        params, opt, m = step(params, opt, *shard_batch((x, y), mesh, stacked=x.ndim == 3))
+        m = _fetch(m)
+        losses.append(m["loss"])
+    state = gather_opt_state(opt, mesh) if kw.get("opt_sharding") else opt
+    out[name] = {"losses": losses, "grad_norm": m["grad_norm"],
+                 "params": leaves(params), "opt": leaves(state)[1:]}
+    if kw.get("health"):
+        out[name]["health"] = flatten_health(m["health"])
+        out[name]["dynamics"] = flatten_dynamics(m["dynamics"])
+    for zero1 in (None, "zero1"):
+        params, _ = training_state(init, "cpu")
+        opt = sharded_adamw_init(params, 2, mesh) if zero1 else adamw_init(params)
+        probe = StepProbe(cfg, hp, batch_size=4, mesh=mesh, parallel="dp", opt_sharding=zero1,
+                          iters=1, device="cpu")
+        out[f"probe {zero1}"] = probe.attribution_record(params, opt, step=2, wall_step_s=1.0,
+                                                         t=0.0)
+# The loop: ZeRO-1 data parallelism from the JAX-written step-0 checkpoint.
+data = np.load(work / "tokens.npy")
+loop = LoopConfig(**spec["loop"], parallel="dp", opt_sharding="zero1",
+                  checkpoint_dir=str(work / "dp_ck"), metrics_jsonl=str(work / "dp.jsonl"))
+summary = train(cfg, TrainHParams(**spec["loop_hparams"]), loop, data, data,
+                resume_from=work / "init.ckpt", device="cpu", log_fn=lambda *a: None)
+out["loop"] = {"losses": [r["loss"] for r in summary["history"]],
+               "val_loss": summary["final_val_loss"]}
+if mesh.rank == 0:
+    import pickle
+    (work / "dp_out.pkl").write_bytes(pickle.dumps(out))
+"""
+
+_SP_RANK = _RANK_PRELUDE + """
+import dataclasses
+from bpe_transformer_tpu_torch.parallel import make_mesh, make_sp_train_step, shard_sp_batch
+mesh = make_mesh({"data": 2, "seq": 2}, device="cpu")
+out = {}
+for name, impl, kw in spec["sp_cases"]:
+    c = dataclasses.replace(cfg, attention_impl=impl)
+    params, _ = training_state(init, "cpu")
+    opt = adamw_init(params)
+    inner = kw.get("inner_steps", 1)
+    x, y = (batch["x"][:inner], batch["y"][:inner]) if inner > 1 else (batch["x"][0],
+                                                                       batch["y"][0])
+    xs, ys = shard_sp_batch((x, y), mesh, zigzag=kw.get("zigzag", False), stacked=inner > 1)
+    assert xs.shape[-3:] == (1, x.shape[-2] // 2, x.shape[-1] // 2), xs.shape
+    step = make_sp_train_step(c, TrainHParams(**spec["sp_hparams"]), mesh, **kw)
+    params, opt, m = step(params, opt, xs, ys)
+    m = _fetch(m)
+    out[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "params": leaves(params)}
+if mesh.rank == 0:
+    import pickle
+    (work / "sp_out.pkl").write_bytes(pickle.dumps(out))
+"""
+
+
+def _multi_gpu(tmp_path):
+    """(m) Slice 10b across processes, each rank a gloo process on the CPU
+    (``parallel/launch.py``), against the JAX package on conftest's virtual
+    CPU devices.  World 2: ``make_dp_train_step`` (3 plain steps, 3
+    accumulated ones, one 3-update scanned call, a tapped step whose health
+    and dynamics records fold across ranks) against JAX's on ``{"data":
+    2}``, params, moments and losses within 2e-5 (the JAX ZeRO-1 test's
+    tolerance); ZeRO-1's 3 steps, its gathered ``(N, L)`` m, v and master
+    against JAX's ``opt_sharding="zero1"`` step, within 2e-5; the dp probe's
+    record keys (collective split off the card for dense dp, None under
+    ZeRO-1); and ``train(parallel="dp", opt_sharding="zero1")`` from a
+    JAX-written checkpoint against JAX's ``train`` on the same mesh: logged
+    losses within 2e-5, one stream (rank 0's), a checkpoint that JAX's
+    ``load_checkpoint`` reads as its own ``ShardedAdamWState`` and that the
+    port resumes at world 1, dense, to JAX's uninterrupted losses.  World 4
+    (data 2 x seq 2): ``make_sp_train_step`` over a process-group ring,
+    ring-flash contiguous and zig-zag and ``inner_steps=2``, against JAX's
+    on ``{"data": 2, "seq": 2}``, and every case (also the plain rings, whose
+    backward runs through the ring's differentiable shift) against the
+    port's own ``StackedRing`` on the same batch within 1e-5.  On the
+    parent: ZeRO-1's layout conversions exact (atol 0) against JAX's, dense
+    to 2 to 4 shards to dense.  The worlds run while the parent computes the
+    JAX side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bpe_transformer_tpu.checkpointing import load_checkpoint as jax_load_checkpoint
+    from bpe_transformer_tpu.optim import sharded as jax_sharded
+    from bpe_transformer_tpu.parallel import make_dp_train_step as jax_make_dp_train_step
+    from bpe_transformer_tpu.parallel import shard_batch as jax_shard_batch
+    from bpe_transformer_tpu.telemetry import dynamics as jax_dynamics
+    from bpe_transformer_tpu.telemetry import health as jax_health
+    from bpe_transformer_tpu.telemetry.attribution import StepProbe as JaxStepProbe
+    from bpe_transformer_tpu_torch.optim import sharded
+    from bpe_transformer_tpu_torch.parallel import launch
+
+    cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=256, num_layers=1)
+    jcfg = _jax_config(cfg)
+    hp = dict(warmup_iters=1, cosine_cycle_iters=10)
+    # One sp update: no warm-up, so that it moves every weight.
+    sp_hp = dict(warmup_iters=0, cosine_cycle_iters=10)
+    loop_hp = dict(warmup_iters=1, cosine_cycle_iters=6, max_learning_rate=1e-2)
+    lp = dict(steps=4, batch_size=4, log_every=2, eval_every=4, eval_batches=2,
+              checkpoint_every=4, seed=3)
+    rng = np.random.default_rng(16)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(3, 4, cfg.context_length)) for _ in range(2))
+    tokens = rng.integers(0, cfg.vocab_size, size=4000).astype(np.uint16)
+    work = tmp_path / "multi_gpu"
+    work.mkdir()
+    jax_params = jax_init_params(jax.random.PRNGKey(16), jcfg)
+    host = jax.device_get(jax_params)
+    jax_save_checkpoint(work / "init.ckpt", params=host, opt_state=jax_adamw_init(jax_params),
+                        iteration=0)
+    np.savez(work / "batch.npz", x=x, y=y)
+    np.save(work / "tokens.npy", tokens)
+    dp_cases = [("plain", {}), ("accum", dict(accum_steps=2)), ("inner", dict(inner_steps=3)),
+                ("tapped", dict(health=True, dynamics=True)), ("zero1", dict(opt_sharding="zero1"))]
+    sp_cases = [("contiguous", "flash", {}), ("zigzag", "flash", dict(zigzag=True)),
+                ("inner", "flash", dict(inner_steps=2)), ("plain ring", "xla", {}),
+                ("plain zigzag", "xla", dict(zigzag=True))]
+    (work / "spec.json").write_text(json.dumps(dict(
+        config=dataclasses.asdict(cfg), hparams=hp, sp_hparams=sp_hp, loop=lp,
+        loop_hparams=loop_hp,
+        dp_cases=dp_cases, sp_cases=sp_cases)))
+    (work / "dp_rank.py").write_text(_DP_RANK)
+    (work / "sp_rank.py").write_text(_SP_RANK)
+    env = {"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    with ThreadPoolExecutor(2) as pool:
+        worlds = [pool.submit(launch, [work / "dp_rank.py", work], 2, env=env, timeout=300),
+                  pool.submit(launch, [work / "sp_rank.py", work], 4, env=env, timeout=300)]
+
+        # The JAX side, meanwhile.
+        mesh2 = make_mesh({"data": 2}, devices=jax.devices()[:2])
+        want = {}
+        for name, kw in dp_cases:
+            kw = dict(kw)
+            zero1 = kw.pop("opt_sharding", None)
+            p = jax.tree_util.tree_map(jnp.asarray, host)
+            opt = (jax_sharded.sharded_adamw_init(p, 2, mesh=mesh2) if zero1
+                   else jax_adamw_init(p))
+            step = jax_make_dp_train_step(jcfg, JaxTrainHParams(**hp), mesh2,
+                                          opt_sharding=zero1, **kw)
+            accum, inner = kw.get("accum_steps", 1), kw.get("inner_steps", 1)
+            if inner > 1:
+                calls = [(x, y)]
+            elif accum > 1:
+                calls = [(a.reshape(accum, -1, a.shape[-1]), b.reshape(accum, -1, b.shape[-1]))
+                         for a, b in zip(x, y)]
+            else:
+                calls = list(zip(x, y))[:1 if kw.get("health") else None]
+            losses = []
+            for a, b in calls:
+                placed = jax_shard_batch((jnp.asarray(a), jnp.asarray(b)), mesh2,
+                                         stacked=a.ndim == 3)
+                p, opt, m = step(p, opt, *placed)
+                m = jax.device_get(m)
+                losses.append(float(m["loss"]))
+            state = jax.device_get(opt)
+            if zero1:
+                jax_zero1_state = state
+            want[name] = {"losses": losses, "grad_norm": float(m["grad_norm"]),
+                          "params": tree_leaves(jax.device_get(p)),
+                          "opt": [np.asarray(a) for a in jax.tree_util.tree_leaves(state)[1:]]}
+            if kw.get("health"):
+                want[name]["health"] = jax_health.flatten_health(m["health"])
+                want[name]["dynamics"] = jax_dynamics.flatten_dynamics(m["dynamics"])
+        jax_record = JaxStepProbe(jcfg, JaxTrainHParams(**hp), batch_size=4, iters=1,
+                                  mesh=mesh2, parallel="dp").attribution_record(
+            jax_params, jax_adamw_init(jax_params), step=2, wall_step_s=1.0, t=0.0)
+        # The JAX loop meshes every device it sees: hand it two of the eight.
+        import bpe_transformer_tpu.parallel as jax_parallel
+
+        with mock.patch.object(jax_parallel, "make_mesh",
+                               lambda axes: make_mesh(axes, devices=jax.devices()[:2])):
+            jax_loop = jax_train(jcfg, JaxTrainHParams(**loop_hp),
+                                 JaxLoopConfig(**{**lp, "steps": 6}, parallel="dp",
+                                               mesh_axes={"data": 2}, opt_sharding="zero1"),
+                                 tokens, tokens, resume_from=work / "init.ckpt",
+                                 log_fn=lambda *a: None)
+        mesh4 = make_mesh({"data": 2, "seq": 2}, devices=jax.devices()[:4])
+        sp_want = {}
+        # JAX's ring-flash (interpret mode) once, its plain rings elsewhere.
+        for name, impl, kw in (("contiguous", "flash", {}), ("zigzag", "xla", dict(zigzag=True)),
+                               ("inner", "xla", dict(inner_steps=2))):
+            c = _jax_config(dataclasses.replace(cfg, attention_impl=impl))
+            inner = kw.get("inner_steps", 1)
+            a, b = (x[:inner], y[:inner]) if inner > 1 else (x[0], y[0])
+            placed = jax_shard_sp_batch((jnp.asarray(a), jnp.asarray(b)), mesh4,
+                                        zigzag=kw.get("zigzag", False), stacked=inner > 1)
+            p = jax.tree_util.tree_map(jnp.asarray, host)
+            p, _, m = jax_make_sp_train_step(c, JaxTrainHParams(**sp_hp), mesh4, **kw)(
+                p, jax_adamw_init(p), *placed)
+            sp_want[name] = {"loss": float(m["loss"]), "params": tree_leaves(
+                jax.device_get(p))}
+
+        # ZeRO-1's layout conversions against JAX's: dense -> 2 -> 4 -> dense.
+        params = params_from_jax(host, device="cpu")
+        dense, opt, _ = make_train_step(cfg, TrainHParams(**hp))(
+            params, adamw_init(params), torch.as_tensor(x[0]), torch.as_tensor(y[0]))
+        j_p = jax.tree_util.tree_map(jnp.asarray, _numpy_tree(dense))
+        j_opt = _jax_adamw_state(opt)
+        two = sharded.shard_opt_state(opt, dense, 2)
+        j_two = jax_sharded.shard_opt_state(j_opt, j_p, 2)
+        four = sharded.restore_opt_state(two, dense, zero1_shards=4)
+        j_four = jax_sharded.restore_opt_state(tuple(j_two), j_p, zero1_shards=4)
+        back = sharded.restore_opt_state(four, dense)
+        for got, ref in ((two, j_two), (four, j_four)):
+            assert got.m.shape == ref.m.shape
+            for g, r in zip(tuple(got)[1:], tuple(ref)[1:]):
+                np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+        for g, r in zip(tree_leaves(back.m) + tree_leaves(back.v),
+                        tree_leaves(opt.m) + tree_leaves(opt.v), strict=True):
+            assert torch.equal(g, r)
+        assert int(back.step) == int(opt.step)
+        assert torch.equal(sharded.unshard_opt_state(two, dense).m["lm_head"], opt.m["lm_head"])
+        # A JAX ZeRO-1 state carried across (the sibling of params_from_jax).
+        carried = sharded.opt_state_from_jax(jax_zero1_state, "cpu")
+        assert int(carried.step) == int(jax_zero1_state.step) == 3
+        for g, r in zip(tuple(carried)[1:], tuple(jax_zero1_state)[1:], strict=True):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+        for world in worlds:
+            world.result()
+    got = pickle.loads((work / "dp_out.pkl").read_bytes())
+    for name, _ in dp_cases:
+        g, w = got[name], want[name]
+        _close(g["losses"], w["losses"], 2e-5, f"dp {name} losses")
+        _close(g["grad_norm"], w["grad_norm"], 2e-5, f"dp {name} grad norm")
+        for a, b in zip(g["params"] + g["opt"], w["params"] + w["opt"], strict=True):
+            assert a.shape == b.shape, (name, a.shape, b.shape)
+            _close(a, b, 2e-5, f"dp {name} params and optimizer state")
+        if "health" in w:
+            _same_flat(g["health"], w["health"], "dp health")
+            _same_flat(g["dynamics"], w["dynamics"], "dp dynamics")
+    port_only = {"probe_wall_step_s", "device_time_from"}
+    for zero1 in (None, "zero1"):
+        record = got[f"probe {zero1}"]
+        assert set(record) == set(jax_record) | port_only, set(record) ^ set(jax_record)
+        assert (record["collective_frac"] is None) == (zero1 is not None), record
+        assert abs(record["compute_frac"] + (record["collective_frac"] or 0.0)
+                   + record["host_gap_frac"] - 1.0) <= 2e-3, record
+    want_losses = [r["loss"] for r in jax_loop["history"]]
+    _close(got["loop"]["losses"], want_losses[:2], 2e-5, "dp zero1 loop losses")
+    records = _read_jsonl(work / "dp.jsonl")
+    assert [r.get("kind") for r in records].count("manifest") == 1, "one stream, rank 0's"
+    assert [r["step"] for r in records if r.get("kind") is None and "loss" in r] == [2, 4]
+    ckpt = work / "dp_ck" / "step_00000004.ckpt"
+    # Eval over the data ranks equals one device's on the same weights.
+    from bpe_transformer_tpu_torch.data.dataset import get_batch as port_get_batch
+    from bpe_transformer_tpu_torch.training.train_step import make_eval_step
+
+    eval_rng = np.random.default_rng(lp["seed"] + 1)
+    weights, _ = training_state(load_checkpoint(ckpt), "cpu")
+    one_device = np.mean([float(make_eval_step(cfg)(weights, *map(torch.as_tensor, port_get_batch(
+        tokens, lp["batch_size"], cfg.context_length, eval_rng)))) for _ in range(2)])
+    _close(got["loop"]["val_loss"], one_device, 1e-6, "dp eval loss vs one device")
+    jax_payload = jax_load_checkpoint(ckpt)
+    assert type(jax_payload["opt_state"]) is jax_sharded.ShardedAdamWState
+    assert jax_payload["opt_state"].m.shape[0] == 2
+    resumed = train(cfg, TrainHParams(**loop_hp), LoopConfig(**{**lp, "steps": 6}), tokens,
+                    tokens, resume_from=ckpt, log_fn=lambda *a: None, device="cpu")
+    _close([r["loss"] for r in resumed["history"]], want_losses[2:], 2e-5,
+           "zero1 checkpoint resumed dense at world 1")
+    _close(resumed["final_val_loss"], jax_loop["final_val_loss"], 2e-5, "resumed eval loss")
+
+    sp_got = pickle.loads((work / "sp_out.pkl").read_bytes())
+    ring = StackedRing(2)
+    for name, impl, kw in sp_cases:
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        inner = kw.get("inner_steps", 1)
+        a, b = (x[:inner], y[:inner]) if inner > 1 else (x[0], y[0])
+        params = params_from_jax(host, device="cpu")
+        stacked, _, m = make_sp_train_step(c, TrainHParams(**sp_hp), ring, **kw)(
+            params, adamw_init(params), *shard_sp_batch(
+                (a, b), ring, zigzag=kw.get("zigzag", False), stacked=inner > 1, device="cpu"))
+        g = sp_got[name]
+        refs = [("stacked ring", float(m["loss"]), [t.detach() for t in tree_leaves(stacked)],
+                 1e-5)]
+        if name in sp_want:
+            refs.append(("jax", sp_want[name]["loss"], sp_want[name]["params"], 2e-5))
+        for against, loss, leaves, tol in refs:
+            _close(g["loss"], loss, tol, f"sp {name} loss vs {against}")
+            for got_leaf, want_leaf in zip(g["params"], leaves, strict=True):
+                _close(got_leaf, want_leaf, tol, f"sp {name} params vs {against}")
+
+    # What slice 10c brings is refused by name: the v2 checkpoint directory
+    # (the JAX package writes it for its GSPMD strategies only) and the
+    # GSPMD step.
+    from bpe_transformer_tpu_torch.parallel import make_gspmd_train_step
+
+    with pytest.raises(ValueError, match="slice 10c"):
+        load_checkpoint(work / "dp_ck")
+    with pytest.raises(NotImplementedError, match="slice 10c"):
+        integrity.verify_checkpoint(work / "dp_ck")
+    with pytest.raises(NotImplementedError, match="slice 10c"):
+        make_gspmd_train_step(cfg, TrainHParams(), None, strategy="fsdp")
+
+
+def _numpy_tree(tree):
+    """A port tree as numpy arrays."""
+    return jax.tree_util.tree_map(lambda t: t.detach().numpy(), tree)
+
+
+def _jax_adamw_state(opt):
+    """The port's dense AdamW state as the JAX package's."""
+    from bpe_transformer_tpu.optim import AdamWState as JaxAdamWState
+
+    return JaxAdamWState(step=jnp.asarray(int(opt.step), jnp.int32),
+                         m=jax.tree_util.tree_map(jnp.asarray, _numpy_tree(opt.m)),
+                         v=jax.tree_util.tree_map(jnp.asarray, _numpy_tree(opt.v)))
+
+
 def test_torch_training_matches_jax(tmp_path):
     _pinned_trajectory()
     _one_step_grads()
@@ -1247,3 +1640,4 @@ def test_torch_training_matches_jax(tmp_path):
     _moe()
     _moe_loop(tmp_path)
     _attribution_and_debug(tmp_path)
+    _multi_gpu(tmp_path)
