@@ -110,6 +110,31 @@ def init_params(
     return params
 
 
+def abstract_params(config: ModelConfig) -> Params:
+    """The parameter tree of :func:`init_params` as ``meta`` tensors: the
+    shapes, no storage and no draws (the counterpart of JAX's
+    ``eval_shape`` of the init)."""
+    d, ff, v = config.d_model, config.d_ff, config.vocab_size
+    d_kv = (config.num_kv_heads or config.num_heads) * config.d_head
+
+    def t(*shape):
+        return torch.empty(shape, device="meta")
+
+    def ffn():
+        if config.ffn_type == "moe":
+            e = config.n_experts
+            return {"router": t(e, d), "w1": t(e, ff, d), "w2": t(e, d, ff), "w3": t(e, ff, d)}
+        return {"w1": t(ff, d), "w2": t(d, ff), "w3": t(ff, d)}
+
+    layers = [{"attn": {"q_proj": t(d, d), "k_proj": t(d_kv, d), "v_proj": t(d_kv, d),
+                        "output_proj": t(d, d)},
+               "ln1": t(d), "ln2": t(d), "ffn": ffn()} for _ in range(config.num_layers)]
+    params = {"token_embeddings": t(v, d), "layers": layers, "ln_final": t(d)}
+    if not config.tie_embeddings:
+        params["lm_head"] = t(v, d)
+    return params
+
+
 def lm_head_weight(params: Params, config: ModelConfig) -> torch.Tensor:
     """The vocab-projection matrix: the embedding itself when tied."""
     if config.tie_embeddings:
@@ -118,7 +143,7 @@ def lm_head_weight(params: Params, config: ModelConfig) -> torch.Tensor:
 
 
 def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig,
-         moe_capacity: int | None = None, moe_groups: int = 1):
+         moe_capacity: int | None = None, moe_groups: int = 1, shard=None):
     """FFN dispatch, the JAX package's ``_ffn``; returns ``(output,
     aux_loss)``.  The aux is MoE's load-balance loss and ``None`` for the
     dense kinds, where the JAX package returns 0: the training blocks make
@@ -143,7 +168,17 @@ def _ffn(x: torch.Tensor, ffn_params: dict, config: ModelConfig,
       stacked sequence-parallel ring's ranks).
 
     The two-matrix kinds leave ``w3`` unread; it stays in the tree, as in
-    the JAX package's."""
+    the JAX package's.
+
+    ``shard`` (a :class:`parallel.gspmd.GspmdLayout`) runs the FFN as a
+    tensor-parallel region on this rank's hidden columns, or the MoE FFN
+    over every data rank's tokens."""
+    if shard is not None:
+        if config.ffn_type == "moe":
+            return shard.moe(x, ffn_params, config)
+        if shard.ffn_local:
+            out, aux = _ffn(shard.enter(x), ffn_params, config)
+            return shard.exit(out), aux
     if config.ffn_type == "moe":
         return switch_ffn(x, ffn_params, config, capacity=moe_capacity, groups=moe_groups)
     w1, w2 = ffn_params["w1"], ffn_params["w2"]
@@ -227,10 +262,12 @@ def _maybe_norm(x, weight, config: ModelConfig):
 
 
 def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, positions,
-               attention_fn=None, entropy_tap: dict | None = None):
+               attention_fn=None, entropy_tap: dict | None = None, shard=None):
     """Self-attention of one block with the config's ``attention_impl``.
     ``entropy_tap`` (a dict, dynamics introspection) receives this layer's
-    mean attention entropy under ``"attn_entropy"``."""
+    mean attention entropy under ``"attn_entropy"``.  ``shard``: a
+    tensor-parallel region over this rank's heads, when the layout runs
+    one (:class:`parallel.gspmd.GspmdLayout`)."""
     if attention_fn is None and config.attention_impl == "flash":
         from bpe_transformer_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -279,42 +316,57 @@ def _attention(x, attn_params: dict, config: ModelConfig, rope_cos_sin, position
             return scaled_dot_product_attention(q, k, v, causal_mask(q.shape[-2], q.device))
 
         attention_fn = tapped
-    return multihead_self_attention(
-        x,
+    region = shard is not None and shard.attn_local
+    heads, kv_heads = shard.heads() if region else (config.num_heads, config.num_kv_heads)
+    out = multihead_self_attention(
+        shard.enter(x) if region else x,
         attn_params["q_proj"],
         attn_params["k_proj"],
         attn_params["v_proj"],
         attn_params["output_proj"],
-        config.num_heads,
-        num_kv_heads=config.num_kv_heads,
+        heads,
+        num_kv_heads=kv_heads,
         positions=positions,
         rope_cos_sin=rope_cos_sin,
         causal=True,
         attention_fn=attention_fn,
     )
+    return shard.exit(out) if region else out
+
+
+def _materialize(shard, block_params: dict, *keys) -> dict:
+    """The leaves ``keys`` of a block, gathered under a sharded layout
+    (inside the half that reads them, so a checkpointed half gathers them
+    again on its recompute)."""
+    if shard is None:
+        return block_params
+    return {**block_params, **{k: shard.materialize(block_params[k]) for k in keys}}
 
 
 def _attn_half(x, block_params: dict, config: ModelConfig, rope_cos_sin, positions,
-               attention_fn=None, entropy_tap: dict | None = None):
+               attention_fn=None, entropy_tap: dict | None = None, shard=None):
     """The residual attention half of one block: ``x + attn(norm(x))``
     pre-norm, ``norm(x + attn(x))`` post-norm."""
+    block_params = _materialize(shard, block_params, "attn", "ln1")
     h = x if config.use_post_norm else _maybe_norm(x, block_params["ln1"], config)
     attn_out = _attention(
-        h, block_params["attn"], config, rope_cos_sin, positions, attention_fn, entropy_tap
+        h, block_params["attn"], config, rope_cos_sin, positions, attention_fn, entropy_tap,
+        shard,
     )
     if config.use_post_norm:
         return _maybe_norm(x + attn_out, block_params["ln1"], config)
     return x + attn_out
 
 
-def _ffn_half(x, block_params: dict, config: ModelConfig, moe_groups: int = 1):
+def _ffn_half(x, block_params: dict, config: ModelConfig, moe_groups: int = 1, shard=None):
     """The residual FFN half of one block; returns ``(x, aux_loss)``."""
+    block_params = _materialize(shard, block_params, "ffn", "ln2")
     if config.use_post_norm:
-        f, aux = _ffn(x, block_params["ffn"], config, moe_groups=moe_groups)
+        f, aux = _ffn(x, block_params["ffn"], config, moe_groups=moe_groups, shard=shard)
         x = _maybe_norm(x + f, block_params["ln2"], config)
     else:
         f, aux = _ffn(_maybe_norm(x, block_params["ln2"], config), block_params["ffn"], config,
-                      moe_groups=moe_groups)
+                      moe_groups=moe_groups, shard=shard)
         x = x + f
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -323,26 +375,27 @@ def _ffn_half(x, block_params: dict, config: ModelConfig, moe_groups: int = 1):
 
 def transformer_block_aux(x, block_params: dict, config: ModelConfig, rope_cos_sin,
                           positions, attention_fn=None, entropy_tap: dict | None = None,
-                          moe_groups: int = 1):
+                          moe_groups: int = 1, shard=None):
     """One block; returns ``(x, aux_loss)`` (aux nonzero only for MoE FFNs).
-    ``entropy_tap``: see :func:`_attention`; ``moe_groups``: see
-    :func:`_ffn`."""
+    ``entropy_tap``: see :func:`_attention`; ``moe_groups`` and ``shard``:
+    see :func:`_ffn`."""
     x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
-                   entropy_tap)
-    return _ffn_half(x, block_params, config, moe_groups)
+                   entropy_tap, shard)
+    return _ffn_half(x, block_params, config, moe_groups, shard)
 
 
 def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,
                      positions, attention_fn=None, entropy_tap: dict | None = None,
-                     moe_groups: int = 1):
+                     moe_groups: int = 1, shard=None):
     """One block under ``remat_policy="save_attn"``: the attention half runs
     outside any checkpoint, so the flash autograd Function keeps its
     residuals (q/k/v, output, lse) and the attention forward runs once; the
     FFN half (ln2, FFN, residual) is checkpointed, its ``d_ff`` wide
     intermediates dropped and recomputed on the backward."""
     x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
-                   entropy_tap)
-    return checkpoint(_ffn_half, x, block_params, config, moe_groups, use_reentrant=False)
+                   entropy_tap, shard)
+    return checkpoint(_ffn_half, x, block_params, config, moe_groups, shard,
+                      use_reentrant=False)
 
 
 #: Operators whose outputs ``remat_policy="dots_saveable"`` keeps (the
@@ -385,11 +438,13 @@ def policy_block(config: ModelConfig):
 
 
 def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConfig,
-                      positions: torch.Tensor | None):
+                      positions: torch.Tensor | None, shard=None):
     """Seq validation, default positions, the mixed-precision cast of the
     master weights to ``activation_dtype`` (a differentiable ``.to``, so
     gradients reach the float32 masters), the embedding lookup and the RoPE
-    tables.  Returns ``(x, compute_params, rope_cos_sin, positions)``."""
+    tables.  Returns ``(x, compute_params, rope_cos_sin, positions)``.
+    Under ``shard`` the leaves a block gathers stay handles until the block
+    reads them, and the lookup is the layout's."""
     seq_len = token_ids.shape[-1]
     if seq_len > config.context_length:
         raise ValueError(
@@ -400,10 +455,14 @@ def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConf
     if positions is None:
         positions = torch.arange(seq_len, device=device)
     act_dtype = getattr(torch, config.activation_dtype)
-    compute_params = params
-    if act_dtype != torch.float32:
-        compute_params = tree_map(lambda p: p.to(act_dtype), params)
-    x = embedding(compute_params["token_embeddings"], token_ids).to(act_dtype)
+    if shard is not None:
+        compute_params = shard.compute_params(params)
+        x = shard.embed(compute_params["token_embeddings"], token_ids).to(act_dtype)
+    else:
+        compute_params = params
+        if act_dtype != torch.float32:
+            compute_params = tree_map(lambda p: p.to(act_dtype), params)
+        x = embedding(compute_params["token_embeddings"], token_ids).to(act_dtype)
     rope_cos_sin = None
     if not config.remove_rope:
         # Built per call, not taken from the decode path's cache: tables that
@@ -415,7 +474,7 @@ def _forward_prologue(params: Params, token_ids: torch.Tensor, config: ModelConf
 
 
 def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, positions,
-                attention_fn, per_layer: list | None = None, moe_groups: int = 1):
+                attention_fn, per_layer: list | None = None, moe_groups: int = 1, shard=None):
     """The blocks under the remat policy, then the final norm; returns
     ``(hidden, aux_total)``.  ``per_layer``, a list, receives each block's
     activation statistics (:func:`_block_stats`)."""
@@ -424,16 +483,18 @@ def _run_blocks(x, compute_params: dict, config: ModelConfig, rope_cos_sin, posi
     for block_params in compute_params["layers"]:
         tap = None if per_layer is None else {}
         x, aux = block(x, block_params, config, rope_cos_sin, positions, attention_fn, tap,
-                       moe_groups)
+                       moe_groups, shard)
         aux_total = aux_total + aux
         if per_layer is not None:
             per_layer.append(_block_stats(x, tap))
-    return _maybe_norm(x, compute_params["ln_final"], config), aux_total
+    ln_final = compute_params["ln_final"] if shard is None else shard.materialize(
+        compute_params["ln_final"])
+    return _maybe_norm(x, ln_final, config), aux_total
 
 
 def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
                    positions: torch.Tensor | None = None, attention_fn=None,
-                   moe_groups: int = 1):
+                   moe_groups: int = 1, shard=None):
     """Final-norm hidden states ``(batch, seq, d_model)`` and the summed MoE
     aux loss (0 for dense FFNs): everything of :func:`forward` but the LM
     head.  ``moe_groups`` routes that many equal slices of the batch's
@@ -441,12 +502,13 @@ def forward_hidden(params: Params, token_ids: torch.Tensor, config: ModelConfig,
     each layer's aux is then the groups' mean).  ``scan_layers`` (one
     ``lax.scan`` over the blocks in the JAX package, for XLA compile time)
     is accepted and runs the same per-layer loop: eager PyTorch compiles
-    nothing."""
+    nothing.  ``shard`` (a :class:`parallel.gspmd.GspmdLayout`) runs the
+    blocks on this rank's blocks of the parameters."""
     x, compute_params, rope_cos_sin, positions = _forward_prologue(
-        params, token_ids, config, positions
+        params, token_ids, config, positions, shard
     )
     return _run_blocks(x, compute_params, config, rope_cos_sin, positions, attention_fn,
-                       moe_groups=moe_groups)
+                       moe_groups=moe_groups, shard=shard)
 
 
 def _block_stats(x: torch.Tensor, tap: dict) -> dict:
@@ -465,7 +527,7 @@ def _block_stats(x: torch.Tensor, tap: dict) -> dict:
 
 def forward_hidden_stats(params: Params, token_ids: torch.Tensor, config: ModelConfig,
                          positions: torch.Tensor | None = None, attention_fn=None,
-                         moe_groups: int = 1):
+                         moe_groups: int = 1, shard=None):
     """:func:`forward_hidden` plus per-block activation statistics.
 
     Returns ``(hidden, aux_total, act_stats)``; ``act_stats`` stacks one
@@ -476,11 +538,11 @@ def forward_hidden_stats(params: Params, token_ids: torch.Tensor, config: ModelC
     same ``remat_policy`` (a recomputed block rewrites its tap with the
     same value), and stay on the device."""
     x, compute_params, rope_cos_sin, positions = _forward_prologue(
-        params, token_ids, config, positions
+        params, token_ids, config, positions, shard
     )
     per_layer: list = []
     hidden, aux_total = _run_blocks(x, compute_params, config, rope_cos_sin, positions,
-                                    attention_fn, per_layer, moe_groups)
+                                    attention_fn, per_layer, moe_groups, shard)
     act_stats = {key: torch.stack([stats[key] for stats in per_layer]) for key in per_layer[0]}
     return hidden, aux_total, act_stats
 

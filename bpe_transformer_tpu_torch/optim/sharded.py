@@ -255,14 +255,45 @@ def unshard_opt_state(opt: ShardedAdamWState, params) -> AdamWState:
     return AdamWState(step=_step(opt.step), m=dense(opt.m), v=dense(opt.v))
 
 
+def _whole_moments(sharded: ShardedAdamWState, full) -> AdamWState:
+    """A flat ZeRO-1 state as whole float32 host moments in the tree of
+    ``full`` (any leaves with a ``shape``: ``meta`` tensors do)."""
+    sizes = [int(np.prod(tuple(leaf.shape))) for leaf in tree_leaves(full)]
+
+    def split(a):
+        flat = _host(a).reshape(-1).float()
+        out, offset = [], 0
+        for leaf, n in zip(tree_leaves(full), sizes):
+            out.append(flat[offset:offset + n].reshape(tuple(leaf.shape)))
+            offset += n
+        return tree_unflatten(full, out)
+
+    return AdamWState(step=_step(sharded.step), m=split(sharded.m), v=split(sharded.v))
+
+
 def restore_opt_state(opt_payload, params, zero1_shards: int | None = None, mesh=None,
-                      axis: str = "data"):
+                      axis: str = "data", layout=None):
     """Adapt a checkpointed optimizer payload (or ``None``) to the run's
     optimizer-sharding mode: ``zero1_shards`` is the data-parallel width
     of a ZeRO-1 run, ``None`` for the dense optimizer.  Every crossing:
     dense to sharded, sharded to dense, and sharded to sharded at another
     width (through the flat vector, the float32 master kept bit for bit).
-    With ``mesh``, a sharded result is this rank's row."""
+    With ``mesh``, a sharded result is this rank's row.
+
+    ``layout`` (a ``parallel.gspmd.GspmdLayout``) makes the result this
+    rank's blocks of an ``AdamWState`` under the layout's moment specs
+    (``params`` unused): from nothing (zeros), a dp ZeRO-1 state of any
+    width, or an ``AdamWState`` whose leaves are whole (a dense state, a
+    directory read whole) or already this rank's blocks."""
+    if layout is not None:
+        if opt_payload is None:
+            return layout.init_opt_state()
+        if is_sharded_opt_state(opt_payload):
+            opt_payload = _whole_moments(ShardedAdamWState(*opt_payload), layout.full)
+        dense = AdamWState(*opt_payload)
+        return AdamWState(step=_step(dense.step),
+                          m=layout.place(dense.m, layout.moment_specs),
+                          v=layout.place(dense.v, layout.moment_specs))
     if opt_payload is None:
         if zero1_shards:
             return sharded_adamw_init(params, zero1_shards, mesh=mesh, axis=axis)

@@ -3,9 +3,12 @@ ring schedules and the sp train step over a ring transport (a
 :class:`StackedRing` on one device, or a :class:`ProcessGroupRing`, one rank
 a card), the process-group mesh (:func:`make_mesh`,
 :func:`initialize_distributed`), the data-parallel step with ZeRO-1
-(:func:`make_dp_train_step`), and :func:`launch`, which starts a world of
-rank processes.  FSDP/tp, Ulysses and the GPipe pipeline come with slice
-10c."""
+(:func:`make_dp_train_step`), the GSPMD strategies' specs and step
+(:func:`param_specs`, :func:`zero1_opt_specs`, :func:`shard_params`,
+:func:`make_gspmd_train_step`), the hybrid mesh over hosts
+(:func:`make_hybrid_mesh`), and :func:`launch`, which starts a world of
+rank processes.  Ulysses, the GPipe pipeline and expert parallelism come
+with slice 10d."""
 
 from bpe_transformer_tpu_torch.parallel.launch import launch
 from bpe_transformer_tpu_torch.parallel.mesh import (
@@ -15,6 +18,7 @@ from bpe_transformer_tpu_torch.parallel.mesh import (
     RingTransport,
     StackedRing,
     initialize_distributed,
+    make_hybrid_mesh,
     make_mesh,
 )
 from bpe_transformer_tpu_torch.parallel.ring_attention import (
@@ -25,6 +29,13 @@ from bpe_transformer_tpu_torch.parallel.ring_attention import (
     zigzag_positions,
     zigzag_ring_flash_attention,
     zigzag_ring_self_attention,
+)
+from bpe_transformer_tpu_torch.parallel.sharding import (
+    FSDP_MIN_SIZE,
+    gather_params,
+    param_specs,
+    shard_params,
+    zero1_opt_specs,
 )
 from bpe_transformer_tpu_torch.parallel.sp import (
     make_sp_grad_fn,
@@ -39,21 +50,26 @@ from bpe_transformer_tpu_torch.parallel.train_step import (
 )
 
 __all__ = [
+    "FSDP_MIN_SIZE",
     "Mesh",
     "MeshAxis",
     "ProcessGroupRing",
     "RingTransport",
     "StackedRing",
     "initialize_distributed",
+    "gather_params",
     "launch",
     "make_dp_train_step",
     "make_gspmd_train_step",
+    "make_hybrid_mesh",
     "make_mesh",
     "make_sp_grad_fn",
     "make_sp_train_step",
+    "param_specs",
     "ring_flash_attention",
     "ring_self_attention",
     "shard_batch",
+    "shard_params",
     "shard_sp_batch",
     "sp_forward",
     "zigzag_indices",
@@ -61,4 +77,5 @@ __all__ = [
     "zigzag_positions",
     "zigzag_ring_flash_attention",
     "zigzag_ring_self_attention",
+    "zero1_opt_specs",
 ]

@@ -26,7 +26,12 @@ The process groups come from :func:`make_mesh`, a named grid over the
 world of processes (the counterpart of the JAX package's ``make_mesh`` over
 devices): ranks fill the grid in row-major order, the last axis fastest, as
 a ``jax.sharding.Mesh`` lays out devices in order, and each axis is one
-process group per line of the grid.  :func:`initialize_distributed` joins
+process group per line of the grid.  :func:`make_hybrid_mesh` lays the
+grid over hosts instead: the ``ici`` part of each axis varies inside a host
+and the ``dcn`` part across hosts.  An axis moves tensors with
+:meth:`MeshAxis.all_gather` and :meth:`MeshAxis.reduce_scatter`, each
+differentiable (the gradient of one is the other), beside the in-place
+reductions.  :func:`initialize_distributed` joins
 the world that ``torchrun`` describes: NCCL with one rank per card on
 CUDA, gloo for ``device="cpu"``, and nothing else (no backend is chosen
 for the caller).
@@ -148,6 +153,70 @@ class MeshAxis:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' blocks of ``x`` concatenated on ``dim`` in axis order
+        (JAX's ``all_gather(..., tiled=True)``); the gradient is the
+        reduce-scatter of the output's gradient."""
+        return _AllGather.apply(x, dim, self)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of the sum of ``x`` over the axis, ``dim``
+        split in axis order (JAX's ``psum_scatter(..., tiled=True)``); the
+        gradient is the all-gather of the output's gradient."""
+        return _ReduceScatter.apply(x, dim, self)
+
+
+def _collective(name: str, old: str):
+    # torch 2.9 renamed the tensor collectives; older builds have only the old names.
+    return getattr(dist, name, None) or getattr(dist, old)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """:meth:`MeshAxis.all_gather` without a graph: one
+    ``all_gather_into_tensor`` on ``x`` with ``dim`` moved first; the
+    result is contiguous."""
+    if axis.size == 1:
+        return x
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((axis.size * x0.shape[0], *x0.shape[1:]))
+    _collective("all_gather_single", "all_gather_into_tensor")(out, x0, group=axis.group)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """:meth:`MeshAxis.reduce_scatter` without a graph: the sum over the
+    axis, this rank's block of ``dim``."""
+    if axis.size == 1:
+        return x
+    x0 = x.movedim(dim, 0).contiguous()
+    if x0.shape[0] % axis.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {axis.size} ways")
+    out = x0.new_empty((x0.shape[0] // axis.size, *x0.shape[1:]))
+    _collective("reduce_scatter_single", "reduce_scatter_tensor")(out, x0, group=axis.group)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather_dim(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return reduce_scatter_dim(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.axis), None, None
+
 
 class Mesh:
     """A named grid of process groups over the world (``{axis: size}``,
@@ -156,18 +225,21 @@ class Mesh:
 
     Every rank creates every group, in the same order (``new_group`` is
     collective); a rank keeps the groups it belongs to.  A set of axes that
-    spans the grid reduces over the world group."""
+    spans the grid reduces over the world group.  ``grid`` places the
+    ranks on the grid (default: in row-major order, the last axis
+    fastest)."""
 
-    def __init__(self, axes: dict, device: torch.device):
+    def __init__(self, axes: dict, device: torch.device, grid: np.ndarray | None = None):
         self.shape = {name: int(size) for name, size in axes.items()}
         self.axis_names = tuple(self.shape)
         self.device = device
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
         sizes = tuple(self.shape.values())
-        grid = np.arange(self.world_size).reshape(sizes)
-        self.coords = dict(zip(self.axis_names,
-                               (int(c) for c in np.unravel_index(self.rank, sizes))))
+        grid = np.arange(self.world_size).reshape(sizes) if grid is None else grid
+        self.grid = grid
+        where = np.argwhere(grid == self.rank)[0]
+        self.coords = dict(zip(self.axis_names, (int(c) for c in where)))
         self._groups = {}
         for i, name in enumerate(self.axis_names):
             if self.shape[name] == self.world_size:
@@ -209,6 +281,59 @@ def make_mesh(axes: dict | None = None, device: str | torch.device = "cuda") -> 
     if need != world:
         raise ValueError(f"mesh {dict(axes)} needs {need} devices, have {world}")
     return Mesh(axes, dev)
+
+
+def hybrid_rank_grid(ici_axes: dict, dcn_axes: dict, local_world: int) -> np.ndarray:
+    """The ranks of a hybrid mesh on its grid: each axis's coordinate is
+    ``dcn_index * ici_size + ici_index``; the dcn indices pick the host
+    (hosts in row-major order, ``local_world`` ranks each, as ``torchrun``
+    numbers them) and the ici indices the rank inside it (row-major), as
+    ``mesh_utils.create_hybrid_device_mesh`` lays out devices."""
+    names = tuple(ici_axes)
+    ici = tuple(int(ici_axes[n]) for n in names)
+    dcn = tuple(int(dcn_axes.get(n, 1)) for n in names)
+    if int(np.prod(ici)) != local_world:
+        raise ValueError(
+            f"hybrid mesh ici={dict(ici_axes)} needs {int(np.prod(ici))} ranks a host, the "
+            f"hosts run {local_world} (LOCAL_WORLD_SIZE)"
+        )
+    shape = tuple(i * d for i, d in zip(ici, dcn))
+    grid = np.empty(shape, dtype=np.int64)
+    for coord in np.ndindex(*shape):
+        host = np.ravel_multi_index(tuple(c // i for c, i in zip(coord, ici)), dcn)
+        local = np.ravel_multi_index(tuple(c % i for c, i in zip(coord, ici)), ici)
+        grid[coord] = host * local_world + local
+    return grid
+
+
+def make_hybrid_mesh(ici_axes: dict, dcn_axes: dict | None = None,
+                     device: str | torch.device = "cuda") -> Mesh:
+    """A mesh over several hosts (the JAX function's, over processes):
+    ``ici_axes`` partition the ranks of one host (``LOCAL_WORLD_SIZE``),
+    ``dcn_axes`` repeat that layout across hosts, each axis's size the
+    product of its two parts (:func:`hybrid_rank_grid`).  With every dcn
+    size 1 it is :func:`make_mesh`.  The JAX function's errors."""
+    dcn_axes = dcn_axes or {}
+    unknown = set(dcn_axes) - set(ici_axes)
+    if unknown:
+        raise ValueError(
+            f"dcn axes {sorted(unknown)} not present in ici_axes {sorted(ici_axes)}"
+        )
+    dev = initialize_distributed(device)
+    world = dist.get_world_size()
+    names = tuple(ici_axes)
+    total = int(np.prod([ici_axes[n] for n in names])) * int(
+        np.prod([dcn_axes.get(n, 1) for n in names]))
+    if total != world:
+        raise ValueError(
+            f"hybrid mesh ici={dict(ici_axes)} x dcn={dict(dcn_axes)} needs {total} devices, "
+            f"have {world}"
+        )
+    if all(dcn_axes.get(n, 1) == 1 for n in names):
+        return make_mesh(ici_axes, device)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    axes = {n: ici_axes[n] * dcn_axes.get(n, 1) for n in names}
+    return Mesh(axes, dev, grid=hybrid_rank_grid(ici_axes, dcn_axes, local))
 
 
 class _Shift(torch.autograd.Function):

@@ -33,7 +33,7 @@ Parameters and optimizer state are one copy.  ``attention_impl="flash"``
 runs the ring-flash schedules (the flash kernels inside each shard);
 anything else, ``"flash_fused"`` included, the plain online-softmax rings,
 as in the JAX package.  Ulysses (an all-to-all head scatter) comes with
-slice 10c.
+slice 10d.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ _FLASH_RING_KV_CHUNK_ERROR = (
     "(the flash kernel tiles each visiting shard itself); unset ring_kv_chunk or use "
     'the plain ring (attention_impl="xla")'
 )
-_SLICE_10C = "it comes with the port's slice 10c (Ulysses, FSDP/tp, GPipe, expert parallelism)"
+_SLICE_10D = "it comes with the port's slice 10d (Ulysses, GPipe, expert parallelism)"
 
 
 def _ring_of(ring):
@@ -93,7 +93,7 @@ def _sp_attention_fn(config: ModelConfig, ring, zigzag: bool = False, ulysses: b
     anything else the plain online-softmax ring (kv-chunked when
     ``ring_kv_chunk`` is set; the zig-zag ring has no chunk knob)."""
     if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10C}")
+        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10D}")
     if config.attention_impl == "flash":
         if config.ring_kv_chunk:
             raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
@@ -220,7 +220,7 @@ def make_sp_train_step(
     local, batch, S_local)`` (also ``stacked=True``), each with its own
     reduction, and returns the last one's metrics.  The JAX function's
     argument errors are kept; ``ulysses=True`` raises
-    ``NotImplementedError`` (slice 10c)."""
+    ``NotImplementedError`` (slice 10d)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if inner_steps < 1:
@@ -233,7 +233,7 @@ def make_sp_train_step(
             "causal load imbalance to stripe away)"
         )
     if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10C}")
+        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10D}")
     if zigzag and config.ring_kv_chunk:
         raise ValueError(
             "the zig-zag schedule does not honor ring_kv_chunk (its sub-blocks are already "

@@ -351,8 +351,9 @@ class StepProbe:
     Built once per run (lazily, at the first attribution boundary) with the
     loop's own step construction: the plain single-device step, or the
     grad-accum / inner-steps step, or the data-parallel step on a ``mesh``
-    (``parallel="dp"``, ``opt_sharding``), on a synthetic batch of the real
-    shape.  Its calls launch exactly the kernels one loop step launches.
+    (``parallel="dp"``, ``opt_sharding``), or a GSPMD strategy's step on
+    this rank's blocks (``parallel="fsdp"``, ``"tp"``, ...), on a synthetic
+    batch of the real shape.  Its calls launch exactly the kernels one loop step launches.
     Each measure runs on a fresh clone of the state (module docstring).
     Under a mesh every rank builds and measures the probe at the same step
     (its step has collectives).
@@ -383,15 +384,10 @@ class StepProbe:
                 f'attribution is not supported with parallel="{parallel}" '
                 "(sp/pp build their own update bodies)"
             )
-        if parallel not in (None, "dp"):
-            raise NotImplementedError(
-                f'attribution under parallel="{parallel}" is not ported yet: it comes with '
-                "the port's slice 10c"
-            )
-        if (parallel == "dp") != (mesh is not None):
-            raise ValueError('parallel="dp" and a mesh go together')
-        if opt_sharding is not None and parallel != "dp":
-            raise ValueError('opt_sharding="zero1" needs parallel="dp" and its mesh')
+        if (parallel is not None) != (mesh is not None):
+            raise ValueError("a parallel strategy and a mesh go together")
+        if opt_sharding is not None and parallel is None:
+            raise ValueError('opt_sharding="zero1" needs a parallel strategy and its mesh')
         self.mesh = mesh
         self.parallel = parallel
         self.opt_sharding = opt_sharding
@@ -446,7 +442,21 @@ class StepProbe:
         )
 
         self._local_step = None
-        if self.mesh is not None:
+        model_ranks = 1
+        if self.parallel not in (None, "dp"):
+            # A GSPMD strategy: its collectives interleave with the compute,
+            # so only a trace splits them off (None without one, as in the
+            # JAX package).
+            from bpe_transformer_tpu_torch.models.transformer import abstract_params
+            from bpe_transformer_tpu_torch.parallel.train_step import make_gspmd_train_step
+
+            self._step = make_gspmd_train_step(
+                self.config, self.hparams, self.mesh, self.parallel,
+                example_params=abstract_params(self.config), accum_steps=self.accum_steps,
+                inner_steps=self.inner_steps, opt_sharding=self.opt_sharding)
+            if self._step.layout.model is not None:
+                model_ranks = self._step.layout.model.size
+        elif self.mesh is not None:
             from bpe_transformer_tpu_torch.parallel.train_step import (
                 _multi_step_body,
                 make_dp_train_step,
@@ -468,10 +478,13 @@ class StepProbe:
         else:
             self._step = make_train_step(self.config, self.hparams)
         self._batch = self._synth_batch()
-        ranks = self.mesh.axis("data").size if self.mesh is not None else 1
+        ranks = self.mesh.shape.get("data", 1) if self.mesh is not None else 1
         cost = program_cost(self.config,
                             self.batch_size // ranks * max(self.inner_steps, 1))
-        self._costs = [roofline(cost["flops"], cost["bytes_accessed"],
+        # Under tensor parallelism a rank computes its share of the heads and
+        # columns.
+        self._costs = [roofline(cost["flops"] / model_ranks,
+                                cost["bytes_accessed"] / model_ranks,
                                 device_kind_of(self.device), name="train_step")]
 
     # -- public API --------------------------------------------------------

@@ -61,36 +61,38 @@ def tensor_paths(tree) -> list[str]:
     return [path_str(path) for path, _ in tree_flatten_with_path(tree)]
 
 
-def per_layer_norms(tree) -> dict:
-    """Per-layer L2 norms of a tree as ``{layer_label: float32 0-d}``."""
-    return _per_layer(tensor_paths(tree), leaf_norms(tree_leaves(tree)))
+def per_layer_norms(tree, reduce=None) -> dict:
+    """Per-layer L2 norms of a tree as ``{layer_label: float32 0-d}``
+    (``reduce``: see ``telemetry.health.leaf_norms``)."""
+    return _per_layer(tensor_paths(tree), leaf_norms(tree_leaves(tree), reduce))
 
 
-def per_tensor_nonfinite(tree) -> dict:
+def per_tensor_nonfinite(tree, reduce=None) -> dict:
     """Non-finite element count of every leaf, keyed by dotted tensor path
     (int32 0-d tensors)."""
-    counts = leaf_nonfinite(tree_leaves(tree)).to(torch.int32)
+    counts = leaf_nonfinite(tree_leaves(tree), reduce).to(torch.int32)
     return {path: counts[i] for i, path in enumerate(tensor_paths(tree))}
 
 
 def dynamics_from_parts(grads, params_after, update_norms: list, nonfinite_params: dict,
-                        act_stats=None) -> dict:
+                        act_stats=None, reduce_grads=None, reduce_params=None) -> dict:
     """The dynamics sub-dict from what the in-place step can keep:
     ``update_norms`` holds each leaf's float32 ``||new - old||`` (in
-    tree-leaf order) and ``nonfinite_params`` the input params'
-    :func:`per_tensor_nonfinite`.  ``grads`` should be the pre-clip
-    gradients."""
+    tree-leaf order; whole-leaf norms) and ``nonfinite_params`` the input
+    params' :func:`per_tensor_nonfinite`.  ``grads`` should be the pre-clip
+    gradients.  ``reduce_grads`` and ``reduce_params``: see
+    ``telemetry.health.health_metrics``."""
     paths = tensor_paths(params_after)
-    param_norms = per_layer_norms(params_after)
+    param_norms = per_layer_norms(params_after, reduce_params)
     update = _per_layer(paths, update_norms)
     out = {
-        "grad_norm": per_layer_norms(grads),
+        "grad_norm": per_layer_norms(grads, reduce_grads),
         "param_norm": param_norms,
         "update_ratio": {
             label: update[label] / (param_norms[label] + 1e-12) for label in param_norms
         },
         "nonfinite_params": nonfinite_params,
-        "nonfinite_grads": per_tensor_nonfinite(grads),
+        "nonfinite_grads": per_tensor_nonfinite(grads, reduce_grads),
     }
     if act_stats is not None:
         out["act"] = act_stats

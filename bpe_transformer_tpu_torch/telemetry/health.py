@@ -44,10 +44,15 @@ def group_of(key_path: str) -> str:
     return "other"
 
 
-def leaf_norms(leaves) -> list[torch.Tensor]:
+def leaf_norms(leaves, reduce=None) -> list[torch.Tensor]:
     """The float32 L2 norm of each tensor: one multi-tensor reduction on the
-    card (``torch._foreach_norm``), not a launch a leaf."""
-    return list(torch._foreach_norm([leaf.detach().float() for leaf in leaves]))
+    card (``torch._foreach_norm``), not a launch a leaf.  ``reduce`` sums a
+    vector of per-leaf values over the ranks that hold blocks of the
+    leaves (``parallel/gspmd.py``): the norms are then the whole leaves'."""
+    norms = list(torch._foreach_norm([leaf.detach().float() for leaf in leaves]))
+    if reduce is None:
+        return norms
+    return list(torch.sqrt(reduce(torch.stack(norms).square())).unbind())
 
 
 def grouped_norm(norms: list, index: list[int]) -> torch.Tensor:
@@ -55,38 +60,41 @@ def grouped_norm(norms: list, index: list[int]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([norms[i] for i in index]))
 
 
-def leaf_nonfinite(leaves) -> torch.Tensor:
+def leaf_nonfinite(leaves, reduce=None) -> torch.Tensor:
     """The non-finite element count of each tensor, stacked (int64): a mask
     and a sum a leaf, so the only temporary is one leaf's bool mask, never
-    a copy of the tree."""
-    return torch.stack([torch.sum(~torch.isfinite(leaf.detach())) for leaf in leaves])
+    a copy of the tree.  ``reduce``: see :func:`leaf_norms`."""
+    counts = torch.stack([torch.sum(~torch.isfinite(leaf.detach())) for leaf in leaves])
+    return counts if reduce is None else reduce(counts)
 
 
-def group_norms(tree) -> dict:
+def group_norms(tree, reduce=None) -> dict:
     """Per-layer-group L2 norms of a tree, ``{group: float32 0-d tensor}``."""
     pairs = tree_flatten_with_path(tree)
-    norms = leaf_norms([leaf for _, leaf in pairs])
+    norms = leaf_norms([leaf for _, leaf in pairs], reduce)
     groups: dict = {}
     for i, (path, _) in enumerate(pairs):
         groups.setdefault(group_of(path_str(path)), []).append(i)
     return {group: grouped_norm(norms, index) for group, index in sorted(groups.items())}
 
 
-def nonfinite_count(tree) -> torch.Tensor:
+def nonfinite_count(tree, reduce=None) -> torch.Tensor:
     """Total count of non-finite elements over every leaf (int32 0-d)."""
-    return torch.sum(leaf_nonfinite(tree_leaves(tree))).to(torch.int32)
+    return torch.sum(leaf_nonfinite(tree_leaves(tree), reduce)).to(torch.int32)
 
 
-def health_metrics(loss, grads, params) -> dict:
+def health_metrics(loss, grads, params, reduce_grads=None, reduce_params=None) -> dict:
     """The health sub-dict of a train step's metrics.  ``params`` should be
     the post-update tree, so optimizer-produced non-finites are caught the
-    step they appear."""
+    step they appear.  ``reduce_grads`` and ``reduce_params`` (see
+    :func:`leaf_norms`) make the values those of whole leaves when each
+    rank holds blocks."""
     return {
         "nonfinite_loss": (~torch.isfinite(loss.detach())).to(torch.int32),
-        "nonfinite_grads": nonfinite_count(grads),
-        "nonfinite_params": nonfinite_count(params),
-        "grad_norms": group_norms(grads),
-        "param_norms": group_norms(params),
+        "nonfinite_grads": nonfinite_count(grads, reduce_grads),
+        "nonfinite_params": nonfinite_count(params, reduce_params),
+        "grad_norms": group_norms(grads, reduce_grads),
+        "param_norms": group_norms(params, reduce_params),
     }
 
 

@@ -28,8 +28,14 @@ Across cards, one process a card::
     torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
         --parallel sp --mesh data=D,seq=S [--sp-zigzag] ...
 
-(``--device cpu`` runs the ranks on gloo; the strategies of slice 10c exit 2,
-as does ``--supervise`` with ``--parallel``.)
+    torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
+        --parallel fsdp|tp|fsdp_tp --mesh data=D,model=M [--opt-sharding zero1] ...
+
+(``--device cpu`` runs the ranks on gloo.  ``fsdp``, ``tp`` and ``fsdp_tp``
+write sharded checkpoint directories, which ``verify-checkpoint`` and a
+resume at any width read.  ``pp``, the ``ep`` strategies and
+``--sp-ulysses`` exit 2: they come with slice 10d; so does ``--supervise``
+with ``--parallel``.)
 
 ``profile`` is the JAX package's performance attribution without a training
 job: the analytic roofline of the train step (and, with ``--serve``, of the
@@ -139,9 +145,10 @@ def _parse_mesh(text: str | None) -> dict | None:
 
 
 def cmd_train(args) -> int:
-    if args.parallel not in (None, "dp", "sp"):
-        print(f"--parallel {args.parallel} is not ported yet: it comes with the port's slice "
-              "10c (FSDP/tp, Ulysses, GPipe, expert parallelism)", file=sys.stderr)
+    if args.parallel in ("pp", "ep", "dp_ep", "fsdp_ep") or args.sp_ulysses:
+        what = "--sp-ulysses" if args.sp_ulysses else f"--parallel {args.parallel}"
+        print(f"{what} is not ported yet: it comes with the port's slice 10d (Ulysses, GPipe, "
+              "expert parallelism)", file=sys.stderr)
         return 2
     if args.supervise and args.parallel:
         print("train --supervise with --parallel is not supported: the supervisor respawns "
@@ -1029,11 +1036,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", default=None,
                    choices=["dp", "sp", "pp", "fsdp", "tp", "fsdp_tp", "ep", "dp_ep", "fsdp_ep"],
                    help="multi-card strategy, one process a card under torchrun (default: "
-                   "one device); dp and sp are ported, the others come with slice 10c")
+                   "one device); pp and the ep strategies come with slice 10d")
     p.add_argument("--mesh", default=None,
                    help='mesh axes over the torchrun world, e.g. "data=8", "data=2,seq=4"')
     p.add_argument("--sp-zigzag", action="store_true",
                    help="balanced zig-zag ring schedule (with --parallel sp)")
+    p.add_argument("--sp-ulysses", action="store_true",
+                   help="Ulysses all-to-all sequence parallelism (comes with slice 10d)")
     p.add_argument("--opt-sharding", choices=["zero1"], default=None,
                    help="ZeRO-1 optimizer-state sharding across the data axis (with "
                    "--parallel dp): AdamW m/v and the fp32 master weights live 1/N per card; "

@@ -57,9 +57,20 @@ What the loop wires, as the JAX loop does:
   that rank 0 verified.  Eval runs the dense forward on each data rank's
   rows and averages over the data axis.
 
-``LoopConfig`` keeps every field of the JAX package's.  The strategies of
-slice 10c (``fsdp``, ``tp``, ``fsdp_tp``, ``ep``, ``dp_ep``, ``fsdp_ep``,
-``pp``) and ``sp_ulysses`` raise ``NotImplementedError``.
+* sharded parameters across cards (the GSPMD strategies ``fsdp``, ``tp``,
+  ``fsdp_tp``, ``dp_tp``: any underscore-joined set of ``dp``, ``fsdp`` and
+  ``tp``, with ``opt_sharding="zero1"`` or not): every rank holds its
+  blocks of the parameters and moments (``parallel/sharding.py``,
+  ``parallel/gspmd.py``), samples the global batch and takes its ``data``
+  rows (all of them without a data axis).  Checkpoints are sharded
+  directories (format v2) that every rank writes its blocks into, and a
+  resume reads only this rank's blocks, from a directory of any mesh or a
+  single file; ``latest.ckpt`` links the newest directory.  Eval runs the
+  sharded forward on each data rank's rows and averages them.
+
+``LoopConfig`` keeps every field of the JAX package's.  ``ep`` (expert
+parallelism), ``pp`` (GPipe) and ``sp_ulysses`` raise
+``NotImplementedError``: they come with slice 10d.
 """
 
 from __future__ import annotations
@@ -79,8 +90,11 @@ import torch.distributed as dist
 from bpe_transformer_tpu_torch.checkpointing.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
+    load_checkpoint_sharded,
     load_checkpoint_with_fallback,
     save_checkpoint,
+    save_checkpoint_sharded,
+    sharded_checkpoint_exists,
     training_state,
 )
 from bpe_transformer_tpu_torch.data.dataset import (
@@ -176,14 +190,12 @@ class LoopConfig:
     async_checkpoint: bool = False
 
 
-#: The parallel strategies the port runs; the others come with slice 10c.
-_PORTED_PARALLEL = (None, "dp", "sp")
-_SLICE_10C = "slice 10c (FSDP/tp, Ulysses, GPipe, expert parallelism)"
+_SLICE_10D = "slice 10d (Ulysses, GPipe, expert parallelism)"
 
 
 def _check_loop(loop: LoopConfig) -> None:
     """The JAX loop's config errors that need no mesh (raised before any
-    sink opens), then the refusal of slice 10c's fields."""
+    sink opens), then the refusal of slice 10d's fields."""
     if loop.health_stats and loop.parallel in ("sp", "pp"):
         raise ValueError(
             f'health_stats is not supported with parallel="{loop.parallel}" '
@@ -269,20 +281,24 @@ def _check_loop(loop: LoopConfig) -> None:
             f"batch_size={loop.batch_size} must divide by "
             f"grad_accum_steps={loop.grad_accum_steps}"
         )
-    if loop.parallel not in _PORTED_PARALLEL:
+    if loop.parallel == "pp" or (loop.parallel and "ep" in loop.parallel.split("_")):
         raise NotImplementedError(
             f"LoopConfig.parallel={loop.parallel!r} is not ported yet: it comes with the "
-            f"port's {_SLICE_10C}"
+            f"port's {_SLICE_10D}"
         )
     if loop.sp_ulysses:
         raise NotImplementedError(
             f"LoopConfig.sp_ulysses=True is not ported yet: it comes with the port's "
-            f"{_SLICE_10C}"
+            f"{_SLICE_10D}"
         )
+    if loop.parallel not in (None, "sp"):
+        from bpe_transformer_tpu_torch.parallel.sharding import _tokens
+
+        _tokens(loop.parallel)  # the JAX package's error for an unknown token
 
 
 def _loop_mesh(loop: LoopConfig, model_config: ModelConfig, device: torch.device):
-    """The process-group mesh of a ``dp`` or ``sp`` run (joining the world
+    """The process-group mesh of a run across cards (joining the world
     first), checked with the JAX loop's errors."""
     from bpe_transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
@@ -292,11 +308,16 @@ def _loop_mesh(loop: LoopConfig, model_config: ModelConfig, device: torch.device
         # sp needs a seq axis; default to pure context parallelism.
         axes = {"data": 1, "seq": dist.get_world_size()}
     mesh = make_mesh(axes, device)
-    if loop.parallel == "dp" and "data" not in mesh.shape:
-        raise ValueError(
-            f'parallel="{loop.parallel}" requires a mesh with a "data" axis, e.g. '
-            "--mesh data=2,data=4"
-        )
+    # A strategy whose axis is absent from the mesh would silently degrade
+    # to replication: fail loudly instead.
+    required_axes = {"dp": "data", "tp": "model", "fsdp": "data"}
+    for token in loop.parallel.split("_"):
+        needed = required_axes.get(token)
+        if needed is not None and needed not in mesh.shape:
+            raise ValueError(
+                f'parallel="{loop.parallel}" requires a mesh with a "{needed}" axis, e.g. '
+                f"--mesh data=2,{needed}=4"
+            )
     if loop.opt_sharding == "zero1" and "data" not in mesh.shape:
         raise ValueError(
             'opt_sharding="zero1" requires a mesh with a "data" axis to shard the optimizer '
@@ -349,11 +370,18 @@ def _fetch(metrics):
 
 
 def _point_latest(ckpt_dir: Path, ckpt_path: Path) -> None:
-    """Point ``latest.ckpt`` (and its sidecar) at ``ckpt_path`` with
+    """Point ``latest.ckpt`` (and a file's sidecar) at ``ckpt_path`` with
     relative symlinks, each swapped in atomically; a file or directory left
     there by another layout is replaced."""
-    for link, target in ((ckpt_dir / "latest.ckpt", ckpt_path.name),
-                         (sidecar_path(ckpt_dir / "latest.ckpt"), sidecar_path(ckpt_path).name)):
+    links = [(ckpt_dir / "latest.ckpt", ckpt_path.name)]
+    side = sidecar_path(ckpt_dir / "latest.ckpt")
+    if ckpt_path.is_dir():
+        # A sharded directory carries its checksums in its manifest.
+        if side.is_symlink() or side.exists():
+            side.unlink()
+    else:
+        links.append((side, sidecar_path(ckpt_path).name))
+    for link, target in links:
         if link.is_dir() and not link.is_symlink():
             shutil.rmtree(link)
         tmp = link.with_name(f"{link.name}.tmp-link-{os.getpid()}")
@@ -412,7 +440,16 @@ def train(
     primary = mesh is None or mesh.rank == 0
     if not primary:
         log_fn = lambda *a, **k: None  # noqa: E731
-    zero1 = loop.opt_sharding == "zero1"
+    #: The GSPMD strategies: every rank holds blocks of the state, and
+    #: checkpoints are sharded directories.
+    gspmd = mesh is not None and loop.parallel not in ("dp", "sp")
+    layout = None
+    if gspmd:
+        from bpe_transformer_tpu_torch.parallel.gspmd import GspmdLayout
+
+        layout = GspmdLayout(model_config, mesh, loop.parallel, opt_sharding=loop.opt_sharding,
+                             grads_dtype=hparams.grads_dtype)
+    zero1 = loop.opt_sharding == "zero1" and not gspmd
     injector = fault_injector if fault_injector is not None else FaultInjector.from_env()
     telemetry = Telemetry()
     setup_span = telemetry.start_span("setup")
@@ -424,16 +461,24 @@ def train(
         ``(params, opt_state, iteration, used_path)``.  Under a mesh rank 0
         verifies (and quarantines) and every rank then reads the snapshot
         it settled on; the optimizer state is adapted to the run's mode
-        (dense, or this rank's ZeRO-1 row at this width)."""
-        if src.is_dir():
+        (dense, this rank's ZeRO-1 row at this width, or this rank's blocks
+        under a GSPMD strategy, read from a sharded directory block by
+        block)."""
+        if src.is_dir() and not sharded_checkpoint_exists(src):
             src = src / "latest.ckpt"
+
+        def loader(path):
+            if layout is not None and sharded_checkpoint_exists(path):
+                return load_checkpoint_sharded(path, select=layout.select)
+            return load_checkpoint(path)
+
         if mesh is None:
             payload, used = load_checkpoint_with_fallback(src)
         else:
             chosen = [None]
             if primary:
                 try:
-                    payload, used = load_checkpoint_with_fallback(src)
+                    payload, used = load_checkpoint_with_fallback(src, loader=loader)
                     chosen = [str(used)]
                 except Exception as exc:  # noqa: BLE001 - every rank raises it below
                     chosen = [exc]
@@ -442,7 +487,11 @@ def train(
                 raise chosen[0]
             used = Path(chosen[0])
             if not primary:
-                payload = load_checkpoint(used)
+                payload = loader(used)
+        if layout is not None:
+            loaded_params = layout.place(payload["params"])
+            loaded_opt = restore_opt_state(payload["opt_state"], None, layout=layout)
+            return loaded_params, loaded_opt, payload["iteration"], used
         loaded_params, loaded_opt = training_state(payload, dev)
         loaded_opt = restore_opt_state(
             loaded_opt, loaded_params,
@@ -456,8 +505,12 @@ def train(
         log_fn(f"resumed from {used_path} at iteration {start_iteration}")
     else:
         params = init_params(model_config, torch.Generator().manual_seed(loop.seed), device=dev)
-        opt_state = (sharded_adamw_init(params, data_axis.size, mesh=mesh) if zero1
-                     else adamw_init(params))
+        if layout is not None:
+            params = layout.shard(params)
+            opt_state = layout.init_opt_state()
+        else:
+            opt_state = (sharded_adamw_init(params, data_axis.size, mesh=mesh) if zero1
+                         else adamw_init(params))
 
     stride = loop.inner_steps
     accum = loop.grad_accum_steps
@@ -483,6 +536,13 @@ def train(
             make = partial(make_dp_train_step, mesh=mesh, accum_steps=accum, inner_steps=n,
                            opt_sharding=loop.opt_sharding)
             args = ()
+        elif gspmd:
+            from bpe_transformer_tpu_torch.parallel.train_step import make_gspmd_train_step
+
+            make = partial(make_gspmd_train_step, mesh=mesh, strategy=loop.parallel,
+                           example_params=layout.full, accum_steps=accum, inner_steps=n,
+                           opt_sharding=loop.opt_sharding)
+            args = ()
         elif n > 1:
             make, args = make_scanned_train_step, (n,)
         elif accum > 1:
@@ -497,9 +557,10 @@ def train(
     plain_step, tapped_step = build_steps()
     async_saver = (
         AsyncCheckpointer()
-        if loop.async_checkpoint and loop.checkpoint_dir is not None and primary else None
+        if loop.async_checkpoint and loop.checkpoint_dir is not None and (primary or gspmd)
+        else None
     )
-    eval_step = make_eval_step(model_config)
+    eval_step = make_eval_step(model_config, shard=layout)
     ctx = model_config.context_length
     tokens_per_step = loop.batch_size * ctx
 
@@ -509,7 +570,7 @@ def train(
     def place(hx: np.ndarray, hy: np.ndarray):
         """This rank's part of a global host batch, on the card (a batch
         with a leading stacked dim is split on its second)."""
-        if loop.parallel == "dp":
+        if loop.parallel == "dp" or gspmd:
             from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
 
             return shard_batch((hx, hy), mesh, stacked=hx.ndim == 3)
@@ -527,8 +588,8 @@ def train(
             for _ in range(loop.eval_batches):
                 ex, ey = get_batch(val_data, loop.batch_size, ctx, eval_rng)
                 if data_axis is not None:
-                    # The dense forward on this data rank's rows (whole
-                    # sequences, in order, under sp too).
+                    # The forward on this data rank's rows (whole sequences,
+                    # in order, under sp too; sharded under a GSPMD layout).
                     from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
 
                     losses.append(eval_step(params, *shard_batch((ex, ey), mesh)))
@@ -635,8 +696,8 @@ def train(
         saved_opt = gather_opt_state(opt_state, mesh) if zero1 else opt_state
         # Under a mesh a synchronous write is followed by a barrier: every
         # rank leaves with the file on disk.
-        barrier = mesh is not None and (sync or not loop.async_checkpoint)
-        if not primary:
+        barrier = mesh is not None and (sync or not loop.async_checkpoint) and not gspmd
+        if not primary and not gspmd:
             if barrier:
                 with wd_pause():
                     dist.barrier()
@@ -660,7 +721,14 @@ def train(
             if async_saver is not None and not sync:
                 # The copy to the host happens now; pickling and IO overlap
                 # the next steps.
-                async_saver.save(ckpt_path, on_complete=update_latest, **state_kwargs)
+                async_saver.save(ckpt_path, on_complete=update_latest if primary else None,
+                                 sharded=gspmd, layout=layout, **state_kwargs)
+            elif gspmd:
+                # Every rank writes its blocks; each returns once the
+                # directory is in place.
+                save_checkpoint_sharded(ckpt_path, layout=layout, **state_kwargs)
+                if primary:
+                    update_latest()
             else:
                 save_checkpoint(ckpt_path, **state_kwargs)
                 update_latest()
@@ -883,9 +951,15 @@ def train(
                 # A signal between a NaN-making step and the boundary that
                 # would have caught it must not make the poisoned state the
                 # newest snapshot: check every leaf (one read) first.
-                state_poisoned = not bool(torch.stack(
-                    [torch.isfinite(leaf).all() for leaf in tree_leaves(params)]
-                ).all())
+                finite = torch.stack(
+                    [torch.isfinite(leaf).all() for leaf in tree_leaves(params)]).all()
+                if gspmd:
+                    # Each rank sees its blocks: the ranks agree (a sharded
+                    # save needs every rank).
+                    flag = (~finite).float().reshape(1)
+                    state_poisoned = mesh.axis(mesh.axis_names).pmax_(flag).item() > 0
+                else:
+                    state_poisoned = not bool(finite)
                 if not state_poisoned:
                     emergency = save_snapshot(sync=True)
             telemetry.emit({

@@ -18,12 +18,16 @@ loop with no host sync between the updates).
 gradients (one collective over one flat buffer, at the ``grads_dtype``
 width), of the loss and of ``moe_aux``, and the taps' activation
 statistics reduce as JAX's do (means, a max, a sum).  ``zero1_shards``
-swaps the update for ZeRO-1 (:mod:`optim.sharded`).  These are the bodies
-that :mod:`parallel.train_step` and :mod:`parallel.sp` run on each rank.
+swaps the update for ZeRO-1 (:mod:`optim.sharded`).  ``layout`` (a
+:class:`parallel.gspmd.GspmdLayout`) runs the step on this rank's blocks of
+the parameters and moments (FSDP, tensor parallelism): the sharded forward
+and backward, then :func:`_gspmd_update`.  These are the bodies that
+:mod:`parallel.train_step` and :mod:`parallel.sp` run on each rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -72,26 +76,32 @@ class TrainHParams:
             )
 
 
-def make_loss_fn(config: ModelConfig, with_aux: bool = False, with_stats: bool = False) -> Callable:
+def make_loss_fn(config: ModelConfig, with_aux: bool = False, with_stats: bool = False,
+                 shard=None) -> Callable:
     """``loss_fn(params, x, y)``: mean LM cross-entropy, through the chunked
     loss when ``config.loss_chunk`` is set, plus ``router_aux_weight`` times
     the MoE load-balance loss for an MoE config.  ``with_aux=True`` returns
     ``(loss, aux)`` with the raw aux (0 for dense FFNs), which the health
     step exports; ``with_stats=True`` (supersedes ``with_aux``) returns
     ``(loss, (aux, act_stats))`` with the per-layer activation statistics of
-    :func:`forward_hidden_stats` (the same forward, plus the taps)."""
+    :func:`forward_hidden_stats` (the same forward, plus the taps).
+    ``shard`` (a :class:`parallel.gspmd.GspmdLayout`): the loss of this
+    rank's rows on this rank's blocks of the parameters."""
     is_moe = config.ffn_type == "moe"
     hidden_fn = forward_hidden_stats if with_stats else forward_hidden
 
     def loss_fn(params, x, y):
-        hidden, aux, *act_stats = hidden_fn(params, x, config)
-        head_w = lm_head_weight(params, config)
-        if config.loss_chunk:
-            loss = lm_loss(hidden, head_w, y, config.loss_chunk)
-        else:
-            loss = cross_entropy(head_logits(hidden, head_w), y)
-        if is_moe:
-            loss = loss + config.router_aux_weight * aux
+        hooks = shard.saved_tensors_hooks() if shard is not None else contextlib.nullcontext()
+        with hooks:
+            hidden, aux, *act_stats = hidden_fn(params, x, config, shard=shard)
+            if shard is not None:
+                loss = shard.lm_loss(params, hidden, y, config.loss_chunk)
+            elif config.loss_chunk:
+                loss = lm_loss(hidden, lm_head_weight(params, config), y, config.loss_chunk)
+            else:
+                loss = cross_entropy(head_logits(hidden, lm_head_weight(params, config)), y)
+            if is_moe:
+                loss = loss + config.router_aux_weight * aux
         if with_stats:
             return loss, (aux, act_stats[0])
         return (loss, aux) if with_aux else loss
@@ -248,6 +258,93 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
     return params, opt_state, metrics
 
 
+@torch.no_grad()
+def _gspmd_update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
+                  health: bool = False, dynamics: bool = False, act_stats=None, moe_aux=None,
+                  layout=None):
+    """The update on this rank's blocks (``layout``, a
+    :class:`parallel.gspmd.GspmdLayout`):
+
+    * the gradient mean over ``data``: a leaf split on ``data`` (FSDP) has
+      it already (the reduce-scatter of its gather's backward); a leaf that
+      ZeRO-1 splits there is reduce-scattered on that dim; every other leaf
+      is all-reduced in one flat buffer, all at the ``grads_dtype`` width;
+      the loss, ``moe_aux`` and the activation stats are the global batch's;
+    * the clip norm over every element of every leaf once: the blocks'
+      sums of squares summed over the axes each leaf is split on;
+    * AdamW in place on the blocks; a ZeRO-1 leaf's owned slice is updated
+      and all-gathered over ``data``;
+    * the taps' norms and counts over the blocks, as the clip norm's."""
+    # parallel/__init__ imports this module: the collectives come at call time.
+    from bpe_transformer_tpu_torch.parallel.mesh import all_gather_dim, reduce_scatter_dim
+
+    leaves = tree_leaves(params)
+    g = list(tree_leaves(grads))
+    narrow = layout.grads_dtype
+    data = layout.data
+    zdims = [layout.zero1_dim(i) for i in range(len(leaves))]
+    plain = [i for i, spec in enumerate(layout.leaf_specs)
+             if zdims[i] is None and not layout.data_reduced(spec)]
+    if data is None:
+        if narrow != torch.float32:
+            for i in plain:
+                g[i] = g[i].to(narrow).float()
+    else:
+        if plain:
+            flat = torch.cat([g[i].reshape(-1).to(narrow) for i in plain])
+            data.pmean_(flat)
+            offset = 0
+            for i in plain:
+                n = g[i].numel()
+                g[i] = flat[offset:offset + n].view(g[i].shape).float()
+                offset += n
+        for i, dim in enumerate(zdims):
+            if dim is not None:
+                g[i] = reduce_scatter_dim(g[i].to(narrow), dim, data).div_(data.size).float()
+        if moe_aux is not None:
+            loss, moe_aux = _pmean_scalars(data, loss, moe_aux)
+        else:
+            (loss,) = _pmean_scalars(data, loss)
+    if act_stats is not None:
+        act_stats = layout.act_stats(act_stats)
+    owned_specs = [layout.leaf_moment_specs[i] if zdims[i] is not None else layout.leaf_specs[i]
+                   for i in range(len(leaves))]
+    reduce_g = layout.leaf_reducer(owned_specs)
+    reduce_p = layout.leaf_reducer(layout.leaf_specs)
+    nonfinite_params = per_tensor_nonfinite(params, reduce_p) if dynamics else None
+    sumsq = torch.stack([torch.sum(torch.square(t.float())) for t in g])
+    grad_norm = torch.sqrt(torch.sum(reduce_g(sumsq)))
+    scale = torch.clamp(hparams.grad_clip_norm / (grad_norm + 1e-6), max=1.0)
+    clipped = [(t * scale).to(t.dtype) for t in g]
+    owned = [p if dim is None else p.narrow(dim, data.index * (p.shape[dim] // data.size),
+                                            p.shape[dim] // data.size)
+             for p, dim in zip(leaves, zdims)]
+    lr = _schedule(opt_state, hparams)
+    delta_norms = [] if dynamics else None
+    _, new_state = adamw_update(
+        owned, clipped, AdamWState(opt_state.step, tree_leaves(opt_state.m),
+                                   tree_leaves(opt_state.v)), lr,
+        betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+        delta_norms=delta_norms,
+    )
+    for p, part, dim in zip(leaves, owned, zdims):
+        if dim is not None:
+            p.copy_(all_gather_dim(part, dim, data))
+    opt_state = AdamWState(step=new_state.step, m=opt_state.m, v=opt_state.v)
+    metrics = {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
+    if health:
+        metrics["health"] = health_metrics(loss, tree_unflatten(grads, clipped), params,
+                                           reduce_g, reduce_p)
+        if moe_aux is not None:
+            metrics["health"]["moe_aux"] = moe_aux.detach().float()
+    if dynamics:
+        update_norms = list(torch.sqrt(reduce_g(torch.stack(delta_norms).square())).unbind())
+        # Dynamics reports the pre-clip gradient magnitudes.
+        metrics["dynamics"] = dynamics_from_parts(tree_unflatten(grads, g), params, update_norms,
+                                                  nonfinite_params, act_stats, reduce_g, reduce_p)
+    return params, opt_state, metrics
+
+
 def train_step_fn(
     config: ModelConfig,
     hparams: TrainHParams,
@@ -255,6 +352,7 @@ def train_step_fn(
     health: bool = False,
     dynamics: bool = False,
     zero1_shards: int | None = None,
+    layout=None,
 ) -> Callable:
     """The update ``(params, opt_state, x, y) -> (params, opt_state,
     metrics)`` on this rank.  The learning rate is read at
@@ -267,10 +365,11 @@ def train_step_fn(
     loss, the gradients and ``moe_aux`` before the update, so every rank
     runs the same update; ``zero1_shards`` (with ``reduce_axis``) makes
     ``opt_state`` a :class:`optim.sharded.ShardedAdamWState` row and the
-    update ZeRO-1's."""
+    update ZeRO-1's.  ``layout`` runs the sharded step (module docstring)."""
     _check_zero1(zero1_shards, reduce_axis, health, dynamics, "train_step_fn")
     with_aux = health and config.ffn_type == "moe"
-    grad_fn = value_and_grad(make_loss_fn(config, with_aux=with_aux, with_stats=dynamics),
+    grad_fn = value_and_grad(make_loss_fn(config, with_aux=with_aux, with_stats=dynamics,
+                                          shard=layout),
                              has_aux=dynamics or with_aux)
 
     if zero1_shards is not None:
@@ -291,6 +390,9 @@ def train_step_fn(
             (loss, moe_aux), grads = grad_fn(params, x, y)
         else:
             loss, grads = grad_fn(params, x, y)
+        if layout is not None:
+            return _gspmd_update(params, opt_state, loss, grads, hparams, health, dynamics,
+                                 act_stats, moe_aux, layout)
         return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats,
                        moe_aux, reduce_axis)
 
@@ -340,6 +442,7 @@ def grad_accum_step_fn(
     health: bool = False,
     dynamics: bool = False,
     zero1_shards: int | None = None,
+    layout=None,
 ) -> Callable:
     """One optimizer update from ``accum_steps`` microbatch gradients:
     ``(params, opt_state, xs, ys) -> (params, opt_state, metrics)`` with
@@ -351,10 +454,13 @@ def grad_accum_step_fn(
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     _check_zero1(zero1_shards, reduce_axis, health, dynamics, "grad_accum_step_fn")
-    grad_fn = value_and_grad(make_loss_fn(config))
+    grad_fn = value_and_grad(make_loss_fn(config, shard=layout))
 
     def step(params, opt_state, xs, ys):
         loss, grads = accumulate_grads(grad_fn, params, xs, ys, accum_steps)
+        if layout is not None:
+            return _gspmd_update(params, opt_state, loss, grads, hparams, health, dynamics,
+                                 layout=layout)
         if zero1_shards is not None:
             return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
                                  zero1_shards)
@@ -384,6 +490,7 @@ def scanned_step_fn(
     health: bool = False,
     dynamics: bool = False,
     zero1_shards: int | None = None,
+    layout=None,
 ) -> Callable:
     """``inner_steps`` optimizer updates a call: ``(params, opt_state, xs,
     ys) -> (params, opt_state, metrics)`` with a leading ``(inner_steps,)``
@@ -398,9 +505,10 @@ def scanned_step_fn(
     if body is not None:
         plain = last = body
     else:
-        plain = train_step_fn(config, hparams, reduce_axis, zero1_shards=zero1_shards)
+        plain = train_step_fn(config, hparams, reduce_axis, zero1_shards=zero1_shards,
+                              layout=layout)
         last = train_step_fn(config, hparams, reduce_axis, health=health, dynamics=dynamics,
-                             zero1_shards=zero1_shards)
+                             zero1_shards=zero1_shards, layout=layout)
 
     def multi(params, opt_state: AdamWState, xs, ys):
         if xs.shape[0] != inner_steps or ys.shape[0] != inner_steps:
@@ -426,10 +534,18 @@ def make_scanned_train_step(
     return scanned_step_fn(config, hparams, inner_steps, health=health, dynamics=dynamics)
 
 
-def make_eval_step(config: ModelConfig) -> Callable:
+def make_eval_step(config: ModelConfig, shard=None) -> Callable:
     """Pure cross-entropy eval ``(params, x, y) -> loss`` without a graph,
-    honouring ``loss_chunk_size`` as the train step does."""
-    if config.loss_chunk:
+    honouring ``loss_chunk_size`` as the train step does; ``shard`` (a
+    :class:`parallel.gspmd.GspmdLayout`): the sharded forward on this
+    rank's rows."""
+    if shard is not None:
+
+        def eval_loss(params, x, y):
+            hidden, _ = forward_hidden(params, x, config, shard=shard)
+            return shard.lm_loss(params, hidden, y, config.loss_chunk)
+
+    elif config.loss_chunk:
 
         def eval_loss(params, x, y):
             hidden, _ = forward_hidden(params, x, config)

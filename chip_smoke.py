@@ -173,7 +173,9 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    subprocess (a non-zero exit, the dump in the stream); (d) ``train`` as a
    subprocess preempted at step 6 (exit 75, an emergency snapshot), then
    ``--resume`` to step 8 against an uninterrupted run (1e-5 relative);
-   (e) ``--supervise`` with a child killed at step 6; (f) ``--inner-steps
+   (e) ``--supervise`` with a child killed at step 6 ((d) and (e) at 2 of
+   the 12 layers, full width, so that their checkpoints are 0.76 GB, not
+   1.61); (f) ``--inner-steps
    4`` against 1, and a read fault under prefetch 2 surfacing on the main
    thread; (g) host ms a step of the plain loop, each tap, inner steps and
    prefetch, the sync and async checkpoint stalls, the emergency save and
@@ -231,8 +233,15 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    checkpoint, resumed dense to 8, and ring-flash sp (``mesh
    data=1,seq=1``) for 4 steps, each against ``train()`` on one device
    within phase 15's 1e-5 relative, with exact launch counts;
+19. sharded parameters (slice 10c) over 18's group: B5, B4's pair and B3
+   at the shapes tensor parallelism hands them (3 and 6 heads, hidden 512
+   and 1024) against their plain versions, then ``train()`` under fsdp
+   with ZeRO-1 (``mesh data=1``, a sharded checkpoint directory at step 4)
+   and under fsdp_tp (``mesh data=1,model=1``) for 4 steps, and the
+   directory verified and resumed under fsdp_tp to 8, each against one
+   device within phase 15's 1e-5 relative, with exact launch counts;
 then one JSON line listing every ported kernel (launches counted over the
-main paths, phase 18's included), and the ``ok`` line.
+main paths, phases 18's and 19's included), and the ``ok`` line.
 
 ``python3 chip_smoke.py --phase 18 --world 4`` (on a host with four
 cards) builds the kernels and runs phase 18 across cards
@@ -245,7 +254,18 @@ contiguous and zig-zag, step 1 against phase 12's stacked ring of 4
 host ms a step, tok/s a card, peak memory a rank and the NCCL time a step
 from ``torch.profiler``; then the ``train`` CLI under ``torchrun`` at dp=4
 with ZeRO-1, its step-4 checkpoint resumed at dp=2.  ``--phase 18`` alone
-runs the default run's phase 18 after the build.
+runs the default run's phases 18 and 19 after the build.
+
+``python3 chip_smoke.py --phase 19 --world 4`` runs 19 across four cards:
+one NCCL rank a card, fsdp=4, tp=4, fsdp_tp 2x2 and dp_tp 2x2 (ZeRO-1
+where a data axis exists) at phase 8's config and batch for 3 steps
+against phase 8's one-card step (``DP_TOL``; step 1's loss and gathered
+mean gradients at phase 12's bf16 tolerance), each rank's parameter and
+moment bytes equal to the specs' arithmetic, exact launch counts, host ms
+a step, tok/s a card, peak memory a rank and the NCCL time a step; then
+the ``train`` CLI under ``torchrun``: fsdp=4 with ZeRO-1 writing sharded
+directories, its step-4 directory through ``verify-checkpoint`` and
+resumed at fsdp=2 and at tp=2.
 
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
@@ -257,8 +277,9 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 ``chip_smoke_loop.json`` (phase 15's training-loop figures),
 ``chip_smoke_moe.json`` (phase 16's MoE figures),
 ``chip_smoke_surface.json`` (phase 17's), ``chip_smoke_parallel.json``
-(phase 18's) and, from the four-card run, ``chip_smoke_parallel4.json`` and
-``chip_smoke_parallel4_cli.json``.
+(phases 18's and 19's) and, from the four-card runs,
+``chip_smoke_parallel4.json``, ``chip_smoke_parallel4_cli.json``,
+``chip_smoke_sharded4.json`` and ``chip_smoke_sharded4_cli.json``.
 """
 
 from __future__ import annotations
@@ -4193,12 +4214,17 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
         base = dict(steps=8, batch_size=batch, log_every=4, eval_every=1000, seed=0)
         return LoopConfig(**{**base, **kw})
 
-    def run(lc, **kw):
-        return train(cfg, TrainHParams(**hp, cosine_cycle_iters=lc.steps), lc, data,
+    def run(lc, c=None, **kw):
+        return train(c or cfg, TrainHParams(**hp, cosine_cycle_iters=lc.steps), lc, data,
                      log_fn=quiet, device=device, **kw)
 
-    def cli_args(steps: int, ck: Path, *extra, every: int = 4) -> list:
-        return ["--data", str(data_path), "--model-config", str(TRAIN_WORK / "model.json"),
+    # 15d and 15e run their subprocesses at 2 of the 12 layers (full width):
+    # each of their checkpoints is then 0.76 GB instead of 1.61 GB.
+    cfg_de = dataclasses.replace(cfg, num_layers=min(2, cfg.num_layers))
+    cfg_de.to_json(TRAIN_WORK / "model_de.json")
+
+    def cli_args(steps: int, ck: Path, *extra, every: int = 4, model: str = "model.json") -> list:
+        return ["--data", str(data_path), "--model-config", str(TRAIN_WORK / model),
                 "--steps", str(steps), "--batch-size", str(batch), "--log-every", "2",
                 "--eval-every", "1000", "--checkpoint-every", str(every), "--checkpoint-dir", str(ck),
                 "--lr", "6e-4", "--min-lr", "6e-5", "--warmup", "2", "--prefetch", "0",
@@ -4354,7 +4380,8 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     # (d) Preemption: exit 75 and an emergency snapshot, then --resume.
     t0 = time.perf_counter()
     ck_d, jsonl_d = TRAIN_WORK / "d_ck", TRAIN_WORK / "d.jsonl"
-    proc = train_subprocess(cli_args(8, ck_d, "--metrics-jsonl", str(jsonl_d), every=8),
+    proc = train_subprocess(cli_args(8, ck_d, "--metrics-jsonl", str(jsonl_d), every=8,
+                                     model="model_de.json"),
                             faults={"preempt_at_step": 6})
     require(proc.returncode == 75, f"15d: preempted run exit {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
@@ -4364,10 +4391,11 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
             and Path(pre[0]["checkpoint"]).name == "step_00000006.ckpt",
             f"15d: preemption record {pre}")
     emergency_s = span_seconds(records, "checkpoint", async_save=False)[-1]
-    proc = train_subprocess(cli_args(8, ck_d, "--resume", str(ck_d), every=8))
+    proc = train_subprocess(cli_args(8, ck_d, "--resume", str(ck_d), every=8,
+                                     model="model_de.json"))
     require(proc.returncode == 0, f"15d: resume exit {proc.returncode}: {proc.stderr[-2000:]}")
     resumed = json.loads((ck_d / "summary.json").read_text())["history"]
-    straight = run(loop(steps=8, log_every=2))["history"]
+    straight = run(loop(steps=8, log_every=2), c=cfg_de)["history"]
     want = {r["step"]: r["loss"] for r in straight}
     got = {r["step"]: r["loss"] for r in resumed}
     rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
@@ -4383,7 +4411,7 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     t0 = time.perf_counter()
     ck_e = TRAIN_WORK / "e_ck"
     proc = train_subprocess(cli_args(8, ck_e, "--supervise", "--max-restarts", "2",
-                                     "--restart-backoff", "0.1"),
+                                     "--restart-backoff", "0.1", model="model_de.json"),
                             faults={"kill_at_step": 6, "once_dir": str(TRAIN_WORK / "once")})
     require(proc.returncode == 0 and "spawn #2" in proc.stdout,
             f"15e: supervised run exit {proc.returncode}: {proc.stdout[-2000:]}")
@@ -5472,15 +5500,17 @@ def max_rel(got: list, want: list) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want, strict=True))
 
 
-def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 8) -> dict:
+def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda",
+                   batch: int = 8) -> tuple[dict, dict]:
     """Phase 18 (the default run): a real process group of world 1 (NCCL
     on ``cuda:0``, gloo with ``device="cpu"``) driving ``train()`` at phase
     15's config, seed and batch: ZeRO-1 dp (``mesh data=1``) for 4 steps
     with a checkpoint, resumed dense to 8, and ring-flash sp (``mesh
     data=1,seq=1``) for 4 steps, each against ``train()`` on one device
     (phase 15's run; ``attention_impl="flash"`` for sp, whose ring runs
-    the flash kernels) within phase 15's 1e-5 relative.  Returns the
-    launch counts of the dp and sp runs (the slice's main path)."""
+    the flash kernels) within phase 15's 1e-5 relative; then phase 19 on
+    the same group (:func:`phase_sharded`).  Returns the launch counts of
+    18's dp and sp runs and of 19's runs (the slices' main paths)."""
     import dataclasses
     import shutil
 
@@ -5566,12 +5596,365 @@ def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda", batch: int =
                    rel=rel, dp_step_wall_s=[r["step_wall_s"] for r in dp["history"]],
                    sp_step_wall_s=[r["step_wall_s"] for r in sp["history"]],
                    phase_s=time.perf_counter() - t_phase)
+        log(f"phase 18 data and sequence parallelism over a process group (world 1): ok "
+            f"({time.perf_counter() - t_phase:.1f} s)")
+        t_19 = time.perf_counter()
+        counts19, out["sharded"] = phase_sharded(torch, run, losses, ref, cfg, on_card)
+        log(f"phase 19 sharded parameters over the same group (world 1): ok "
+            f"({time.perf_counter() - t_19:.1f} s)")
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(out, indent=1))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
-    return {name: dp_counts[name] + sp_counts[name] for name in KERNEL_META}
+    return {name: dp_counts[name] + sp_counts[name] for name in KERNEL_META}, counts19
+
+
+# ------------------------------------------------------------ phase 19
+
+#: The GSPMD cases of 19 at world N (strategy, mesh, opt_sharding).
+SHARDED_CASES = (
+    ("fsdp", lambda n: {"data": n}, "zero1"),
+    ("tp", lambda n: {"model": n}, None),
+    ("fsdp_tp", lambda n: {"data": 2, "model": n // 2}, "zero1"),
+    ("dp_tp", lambda n: {"data": 2, "model": n // 2}, "zero1"),
+)
+
+
+def tp_kernel_cases(torch) -> list[dict]:
+    """19 (default run): B5, B4's pair and B3 at the shapes tensor
+    parallelism hands them, against their plain versions (phase 5's
+    tolerances): 3 heads a rank (tp=4) and 6 (tp=2) of GPT2_SMALL_32K's 12
+    at (B, 1024, 64) bf16, and the SwiGLU forward at hidden 512 (tp=4, m
+    8192) and 1024 (tp=2, m 4096)."""
+    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.kernels import swiglu as sw
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for label, shape in (("tp=4", (8, 3, 1024, 64)), ("tp=2 of fsdp_tp 2x2", (4, 6, 1024, 64))):
+        errs = training_kernel_errors(torch, fa, *training_inputs(torch, shape, torch.bfloat16,
+                                                                  gen))
+        log(f"19 training kernels bfloat16 {label} {shape}: "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if label == "tp=4":
+            for row in training_timings(torch, fa, shape, torch.bfloat16, gen):
+                row.update(config=f"GPT2_SMALL_32K {label}", max_abs_err=errs[row["name"]])
+                rows.append(row)
+                log(f"19 kernel {row['name']:24s} {row['shape']:44s} ms {row['ms']:.4f} plain "
+                    f"{row['plain_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    for label, m, ff in (("tp=4", 8192, 512), ("tp=2 of fsdp_tp 2x2", 4096, 1024)):
+        sets = [tuple((torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+                      for shape, std in (((m, 768), 1.0), ((ff, 768), 0.02), ((768, ff), 0.02),
+                                         ((ff, 768), 0.02)))
+                for _ in range(copies_for((2 * m * 768 + 3 * ff * 768) * 2))]
+        out = sw._swiglu_forward(*sets[0])
+        torch.cuda.synchronize()
+        err = _max_err(out, sw.swiglu_plain(*sets[0]))
+        tol = TOL.get(("swiglu", "bfloat16"), TOL_BF16)
+        require(err <= tol, f"19 swiglu {label} m={m} ff={ff}: max error {err:.3e} > {tol:g}")
+        ms, plain = time_ms(torch, sw._swiglu_forward, sets, 5), time_ms(torch, sw.swiglu_plain,
+                                                                         sets, 3)
+        flops, nbytes = 6 * m * 768 * ff, (2 * m * 768 + 3 * ff * 768) * 2
+        bound = max(nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+        log(f"19 kernel swiglu bfloat16 {label} m={m} d=768 ff={ff}: err {err:.3e} (tol {tol:g}) "
+            f"ms {ms:.4f} plain {plain:.4f} bound {bound:.4f}")
+        rows.append({"name": "swiglu", "config": f"GPT2_SMALL_32K {label}", "dtype": "bfloat16",
+                     "shape": f"m={m} d=768 ff={ff} forward", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound})
+    return rows
+
+
+def phase_sharded(torch, run, losses, ref, cfg, on_card: bool) -> tuple[dict, dict]:
+    """Phase 19 (the default run), on phase 18's world-1 group: the
+    kernels at tensor-parallel shapes, then ``train()`` under ``fsdp`` with
+    ZeRO-1 (``mesh data=1``) for 4 steps writing a sharded directory, and
+    under ``fsdp_tp`` (``mesh data=1,model=1``) for 4 steps, each against
+    one device's ``train()`` (phase 18's run) within phase 15's 1e-5
+    relative with exact launch counts, and the directory verified and
+    resumed under ``fsdp_tp`` to step 8.  Returns the launch counts of the
+    two runs."""
+    from bpe_transformer_tpu_torch.resilience.integrity import verify_checkpoint
+
+    L = cfg.num_layers
+    out: dict = {}
+    if on_card:
+        out["kernels"] = tp_kernel_cases(torch)
+    ck = PARALLEL_WORK / "fsdp_ck"
+    reset_counts()
+    fsdp = run(cfg, 4, parallel="fsdp", mesh_axes={"data": 1}, opt_sharding="zero1",
+               checkpoint_every=4, checkpoint_dir=str(ck))
+    fsdp_counts = read_counts(tuple(KERNEL_META))
+    reset_counts()
+    fsdp_tp = run(cfg, 4, parallel="fsdp_tp", mesh_axes={"data": 1, "model": 1})
+    tp_counts = read_counts(tuple(KERNEL_META))
+    step4 = ck / "step_00000004.ckpt"
+    verdict = verify_checkpoint(step4)
+    require(step4.is_dir() and (step4 / "manifest.json").exists() and verdict.ok,
+            f"19: {step4} is not a verified sharded directory: {verdict.problems}")
+    resumed = losses(run(cfg, 8, parallel="fsdp_tp", mesh_axes={"data": 1, "model": 1},
+                         resume_from=str(step4)))
+    rel = {"fsdp zero1": max_rel(losses(fsdp), ref[:2]),
+           "fsdp_tp": max_rel(losses(fsdp_tp), ref[:2]),
+           "resumed fsdp_tp": max_rel(resumed, ref[2:])}
+    log(f"19 world 1: fsdp zero1 {[round(v, 5) for v in losses(fsdp)]}, fsdp_tp "
+        f"{[round(v, 5) for v in losses(fsdp_tp)]}, the fsdp directory ({verdict.files_checked} "
+        f"files) resumed under fsdp_tp {[round(v, 5) for v in resumed]}; max rel diffs to one "
+        f"device {rel} (tol {LOOP_REL_TOL:g})")
+    require(all(v <= LOOP_REL_TOL for v in rel.values()),
+            f"19: world-1 sharded runs disagree with one device: {rel}")
+    want = {k: 4 * v for k, v in only(flash_attention_rope=L, flash_attention_bwd_dkdv=L,
+                                      flash_attention_bwd_dq=L, swiglu=2 * L).items()}
+    log(f"19 launches: fsdp zero1 { {k: v for k, v in fsdp_counts.items() if v} }, fsdp_tp "
+        f"{ {k: v for k, v in tp_counts.items() if v} }")
+    if on_card:
+        require(fsdp_counts == want, f"19: fsdp launches {fsdp_counts} != {want}")
+        require(tp_counts == want, f"19: fsdp_tp launches {tp_counts} != {want}")
+    out.update(fsdp=losses(fsdp), fsdp_tp=losses(fsdp_tp), resumed=resumed, rel=rel,
+               fsdp_step_wall_s=[r["step_wall_s"] for r in fsdp["history"]],
+               fsdp_tp_step_wall_s=[r["step_wall_s"] for r in fsdp_tp["history"]])
+    return {name: fsdp_counts[name] + tp_counts[name] for name in KERNEL_META}, out
+
+
+def sharded_rank(torch, cfg=None, device: str = "cuda", batch: int = 8) -> None:
+    """19 at world N, in each rank process (one card a rank, NCCL): each of
+    :data:`SHARDED_CASES` against phase 8's one-card step on the same batch
+    (phase 18's dp tolerances: step 1's loss and mean gradients, the losses
+    of 3 steps, the weights within the AdamW bound), with exact launch
+    counts, a rank's parameter and moment bytes equal to the specs'
+    arithmetic, host ms a step, tok/s a card, peak memory a rank and NCCL
+    ms a step; rank 0 prints and writes ``chip_smoke_sharded4.json``.
+    ``device="cpu"`` (gloo) and a small ``cfg`` rehearse it on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+    from bpe_transformer_tpu_torch.models.transformer import abstract_params, init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
+    from bpe_transformer_tpu_torch.parallel import (
+        initialize_distributed,
+        make_gspmd_train_step,
+        make_mesh,
+        shard_batch,
+    )
+    from bpe_transformer_tpu_torch.parallel.gspmd import block_bytes
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        make_loss_fn,
+        make_train_step,
+        value_and_grad,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device == "cuda"
+    dev = initialize_distributed(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = log if rank == 0 else (lambda msg: None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(dev.index)], capture_output=True, text=True,
+                         check=True).stdout.strip() if on_card else "cpu"
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused",
+                                     flash_fused_min_seq=0, ffn_impl="pallas",
+                                     remat_policy="save_attn")
+    L, S = cfg.num_layers, cfg.context_length
+    n_steps = 3
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=10)
+    rng = np.random.default_rng(8)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(batch, S)) for _ in range(2))
+    lrs = [cosine_schedule(i, hparams.max_learning_rate, hparams.min_learning_rate,
+                           hparams.warmup_iters, hparams.cosine_cycle_iters)
+           for i in range(n_steps)]
+    adam_bound = DP_TOL["adam_flip"] * sum(lrs)
+    tol = TRAIN_TOL["bfloat16"]
+    out: dict = {"world": world, "smi": smi, "cases": []}
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=device).manual_seed(0), device=dev)
+
+    # The one-card reference on rank 0: step 1's loss and gradients, and 3
+    # steps' losses and weights.
+    want_loss = want_grads = ref_losses = ref_leaves = None
+    if rank == 0:
+        p = fresh()
+        full = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        want_loss, want_grads = value_and_grad(make_loss_fn(cfg))(p, *full)
+        want_grads = tree_leaves(want_grads)
+        step = make_train_step(cfg, hparams)
+        o, ref_losses = adamw_init(p), []
+        for _ in range(n_steps):
+            p, o, m = step(p, o, *full)
+            ref_losses.append(float(m["loss"]))
+        ref_leaves = [t.detach().clone() for t in tree_leaves(p)]
+        del p, o, step
+    for strategy, axes_of, zero1 in SHARDED_CASES:
+        axes = axes_of(world)
+        if world == 1 and "model" in axes:
+            axes = {"data": 1, "model": 1}
+        label = f"{strategy} {'x'.join(str(v) for v in axes.values())}" + (
+            " zero1" if zero1 else "")
+        mesh = make_mesh(axes, device=device)
+        step = make_gspmd_train_step(cfg, hparams, mesh, strategy,
+                                     example_params=abstract_params(cfg), opt_sharding=zero1)
+        layout = step.layout
+        p = layout.shard(fresh())
+        o = layout.init_opt_state()
+        xs, ys = shard_batch((x, y), mesh)
+        # Step 1's loss and mean gradients, gathered whole.
+        loss, grads = value_and_grad(make_loss_fn(cfg, shard=layout))(p, xs, ys)
+        g = tree_leaves(grads)
+        if layout.data is not None:
+            layout.data.pmean_(loss)
+            for i, spec in enumerate(layout.leaf_specs):
+                if not layout.data_reduced(spec):
+                    layout.data.pmean_(g[i])
+        whole = [layout.gather_leaf(t, spec) for t, spec in zip(g, layout.leaf_specs)]
+        if rank == 0:
+            abs_err, rel_err = grad_errors(whole, want_grads)
+            loss_err = abs(float(loss) - float(want_loss))
+            say(f"19 {label} step 1 vs the one-card step: loss {float(loss):.6f} vs "
+                f"{float(want_loss):.6f} (|d| {loss_err:.3e}, tol {tol['out']:g}); mean grads max "
+                f"abs error {abs_err:.3e} (tol {tol['grad']:g}), largest per-leaf relative error "
+                f"{rel_err:.3e}")
+            require(loss_err <= tol["out"] and abs_err <= tol["grad"] and rel_err <= tol["grad"],
+                    f"19 {label}: step 1 disagrees with the one-card step")
+        del grads, g, whole
+        # Bytes a rank: exactly the specs' arithmetic.
+        pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+        obytes = sum(t.numel() * t.element_size() for t in tree_leaves(o.m) + tree_leaves(o.v))
+        spec_bytes = block_bytes(cfg, mesh.shape, strategy, zero1 == "zero1", mesh.coords)
+        require(pbytes == spec_bytes["params"] and obytes == spec_bytes["moments"],
+                f"19 {label} rank {rank}: {pbytes} + {obytes} bytes, the specs say "
+                f"{spec_bytes}")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, step_losses = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, xs, ys)
+            step_losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(tuple(KERNEL_META))
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        want = {k: n_steps * v for k, v in only(
+            flash_attention_rope=L, flash_attention_bwd_dkdv=L, flash_attention_bwd_dq=L,
+            swiglu=2 * L).items()}
+        require(counts == want or not on_card, f"19 {label} rank {rank}: launches {counts} != "
+                f"{want}")
+        leaves = [layout.gather_leaf(t.detach(), spec)
+                  for t, spec in zip(tree_leaves(p), layout.leaf_specs)]
+        busy, nccl = nccl_ms(torch, lambda _: step(p, o, xs, ys), dev)
+        t = torch.tensor([float(peak)], device=dev)
+        peaks = [torch.zeros_like(t) for _ in range(world)]
+        dist.all_gather(peaks, t)
+        peaks = [int(v.item()) for v in peaks]
+        if rank == 0:
+            drift = leaf_drift(leaves, ref_leaves)
+            loss_rel = max_rel(step_losses, ref_losses)
+            mean_ms = float(np.mean(ms[1:]))
+            say(f"19 {label} (GPT2_SMALL_32K, {batch}x{S}): losses "
+                f"{[round(v, 5) for v in step_losses]} vs one card {[round(v, 5) for v in ref_losses]}"
+                f" (rel {loss_rel:.2e}, tol {DP_TOL['loss_rel']:g}); weights max abs diff "
+                f"{drift['max_abs']:.3e} (AdamW bound {adam_bound:.3e}); host ms a step "
+                f"{[round(v, 1) for v in ms]} (steps 2-3 mean {mean_ms:.1f} ms = "
+                f"{batch * S / mean_ms * 1e3 / world:.0f} tok/s a card); peak GB a rank "
+                f"{[round(v / 1e9, 3) for v in peaks]}; rank 0 holds {pbytes / 1e9:.4f} GB of "
+                f"params and {obytes / 1e9:.4f} GB of moments (dense "
+                f"{spec_bytes['dense_params'] / 1e9:.4f} and "
+                f"{2 * spec_bytes['dense_params'] / 1e9:.4f}); device busy {busy} ms a step of "
+                f"which NCCL {nccl} ms; launches a step "
+                f"{ {k: v // n_steps for k, v in counts.items() if v} } on {smi}")
+            require(loss_rel <= DP_TOL["loss_rel"] and drift["max_abs"] <= adam_bound,
+                    f"19 {label}: disagrees with the one-card step: {loss_rel}, {drift}")
+            out["cases"].append({"label": label, "losses": step_losses, "host_ms": ms,
+                                 "peak": peaks, "busy_ms": busy, "nccl_ms": nccl,
+                                 "param_bytes": pbytes, "moment_bytes": obytes,
+                                 "dense_param_bytes": spec_bytes["dense_params"],
+                                 "loss_rel": loss_rel, **drift})
+        del p, o, step, layout, leaves
+        if on_card:
+            torch.cuda.empty_cache()
+    if rank == 0:
+        out["ref_losses"] = ref_losses
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_sharded4.json").write_text(json.dumps(out, indent=1))
+    dist.destroy_process_group()
+
+
+def cli_sharded_resume(smi: str, world: int, cfg=None, device: str = "cuda") -> dict:
+    """19 at world N: the ``train`` CLI under ``torchrun`` at fsdp=N with
+    ZeRO-1 for 8 steps writing sharded directories (every 4 steps), the
+    step-4 directory through ``verify-checkpoint``, then resumed from it at
+    fsdp=N/2 and at tp=N/2: the resumed losses against the uninterrupted
+    run's at DP_TOL's loss tolerance (another width splits the rows
+    otherwise)."""
+    import dataclasses
+    import shutil
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K
+
+    cfg = cfg or dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused",
+                                     flash_fused_min_seq=0, ffn_impl="pallas",
+                                     remat_policy="save_attn")
+    shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
+    PARALLEL_WORK.mkdir(parents=True)
+    try:
+        zipf_tokens(cfg.vocab_size, 2_000_000, 15).tofile(PARALLEL_WORK / "tokens.bin")
+        cfg.to_json(PARALLEL_WORK / "model.json")
+
+        def torchrun(n: int, ck: Path, *extra) -> tuple[dict, float]:
+            argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    f"--nproc-per-node={n}", *PORT_CLI, "train", "--data",
+                    str(PARALLEL_WORK / "tokens.bin"), "--model-config",
+                    str(PARALLEL_WORK / "model.json"), "--steps", "8", "--batch-size", "8",
+                    "--log-every", "2", "--eval-every", "1000", "--checkpoint-every", "4",
+                    "--lr", "6e-4", "--min-lr", "6e-5", "--warmup", "2", "--prefetch", "0",
+                    "--checkpoint-dir", str(ck), "--device", device, *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            require(proc.returncode == 0, f"19 torchrun x{n} {extra} exit {proc.returncode}: "
+                    f"{proc.stderr[-3000:]}")
+            return json.loads((ck / "summary.json").read_text()), wall
+
+        ck = PARALLEL_WORK / "ck"
+        full, wall_full = torchrun(world, ck, "--parallel", "fsdp", "--mesh", f"data={world}",
+                                   "--opt-sharding", "zero1")
+        step4 = ck / "step_00000004.ckpt"
+        require(step4.is_dir() and (ck / "latest.ckpt").is_symlink(),
+                f"19: {step4} is not a directory or latest.ckpt no link")
+        port_cli("verify-checkpoint", str(step4))
+        want = {r["step"]: r["loss"] for r in full["history"]}
+        half = max(world // 2, 1)
+        got, walls = {}, {"fsdp": wall_full}
+        for name, flags in (("fsdp", ("--parallel", "fsdp", "--mesh", f"data={half}",
+                                      "--opt-sharding", "zero1")),
+                            ("tp", ("--parallel", "tp", "--mesh", f"model={half}"))):
+            ck_r = PARALLEL_WORK / f"ck_{name}"
+            ck_r.mkdir()
+            shutil.copytree(step4, ck_r / step4.name)
+            resumed, walls[f"resumed {name}"] = torchrun(half, ck_r, *flags, "--resume",
+                                                         str(ck_r / step4.name))
+            got[name] = {r["step"]: r["loss"] for r in resumed["history"]}
+        rel = {name: max(abs(g[s] - want[s]) / abs(want[s]) for s in g) for name, g in
+               got.items()}
+        log(f"19 train CLI under torchrun: fsdp={world} zero1 8 steps {want} "
+            f"({wall_full:.1f} s wall), its step-4 directory resumed at fsdp={half} zero1 "
+            f"{got['fsdp']} and tp={half} {got['tp']} (walls {walls}); max rel diffs {rel} "
+            f"(tol {DP_TOL['loss_rel']:g}) on {smi}")
+        require(all(sorted(g) == [6, 8] for g in got.values())
+                and all(v <= DP_TOL["loss_rel"] for v in rel.values()),
+                f"19: resumed runs {got} vs {want}")
+        return {"full": want, "resumed": got, "rel": rel, "wall_s": walls}
+    finally:
+        shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
 
 
 def leaf_drift(got: list, want: list) -> dict:
@@ -5900,11 +6283,12 @@ def cli_resume_across_widths(smi: str, world: int, cfg=None, device: str = "cuda
         shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
 
 
-def main_parallel(world: int) -> int:
-    """``chip_smoke.py --phase 18 [--world N]``: the build, then phase 18
-    alone: at world 1 the default run's phase 18, at world N > 1 one rank
-    process a card (NCCL) for dp, ZeRO-1 and the sp grids, then the
-    ``train`` CLI under ``torchrun``."""
+def main_parallel(world: int, phase: int = 18) -> int:
+    """``chip_smoke.py --phase 18|19 [--world N]``: the build, then the
+    phase alone: at world 1 the default run's phases 18 and 19, at world N
+    > 1 one rank process a card (NCCL) for dp, ZeRO-1 and the sp grids
+    (18) or the GSPMD strategies (19), then the ``train`` CLI under
+    ``torchrun``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5934,17 +6318,22 @@ def main_parallel(world: int) -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({built})")
     t0 = time.perf_counter()
     if world == 1:
-        counts = phase_parallel(torch, smi)
-        log(f"18 launches {counts}")
+        counts, counts19 = phase_parallel(torch, smi)
+        log(f"18 launches {counts}; 19 launches {counts19}")
     else:
-        outs = launch([__file__, "--phase", "18", "--world", str(world), "--rank-child"], world,
-                      timeout=900, cwd=ROOT)
+        outs = launch([__file__, "--phase", str(phase), "--world", str(world), "--rank-child"],
+                      world, timeout=900, cwd=ROOT)
         print(outs[0], end="", flush=True)
-        log(f"18 ranks: ok ({time.perf_counter() - t0:.1f} s)")
-        cli = cli_resume_across_widths(smi, world)
+        log(f"{phase} ranks: ok ({time.perf_counter() - t0:.1f} s)")
+        if phase == 18:
+            cli = cli_resume_across_widths(smi, world)
+            name = "chip_smoke_parallel4_cli.json"
+        else:
+            cli = cli_sharded_resume(smi, world)
+            name = "chip_smoke_sharded4_cli.json"
         OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / "chip_smoke_parallel4_cli.json").write_text(json.dumps(cli, indent=1))
-    log(f"phase 18 across {world} card(s): ok ({time.perf_counter() - t0:.1f} s)")
+        (OUT_DIR / name).write_text(json.dumps(cli, indent=1))
+    log(f"phase {phase} across {world} card(s): ok ({time.perf_counter() - t0:.1f} s)")
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": world},
@@ -6064,13 +6453,12 @@ def main() -> int:
         shutil.rmtree(SURFACE_WORK, ignore_errors=True)
     log(f"phase 17 the native tokenizer, the adapters, attribution and warmup: ok "
         f"({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    # Phase 18's main path is dp (ZeRO-1) and sp over a process group: its
-    # launches are added to every kernel's count.
-    for name, n in phase_parallel(torch, smi).items():
-        counts[name] = counts.get(name, 0) + n
-    log(f"phase 18 data and sequence parallelism over a process group (world 1): ok "
-        f"({time.perf_counter() - t0:.1f} s)")
+    # Phase 18's main path is dp (ZeRO-1) and sp over a process group, and
+    # phase 19's fsdp and fsdp_tp over the same group: their launches are
+    # added to every kernel's count.
+    counts18, counts19 = phase_parallel(torch, smi)
+    for name in KERNEL_META:
+        counts[name] = counts.get(name, 0) + counts18[name] + counts19[name]
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -6097,10 +6485,10 @@ def _args(argv: list) -> dict:
     import argparse
 
     parser = argparse.ArgumentParser(description="Run the port on the card and check it.")
-    parser.add_argument("--phase", type=int, choices=[18], default=None,
+    parser.add_argument("--phase", type=int, choices=[18, 19], default=None,
                         help="run the build and this phase alone")
     parser.add_argument("--world", type=int, default=1,
-                        help="cards for --phase 18 (one rank process a card)")
+                        help="cards for --phase 18 or 19 (one rank process a card)")
     parser.add_argument("--rank-child", action="store_true", help=argparse.SUPPRESS)
     return vars(parser.parse_args(argv))
 
@@ -6112,10 +6500,10 @@ if __name__ == "__main__":
             import torch
 
             sys.path.insert(0, str(ROOT))
-            parallel_rank(torch)
+            (sharded_rank if opts["phase"] == 19 else parallel_rank)(torch)
             sys.exit(0)
-        if opts["phase"] == 18:
-            sys.exit(main_parallel(opts["world"]))
+        if opts["phase"] in (18, 19):
+            sys.exit(main_parallel(opts["world"], opts["phase"]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

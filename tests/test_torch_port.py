@@ -223,9 +223,16 @@ assert xs.shape == (2, 2, 8) and xs.device.type == "cpu", xs.shape
 sp_params, _, metrics = make_sp_train_step(cfg, TrainHParams(), ring, zigzag=True)(
     sp_params, adamw_init(sp_params), xs, ys)
 assert np.isfinite(float(metrics["loss"])) and sp_params["lm_head"].device.type == "cpu"
-# Across cards: slice 10c's strategies and a supervised torchrun group exit 2.
-from bpe_transformer_tpu_torch.parallel import initialize_distributed, make_mesh
-for extra in (["--parallel", "fsdp"], ["--parallel", "dp", "--supervise"]):
+# Across cards: slice 10d's strategies and a supervised torchrun group exit 2.
+from bpe_transformer_tpu_torch.models.transformer import abstract_params
+from bpe_transformer_tpu_torch.parallel import (
+    initialize_distributed,
+    make_gspmd_train_step,
+    make_hybrid_mesh,
+    make_mesh,
+)
+for extra in (["--parallel", "pp"], ["--parallel", "dp_ep"], ["--sp-ulysses"],
+              ["--parallel", "dp", "--supervise"]):
     with contextlib.redirect_stderr(io.StringIO()):
         assert cli_main(["train", "--data", str(work / "tokens.bin"), "--model-config",
                          str(work / "cfg.json"), "--device", "cpu", *extra]) == 2, extra
@@ -244,6 +251,11 @@ if not torch.cuda.is_available():
         lambda: make_mesh({"data": 1}),
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2, parallel="dp"),
                       tokens),
+        lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2, parallel="fsdp"),
+                      tokens),
+        lambda: make_gspmd_train_step(cfg, TrainHParams(), make_mesh({"data": 1}), "fsdp",
+                                      example_params=abstract_params(cfg)),
+        lambda: make_hybrid_mesh({"data": 1}),
         *[lambda argv=argv: cli_main(argv) for argv in model_cmds.values()],
     ):
         try:
@@ -410,6 +422,295 @@ def _warmup_and_profile_match_jax(stdout: str):
             assert port_main(argv + ["--device", "cpu"]) == 2, extra
 
 
+# One gloo rank of the GSPMD world: the port's sharded steps, with JAX and
+# the JAX package refused.
+_GSPMD_RANK = r"""
+import json, os, pickle, sys
+sys.modules["jax"] = None
+sys.modules["bpe_transformer_tpu"] = None
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from bpe_transformer_tpu_torch.models import ModelConfig
+from bpe_transformer_tpu_torch.models.transformer import abstract_params, params_from_jax
+from bpe_transformer_tpu_torch.parallel import (
+    gather_params, make_gspmd_train_step, make_hybrid_mesh, make_mesh, shard_batch)
+from bpe_transformer_tpu_torch.telemetry.dynamics import flatten_dynamics
+from bpe_transformer_tpu_torch.telemetry.health import flatten_health
+from bpe_transformer_tpu_torch.training.loop import _fetch
+from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+from bpe_transformer_tpu_torch.tree import tree_leaves
+work = Path(sys.argv[1])
+spec = json.loads((work / "spec.json").read_text())
+inits = pickle.loads((work / "inits.pkl").read_bytes())
+batch = np.load(work / "batch.npz")
+out = {}
+for name, cfg_kw, strategy, axes, kw in spec["cases"]:
+    cfg = ModelConfig(**cfg_kw)
+    mesh = make_mesh(axes, device="cpu")
+    step = make_gspmd_train_step(cfg, TrainHParams(**spec["hparams"]), mesh, strategy,
+                                 example_params=abstract_params(cfg), **kw)
+    lay = step.layout
+    params, opt = lay.shard(params_from_jax(inits[name], "cpu")), lay.init_opt_state()
+    losses = []
+    for x, y in spec["calls"][name]:
+        x, y = np.asarray(x), np.asarray(y)
+        params, opt, m = step(params, opt, *shard_batch((x, y), mesh, stacked=x.ndim == 3))
+        m = _fetch(m)
+        losses.append(m["loss"])
+    moments = [gather_params(t, mesh, specs=lay.moment_specs) for t in (opt.m, opt.v)]
+    out[name] = {"losses": losses, "grad_norm": m["grad_norm"], "step": int(opt.step),
+                 "params": [t.numpy() for t in tree_leaves(lay.gather(params))],
+                 "opt": [t.numpy() for t in tree_leaves(moments)],
+                 "block_shapes": [tuple(t.shape) for t in tree_leaves(opt.m)]}
+    if kw.get("health"):
+        out[name]["health"] = flatten_health(m["health"])
+        out[name]["dynamics"] = flatten_dynamics(m["dynamics"])
+    if name == "dp_tp zero1":
+        # The GSPMD probe: off the card no trace splits the collectives off.
+        from bpe_transformer_tpu_torch.telemetry.attribution import StepProbe
+        probe = StepProbe(cfg, TrainHParams(**spec["hparams"]), batch_size=4, mesh=mesh,
+                          parallel=strategy, opt_sharding="zero1", iters=1, device="cpu")
+        out["probe"] = probe.attribution_record(params, opt, step=2, wall_step_s=1.0, t=0.0)
+# The hybrid mesh: the degenerate case, the JAX function's errors, and the
+# rank order with a dcn axis over two hosts of two ranks.
+out["hybrid"] = {"plain": make_hybrid_mesh({"data": 2, "model": 2}, device="cpu").shape}
+for ici, dcn in (({"data": 4}, {"model": 2}), ({"data": 4}, {"data": 2})):
+    try:
+        make_hybrid_mesh(ici, dcn, device="cpu")
+    except ValueError as exc:
+        out["hybrid"][json.dumps([ici, dcn])] = str(exc)
+os.environ["LOCAL_WORLD_SIZE"] = "2"
+hm = make_hybrid_mesh({"data": 2, "model": 1}, {"model": 2}, device="cpu")
+grids = [None] * 4
+torch.distributed.all_gather_object(grids, (hm.shape, hm.grid.tolist(), hm.coords))
+out["hybrid"]["grids"] = grids
+if mesh.rank == 0:
+    (work / "gspmd_out.pkl").write_bytes(pickle.dumps(out))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _gspmd_matches_jax(tmp_path):
+    """Slice 10c's specs and steps held against the JAX package's.  The
+    specs need no process: the port's ``param_specs`` and
+    ``zero1_opt_specs`` (abstract leaves on the ``meta`` device) equal
+    JAX's (``eval_shape`` leaves on conftest's 8 CPU devices) for every
+    leaf, under ``dp``, ``fsdp``, ``tp``, ``fsdp_tp`` and ``dp_tp`` on
+    ``{"data": 8}``, ``{"data": 4, "model": 2}`` and ``{"data": 2,
+    "model": 4}``, for the tiny test config, a GQA config whose kv heads do
+    not divide ``model``, one whose head count does not, TINYSTORIES_MOE,
+    and GPT2_SMALL_32K's and GPT2_MEDIUM's shapes; ``ep`` raises for slice
+    10d.  The steps: a gloo world of 4 ranks (``parallel/launch.py``, jax
+    refused) runs ``make_gspmd_train_step`` against JAX's on the same mesh
+    shape (4 of conftest's devices), float32: fsdp on ``data=4``, tp on
+    ``model=4``, fsdp_tp, dp_tp with ZeRO-1 (the moments split over
+    ``data`` on top of ``model``), accumulation and inner steps under
+    fsdp_tp, health and dynamics under fsdp_tp with ZeRO-1, the GQA and
+    odd-head configs under tp (their attention gathered over ``model``),
+    and a TINYSTORIES_MOE-shaped tiny MoE under fsdp (the tokens of every
+    data rank routed as one group, as XLA routes the global batch):
+    losses, grad norms, every weight and every moment within 2e-5 (the JAX
+    ZeRO-1 test's tolerance), the taps' records within ``_same_flat``'s.
+    The world also builds hybrid meshes: the degenerate one, JAX's two
+    errors word for word, and the rank grid with a dcn axis under a faked
+    ``LOCAL_WORLD_SIZE``."""
+    import dataclasses
+    import json
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import pytest
+    from jax.sharding import PartitionSpec
+
+    from bpe_transformer_tpu.models import init_params as jax_init_params
+    from bpe_transformer_tpu.models.config import ModelConfig as JaxModelConfig
+    from bpe_transformer_tpu.optim import AdamWState as JaxAdamWState
+    from bpe_transformer_tpu.optim import adamw_init as jax_adamw_init
+    from bpe_transformer_tpu.parallel import make_hybrid_mesh as jax_make_hybrid_mesh
+    from bpe_transformer_tpu.parallel import make_mesh as jax_make_mesh
+    from bpe_transformer_tpu.parallel import sharding as jax_sharding
+    from bpe_transformer_tpu.parallel.train_step import make_gspmd_train_step as jax_gspmd_step
+    from bpe_transformer_tpu.parallel.train_step import shard_batch as jax_shard_batch
+    from bpe_transformer_tpu.telemetry import dynamics as jax_dynamics
+    from bpe_transformer_tpu.telemetry import health as jax_health
+    from bpe_transformer_tpu.telemetry.attribution import StepProbe as JaxStepProbe
+    from bpe_transformer_tpu.training.train_step import TrainHParams as JaxTrainHParams
+    from bpe_transformer_tpu_torch.models import (
+        GPT2_MEDIUM,
+        GPT2_SMALL_32K,
+        TINYSTORIES_MOE,
+        TS_TEST_CONFIG,
+        ModelConfig,
+    )
+    from bpe_transformer_tpu_torch.models.transformer import abstract_params
+    from bpe_transformer_tpu_torch.parallel import launch, make_gspmd_train_step
+    from bpe_transformer_tpu_torch.parallel.sharding import (
+        param_specs,
+        spec_leaves,
+        zero1_opt_specs,
+    )
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+
+    def _same_flat(got: dict, want: dict, what: str) -> None:
+        # test_torch_training's rule: the same keys in order, values within
+        # 1e-5 relative (attention entropy 1e-4 absolute), paths equal.
+        assert list(got) == list(want), (what, list(got), list(want))
+        for key, w in want.items():
+            if isinstance(w, str):
+                assert got[key] == w, (what, key)
+            elif key.startswith("attn_entropy/"):
+                np.testing.assert_allclose(got[key], w, atol=1e-4, rtol=0, err_msg=key)
+            else:
+                np.testing.assert_allclose(got[key], w, rtol=1e-5, atol=1e-7, equal_nan=True,
+                                           err_msg=f"{what} {key}")
+
+    def jax_cfg(cfg):
+        return JaxModelConfig(**dataclasses.asdict(cfg))
+
+    tiny = dataclasses.replace(TS_TEST_CONFIG, vocab_size=256, num_layers=2)
+    gqa = dataclasses.replace(tiny, num_kv_heads=2)
+    odd = dataclasses.replace(tiny, d_model=96, num_heads=3)
+    moe = dataclasses.replace(tiny, ffn_type="moe", n_experts=8, router_top_k=2,
+                              capacity_factor=1.25)
+
+    # The specs, leaf for leaf.
+    meshes = {"8": {"data": 8}, "4x2": {"data": 4, "model": 2}, "2x4": {"data": 2, "model": 4}}
+    jax_meshes = {k: jax_make_mesh(axes) for k, axes in meshes.items()}
+    for cfg in (tiny, gqa, odd, TINYSTORIES_MOE, GPT2_SMALL_32K, GPT2_MEDIUM):
+        full = abstract_params(cfg)
+        shapes = jax.eval_shape(lambda c=jax_cfg(cfg): jax_init_params(jax.random.PRNGKey(0), c))
+        for strategy in ("dp", "fsdp", "tp", "fsdp_tp", "dp_tp"):
+            for key, axes in meshes.items():
+                for port_fn, jax_fn in ((param_specs, jax_sharding.param_specs),
+                                        (zero1_opt_specs, jax_sharding.zero1_opt_specs)):
+                    got = spec_leaves(full, port_fn(full, axes, strategy))
+                    want = jax.tree_util.tree_flatten(
+                        jax_fn(shapes, jax_meshes[key], strategy),
+                        is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
+                    want = [tuple(w) + (None,) * (len(g) - len(w)) for g, w in zip(got, want)]
+                    assert got == want, (cfg.d_model, cfg.ffn_type, strategy, key, port_fn)
+    for strategy in ("ep", "dp_ep", "fsdp_ep"):
+        with pytest.raises(NotImplementedError, match="slice 10d"):
+            param_specs(abstract_params(tiny), meshes["4x2"], strategy)
+    with pytest.raises(NotImplementedError, match="slice 10d"):
+        make_gspmd_train_step(tiny, TrainHParams(), None, "dp_ep",
+                              example_params=abstract_params(tiny))
+
+    # The steps, world 4 against JAX on 4 devices.
+    hp = dict(warmup_iters=1, cosine_cycle_iters=10)
+    S, B = tiny.context_length, 4
+    rng = np.random.default_rng(17)
+    x, y = (rng.integers(0, tiny.vocab_size, size=(2, B, S)) for _ in range(2))
+    grid = {"data": 2, "model": 2}
+    cases = [
+        ("fsdp", tiny, "fsdp", {"data": 4}, {}),
+        ("tp", tiny, "tp", {"model": 4}, {}),
+        ("fsdp_tp", tiny, "fsdp_tp", grid, {}),
+        ("dp_tp zero1", tiny, "dp_tp", grid, {"opt_sharding": "zero1"}),
+        ("fsdp_tp accum", tiny, "fsdp_tp", grid, {"accum_steps": 2}),
+        ("fsdp_tp inner", tiny, "fsdp_tp", grid, {"inner_steps": 2}),
+        ("fsdp_tp zero1 taps", tiny, "fsdp_tp", grid,
+         {"opt_sharding": "zero1", "health": True, "dynamics": True}),
+        ("tp gqa", gqa, "tp", {"model": 4}, {}),
+        ("tp odd heads", odd, "tp", {"model": 4}, {}),
+        ("fsdp moe", moe, "fsdp", {"data": 4}, {}),
+    ]
+
+    def calls_of(kw):
+        if kw.get("inner_steps"):
+            return [(x, y)]
+        if kw.get("accum_steps"):
+            return [(a.reshape(2, B // 2, S), b.reshape(2, B // 2, S)) for a, b in zip(x, y)]
+        return list(zip(x, y))[:1 if kw.get("health") else None]
+
+    inits = {name: jax.device_get(jax_init_params(jax.random.PRNGKey(17), jax_cfg(cfg)))
+             for name, cfg, *_ in cases}
+    work = tmp_path / "gspmd"
+    work.mkdir()
+    (work / "inits.pkl").write_bytes(pickle.dumps(inits))
+    np.savez(work / "batch.npz", x=x, y=y)
+    (work / "spec.json").write_text(json.dumps({
+        "hparams": hp,
+        "cases": [(name, dataclasses.asdict(cfg), strategy, axes, kw)
+                  for name, cfg, strategy, axes, kw in cases],
+        "calls": {name: [(a.tolist(), b.tolist()) for a, b in calls_of(kw)]
+                  for name, _, _, _, kw in cases},
+    }))
+    (work / "rank.py").write_text(_GSPMD_RANK)
+    env = {"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    with ThreadPoolExecutor(1) as pool:
+        world = pool.submit(launch, [work / "rank.py", work], 4, env=env, timeout=400)
+        want = {}
+        for name, cfg, strategy, axes, kw in cases:
+            mesh = jax_make_mesh(axes, devices=jax.devices()[:4])
+            p = jax_sharding.shard_params(jax.tree_util.tree_map(jnp.asarray, inits[name]), mesh,
+                                          strategy)
+            opt = jax_adamw_init(p)
+            if kw.get("opt_sharding"):
+                sh = jax_sharding.zero1_opt_shardings(p, mesh, strategy)
+                opt = JaxAdamWState(step=opt.step, m=jax.device_put(opt.m, sh),
+                                    v=jax.device_put(opt.v, sh))
+            step = jax_gspmd_step(jax_cfg(cfg), JaxTrainHParams(**hp), mesh, strategy,
+                                  example_params=p, **kw)
+            losses = []
+            for a, b in calls_of(kw):
+                p, opt, m = step(p, opt, *jax_shard_batch((jnp.asarray(a), jnp.asarray(b)),
+                                                          mesh, stacked=a.ndim == 3))
+                m = jax.device_get(m)
+                losses.append(float(m["loss"]))
+            want[name] = {"losses": losses, "grad_norm": float(m["grad_norm"]),
+                          "step": int(opt.step),
+                          "params": jax.tree_util.tree_leaves(jax.device_get(p)),
+                          "opt": jax.tree_util.tree_leaves(jax.device_get((opt.m, opt.v))),
+                          "block_shapes": [tuple(a.addressable_shards[0].data.shape)
+                                           for a in jax.tree_util.tree_leaves(opt.m)]}
+            if kw.get("health"):
+                want[name]["health"] = jax_health.flatten_health(m["health"])
+                want[name]["dynamics"] = jax_dynamics.flatten_dynamics(m["dynamics"])
+        jax_errors = {}
+        for ici, dcn in (({"data": 4}, {"model": 2}), ({"data": 4}, {"data": 2})):
+            with pytest.raises(ValueError) as info:
+                jax_make_hybrid_mesh(ici, dcn, devices=jax.devices()[:4])
+            jax_errors[json.dumps([ici, dcn])] = str(info.value)
+        plain = jax_make_hybrid_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4])
+        mesh = jax_make_mesh(grid, devices=jax.devices()[:4])
+        p = jax_sharding.shard_params(jax.tree_util.tree_map(jnp.asarray, inits["fsdp"]), mesh,
+                                      "dp_tp")
+        jax_record = JaxStepProbe(jax_cfg(tiny), JaxTrainHParams(**hp), batch_size=4, iters=1,
+                                  mesh=mesh, parallel="dp_tp").attribution_record(
+            p, jax_adamw_init(p), step=2, wall_step_s=1.0, t=0.0)
+        world.result()
+    got = pickle.loads((work / "gspmd_out.pkl").read_bytes())
+    for name, *_ in cases:
+        g, w = got[name], want[name]
+        np.testing.assert_allclose(g["losses"], w["losses"], atol=2e-5, rtol=0, err_msg=name)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], atol=2e-5, rtol=0,
+                                   err_msg=name)
+        assert g["step"] == w["step"] and g["block_shapes"] == w["block_shapes"], name
+        for a, b in zip(g["params"] + g["opt"], w["params"] + w["opt"], strict=True):
+            np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=0, err_msg=name)
+        if "health" in w:
+            _same_flat(g["health"], w["health"], f"{name} health")
+            _same_flat(g["dynamics"], w["dynamics"], f"{name} dynamics")
+    record = got["probe"]
+    assert set(record) == set(jax_record) | {"probe_wall_step_s", "device_time_from"}, (
+        set(record) ^ set(jax_record))
+    assert record["collective_frac"] is None and jax_record["collective_frac"] is None
+    hybrid = got["hybrid"]
+    assert hybrid["plain"] == dict(plain.shape) == {"data": 2, "model": 2}
+    assert {k: v for k, v in hybrid.items() if k.startswith("[")} == jax_errors
+    # ici data=2 inside a host of two ranks, dcn model=2 across the hosts:
+    # rank = host * 2 + data index, host = the model index.
+    grids = hybrid["grids"]
+    assert all(list(g[:2]) == [{"data": 2, "model": 2}, [[0, 2], [1, 3]]] for g in grids), grids
+    assert [g[2] for g in grids] == [{"data": r % 2, "model": r // 2} for r in range(4)]
+
+
 def test_torch_port_is_jax_free_and_card_first(tmp_path):
     # Statically: no import of jax or of the JAX package in the port's
     # sources or in chip_smoke.py.
@@ -429,6 +730,7 @@ def test_torch_port_is_jax_free_and_card_first(tmp_path):
     assert "JAX-FREE OK" in proc.stdout
     _tools_match_jax(tmp_path)
     _warmup_and_profile_match_jax(proc.stdout)
+    _gspmd_matches_jax(tmp_path)
     proc = subprocess.run([sys.executable, "-c", _TORCH_FREE_SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "TORCH-FREE OK" in proc.stdout, proc.stderr[-3000:]

@@ -25,6 +25,8 @@ data parallelism, ZeRO-1 and sequence parallelism across processes, each
 rank a gloo process on the CPU started by the port's ``launch``, against
 the JAX package's steps and loop on virtual CPU devices (2e-5, the JAX
 ZeRO-1 test's tolerance) and against the port's stacked ring (1e-5).
+Loop (n): sharded parameters in the loop and the sharded checkpoint
+directory (format v2), both ways between the packages.
 """
 
 import dataclasses
@@ -454,14 +456,14 @@ def _sp_step():
     for got, want in zip(tree_leaves(grads), tree_leaves(want_grads), strict=True):
         _close(got, want, 1e-5, "zig-zag sp grads")
 
-    # JAX's argument errors; Ulysses raises for slice 10c.  Scanned inner
+    # JAX's argument errors; Ulysses raises for slice 10d.  Scanned inner
     # steps run: two updates a call equal two calls of one update.
     hparams = TrainHParams(**hp)
     for kw, error, match in [
         (dict(accum_steps=0), ValueError, "accum_steps"),
         (dict(accum_steps=2, inner_steps=2), ValueError, "cannot both"),
         (dict(zigzag=True, ulysses=True), ValueError, "mutually exclusive"),
-        (dict(ulysses=True), NotImplementedError, "slice 10c"),
+        (dict(ulysses=True), NotImplementedError, "slice 10d"),
     ]:
         with pytest.raises(error, match=match):
             make_sp_train_step(cfg, hparams, ring, **kw)
@@ -485,11 +487,11 @@ def _sp_step():
         with pytest.raises(ValueError, match="ring_kv_chunk"):
             make_sp_train_step(c, hparams, ring, **kw)
     # The loop's parallel="sp" runs one rank a process (loop (m)): outside a
-    # launched world it has no group to join; sp_ulysses waits for slice 10c.
+    # launched world it has no group to join; sp_ulysses waits for slice 10d.
     with pytest.raises(RuntimeError, match="torchrun"):
         train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp"),
               np.zeros(100, np.uint16), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10c"):
+    with pytest.raises(NotImplementedError, match="slice 10d"):
         train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp", sp_ulysses=True),
               np.zeros(100, np.uint16), device="cpu")
 
@@ -822,12 +824,14 @@ def _loop_telemetry_and_faults(tmp_path):
                    loop_cls(**{**base, **kw}), data, log_fn=quiet, **extra)
             messages.append(str(exc.value).split(" — ")[0])
         assert messages[0] == messages[1], (kw, messages)
-    # dp and sp run in a launched world (loop (m)); slice 10c's fields raise.
-    with pytest.raises(RuntimeError, match="torchrun"):
-        train(cfg, TrainHParams(), LoopConfig(**base, parallel="dp"), data, device="cpu")
-    for kw in (dict(parallel="fsdp"), dict(parallel="tp"), dict(parallel="pp"),
-               dict(parallel="ep"), dict(sp_ulysses=True)):
-        with pytest.raises(NotImplementedError, match="slice 10c"):
+    # dp, sp and the GSPMD strategies run in a launched world (loops (m)
+    # and (n)); slice 10d's fields raise.
+    for strategy in ("dp", "fsdp", "tp", "fsdp_tp"):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train(cfg, TrainHParams(), LoopConfig(**base, parallel=strategy), data, device="cpu")
+    for kw in (dict(parallel="pp"), dict(parallel="ep"), dict(parallel="fsdp_ep"),
+               dict(sp_ulysses=True)):
+        with pytest.raises(NotImplementedError, match="slice 10d"):
             train(cfg, TrainHParams(), LoopConfig(**{**base, **kw}), data, device="cpu")
 
     # The port alone: prefetch, inner steps, async checkpoints.
@@ -1237,14 +1241,13 @@ def _attribution_and_debug(tmp_path):
     with pytest.raises(ValueError, match="multiple of log_every"):
         train(cfg, TrainHParams(), LoopConfig(steps=4, batch_size=batch, log_every=2,
                                              attribution_every=3), tokens, device="cpu")
-    # The dp probe runs on a mesh (loop (m)); sp is refused with JAX's
-    # message, slice 10c's strategies for that slice.
-    with pytest.raises(ValueError, match="a mesh go together"):
-        StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="dp", device="cpu")
+    # The dp and GSPMD probes run on a mesh (loop (m), the GSPMD world of
+    # test_torch_port); sp is refused with JAX's message.
+    for strategy in ("dp", "fsdp"):
+        with pytest.raises(ValueError, match="a mesh go together"):
+            StepProbe(cfg, TrainHParams(), batch_size=batch, parallel=strategy, device="cpu")
     with pytest.raises(ValueError, match='not supported with parallel="sp"'):
         StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="sp", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10c"):
-        StepProbe(cfg, TrainHParams(), batch_size=batch, parallel="fsdp", device="cpu")
 
     # check_finite: the JAX package's message, on params and on an AdamW state.
     params = params_from_jax(jax_params, "cpu")
@@ -1600,17 +1603,176 @@ def _multi_gpu(tmp_path):
             for got_leaf, want_leaf in zip(g["params"], leaves, strict=True):
                 _close(got_leaf, want_leaf, tol, f"sp {name} params vs {against}")
 
-    # What slice 10c brings is refused by name: the v2 checkpoint directory
-    # (the JAX package writes it for its GSPMD strategies only) and the
-    # GSPMD step.
+    # What slice 10d brings is refused by name: expert parallelism, the
+    # GPipe pipeline and Ulysses.
+    from bpe_transformer_tpu_torch.models.transformer import abstract_params
     from bpe_transformer_tpu_torch.parallel import make_gspmd_train_step
 
-    with pytest.raises(ValueError, match="slice 10c"):
-        load_checkpoint(work / "dp_ck")
-    with pytest.raises(NotImplementedError, match="slice 10c"):
-        integrity.verify_checkpoint(work / "dp_ck")
-    with pytest.raises(NotImplementedError, match="slice 10c"):
-        make_gspmd_train_step(cfg, TrainHParams(), None, strategy="fsdp")
+    with pytest.raises(NotImplementedError, match="slice 10d"):
+        make_gspmd_train_step(cfg, TrainHParams(), None, strategy="fsdp_ep",
+                              example_params=abstract_params(cfg))
+    for kw in (dict(parallel="pp"), dict(parallel="dp_ep"), dict(sp_ulysses=True)):
+        with pytest.raises(NotImplementedError, match="slice 10d"):
+            train(cfg, TrainHParams(), LoopConfig(**lp, **kw), tokens, device="cpu")
+
+
+_FSDP_RANK = _RANK_PRELUDE + """
+mode = sys.argv[2]
+data = np.load(work / "tokens.npy")
+if mode == "fsdp4":
+    # ZeRO-1 FSDP on four ranks from the JAX-written single file; writes
+    # sharded directories.
+    loop = LoopConfig(**spec["loop"], parallel="fsdp", mesh_axes={"data": 4},
+                      opt_sharding="zero1", checkpoint_dir=str(work / "port_ck"),
+                      metrics_jsonl=str(work / "fsdp.jsonl"))
+    resume = work / "init.ckpt"
+else:
+    # The JAX package's fsdp=4 directory resumed at fsdp=2.
+    loop = LoopConfig(**{**spec["loop"], "steps": 6}, parallel="fsdp", mesh_axes={"data": 2},
+                      checkpoint_dir=str(work / "resumed_ck"))
+    resume = work / "jax_ck" / "step_00000004.ckpt"
+summary = train(cfg, TrainHParams(**spec["loop_hparams"]), loop, data, data, resume_from=resume,
+                device="cpu", log_fn=lambda *a: None)
+if torch.distributed.get_rank() == 0:
+    (work / f"{mode}.json").write_text(json.dumps(
+        {"losses": [r["loss"] for r in summary["history"]], "val": summary["final_val_loss"]}))
+"""
+
+
+def _sharded_loop(tmp_path):
+    """(n) Sharded parameters in the loop and the sharded checkpoint
+    directory (format v2), both ways.  The JAX package's ``train`` under
+    fsdp with ZeRO-1 on 4 of conftest's devices writes directories at
+    steps 2, 4 and 6.  Against it, within 2e-5: the port's
+    ``train(parallel="fsdp", opt_sharding="zero1")`` over a gloo world of 4
+    ranks (``parallel/launch.py``, jax refused) from the same JAX-written
+    single file, whose step-4 directory (written from four ranks, each the
+    writer of its own blocks) JAX's ``load_checkpoint_sharded`` and
+    ``verify_checkpoint`` read as JAX's own step 4; and JAX's step-4
+    directory resumed by the port at fsdp=2 (world 2) and at world 1
+    (dense), each reading its blocks, to JAX's uninterrupted losses.  Then
+    JAX's own cases on the port: a manifest whose shards leave a gap is
+    refused, a checkpoint stranded by a crashed swap is recovered and
+    promoted, and a corrupt shard is quarantined with the fallback to the
+    prior snapshot, the same verdicts and files as the JAX package's on a
+    copy of the same directory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bpe_transformer_tpu.checkpointing import load_checkpoint_sharded as jax_load_sharded
+    from bpe_transformer_tpu_torch.checkpointing.checkpoint import load_checkpoint_sharded
+    from bpe_transformer_tpu_torch.parallel import launch
+
+    cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=256, num_layers=1)
+    jcfg = _jax_config(cfg)
+    loop_hp = dict(warmup_iters=1, cosine_cycle_iters=6, max_learning_rate=1e-2)
+    lp = dict(steps=4, batch_size=4, log_every=2, eval_every=4, eval_batches=2,
+              checkpoint_every=4, seed=3)
+    rng = np.random.default_rng(18)
+    tokens = rng.integers(0, cfg.vocab_size, size=4000).astype(np.uint16)
+    work = tmp_path / "sharded"
+    work.mkdir()
+    host = jax.device_get(jax_init_params(jax.random.PRNGKey(18), jcfg))
+    jax_save_checkpoint(work / "init.ckpt", params=host, iteration=0,
+                        opt_state=jax_adamw_init(jax.tree_util.tree_map(jnp.asarray, host)))
+    np.savez(work / "batch.npz", x=np.zeros(1), y=np.zeros(1))
+    np.save(work / "tokens.npy", tokens)
+    (work / "spec.json").write_text(json.dumps(dict(
+        config=dataclasses.asdict(cfg), hparams={}, loop=lp, loop_hparams=loop_hp)))
+    (work / "rank.py").write_text(_FSDP_RANK)
+    env = {"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    import bpe_transformer_tpu.parallel as jax_parallel
+
+    with mock.patch.object(jax_parallel, "make_mesh",
+                           lambda axes: make_mesh(axes, devices=jax.devices()[:4])):
+        jax_run = jax_train(jcfg, JaxTrainHParams(**loop_hp),
+                            JaxLoopConfig(**{**lp, "steps": 6, "checkpoint_every": 2},
+                                          parallel="fsdp", mesh_axes={"data": 4},
+                                          opt_sharding="zero1",
+                                          checkpoint_dir=str(work / "jax_ck")),
+                            tokens, tokens, resume_from=work / "init.ckpt",
+                            log_fn=lambda *a: None)
+    want = [r["loss"] for r in jax_run["history"]]
+    with ThreadPoolExecutor(2) as pool:
+        worlds = [pool.submit(launch, [work / "rank.py", work, "fsdp4"], 4, env=env,
+                              timeout=300),
+                  pool.submit(launch, [work / "rank.py", work, "fsdp2"], 2, env=env,
+                              timeout=300)]
+        # Meanwhile: JAX's step-4 directory at world 1, dense.
+        one = train(cfg, TrainHParams(**loop_hp), LoopConfig(**{**lp, "steps": 6}), tokens,
+                    tokens, resume_from=work / "jax_ck" / "step_00000004.ckpt",
+                    log_fn=lambda *a: None, device="cpu")
+        _close([r["loss"] for r in one["history"]], want[2:], 2e-5,
+               "JAX's fsdp directory resumed at world 1")
+        _close(one["final_val_loss"], jax_run["final_val_loss"], 2e-5, "world-1 eval loss")
+        for world in worlds:
+            world.result()
+    fsdp4 = json.loads((work / "fsdp4.json").read_text())
+    _close(fsdp4["losses"], want[:2], 2e-5, "fsdp zero1 loop losses vs JAX")
+    fsdp2 = json.loads((work / "fsdp2.json").read_text())
+    _close(fsdp2["losses"], want[2:], 2e-5, "JAX's fsdp=4 directory resumed at fsdp=2")
+    _close(fsdp2["val"], jax_run["final_val_loss"], 2e-5, "fsdp=2 eval loss")
+    ours, theirs = work / "port_ck" / "step_00000004.ckpt", work / "jax_ck" / "step_00000004.ckpt"
+    assert os.readlink(work / "port_ck" / "latest.ckpt") == ours.name
+    records = _read_jsonl(work / "fsdp.jsonl")
+    assert [r.get("kind") for r in records].count("manifest") == 1, "one stream, rank 0's"
+    # JAX reads the port's directory as its own: the same files, manifest
+    # records and structure, the same values.
+    assert jax_integrity.verify_checkpoint(ours).ok and integrity.verify_checkpoint(theirs).ok
+    ours_m, theirs_m = (json.loads((d / "manifest.json").read_text()) for d in (ours, theirs))
+    assert ours_m["leaves"] == theirs_m["leaves"] and sorted(ours_m["checksums"]) == sorted(
+        theirs_m["checksums"])
+    # The port writes treedef.pkl as jaxlib 0.9.0 pickles a PyTreeDef.
+    import jaxlib
+
+    assert jaxlib.__version__ == "0.9.0", jaxlib.__version__
+    got, ref = jax_load_sharded(ours), jax_load_sharded(theirs)
+    assert type(got["opt_state"]) is type(ref["opt_state"]) and got["iteration"] == 4
+    state = lambda payload: jax.tree_util.tree_leaves(  # noqa: E731
+        (payload["params"], payload["opt_state"]))
+    for a, b in zip(state(got), state(ref), strict=True):
+        _close(a, b, 2e-5, "the port's directory read by JAX")
+    # A rank reads only its blocks: the block of a leaf split on its first dim.
+    part = load_checkpoint_sharded(theirs, select=lambda path, shape: (
+        ((shape[0] // 2, shape[0]),) + tuple((0, d) for d in shape[1:])
+        if path[:1] == ("params",) else None))
+    whole = load_checkpoint(theirs)
+    emb = whole["params"]["token_embeddings"]
+    np.testing.assert_array_equal(part["params"]["token_embeddings"], emb[emb.shape[0] // 2:])
+
+    # JAX's cases, on the port and on JAX, each on its own copy.
+    def copy(name):
+        dst = work / name
+        shutil.copytree(work / "jax_ck", dst, symlinks=True)
+        return dst
+
+    for pkg, ck in (("port", copy("gap_port")), ("jax", copy("gap_jax"))):
+        victim_dir = ck / "step_00000002.ckpt"
+        manifest = json.loads((victim_dir / "manifest.json").read_text())
+        victim = next(r for r in manifest["leaves"] if "shards" in r)
+        victim["shards"] = victim["shards"][:-1]
+        (victim_dir / "manifest.json").write_text(json.dumps(manifest))
+        loader = load_checkpoint if pkg == "port" else jax_load_sharded
+        with pytest.raises(ValueError, match="cover|incomplete"):
+            loader(victim_dir)
+    for pkg, ck in (("port", copy("orphan_port")), ("jax", copy("orphan_jax"))):
+        target = ck / "step_00000004.ckpt"
+        displaced = ck / "step_00000004.ckpt.old123xyz"
+        displaced.mkdir()
+        (displaced / ".bt_displaced").touch()
+        target.rename(displaced / "d")
+        payload = (load_checkpoint if pkg == "port" else jax_load_sharded)(target)
+        assert payload["iteration"] == 4 and (target / "manifest.json").exists(), pkg
+        assert not list(ck.glob("step_00000004.ckpt.old*")), pkg
+    outcomes = {}
+    for pkg, ck in (("port", copy("corrupt_port")), ("jax", copy("corrupt_jax"))):
+        shard = sorted((ck / "step_00000006.ckpt").glob("leaf_*.000.npy"))[0]
+        shard.write_bytes(shard.read_bytes()[:-8])
+        fallback = load_checkpoint_with_fallback if pkg == "port" else jax_fallback
+        payload, used = fallback(ck / "step_00000006.ckpt")
+        outcomes[pkg] = (payload["iteration"], used.name, sorted(p.name for p in ck.iterdir()))
+    assert outcomes["port"] == outcomes["jax"], outcomes
+    assert outcomes["port"][:2] == (4, "step_00000004.ckpt"), outcomes
+    assert "step_00000006.ckpt.corrupt" in outcomes["port"][2], outcomes
 
 
 def _numpy_tree(tree):
@@ -1641,3 +1803,4 @@ def test_torch_training_matches_jax(tmp_path):
     _moe_loop(tmp_path)
     _attribution_and_debug(tmp_path)
     _multi_gpu(tmp_path)
+    _sharded_loop(tmp_path)
