@@ -29,7 +29,10 @@ in the compute dtype of ``x``.  ``groups`` routes equal consecutive slices
 of the tokens as separate dispatch groups, each with its own capacity and
 aux loss (the aux is their mean): the stacked sequence-parallel ring routes
 each rank's tokens on their own, as every shard does under the JAX
-package's ``shard_map``.
+package's ``shard_map``.  ``expert_axis`` runs the experts split over a mesh
+axis (expert parallelism): every rank of the axis holds the same tokens,
+gathers the router's rows, routes alike, runs its own experts on their
+slots and gathers the experts' outputs for the combine.
 """
 
 from __future__ import annotations
@@ -196,6 +199,7 @@ def switch_ffn(
     config: ModelConfig,
     capacity: int | None = None,
     groups: int = 1,
+    expert_axis=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed SwiGLU experts on ``x (..., d_model)``; returns
     ``(output, aux_loss)``.  All leading dims flatten into one token axis,
@@ -204,7 +208,13 @@ def switch_ffn(
     one derived from ``context_length``, so a few-token call cannot drop a
     token the full forward would keep).  The four stages, :func:`route`,
     :func:`dispatch`, :func:`experts` and :func:`combine`, are looked up at
-    each call."""
+    each call.
+
+    ``expert_axis`` (a ``parallel.mesh.MeshAxis``): ``moe_params`` hold
+    this rank's ``e / size`` experts (the router's rows too).  The router is
+    gathered whole (its gradient's block kept), every rank dispatches alike,
+    runs its experts on its block of the slots (the slots' gradient
+    all-gathered) and gathers the outputs (their gradient's block kept)."""
     orig_shape = x.shape
     d = orig_shape[-1]
     total = math.prod(orig_shape[:-1])
@@ -214,9 +224,17 @@ def switch_ffn(
     tokens = x.reshape(groups, n, d)
     e, mode = config.n_experts, config.moe_dispatch
     cap = capacity if capacity is not None else expert_capacity(n, e, config.capacity_factor)
-    r = route(tokens, moe_params["router"], config.router_top_k, cap)
+    router = moe_params["router"]
+    if expert_axis is not None:
+        router = expert_axis.gather_replicated(router, 0)
+    r = route(tokens, router, config.router_top_k, cap)
     expert_in, plan = dispatch(tokens, r, e, cap, mode)
-    out = combine(experts(expert_in, moe_params), r, plan, groups, mode)
+    if expert_axis is None:
+        expert_out = experts(expert_in, moe_params)
+    else:
+        expert_out = expert_axis.gather_replicated(
+            experts(expert_axis.split(expert_in, 0), moe_params), 0)
+    out = combine(expert_out, r, plan, groups, mode)
 
     # Load balance over the pre-capacity first choices, per group, averaged.
     first = torch.nn.functional.one_hot(r["expert"][:, :n], e).float()

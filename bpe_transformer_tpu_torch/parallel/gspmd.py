@@ -1,6 +1,7 @@
 """The sharded forward and backward of the GSPMD strategies (``fsdp``,
-``tp``, ``fsdp_tp``, ``dp_tp``; the port's counterpart of what XLA's SPMD
-partitioner derives from the JAX package's ``NamedSharding`` annotations).
+``tp``, ``fsdp_tp``, ``dp_tp``, ``ep``, ``dp_ep``, ``fsdp_ep``; the port's
+counterpart of what XLA's SPMD partitioner derives from the JAX package's
+``NamedSharding`` annotations).
 
 Each rank holds its block of every leaf (``parallel/sharding.py``) and
 runs the model's own block code (``models/transformer.py``,
@@ -30,6 +31,15 @@ The layout writes every collective itself:
 * **MoE** leaves take no ``tp``.  With a data axis, an MoE layer gathers
   the tokens of every data rank and routes them as one group, as XLA does
   with the global batch, and keeps this rank's rows.
+* **ep** (``expert`` in an MoE leaf's spec): the tokens are not split over
+  ``expert`` (JAX's batch spec names ``data`` only), so every expert rank
+  holds the same tokens.  The router's rows are gathered over ``expert``,
+  the global group is routed alike everywhere, each rank runs its
+  ``e / ep`` experts on their slots, and one gather of the expert outputs
+  over ``expert`` feeds the combine (``models/moe.py`` ``expert_axis``).
+  Every expert rank then computes the same downstream, so each of these
+  gathers keeps this rank's block of the gradient, as a gathered ``tp``
+  leaf does; no all-to-all is needed.
 
 The update over the local blocks (the loss and gradient means over
 ``data``, the clip norm over shards, AdamW in place, ZeRO-1's moments by
@@ -54,6 +64,7 @@ from bpe_transformer_tpu_torch.parallel.sharding import (
     local_shape,
     param_specs,
     path_str,
+    place_blocks,
     shard_params,
     spec_leaves,
     zero1_opt_specs,
@@ -182,6 +193,10 @@ class GspmdLayout:
         self.data = mesh.axis("data") if mesh.shape.get("data", 1) > 1 else None
         self.model = (mesh.axis("model") if "tp" in tokens and mesh.shape.get("model", 1) > 1
                       else None)
+        moe_layer = (self.specs["layers"][0]["ffn"] if self.specs["layers"]
+                     and config.ffn_type == "moe" else {})
+        self.expert = (mesh.axis("expert") if moe_layer and moe_layer["router"][0] == "expert"
+                       and mesh.shape["expert"] > 1 else None)
         tp = self.model.size if self.model else 1
         layer = self.specs["layers"][0] if self.specs["layers"] else {}
         heads, kv = config.num_heads, config.num_kv_heads or config.num_heads
@@ -262,22 +277,8 @@ class GspmdLayout:
         tree whose leaves are whole (a single-file checkpoint, a dense
         state) or already this rank's blocks (a sharded directory read with
         :meth:`select`), under ``specs`` (default the params')."""
-        specs = specs if specs is not None else self.specs
-
-        def block(leaf, whole, spec):
-            shape = tuple(leaf.shape)
-            if shape == tuple(whole.shape):
-                box = local_box(shape, spec, self.mesh.shape, self.mesh.coords)
-                leaf = leaf[tuple(slice(a, b) for a, b in box)]
-            elif shape != local_shape(tuple(whole.shape), spec, self.mesh.shape):
-                raise ValueError(f"a leaf of shape {shape} is neither whole {tuple(whole.shape)} "
-                                 f"nor this rank's block under {spec}")
-            if isinstance(leaf, torch.Tensor):
-                return leaf.detach().to(self.mesh.device, torch.float32).clone(
-                    memory_format=torch.contiguous_format)
-            return torch.from_numpy(np.array(leaf, dtype=np.float32)).to(self.mesh.device)
-
-        return tree_map(block, tree, self.full, specs)
+        return place_blocks(tree, self.full, specs if specs is not None else self.specs,
+                            self.mesh)
 
     def shard(self, full):
         """This rank's blocks of whole parameters (tensors or numpy)."""
@@ -413,13 +414,15 @@ class GspmdLayout:
 
     def moe(self, x, ffn_params, config):
         """An MoE FFN over the tokens of every data rank, routed as one
-        group (the global batch, as under XLA), this rank's rows kept."""
+        group (the global batch, as under XLA), this rank's rows kept; its
+        experts split over ``expert`` under ep."""
         from bpe_transformer_tpu_torch.models.moe import switch_ffn
 
         if self.data is None:
-            return switch_ffn(x, ffn_params, config)
+            return switch_ffn(x, ffn_params, config, expert_axis=self.expert)
         rows = x.shape[0]
-        out, aux = switch_ffn(self.data.all_gather(x, 0), ffn_params, config)
+        out, aux = switch_ffn(self.data.all_gather(x, 0), ffn_params, config,
+                              expert_axis=self.expert)
         return out[self.data.index * rows:(self.data.index + 1) * rows], aux
 
     # ----------------------------------------------------------- reductions
@@ -433,7 +436,7 @@ class GspmdLayout:
         key = tuple(specs)
         if key not in self._reducers:
             masks = []
-            for name in ("data", "model"):
+            for name in ("data", "model", "expert"):
                 if self.mesh.shape.get(name, 1) > 1:
                     mask = [name in spec for spec in specs]
                     if any(mask):

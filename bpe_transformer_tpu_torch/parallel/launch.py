@@ -7,11 +7,20 @@ Each rank is ``python <argv...>`` with torchrun's environment (``RANK``,
 ``MASTER_PORT`` on a free local port).  The first rank that fails stops the
 others, so a failure never leaves the rest waiting in a collective: every
 process this function starts has ended when it returns or raises.
+
+As a command, ``python -m bpe_transformer_tpu_torch.parallel.launch
+--nproc-per-node N -- <python argv...>`` runs one world until it ends,
+forwarding SIGTERM and SIGINT to every rank, prints rank 0's standard
+output and exits with the first failing rank's code (0 when every rank
+succeeded): ``train --supervise --parallel`` respawns such a world whole.
 """
 
 from __future__ import annotations
 
+import argparse
+import math
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -28,19 +37,36 @@ def free_port() -> int:
 
 
 class LaunchError(RuntimeError):
-    """A rank exited non-zero, or the world outlived its time limit."""
+    """A rank exited non-zero (``returncode``), or the world outlived its
+    time limit (``returncode`` None)."""
+
+    def __init__(self, message: str, returncode: int | None = None):
+        super().__init__(message)
+        self.returncode = returncode
 
 
 def launch(argv: list, nprocs: int, *, env: dict | None = None, timeout: float = 600.0,
-           cwd: str | os.PathLike | None = None) -> list[str]:
+           cwd: str | os.PathLike | None = None, forward_signals: bool = False) -> list[str]:
     """Run ``python <argv>`` as ``nprocs`` ranks of one world and wait for
     them; returns each rank's standard output.  Raises :class:`LaunchError`
     with the failing rank's standard error when a rank exits non-zero or
     the world runs past ``timeout`` seconds; the other ranks are stopped
-    (SIGTERM, then SIGKILL after 10 s)."""
+    (SIGTERM, then SIGKILL after 10 s).  ``forward_signals`` (on the main
+    thread) passes a SIGTERM or SIGINT of this process on to every rank
+    still running and keeps waiting for them."""
     port = free_port()
     base = {**os.environ, **(env or {})}
     procs, outs, errs = [], [], []
+    previous = {}
+    if forward_signals:
+
+        def forward(signum, frame):
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signum)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous[sig] = signal.signal(sig, forward)
     with tempfile.TemporaryDirectory(prefix="bt_launch_") as tmp:
         try:
             for rank in range(nprocs):
@@ -70,7 +96,8 @@ def launch(argv: list, nprocs: int, *, env: dict | None = None, timeout: float =
                 _stop(procs)
                 raise LaunchError(
                     f"rank {failed} of {nprocs} exited {procs[failed].returncode}; its output: "
-                    f"{_tail(outs[failed])}; its errors: {_tail(errs[failed])}")
+                    f"{_tail(outs[failed])}; its errors: {_tail(errs[failed])}",
+                    procs[failed].returncode)
             results = []
             for out in outs:
                 out.seek(0)
@@ -80,6 +107,8 @@ def launch(argv: list, nprocs: int, *, env: dict | None = None, timeout: float =
             _stop(procs)
             for f in outs + errs:
                 f.close()
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
 
 
 def _tail(f, n: int = 4000) -> str:
@@ -98,3 +127,25 @@ def _stop(procs) -> None:
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m bpe_transformer_tpu_torch.parallel.launch",
+        description="Run a world of rank processes on this host until it ends.")
+    parser.add_argument("--nproc-per-node", type=int, required=True)
+    parser.add_argument("argv", nargs=argparse.REMAINDER,
+                        help="the python arguments of every rank (after --)")
+    args = parser.parse_args(argv)
+    rank_argv = args.argv[1:] if args.argv[:1] == ["--"] else args.argv
+    try:
+        outs = launch(rank_argv, args.nproc_per_node, timeout=math.inf, forward_signals=True)
+    except LaunchError as exc:
+        print(f"launch: {exc}", file=sys.stderr)
+        return exc.returncode if exc.returncode and exc.returncode > 0 else 1
+    print(outs[0], end="", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,12 @@ of the ring's ranks, and nothing more:
 * ``index(device)``: the ids of the ranks this process holds, a long tensor
   of shape ``(local,)`` (JAX's ``axis_index``);
 * ``shift(x)``: ``x`` as each rank receives it from rank - 1, that is every
-  rank sends its block to rank + 1 (JAX's ``ppermute(i -> i + 1)``).
+  rank sends its block to rank + 1 (JAX's ``ppermute(i -> i + 1)``);
+* ``all_to_all(x, split_dim, concat_dim)``: each rank's block cut into n
+  chunks on ``split_dim`` (dims of one rank's block, the leading rank dim
+  not counted), chunk j sent to rank j, and the chunks a rank receives
+  concatenated on ``concat_dim`` in rank order (JAX's ``all_to_all(...,
+  tiled=True)``); differentiable, the gradient is the inverse all-to-all.
 
 Every tensor the ring code handles carries these ranks as a leading dim of
 size ``local``, so rank masks built from ``index()`` broadcast against it and
@@ -20,7 +25,9 @@ a kernel call of the ring runs all n ranks' blocks in one launch.
 :class:`ProcessGroupRing` is the same three members over a
 ``torch.distributed`` process group (``local = 1``): each process is one
 rank on its own card, and ``shift`` is a send to rank + 1 and a receive
-from rank - 1, posted together.
+from rank - 1, posted together.  On the stacked ring an all-to-all is an
+exact permutation of the rank dim against chunks of the split dim; over a
+process group it is one ``all_to_all_single`` on contiguous chunks.
 
 The process groups come from :func:`make_mesh`, a named grid over the
 world of processes (the counterpart of the JAX package's ``make_mesh`` over
@@ -30,11 +37,11 @@ process group per line of the grid.  :func:`make_hybrid_mesh` lays the
 grid over hosts instead: the ``ici`` part of each axis varies inside a host
 and the ``dcn`` part across hosts.  An axis moves tensors with
 :meth:`MeshAxis.all_gather` and :meth:`MeshAxis.reduce_scatter`, each
-differentiable (the gradient of one is the other), beside the in-place
-reductions.  :func:`initialize_distributed` joins
-the world that ``torchrun`` describes: NCCL with one rank per card on
-CUDA, gloo for ``device="cpu"``, and nothing else (no backend is chosen
-for the caller).
+differentiable (the gradient of one is the other), and
+:meth:`MeshAxis.all_to_all`, beside the in-place reductions.
+:func:`initialize_distributed` joins the world that ``torchrun``
+describes: NCCL with one rank per card on CUDA, gloo for ``device="cpu"``,
+and nothing else (no backend is chosen for the caller).
 """
 
 from __future__ import annotations
@@ -57,6 +64,25 @@ class RingTransport(Protocol):
 
     def shift(self, x: torch.Tensor) -> torch.Tensor: ...
 
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor: ...
+
+
+def stacked_all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The all-to-all of ``n`` ranks stacked on the leading dim of ``x``
+    (``split_dim``/``concat_dim`` count the dims of one rank's block):
+    ``out[j]`` is the concatenation on ``concat_dim``, in rank order, of
+    every rank's j-th chunk of ``split_dim``.  A permutation of the
+    elements, so autograd's backward is the inverse all-to-all."""
+    n = x.shape[0]
+    size = x.shape[1 + split_dim]
+    if size % n:
+        raise ValueError(f"dim {split_dim} of size {size} does not split {n} ways")
+    # (i, ..., j, chunk, ...) -> (j, i, ...): every per-rank dim k then sits at 2 + k.
+    y = x.unflatten(1 + split_dim, (n, size // n)).movedim(1 + split_dim, 0)
+    # i just before the concat dim, then merged into it (rank-major).
+    y = y.movedim(1, 1 + concat_dim)
+    return y.flatten(1 + concat_dim, 2 + concat_dim)
+
 
 class StackedRing:
     """All ``n`` ranks of the ring stacked on the leading dim of tensors on
@@ -77,6 +103,14 @@ class StackedRing:
                 f"size {self.size}"
             )
         return torch.roll(x, 1, dims=0)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        if x.shape[0] != self.size:
+            raise ValueError(
+                f"leading dim {x.shape[0]} of a stacked ring tensor must be the ring "
+                f"size {self.size}"
+            )
+        return stacked_all_to_all(x, split_dim, concat_dim)
 
 
 # ---------------------------------------------------------- process groups
@@ -165,6 +199,26 @@ class MeshAxis:
         gradient is the all-gather of the output's gradient."""
         return _ReduceScatter.apply(x, dim, self)
 
+    def gather_replicated(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' blocks of ``x`` concatenated on ``dim``, for a
+        computation that every rank of the axis then runs alike: the
+        gradient, the same on every rank, is narrowed to this rank's block
+        (no sum, which would scale it by the axis size)."""
+        return _GatherReplicated.apply(x, dim, self)
+
+    def split(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of ``x``, which every rank of the axis holds
+        alike, on ``dim``; the gradient is the all-gather of the blocks'
+        gradients (each rank's block of the whole)."""
+        return _Split.apply(x, dim, self)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """``x`` cut into ``size`` chunks on ``split_dim``, chunk j sent to
+        rank j of the axis, the received chunks concatenated on
+        ``concat_dim`` in axis order (JAX's ``all_to_all(..., tiled=True)``);
+        the gradient is the inverse all-to-all."""
+        return _AllToAll.apply(x, split_dim, concat_dim, self.group, self.size)
+
 
 def _collective(name: str, old: str):
     # torch 2.9 renamed the tensor collectives; older builds have only the old names.
@@ -194,6 +248,62 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tenso
     out = x0.new_empty((x0.shape[0] // axis.size, *x0.shape[1:]))
     _collective("reduce_scatter_single", "reduce_scatter_tensor")(out, x0, group=axis.group)
     return out.movedim(0, dim).contiguous() if dim else out
+
+
+def all_to_all_dim(x: torch.Tensor, split_dim: int, concat_dim: int, group,
+                   n: int) -> torch.Tensor:
+    """:meth:`MeshAxis.all_to_all` without a graph: one
+    ``all_to_all_single`` over ``group`` (``n`` ranks) on the chunks of
+    ``split_dim`` laid out contiguously, the received chunks moved into
+    ``concat_dim``."""
+    if n == 1:
+        return x
+    size = x.shape[split_dim]
+    if size % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split {n} ways")
+    chunks = x.unflatten(split_dim, (n, size // n)).movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=group)
+    return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group, n):
+        ctx.args = (split_dim, concat_dim, group, n)
+        return all_to_all_dim(x, split_dim, concat_dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group, n = ctx.args
+        return all_to_all_dim(g, concat_dim, split_dim, group, n), None, None, None, None
+
+
+def _block(x: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * n, n)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather_dim(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.axis).contiguous(), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _block(x, dim, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.dim, ctx.axis), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -357,7 +467,9 @@ class ProcessGroupRing:
     leading rank dim of 1.  ``shift`` posts its send to rank + 1 and its
     receive from rank - 1 in one ``batch_isend_irecv``, so no rank waits
     on a send that its neighbour has not matched; the gradient of a shift
-    is the reverse shift.  A ring of one rank shifts nothing."""
+    is the reverse shift.  ``all_to_all`` is one ``all_to_all_single`` over
+    the group (:meth:`MeshAxis.all_to_all`).  A ring of one rank shifts
+    and exchanges nothing."""
 
     def __init__(self, group=None):
         self.group = group if group is not None else dist.group.WORLD
@@ -388,3 +500,12 @@ class ProcessGroupRing:
         if self.size == 1:
             return x
         return _Shift.apply(x, self)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        if x.shape[0] != 1:
+            raise ValueError(
+                f"leading dim {x.shape[0]} of a process-group ring tensor must be 1 (this "
+                "process is one rank)"
+            )
+        # The block's dims sit one to the right of the leading rank dim.
+        return _AllToAll.apply(x, 1 + split_dim, 1 + concat_dim, self.group, self.size)

@@ -1,5 +1,5 @@
-"""Parameter partition specs: dp (replicated), FSDP and tensor parallelism
-(port of ``bpe_transformer_tpu/parallel/sharding.py``).
+"""Parameter partition specs: dp (replicated), FSDP, tensor and expert
+parallelism (port of ``bpe_transformer_tpu/parallel/sharding.py``).
 
 A spec is a tuple with one entry a dim: the mesh axis the dim is split
 over, or ``None``.  The rules are the JAX package's, leaf for leaf:
@@ -12,9 +12,12 @@ over, or ``None``.  The rules are the JAX package's, leaf for leaf:
   ``lm_head`` split on their first dim (d_out, or the vocab),
   ``output_proj`` and ``w2`` on their second (d_in); a split that does not
   divide is dropped, and MoE leaves take none.
+* **ep**: an MoE leaf (the router ``(e, d)`` or a stacked expert weight)
+  splits its leading expert dim over the ``expert`` axis when ``e``
+  divides it.
 
-Specs compose: ``fsdp_tp`` applies tp first, then FSDP on a free dim.  The
-JAX package's ``ep`` token (expert parallelism) is not ported.
+Specs compose: ``fsdp_tp`` applies tp first, then FSDP on a free dim;
+``fsdp_ep`` splits the experts, then FSDP on a free dim.
 
 Where JAX places arrays with ``NamedSharding``, each rank of the port's
 process-group mesh (``parallel/mesh.py``) holds its own block of every
@@ -33,9 +36,6 @@ from bpe_transformer_tpu_torch.tree import tree_flatten_with_path, tree_map, tre
 
 #: Minimum leaf size worth sharding under FSDP (tiny norms stay replicated).
 FSDP_MIN_SIZE = 4096
-
-_SLICE_10D = "slice 10d (Ulysses, GPipe, expert parallelism)"
-
 
 def _mesh_shape(mesh) -> dict:
     """``{axis: size}`` of a mesh (anything with a ``shape`` dict, or the
@@ -90,33 +90,33 @@ def _tokens(strategy: str | None) -> set:
     unknown = tokens - {"dp", "fsdp", "tp", "ep"}
     if not tokens or unknown:
         raise ValueError(f"unknown parallel strategy: {strategy!r}")
-    if "ep" in tokens:
-        raise NotImplementedError(
-            f"the ep token (expert parallelism) of parallel strategy {strategy!r} is not "
-            f"ported yet: it comes with the port's {_SLICE_10D}"
-        )
     return tokens
 
 
 def param_specs(params, mesh, strategy: str = "dp", *, fsdp_axis: str = "data",
-                tp_axis: str = "model"):
+                tp_axis: str = "model", ep_axis: str = "expert"):
     """The tree of specs (tuples) for ``params`` under a strategy, an
-    underscore-joined set of ``{dp, fsdp, tp}`` (``"fsdp_tp"``).  Leaves
-    need only ``shape`` (tensors on any device, ``meta`` ones included, or
-    numpy arrays)."""
+    underscore-joined set of ``{dp, fsdp, tp, ep}`` (``"fsdp_tp"``,
+    ``"dp_ep"``).  Leaves need only ``shape`` (tensors on any device,
+    ``meta`` ones included, or numpy arrays)."""
     tokens = _tokens(strategy)
     shape = _mesh_shape(mesh)
     use_tp = "tp" in tokens and tp_axis in shape
     use_fsdp = "fsdp" in tokens and fsdp_axis in shape
+    use_ep = "ep" in tokens and ep_axis in shape
     fsdp_size = shape.get(fsdp_axis, 1)
     tp_size = shape.get(tp_axis, 1)
+    ep_size = shape.get(ep_axis, 1)
     pairs = tree_flatten_with_path(params)
     specs = []
     for path, leaf in pairs:
         name = path_str(path)
         dims = tuple(leaf.shape)
         spec: list = [None] * len(dims)
-        if use_tp and not is_moe_leaf(name, len(dims)):
+        is_moe = is_moe_leaf(name, len(dims))
+        if use_ep and is_moe and dims[0] % ep_size == 0:
+            spec[0] = ep_axis
+        if use_tp and not is_moe:
             spec = _tp_spec(name, len(dims))
             # Drop TP assignments that don't divide evenly.
             spec = [a if (a != tp_axis or dims[i] % tp_size == 0) else None
@@ -208,6 +208,27 @@ def shard_leaf(leaf, spec, mesh):
         # A copy: the step updates the blocks in place.
         return block.clone(memory_format=torch.contiguous_format)
     return torch.from_numpy(np.ascontiguousarray(block)).to(mesh.device)
+
+
+def place_blocks(tree, full, specs, mesh):
+    """This rank's blocks, as float32 tensors on the mesh's device, of a
+    tree whose leaves are whole (shapes of ``full``) or already this rank's
+    blocks under ``specs`` (a sharded directory read block by block)."""
+
+    def block(leaf, whole, spec):
+        shape = tuple(leaf.shape)
+        if shape == tuple(whole.shape):
+            box = local_box(shape, spec, mesh.shape, mesh.coords)
+            leaf = leaf[_slices(box)]
+        elif shape != local_shape(tuple(whole.shape), spec, mesh.shape):
+            raise ValueError(f"a leaf of shape {shape} is neither whole {tuple(whole.shape)} "
+                             f"nor this rank's block under {spec}")
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to(mesh.device, torch.float32).clone(
+                memory_format=torch.contiguous_format)
+        return torch.from_numpy(np.array(leaf, dtype=np.float32)).to(mesh.device)
+
+    return tree_map(block, tree, full, specs)
 
 
 def shard_params(params, mesh, strategy: str = "dp", specs=None):

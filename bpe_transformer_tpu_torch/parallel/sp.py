@@ -32,8 +32,9 @@ batch's tokens of its shard, which equals a JAX mesh whose data axis is 1.)
 Parameters and optimizer state are one copy.  ``attention_impl="flash"``
 runs the ring-flash schedules (the flash kernels inside each shard);
 anything else, ``"flash_fused"`` included, the plain online-softmax rings,
-as in the JAX package.  Ulysses (an all-to-all head scatter) comes with
-slice 10d.
+as in the JAX package.  ``ulysses=True`` swaps the ring for the all-to-all
+head scatter (:mod:`parallel.ulysses`) on either transport: the contiguous
+layout only, whose rank order along ``seq`` is the global token order.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from bpe_transformer_tpu_torch.parallel.ring_attention import (
     zigzag_ring_flash_attention,
     zigzag_ring_self_attention,
 )
+from bpe_transformer_tpu_torch.parallel.ulysses import ulysses_attention
 from bpe_transformer_tpu_torch.training.train_step import (
     TrainHParams,
     _pmean_scalars,
@@ -73,7 +75,6 @@ _FLASH_RING_KV_CHUNK_ERROR = (
     "(the flash kernel tiles each visiting shard itself); unset ring_kv_chunk or use "
     'the plain ring (attention_impl="xla")'
 )
-_SLICE_10D = "it comes with the port's slice 10d (Ulysses, GPipe, expert parallelism)"
 
 
 def _ring_of(ring):
@@ -88,12 +89,14 @@ def _ring_of(ring):
 
 def _sp_attention_fn(config: ModelConfig, ring, zigzag: bool = False, ulysses: bool = False):
     """Per-shard attention for the sp schedules, on rank-stacked ``(local,
-    ..., S_local, D)`` q/k/v: ``attention_impl="flash"`` runs the flash
-    kernels inside every ring shard (ring-flash or zig-zag ring-flash),
-    anything else the plain online-softmax ring (kv-chunked when
-    ``ring_kv_chunk`` is set; the zig-zag ring has no chunk knob)."""
+    ..., S_local, D)`` q/k/v: ``ulysses=True`` is the all-to-all head
+    scatter (:func:`parallel.ulysses.ulysses_attention`); otherwise
+    ``attention_impl="flash"`` runs the flash kernels inside every ring
+    shard (ring-flash or zig-zag ring-flash), anything else the plain
+    online-softmax ring (kv-chunked when ``ring_kv_chunk`` is set; the
+    zig-zag ring has no chunk knob)."""
     if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10D}")
+        return partial(ulysses_attention, ring=ring, config=config)
     if config.attention_impl == "flash":
         if config.ring_kv_chunk:
             raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
@@ -150,7 +153,8 @@ def sp_forward(params, local_token_ids: torch.Tensor, config: ModelConfig, ring,
     return logits.reshape(*local_token_ids.shape, -1)
 
 
-def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable:
+def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False,
+                    ulysses: bool = False) -> Callable:
     """``loss_fn(params, x, y)`` on rank-stacked shards ``(local, batch,
     S_local)``: the mean over shards of each shard's mean LM loss (the
     JAX step's ``pmean``), through the chunked loss when ``loss_chunk`` is
@@ -159,7 +163,7 @@ def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable
     ring, _ = _ring_of(ring)
 
     def loss_fn(params, x, y):
-        ids, positions, attention_fn = _stacked_inputs(x, config, ring, zigzag)
+        ids, positions, attention_fn = _stacked_inputs(x, config, ring, zigzag, ulysses)
         hidden, aux = forward_hidden(params, ids, config, positions=positions,
                                      attention_fn=attention_fn, moe_groups=x.shape[0])
         hidden = hidden.reshape(*x.shape, -1)
@@ -175,13 +179,13 @@ def make_sp_loss_fn(config: ModelConfig, ring, zigzag: bool = False) -> Callable
 
 
 def make_sp_grad_fn(config: ModelConfig, ring, zigzag: bool = False,
-                    grads_dtype: str = "float32") -> Callable:
+                    grads_dtype: str = "float32", ulysses: bool = False) -> Callable:
     """``(params, x, y) -> (loss, grads)`` of :func:`make_sp_loss_fn`: the
     sp step before its update (a step's gradients can be held against the
     dense step's).  Over a mesh, the loss and gradients are the global
     ones: this rank's, all-reduced over (data, seq) at ``grads_dtype``."""
     ring, reduce_axis = _ring_of(ring)
-    local = value_and_grad(make_sp_loss_fn(config, ring, zigzag))
+    local = value_and_grad(make_sp_loss_fn(config, ring, zigzag, ulysses))
     if reduce_axis is None:
         return local
 
@@ -218,9 +222,10 @@ def make_sp_train_step(
     (``shard_sp_batch(..., stacked=True)``) before one update;
     ``inner_steps > 1`` runs that many updates a call on ``(inner_steps,
     local, batch, S_local)`` (also ``stacked=True``), each with its own
-    reduction, and returns the last one's metrics.  The JAX function's
-    argument errors are kept; ``ulysses=True`` raises
-    ``NotImplementedError`` (slice 10d)."""
+    reduction, and returns the last one's metrics.  ``ulysses=True`` runs
+    the all-to-all head scatter instead of the ring (contiguous layout; the
+    head count a multiple of the ring size).  The JAX function's argument
+    errors are kept."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if inner_steps < 1:
@@ -232,18 +237,23 @@ def make_sp_train_step(
             "zigzag and ulysses are mutually exclusive (the all-to-all schedule has no "
             "causal load imbalance to stripe away)"
         )
-    if ulysses:
-        raise NotImplementedError(f"Ulysses sequence parallelism is not ported yet: {_SLICE_10D}")
+    ring, reduce_axis = _ring_of(ring)
+    if ulysses and config.num_heads % ring.size:
+        raise ValueError(
+            f"ulysses scatters heads over the seq axis: num_heads={config.num_heads} must be a "
+            f"multiple of the 'seq' axis size {ring.size} (use the ring schedule otherwise)"
+        )
     if zigzag and config.ring_kv_chunk:
         raise ValueError(
             "the zig-zag schedule does not honor ring_kv_chunk (its sub-blocks are already "
             'half-size); use the contiguous ring, or unset ring_kv_chunk and set '
             'attention_impl="flash" for the flash zig-zag ring'
         )
-    if config.attention_impl == "flash" and config.ring_kv_chunk:
+    if config.attention_impl == "flash" and config.ring_kv_chunk and not ulysses:
+        # Ulysses never reads ring_kv_chunk (its inner attention runs over
+        # the full sequence).
         raise ValueError(_FLASH_RING_KV_CHUNK_ERROR)
-    ring, reduce_axis = _ring_of(ring)
-    local_grad_fn = value_and_grad(make_sp_loss_fn(config, ring, zigzag))
+    local_grad_fn = value_and_grad(make_sp_loss_fn(config, ring, zigzag, ulysses))
 
     def step(params, opt_state: AdamWState, x, y):
         if accum_steps > 1:

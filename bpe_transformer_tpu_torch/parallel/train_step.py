@@ -8,7 +8,8 @@ all-reduces their mean over the ``data`` axis (one collective over one flat
 buffer) before the same AdamW update runs everywhere; or, with
 ``opt_sharding="zero1"``, reduce-scatters them into ZeRO-1's sharded update
 (``optim/sharded.py``).  :func:`make_gspmd_train_step` runs the GSPMD
-strategies (``fsdp``, ``tp``, ``fsdp_tp``, ``dp_tp``, ...): every rank holds
+strategies (``fsdp``, ``tp``, ``fsdp_tp``, ``dp_tp``, ``ep``, ``dp_ep``,
+``fsdp_ep``, ...): every rank holds
 its blocks of the parameters and moments and the step writes the
 collectives that XLA derives in the JAX package (``parallel/gspmd.py``).
 The collectives are NCCL's on the card and gloo's on the CPU.

@@ -12,30 +12,39 @@ rollback (``--watchdog*``, ``--max-rollbacks``, ``--recovery-min-progress``),
 ``--supervise`` with ``--max-restarts`` and ``--restart-backoff``,
 ``--profile-trace``, ``--inner-steps``, ``--prefetch``,
 ``--async-checkpoint``, ``--grad-accum-steps``, ``--compile-cache`` and the
-multi-card flags ``--parallel dp|sp``, ``--mesh``, ``--opt-sharding zero1``
-and ``--sp-zigzag``; plus ``--resume``, ``--device`` (default ``cuda``) and
-the kernel knobs ``--attention-impl`` / ``--ffn-impl``.  It prints the
-summary as one JSON line (rank 0's, under ``--parallel``) and exits with
+multi-card flags ``--parallel``, ``--mesh``, ``--opt-sharding zero1``,
+``--sp-zigzag``, ``--sp-ulysses`` and ``--pp-microbatches``; plus
+``--resume``, ``--device`` (default ``cuda``) and the kernel knobs
+``--attention-impl`` / ``--ffn-impl``.  It prints the summary as one JSON
+line (rank 0's, under ``--parallel``) and exits with
 ``EXIT_PREEMPTED`` (75) after a SIGTERM/SIGINT stop.  ``--supervise`` turns
 the process into the torch-free parent of ``resilience/supervisor.py``,
 which re-enters this command without ``--supervise`` in a child and
-respawns it with ``--resume`` on a crash or a preemption.
+respawns it with ``--resume`` on a crash or a preemption; with
+``--parallel`` (and no ``torchrun`` around it) the child is a whole world of
+ranks, one a card (the product of ``--mesh``), started by
+``parallel/launch.py`` and respawned whole when any rank fails.
 
 Across cards, one process a card::
 
     torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
         --parallel dp --mesh data=N [--opt-sharding zero1] ...
     torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
-        --parallel sp --mesh data=D,seq=S [--sp-zigzag] ...
+        --parallel sp --mesh data=D,seq=S [--sp-zigzag | --sp-ulysses] ...
 
     torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
         --parallel fsdp|tp|fsdp_tp --mesh data=D,model=M [--opt-sharding zero1] ...
 
-(``--device cpu`` runs the ranks on gloo.  ``fsdp``, ``tp`` and ``fsdp_tp``
-write sharded checkpoint directories, which ``verify-checkpoint`` and a
-resume at any width read.  ``pp``, the ``ep`` strategies and
-``--sp-ulysses`` exit 2: they come with slice 10d; so does ``--supervise``
-with ``--parallel``.)
+    torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
+        --parallel ep|dp_ep|fsdp_ep --mesh data=D,expert=E [--opt-sharding zero1] ...
+
+    torchrun --nproc-per-node N -m bpe_transformer_tpu_torch.training.cli train \
+        --parallel pp --mesh [data=D,]pp=P --pp-microbatches M ...
+
+(``--device cpu`` runs the ranks on gloo.  The GSPMD strategies and ``pp``
+write sharded checkpoint directories, which ``verify-checkpoint`` reads; a
+GSPMD directory resumes at any width or strategy, a pp one at its own
+stage count.)
 
 ``profile`` is the JAX package's performance attribution without a training
 job: the analytic roofline of the train step (and, with ``--serve``, of the
@@ -77,6 +86,8 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import signal
 import sys
 import time
@@ -145,16 +156,6 @@ def _parse_mesh(text: str | None) -> dict | None:
 
 
 def cmd_train(args) -> int:
-    if args.parallel in ("pp", "ep", "dp_ep", "fsdp_ep") or args.sp_ulysses:
-        what = "--sp-ulysses" if args.sp_ulysses else f"--parallel {args.parallel}"
-        print(f"{what} is not ported yet: it comes with the port's slice 10d (Ulysses, GPipe, "
-              "expert parallelism)", file=sys.stderr)
-        return 2
-    if args.supervise and args.parallel:
-        print("train --supervise with --parallel is not supported: the supervisor respawns "
-              "one process, not a torchrun group; run torchrun with --max-restarts instead",
-              file=sys.stderr)
-        return 2
     if args.supervise:
         # This process becomes the torch-free parent; the child owns the card.
         from bpe_transformer_tpu_torch.resilience.supervisor import supervise
@@ -163,8 +164,26 @@ def cmd_train(args) -> int:
             print("train --supervise needs --checkpoint-dir (restart-with-resume is the "
                   "whole point)", file=sys.stderr)
             return 2
+        child_cmd = None
+        if args.parallel:
+            # The supervisor starts the world itself: one rank a card.
+            if "RANK" in os.environ:
+                print("train --supervise under torchrun: the supervisor starts the world of "
+                      "ranks itself; run it without torchrun", file=sys.stderr)
+                return 2
+            mesh = _parse_mesh(args.mesh)
+            if not mesh:
+                print("train --supervise --parallel needs --mesh (the supervisor starts one "
+                      "rank a card, the product of the mesh's sizes)", file=sys.stderr)
+                return 2
+            child_cmd = [sys.executable, "-c",
+                         "import sys; from bpe_transformer_tpu_torch.parallel.launch import "
+                         "main; sys.exit(main())",
+                         "--nproc-per-node", str(math.prod(mesh.values())), "--",
+                         "-m", "bpe_transformer_tpu_torch.training.cli"]
         return supervise(getattr(args, "_argv", None) or ["train"], args.checkpoint_dir,
-                         max_restarts=args.max_restarts, backoff_s=args.restart_backoff)
+                         max_restarts=args.max_restarts, backoff_s=args.restart_backoff,
+                         child_cmd=child_cmd)
 
     from bpe_transformer_tpu_torch.data import load_token_file
     from bpe_transformer_tpu_torch.resilience.signals import EXIT_PREEMPTED
@@ -212,6 +231,8 @@ def cmd_train(args) -> int:
         parallel=args.parallel,
         mesh_axes=_parse_mesh(args.mesh),
         sp_zigzag=args.sp_zigzag,
+        sp_ulysses=args.sp_ulysses,
+        pp_microbatches=args.pp_microbatches,
         opt_sharding=args.opt_sharding,
     )
     train_data = load_token_file(args.data, args.dtype)
@@ -1036,13 +1057,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", default=None,
                    choices=["dp", "sp", "pp", "fsdp", "tp", "fsdp_tp", "ep", "dp_ep", "fsdp_ep"],
                    help="multi-card strategy, one process a card under torchrun (default: "
-                   "one device); pp and the ep strategies come with slice 10d")
+                   "one device)")
+    p.add_argument("--pp-microbatches", type=int, default=4,
+                   help="pipeline microbatches per step (with --parallel pp)")
     p.add_argument("--mesh", default=None,
                    help='mesh axes over the torchrun world, e.g. "data=8", "data=2,seq=4"')
     p.add_argument("--sp-zigzag", action="store_true",
                    help="balanced zig-zag ring schedule (with --parallel sp)")
     p.add_argument("--sp-ulysses", action="store_true",
-                   help="Ulysses all-to-all sequence parallelism (comes with slice 10d)")
+                   help="Ulysses all-to-all head-scatter sequence parallelism instead of the "
+                   "ring (with --parallel sp; num_heads must be a multiple of the seq mesh "
+                   "axis size)")
     p.add_argument("--opt-sharding", choices=["zero1"], default=None,
                    help="ZeRO-1 optimizer-state sharding across the data axis (with "
                    "--parallel dp): AdamW m/v and the fp32 master weights live 1/N per card; "

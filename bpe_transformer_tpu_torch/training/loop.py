@@ -40,7 +40,8 @@ What the loop wires, as the JAX loop does:
   the other steps never see it.
 
 * data and sequence parallelism across cards (``parallel="dp"`` with
-  ``opt_sharding="zero1"`` or not, ``parallel="sp"`` with ``sp_zigzag``),
+  ``opt_sharding="zero1"`` or not, ``parallel="sp"`` with ``sp_zigzag`` or
+  ``sp_ulysses``),
   one process a card, launched by ``torchrun``: the loop joins the process
   group (``parallel/mesh.py``; NCCL on the card, gloo on the CPU), builds
   the ``mesh_axes`` grid (default ``data`` = the world, or ``data=1,seq=``
@@ -58,8 +59,9 @@ What the loop wires, as the JAX loop does:
   rows and averages over the data axis.
 
 * sharded parameters across cards (the GSPMD strategies ``fsdp``, ``tp``,
-  ``fsdp_tp``, ``dp_tp``: any underscore-joined set of ``dp``, ``fsdp`` and
-  ``tp``, with ``opt_sharding="zero1"`` or not): every rank holds its
+  ``fsdp_tp``, ``dp_tp``, ``ep``, ``dp_ep``, ``fsdp_ep``: any
+  underscore-joined set of ``dp``, ``fsdp``, ``tp`` and ``ep``, with
+  ``opt_sharding="zero1"`` or not): every rank holds its
   blocks of the parameters and moments (``parallel/sharding.py``,
   ``parallel/gspmd.py``), samples the global batch and takes its ``data``
   rows (all of them without a data axis).  Checkpoints are sharded
@@ -68,9 +70,16 @@ What the loop wires, as the JAX loop does:
   single file; ``latest.ckpt`` links the newest directory.  Eval runs the
   sharded forward on each data rank's rows and averages them.
 
-``LoopConfig`` keeps every field of the JAX package's.  ``ep`` (expert
-parallelism), ``pp`` (GPipe) and ``sp_ulysses`` raise
-``NotImplementedError``: they come with slice 10d.
+* the GPipe pipeline (``parallel="pp"``, ``pp_microbatches``; the mesh
+  ``{"pp": world}`` by default, or ``data`` x ``pp``): a rank holds its
+  stage's stacked blocks and the shared leaves (``parallel/pp.py``).
+  Checkpoints are sharded directories of the stacked ``{"stages",
+  "shared"}`` tree, the stage leaves split over ``pp``; a dense checkpoint
+  (params and moments) is restacked on resume, and a stacked one with
+  another stage count is refused.  Eval gathers the stages over ``pp`` and
+  runs the dense forward.  Rollback is refused, as in the JAX loop.
+
+``LoopConfig`` keeps every field of the JAX package's.
 """
 
 from __future__ import annotations
@@ -105,7 +114,7 @@ from bpe_transformer_tpu_torch.data.dataset import (
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.models.transformer import init_params
-from bpe_transformer_tpu_torch.optim.adamw import adamw_init
+from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_init
 from bpe_transformer_tpu_torch.optim.sharded import (
     gather_opt_state,
     restore_opt_state,
@@ -190,12 +199,9 @@ class LoopConfig:
     async_checkpoint: bool = False
 
 
-_SLICE_10D = "slice 10d (Ulysses, GPipe, expert parallelism)"
-
-
 def _check_loop(loop: LoopConfig) -> None:
     """The JAX loop's config errors that need no mesh (raised before any
-    sink opens), then the refusal of slice 10d's fields."""
+    sink opens)."""
     if loop.health_stats and loop.parallel in ("sp", "pp"):
         raise ValueError(
             f'health_stats is not supported with parallel="{loop.parallel}" '
@@ -258,6 +264,11 @@ def _check_loop(loop: LoopConfig) -> None:
                 'watchdog_policy="rollback" needs checkpoint_dir — recovery reloads the '
                 "last valid snapshot"
             )
+        if loop.parallel == "pp":
+            raise ValueError(
+                'watchdog_policy="rollback" is not supported with parallel="pp" (checkpoints '
+                'carry the stacked-stage layout); use "raise" or "skip"'
+            )
         if loop.checkpoint_every % loop.log_every:
             # Detection happens at log boundaries: a checkpoint on a
             # detection boundary can never hold an undetected poisoned state.
@@ -281,17 +292,7 @@ def _check_loop(loop: LoopConfig) -> None:
             f"batch_size={loop.batch_size} must divide by "
             f"grad_accum_steps={loop.grad_accum_steps}"
         )
-    if loop.parallel == "pp" or (loop.parallel and "ep" in loop.parallel.split("_")):
-        raise NotImplementedError(
-            f"LoopConfig.parallel={loop.parallel!r} is not ported yet: it comes with the "
-            f"port's {_SLICE_10D}"
-        )
-    if loop.sp_ulysses:
-        raise NotImplementedError(
-            f"LoopConfig.sp_ulysses=True is not ported yet: it comes with the port's "
-            f"{_SLICE_10D}"
-        )
-    if loop.parallel not in (None, "sp"):
+    if loop.parallel not in (None, "sp", "pp"):
         from bpe_transformer_tpu_torch.parallel.sharding import _tokens
 
         _tokens(loop.parallel)  # the JAX package's error for an unknown token
@@ -307,10 +308,12 @@ def _loop_mesh(loop: LoopConfig, model_config: ModelConfig, device: torch.device
     if axes is None and loop.parallel == "sp":
         # sp needs a seq axis; default to pure context parallelism.
         axes = {"data": 1, "seq": dist.get_world_size()}
+    if axes is None and loop.parallel == "pp":
+        axes = {"pp": dist.get_world_size()}
     mesh = make_mesh(axes, device)
     # A strategy whose axis is absent from the mesh would silently degrade
     # to replication: fail loudly instead.
-    required_axes = {"dp": "data", "tp": "model", "fsdp": "data"}
+    required_axes = {"dp": "data", "tp": "model", "ep": "expert", "fsdp": "data", "pp": "pp"}
     for token in loop.parallel.split("_"):
         needed = required_axes.get(token)
         if needed is not None and needed not in mesh.shape:
@@ -440,15 +443,21 @@ def train(
     primary = mesh is None or mesh.rank == 0
     if not primary:
         log_fn = lambda *a, **k: None  # noqa: E731
-    #: The GSPMD strategies: every rank holds blocks of the state, and
-    #: checkpoints are sharded directories.
-    gspmd = mesh is not None and loop.parallel not in ("dp", "sp")
+    #: The GSPMD strategies and the pipeline: every rank holds blocks of
+    #: the state, and checkpoints are sharded directories.
+    pipeline = loop.parallel == "pp"
+    gspmd = mesh is not None and loop.parallel not in ("dp", "sp", "pp")
     layout = None
     if gspmd:
         from bpe_transformer_tpu_torch.parallel.gspmd import GspmdLayout
 
         layout = GspmdLayout(model_config, mesh, loop.parallel, opt_sharding=loop.opt_sharding,
                              grads_dtype=hparams.grads_dtype)
+    elif pipeline:
+        from bpe_transformer_tpu_torch.parallel.pp import PipelineLayout, stack_pipeline_params
+
+        layout = PipelineLayout(model_config, mesh)
+    sharded = layout is not None
     zero1 = loop.opt_sharding == "zero1" and not gspmd
     injector = fault_injector if fault_injector is not None else FaultInjector.from_env()
     telemetry = Telemetry()
@@ -463,7 +472,8 @@ def train(
         it settled on; the optimizer state is adapted to the run's mode
         (dense, this rank's ZeRO-1 row at this width, or this rank's blocks
         under a GSPMD strategy, read from a sharded directory block by
-        block)."""
+        block, or this rank's stage under the pipeline, a dense state
+        restacked)."""
         if src.is_dir() and not sharded_checkpoint_exists(src):
             src = src / "latest.ckpt"
 
@@ -488,6 +498,15 @@ def train(
             used = Path(chosen[0])
             if not primary:
                 payload = loader(used)
+        if pipeline and "stages" not in payload["params"]:
+            # A dense checkpoint: its params and moments restacked.
+            dense_params, dense_opt = training_state(payload, dev)
+            dense_opt = restore_opt_state(dense_opt, dense_params)
+            payload = {**payload,
+                       "params": stack_pipeline_params(dense_params, layout.stages),
+                       "opt_state": AdamWState(
+                           dense_opt.step, m=stack_pipeline_params(dense_opt.m, layout.stages),
+                           v=stack_pipeline_params(dense_opt.v, layout.stages))}
         if layout is not None:
             loaded_params = layout.place(payload["params"])
             loaded_opt = restore_opt_state(payload["opt_state"], None, layout=layout)
@@ -505,6 +524,8 @@ def train(
         log_fn(f"resumed from {used_path} at iteration {start_iteration}")
     else:
         params = init_params(model_config, torch.Generator().manual_seed(loop.seed), device=dev)
+        if pipeline:
+            params = stack_pipeline_params(params, layout.stages)
         if layout is not None:
             params = layout.shard(params)
             opt_state = layout.init_opt_state()
@@ -526,8 +547,16 @@ def train(
         if loop.parallel == "sp":
             from bpe_transformer_tpu_torch.parallel.sp import make_sp_train_step
 
-            # sp runs no taps (refused above), so one step serves both.
+            # sp and pp run no taps (refused above), so one step serves both.
             step = make_sp_train_step(model_config, hparams, mesh, zigzag=loop.sp_zigzag,
+                                      ulysses=loop.sp_ulysses, accum_steps=accum,
+                                      inner_steps=n)
+            return step, step
+        if pipeline:
+            from bpe_transformer_tpu_torch.parallel.pp import make_pp_train_step
+
+            step = make_pp_train_step(model_config, hparams, mesh,
+                                      num_microbatches=loop.pp_microbatches,
                                       accum_steps=accum, inner_steps=n)
             return step, step
         if loop.parallel == "dp":
@@ -557,10 +586,10 @@ def train(
     plain_step, tapped_step = build_steps()
     async_saver = (
         AsyncCheckpointer()
-        if loop.async_checkpoint and loop.checkpoint_dir is not None and (primary or gspmd)
+        if loop.async_checkpoint and loop.checkpoint_dir is not None and (primary or sharded)
         else None
     )
-    eval_step = make_eval_step(model_config, shard=layout)
+    eval_step = make_eval_step(model_config, shard=layout if gspmd else None)
     ctx = model_config.context_length
     tokens_per_step = loop.batch_size * ctx
 
@@ -570,7 +599,7 @@ def train(
     def place(hx: np.ndarray, hy: np.ndarray):
         """This rank's part of a global host batch, on the card (a batch
         with a leading stacked dim is split on its second)."""
-        if loop.parallel == "dp" or gspmd:
+        if loop.parallel == "dp" or sharded:
             from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
 
             return shard_batch((hx, hy), mesh, stacked=hx.ndim == 3)
@@ -584,6 +613,8 @@ def train(
         handle = telemetry.start_span("eval", step=iteration, batches=loop.eval_batches)
         try:
             eval_rng = np.random.default_rng(loop.seed + 1)
+            # The pipeline's eval runs the dense forward of every stage.
+            eval_params = layout.dense(params) if pipeline else params
             losses = []
             for _ in range(loop.eval_batches):
                 ex, ey = get_batch(val_data, loop.batch_size, ctx, eval_rng)
@@ -592,9 +623,9 @@ def train(
                     # in order, under sp too; sharded under a GSPMD layout).
                     from bpe_transformer_tpu_torch.parallel.train_step import shard_batch
 
-                    losses.append(eval_step(params, *shard_batch((ex, ey), mesh)))
+                    losses.append(eval_step(eval_params, *shard_batch((ex, ey), mesh)))
                 else:
-                    losses.append(eval_step(params, to_device(ex), to_device(ey)))
+                    losses.append(eval_step(eval_params, to_device(ex), to_device(ey)))
             means = torch.stack(losses).float()
             if data_axis is not None:
                 data_axis.pmean_(means)
@@ -696,8 +727,8 @@ def train(
         saved_opt = gather_opt_state(opt_state, mesh) if zero1 else opt_state
         # Under a mesh a synchronous write is followed by a barrier: every
         # rank leaves with the file on disk.
-        barrier = mesh is not None and (sync or not loop.async_checkpoint) and not gspmd
-        if not primary and not gspmd:
+        barrier = mesh is not None and (sync or not loop.async_checkpoint) and not sharded
+        if not primary and not sharded:
             if barrier:
                 with wd_pause():
                     dist.barrier()
@@ -722,8 +753,8 @@ def train(
                 # The copy to the host happens now; pickling and IO overlap
                 # the next steps.
                 async_saver.save(ckpt_path, on_complete=update_latest if primary else None,
-                                 sharded=gspmd, layout=layout, **state_kwargs)
-            elif gspmd:
+                                 sharded=sharded, layout=layout, **state_kwargs)
+            elif sharded:
                 # Every rank writes its blocks; each returns once the
                 # directory is in place.
                 save_checkpoint_sharded(ckpt_path, layout=layout, **state_kwargs)
@@ -953,7 +984,7 @@ def train(
                 # newest snapshot: check every leaf (one read) first.
                 finite = torch.stack(
                     [torch.isfinite(leaf).all() for leaf in tree_leaves(params)]).all()
-                if gspmd:
+                if sharded:
                     # Each rank sees its blocks: the ranks agree (a sharded
                     # save needs every rank).
                     flag = (~finite).float().reshape(1)

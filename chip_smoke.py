@@ -240,8 +240,19 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    and under fsdp_tp (``mesh data=1,model=1``) for 4 steps, and the
    directory verified and resumed under fsdp_tp to 8, each against one
    device within phase 15's 1e-5 relative, with exact launch counts;
+20. Ulysses, the GPipe pipeline and expert parallelism (slice 10d): (a)
+   ``make_sp_train_step(ulysses=True)`` on a stacked ring of 4 at
+   GPT2_SMALL_32K under ``attention_impl="flash"`` (B2 + lse on 3 heads a
+   rank over the whole 1024), step 1 against the dense flash step at
+   phase 12c's tolerances and 3 steps with exact launch counts; (b) over
+   18's group ``train()`` under pp (``mesh pp=1``, 4 microbatches, a
+   stacked directory verified and resumed) against one device, and under
+   ep and dp_ep (``expert=1``) at TINYSTORIES_MOE against one device, with
+   exact launch counts; (c) B2 + lse at (8, 3, 1024, 64) and B5, B4's pair
+   and B3 at the pipeline's 2-row microbatches against their plain
+   versions, timed by CUDA-graph replay;
 then one JSON line listing every ported kernel (launches counted over the
-main paths, phases 18's and 19's included), and the ``ok`` line.
+main paths, phases 18's, 19's and 20's included), and the ``ok`` line.
 
 ``python3 chip_smoke.py --phase 18 --world 4`` (on a host with four
 cards) builds the kernels and runs phase 18 across cards
@@ -267,6 +278,17 @@ the ``train`` CLI under ``torchrun``: fsdp=4 with ZeRO-1 writing sharded
 directories, its step-4 directory through ``verify-checkpoint`` and
 resumed at fsdp=2 and at tp=2.
 
+``python3 chip_smoke.py --phase 20 --world 4`` runs 20 across four cards:
+one NCCL rank a card, Ulysses on seq=4 and data=2 x seq=2 and the
+pipeline on pp=4 and data=2 x pp=2 at GPT2_SMALL_32K, ep=4, dp_ep and
+fsdp_ep (data=2 x expert=2, ZeRO-1) and pp=4 at TINYSTORIES_MOE, each as
+19's strategies are held (step 1, 3 steps, the bytes a rank against the
+specs', exact launches, host ms, tok/s a card, peak memory, NCCL time);
+then the ``train`` CLI under ``torchrun``: pp=4 writing stacked
+directories, resumed at pp=4 and refused at pp=2 with the JAX loop's
+message, dp_ep resumed at ep=4, and ``train --supervise --parallel pp``
+(the supervisor starts the world itself) with one rank killed once.
+
 Float32 matmuls run in full float32 (``allow_tf32 = False`` for cuBLAS and
 cuDNN).  Per-shape kernel numbers are also written as JSON under
 ``OUT_DIR``: ``chip_smoke_kernels.json`` (serving),
@@ -279,7 +301,8 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 ``chip_smoke_surface.json`` (phase 17's), ``chip_smoke_parallel.json``
 (phases 18's and 19's) and, from the four-card runs,
 ``chip_smoke_parallel4.json``, ``chip_smoke_parallel4_cli.json``,
-``chip_smoke_sharded4.json`` and ``chip_smoke_sharded4_cli.json``.
+``chip_smoke_sharded4.json``, ``chip_smoke_sharded4_cli.json``,
+``chip_smoke_pipeline4.json`` and ``chip_smoke_pipeline4_cli.json``.
 """
 
 from __future__ import annotations
@@ -5501,16 +5524,18 @@ def max_rel(got: list, want: list) -> float:
 
 
 def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda",
-                   batch: int = 8) -> tuple[dict, dict]:
+                   batch: int = 8, p20_cfgs=None) -> tuple[dict, dict, dict]:
     """Phase 18 (the default run): a real process group of world 1 (NCCL
     on ``cuda:0``, gloo with ``device="cpu"``) driving ``train()`` at phase
     15's config, seed and batch: ZeRO-1 dp (``mesh data=1``) for 4 steps
     with a checkpoint, resumed dense to 8, and ring-flash sp (``mesh
     data=1,seq=1``) for 4 steps, each against ``train()`` on one device
     (phase 15's run; ``attention_impl="flash"`` for sp, whose ring runs
-    the flash kernels) within phase 15's 1e-5 relative; then phase 19 on
-    the same group (:func:`phase_sharded`).  Returns the launch counts of
-    18's dp and sp runs and of 19's runs (the slices' main paths)."""
+    the flash kernels) within phase 15's 1e-5 relative; then phases 19
+    (:func:`phase_sharded`) and 20 (:func:`phase_pipeline`, ``p20_cfgs``
+    its configurations) on the same group.  Returns the launch counts of
+    18's dp and sp runs, of 19's runs and of 20's (the slices' main
+    paths)."""
     import dataclasses
     import shutil
 
@@ -5541,7 +5566,7 @@ def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda",
                            num_processes=1, process_id=0)
     out: dict = {"smi": smi, "backend": dist.get_backend()}
     try:
-        def run(c, steps, resume_from=None, **kw):
+        def run(c, steps, resume_from=None, data=data, **kw):
             loop = LoopConfig(**{**base, "steps": steps, **kw})
             return train(c, TrainHParams(**hp), loop, data, log_fn=quiet, device=device,
                          resume_from=resume_from)
@@ -5602,12 +5627,20 @@ def phase_parallel(torch, smi: str, cfg=None, device: str = "cuda",
         counts19, out["sharded"] = phase_sharded(torch, run, losses, ref, cfg, on_card)
         log(f"phase 19 sharded parameters over the same group (world 1): ok "
             f"({time.perf_counter() - t_19:.1f} s)")
+        t_20 = time.perf_counter()
+        p20 = p20_cfgs or p20_configs()
+        counts20, out["pipeline"] = phase_pipeline(
+            torch, smi, run, losses, ref, p20, zipf_tokens(p20["moe"].vocab_size, 1_000_000, 16),
+            on_card, batch)
+        out["pipeline"]["phase_s"] = time.perf_counter() - t_20
+        log(f"phase 20 Ulysses, the GPipe pipeline and expert parallelism (world 1): ok "
+            f"({time.perf_counter() - t_20:.1f} s)")
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(out, indent=1))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
-    return {name: dp_counts[name] + sp_counts[name] for name in KERNEL_META}, counts19
+    return {name: dp_counts[name] + sp_counts[name] for name in KERNEL_META}, counts19, counts20
 
 
 # ------------------------------------------------------------ phase 19
@@ -6283,12 +6316,588 @@ def cli_resume_across_widths(smi: str, world: int, cfg=None, device: str = "cuda
         shutil.rmtree(PARALLEL_WORK, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 20
+
+#: 20's working files (token files, checkpoints), removed at the end.
+PIPE_WORK = ROOT / ".scratch" / "chip_smoke_pipeline"
+#: Ulysses' ranks on the default run's stacked ring, and the pipeline's
+#: microbatches a step (8 rows: 2 a microbatch at pp=4).
+ULYSSES_RANKS = 4
+PIPE_MICRO = 4
+
+
+def p20_configs() -> dict:
+    """20's configurations at full width: Ulysses at GPT2_SMALL_32K under
+    ``attention_impl="flash"`` (Ulysses runs the flash kernels only then),
+    the pipeline at phase 8's knobs, and TINYSTORIES_MOE at phase 16's."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K, TINYSTORIES_MOE
+
+    pipe = dataclasses.replace(GPT2_SMALL_32K, attention_impl="flash_fused",
+                               flash_fused_min_seq=0, ffn_impl="pallas", remat_policy="save_attn")
+    return {"ulysses": dataclasses.replace(pipe, attention_impl="flash"), "pipe": pipe,
+            "moe": dataclasses.replace(TINYSTORIES_MOE, attention_impl="flash_fused",
+                                       flash_fused_min_seq=0)}
+
+
+def p20_launches(kind: str, cfg, layers: int, micro: int = 1) -> dict:
+    """One step's launches a rank: Ulysses runs B2 + lse, B4's pair and the
+    SwiGLU forward twice (save_attn) a layer; the phase-8 knobs B5 instead
+    of B2; the pipeline does so for each microbatch on its own layers; an
+    MoE FFN launches no SwiGLU."""
+    attn = "flash_attention" if kind == "ulysses" else "flash_attention_rope"
+    n = layers * micro
+    return only(**{attn: n, "flash_attention_bwd_dkdv": n, "flash_attention_bwd_dq": n},
+                swiglu=0 if cfg.ffn_type == "moe" else 2 * n)
+
+
+def ulysses_stacked(torch, smi: str, cfg, batch: int = 8, device: str = "cuda") -> dict:
+    """20a: ``make_sp_train_step(ulysses=True)`` on a StackedRing of 4 at
+    ``cfg`` (bf16, ``batch`` x the context): step 1's loss and per-leaf
+    gradients against the dense flash step at phase 12c's tolerances, then
+    3 steps with exact launch counts (B2 + lse on ``(batch, heads/4, S,
+    64)``, B4's pair, B3).  Returns the launches."""
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.parallel import (
+        StackedRing,
+        make_sp_grad_fn,
+        make_sp_train_step,
+        shard_sp_batch,
+    )
+    from bpe_transformer_tpu_torch.training.train_step import (
+        TrainHParams,
+        make_loss_fn,
+        value_and_grad,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    on_card = device == "cuda"
+    ring = StackedRing(ULYSSES_RANKS)
+    rng = np.random.default_rng(20)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(batch, cfg.context_length)) for _ in range(2))
+    tol = TRAIN_TOL["bfloat16"]
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    want_loss, want_grads = value_and_grad(make_loss_fn(cfg))(
+        params, torch.as_tensor(x, device=device), torch.as_tensor(y, device=device))
+    xs, ys = shard_sp_batch((x, y), ring, device=device)
+    loss, grads = make_sp_grad_fn(cfg, ring, ulysses=True)(params, xs, ys)
+    abs_err, rel_err = grad_errors(tree_leaves(grads), tree_leaves(want_grads))
+    loss_err = abs(float(loss) - float(want_loss))
+    label = f"20a Ulysses x{ULYSSES_RANKS} (stacked ring, {batch}x{cfg.context_length})"
+    log(f"{label} step 1 vs the dense flash step: loss {float(loss):.6f} vs "
+        f"{float(want_loss):.6f} (|d| {loss_err:.3e}, tol {tol['out']:g}); grads max abs error "
+        f"{abs_err:.3e}, largest per-leaf relative error {rel_err:.3e} (tol {tol['grad']:g})")
+    require(loss_err <= tol["out"] and abs_err <= tol["grad"] and rel_err <= tol["grad"],
+            f"{label}: step 1 disagrees with the dense step")
+    del grads, want_grads
+    step = make_sp_train_step(cfg, TrainHParams(max_learning_rate=6e-4, warmup_iters=1,
+                                                cosine_cycle_iters=10), ring, ulysses=True)
+    opt = adamw_init(params)
+    per_step = p20_launches("ulysses", cfg, cfg.num_layers)
+    losses, host_ms = [], []
+    totals = dict.fromkeys(KERNEL_META, 0)
+    for _ in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, xs, ys)
+        losses.append(float(m["loss"]))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(tuple(KERNEL_META))
+        require(counts == per_step or not on_card,
+                f"{label}: launches of one step {counts} != {per_step}")
+        totals = {k: totals[k] + counts[k] for k in KERNEL_META}
+    require(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
+    log(f"{label} 3 steps: losses {[round(v, 5) for v in losses]}, host ms "
+        f"{[round(v, 1) for v in host_ms]}; launches a step "
+        f"{ {k: v for k, v in per_step.items() if v} } on {smi}")
+    return totals
+
+
+def p20_kernel_rows(torch) -> list[dict]:
+    """20c: B2 + lse at Ulysses' shape (8, 3, 1024, 64), and B5, B4's pair
+    and B3 at the pipeline's 2-row microbatch (2, 12, 1024, 64) and m 2048,
+    each against its plain version (phase 5's tolerances) and timed, the
+    backward by CUDA-graph replay ("device")."""
+    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    from bpe_transformer_tpu_torch.kernels import swiglu as sw
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for label, shape, names in (
+            ("Ulysses x4", (8, 3, 1024, 64), ("flash_attention",)),
+            ("pp microbatch", (2, 12, 1024, 64), ("flash_attention_rope",
+                                                  "flash_attention_bwd_dkdv",
+                                                  "flash_attention_bwd_dq"))):
+        errs = training_kernel_errors(torch, fa, *training_inputs(torch, shape, torch.bfloat16,
+                                                                  gen))
+        log(f"20c training kernels bfloat16 {label} {shape}: "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        for row in training_timings(torch, fa, shape, torch.bfloat16, gen):
+            if row["name"] in names:
+                row.update(config=f"GPT2_SMALL_32K {label}", max_abs_err=errs[row["name"]])
+                rows.append(row)
+                log(f"20c kernel {row['name']:24s} {row['shape']:44s} ms {row['ms']:.4f} dev "
+                    f"{row['device_ms']:.4f} plain {row['plain_ms']:.4f} bound "
+                    f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    m, d, ff = 2048, 768, 2048
+    sets = [tuple((torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+                  for shape, std in (((m, d), 1.0), ((ff, d), 0.02), ((d, ff), 0.02),
+                                     ((ff, d), 0.02)))
+            for _ in range(copies_for((2 * m * d + 3 * ff * d) * 2))]
+    out = sw._swiglu_forward(*sets[0])
+    torch.cuda.synchronize()
+    err = _max_err(out, sw.swiglu_plain(*sets[0]))
+    tol = TOL.get(("swiglu", "bfloat16"), TOL_BF16)
+    require(err <= tol, f"20c swiglu m={m}: max error {err:.3e} > {tol:g}")
+    ms, plain = time_ms(torch, sw._swiglu_forward, sets, 10), time_ms(torch, sw.swiglu_plain,
+                                                                      sets, 3)
+    dev = time_ms(torch, sw._swiglu_forward, sets, 10, graph=True)
+    lib = time_ms(torch, lambda x, w1, w2, w3: torch.nn.functional.linear(
+        torch.nn.functional.silu(x @ w1.t()) * (x @ w3.t()), w2), sets, 10)
+    flops, nbytes = 6 * m * d * ff, (2 * m * d + 3 * ff * d) * 2
+    byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"20c kernel swiglu bfloat16 pp microbatch m={m} d={d} ff={ff}: err {err:.3e} (tol "
+        f"{tol:g}) ms {ms:.4f} dev {dev:.4f} plain {plain:.4f} library {lib:.4f} bound "
+        f"{max(byte_ms, op_ms):.4f}")
+    rows.append({"name": "swiglu", "config": "GPT2_SMALL_32K pp microbatch", "dtype": "bfloat16",
+                 "shape": f"m={m} d={d} ff={ff} forward", "max_abs_err": err, "ms": ms,
+                 "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+                 "bound_ms": max(byte_ms, op_ms),
+                 "bound_by": "bytes" if byte_ms >= op_ms else "operations"})
+    return rows
+
+
+def phase_pipeline(torch, smi: str, run, losses, ref, cfgs=None, moe_data=None,
+                   on_card: bool = True, batch: int = 8) -> tuple[dict, dict]:
+    """Phase 20 (the default run) on phase 18's world-1 group: (a)
+    Ulysses on a stacked ring of 4 (:func:`ulysses_stacked`); (b) ``train()``
+    under pp (``mesh pp=1``, 4 microbatches) for 4 steps writing a stacked
+    directory, verified and resumed under pp to step 8, against one device
+    (phase 18's run; the microbatches change the bf16 sums, so DP_TOL's
+    2e-3), and under ``ep`` (``expert=1``) and ``dp_ep`` (``data=1,
+    expert=1``) at TINYSTORIES_MOE against one device's run within 1e-5;
+    exact launch counts; (c) on the card the kernels at 20's shapes
+    (:func:`p20_kernel_rows`).  Returns the launches and the record."""
+    from bpe_transformer_tpu_torch.resilience.integrity import verify_checkpoint
+
+    cfgs = cfgs or p20_configs()
+    pipe, moe = cfgs["pipe"], cfgs["moe"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    totals = ulysses_stacked(torch, smi, cfgs["ulysses"], batch,
+                             "cuda" if on_card else "cpu")
+    out["ulysses_s"] = time.perf_counter() - t0
+    ck = PARALLEL_WORK / "pp_ck"
+    reset_counts()
+    pp = run(pipe, 4, parallel="pp", mesh_axes={"pp": 1}, pp_microbatches=PIPE_MICRO,
+             checkpoint_every=4, checkpoint_dir=str(ck))
+    pp_counts = read_counts(tuple(KERNEL_META))
+    step4 = ck / "step_00000004.ckpt"
+    verdict = verify_checkpoint(step4)
+    require(step4.is_dir() and verdict.ok, f"20: {step4} is not a verified directory: "
+            f"{verdict.problems}")
+    resumed = losses(run(pipe, 8, parallel="pp", mesh_axes={"pp": 1},
+                         pp_microbatches=PIPE_MICRO, resume_from=str(step4)))
+    moe_ref = losses(run(moe, 4, data=moe_data))
+    reset_counts()
+    ep = {name: losses(run(moe, 4, data=moe_data, parallel=name, mesh_axes=axes))
+          for name, axes in (("ep", {"expert": 1}), ("dp_ep", {"data": 1, "expert": 1}))}
+    ep_counts = read_counts(tuple(KERNEL_META))
+    rel = {"pp": max_rel(losses(pp), ref[:2]), "resumed pp": max_rel(resumed, ref[2:]),
+           **{name: max_rel(v, moe_ref) for name, v in ep.items()}}
+    log(f"20b world 1: pp x{PIPE_MICRO} microbatches {[round(v, 5) for v in losses(pp)]}, its "
+        f"directory ({verdict.files_checked} files) resumed {[round(v, 5) for v in resumed]} vs "
+        f"one device {[round(v, 5) for v in ref]}; TINYSTORIES_MOE one device "
+        f"{[round(v, 5) for v in moe_ref]}, ep {[round(v, 5) for v in ep['ep']]}, dp_ep "
+        f"{[round(v, 5) for v in ep['dp_ep']]}; max rel diffs {rel} (pp tol "
+        f"{DP_TOL['loss_rel']:g}, ep {LOOP_REL_TOL:g})")
+    require(rel["pp"] <= DP_TOL["loss_rel"] and rel["resumed pp"] <= DP_TOL["loss_rel"]
+            and rel["ep"] <= LOOP_REL_TOL and rel["dp_ep"] <= LOOP_REL_TOL,
+            f"20: world-1 runs disagree with one device: {rel}")
+    want_pp = {k: 4 * v for k, v in p20_launches("pp", pipe, pipe.num_layers,
+                                                  PIPE_MICRO).items()}
+    want_ep = {k: 8 * v for k, v in p20_launches("ep", moe, moe.num_layers).items()}
+    log(f"20 launches: pp { {k: v for k, v in pp_counts.items() if v} }, ep + dp_ep "
+        f"{ {k: v for k, v in ep_counts.items() if v} }")
+    if on_card:
+        require(pp_counts == want_pp, f"20: pp launches {pp_counts} != {want_pp}")
+        require(ep_counts == want_ep, f"20: ep launches {ep_counts} != {want_ep}")
+        t0 = time.perf_counter()
+        out["kernels"] = p20_kernel_rows(torch)
+        out["kernels_s"] = time.perf_counter() - t0
+    out.update(pp=losses(pp), resumed=resumed, moe_ref=moe_ref, ep=ep, rel=rel,
+               pp_step_wall_s=[r["step_wall_s"] for r in pp["history"]])
+    for name in KERNEL_META:
+        totals[name] += pp_counts[name] + ep_counts[name]
+    return totals, out
+
+
+#: 20 at world N: (kind, label, config key, mesh of N ranks, opt_sharding).
+PIPE_CASES = (
+    ("ulysses", "Ulysses seq", "ulysses", lambda n: {"data": 1, "seq": n}, None),
+    ("ulysses", "Ulysses data x seq", "ulysses", lambda n: {"data": 2, "seq": n // 2}, None),
+    ("pp", "pp", "pipe", lambda n: {"pp": n}, None),
+    ("pp", "data x pp", "pipe", lambda n: {"data": 2, "pp": n // 2}, None),
+    ("ep", "ep", "moe", lambda n: {"expert": n}, None),
+    ("dp_ep", "dp_ep", "moe", lambda n: {"data": 2, "expert": n // 2}, "zero1"),
+    ("fsdp_ep", "fsdp_ep", "moe", lambda n: {"data": 2, "expert": n // 2}, "zero1"),
+    ("pp", "pp MoE", "moe", lambda n: {"pp": n}, None),
+)
+
+
+def p20_state(torch, kind: str, cfg, mesh, zero1, hparams, fresh, x, y, device: str) -> dict:
+    """One case of 20 at world N on this rank: the state, the step, the
+    step-1 ``(loss, whole grads)`` function, the whole-weights function, the
+    placed batch and the bytes the specs give a rank."""
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.parallel import (
+        PipelineLayout,
+        make_gspmd_train_step,
+        make_pp_grad_fn,
+        make_pp_train_step,
+        make_sp_grad_fn,
+        make_sp_train_step,
+        shard_batch,
+        shard_sp_batch,
+        stack_pipeline_params,
+        unstack_pipeline_params,
+    )
+    from bpe_transformer_tpu_torch.parallel.gspmd import block_bytes
+    from bpe_transformer_tpu_torch.parallel.sharding import local_shape
+    from bpe_transformer_tpu_torch.models.transformer import abstract_params
+    from bpe_transformer_tpu_torch.training.train_step import make_loss_fn, value_and_grad
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    if kind == "ulysses":
+        params = fresh()
+        dense = 4 * sum(t.numel() for t in tree_leaves(params))
+        # Copies: the step updates the parameters in place.
+        return dict(params=params, opt=adamw_init(params),
+                    batch=shard_sp_batch((x, y), mesh),
+                    step=make_sp_train_step(cfg, hparams, mesh, ulysses=True),
+                    grads=make_sp_grad_fn(cfg, mesh, ulysses=True),
+                    whole=lambda tree: [t.detach().clone() for t in tree_leaves(tree)],
+                    spec_bytes={"params": dense, "moments": 2 * dense})
+    if kind == "pp":
+        lay = PipelineLayout(cfg, mesh)
+        grad_fn = make_pp_grad_fn(cfg, mesh, num_microbatches=PIPE_MICRO)
+        nbytes = sum(4 * int(np.prod(local_shape(tuple(t.shape), s, mesh.shape)))
+                     for t, s in zip(tree_leaves(lay.full), lay.leaf_specs))
+        return dict(params=lay.shard(stack_pipeline_params(fresh(), lay.stages)),
+                    opt=lay.init_opt_state(), batch=shard_batch((x, y), mesh),
+                    step=make_pp_train_step(cfg, hparams, mesh, num_microbatches=PIPE_MICRO),
+                    grads=grad_fn,
+                    whole=lambda tree: tree_leaves(unstack_pipeline_params(lay.gather(tree))),
+                    spec_bytes={"params": nbytes, "moments": 2 * nbytes})
+    step = make_gspmd_train_step(cfg, hparams, mesh, kind, example_params=abstract_params(cfg),
+                                 opt_sharding=zero1)
+    layout = step.layout
+    loss_grad = value_and_grad(make_loss_fn(cfg, shard=layout))
+
+    def grads(p, xs, ys):
+        loss, g = loss_grad(p, xs, ys)
+        g = tree_leaves(g)
+        if layout.data is not None:
+            layout.data.pmean_(loss)
+            for i, spec in enumerate(layout.leaf_specs):
+                if not layout.data_reduced(spec):
+                    # A batched expert weight's gradient may come back
+                    # transposed; a collective takes contiguous storage.
+                    g[i] = layout.data.pmean_(g[i].contiguous())
+        return loss, g
+
+    return dict(params=layout.shard(fresh()), opt=layout.init_opt_state(),
+                batch=shard_batch((x, y), mesh), step=step, grads=grads,
+                whole=lambda tree: [layout.gather_leaf(t.detach(), s) for t, s in
+                                    zip(tree_leaves(tree), layout.leaf_specs)],
+                spec_bytes=block_bytes(cfg, mesh.shape, kind, zero1 == "zero1", mesh.coords))
+
+
+def one_card_grad_fn(cfg, groups: int):
+    """The one-card ``(params, x, y) -> (loss, grads)``; with ``groups`` > 1
+    an MoE FFN routes that many consecutive slices of the batch's rows as
+    dispatch groups of their own, as the pipeline routes its microbatches
+    (the loss and aux then equal the pipeline's)."""
+    from bpe_transformer_tpu_torch.models.transformer import forward_hidden, lm_head_weight
+    from bpe_transformer_tpu_torch.ops.losses import lm_loss
+    from bpe_transformer_tpu_torch.training.train_step import make_loss_fn, value_and_grad
+
+    if groups == 1:
+        return value_and_grad(make_loss_fn(cfg))
+
+    def loss_fn(params, x, y):
+        hidden, aux = forward_hidden(params, x, cfg, moe_groups=groups)
+        return (lm_loss(hidden, lm_head_weight(params, cfg), y, cfg.loss_chunk)
+                + cfg.router_aux_weight * aux)
+
+    return value_and_grad(loss_fn)
+
+
+def pipeline_rank(torch, cfgs=None, device: str = "cuda", batch: int = 8) -> None:
+    """20 at world N, in each rank process (one card a rank, NCCL): each of
+    :data:`PIPE_CASES` against the one-card step of its config on the same
+    batch, as phase 19 holds its strategies: step 1's loss and whole
+    gradients (per-leaf relative, phase 12's bf16 tolerance), the losses of
+    3 steps (2e-3) and the weights (the AdamW bound), exact launch counts,
+    a rank's parameter and moment bytes equal to the specs', host ms a
+    step, tok/s a card, peak memory a rank and the traced device busy and
+    NCCL ms of a step; rank 0 prints and writes ``chip_smoke_pipeline4.json``.
+    The pipeline's MoE is held against the one-card step whose MoE routes
+    each microbatch's rows as a group (:func:`one_card_grad_fn`).
+    ``device="cpu"`` (gloo) and small ``cfgs`` rehearse it on the CPU."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
+    from bpe_transformer_tpu_torch.parallel import initialize_distributed, make_mesh
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, _update
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device == "cuda"
+    dev = initialize_distributed(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = log if rank == 0 else (lambda msg: None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(dev.index)], capture_output=True, text=True,
+                         check=True).stdout.strip() if on_card else "cpu"
+    cfgs = cfgs or p20_configs()
+    n_steps = 3
+    hparams = TrainHParams(max_learning_rate=6e-4, min_learning_rate=6e-5, warmup_iters=1,
+                           cosine_cycle_iters=10)
+    adam_bound = DP_TOL["adam_flip"] * sum(
+        cosine_schedule(i, hparams.max_learning_rate, hparams.min_learning_rate,
+                        hparams.warmup_iters, hparams.cosine_cycle_iters) for i in range(n_steps))
+    tol = TRAIN_TOL["bfloat16"]
+    out: dict = {"world": world, "smi": smi, "cases": []}
+    refs: dict = {}
+    for kind, name, key, axes_of, zero1 in PIPE_CASES:
+        cfg = cfgs[key]
+        S = cfg.context_length
+        rng = np.random.default_rng(20)
+        x, y = (rng.integers(0, cfg.vocab_size, size=(batch, S)) for _ in range(2))
+
+        def fresh(cfg=cfg):
+            return init_params(cfg, torch.Generator(device=device).manual_seed(0), device=dev)
+
+        axes = axes_of(world)
+        groups = (PIPE_MICRO * axes.get("data", 1) if kind == "pp" and cfg.ffn_type == "moe"
+                  else 1)
+        if rank == 0 and (key, groups) not in refs:
+            # The one-card reference: step 1's loss and gradients, 3 steps.
+            p = fresh()
+            full = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+            grad_fn = one_card_grad_fn(cfg, groups)
+            want_loss, want_grads = grad_fn(p, *full)
+            o, ref_losses = adamw_init(p), []
+            for _ in range(n_steps):
+                p, o, m = _update(p, o, *grad_fn(p, *full), hparams)
+                ref_losses.append(float(m["loss"]))
+            refs[key, groups] = (float(want_loss), tree_leaves(want_grads), ref_losses,
+                                 [t.detach().clone() for t in tree_leaves(p)])
+            del p, o, want_grads
+        label = f"{name} {'x'.join(str(v) for v in axes.values())}" + (
+            " zero1" if zero1 else "")
+        mesh = make_mesh(axes, device=device)
+        case = p20_state(torch, kind, cfg, mesh, zero1, hparams, fresh, x, y, device)
+        p, o, (xs, ys) = case["params"], case["opt"], case["batch"]
+        loss, grads = case["grads"](p, xs, ys)
+        whole = case["whole"](grads)
+        if rank == 0:
+            want_loss, want_grads, ref_losses, ref_leaves = refs[key, groups]
+            abs_err, rel_err = grad_errors(whole, want_grads)
+            loss_err = abs(float(loss) - want_loss)
+            say(f"20 {label} step 1 vs one card: loss {float(loss):.6f} vs {want_loss:.6f} (|d| "
+                f"{loss_err:.3e}, tol {tol['out']:g}); grads max abs error {abs_err:.3e}, largest "
+                f"per-leaf relative error {rel_err:.3e} (tol {tol['grad']:g})")
+            require(loss_err <= tol["out"] and rel_err <= tol["grad"],
+                    f"20 {label}: step 1 disagrees with the one-card step")
+        del grads, whole
+        pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+        obytes = sum(t.numel() * t.element_size() for t in tree_leaves(o.m) + tree_leaves(o.v))
+        require(pbytes == case["spec_bytes"]["params"]
+                and obytes == case["spec_bytes"]["moments"],
+                f"20 {label} rank {rank}: {pbytes} + {obytes} bytes, the specs say "
+                f"{case['spec_bytes']}")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, step_losses = [], []
+        step = case["step"]
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, xs, ys)
+            step_losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(tuple(KERNEL_META))
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        layers = cfg.num_layers // axes.get("pp", 1)
+        per_step = p20_launches("ulysses" if kind == "ulysses" else kind, cfg, layers,
+                                PIPE_MICRO if kind == "pp" else 1)
+        want = {k: n_steps * v for k, v in per_step.items()}
+        require(counts == want or not on_card,
+                f"20 {label} rank {rank}: launches {counts} != {want}")
+        leaves = case["whole"](p)
+        busy, nccl = nccl_ms(torch, lambda _: step(p, o, xs, ys), dev)
+        t = torch.tensor([float(peak)], device=dev)
+        peaks = [torch.zeros_like(t) for _ in range(world)]
+        dist.all_gather(peaks, t)
+        peaks = [int(v.item()) for v in peaks]
+        if rank == 0:
+            drift = leaf_drift(leaves, ref_leaves)
+            loss_rel = max_rel(step_losses, ref_losses)
+            mean_ms = float(np.mean(ms[1:]))
+            say(f"20 {label} ({batch}x{S}): losses {[round(v, 5) for v in step_losses]} vs one "
+                f"card {[round(v, 5) for v in ref_losses]} (rel {loss_rel:.2e}, tol "
+                f"{DP_TOL['loss_rel']:g}); weights max abs diff {drift['max_abs']:.3e} (AdamW "
+                f"bound {adam_bound:.3e}); host ms a step {[round(v, 1) for v in ms]} (steps 2-3 "
+                f"mean {mean_ms:.1f} ms = {batch * S / mean_ms * 1e3 / world:.0f} tok/s a card); "
+                f"peak GB a rank {[round(v / 1e9, 3) for v in peaks]}; rank 0 holds {pbytes:,} B "
+                f"of params and {obytes:,} B of moments (the specs' {case['spec_bytes']}); "
+                f"device busy {busy} ms a step of which NCCL {nccl} ms; launches a step "
+                f"{ {k: v for k, v in per_step.items() if v} } on {smi}")
+            require(loss_rel <= DP_TOL["loss_rel"] and drift["max_abs"] <= adam_bound,
+                    f"20 {label}: disagrees with the one-card step: {loss_rel}, {drift}")
+            out["cases"].append({"label": label, "losses": step_losses, "ref": ref_losses,
+                                 "host_ms": ms, "peak": peaks, "busy_ms": busy,
+                                 "nccl_ms": nccl, "param_bytes": pbytes, "moment_bytes": obytes,
+                                 "loss_rel": loss_rel, **drift})
+            # Written after each case, so a failing later case keeps these.
+            OUT_DIR.mkdir(exist_ok=True)
+            (OUT_DIR / "chip_smoke_pipeline4.json").write_text(json.dumps(out, indent=1))
+        del p, o, step, case, leaves
+        if on_card:
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def cli_pipeline_resume(smi: str, world: int, cfgs=None, device: str = "cuda") -> dict:
+    """20 at world N: the ``train`` CLI under ``torchrun``: pp=N for 8 steps
+    writing stacked directories (every 4 steps), the step-4 directory
+    through ``verify-checkpoint``, resumed at pp=N to 8 (the uninterrupted
+    losses within 1e-5 relative: the same ranks do the same work) and at
+    pp=N/2, refused with the JAX loop's message; dp_ep (data=2) for 8 steps
+    at TINYSTORIES_MOE, resumed at ep=N (DP_TOL's 2e-3); and ``train
+    --supervise --parallel pp`` without ``torchrun``, one rank killed at
+    step 5: the supervisor respawns the world once and ends with the
+    uninterrupted pp=N losses."""
+    import shutil
+
+    cfgs = cfgs or p20_configs()
+    shutil.rmtree(PIPE_WORK, ignore_errors=True)
+    PIPE_WORK.mkdir(parents=True)
+    try:
+        for key in ("pipe", "moe"):
+            cfg = cfgs[key]
+            zipf_tokens(cfg.vocab_size, 2_000_000, 20).tofile(PIPE_WORK / f"{key}.bin")
+            cfg.to_json(PIPE_WORK / f"{key}.json")
+
+        def argv_of(key: str, ck: Path, *extra) -> list:
+            return [*PORT_CLI, "train", "--data", str(PIPE_WORK / f"{key}.bin"),
+                    "--model-config", str(PIPE_WORK / f"{key}.json"), "--steps", "8",
+                    "--batch-size", "8", "--log-every", "2", "--eval-every", "1000",
+                    "--checkpoint-every", "4", "--lr", "6e-4", "--min-lr", "6e-5", "--warmup",
+                    "2", "--prefetch", "0", "--checkpoint-dir", str(ck), "--device", device,
+                    *extra]
+
+        def torchrun(n: int, key: str, ck: Path, *extra, ok: bool = True):
+            argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    f"--nproc-per-node={n}", *argv_of(key, ck, *extra)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if not ok:
+                return proc, wall
+            require(proc.returncode == 0, f"20 torchrun x{n} {extra} exit {proc.returncode}: "
+                    f"{proc.stderr[-3000:]}")
+            summary = json.loads((ck / "summary.json").read_text())
+            return {r["step"]: r["loss"] for r in summary["history"]}, wall
+
+        def copy_step4(src: Path, name: str) -> Path:
+            dst = PIPE_WORK / name
+            dst.mkdir()
+            shutil.copytree(src / "step_00000004.ckpt", dst / "step_00000004.ckpt")
+            return dst
+
+        pp_args = ("--parallel", "pp", "--mesh", f"pp={world}", "--pp-microbatches",
+                   str(PIPE_MICRO))
+        ck = PIPE_WORK / "pp_ck"
+        full, walls = {}, {}
+        full["pp"], walls["pp"] = torchrun(world, "pipe", ck, *pp_args)
+        port_cli("verify-checkpoint", str(ck / "step_00000004.ckpt"))
+        again = copy_step4(ck, "pp_again")
+        resumed, walls["pp resumed"] = torchrun(world, "pipe", again, *pp_args, "--resume",
+                                                str(again / "step_00000004.ckpt"))
+        half = max(world // 2, 1)
+        narrow = copy_step4(ck, "pp_half")
+        proc, walls["pp half refused"] = torchrun(
+            half, "pipe", narrow, "--parallel", "pp", "--mesh", f"pp={half}", "--resume",
+            str(narrow / "step_00000004.ckpt"), ok=False)
+        message = (f"checkpoint has {world} pipeline stages but the mesh pp axis is {half}; "
+                   f"resume with --mesh ...,pp={world}")
+        require(proc.returncode != 0 and message in proc.stderr,
+                f"20: a pp={world} directory resumed at pp={half} was not refused with JAX's "
+                f"message (exit {proc.returncode}): {proc.stderr[-2000:]}")
+        ep_ck = PIPE_WORK / "ep_ck"
+        full["dp_ep"], walls["dp_ep"] = torchrun(world, "moe", ep_ck, "--parallel", "dp_ep",
+                                                 "--mesh", f"data=2,expert={world // 2}")
+        ep_again = copy_step4(ep_ck, "ep_again")
+        ep_resumed, walls["ep resumed"] = torchrun(
+            world, "moe", ep_again, "--parallel", "ep", "--mesh", f"expert={world}", "--resume",
+            str(ep_again / "step_00000004.ckpt"))
+        sup_ck = PIPE_WORK / "sup_ck"
+        t0 = time.perf_counter()
+        sup = subprocess.run(
+            [sys.executable, *argv_of("pipe", sup_ck, *pp_args, "--supervise",
+                                      "--max-restarts", "2", "--restart-backoff", "1")],
+            cwd=ROOT, capture_output=True, text=True, timeout=900,
+            env={**os.environ, "BT_FAULTS": json.dumps(
+                {"kill_at_step": 5, "once_dir": str(PIPE_WORK / "once")})})
+        walls["supervised"] = time.perf_counter() - t0
+        require(sup.returncode == 0 and "spawn #2" in sup.stdout,
+                f"20: the supervised pp world (exit {sup.returncode}): {sup.stdout[-2000:]} "
+                f"{sup.stderr[-2000:]}")
+        supervised = {r["step"]: r["loss"] for r in json.loads(
+            (sup_ck / "summary.json").read_text())["history"]}
+        rel = {
+            "pp resumed": max(abs(resumed[s] - full["pp"][s]) / abs(full["pp"][s])
+                              for s in resumed),
+            "ep resumed": max(abs(ep_resumed[s] - full["dp_ep"][s]) / abs(full["dp_ep"][s])
+                              for s in ep_resumed),
+            "supervised": max(abs(supervised[s] - full["pp"][s]) / abs(full["pp"][s])
+                              for s in supervised),
+        }
+        log(f"20 train CLI under torchrun: pp={world} 8 steps {full['pp']}, its step-4 "
+            f"directory resumed at pp={world} {resumed}, at pp={half} refused (\"{message}\"); "
+            f"dp_ep data=2 x expert={world // 2} {full['dp_ep']}, resumed at ep={world} "
+            f"{ep_resumed}; supervised pp={world}, a rank killed at step 5, respawned: "
+            f"{supervised}; max rel diffs {rel} (pp tol {LOOP_REL_TOL:g}, ep "
+            f"{DP_TOL['loss_rel']:g}); walls {walls} on {smi}")
+        require(sorted(resumed) == [6, 8] and rel["pp resumed"] <= LOOP_REL_TOL
+                and rel["supervised"] <= LOOP_REL_TOL and rel["ep resumed"] <= DP_TOL["loss_rel"],
+                f"20: resumed runs disagree with the uninterrupted ones: {rel}")
+        return {"full": full, "resumed": resumed, "ep_resumed": ep_resumed,
+                "supervised": supervised, "rel": rel, "wall_s": walls}
+    finally:
+        shutil.rmtree(PIPE_WORK, ignore_errors=True)
+
+
 def main_parallel(world: int, phase: int = 18) -> int:
-    """``chip_smoke.py --phase 18|19 [--world N]``: the build, then the
-    phase alone: at world 1 the default run's phases 18 and 19, at world N
-    > 1 one rank process a card (NCCL) for dp, ZeRO-1 and the sp grids
-    (18) or the GSPMD strategies (19), then the ``train`` CLI under
-    ``torchrun``."""
+    """``chip_smoke.py --phase 18|19|20 [--world N]``: the build, then the
+    phase alone: at world 1 the default run's phases 18, 19 and 20, at
+    world N > 1 one rank process a card (NCCL) for dp, ZeRO-1 and the sp
+    grids (18), the GSPMD strategies (19) or Ulysses, the pipeline and
+    expert parallelism (20), then the ``train`` CLI under ``torchrun``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6318,19 +6927,22 @@ def main_parallel(world: int, phase: int = 18) -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({built})")
     t0 = time.perf_counter()
     if world == 1:
-        counts, counts19 = phase_parallel(torch, smi)
-        log(f"18 launches {counts}; 19 launches {counts19}")
+        counts, counts19, counts20 = phase_parallel(torch, smi)
+        log(f"18 launches {counts}; 19 launches {counts19}; 20 launches {counts20}")
     else:
         outs = launch([__file__, "--phase", str(phase), "--world", str(world), "--rank-child"],
-                      world, timeout=900, cwd=ROOT)
+                      world, timeout=600 if phase == 20 else 900, cwd=ROOT)
         print(outs[0], end="", flush=True)
         log(f"{phase} ranks: ok ({time.perf_counter() - t0:.1f} s)")
         if phase == 18:
             cli = cli_resume_across_widths(smi, world)
             name = "chip_smoke_parallel4_cli.json"
-        else:
+        elif phase == 19:
             cli = cli_sharded_resume(smi, world)
             name = "chip_smoke_sharded4_cli.json"
+        else:
+            cli = cli_pipeline_resume(smi, world)
+            name = "chip_smoke_pipeline4_cli.json"
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / name).write_text(json.dumps(cli, indent=1))
     log(f"phase {phase} across {world} card(s): ok ({time.perf_counter() - t0:.1f} s)")
@@ -6453,12 +7065,13 @@ def main() -> int:
         shutil.rmtree(SURFACE_WORK, ignore_errors=True)
     log(f"phase 17 the native tokenizer, the adapters, attribution and warmup: ok "
         f"({time.perf_counter() - t0:.1f} s)")
-    # Phase 18's main path is dp (ZeRO-1) and sp over a process group, and
-    # phase 19's fsdp and fsdp_tp over the same group: their launches are
-    # added to every kernel's count.
-    counts18, counts19 = phase_parallel(torch, smi)
+    # Phase 18's main path is dp (ZeRO-1) and sp over a process group,
+    # phase 19's fsdp and fsdp_tp over the same group, and phase 20's
+    # Ulysses, pp and the ep strategies: their launches are added to every
+    # kernel's count.
+    counts18, counts19, counts20 = phase_parallel(torch, smi)
     for name in KERNEL_META:
-        counts[name] = counts.get(name, 0) + counts18[name] + counts19[name]
+        counts[name] = counts.get(name, 0) + counts18[name] + counts19[name] + counts20[name]
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -6481,14 +7094,15 @@ def main() -> int:
 
 
 def _args(argv: list) -> dict:
-    """``--phase 18 [--world N] [--rank-child]``, or nothing (every phase)."""
+    """``--phase 18|19|20 [--world N] [--rank-child]``, or nothing (every
+    phase)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="Run the port on the card and check it.")
-    parser.add_argument("--phase", type=int, choices=[18, 19], default=None,
+    parser.add_argument("--phase", type=int, choices=[18, 19, 20], default=None,
                         help="run the build and this phase alone")
     parser.add_argument("--world", type=int, default=1,
-                        help="cards for --phase 18 or 19 (one rank process a card)")
+                        help="cards for --phase 18, 19 or 20 (one rank process a card)")
     parser.add_argument("--rank-child", action="store_true", help=argparse.SUPPRESS)
     return vars(parser.parse_args(argv))
 
@@ -6500,9 +7114,9 @@ if __name__ == "__main__":
             import torch
 
             sys.path.insert(0, str(ROOT))
-            (sharded_rank if opts["phase"] == 19 else parallel_rank)(torch)
+            {18: parallel_rank, 19: sharded_rank, 20: pipeline_rank}[opts["phase"]](torch)
             sys.exit(0)
-        if opts["phase"] in (18, 19):
+        if opts["phase"] in (18, 19, 20):
             sys.exit(main_parallel(opts["world"], opts["phase"]))
         sys.exit(main())
     except SmokeFailure as exc:

@@ -119,7 +119,7 @@ import contextlib, io, json, numpy as np
 from pathlib import Path
 from bpe_transformer_tpu_torch.training.cli import main as cli_main
 from bpe_transformer_tpu_torch.training.loop import LoopConfig, train
-from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
 
 work = Path(sys.argv[1])
 tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, 500).astype(np.uint16)
@@ -223,7 +223,18 @@ assert xs.shape == (2, 2, 8) and xs.device.type == "cpu", xs.shape
 sp_params, _, metrics = make_sp_train_step(cfg, TrainHParams(), ring, zigzag=True)(
     sp_params, adamw_init(sp_params), xs, ys)
 assert np.isfinite(float(metrics["loss"])) and sp_params["lm_head"].device.type == "cpu"
-# Across cards: slice 10d's strategies and a supervised torchrun group exit 2.
+# Ulysses on the same stacked ring: the tensors' device, the dense step's loss.
+sp_params = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+xs, ys = shard_sp_batch((batch[0], batch[1]), ring, device="cpu")
+want_loss = float(make_train_step(cfg, TrainHParams())(
+    init_params(cfg, torch.Generator().manual_seed(2), device="cpu"),
+    adamw_init(sp_params), torch.as_tensor(batch[0]), torch.as_tensor(batch[1]))[2]["loss"])
+sp_params, _, metrics = make_sp_train_step(cfg, TrainHParams(), ring, ulysses=True)(
+    sp_params, adamw_init(sp_params), xs, ys)
+assert abs(float(metrics["loss"]) - want_loss) < 1e-5, (float(metrics["loss"]), want_loss)
+# Across cards: the train CLI takes pp, the ep strategies and Ulysses; a
+# supervised world needs its mesh (the product of its sizes is the world it
+# starts) and its checkpoint directory, or exits 2.
 from bpe_transformer_tpu_torch.models.transformer import abstract_params
 from bpe_transformer_tpu_torch.parallel import (
     initialize_distributed,
@@ -231,8 +242,11 @@ from bpe_transformer_tpu_torch.parallel import (
     make_hybrid_mesh,
     make_mesh,
 )
-for extra in (["--parallel", "pp"], ["--parallel", "dp_ep"], ["--sp-ulysses"],
-              ["--parallel", "dp", "--supervise"]):
+parsed = build_parser().parse_args(["train", "--data", "t.bin", "--parallel", "fsdp_ep",
+                                    "--pp-microbatches", "2", "--sp-ulysses"])
+assert (parsed.parallel, parsed.pp_microbatches, parsed.sp_ulysses) == ("fsdp_ep", 2, True)
+for extra in (["--parallel", "pp", "--supervise", "--mesh", "pp=2"],
+              ["--parallel", "dp_ep", "--supervise", "--checkpoint-dir", str(work / "sup")]):
     with contextlib.redirect_stderr(io.StringIO()):
         assert cli_main(["train", "--data", str(work / "tokens.bin"), "--model-config",
                          str(work / "cfg.json"), "--device", "cpu", *extra]) == 2, extra
@@ -254,6 +268,10 @@ if not torch.cuda.is_available():
         lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2, parallel="fsdp"),
                       tokens),
         lambda: make_gspmd_train_step(cfg, TrainHParams(), make_mesh({"data": 1}), "fsdp",
+                                      example_params=abstract_params(cfg)),
+        lambda: train(cfg, TrainHParams(), LoopConfig(steps=1, batch_size=2, parallel="pp"),
+                      tokens),
+        lambda: make_gspmd_train_step(cfg, TrainHParams(), make_mesh({"expert": 1}), "ep",
                                       example_params=abstract_params(cfg)),
         lambda: make_hybrid_mesh({"data": 1}),
         *[lambda argv=argv: cli_main(argv) for argv in model_cmds.values()],
@@ -467,6 +485,11 @@ for name, cfg_kw, strategy, axes, kw in spec["cases"]:
     if kw.get("health"):
         out[name]["health"] = flatten_health(m["health"])
         out[name]["dynamics"] = flatten_dynamics(m["dynamics"])
+    if name == "fsdp_ep zero1":
+        # Each distinct block written by the lowest rank that holds it.
+        from bpe_transformer_tpu_torch.checkpointing.checkpoint import save_checkpoint_sharded
+        save_checkpoint_sharded(work / "port_ep_dir", params=params, opt_state=opt,
+                                iteration=int(opt.step), layout=lay)
     if name == "dp_tp zero1":
         # The GSPMD probe: off the card no trace splits the collectives off.
         from bpe_transformer_tpu_torch.telemetry.attribution import StepProbe
@@ -501,21 +524,29 @@ def _gspmd_matches_jax(tmp_path):
     ``{"data": 8}``, ``{"data": 4, "model": 2}`` and ``{"data": 2,
     "model": 4}``, for the tiny test config, a GQA config whose kv heads do
     not divide ``model``, one whose head count does not, TINYSTORIES_MOE,
-    and GPT2_SMALL_32K's and GPT2_MEDIUM's shapes; ``ep`` raises for slice
-    10d.  The steps: a gloo world of 4 ranks (``parallel/launch.py``, jax
+    and GPT2_SMALL_32K's and GPT2_MEDIUM's shapes, and under ``ep``,
+    ``dp_ep`` and ``fsdp_ep`` on ``{"expert": 8}``, ``{"data": 4, "expert":
+    2}`` and ``{"data": 2, "expert": 4}`` too (an MoE leaf's expert dim
+    split, FSDP after it).  The steps: a gloo world of 4 ranks (``parallel/launch.py``, jax
     refused) runs ``make_gspmd_train_step`` against JAX's on the same mesh
     shape (4 of conftest's devices), float32: fsdp on ``data=4``, tp on
     ``model=4``, fsdp_tp, dp_tp with ZeRO-1 (the moments split over
     ``data`` on top of ``model``), accumulation and inner steps under
     fsdp_tp, health and dynamics under fsdp_tp with ZeRO-1, the GQA and
     odd-head configs under tp (their attention gathered over ``model``),
-    and a TINYSTORIES_MOE-shaped tiny MoE under fsdp (the tokens of every
-    data rank routed as one group, as XLA routes the global batch):
+    a TINYSTORIES_MOE-shaped tiny MoE under fsdp (the tokens of every
+    data rank routed as one group, as XLA routes the global batch), and
+    expert parallelism on it: ep on ``{"expert": 4}``, dp_ep (the gather
+    dispatch) and fsdp_ep and dp_ep with ZeRO-1 on ``{"data": 2, "expert":
+    2}`` (the router gathered, each rank's experts on their slots, the
+    outputs gathered, each gather's gradient this rank's block):
     losses, grad norms, every weight and every moment within 2e-5 (the JAX
     ZeRO-1 test's tolerance), the taps' records within ``_same_flat``'s.
     The world also builds hybrid meshes: the degenerate one, JAX's two
     errors word for word, and the rank grid with a dcn axis under a faked
-    ``LOCAL_WORLD_SIZE``."""
+    ``LOCAL_WORLD_SIZE``.  The fsdp_ep rank state's directory is read by
+    JAX's ``load_checkpoint_sharded`` as JAX's own step, and JAX's by the
+    port."""
     import dataclasses
     import json
     import pickle
@@ -527,6 +558,8 @@ def _gspmd_matches_jax(tmp_path):
     import pytest
     from jax.sharding import PartitionSpec
 
+    from bpe_transformer_tpu.checkpointing import load_checkpoint_sharded as jax_load_sharded
+    from bpe_transformer_tpu.checkpointing import save_checkpoint_sharded as jax_save_sharded
     from bpe_transformer_tpu.models import init_params as jax_init_params
     from bpe_transformer_tpu.models.config import ModelConfig as JaxModelConfig
     from bpe_transformer_tpu.optim import AdamWState as JaxAdamWState
@@ -548,13 +581,12 @@ def _gspmd_matches_jax(tmp_path):
         ModelConfig,
     )
     from bpe_transformer_tpu_torch.models.transformer import abstract_params
-    from bpe_transformer_tpu_torch.parallel import launch, make_gspmd_train_step
+    from bpe_transformer_tpu_torch.parallel import launch
     from bpe_transformer_tpu_torch.parallel.sharding import (
         param_specs,
         spec_leaves,
         zero1_opt_specs,
     )
-    from bpe_transformer_tpu_torch.training.train_step import TrainHParams
 
     def _same_flat(got: dict, want: dict, what: str) -> None:
         # test_torch_training's rule: the same keys in order, values within
@@ -579,12 +611,14 @@ def _gspmd_matches_jax(tmp_path):
                               capacity_factor=1.25)
 
     # The specs, leaf for leaf.
-    meshes = {"8": {"data": 8}, "4x2": {"data": 4, "model": 2}, "2x4": {"data": 2, "model": 4}}
+    meshes = {"8": {"data": 8}, "4x2": {"data": 4, "model": 2}, "2x4": {"data": 2, "model": 4},
+              "e8": {"expert": 8}, "4xe2": {"data": 4, "expert": 2},
+              "2xe4": {"data": 2, "expert": 4}}
     jax_meshes = {k: jax_make_mesh(axes) for k, axes in meshes.items()}
     for cfg in (tiny, gqa, odd, TINYSTORIES_MOE, GPT2_SMALL_32K, GPT2_MEDIUM):
         full = abstract_params(cfg)
         shapes = jax.eval_shape(lambda c=jax_cfg(cfg): jax_init_params(jax.random.PRNGKey(0), c))
-        for strategy in ("dp", "fsdp", "tp", "fsdp_tp", "dp_tp"):
+        for strategy in ("dp", "fsdp", "tp", "fsdp_tp", "dp_tp", "ep", "dp_ep", "fsdp_ep"):
             for key, axes in meshes.items():
                 for port_fn, jax_fn in ((param_specs, jax_sharding.param_specs),
                                         (zero1_opt_specs, jax_sharding.zero1_opt_specs)):
@@ -594,12 +628,6 @@ def _gspmd_matches_jax(tmp_path):
                         is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
                     want = [tuple(w) + (None,) * (len(g) - len(w)) for g, w in zip(got, want)]
                     assert got == want, (cfg.d_model, cfg.ffn_type, strategy, key, port_fn)
-    for strategy in ("ep", "dp_ep", "fsdp_ep"):
-        with pytest.raises(NotImplementedError, match="slice 10d"):
-            param_specs(abstract_params(tiny), meshes["4x2"], strategy)
-    with pytest.raises(NotImplementedError, match="slice 10d"):
-        make_gspmd_train_step(tiny, TrainHParams(), None, "dp_ep",
-                              example_params=abstract_params(tiny))
 
     # The steps, world 4 against JAX on 4 devices.
     hp = dict(warmup_iters=1, cosine_cycle_iters=10)
@@ -619,6 +647,11 @@ def _gspmd_matches_jax(tmp_path):
         ("tp gqa", gqa, "tp", {"model": 4}, {}),
         ("tp odd heads", odd, "tp", {"model": 4}, {}),
         ("fsdp moe", moe, "fsdp", {"data": 4}, {}),
+        ("ep", moe, "ep", {"expert": 4}, {}),
+        ("dp_ep gather", dataclasses.replace(moe, moe_dispatch="gather"), "dp_ep",
+         {"data": 2, "expert": 2}, {}),
+        ("fsdp_ep zero1", moe, "fsdp_ep", {"data": 2, "expert": 2}, {"opt_sharding": "zero1"}),
+        ("dp_ep zero1", moe, "dp_ep", {"data": 2, "expert": 2}, {"opt_sharding": "zero1"}),
     ]
 
     def calls_of(kw):
@@ -672,6 +705,10 @@ def _gspmd_matches_jax(tmp_path):
             if kw.get("health"):
                 want[name]["health"] = jax_health.flatten_health(m["health"])
                 want[name]["dynamics"] = jax_dynamics.flatten_dynamics(m["dynamics"])
+            if name == "fsdp_ep zero1":
+                jax_save_sharded(work / "jax_ep_dir", params=p, opt_state=opt,
+                                 iteration=int(opt.step))
+                jax_ep_state = jax.tree_util.tree_leaves(jax.device_get((p, opt)))
         jax_errors = {}
         for ici, dcn in (({"data": 4}, {"model": 2}), ({"data": 4}, {"data": 2})):
             with pytest.raises(ValueError) as info:
@@ -697,6 +734,19 @@ def _gspmd_matches_jax(tmp_path):
         if "health" in w:
             _same_flat(g["health"], w["health"], f"{name} health")
             _same_flat(g["dynamics"], w["dynamics"], f"{name} dynamics")
+    # fsdp_ep's directories, both ways.
+    ours = jax_load_sharded(work / "port_ep_dir")
+    assert ours["iteration"] == 2
+    for a, b in zip(jax.tree_util.tree_leaves((ours["params"], ours["opt_state"])),
+                    jax_ep_state, strict=True):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=0, err_msg="ep dir")
+    from bpe_transformer_tpu_torch.checkpointing.checkpoint import load_checkpoint_sharded
+    from bpe_transformer_tpu_torch.tree import tree_leaves as port_leaves
+
+    theirs = load_checkpoint_sharded(work / "jax_ep_dir")
+    for a, b in zip(port_leaves((theirs["params"], theirs["opt_state"])), jax_ep_state,
+                    strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     record = got["probe"]
     assert set(record) == set(jax_record) | {"probe_wall_step_s", "device_time_from"}, (
         set(record) ^ set(jax_record))

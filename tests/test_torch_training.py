@@ -421,19 +421,41 @@ def _sp_step():
         ("dense", dataclasses.replace(cfg, attention_impl="xla"), dict(zigzag=True)),
         ("dense", dataclasses.replace(cfg, attention_impl="xla", ring_kv_chunk=2), {}),
         ("dense", cfg, dict(accum_steps=2)),
+        # Ulysses on the stacked ring: MHA, GQA with K/V shipped expanded
+        # (2 kv heads on 4 ranks) and compact (4 kv heads of 8), flash and
+        # plain inner attention.
+        ("dense", cfg, dict(ulysses=True)),
+        ("dense", dataclasses.replace(cfg, attention_impl="xla"), dict(ulysses=True)),
+        ("dense", dataclasses.replace(cfg, num_kv_heads=2), dict(ulysses=True)),
+        ("dense", dataclasses.replace(cfg, num_heads=8, num_kv_heads=4), dict(ulysses=True)),
     ]
+    hosts = {(cfg.num_heads, cfg.num_kv_heads): host}
+
+    def host_of(c):
+        key = (c.num_heads, c.num_kv_heads)
+        if key not in hosts:
+            hosts[key] = jax.device_get(jax_init_params(jax.random.PRNGKey(3), _jax_config(c)))
+        return hosts[key]
+
     for against, c, kw in cases:
-        what = f"sp step vs {against} {c.attention_impl} {c.remat_policy} {kw}"
+        what = f"sp step vs {against} {c.attention_impl} {c.remat_policy} {c.num_heads} " \
+               f"{c.num_kv_heads} {kw}"
         accum = kw.get("accum_steps", 1)
         zigzag = kw.get("zigzag", False)
         batch = (x, y) if accum == 1 else (x.reshape(accum, -1, x.shape[-1]),
                                            y.reshape(accum, -1, y.shape[-1]))
         tx, ty = shard_sp_batch(batch, ring, zigzag=zigzag, stacked=accum > 1, device="cpu")
-        params = params_from_jax(host, device="cpu")
+        params = params_from_jax(host_of(c), device="cpu")
         p1, _, m = make_sp_train_step(c, TrainHParams(**hp), ring, **kw)(
             params, adamw_init(params), tx, ty)
         if against == "jax":
             want_loss, want_norm, want_leaves = j_m["loss"], j_m["grad_norm"], j_leaves
+        elif c.num_heads != cfg.num_heads or c.num_kv_heads:
+            params = params_from_jax(host_of(c), device="cpu")
+            d_params, _, d_m = make_train_step(c, TrainHParams(**hp))(
+                params, adamw_init(params), torch.as_tensor(x), torch.as_tensor(y))
+            want_loss, want_norm, want_leaves = d_m["loss"], d_m["grad_norm"], [
+                t.detach() for t in tree_leaves(d_params)]
         else:
             d_params, _, d_m = dense[accum]
             want_loss, want_norm, want_leaves = d_m["loss"], d_m["grad_norm"], [
@@ -456,17 +478,19 @@ def _sp_step():
     for got, want in zip(tree_leaves(grads), tree_leaves(want_grads), strict=True):
         _close(got, want, 1e-5, "zig-zag sp grads")
 
-    # JAX's argument errors; Ulysses raises for slice 10d.  Scanned inner
-    # steps run: two updates a call equal two calls of one update.
+    # JAX's argument errors (Ulysses needs a head count the ring divides).
+    # Scanned inner steps run: two updates a call equal two calls of one
+    # update.
     hparams = TrainHParams(**hp)
-    for kw, error, match in [
-        (dict(accum_steps=0), ValueError, "accum_steps"),
-        (dict(accum_steps=2, inner_steps=2), ValueError, "cannot both"),
-        (dict(zigzag=True, ulysses=True), ValueError, "mutually exclusive"),
-        (dict(ulysses=True), NotImplementedError, "slice 10d"),
+    for c, kw, error, match in [
+        (cfg, dict(accum_steps=0), ValueError, "accum_steps"),
+        (cfg, dict(accum_steps=2, inner_steps=2), ValueError, "cannot both"),
+        (cfg, dict(zigzag=True, ulysses=True), ValueError, "mutually exclusive"),
+        (dataclasses.replace(cfg, num_heads=2, d_model=32), dict(ulysses=True), ValueError,
+         "must be a multiple"),
     ]:
         with pytest.raises(error, match=match):
-            make_sp_train_step(cfg, hparams, ring, **kw)
+            make_sp_train_step(c, hparams, ring, **kw)
     xs2, ys2 = shard_sp_batch((np.stack([x, y]), np.stack([y, x])), ring, stacked=True,
                               device="cpu")
     runs = []
@@ -486,14 +510,13 @@ def _sp_step():
                    dict(zigzag=True))):
         with pytest.raises(ValueError, match="ring_kv_chunk"):
             make_sp_train_step(c, hparams, ring, **kw)
-    # The loop's parallel="sp" runs one rank a process (loop (m)): outside a
-    # launched world it has no group to join; sp_ulysses waits for slice 10d.
-    with pytest.raises(RuntimeError, match="torchrun"):
-        train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp"),
-              np.zeros(100, np.uint16), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10d"):
-        train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp", sp_ulysses=True),
-              np.zeros(100, np.uint16), device="cpu")
+    # The loop's parallel="sp" runs one rank a process (loop (m)), the
+    # ring's and Ulysses': outside a launched world it has no group to join.
+    for ulysses in (False, True):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train(cfg, hparams, LoopConfig(steps=1, batch_size=4, parallel="sp",
+                                           sp_ulysses=ulysses),
+                  np.zeros(100, np.uint16), device="cpu")
 
 
 def _same_flat(got: dict, want: dict, what: str) -> None:
@@ -815,7 +838,10 @@ def _loop_telemetry_and_faults(tmp_path):
                dict(opt_sharding="zero2", parallel="dp"),
                dict(parallel="dp", opt_sharding="zero1", health_stats=True),
                dict(parallel="sp", health_stats=True), dict(parallel="sp", dynamics_every=2),
-               dict(parallel="sp", attribution_every=2)):
+               dict(parallel="sp", attribution_every=2), dict(parallel="pp", health_stats=True),
+               dict(parallel="pp", opt_sharding="zero1"),
+               dict(parallel="pp", watchdog=True, watchdog_policy="rollback",
+                    checkpoint_dir=str(tmp_path))):
         messages = []
         for fn, loop_cls, c, extra in ((jax_train, JaxLoopConfig, jcfg, {}),
                                        (train, LoopConfig, cfg, {"device": "cpu"})):
@@ -824,15 +850,14 @@ def _loop_telemetry_and_faults(tmp_path):
                    loop_cls(**{**base, **kw}), data, log_fn=quiet, **extra)
             messages.append(str(exc.value).split(" — ")[0])
         assert messages[0] == messages[1], (kw, messages)
-    # dp, sp and the GSPMD strategies run in a launched world (loops (m)
-    # and (n)); slice 10d's fields raise.
-    for strategy in ("dp", "fsdp", "tp", "fsdp_tp"):
+    # dp, sp, pp and the GSPMD strategies run in a launched world (loops
+    # (m) and (n)).
+    for strategy in ("dp", "fsdp", "tp", "fsdp_tp", "pp", "ep", "fsdp_ep"):
         with pytest.raises(RuntimeError, match="torchrun"):
             train(cfg, TrainHParams(), LoopConfig(**base, parallel=strategy), data, device="cpu")
-    for kw in (dict(parallel="pp"), dict(parallel="ep"), dict(parallel="fsdp_ep"),
-               dict(sp_ulysses=True)):
-        with pytest.raises(NotImplementedError, match="slice 10d"):
-            train(cfg, TrainHParams(), LoopConfig(**{**base, **kw}), data, device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train(cfg, TrainHParams(), LoopConfig(**base, parallel="sp", sp_ulysses=True), data,
+              device="cpu")
 
     # The port alone: prefetch, inner steps, async checkpoints.
     made = lambda it: get_batch(data, 4, 32, np.random.default_rng((5, it)))  # noqa: E731
@@ -1353,6 +1378,7 @@ out["loop"] = {"losses": [r["loss"] for r in summary["history"]],
 if mesh.rank == 0:
     import pickle
     (work / "dp_out.pkl").write_bytes(pickle.dumps(out))
+torch.distributed.destroy_process_group()
 """
 
 _SP_RANK = _RANK_PRELUDE + """
@@ -1373,9 +1399,37 @@ for name, impl, kw in spec["sp_cases"]:
     params, opt, m = step(params, opt, xs, ys)
     m = _fetch(m)
     out[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "params": leaves(params)}
+# Ulysses over the seq group (an all_to_all_single each way), MHA and GQA
+# expanded and compact, on data=2 x seq=2 and data=1 x seq=4.
+import pickle
+from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+from bpe_transformer_tpu_torch.parallel import ProcessGroupRing, ulysses_attention
+uly_inits = pickle.loads((work / "uly_inits.pkl").read_bytes())
+for name, cfg_kw, axes in spec["uly_cases"]:
+    c = ModelConfig(**cfg_kw)
+    umesh = make_mesh(axes, device="cpu")
+    params = params_from_jax(uly_inits[name], "cpu")
+    xs, ys = shard_sp_batch((batch["x"][0], batch["y"][0]), umesh)
+    params, _, m = make_sp_train_step(c, TrainHParams(**spec["sp_hparams"]), umesh,
+                                      ulysses=True)(params, adamw_init(params), xs, ys)
+    m = _fetch(m)
+    out[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "params": leaves(params)}
+# ulysses_attention alone: this rank's rows and sequence shard of q, k, v.
+qkv = np.load(work / "uly_qkv.npy")
+ring = ProcessGroupRing(mesh.axis("seq").group)
+rows, cols = qkv.shape[1] // 2, qkv.shape[3] // 2
+d, q = mesh.coords["data"], mesh.coords["seq"]
+part = torch.from_numpy(qkv[:, d * rows:(d + 1) * rows, :, q * cols:(q + 1) * cols])
+got = ulysses_attention(*(t[None] for t in part), ring=ring, config=cfg)[0]
+# The mesh axis's all-to-all is the ring's.
+assert torch.equal(mesh.axis("seq").all_to_all(part[0], 1, 2),
+                   ring.all_to_all(part[0][None], 1, 2)[0])
+blocks = [None] * 4
+torch.distributed.all_gather_object(blocks, (d, q, got.numpy()))
+out["ulysses_attention"] = blocks
 if mesh.rank == 0:
-    import pickle
     (work / "sp_out.pkl").write_bytes(pickle.dumps(out))
+torch.distributed.destroy_process_group()
 """
 
 
@@ -1438,10 +1492,28 @@ def _multi_gpu(tmp_path):
     sp_cases = [("contiguous", "flash", {}), ("zigzag", "flash", dict(zigzag=True)),
                 ("inner", "flash", dict(inner_steps=2)), ("plain ring", "xla", {}),
                 ("plain zigzag", "xla", dict(zigzag=True))]
+    # Ulysses: MHA, GQA whose kv heads do not divide the seq axis (K/V ship
+    # expanded) and GQA whose kv heads do (compact), on both grids.
+    grid, seq4 = {"data": 2, "seq": 2}, {"data": 1, "seq": 4}
+    gqa = dict(num_heads=4, num_kv_heads=2)
+    uly_cases = [
+        ("uly mha 2x2", cfg, grid), ("uly mha 1x4", cfg, seq4),
+        ("uly gqa expanded 2x2", dataclasses.replace(cfg, d_model=48, num_heads=6,
+                                                     num_kv_heads=3), grid),
+        ("uly gqa expanded 1x4", dataclasses.replace(cfg, **gqa), seq4),
+        ("uly gqa compact 2x2", dataclasses.replace(cfg, **gqa), grid),
+        ("uly gqa compact 1x4", dataclasses.replace(cfg, num_heads=8, num_kv_heads=4), seq4),
+    ]
+    uly_inits = {name: jax.device_get(jax_init_params(jax.random.PRNGKey(16), _jax_config(c)))
+                 for name, c, _ in uly_cases}
+    (work / "uly_inits.pkl").write_bytes(pickle.dumps(uly_inits))
+    qkv = rng.standard_normal((3, 4, 4, cfg.context_length, cfg.d_model // cfg.num_heads),
+                              dtype=np.float32)
+    np.save(work / "uly_qkv.npy", qkv)
     (work / "spec.json").write_text(json.dumps(dict(
         config=dataclasses.asdict(cfg), hparams=hp, sp_hparams=sp_hp, loop=lp,
-        loop_hparams=loop_hp,
-        dp_cases=dp_cases, sp_cases=sp_cases)))
+        loop_hparams=loop_hp, dp_cases=dp_cases, sp_cases=sp_cases,
+        uly_cases=[(name, dataclasses.asdict(c), axes) for name, c, axes in uly_cases])))
     (work / "dp_rank.py").write_text(_DP_RANK)
     (work / "sp_rank.py").write_text(_SP_RANK)
     env = {"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
@@ -1512,6 +1584,25 @@ def _multi_gpu(tmp_path):
                 p, jax_adamw_init(p), *placed)
             sp_want[name] = {"loss": float(m["loss"]), "params": tree_leaves(
                 jax.device_get(p))}
+        for name, c, axes in uly_cases:
+            umesh = make_mesh(axes, devices=jax.devices()[:4])
+            placed = jax_shard_sp_batch((jnp.asarray(x[0]), jnp.asarray(y[0])), umesh)
+            p = jax.tree_util.tree_map(jnp.asarray, uly_inits[name])
+            p, _, m = jax_make_sp_train_step(_jax_config(c), JaxTrainHParams(**sp_hp), umesh,
+                                             ulysses=True)(p, jax_adamw_init(p), *placed)
+            sp_want[name] = {"loss": float(m["loss"]), "params": tree_leaves(
+                jax.device_get(p))}
+        from functools import partial
+
+        from jax.sharding import PartitionSpec
+
+        from bpe_transformer_tpu.parallel import ulysses_attention as jax_ulysses
+
+        qkv_spec = PartitionSpec("data", None, "seq", None)
+        uly_want = np.asarray(jax.shard_map(
+            partial(jax_ulysses, axis_name="seq", config=jcfg), mesh=mesh4,
+            in_specs=(qkv_spec,) * 3, out_specs=qkv_spec, check_vma=False)(
+                *map(jnp.asarray, qkv)))
 
         # ZeRO-1's layout conversions against JAX's: dense -> 2 -> 4 -> dense.
         params = params_from_jax(host, device="cpu")
@@ -1602,18 +1693,237 @@ def _multi_gpu(tmp_path):
             _close(g["loss"], loss, tol, f"sp {name} loss vs {against}")
             for got_leaf, want_leaf in zip(g["params"], leaves, strict=True):
                 _close(got_leaf, want_leaf, tol, f"sp {name} params vs {against}")
+    # Ulysses over processes against JAX's make_sp_train_step(ulysses=True)
+    # (JAX tests/test_parallel.py's 1e-5), and ulysses_attention alone.
+    for name, _, _ in uly_cases:
+        g, w = sp_got[name], sp_want[name]
+        _close(g["loss"], w["loss"], 1e-5, f"sp {name} loss vs jax")
+        for got_leaf, want_leaf in zip(g["params"], w["params"], strict=True):
+            _close(got_leaf, want_leaf, 1e-5, f"sp {name} params vs jax")
+    rows, cols = qkv.shape[1] // 2, qkv.shape[3] // 2
+    for d, q, block in sp_got["ulysses_attention"]:
+        _close(block, uly_want[d * rows:(d + 1) * rows, :, q * cols:(q + 1) * cols], 2e-5,
+               f"ulysses_attention rank ({d}, {q}) vs jax")
 
-    # What slice 10d brings is refused by name: expert parallelism, the
-    # GPipe pipeline and Ulysses.
-    from bpe_transformer_tpu_torch.models.transformer import abstract_params
-    from bpe_transformer_tpu_torch.parallel import make_gspmd_train_step
 
-    with pytest.raises(NotImplementedError, match="slice 10d"):
-        make_gspmd_train_step(cfg, TrainHParams(), None, strategy="fsdp_ep",
-                              example_params=abstract_params(cfg))
-    for kw in (dict(parallel="pp"), dict(parallel="dp_ep"), dict(sp_ulysses=True)):
-        with pytest.raises(NotImplementedError, match="slice 10d"):
-            train(cfg, TrainHParams(), LoopConfig(**lp, **kw), tokens, device="cpu")
+# One gloo rank of the pipeline world: the port's GPipe steps, a stacked
+# directory, and the loop resumed under pp from a dense checkpoint.
+_PP_RANK = """
+import json, pickle, sys
+sys.modules["jax"] = None
+sys.modules["bpe_transformer_tpu"] = None
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from bpe_transformer_tpu_torch.checkpointing.checkpoint import save_checkpoint_sharded
+from bpe_transformer_tpu_torch.models import ModelConfig
+from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+from bpe_transformer_tpu_torch.parallel import (
+    PipelineLayout, make_mesh, make_pp_train_step, shard_batch, stack_pipeline_params,
+    unstack_pipeline_params)
+from bpe_transformer_tpu_torch.training.loop import LoopConfig, _fetch, train
+from bpe_transformer_tpu_torch.training.train_step import TrainHParams
+from bpe_transformer_tpu_torch.tree import tree_leaves
+work = Path(sys.argv[1])
+spec = json.loads((work / "spec.json").read_text())
+inits = pickle.loads((work / "inits.pkl").read_bytes())
+out = {}
+for name, cfg_kw, axes, kw in spec["cases"]:
+    cfg = ModelConfig(**cfg_kw)
+    mesh = make_mesh(axes, device="cpu")
+    lay = PipelineLayout(cfg, mesh)
+    whole = stack_pipeline_params(params_from_jax(inits[name], "cpu"), lay.stages)
+    # stack and unstack are each other's inverse.
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(unstack_pipeline_params(whole)), tree_leaves(params_from_jax(
+            inits[name], "cpu")), strict=True))
+    params, opt = lay.shard(whole), lay.init_opt_state()
+    step = make_pp_train_step(cfg, TrainHParams(**spec["hparams"]), mesh, **kw)
+    losses = []
+    for x, y in spec["calls"][name]:
+        x, y = np.asarray(x), np.asarray(y)
+        params, opt, m = step(params, opt, *shard_batch((x, y), mesh, stacked=x.ndim == 3))
+        m = _fetch(m)
+        losses.append(m["loss"])
+    out[name] = {"losses": losses, "grad_norm": m["grad_norm"],
+                 "stacked": [t.numpy() for t in tree_leaves(lay.gather(params))]}
+    if name == "pp=4":
+        save_checkpoint_sharded(work / "port_pp_dir", params=params, opt_state=opt,
+                                iteration=int(opt.step), layout=lay)
+# The dense step-2 checkpoint resumed under pp=4.
+cfg = ModelConfig(**spec["loop_config"])
+data = np.load(work / "tokens.npy")
+summary = train(cfg, TrainHParams(**spec["loop_hparams"]),
+                LoopConfig(**spec["loop"], parallel="pp", checkpoint_dir=str(work / "pp_ck")),
+                data, data, resume_from=work / "dense_ck" / "step_00000002.ckpt", device="cpu",
+                log_fn=lambda *a: None)
+out["loop"] = {"losses": [r["loss"] for r in summary["history"]],
+               "val": summary["final_val_loss"]}
+if torch.distributed.get_rank() == 0:
+    (work / "pp_out.pkl").write_bytes(pickle.dumps(out))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _pipeline(tmp_path):
+    """(m, continued) The GPipe pipeline across processes: a gloo world of
+    4 ranks runs ``make_pp_train_step`` against JAX's on 4 of conftest's
+    devices, float32: pp=4 (4 microbatches), data=2 x pp=2, accumulation
+    and inner steps, and a dropping MoE with its aux loss on (each
+    microbatch a dispatch group), within JAX tests/test_parallel.py's
+    tolerances (loss 1e-5 relative, grad norm 1e-4, weights 2e-5), with
+    stack and unstack each other's inverse.  The stacked directories both
+    ways: the port's pp=4 directory (each stage written by its rank) read by
+    JAX's ``load_checkpoint_sharded`` as its own step, and JAX's read by the
+    port.  The loop: a dense step-2 checkpoint resumed under pp=4 equals the
+    uninterrupted one-device run.  The CLI under ``parallel/launch.py``:
+    ``train --supervise --parallel pp`` on data=2 x pp=2 with one rank
+    killed at step 5 respawns the world once and ends with the
+    uninterrupted run's losses, its directory through ``verify-checkpoint``
+    in both packages; ``train --parallel dp_ep`` on data=2 x expert=2
+    writes a directory that JAX reads as the port does.  Rollback under pp
+    is refused with JAX's message (loop (g))."""
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bpe_transformer_tpu.checkpointing import load_checkpoint_sharded as jax_load_sharded
+    from bpe_transformer_tpu.checkpointing import save_checkpoint_sharded as jax_save_sharded
+    from bpe_transformer_tpu.parallel import pp as jax_pp
+    from bpe_transformer_tpu.parallel import shard_batch as jax_shard_batch
+    from bpe_transformer_tpu_torch.checkpointing.checkpoint import load_checkpoint_sharded
+    from bpe_transformer_tpu_torch.parallel import launch
+
+    cfg = dataclasses.replace(TS_TEST_CONFIG, vocab_size=256, num_layers=4)
+    moe = dataclasses.replace(cfg, ffn_type="moe", n_experts=4, router_top_k=2)
+    hp = dict(warmup_iters=0, cosine_cycle_iters=10)
+    S = cfg.context_length
+    rng = np.random.default_rng(19)
+    x, y = (rng.integers(0, cfg.vocab_size, size=(2, 8, S)) for _ in range(2))
+    grid = {"data": 2, "pp": 2}
+    cases = [
+        ("pp=4", cfg, {"pp": 4}, dict(num_microbatches=4)),
+        ("data=2 x pp=2", cfg, grid, dict(num_microbatches=2)),
+        ("accum", cfg, grid, dict(num_microbatches=2, accum_steps=2)),
+        ("inner", cfg, {"pp": 4}, dict(num_microbatches=2, inner_steps=2)),
+        ("moe", moe, grid, dict(num_microbatches=2)),
+    ]
+
+    def calls_of(kw):
+        if kw.get("inner_steps"):
+            return [(x, y)]
+        if kw.get("accum_steps"):
+            return [(a.reshape(2, 4, S), b.reshape(2, 4, S)) for a, b in zip(x, y)]
+        return list(zip(x, y))
+
+    inits = {name: jax.device_get(jax_init_params(jax.random.PRNGKey(19), _jax_config(c)))
+             for name, c, *_ in cases}
+    loop_hp = dict(warmup_iters=1, cosine_cycle_iters=6, max_learning_rate=1e-2)
+    lp = dict(steps=4, batch_size=8, log_every=2, eval_every=4, eval_batches=2,
+              checkpoint_every=2, seed=3)
+    tokens = rng.integers(0, cfg.vocab_size, size=4000).astype(np.uint16)
+    work = tmp_path / "pipeline"
+    work.mkdir()
+    quiet = lambda *a: None  # noqa: E731
+    dense = train(cfg, TrainHParams(**loop_hp),
+                  LoopConfig(**lp, checkpoint_dir=str(work / "dense_ck")), tokens, tokens,
+                  log_fn=quiet, device="cpu")
+    (work / "inits.pkl").write_bytes(pickle.dumps(inits))
+    np.save(work / "tokens.npy", tokens)
+    (work / "spec.json").write_text(json.dumps({
+        "hparams": hp, "loop_config": dataclasses.asdict(cfg), "loop_hparams": loop_hp,
+        "loop": lp, "cases": [(name, dataclasses.asdict(c), axes, kw)
+                              for name, c, axes, kw in cases],
+        "calls": {name: [(a.tolist(), b.tolist()) for a, b in calls_of(kw)]
+                  for name, _, _, kw in cases},
+    }))
+    (work / "rank.py").write_text(_PP_RANK)
+    cfg.to_json(work / "cfg.json")
+    moe.to_json(work / "moe.json")
+    tokens.tofile(work / "tokens.bin")
+    env = {"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    cli = ["-m", "bpe_transformer_tpu_torch.training.cli", "train", "--data",
+           str(work / "tokens.bin"), "--steps", "8", "--batch-size", "8", "--log-every", "2",
+           "--checkpoint-every", "2", "--lr", "1e-2", "--warmup", "1", "--device", "cpu"]
+    supervised = [sys.executable, *cli, "--model-config", str(work / "cfg.json"),
+                  "--checkpoint-dir", str(work / "sup_ck"), "--parallel", "pp", "--mesh",
+                  "data=2,pp=2", "--pp-microbatches", "2", "--supervise", "--max-restarts",
+                  "2", "--restart-backoff", "0.1"]
+    with ThreadPoolExecutor(3) as pool:
+        world = pool.submit(launch, [work / "rank.py", work], 4, env=env, timeout=400)
+        sup = pool.submit(subprocess.run, supervised, capture_output=True, text=True,
+                          timeout=400, env={**os.environ, **env, "BT_FAULTS": json.dumps(
+                              {"kill_at_step": 5, "once_dir": str(work / "once")})})
+        ep = pool.submit(launch, [*cli, "--model-config", str(work / "moe.json"),
+                                  "--checkpoint-dir", str(work / "ep_ck"), "--parallel", "dp_ep",
+                                  "--mesh", "data=2,expert=2"], 4, env=env, timeout=400)
+        want = {}
+        for name, c, axes, kw in cases:
+            mesh = make_mesh(axes, devices=jax.devices()[:4])
+            p = jax_pp.shard_pp_params(jax_pp.stack_pipeline_params(
+                jax.tree_util.tree_map(jnp.asarray, inits[name]), axes["pp"]), mesh)
+            opt = jax_pp.init_pp_opt_state(p, mesh)
+            step = jax_pp.make_pp_train_step(_jax_config(c), JaxTrainHParams(**hp), mesh, **kw)
+            losses = []
+            for a, b in calls_of(kw):
+                p, opt, m = step(p, opt, *jax_shard_batch((jnp.asarray(a), jnp.asarray(b)),
+                                                          mesh, stacked=a.ndim == 3))
+                losses.append(float(m["loss"]))
+            want[name] = {"losses": losses, "grad_norm": float(m["grad_norm"]),
+                          "stacked": tree_leaves(jax.device_get(p)),
+                          "dense": tree_leaves(jax_pp.unstack_pipeline_params(
+                              jax.device_get(p)))}
+            if name == "pp=4":
+                jax_save_sharded(work / "jax_pp_dir", params=p, opt_state=opt,
+                                 iteration=int(opt.step))
+                jax_state = jax.device_get((p, opt))
+        world.result()
+        sup_proc = sup.result()
+        ep_out = ep.result()
+    got = pickle.loads((work / "pp_out.pkl").read_bytes())
+    for name, *_ in cases:
+        g, w = got[name], want[name]
+        np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=1e-4, err_msg=name)
+        for a, b in zip(g["stacked"], w["stacked"], strict=True):
+            _close(a, b, 2e-5, f"pp {name} weights vs jax")
+    # The stacked directories, both ways.
+    ours, theirs = jax_load_sharded(work / "port_pp_dir"), load_checkpoint_sharded(
+        work / "jax_pp_dir")
+    jax_leaves = jax.tree_util.tree_leaves(jax_state)
+    assert ours["iteration"] == theirs["iteration"] == 2
+    for a, b in zip(jax.tree_util.tree_leaves((ours["params"], ours["opt_state"])), jax_leaves,
+                    strict=True):
+        _close(a, b, 2e-5, "the port's pp directory read by JAX")
+    for a, b in zip(tree_leaves((theirs["params"], theirs["opt_state"])), jax_leaves,
+                    strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    # The loop: dense step 2 resumed under pp=4 against the uninterrupted run.
+    dense_losses = [r["loss"] for r in dense["history"]]
+    _close(got["loop"]["losses"], dense_losses[1:], 2e-5, "dense checkpoint resumed under pp")
+    _close(got["loop"]["val"], dense["final_val_loss"], 2e-5, "pp eval loss")
+    # The supervised pp world: killed once, respawned whole, the same losses
+    # as an unsupervised run of the same command.
+    assert sup_proc.returncode == 0, sup_proc.stderr[-3000:]
+    assert "spawn #2" in sup_proc.stdout, sup_proc.stdout[-3000:]
+    resumed = json.loads((work / "sup_ck" / "summary.json").read_text())
+    straight = train(cfg, TrainHParams(max_learning_rate=1e-2, min_learning_rate=1e-3,
+                                       warmup_iters=1, cosine_cycle_iters=8),
+                     LoopConfig(steps=8, batch_size=8, log_every=2), tokens, log_fn=quiet,
+                     device="cpu")
+    _close([r["loss"] for r in resumed["history"]],
+           [r["loss"] for r in straight["history"] if r["step"] > 4], 2e-5,
+           "supervised pp run resumed after a killed rank")
+    step8 = work / "sup_ck" / "step_00000008.ckpt"
+    assert integrity.verify_checkpoint(step8).ok and jax_integrity.verify_checkpoint(step8).ok
+    # dp_ep's directory: JAX reads what the port reads.
+    assert json.loads(ep_out[0].strip().splitlines()[-1])["steps"] == 8
+    ep_dir = work / "ep_ck" / "step_00000008.ckpt"
+    a_state, b_state = jax_load_sharded(ep_dir), load_checkpoint(ep_dir)
+    for a, b in zip(jax.tree_util.tree_leaves((a_state["params"], a_state["opt_state"])),
+                    tree_leaves((b_state["params"], b_state["opt_state"])), strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 _FSDP_RANK = _RANK_PRELUDE + """
@@ -1636,6 +1946,7 @@ summary = train(cfg, TrainHParams(**spec["loop_hparams"]), loop, data, data, res
 if torch.distributed.get_rank() == 0:
     (work / f"{mode}.json").write_text(json.dumps(
         {"losses": [r["loss"] for r in summary["history"]], "val": summary["final_val_loss"]}))
+torch.distributed.destroy_process_group()
 """
 
 
@@ -1803,4 +2114,5 @@ def test_torch_training_matches_jax(tmp_path):
     _moe_loop(tmp_path)
     _attribution_and_debug(tmp_path)
     _multi_gpu(tmp_path)
+    _pipeline(tmp_path)
     _sharded_loop(tmp_path)
