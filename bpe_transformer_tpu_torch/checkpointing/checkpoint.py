@@ -1,5 +1,5 @@
-"""Single-file checkpoints, format v1 (port of the dense format of
-``bpe_transformer_tpu/checkpointing/checkpoint.py``).
+"""Checkpoints: single files (format v1) and sharded directories (format
+v2), the port of ``bpe_transformer_tpu/checkpointing/checkpoint.py``.
 
 A checkpoint is a pickled dict ``{"format_version": 1, "params",
 "opt_state", "iteration", "extra"}`` whose tensors are numpy arrays, written

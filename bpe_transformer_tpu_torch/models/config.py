@@ -286,8 +286,9 @@ GPT2_SMALL_32K = ModelConfig(
 )
 
 #: Sparse counterpart of TINYSTORIES_12L: 8-expert top-2 MoE FFNs with the
-#: same d_model/attention.  The JAX package also trains it with the expert
-#: stacks sharded over an expert mesh axis; the port trains it on one card.
+#: same d_model/attention.  Both packages train it on one device or with the
+#: expert stacks sharded over an ``expert`` mesh axis (the ``ep``
+#: strategies; in the port one rank a card).
 TINYSTORIES_MOE = ModelConfig(
     vocab_size=10_000,
     context_length=512,

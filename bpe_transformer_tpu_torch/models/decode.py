@@ -12,6 +12,9 @@ be written the JAX way).  The semantics are the JAX package's:
   attends, so the attention includes position ``pos``;
 * sequences whose ``active`` flag is False keep their cache rows.
 
+:func:`generate_cached` is batched KV-cached generation over the two: one
+prefill of the batch, then one batched decode step a token.
+
 Kernels: ``attention_impl`` "flash"/"flash_fused" runs the flash kernel in
 prefill, ``ffn_impl="pallas"`` the fused SwiGLU kernel in every FFN (a
 ``gelu`` FFN runs the GeLU kernel whatever ``ffn_impl`` says), and
@@ -50,6 +53,7 @@ from bpe_transformer_tpu_torch.models.transformer import (
     _ffn,
     _maybe_norm,
     lm_head_weight,
+    params_from_jax,
 )
 from bpe_transformer_tpu_torch.ops.core import (
     embedding,
@@ -59,6 +63,7 @@ from bpe_transformer_tpu_torch.ops.core import (
     split_heads,
 )
 from bpe_transformer_tpu_torch.ops.rope import apply_rope, cached_rope_tables
+from bpe_transformer_tpu_torch.tree import tree_map
 
 KVCache = list  # [{"k": (B, KV, ctx, dh), "v": (B, KV, ctx, dh)} per layer]
 
@@ -255,6 +260,98 @@ def decode_step(
         return x[:, 0], cache
     head = lm_head_weight(params, config) if lm_head is None else lm_head
     return head_logits(x[:, 0], head), cache
+
+
+def _token_sampler(batch: int, temperature: float, top_k: int | None, top_p: float | None,
+                   generator: torch.Generator | None, device: torch.device):
+    """``logits (batch, vocab) -> tokens (batch,)``: the raw argmax at
+    temperature 0, else the serving engine's ``sample_tokens`` with top-k /
+    top-p filtering and gumbel noise drawn from ``generator`` (one seeded
+    with 0 when None), the counterpart of the JAX package's
+    ``_sample_from_logits``: greedy ids equal, seeded draws the same law
+    with other bits."""
+    if temperature == 0.0:
+        return lambda logits: torch.argmax(logits, dim=-1)
+    from bpe_transformer_tpu_torch.serving.engine import (
+        TOP_K_DISABLED,
+        TOP_P_DISABLED,
+        gumbel_noise,
+        sample_tokens,
+    )
+
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    temps = torch.full((batch,), float(temperature), dtype=torch.float32, device=device)
+    top_ks = torch.full((batch,), TOP_K_DISABLED if top_k is None else top_k, device=device)
+    top_ps = torch.full((batch,), TOP_P_DISABLED if top_p is None else float(top_p),
+                        dtype=torch.float32, device=device)
+
+    def sample(logits):
+        gumbel = gumbel_noise(generator, logits.shape, device)
+        return sample_tokens(logits, gumbel, temps, top_ks, top_ps)
+
+    return sample
+
+
+@torch.inference_mode()
+def generate_cached(
+    params: Params,
+    prompt_ids,
+    *,
+    config: ModelConfig,
+    max_new_tokens: int,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    stop_id: int | None = None,
+    generator: torch.Generator | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Sample ``(batch, max_new_tokens)`` continuations of ``prompt_ids``
+    (``(batch, prompt_len)``, a tensor, array or nested list) with
+    ``prompt_len + max_new_tokens <= context_length``: one :func:`prefill`
+    of the batch, then one batched :func:`decode_step` a token, the params
+    and the LM head cast once to the activation dtype (logits stay
+    float32).  The config's knobs pick the kernels (flash prefill,
+    flash-decoding, the FFN kernels).  ``params`` is a tree of tensors or
+    numpy arrays, moved to ``device``.
+
+    ``stop_id``: once a row samples it, every later token of that row is
+    pinned to ``stop_id`` (the shape stays ``max_new_tokens``), so a caller
+    truncating at the first occurrence agrees with an early-exiting loop.
+    Sampling: see :func:`_token_sampler` (``generator`` supplies the
+    noise)."""
+    from bpe_transformer_tpu_torch.serving.engine import activation_dtype
+
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt_ids, dtype=torch.long, device=dev)
+    batch, plen = prompt.shape
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if plen + max_new_tokens > config.context_length:
+        raise ValueError(
+            f"prompt ({plen}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"context_length ({config.context_length})"
+        )
+    act = activation_dtype(config)
+    params = params_from_jax(params, dev)
+    lm_head = lm_head_weight(params, config).to(act)
+    if act != torch.float32:
+        params = tree_map(lambda p: p.to(act), params)
+    sample = _token_sampler(batch, temperature, top_k, top_p, generator, dev)
+    cache = init_kv_cache(config, batch, dtype=act, device=dev)
+    logits, cache = prefill(params, prompt, config, cache, lm_head=lm_head)
+    token = sample(logits)
+    # -1 never matches a sampled id, so stop_id=None pins nothing.
+    sid = -1 if stop_id is None else stop_id
+    done = token == sid
+    out = [token]
+    for i in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, token, plen + i, cache, config, lm_head=lm_head)
+        token = torch.where(done, sid, sample(logits))
+        done = done | (token == sid)
+        out.append(token)
+    return torch.stack(out, dim=1)
 
 
 # --------------------------------------------------------- paged KV memory

@@ -254,6 +254,28 @@ def params_from_state_dict(
     }
 
 
+def state_dict_from_params(params: Params) -> dict:
+    """The param tree flattened to the torch-style keys
+    :func:`params_from_state_dict` reads (the same tensors, not copies): no
+    ``lm_head.weight`` under ``tie_embeddings``, and ``ffn.w3`` for every
+    dense FFN, as the JAX package writes it."""
+    out = {
+        "token_embeddings.weight": params["token_embeddings"],
+        "ln_final.weight": params["ln_final"],
+    }
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"]
+    for i, layer in enumerate(params["layers"]):
+        p = f"layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "output_proj"):
+            out[p + f"attn.{name}.weight"] = layer["attn"][name]
+        out[p + "ln1.weight"] = layer["ln1"]
+        out[p + "ln2.weight"] = layer["ln2"]
+        for w in ("w1", "w2", "w3"):
+            out[p + f"ffn.{w}.weight"] = layer["ffn"][w]
+    return out
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -382,6 +404,13 @@ def transformer_block_aux(x, block_params: dict, config: ModelConfig, rope_cos_s
     x = _attn_half(x, block_params, config, rope_cos_sin, positions, attention_fn,
                    entropy_tap, shard)
     return _ffn_half(x, block_params, config, moe_groups, shard)
+
+
+def transformer_block(x, block_params: dict, config: ModelConfig, rope_cos_sin, positions,
+                      attention_fn=None):
+    """One block (the aux-loss-free view of :func:`transformer_block_aux`)."""
+    return transformer_block_aux(x, block_params, config, rope_cos_sin, positions,
+                                 attention_fn)[0]
 
 
 def _block_save_attn(x, block_params: dict, config: ModelConfig, rope_cos_sin,

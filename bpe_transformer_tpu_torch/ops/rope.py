@@ -61,3 +61,19 @@ def apply_rope(
     rot_even = x_even * cos_p - x_odd * sin_p
     rot_odd = x_even * sin_p + x_odd * cos_p
     return torch.stack([rot_even, rot_odd], dim=-1).reshape(x.shape)
+
+
+def rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    theta: float = 10000.0,
+    max_seq_len: int | None = None,
+) -> torch.Tensor:
+    """Build the tables on ``x``'s device at its dtype and rotate ``x`` by
+    them (the JAX package's one-shot form); ``max_seq_len`` defaults to the
+    largest position + 1."""
+    if max_seq_len is None:
+        max_seq_len = int(positions.max()) + 1
+    cos, sin = rope_tables(x.shape[-1], max_seq_len, theta, dtype=x.dtype, device=x.device)
+    return apply_rope(x, positions, cos, sin)

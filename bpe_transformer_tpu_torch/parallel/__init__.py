@@ -9,8 +9,10 @@ a card), the process-group mesh (:func:`make_mesh`,
 (:func:`make_hybrid_mesh`), and :func:`launch`, which starts a world of
 rank processes; Ulysses sequence parallelism (:func:`ulysses_attention`,
 ``make_sp_train_step(ulysses=True)``), the GPipe pipeline
-(:func:`make_pp_train_step` over :func:`stack_pipeline_params`) and expert
-parallelism (the ``ep`` strategies of :func:`make_gspmd_train_step`)."""
+(:func:`make_pp_train_step` over :func:`stack_pipeline_params`), expert
+parallelism (the ``ep`` strategies of :func:`make_gspmd_train_step`), and
+:func:`make_ring_attention`, ring attention over whole ``(B, H, S, D)``
+tensors for callers outside a step."""
 
 from bpe_transformer_tpu_torch.parallel.launch import launch
 from bpe_transformer_tpu_torch.parallel.mesh import (
@@ -33,6 +35,7 @@ from bpe_transformer_tpu_torch.parallel.pp import (
     unstack_pipeline_params,
 )
 from bpe_transformer_tpu_torch.parallel.ring_attention import (
+    make_ring_attention,
     ring_flash_attention,
     ring_self_attention,
     zigzag_indices,
@@ -79,6 +82,7 @@ __all__ = [
     "make_mesh",
     "make_pp_grad_fn",
     "make_pp_train_step",
+    "make_ring_attention",
     "make_sp_grad_fn",
     "make_sp_train_step",
     "param_specs",

@@ -16,6 +16,8 @@ launch over all n ranks' blocks, with ``bh = n * batch * heads``.
   plain-torch online-softmax rings (the XLA rings of the JAX package), which
   the sp step runs for ``attention_impl != "flash"``, and the oracle of the
   flash rings.
+* :func:`make_ring_attention`: :func:`ring_self_attention` over whole
+  ``(B, H, S, D)`` tensors on a stacked ring, for callers outside a step.
 * :func:`ring_flash_attention` and :func:`zigzag_ring_flash_attention`: the
   rings with the flash kernel inside each shard (``kernels/flash_attention.py``
   ``flash_attention_with_lse`` forward, merged by log-sum-exp in float32;
@@ -39,6 +41,7 @@ from bpe_transformer_tpu_torch.kernels.flash_attention import (
     flash_attention_with_lse,
 )
 from bpe_transformer_tpu_torch.ops.core import MASK_VALUE as NEG_INF
+from bpe_transformer_tpu_torch.parallel.mesh import StackedRing
 
 
 def _per_rank(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -389,6 +392,30 @@ def zigzag_ring_flash_attention(q, k, v, ring, block_q: int = 256, block_k: int 
 
 
 # ----------------------------------------------------- zig-zag schedule
+
+
+def make_ring_attention(ring, causal: bool = True):
+    """:func:`ring_self_attention` for callers outside a step: returns
+    ``fn(q, k, v)`` over whole ``(B, H, S, D)`` tensors, whose S is cut into
+    ``ring.size`` contiguous shards stacked on a leading rank dim, attended
+    around ``ring`` (a :class:`~parallel.mesh.StackedRing`: every shard on
+    the tensors' device) and put back in order.  Differentiable.  The JAX
+    function's ``(mesh, axis)`` is the ring here."""
+    if not isinstance(ring, StackedRing):
+        raise TypeError(f"make_ring_attention needs a StackedRing, got {type(ring).__name__}")
+    n = ring.size
+
+    def shards(x):
+        b, h, s, d = x.shape
+        if s % n:
+            raise ValueError(f"sequence length {s} is not divisible by the ring size {n}")
+        return x.reshape(b, h, n, s // n, d).permute(2, 0, 1, 3, 4)
+
+    def fn(q, k, v):
+        out = ring_self_attention(shards(q), shards(k), shards(v), ring, causal=causal)
+        return out.permute(1, 2, 0, 3, 4).reshape(q.shape)
+
+    return fn
 
 
 def zigzag_indices(seq_len: int, n_shards: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Paged KV memory for serving: the block allocator (``blocks``), the radix
-prefix cache (``radix``) and the paged engine (``paged_engine``)."""
+prefix cache (``radix``), the paged engine (``paged_engine``) and the KV
+wire codec that moves a session between engines (``migrate``)."""
 
 from bpe_transformer_tpu_torch._lazy import lazy_attrs
 
@@ -9,6 +10,10 @@ __all__ = [
     "PagedEngine",
     "PagedSlotInfo",
     "RadixPrefixCache",
+    "payload_from_bytes",
+    "payload_nbytes",
+    "payload_to_bytes",
+    "synthetic_decode_payload",
 ]
 
 # Lazy: the wire codec (``migrate``) imports without torch.
@@ -18,4 +23,8 @@ __getattr__ = lazy_attrs(__name__, {
     "PagedEngine": "paged_engine",
     "PagedSlotInfo": "paged_engine",
     "RadixPrefixCache": "radix",
+    "payload_from_bytes": "migrate",
+    "payload_nbytes": "migrate",
+    "payload_to_bytes": "migrate",
+    "synthetic_decode_payload": "migrate",
 })

@@ -118,3 +118,15 @@ def run_manifest(
     if extra:
         record.update(extra)
     return record
+
+
+def attach_manifest(payload: dict, kind: str, **kwargs) -> dict:
+    """Best-effort: embed ``run_manifest(kind, **kwargs)`` as
+    ``payload["manifest"]``.  A capture payload must never lose its
+    measurement to the manifest: on any failure the payload comes back
+    without one and the error goes to stderr."""
+    try:
+        payload["manifest"] = run_manifest(kind=kind, **kwargs)
+    except Exception as exc:
+        print(f"manifest attach failed: {exc!r}", file=sys.stderr)
+    return payload

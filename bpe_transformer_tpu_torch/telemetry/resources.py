@@ -25,7 +25,8 @@ each field differs:
   it loaded, ``compile_time_s`` is the wall time of those builds, and
   ``compile_cache_hits`` counts the libraries it loaded without building
   them (a warm build root).  A server's count settles once every kernel of
-  its path is loaded.
+  its path is loaded.  :func:`record_compile_events` adds events of builds
+  outside ``_build``.
 
 Everything here reads host-side allocator state or the process table and
 never synchronises the card.
@@ -34,6 +35,7 @@ never synchronises the card.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 
 import torch
@@ -58,15 +60,43 @@ def reset_device_peak(device: torch.device) -> None:
     torch.cuda.reset_peak_memory_stats(index)
 
 
+#: Compile events added by :func:`record_compile_events`: ``[events,
+#: seconds]``, under ``_recorded_lock``.
+_recorded = [0, 0.0]
+_recorded_lock = threading.Lock()
+
+
+def record_compile_events(n: int = 1, duration_s: float = 0.0) -> int:
+    """Add ``n`` compile events and their wall seconds to what
+    :func:`compile_events` and :func:`compile_time_s` report (for builds
+    that ``kernels/_build.py`` does not count); returns the new event
+    total."""
+    with _recorded_lock:
+        _recorded[0] += n
+        _recorded[1] += max(duration_s, 0.0)
+    return compile_events()
+
+
+def install_compile_counter() -> bool:
+    """True: the counters need no hook here.  ``kernels/_build.py`` counts
+    every kernel library this process builds or loads as it does so (the
+    JAX package registers a ``jax.monitoring`` listener instead)."""
+    return True
+
+
 def compile_events() -> int:
-    """Kernel-library builds plus loads in this process so far."""
+    """Kernel-library builds plus loads in this process so far, plus the
+    events :func:`record_compile_events` added."""
     stats = _build.build_stats()
-    return int(stats["built"] + stats["loaded"])
+    with _recorded_lock:
+        return int(stats["built"] + stats["loaded"]) + _recorded[0]
 
 
 def compile_time_s() -> float:
-    """Cumulative wall seconds of this process's kernel-library builds."""
-    return float(_build.build_stats()["build_s"])
+    """Cumulative wall seconds of this process's kernel-library builds,
+    plus those :func:`record_compile_events` added."""
+    with _recorded_lock:
+        return float(_build.build_stats()["build_s"]) + _recorded[1]
 
 
 def compile_cache_hits() -> int:

@@ -6,7 +6,10 @@ from bpe_transformer_tpu_torch.tokenization.pretokenization import (
     count_pretokens,
     find_chunk_boundaries,
     iter_pretoken_strings,
+    parallel_pretokenization,
+    pretokenize,
     pretokenize_text,
+    serial_pretokenization,
     split_on_special_tokens,
 )
 from bpe_transformer_tpu_torch.tokenization.tokenizer import BPETokenizer, Tokenizer
@@ -19,7 +22,10 @@ __all__ = [
     "count_pretokens",
     "find_chunk_boundaries",
     "iter_pretoken_strings",
+    "parallel_pretokenization",
+    "pretokenize",
     "pretokenize_text",
+    "serial_pretokenization",
     "split_on_special_tokens",
     "train_bpe",
 ]

@@ -312,3 +312,45 @@ def count_pretokens(
     with multiprocessing.get_context("spawn").Pool(processes=n_workers) as pool:
         per_chunk = pool.starmap(chunk_fn, args)
     return reduce(lambda a, b: a + b, per_chunk, Counter())
+
+
+# The reference's own entry points (its ``pretokenization.py``), with the
+# JAX package's signatures and defaults, over :func:`count_pretokens`.
+def pretokenize(
+    file_path: str | Path,
+    training: bool = True,
+    parallel_processing: bool = True,
+    n_workers: int | None = 4,
+    special_tokens: list[str] | None = None,
+) -> Counter[Pretoken]:
+    """Pre-token counts of a file, fanned out over ``n_workers`` processes
+    unless ``parallel_processing`` is False."""
+    return count_pretokens(
+        file_path,
+        special_tokens,
+        training=training,
+        n_workers=n_workers,
+        parallel=parallel_processing,
+    )
+
+
+def parallel_pretokenization(
+    file_path: str | Path,
+    n_workers: int | None = None,
+    training: bool = True,
+    special_tokens: list[str] | None = None,
+) -> Counter[Pretoken]:
+    """Pre-token counts of a file over ``n_workers`` processes (4 when
+    None, at most the host's CPUs)."""
+    return count_pretokens(
+        file_path, special_tokens, training=training, n_workers=n_workers, parallel=True
+    )
+
+
+def serial_pretokenization(
+    file_path: str | Path,
+    training: bool = True,
+    special_tokens: list[str] | None = None,
+) -> Counter[Pretoken]:
+    """Pre-token counts of a file in this process."""
+    return count_pretokens(file_path, special_tokens, training=training, parallel=False)

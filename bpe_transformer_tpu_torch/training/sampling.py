@@ -1,10 +1,11 @@
 """Autoregressive sampling from a trained LM (the port's rewrite of
 ``bpe_transformer_tpu/training/sampling.py``).
 
-Generations that fit the context window take the KV-cached path: one
-:func:`~bpe_transformer_tpu_torch.models.decode.prefill` of the prompt, then
-one :func:`~bpe_transformer_tpu_torch.models.decode.decode_step` a token, at
-the config's activation dtype (the config's kernel knobs pick the kernels).
+Generations that fit the context window take the KV-cached path,
+:func:`~bpe_transformer_tpu_torch.models.decode.generate_cached` on one row
+(one prefill, then one decode step a token, at the config's activation
+dtype; the config's kernel knobs pick the kernels), truncated at the first
+``stop_id``.
 Longer generations slide a ``context_length`` window and re-run the full
 :func:`~bpe_transformer_tpu_torch.models.transformer.forward` each token.
 An MoE model's cached path routes with the decode capacity (from
@@ -26,43 +27,8 @@ import torch
 
 from bpe_transformer_tpu_torch.device import resolve_device
 from bpe_transformer_tpu_torch.models.config import ModelConfig
-from bpe_transformer_tpu_torch.models.decode import decode_step, init_kv_cache, prefill
-from bpe_transformer_tpu_torch.models.transformer import (
-    forward,
-    lm_head_weight,
-    params_from_jax,
-)
-from bpe_transformer_tpu_torch.serving.engine import (
-    TOP_K_DISABLED,
-    TOP_P_DISABLED,
-    activation_dtype,
-    gumbel_noise,
-    sample_tokens,
-)
-from bpe_transformer_tpu_torch.tree import tree_map
-
-
-class _Sampler:
-    """``_sample_from_logits``'s counterpart: one token from a ``(1, vocab)``
-    float32 logits row, drawing noise only when the temperature is set."""
-
-    def __init__(self, temperature: float, top_k: int | None, top_p: float | None,
-                 seed: int, device: torch.device):
-        self.device = device
-        self.greedy = temperature == 0.0
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(seed))
-        self.temps = torch.tensor([temperature], dtype=torch.float32, device=device)
-        self.top_ks = torch.tensor([TOP_K_DISABLED if top_k is None else top_k], device=device)
-        self.top_ps = torch.tensor(
-            [TOP_P_DISABLED if top_p is None else top_p], dtype=torch.float32, device=device
-        )
-
-    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
-        if self.greedy:
-            return torch.argmax(logits, dim=-1)
-        gumbel = gumbel_noise(self.generator, logits.shape, self.device)
-        return sample_tokens(logits, gumbel, self.temps, self.top_ks, self.top_ps)
+from bpe_transformer_tpu_torch.models.decode import _token_sampler, generate_cached
+from bpe_transformer_tpu_torch.models.transformer import forward, params_from_jax
 
 
 @torch.inference_mode()
@@ -86,27 +52,19 @@ def generate_ids(
     prompt = list(prompt_ids)[-ctx:]
     if not prompt:
         raise ValueError("prompt must contain at least one token")
-    act = activation_dtype(config)
     params = params_from_jax(params, dev)
-    sample = _Sampler(temperature, top_k, top_p, seed, dev)
-
-    out: list[int] = []
+    generator = torch.Generator(device=dev).manual_seed(int(seed))
     if len(prompt) + max_new_tokens <= ctx:
-        # KV-cached path at the activation dtype, the head cast to it too
-        # (logits stay float32).
-        lm_head = lm_head_weight(params, config).to(act)
-        params = tree_map(lambda p: p.to(act), params)
-        cache = init_kv_cache(config, 1, dtype=act, device=dev)
-        logits, cache = prefill(params, torch.tensor([prompt], device=dev), config, cache,
-                                lm_head=lm_head)
-        token = sample(logits)
-        for i in range(max_new_tokens):
-            out.append(int(token[0]))
-            if (stop_id is not None and out[-1] == stop_id) or i == max_new_tokens - 1:
-                break
-            logits, cache = decode_step(params, token, len(prompt) + i, cache, config,
-                                        lm_head=lm_head)
-            token = sample(logits)
+        ids = generate_cached(
+            params, [prompt], config=config, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p, stop_id=stop_id,
+            generator=generator, device=dev,
+        )
+        # Tokens after the first stop_id are pinned to it: truncating there
+        # gives the sliding-window path's early exit.
+        out = ids[0].tolist()
+        if stop_id is not None and stop_id in out:
+            out = out[: out.index(stop_id) + 1]
         return out
 
     # Sliding-window path (prompt + continuation exceed the window): a full
@@ -119,6 +77,8 @@ def generate_ids(
             "(shorten max_new_tokens to fit the window to use it)",
             file=sys.stderr,
         )
+    sample = _token_sampler(1, temperature, top_k, top_p, generator, dev)
+    out: list[int] = []
     buf = list(prompt)
     for _ in range(max_new_tokens):
         logits = forward(params, torch.tensor([buf], device=dev), config)[:, -1]

@@ -1,6 +1,7 @@
 """Model-FLOPs accounting and the card's peak rates (the port's rewrite of
 ``bpe_transformer_tpu/utils/flops.py``: the training-step, prefill and
-decode-tick FLOPs, and the peak tables that MFU and the rooflines read).
+decode-tick FLOPs, the peak tables that the rooflines read, and
+:func:`mfu`).
 
 The FLOPs estimate is the JAX package's ("6ND + attention"):
 
@@ -92,3 +93,22 @@ def prefill_flops(config: ModelConfig, tokens: int) -> float:
     of :func:`train_step_flops` at batch 1 and that sequence length (the
     full-sequence attention term, as the training count has it)."""
     return train_step_flops(config, 1, tokens) / 3.0
+
+
+def mfu(
+    config: ModelConfig,
+    batch: int,
+    step_time_s: float,
+    device_kind: str,
+    n_chips: int = 1,
+    seq: int | None = None,
+) -> float | None:
+    """Model FLOPs utilization of a training step in [0, 1]:
+    :func:`train_step_flops` over ``step_time_s`` against ``n_chips`` cards'
+    dense bf16 peak; None when the table has no row for ``device_kind`` or
+    the time is not positive."""
+    peak = peak_flops_per_chip(device_kind)
+    if peak is None or step_time_s <= 0:
+        return None
+    achieved = train_step_flops(config, batch, seq) / step_time_s
+    return achieved / (peak * max(n_chips, 1))

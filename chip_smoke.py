@@ -149,7 +149,8 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    during which decode replica A, started
    with ``--evacuate-to`` B, gets SIGTERM and evacuates its sessions (no
    failed request, greedy ids equal, "drained cleanly"); a prefill replica
-   restarted with ``BT_FAULTS`` ``corrupt_payload``, whose payload B
+   started with ``BT_FAULTS`` ``corrupt_payload`` (every replica of 14b
+   starts in one wave), taking the first one's place, whose payload B
    refuses with a 400 and whose clean re-export, sent twice under one
    ``X-Idempotency-Key``, B grafts once; (c) ``fleet --once``
    (schema-valid fleet and SLO records), ``control`` observe-only over a
@@ -173,9 +174,9 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    subprocess (a non-zero exit, the dump in the stream); (d) ``train`` as a
    subprocess preempted at step 6 (exit 75, an emergency snapshot), then
    ``--resume`` to step 8 against an uninterrupted run (1e-5 relative);
-   (e) ``--supervise`` with a child killed at step 6 ((d) and (e) at 2 of
-   the 12 layers, full width, so that their checkpoints are 0.76 GB, not
-   1.61); (f) ``--inner-steps
+   (e) ``--supervise`` with a child killed at step 6, beside (d) ((d) and
+   (e) at 2 of the 12 layers, full width, so that their checkpoints are
+   0.76 GB, not 1.61); (f) ``--inner-steps
    4`` against 1, and a read fault under prefetch 2 surfacing on the main
    thread; (g) host ms a step of the plain loop, each tap, inner steps and
    prefetch, the sync and async checkpoint stalls, the emergency save and
@@ -251,8 +252,24 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    exact launch counts; (c) B2 + lse at (8, 3, 1024, 64) and B5, B4's pair
    and B3 at the pipeline's 2-row microbatches against their plain
    versions, timed by CUDA-graph replay;
+21. the public surface: (a) batched ``models/decode.py``
+   ``generate_cached`` at GPT2_SMALL_32K (bf16, the kernel knobs) on 4
+   prompts of 256 tokens with 64 new: the first step's logits against the
+   plain config's, exact launches of one call (B2 12, B1 12 a decode step,
+   B3 12 a forward), host ms a token and tok/s; at TINYSTORIES_4L in
+   float32 its greedy ids row by row equal to ``generate_ids``'s and a
+   ``stop_id`` pinned; (b) the ten ``bpe_transformer_tpu_torch/examples``
+   scripts as subprocesses on the card at world 1, six at a time, cut to a
+   few steps (the sp script twice: the ring with accumulation, and
+   Ulysses), each exiting
+   0 with its closing line and launching the kernels its knobs select; (c)
+   ``make_ring_attention`` against the flash forward, ``rope`` and
+   ``transformer_block`` against their CPU results, and
+   ``state_dict_from_params`` round-tripped, on CUDA tensors;
 then one JSON line listing every ported kernel (launches counted over the
-main paths, phases 18's, 19's and 20's included), and the ``ok`` line.
+main paths, phases 18's, 19's, 20's and 21a's included), and the ``ok``
+line.  ``python3 chip_smoke.py --phase 21`` runs the build and phase 21
+alone.
 
 ``python3 chip_smoke.py --phase 18 --world 4`` (on a host with four
 cards) builds the kernels and runs phase 18 across cards
@@ -299,7 +316,8 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 ``chip_smoke_loop.json`` (phase 15's training-loop figures),
 ``chip_smoke_moe.json`` (phase 16's MoE figures),
 ``chip_smoke_surface.json`` (phase 17's), ``chip_smoke_parallel.json``
-(phases 18's and 19's) and, from the four-card runs,
+(phases 18's and 19's), ``chip_smoke_public.json`` (phase 21's) and, from
+the four-card runs,
 ``chip_smoke_parallel4.json``, ``chip_smoke_parallel4_cli.json``,
 ``chip_smoke_sharded4.json``, ``chip_smoke_sharded4_cli.json``,
 ``chip_smoke_pipeline4.json`` and ``chip_smoke_pipeline4_cli.json``.
@@ -308,6 +326,7 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -514,7 +533,7 @@ def paged_inputs(torch, gen, S, H, KV, bs, nbs, d, dtype, kv_int8, pos=None, tra
 
 
 def paged_call(q, k, v, t, p, ks, vs):
-    from bpe_transformer_tpu_torch.kernels import decode_attention as da
+    da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
 
     return da.paged_decode_attention(q, k, v, t, p, k_scale=ks, v_scale=vs)
 
@@ -559,8 +578,8 @@ def kernel_cases(torch, dtype, gen):
     shapes: 8 slots x 12 heads x d 64, ctx 1024, prefill buckets 16..1024,
     paged blocks of 16 (64 a slot), prefill chunks of 256, d_model 768,
     d_ff 2048, vocab 32000."""
-    from bpe_transformer_tpu_torch.kernels import decode_attention as da
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
     from bpe_transformer_tpu_torch.models.decode import gather_paged_kv
 
@@ -655,7 +674,7 @@ def quant_case(torch, gen, m, k_in, n_out, dtype) -> tuple:
     """The int8 matmul's case tuple (as :func:`kernel_cases`) at ``m`` rows
     of ``k_in -> n_out``; the library call is the product at x's dtype
     against the weight dequantized once beforehand."""
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
     isz = torch.tensor([], dtype=dtype).element_size()
     sets = [quant_inputs(torch, gen, m, k_in, n_out, dtype)
@@ -679,9 +698,9 @@ def check_other_shapes(torch) -> None:
     widest SwiGLU register tile (d_model 2048) and wider models (2500, 4096),
     paged blocks of 8 to 64 with a slot on the trash block, and int8 weight
     rows that are not a multiple of 16 bytes.  Correctness only."""
-    from bpe_transformer_tpu_torch.kernels import decode_attention as da
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -810,7 +829,7 @@ def quant_bytes_exact(torch) -> None:
     bf16, held exactly: x = I (bf16) against q holding all 256 values,
     scale 1, so y = q^T must come out bit for bit, with the K axis split
     (m 64) and whole (m 256)."""
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
     k_in, n_out = 256, 256
     idx = torch.arange(n_out, device="cuda")[:, None] + torch.arange(k_in, device="cuda")[None, :]
@@ -943,7 +962,7 @@ def swiglu_crossover(torch, gen) -> list[dict]:
 def quant_crossover(torch, gen) -> list[dict]:
     """The int8 matmul's two designs with bf16 x at 768 -> 2048;
     :func:`quant_path` takes the tensor cores at every m."""
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
     k_in, n_out = 768, 2048
 
@@ -961,7 +980,7 @@ def paged_span_sweep(torch, gen) -> list[dict]:
     with each slot's keys in spans of 64, 128 and 256 (the wrapper's
     decode_splits patched), by CUDA-graph replay, beside the span
     decode_splits picks; each held against the shipped span's output."""
-    from bpe_transformer_tpu_torch.kernels import decode_attention as da
+    da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
 
     S, H, bs, nbs, d = 8, 12, 16, 64, 64
     pos = torch.tensor([0, 15, 100, 257, 511, 700, 900, 1023], device="cuda")
@@ -1482,7 +1501,7 @@ def swiglu_training_timings(torch, gen) -> list[dict]:
 def phase_training_kernels(torch) -> dict:
     """Training kernels vs plain on the card; returns the bf16 rows at the
     GPT2_SMALL_32K training shape, keyed by kernel name."""
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -1783,7 +1802,7 @@ PAGED_WIDTHS = (("act", None, None), ("int8 KV", "int8", None), ("int8 KV + int8
 def plain_quant_matmul():
     """Route the int8 matmul to its plain version on the card (the
     reference run of phase 9b); nothing else changes."""
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
     return patched(qm, quant_matmul=qm.quant_matmul_plain)
 
@@ -2474,7 +2493,7 @@ def interleaved_ticks(torch, engines: dict, vocab: int, rng, label: str,
 def plain_gelu():
     """Route the GeLU forward to its plain version on the card (the
     reference run of phase 11c); nothing else changes."""
-    from bpe_transformer_tpu_torch.kernels import gelu as ge
+    ge = importlib.import_module("bpe_transformer_tpu_torch.kernels.gelu")
 
     return patched(ge, _gelu_forward=ge.gelu_plain)
 
@@ -2484,7 +2503,7 @@ def gelu_cases(torch, dtype, gen) -> list:
     the GeLU forward and backward at the GeLU GPT2_SMALL_32K's FFN widths:
     the tick (8 x 3072), a prefill chunk (256 x 3072) and a training step
     (8 x 1024 tokens x 3072), on 3 N(0, 1) values."""
-    from bpe_transformer_tpu_torch.kernels import gelu as ge
+    ge = importlib.import_module("bpe_transformer_tpu_torch.kernels.gelu")
 
     F = torch.nn.functional
     isz = torch.tensor([], dtype=dtype).element_size()
@@ -2515,7 +2534,7 @@ def check_gelu_other_shapes(torch) -> None:
     a scalar tail after the 16-byte vectors (1 to 24,581 elements), a view
     that starts off a 16-byte boundary, and the large magnitudes of
     tests/test_kernels.py (gelu(11) == 11, gelu(-1000) == 0, no NaN)."""
-    from bpe_transformer_tpu_torch.kernels import gelu as ge
+    ge = importlib.import_module("bpe_transformer_tpu_torch.kernels.gelu")
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     big = [11.0, 50.0, 1000.0, -11.0, -50.0, -1000.0, 0.0]
@@ -2589,7 +2608,7 @@ def phase_gelu_kernels(torch) -> dict:
             require(rel <= 1, f"{name} {dname} {label}: max error {err:.3e} over {tol}")
     # B8 at the int8 GeLU FFN's shapes: the down projection reduces over
     # K = 3072, which _splits cuts into slices for the tick's m = 8.
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
     nsplit, per = qm._splits(8, 768, 3072, torch.device("cuda"))
     log(f"quant_matmul m=8 3072->768: the reduction in {nsplit} slices of {per} columns")
@@ -2930,7 +2949,7 @@ def ring_vs_full(torch, gen) -> None:
     """12b: the stacked rings (contiguous and zig-zag, SP_RANKS ranks),
     forward and backward, against one full-length causal flash attention
     (B2/B4) and its gradients on (8, 12, 1024, 64)."""
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
     from bpe_transformer_tpu_torch.parallel import (
         StackedRing,
         ring_flash_attention,
@@ -3070,7 +3089,7 @@ def phase_sp(torch, smi: str) -> tuple[dict, dict]:
     vs full causal flash (12b), and the sp train step at full width (12c).
     Returns the bf16 rows of the three non-causal kernels at the contiguous
     launch shape, and their launch counts over 12c's steps."""
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     b, h, s, d = TRAIN_SHAPES["GPT2_SMALL_32K"]
@@ -3774,7 +3793,8 @@ def phase_fleet_http(torch, smi: str, cfg, work: Path, rows13: list | None = Non
     of 8 requests with 256 new tokens, half sent to A and half through the
     router, during which A gets SIGTERM and evacuates its sessions to B (no
     failed request, greedy ids equal, "drained cleanly"); a prefill replica
-    restarted with a corrupting ``BT_FAULTS`` plan, whose payload B refuses
+    started with a corrupting ``BT_FAULTS`` plan (every replica starts in
+    one wave), taking the first one's place, whose payload B refuses
     with a 400 and whose clean re-export, sent twice under one idempotency
     key, B grafts once; a session B moves to a third decode replica C that
     drops its first ``/kv/import``, so that B's relay retries under one key
@@ -3835,13 +3855,25 @@ def phase_fleet_http(torch, smi: str, cfg, work: Path, rows13: list | None = Non
 
     out: dict = {"card": smi, "reference": {k: v for k, v in ref16.items() if k != "ids"}}
     try:
-        # Decode B first: A's --evacuate-to names the address B bound.
+        # Every replica starts in one wave.  Decode B binds a port chosen
+        # here, so that A's --evacuate-to names it from the start; a prefill
+        # replica that corrupts its next export and a decode replica C that
+        # drops its first /kv/import stay outside the router, idle until
+        # their checks below.
+        from bpe_transformer_tpu_torch.parallel.launch import free_port
+
+        port_b, once = free_port(), work / "faults_c"
         t0 = time.perf_counter()
         start(prefill=("prefill", ("--role", "prefill"), None),
-              decode_b=("decode_b", ("--role", "decode"), None))
-        start(decode_a=("decode_a", ("--role", "decode", "--evacuate-to",
-                                     procs["decode_b"].base), None))
-        log(f"14b three serve replicas up in {time.perf_counter() - t0:.1f} s")
+              decode_b=("decode_b", ("--role", "decode", "--port", str(port_b)), None),
+              decode_a=("decode_a", ("--role", "decode", "--evacuate-to",
+                                     f"http://127.0.0.1:{port_b}"), None),
+              prefill2=("prefill2", ("--role", "prefill"),
+                        {"BT_FAULTS": json.dumps({"corrupt_payload": "flip"})}),
+              decode_c=("decode_c", ("--role", "decode"), {"BT_FAULTS": json.dumps({
+                  "http_blackhole": True, "http_fault_path": "/kv/import",
+                  "once_dir": str(once)})}))
+        log(f"14b five serve replicas up in one wave in {time.perf_counter() - t0:.1f} s")
         pre, dec_a, dec_b = procs["prefill"].base, procs["decode_a"].base, procs["decode_b"].base
         procs["router"] = ServeProcess(
             ["--replica", pre, "--replica", dec_a, "--replica", dec_b, "--port", "0",
@@ -3992,15 +4024,10 @@ def phase_fleet_http(torch, smi: str, cfg, work: Path, rows13: list | None = Non
             f"({out['evacuation']['bytes']} payload bytes) to B; no request failed, greedy ids "
             f"equal the unmigrated run's")
 
-        # A prefill replica that corrupts its next export, and a decode
-        # replica C that drops its first /kv/import unanswered.
+        # The prefill replica that corrupts its next export takes the first
+        # one's place, and decode replica C drops its first /kv/import.
         procs.pop("prefill").stop()
-        once = work / "faults_c"
-        start(prefill=("prefill2", ("--role", "prefill"),
-                       {"BT_FAULTS": json.dumps({"corrupt_payload": "flip"})}),
-              decode_c=("decode_c", ("--role", "decode"), {"BT_FAULTS": json.dumps({
-                  "http_blackhole": True, "http_fault_path": "/kv/import",
-                  "once_dir": str(once)})}))
+        procs["prefill"] = procs.pop("prefill2")
         pre, dec_c = procs["prefill"].base, procs["decode_c"].base
         body = json.dumps(bodies[0]).encode()
         export_headers = {"Content-Type": "application/json", "X-KV-Accept": "zlib"}
@@ -4400,6 +4427,19 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     log(f"15c sync checkpoint stall {[round(s * 1e3, 1) for s in sync_stall]} ms "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # (e) runs beside (d): the supervised world trains in its own processes
+    # while (d)'s do (the two share no file but the token file).
+    from concurrent.futures import ThreadPoolExecutor
+
+    ck_e = TRAIN_WORK / "e_ck"
+    pool_e = ThreadPoolExecutor(max_workers=1)
+    t0_e = time.perf_counter()
+    run_e = pool_e.submit(
+        train_subprocess, cli_args(8, ck_e, "--supervise", "--max-restarts", "2",
+                                   "--restart-backoff", "0.1", model="model_de.json"),
+        faults={"kill_at_step": 6, "once_dir": str(TRAIN_WORK / "once")})
+    pool_e.shutdown(wait=False)
+
     # (d) Preemption: exit 75 and an emergency snapshot, then --resume.
     t0 = time.perf_counter()
     ck_d, jsonl_d = TRAIN_WORK / "d_ck", TRAIN_WORK / "d.jsonl"
@@ -4431,18 +4471,14 @@ def phase_training_loop(torch, smi: str, cfg=None, device: str = "cuda", batch: 
     shutil.rmtree(ck_d)
 
     # (e) --supervise: a child killed at step 6 is respawned with --resume.
-    t0 = time.perf_counter()
-    ck_e = TRAIN_WORK / "e_ck"
-    proc = train_subprocess(cli_args(8, ck_e, "--supervise", "--max-restarts", "2",
-                                     "--restart-backoff", "0.1", model="model_de.json"),
-                            faults={"kill_at_step": 6, "once_dir": str(TRAIN_WORK / "once")})
+    proc = run_e.result()
     require(proc.returncode == 0 and "spawn #2" in proc.stdout,
             f"15e: supervised run exit {proc.returncode}: {proc.stdout[-2000:]}")
     history = json.loads((ck_e / "summary.json").read_text())["history"]
     got = {r["step"]: r["loss"] for r in history}
     rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
     log(f"15e supervised: killed at step 6, respawned once, losses {got}; max rel diff to the "
-        f"uninterrupted run {rel:.2e} ({time.perf_counter() - t0:.1f} s)")
+        f"uninterrupted run {rel:.2e} ({time.perf_counter() - t0_e:.1f} s, beside 15d)")
     require(sorted(got) == [6, 8] and rel <= 1e-5, f"15e: losses {got} vs {want}")
     shutil.rmtree(ck_e)
 
@@ -5660,7 +5696,7 @@ def tp_kernel_cases(torch) -> list[dict]:
     tolerances): 3 heads a rank (tp=4) and 6 (tp=2) of GPT2_SMALL_32K's 12
     at (B, 1024, 64) bf16, and the SwiGLU forward at hidden 512 (tp=4, m
     8192) and 1024 (tp=2, m 4096)."""
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
 
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -6422,7 +6458,7 @@ def p20_kernel_rows(torch) -> list[dict]:
     and B3 at the pipeline's 2-row microbatch (2, 12, 1024, 64) and m 2048,
     each against its plain version (phase 5's tolerances) and timed, the
     backward by CUDA-graph replay ("device")."""
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -6892,9 +6928,276 @@ def cli_pipeline_resume(smi: str, world: int, cfgs=None, device: str = "cuda") -
         shutil.rmtree(PIPE_WORK, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 21
+
+
+EXAMPLES = ROOT / "bpe_transformer_tpu_torch" / "examples"
+EXAMPLES_WORK = ROOT / ".scratch" / "chip_smoke_examples"
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 64
+#: 21b: each example's arguments (cut to a few steps; world 1), its closing
+#: lines, and the kernels its knobs select, which must all be launched (the
+#: host-only scripts must launch none).
+_RING = ("flash_attention", "flash_attention_nc", "flash_attention_bwd_dkdv",
+         "flash_attention_bwd_dkdv_nc", "flash_attention_bwd_dq", "flash_attention_bwd_dq_nc",
+         "swiglu")
+_TRAIN = ("flash_attention_rope", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+EXAMPLE_RUNS = (
+    ("1_pretokenization.py", ["--workers", "2"], ("paths agree",), ()),
+    ("2_train_bpe.py", [], ("longest learned token",), ()),
+    ("3_encode_decode.py", [], ("roundtrip OK",), ()),
+    ("4_train_lm.py", ["--steps", "8", "--vocab-size", "1000"], ("4/4  sampling",),
+     _TRAIN + ("swiglu", "flash_attention", "decode_attention")),
+    ("5_long_context_sp.py", ["--steps", "4", "--grad-accum", "2"], ("long-context sp OK",),
+     _RING),
+    ("5_long_context_sp.py", ["--steps", "2", "--ulysses"],
+     ("long-context sp OK", "Ulysses all-to-all"),
+     ("flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "swiglu")),
+    ("6_moe_expert_parallel.py", ["--steps", "6"], ("moe expert-parallel OK",),
+     _TRAIN + ("flash_attention", "decode_attention")),
+    ("7_grad_accum_fsdp.py", [], ("matches the single-device full-batch update",),
+     _TRAIN + ("swiglu",)),
+    ("8_kv_cache_decode.py", [], ("decode demo OK", "GQA"),
+     ("flash_attention", "decode_attention", "swiglu")),
+    ("9_pipeline_parallel.py", [], ("pipeline parallel OK", "matches the single-device update"),
+     _TRAIN + ("swiglu",)),
+    ("10_serving.py", [], ("serving demo OK", "byte-identical"),
+     ("flash_attention", "decode_attention", "swiglu")),
+)
+
+
+def first_step_logits(torch, params, cfg, prompts):
+    """``generate_cached``'s first step alone: the params and head cast to
+    the activation dtype, one prefill of the batch; float32 logits."""
+    from bpe_transformer_tpu_torch.models.decode import init_kv_cache, prefill
+    from bpe_transformer_tpu_torch.models.transformer import lm_head_weight
+    from bpe_transformer_tpu_torch.serving.engine import activation_dtype
+    from bpe_transformer_tpu_torch.tree import tree_map
+
+    act = activation_dtype(cfg)
+    with torch.inference_mode():
+        cast = tree_map(lambda t: t.to(act), params)
+        cache = init_kv_cache(cfg, prompts.shape[0], dtype=act, device=prompts.device)
+        logits, _ = prefill(cast, prompts, cfg, cache, lm_head=lm_head_weight(params, cfg).to(act))
+    return logits
+
+
+def generate_cached_full_width(torch, smi: str, device: str = "cuda") -> dict:
+    """21a: batched ``generate_cached`` at GPT2_SMALL_32K width (bf16, the
+    kernel knobs) on 4 prompts of 256 tokens, 64 new: the first step's
+    logits against the plain config's (TOL_BF16 of the logits' scale, at
+    least 1), exact launches of one call (B2 12, B1 12 a decode step, B3 12
+    a forward), host ms a token and tok/s; then at TINYSTORIES_4L in
+    float32 the greedy ids row by row equal to ``generate_ids``'s, and a
+    row's tokens after its first ``stop_id`` pinned to it."""
+    import dataclasses
+
+    import numpy as np
+
+    from bpe_transformer_tpu_torch.models import GPT2_SMALL_32K, TINYSTORIES_4L
+    from bpe_transformer_tpu_torch.models.decode import generate_cached
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.training.sampling import generate_ids
+
+    cfg = dataclasses.replace(GPT2_SMALL_32K, **KERNEL_KNOBS)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(21), device=device)
+    rng = np.random.default_rng(21)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(GEN_BATCH, GEN_PROMPT)),
+                              device=device)
+    got = first_step_logits(torch, params, cfg, prompts)
+    want = first_step_logits(torch, params, dataclasses.replace(GPT2_SMALL_32K), prompts)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    tol = TOL_BF16 * max(1.0, scale)
+    log(f"21a first-step logits (bf16, {GEN_BATCH} x {GEN_PROMPT}), kernels vs plain: max err "
+        f"{err:.3e} (|logits| max {scale:.3e}, tol {tol:.3e})")
+    require(err <= tol, f"21a first-step logits differ by {err:.3e}")
+
+    def call():
+        out = generate_cached(params, prompts, config=cfg, max_new_tokens=GEN_NEW,
+                              temperature=0.8, top_k=50, top_p=0.95,
+                              generator=torch.Generator(device=device).manual_seed(0),
+                              device=device)
+        torch.cuda.synchronize()
+        return out
+
+    call()  # warm-up: cuBLAS handles, allocator pools
+    reset_counts()
+    t0 = time.perf_counter()
+    out = call()
+    wall = time.perf_counter() - t0
+    counts = read_counts(tuple(KERNEL_META))
+    L = cfg.num_layers
+    expected = only(flash_attention=L, decode_attention=L * (GEN_NEW - 1), swiglu=L * GEN_NEW)
+    n_tok = GEN_BATCH * GEN_NEW
+    log(f"21a generate_cached GPT2_SMALL_32K bf16, {GEN_BATCH} x {GEN_PROMPT} prompts, "
+        f"{GEN_NEW} new: {wall * 1e3 / GEN_NEW:.2f} host ms a token step, "
+        f"{n_tok / wall:.1f} tok/s ({smi}); launches {counts}")
+    require(tuple(out.shape) == (GEN_BATCH, GEN_NEW), f"21a output shape {tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "21a token id out of range")
+    require(counts == expected, f"21a launch counts {counts} != expected {expected}")
+
+    f32 = dataclasses.replace(TINYSTORIES_4L, **KERNEL_KNOBS)
+    p32 = init_params(f32, torch.Generator(device=device).manual_seed(22), device=device)
+    short = prompts[:, :64] % f32.vocab_size
+    greedy = generate_cached(p32, short, config=f32, max_new_tokens=32, temperature=0.0,
+                             device=device).tolist()
+    stop = greedy[0][5]
+    pinned = generate_cached(p32, short, config=f32, max_new_tokens=32, temperature=0.0,
+                             stop_id=stop, device=device).tolist()
+    for row, (free_row, pin_row) in enumerate(zip(greedy, pinned)):
+        seq = generate_ids(p32, f32, short[row].tolist(), max_new_tokens=32, temperature=0.0,
+                           device=device)
+        require(seq == free_row, f"21a row {row}: generate_cached {free_row} != "
+                f"generate_ids {seq}")
+        cut = free_row.index(stop) + 1 if stop in free_row else len(free_row)
+        require(pin_row == free_row[:cut] + [stop] * (len(free_row) - cut),
+                f"21a row {row}: stop_id {stop} not pinned: {pin_row}")
+    log(f"21a TINYSTORIES_4L float32: greedy ids of {GEN_BATCH} rows equal to generate_ids "
+        f"row by row, stop_id {stop} pinned")
+    return {"counts": counts, "host_ms_a_token": wall * 1e3 / GEN_NEW,
+            "tok_s": n_tok / wall, "first_step_err": err}
+
+
+def run_examples(device: str = "cuda", parallel: int = 6) -> list[dict]:
+    """21b: every example script as a subprocess on ``device`` at world 1,
+    ``parallel`` at a time, in ``EXAMPLES_WORK``: exit 0, its closing
+    lines, and the kernels its knobs select launched (none for the host
+    scripts)."""
+    import ast
+    import shutil
+
+    shutil.rmtree(EXAMPLES_WORK, ignore_errors=True)
+    rows, running, pending = [], [], list(enumerate(EXAMPLE_RUNS))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
+    try:
+        while pending or running:
+            while pending and len(running) < parallel:
+                i, (script, args, closing, kernels) = pending.pop(0)
+                work = EXAMPLES_WORK / f"{i}"
+                work.mkdir(parents=True)
+                argv = [sys.executable, str(EXAMPLES / script), *args]
+                if int(script.split("_")[0]) >= 4:  # 1-3 run on the host only
+                    argv += ["--device", device]
+                out = open(work / "out.log", "w+")  # noqa: SIM115
+                running.append((i, script, args, closing, kernels, out, time.perf_counter(),
+                                subprocess.Popen(argv, cwd=work, env=env, stdout=out,
+                                                 stderr=subprocess.STDOUT)))
+            time.sleep(0.2)
+            for entry in list(running):
+                i, script, args, closing, kernels, out, t0, proc = entry
+                if proc.poll() is None:
+                    if time.perf_counter() - t0 > 300:
+                        proc.kill()
+                        proc.wait()
+                    else:
+                        continue
+                running.remove(entry)
+                out.seek(0)
+                text = out.read()
+                out.close()
+                seconds = time.perf_counter() - t0
+                require(proc.returncode == 0,
+                        f"21b {script} {args} exited {proc.returncode}: {text[-3000:]}")
+                for line in closing:
+                    require(line in text, f"21b {script} {args}: no {line!r} in {text[-2000:]}")
+                launched = {}
+                for ln in text.splitlines():
+                    if ln.startswith("kernel launches: "):
+                        launched = ast.literal_eval(ln[len("kernel launches: "):])
+                missing = [k for k in kernels if not launched.get(k)]
+                require(not missing and (kernels or not launched),
+                        f"21b {script} {args}: launched {launched}, expected {kernels}")
+                log(f"21b {script} {' '.join(args)}: ok in {seconds:.1f} s; launches {launched}")
+                rows.append({"script": script, "args": args, "seconds": seconds,
+                             "launches": launched})
+    finally:
+        for entry in running:
+            entry[-1].kill()
+            entry[-1].wait()
+        shutil.rmtree(EXAMPLES_WORK, ignore_errors=True)
+    return rows
+
+
+def new_functions_on_card(torch, device: str = "cuda") -> dict:
+    """21c: ``make_ring_attention`` on a stacked ring of 4 against the flash
+    forward (B2) at (2, 4, 1024, 64) float32, causal and not (2e-5);
+    ``rope`` and ``transformer_block`` (TINYSTORIES_4L, the kernel knobs)
+    on the card against the same calls on the CPU (1e-5, 1e-4), and
+    ``state_dict_from_params`` back through ``params_from_state_dict``."""
+    import dataclasses
+
+    from bpe_transformer_tpu_torch.kernels import flash_attention
+    from bpe_transformer_tpu_torch.models import (
+        TINYSTORIES_4L,
+        params_from_state_dict,
+        state_dict_from_params,
+        transformer_block,
+    )
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.ops import rope, rope_tables
+    from bpe_transformer_tpu_torch.parallel import StackedRing, make_ring_attention
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    gen = torch.Generator().manual_seed(23)
+    q, k, v = (torch.randn(2, 4, 1024, 64, generator=gen).to(device) for _ in range(3))
+    errs = {}
+    with torch.inference_mode():
+        for causal in (True, False):
+            ring = make_ring_attention(StackedRing(4), causal=causal)(q, k, v)
+            errs[f"ring causal={causal}"] = (ring - flash_attention(q, k, v, causal=causal)
+                                             ).abs().max().item()
+            require(errs[f"ring causal={causal}"] <= 2e-5,
+                    f"21c make_ring_attention causal={causal}: {errs}")
+        x = torch.randn(2, 8, 128, 64, generator=gen)
+        pos = torch.randint(0, 1024, (2, 1, 128), generator=gen)
+        errs["rope"] = (rope(x.to(device), pos.to(device)).cpu() - rope(x, pos)).abs().max().item()
+        require(errs["rope"] <= 1e-5, f"21c rope: {errs}")
+        cfg = dataclasses.replace(TINYSTORIES_4L, **KERNEL_KNOBS)
+        params = init_params(cfg, torch.Generator().manual_seed(24), device="cpu")
+        h = torch.randn(4, 256, cfg.d_model, generator=gen)
+        cos, sin = rope_tables(cfg.d_head, cfg.context_length, cfg.rope_theta)
+        out = {}
+        for dev in (device, "cpu"):
+            block = {key: (val.to(dev) if not isinstance(val, dict) else
+                           {n: t.to(dev) for n, t in val.items()})
+                     for key, val in params["layers"][0].items()}
+            out[dev] = transformer_block(h.to(dev), block, cfg, (cos.to(dev), sin.to(dev)),
+                                         torch.arange(256, device=dev)).cpu()
+        errs["transformer_block"] = (out[device] - out["cpu"]).abs().max().item()
+        require(errs["transformer_block"] <= 1e-4, f"21c transformer_block: {errs}")
+        card = init_params(cfg, torch.Generator(device=device).manual_seed(25), device=device)
+        back = params_from_state_dict(state_dict_from_params(card), cfg.num_layers,
+                                      device=device)
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(card),
+                                                      strict=True)),
+                "21c state_dict_from_params did not round-trip")
+    log(f"21c new functions on the card: {errs} (tols: ring 2e-5, rope 1e-5, block 1e-4); "
+        f"state_dict_from_params round trip exact")
+    return errs
+
+
+def phase_public(torch, smi: str, device: str = "cuda") -> dict:
+    """Phase 21: the public surface.  Returns 21a's launches, the main path
+    whose counts the ``kernels`` line adds."""
+    t0 = time.perf_counter()
+    gen = generate_cached_full_width(torch, smi, device)
+    t1 = time.perf_counter()
+    examples = run_examples(device)
+    t2 = time.perf_counter()
+    errs = new_functions_on_card(torch, device)
+    t3 = time.perf_counter()
+    log(f"21: 21a {t1 - t0:.1f} s, 21b {t2 - t1:.1f} s, 21c {t3 - t2:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_public.json").write_text(json.dumps({
+        "device": smi, "generate_cached": gen, "examples": examples, "functions": errs,
+        "seconds": {"21a": t1 - t0, "21b": t2 - t1, "21c": t3 - t2}}, indent=1))
+    return gen["counts"]
+
+
 def main_parallel(world: int, phase: int = 18) -> int:
-    """``chip_smoke.py --phase 18|19|20 [--world N]``: the build, then the
-    phase alone: at world 1 the default run's phases 18, 19 and 20, at
+    """``chip_smoke.py --phase 18|19|20 [--world N]`` or ``--phase 21``: the
+    build, then the phase alone: 21 as in the default run; at world 1 the
+    default run's phases 18, 19 and 20, at
     world N > 1 one rank process a card (NCCL) for dp, ZeRO-1 and the sp
     grids (18), the GSPMD strategies (19) or Ulysses, the pipeline and
     expert parallelism (20), then the ``train`` CLI under ``torchrun``."""
@@ -6926,7 +7229,9 @@ def main_parallel(world: int, phase: int = 18) -> int:
     built = _build.build_all()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({built})")
     t0 = time.perf_counter()
-    if world == 1:
+    if phase == 21:
+        log(f"21 launches {phase_public(torch, smi)}")
+    elif world == 1:
         counts, counts19, counts20 = phase_parallel(torch, smi)
         log(f"18 launches {counts}; 19 launches {counts19}; 20 launches {counts20}")
     else:
@@ -7066,12 +7371,17 @@ def main() -> int:
     log(f"phase 17 the native tokenizer, the adapters, attribution and warmup: ok "
         f"({time.perf_counter() - t0:.1f} s)")
     # Phase 18's main path is dp (ZeRO-1) and sp over a process group,
-    # phase 19's fsdp and fsdp_tp over the same group, and phase 20's
-    # Ulysses, pp and the ep strategies: their launches are added to every
-    # kernel's count.
+    # phase 19's fsdp and fsdp_tp over the same group, phase 20's Ulysses,
+    # pp and the ep strategies, and phase 21's batched generate_cached:
+    # their launches are added to every kernel's count.
     counts18, counts19, counts20 = phase_parallel(torch, smi)
+    t0 = time.perf_counter()
+    counts21 = phase_public(torch, smi)
+    log(f"phase 21 the public surface (generate_cached, the examples, the new functions): ok "
+        f"({time.perf_counter() - t0:.1f} s)")
     for name in KERNEL_META:
-        counts[name] = counts.get(name, 0) + counts18[name] + counts19[name] + counts20[name]
+        counts[name] = (counts.get(name, 0) + counts18[name] + counts19[name] + counts20[name]
+                        + counts21[name])
 
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -7094,12 +7404,12 @@ def main() -> int:
 
 
 def _args(argv: list) -> dict:
-    """``--phase 18|19|20 [--world N] [--rank-child]``, or nothing (every
-    phase)."""
+    """``--phase 18|19|20 [--world N] [--rank-child]``, ``--phase 21``, or
+    nothing (every phase)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="Run the port on the card and check it.")
-    parser.add_argument("--phase", type=int, choices=[18, 19, 20], default=None,
+    parser.add_argument("--phase", type=int, choices=[18, 19, 20, 21], default=None,
                         help="run the build and this phase alone")
     parser.add_argument("--world", type=int, default=1,
                         help="cards for --phase 18, 19 or 20 (one rank process a card)")
@@ -7116,7 +7426,9 @@ if __name__ == "__main__":
             sys.path.insert(0, str(ROOT))
             {18: parallel_rank, 19: sharded_rank, 20: pipeline_rank}[opts["phase"]](torch)
             sys.exit(0)
-        if opts["phase"] in (18, 19, 20):
+        if opts["phase"] == 21 and opts["world"] != 1:
+            raise SmokeFailure("--phase 21 runs on one card")
+        if opts["phase"] in (18, 19, 20, 21):
             sys.exit(main_parallel(opts["world"], opts["phase"]))
         sys.exit(main())
     except SmokeFailure as exc:

@@ -29,6 +29,7 @@ call, on one card, as the turns above do.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -95,9 +96,9 @@ def worker(root: str) -> dict:
     import torch
 
     from bpe_transformer_tpu_torch.kernels import _build
-    from bpe_transformer_tpu_torch.kernels import decode_attention as da
-    from bpe_transformer_tpu_torch.kernels import flash_attention as fa
-    from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
+    da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
+    fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
+    qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
     from bpe_transformer_tpu_torch.kernels import swiglu as sw
     from bpe_transformer_tpu_torch.ops.quant import quantize_weight
     from bpe_transformer_tpu_torch.ops.rope import rope_tables
@@ -199,7 +200,7 @@ def worker(root: str) -> dict:
                                                  logits_out=ws)
             times[f"{name} bf16 R={rows} V={vocab} d={d} {head_kind} head"] = graph_ms(
                 torch, fn, sets, 24)
-    from bpe_transformer_tpu_torch.kernels import gelu as ge
+    ge = importlib.import_module("bpe_transformer_tpu_torch.kernels.gelu")
 
     F = torch.nn.functional
     sets = [(rnd(8192, 3072, std=3.0), rnd(8192, 3072)) for _ in range(4)]

@@ -20,6 +20,8 @@ order, so it is left out of the pool comparison.  The MoE FFN runs both
 dispatches at a capacity factor of 1, where a per-call default capacity
 would drop tokens in a 3-token decode step: the port's decode capacity rule
 (``_ffn_decode``, from ``context_length``) must give JAX's logits and pools.
+Batched ``generate_cached`` and ``generate_ids`` give the JAX functions'
+greedy ids (``_generate_cached_matches_jax``).
 """
 
 import dataclasses
@@ -40,6 +42,7 @@ from bpe_transformer_tpu.models.transformer import (
 from bpe_transformer_tpu_torch.models import TS_TEST_CONFIG, ModelConfig
 from bpe_transformer_tpu_torch.models.decode import (
     decode_step,
+    generate_cached,
     init_kv_cache,
     init_kv_pool,
     paged_chunk_prefill,
@@ -253,6 +256,73 @@ def _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size, steps,
                 _assert_pools(pool, j_pool, stage)
 
 
+def _generate_cached_matches_jax():
+    """Batched ``generate_cached`` against the JAX function at 2 layers, d
+    64, vocab 256, GQA on 2 KV heads, batch 3, float32, under the kernel
+    knobs: greedy ids identical, with and without a ``stop_id`` (the tokens
+    after a row's first stop pinned to it), one new token, the context
+    error's text; ``generate_ids`` (one row, through ``generate_cached``)
+    equal to JAX's; a seeded sampled run repeatable and pinned."""
+    from bpe_transformer_tpu.training.sampling import generate_ids as jax_generate_ids
+    from bpe_transformer_tpu_torch.training.sampling import generate_ids
+
+    jax_cfg = dataclasses.replace(
+        JAX_TS_TEST_CONFIG, vocab_size=256, context_length=32, d_model=64, num_layers=2,
+        num_heads=4, num_kv_heads=2, d_ff=128, **KERNEL_KNOBS,
+    )
+    cfg = ModelConfig.from_dict(dataclasses.asdict(jax_cfg))
+    jax_params = jax.tree_util.tree_map(
+        lambda a: a * 8 if a.ndim == 2 else a, jax_init_params(jax.random.PRNGKey(7), jax_cfg)
+    )
+    params = params_from_jax(jax.device_get(jax_params), device="cpu")
+    prompts = np.random.default_rng(8).integers(0, 256, size=(3, 10)).astype(np.int32)
+
+    def both(n, **kw):
+        want = np.asarray(jax_decode.generate_cached(
+            jax_params, jnp.asarray(prompts), jax.random.PRNGKey(0), config=jax_cfg,
+            max_new_tokens=n, temperature=0.0, **kw))
+        got = generate_cached(params, prompts, config=cfg, max_new_tokens=n, temperature=0.0,
+                              device="cpu", **kw)
+        assert got.shape == (3, n) and got.dtype == torch.long, got.shape
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(kw))
+        return want
+
+    free = both(12)
+    stop = int(free[0, 3])
+    pinned = both(12, stop_id=stop)
+    first = list(pinned[0]).index(stop)
+    assert first <= 3 and (pinned[0, first:] == stop).all(), pinned
+    both(1)
+    both(1, stop_id=int(free[1, 0]))
+    errors = []
+    for fn in (lambda: jax_decode.generate_cached(
+                   jax_params, jnp.asarray(prompts), jax.random.PRNGKey(0), config=jax_cfg,
+                   max_new_tokens=23, temperature=0.0),
+               lambda: generate_cached(params, prompts, config=cfg, max_new_tokens=23,
+                                       device="cpu")):
+        try:
+            fn()
+        except ValueError as exc:
+            errors.append(str(exc))
+    assert len(errors) == 2 and errors[0] == errors[1], errors
+    for stop_id in (None, stop):
+        want = jax_generate_ids(jax_params, jax_cfg, list(prompts[0]), max_new_tokens=12,
+                                temperature=0.0, stop_id=stop_id)
+        got = generate_ids(params, cfg, list(prompts[0]), max_new_tokens=12, temperature=0.0,
+                           stop_id=stop_id, device="cpu")
+        assert got == [int(t) for t in want], (stop_id, got, want)
+    sampled = [
+        generate_cached(params, prompts, config=cfg, max_new_tokens=12, temperature=1.0,
+                        top_k=8, stop_id=stop, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+        for _ in range(2)
+    ]
+    assert torch.equal(sampled[0], sampled[1])
+    for row in sampled[0].tolist():
+        if stop in row:
+            assert all(t == stop for t in row[row.index(stop):]), row
+
+
 def test_torch_prefill_and_decode_match_jax():
     with np.load(FIXTURE) as z:
         arrays = {k: z[k] for k in z.files}
@@ -340,3 +410,5 @@ def test_torch_prefill_and_decode_match_jax():
         if dispatch == "gather":
             _run_paged(jax_params, torch_params, jax_cfg, cfg, ids, block_size=4, steps=2,
                        impls=("paged",))
+
+    _generate_cached_matches_jax()

@@ -37,9 +37,13 @@ JAX's.
 
 The same test holds the port's 21 reference adapters (``compat``) against
 the JAX package's on seeded torch inputs, with the tolerances stated in
-``_adapters_match_jax``.
+``_adapters_match_jax``, and the JAX package's last public functions
+(``make_ring_attention``, ``rope``, ``transformer_block``,
+``state_dict_from_params``, ``mfu``, ``attach_manifest``, the
+pre-tokenization entry points) with those of ``_public_functions_match_jax``.
 """
 
+import importlib
 from functools import partial
 
 import numpy as np
@@ -78,13 +82,15 @@ from bpe_transformer_tpu.parallel import make_mesh
 from bpe_transformer_tpu.parallel import ring_attention as jax_ring
 from bpe_transformer_tpu_torch import parallel
 from bpe_transformer_tpu_torch.kernels import _build
-from bpe_transformer_tpu_torch.kernels import decode_attention as da
-from bpe_transformer_tpu_torch.kernels import flash_attention as fa
-from bpe_transformer_tpu_torch.kernels import gelu as ge
-from bpe_transformer_tpu_torch.kernels import quant_matmul as qm
 from bpe_transformer_tpu_torch.kernels import sample as smp
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
 from bpe_transformer_tpu_torch.ops.quant import quantize_weight
+
+# The modules: the package exports the functions of the same names.
+da = importlib.import_module("bpe_transformer_tpu_torch.kernels.decode_attention")
+fa = importlib.import_module("bpe_transformer_tpu_torch.kernels.flash_attention")
+ge = importlib.import_module("bpe_transformer_tpu_torch.kernels.gelu")
+qm = importlib.import_module("bpe_transformer_tpu_torch.kernels.quant_matmul")
 
 
 def test_torch_kernel_plain_versions_match_jax_kernels(tmp_path):
@@ -703,9 +709,149 @@ def test_torch_kernel_plain_versions_match_jax_kernels(tmp_path):
 
     # The reference adapter surface, on the port's ops and models.
     _adapters_match_jax(tmp_path)
+    # The last public functions of the JAX package.
+    _public_functions_match_jax(tmp_path)
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before
+
+
+# ------------------------------------------------------------------------
+# The JAX package's last public functions: ``make_ring_attention``, ``rope``,
+# ``transformer_block``, ``state_dict_from_params``, ``mfu``,
+# ``attach_manifest`` and the reference's pre-tokenization entry points.
+
+
+def _public_functions_match_jax(tmp_path):
+    """``make_ring_attention`` on a stacked ring of 4 against the JAX one
+    over a 4-device CPU mesh at ``tests/test_kernels.py``'s shape, causal
+    and not, with the gradient of q (atol 2e-5); ``rope`` and
+    ``transformer_block`` (the plain and the kernel knobs) within 1e-5;
+    ``state_dict_from_params`` with JAX's keys and values, tied and
+    two-matrix configs too, and back through ``params_from_state_dict``;
+    ``mfu`` equal to JAX's formula over the H100 peak, None where JAX's is;
+    ``attach_manifest`` keeping the payload when the manifest fails; and
+    ``pretokenize``, ``serial_pretokenization`` and
+    ``parallel_pretokenization`` (2 workers) giving JAX's counters."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from bpe_transformer_tpu.models import TS_TEST_CONFIG as JAX_TS
+    from bpe_transformer_tpu.models import init_params as jax_init_params
+    from bpe_transformer_tpu.models import state_dict_from_params as jax_state_dict
+    from bpe_transformer_tpu.models import transformer_block as jax_block
+    from bpe_transformer_tpu.ops import rope as jax_rope
+    from bpe_transformer_tpu.telemetry.manifest import attach_manifest as jax_attach
+    from bpe_transformer_tpu.tokenization import pretokenization as jax_pretok
+    from bpe_transformer_tpu.utils import flops as jax_flops
+    from bpe_transformer_tpu_torch.models import (
+        ModelConfig,
+        params_from_state_dict,
+        state_dict_from_params,
+        transformer_block,
+    )
+    from bpe_transformer_tpu_torch.models.transformer import params_from_jax
+    from bpe_transformer_tpu_torch.ops import rope, rope_tables
+    from bpe_transformer_tpu_torch.telemetry.manifest import attach_manifest
+    from bpe_transformer_tpu_torch.tokenization import (
+        parallel_pretokenization,
+        pretokenize,
+        serial_pretokenization,
+    )
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+    from bpe_transformer_tpu_torch.utils.flops import mfu
+
+    rng = np.random.default_rng(31)
+    mesh = make_mesh({"data": 4}, devices=jax.devices()[:4])
+    q, k, v = (rng.standard_normal((2, 2, 4 * 32, 32)).astype(np.float32) for _ in range(3))
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    for causal in (True, False):
+        jax_fn = jax_ring.make_ring_attention(mesh, "data", causal)
+        want, vjp = jax.vjp(jax.jit(lambda q_: jax_fn(q_, jnp.asarray(k), jnp.asarray(v))),
+                            jnp.asarray(q))
+        fn = parallel.make_ring_attention(parallel.StackedRing(4), causal=causal)
+        tq = torch.from_numpy(q).requires_grad_(True)
+        got = fn(tq, torch.from_numpy(k), torch.from_numpy(v))
+        got.backward(torch.from_numpy(g))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-5,
+                                   err_msg=f"make_ring_attention causal={causal}")
+        np.testing.assert_allclose(tq.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                                   atol=2e-5, err_msg=f"make_ring_attention dq causal={causal}")
+    with pytest.raises(ValueError, match="not divisible"):
+        fn(*(torch.zeros(1, 1, 6, 4),) * 3)
+
+    x = rng.standard_normal((2, 3, 8, 16)).astype(np.float32)
+    positions = rng.integers(0, 20, size=(2, 1, 8))
+    for kw in ({}, {"theta": 500.0, "max_seq_len": 40}):
+        np.testing.assert_allclose(
+            rope(torch.from_numpy(x), torch.from_numpy(positions), **kw).numpy(),
+            np.asarray(jax_rope(jnp.asarray(x), jnp.asarray(positions), **kw)), atol=1e-5,
+            err_msg=f"rope {kw}")
+
+    for knobs in ({}, dict(attention_impl="flash", ffn_impl="pallas")):
+        jax_cfg = dataclasses.replace(JAX_TS, num_kv_heads=2, **knobs)
+        cfg = ModelConfig.from_dict(dataclasses.asdict(jax_cfg))
+        jax_params = jax.tree_util.tree_map(
+            lambda a: a * 8 if a.ndim == 2 else a, jax_init_params(jax.random.PRNGKey(2), jax_cfg))
+        block = params_from_jax(jax.device_get(jax_params["layers"][0]), device="cpu")
+        h = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+        cos, sin = rope_tables(cfg.d_head, cfg.context_length, cfg.rope_theta)
+        want = jax_block(jnp.asarray(h), jax_params["layers"][0], jax_cfg,
+                         (jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy())), jnp.arange(8))
+        got = transformer_block(torch.from_numpy(h), block, cfg, (cos, sin), torch.arange(8))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   err_msg=f"transformer_block {knobs}")
+
+    for extra in ({}, {"tie_embeddings": True}, {"ffn_type": "gelu"}):
+        jax_cfg = dataclasses.replace(JAX_TS, **extra)
+        jax_params = jax.device_get(jax_init_params(jax.random.PRNGKey(4), jax_cfg))
+        want = jax_state_dict(jax_params)
+        got = state_dict_from_params(params_from_jax(jax_params, device="cpu"))
+        assert list(got) == list(want), (extra, set(got) ^ set(want))
+        for key in want:
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+        back = params_from_state_dict(got, jax_cfg.num_layers,
+                                      tied=bool(extra.get("tie_embeddings")), device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(params_from_jax(jax_params, device="cpu")),
+            strict=True)), extra
+
+    h100 = "NVIDIA H100 80GB HBM3"
+    for cfg_args in ((JAX_TS, 8, 0.25), (JAX_TS, 4, 0.5, h100, 4, 64)):
+        jax_cfg, batch, step_s = cfg_args[:3]
+        kind, chips, seq = (cfg_args[3:] + (h100, 1, None))[:3]
+        cfg = ModelConfig.from_dict(dataclasses.asdict(jax_cfg))
+        want = jax_flops.train_step_flops(jax_cfg, batch, seq) / step_s / (989e12 * chips)
+        assert mfu(cfg, batch, step_s, kind, chips, seq) == pytest.approx(want, rel=1e-12)
+    cfg = ModelConfig.from_dict(dataclasses.asdict(JAX_TS))
+    for args in ((8, 0.0, h100), (8, -1.0, h100), (8, 0.25, "cpu")):
+        assert mfu(cfg, *args) is None and jax_flops.mfu(JAX_TS, *args) is None, args
+
+    for fn in (attach_manifest, jax_attach):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            payload = fn({"value": 1.5}, "bench", not_a_manifest_field=True)
+        assert payload == {"value": 1.5}, payload
+        assert "manifest attach failed" in err.getvalue(), err.getvalue()
+    assert attach_manifest({"value": 1.5}, "bench")["manifest"]["run_kind"] == "bench"
+
+    corpus = tmp_path / "pretok.txt"
+    corpus.write_text("<|endoftext|>".join(
+        f"Once upon a time {i}, there were {i * 7} cats' toys.\n  Über straße 2024!"
+        for i in range(200)), encoding="utf-8")
+    specials = ["<|endoftext|>"]
+    for name, args, kw in (
+        ("serial_pretokenization", (corpus,), {"special_tokens": specials}),
+        ("parallel_pretokenization", (corpus, 2), {"special_tokens": specials}),
+        ("pretokenize", (corpus,), {"n_workers": 2, "special_tokens": specials}),
+        ("pretokenize", (corpus, False, False), {"special_tokens": specials}),
+    ):
+        want = getattr(jax_pretok, name)(*args, **kw)
+        got = {"serial_pretokenization": serial_pretokenization,
+               "parallel_pretokenization": parallel_pretokenization,
+               "pretokenize": pretokenize}[name](*args, **kw)
+        assert got == want and sum(got.values()) > 1000, (name, args)
 
 
 # ------------------------------------------------------------------------

@@ -21,11 +21,15 @@ The jax-free ``train`` writes the telemetry stream with every tap, async
 checkpoints and prefetch; ``report``, ``monitor`` and ``verify-checkpoint``
 run on it jax-free, and their output is the JAX package's tools' byte for
 byte; the report, trace, watchdog, supervisor and retention modules and
-the CLI module import with ``torch`` refused too.  The native tokenizer
+the CLI module import with ``torch`` refused too, and so do the packages
+whose exports resolve lazily.  The native tokenizer
 engine encodes jax-free, an adapter computes, ``profile --device cpu``
 writes a stream ``report`` renders, and ``warmup`` and ``profile`` print the
 JAX package's keys; ``warmup`` refuses the JAX package's flag combinations
-with 2.  No module of the port imports ``regex``."""
+with 2.  No module of the port imports ``regex``.  Name by name, every
+export and public function of the JAX package has its counterpart in the
+port or stands in the no-counterpart list that ROADMAP.md gives reasons
+for, and four of the port's example scripts run jax-free on the CPU."""
 
 import re
 import shutil
@@ -362,9 +366,77 @@ for name in ("serving.router", "serving.controller", "telemetry.fleet", "telemet
              "resilience.supervisor", "resilience.signals", "resilience.retention",
              "resilience.rollback", "resilience.integrity", "training.cli"):
     importlib.import_module("bpe_transformer_tpu_torch." + name)
+# The package exports resolve lazily: the packages and their torch-free
+# names import without torch.
+import bpe_transformer_tpu_torch as port
+from bpe_transformer_tpu_torch import resilience, serving, telemetry, training
+from bpe_transformer_tpu_torch.serving import kvpool
+assert port.__version__ == "0.1.0" and port.BPETokenizer and port.train_bpe
+assert serving.Router and serving.FifoScheduler and serving.make_router_http_server
+assert kvpool.payload_to_bytes and kvpool.synthetic_decode_payload
+assert resilience.supervise and resilience.verify_checkpoint and resilience.EXIT_PREEMPTED
+assert telemetry.validate_record and telemetry.run_manifest
 assert not any(m == "bpe_transformer_tpu" or m.startswith("bpe_transformer_tpu.")
                for m in sys.modules)
 print("TORCH-FREE OK")
+"""
+
+#: Public names of the JAX package that the port gives no counterpart,
+#: as ``<module path>.<name>`` of the module that defines them (a package
+#: re-exporting one needs no entry of its own); ``ROADMAP.md`` (queue A,
+#: "Names without a counterpart") gives each its reason and must list
+#: exactly these.
+_NO_COUNTERPART = {
+    "compat.ensure_shard_map",
+    "parallel.mesh.batch_sharding",
+    "parallel.mesh.replicated",
+    "parallel.sharding.param_shardings",
+    "parallel.sharding.zero1_opt_shardings",
+    "optim.schedule.cosine_schedule_jax",
+    "ops.quant.quant_linear_xla",
+    "serving.engine.gumbel_rows",
+    "telemetry.dynamics.tensor_path",
+    "settings.PAT",
+    "settings.ENCODING_STD",
+    "training.cli.cmd_control",
+    "training.cli.cmd_fleet",
+    "training.cli.cmd_incident",
+    "training.cli.cmd_monitor",
+    "training.cli.cmd_report",
+    "training.cli.cmd_route",
+    "training.cli.cmd_verify_checkpoint",
+}
+
+#: The example scripts run here (``--device cpu`` where they take one, a
+#: tiny corpus), with the closing lines ``tests/test_examples.py`` asserts
+#: for their JAX twins.
+_CPU_EXAMPLES = (
+    ("1_pretokenization.py", ["--workers", "2"], ("paths agree",)),
+    ("2_train_bpe.py", ["--vocab-size", "300"], ("longest learned token",)),
+    ("3_encode_decode.py", [], ("roundtrip OK",)),
+    ("8_kv_cache_decode.py", ["--new-tokens", "8", "--device", "cpu"],
+     ("decode demo OK", "GQA")),
+)
+
+# Runs one example script as ``__main__`` with jax, regex and the JAX
+# package refused.
+_EXAMPLE_RUNNER = r"""
+import importlib.abc, os, runpy, sys
+
+sys.modules["jax"] = None
+sys.modules["regex"] = None
+
+class RefuseJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "bpe_transformer_tpu" or name.startswith("bpe_transformer_tpu."):
+            raise ImportError(f"the example imported {name}")
+        return None
+
+sys.meta_path.insert(0, RefuseJaxPackage())
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+sys.path.insert(0, os.path.dirname(script))
+runpy.run_path(script, run_name="__main__")
 """
 
 
@@ -761,11 +833,102 @@ def _gspmd_matches_jax(tmp_path):
     assert [g[2] for g in grids] == [{"data": r % 2, "model": r // 2} for r in range(4)]
 
 
+def _roadmap_no_counterpart() -> set:
+    """The names of ROADMAP.md's "Names without a counterpart" list."""
+    lines = (REPO / "ROADMAP.md").read_text().splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("**Names without a counterpart"))
+    names = set()
+    for ln in lines[start + 1:]:
+        if not ln.strip():
+            break
+        if ln.startswith("- `"):
+            names.update(re.findall(r"`([\w.]+)`", ln.split(":", 1)[0]))
+    return names
+
+
+def _public_surface_matches_jax(tmp_path):
+    """Name by name: every ``__all__`` of the JAX package's ``__init__``s
+    (``kernels/pallas`` against the port's ``kernels``) and every public
+    function and class of its modules resolves in the port's counterpart,
+    or stands in ``_NO_COUNTERPART``, whose names the JAX package has, the
+    port has not, and ROADMAP.md lists.  Then the example scripts of
+    ``_CPU_EXAMPLES`` run on the CPU with jax refused and end with their
+    closing lines."""
+    import ast
+    import importlib
+
+    jax_root = REPO / "bpe_transformer_tpu"
+    resolved = 0
+    for init in sorted(jax_root.rglob("__init__.py")):
+        rel = init.parent.relative_to(jax_root).parts
+        tree = ast.parse(init.read_text())
+        exported = [ast.literal_eval(e) for n in tree.body if isinstance(n, ast.Assign)
+                    and any(getattr(t, "id", None) == "__all__" for t in n.targets)
+                    for e in n.value.elts if isinstance(e, ast.Constant)]
+        port_rel = ("kernels",) if rel == ("kernels", "pallas") else rel
+        module = importlib.import_module(".".join(("bpe_transformer_tpu_torch", *port_rel)))
+        prefix = "".join(part + "." for part in rel)
+        for name in exported:
+            # A re-export of a name without a counterpart in a submodule.
+            if any(q.startswith(prefix) and q.endswith("." + name) for q in _NO_COUNTERPART):
+                assert not hasattr(module, name), (port_rel, name)
+                continue
+            assert hasattr(module, name), f"{module.__name__} lacks {name}"
+            resolved += 1
+    assert resolved == 197, resolved  # of 203: six have no counterpart
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).with_suffix("").parts
+        if rel[0] == "kernels" or rel[-1] == "__init__" or rel == ("compat", "shardmap"):
+            continue
+        port_file = PORT.joinpath(*rel).with_suffix(".py")
+        assert port_file.exists(), rel
+        ours = ast.parse(port_file.read_text())
+        have = {n.name for n in ours.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        have |= {t.id for n in ours.body if isinstance(n, (ast.Assign, ast.AnnAssign))
+                 for t in (n.targets if isinstance(n, ast.Assign) else [n.target])
+                 if isinstance(t, ast.Name)}
+        have |= {a.asname or a.name for n in ours.body
+                 if isinstance(n, (ast.Import, ast.ImportFrom)) for a in n.names}
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.name[0] != "_":
+                qualified = ".".join((*rel, node.name))
+                assert (node.name in have) != (qualified in _NO_COUNTERPART), qualified
+    for qualified in _NO_COUNTERPART:
+        mod, name = qualified.rsplit(".", 1)
+        jax_mod = importlib.import_module(f"bpe_transformer_tpu.{mod}")
+        assert hasattr(jax_mod, name), qualified
+        assert not hasattr(importlib.import_module(f"bpe_transformer_tpu_torch.{mod}"), name)
+    assert _roadmap_no_counterpart() == _NO_COUNTERPART, (
+        _roadmap_no_counterpart() ^ _NO_COUNTERPART)
+
+    examples = PORT / "examples"
+    assert sorted(p.name for p in examples.glob("[0-9]*.py")) == sorted(
+        p.name for p in (REPO / "examples").glob("[0-9]*.py"))
+    sample = tmp_path / "examples_corpus.txt"
+    sample.write_text("<|endoftext|>".join(
+        f"Once upon a time {i}, there was a pretty girl named Lily. She liked her {i % 7} "
+        f"red balls!" for i in range(300)), encoding="utf-8")
+    procs = []
+    for script, args, closing in _CPU_EXAMPLES:
+        work = tmp_path / script.split("_")[0]
+        work.mkdir()
+        procs.append((script, closing, work, subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE_RUNNER, str(examples / script), "--input",
+             str(sample), *args], cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    for script, closing, work, proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (script, out[-2000:], err[-3000:])
+        assert all(line in out for line in closing), (script, out[-2000:])
+    assert (tmp_path / "2" / "bpe_artifacts" / "vocab.pkl").exists()
+
+
 def test_torch_port_is_jax_free_and_card_first(tmp_path):
     # Statically: no import of jax or of the JAX package in the port's
-    # sources or in chip_smoke.py.
+    # sources (its example scripts included) or in chip_smoke.py.
     banned = re.compile(r"^\s*(import|from)\s+(jax|bpe_transformer_tpu|regex)\b", re.M)
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len([p for p in sources if p.parent.name == "examples"]) == 11, sources
     offenders = [str(p.relative_to(REPO)) for p in sources if banned.search(p.read_text())]
     assert not offenders, offenders
 
@@ -784,6 +947,7 @@ def test_torch_port_is_jax_free_and_card_first(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _TORCH_FREE_SCRIPT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "TORCH-FREE OK" in proc.stdout, proc.stderr[-3000:]
+    _public_surface_matches_jax(tmp_path)
 
     # chip_smoke.py fails, printing no result, on a host without a card (or
     # in a directory holding nothing else of the repo).
