@@ -43,6 +43,7 @@ import torch
 
 from bpe_transformer_tpu_torch.models.config import ModelConfig
 from bpe_transformer_tpu_torch.ops.core import silu
+from bpe_transformer_tpu_torch.telemetry.spans import phase
 
 
 def init_moe_params(
@@ -208,7 +209,8 @@ def switch_ffn(
     one derived from ``context_length``, so a few-token call cannot drop a
     token the full forward would keep).  The four stages, :func:`route`,
     :func:`dispatch`, :func:`experts` and :func:`combine`, are looked up at
-    each call.
+    each call, each under its :func:`telemetry.spans.phase` range
+    (``bpt.moe.route``, ...).
 
     ``expert_axis`` (a ``parallel.mesh.MeshAxis``): ``moe_params`` hold
     this rank's ``e / size`` experts (the router's rows too).  The router is
@@ -224,17 +226,21 @@ def switch_ffn(
     tokens = x.reshape(groups, n, d)
     e, mode = config.n_experts, config.moe_dispatch
     cap = capacity if capacity is not None else expert_capacity(n, e, config.capacity_factor)
-    router = moe_params["router"]
-    if expert_axis is not None:
-        router = expert_axis.gather_replicated(router, 0)
-    r = route(tokens, router, config.router_top_k, cap)
-    expert_in, plan = dispatch(tokens, r, e, cap, mode)
-    if expert_axis is None:
-        expert_out = experts(expert_in, moe_params)
-    else:
-        expert_out = expert_axis.gather_replicated(
-            experts(expert_axis.split(expert_in, 0), moe_params), 0)
-    out = combine(expert_out, r, plan, groups, mode)
+    with phase("moe.route"):
+        router = moe_params["router"]
+        if expert_axis is not None:
+            router = expert_axis.gather_replicated(router, 0)
+        r = route(tokens, router, config.router_top_k, cap)
+    with phase("moe.dispatch"):
+        expert_in, plan = dispatch(tokens, r, e, cap, mode)
+    with phase("moe.experts"):
+        if expert_axis is None:
+            expert_out = experts(expert_in, moe_params)
+        else:
+            expert_out = expert_axis.gather_replicated(
+                experts(expert_axis.split(expert_in, 0), moe_params), 0)
+    with phase("moe.combine"):
+        out = combine(expert_out, r, plan, groups, mode)
 
     # Load balance over the pre-capacity first choices, per group, averaged.
     first = torch.nn.functional.one_hot(r["expert"][:, :n], e).float()

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_init
+from bpe_transformer_tpu_torch.telemetry.spans import phase
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -165,33 +166,40 @@ def sharded_adamw_update(
     gradients (the reduce-scatter replaces the dp mean).  Returns
     ``(params, new_state, grad_norm)``: the parameters and the row state
     updated in place, ``grad_norm`` the global pre-clip norm of the mean
-    gradients (a 0-d tensor on the card)."""
+    gradients (a 0-d tensor on the card).  Under a profiler its phases are
+    ``bpt.grad_reduce`` (the reduce-scatter), ``bpt.clip`` (the row norm and
+    its all-reduce), ``bpt.adamw`` (the row update) and
+    ``bpt.param_gather`` (the all-gather into the parameters)."""
     b1, b2 = betas
     m, v, master = state.m.view(-1), state.v.view(-1), state.master.view(-1)
     L = m.numel()
-    flat_g = flatten_cast(grads, getattr(torch, grads_dtype), pad_to=n_shards * L)
-    g = torch.empty(L, dtype=flat_g.dtype, device=flat_g.device)
-    _reduce_scatter(g, flat_g, axis.group)
-    del flat_g
-    g = g.float().div_(n_shards)
-    sumsq = torch.sum(torch.square(g))
-    grad_norm = torch.sqrt(axis.psum_(sumsq))
-    if grad_clip_norm is not None:
-        g.mul_(torch.clamp(grad_clip_norm / (grad_norm + clip_eps), max=1.0))
+    with phase("grad_reduce"):
+        flat_g = flatten_cast(grads, getattr(torch, grads_dtype), pad_to=n_shards * L)
+        g = torch.empty(L, dtype=flat_g.dtype, device=flat_g.device)
+        _reduce_scatter(g, flat_g, axis.group)
+        del flat_g
+        g = g.float().div_(n_shards)
+    with phase("clip"):
+        sumsq = torch.sum(torch.square(g))
+        grad_norm = torch.sqrt(axis.psum_(sumsq))
+        if grad_clip_norm is not None:
+            g.mul_(torch.clamp(grad_clip_norm / (grad_norm + clip_eps), max=1.0))
     step = int(state.step) + 1
     bias1 = 1.0 - b1**step
     bias2 = 1.0 - b2**step
-    m.mul_(b1).add_(g, alpha=1.0 - b1)
-    v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-    update = (m / bias1) / (torch.sqrt(v / bias2) + eps)
-    master.copy_(master * (1.0 - lr * weight_decay) - lr * update)
-    flat = torch.empty(n_shards * L, dtype=torch.float32, device=master.device)
-    _all_gather(flat, master, axis.group)
-    offset = 0
-    for p in tree_leaves(params):
-        n = p.numel()
-        p.copy_(flat[offset:offset + n].view(p.shape))
-        offset += n
+    with phase("adamw"):
+        m.mul_(b1).add_(g, alpha=1.0 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+        update = (m / bias1) / (torch.sqrt(v / bias2) + eps)
+        master.copy_(master * (1.0 - lr * weight_decay) - lr * update)
+    with phase("param_gather"):
+        flat = torch.empty(n_shards * L, dtype=torch.float32, device=master.device)
+        _all_gather(flat, master, axis.group)
+        offset = 0
+        for p in tree_leaves(params):
+            n = p.numel()
+            p.copy_(flat[offset:offset + n].view(p.shape))
+            offset += n
     new_state = ShardedAdamWState(step=torch.tensor(step, dtype=torch.int32), m=state.m,
                                   v=state.v, master=state.master)
     return params, new_state, grad_norm

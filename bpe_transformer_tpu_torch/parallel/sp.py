@@ -60,6 +60,7 @@ from bpe_transformer_tpu_torch.parallel.ring_attention import (
     zigzag_ring_self_attention,
 )
 from bpe_transformer_tpu_torch.parallel.ulysses import ulysses_attention
+from bpe_transformer_tpu_torch.telemetry.spans import phase
 from bpe_transformer_tpu_torch.training.train_step import (
     TrainHParams,
     _pmean_scalars,
@@ -256,13 +257,14 @@ def make_sp_train_step(
     local_grad_fn = value_and_grad(make_sp_loss_fn(config, ring, zigzag, ulysses))
 
     def step(params, opt_state: AdamWState, x, y):
-        if accum_steps > 1:
-            loss, grads = accumulate_grads(local_grad_fn, params, x, y, accum_steps,
-                                           context="sp grad-accum step",
-                                           layout="ring_rank, micro_batch, S_local")
-        else:
-            loss, grads = local_grad_fn(params, x, y)
-        return _update(params, opt_state, loss, grads, hparams, reduce_axis=reduce_axis)
+        with phase("train_step"):
+            if accum_steps > 1:
+                loss, grads = accumulate_grads(local_grad_fn, params, x, y, accum_steps,
+                                               context="sp grad-accum step",
+                                               layout="ring_rank, micro_batch, S_local")
+            else:
+                loss, grads = local_grad_fn(params, x, y)
+            return _update(params, opt_state, loss, grads, hparams, reduce_axis=reduce_axis)
 
     if inner_steps > 1:
         return scanned_step_fn(config, hparams, inner_steps, body=step)

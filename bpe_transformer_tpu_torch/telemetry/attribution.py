@@ -35,7 +35,9 @@ stream as ``kind="attribution"`` records:
    device time is the fenced wall time, and the record says so
    (``device_time_from``); dense dp then times a collective-free copy of
    the step too and takes the difference, as the JAX probe does, and
-   ZeRO-1's collective is not measured (None).
+   ZeRO-1's collective is not measured (None).  From the same trace the
+   record's optional ``phases`` splits the step by its
+   :func:`telemetry.spans.phase` ranges (:func:`phase_table`).
 
 The port's AdamW writes its state in place, so the probe runs on a clone of
 the parameters and the optimizer state, made at each measure and dropped
@@ -47,6 +49,9 @@ is opt-in and runs at attribution boundaries only, adding
 
 from __future__ import annotations
 
+import bisect
+import re
+import statistics
 import time
 from typing import Callable
 
@@ -72,6 +77,7 @@ __all__ = [
     "StepProbe",
     "decode_tick_roofline",
     "device_busy_split",
+    "phase_table",
     "program_cost",
     "program_memory",
     "roofline",
@@ -105,15 +111,66 @@ def _union_us(spans) -> float:
     return busy_us
 
 
-def device_busy_split(fn: Callable, *args) -> tuple[float, float] | None:
-    """``(busy_s, collective_s)`` of one call of ``fn(*args)`` on the card:
-    the union of the device intervals (kernels, copies, fills) of a
-    ``torch.profiler`` trace of the call, closed by one fence inside the
-    trace, and the union of its NCCL kernels' intervals alone.  Reading the
-    trace builds the profiler's event list, which takes seconds at a few
-    thousand launches.  The call runs either way; None off the card, while
-    another profiler is recording, or when the trace holds no device
-    events."""
+#: The CUDA runtime calls that launch work on the card, by name.
+_LAUNCH_CALL = re.compile(r"Launch(Cooperative)?Kernel|GraphLaunch")
+
+
+def phase_table(events) -> dict:
+    """The step's phases in a ``torch.profiler`` trace with host activity
+    (``prof.events()``): for each ``bpt.<name>`` range of
+    :func:`telemetry.spans.phase`, ``{name: {"host_ms", "device_ms",
+    "launches"}}``, each the median over the trace's updates (its
+    ``bpt.train_step`` ranges) of the update's sum.  ``host_ms`` is the
+    ranges' wall time on the host, the profiler's own cost per operator
+    included; ``device_ms`` the device time of the kernels whose host
+    operator (the profiler's launch-to-kernel link) starts inside them, and
+    ``launches`` the CUDA launch calls that start inside them, on any
+    thread: the backward's kernels are launched by autograd's device
+    thread while the step's thread waits inside ``bpt.backward``.  Empty
+    when the trace holds no update."""
+    steps = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "bpt.train_step")
+    if not steps:
+        return {}
+    starts = [a for a, _ in steps]
+    ranges: dict[str, list] = {}
+    for e in events:
+        if e.name.startswith("bpt."):
+            ranges.setdefault(e.name[4:], []).append((e.time_range.start, e.time_range.end))
+    sums = {name: [[0.0, 0.0, 0] for _ in steps] for name in ranges}
+
+    def update_of(t: float) -> int | None:
+        i = bisect.bisect_right(starts, t) - 1
+        return i if i >= 0 and t <= steps[i][1] else None
+
+    for name, spans in ranges.items():
+        spans.sort()
+        for a, b in spans:
+            i = update_of(a)
+            if i is not None:
+                sums[name][i][0] += (b - a) / 1e3
+    for e in events:
+        kernel_us = sum(k.duration for k in e.kernels)
+        launch = _LAUNCH_CALL.search(e.name) is not None
+        if not kernel_us and not launch:
+            continue
+        t = e.time_range.start
+        i = update_of(t)
+        if i is None:
+            continue
+        for name, spans in ranges.items():
+            j = bisect.bisect_right(spans, (t, float("inf"))) - 1
+            if j >= 0 and t <= spans[j][1]:
+                sums[name][i][1] += kernel_us / 1e3
+                sums[name][i][2] += launch
+    return {name: {"host_ms": statistics.median(r[0] for r in rows),
+                   "device_ms": statistics.median(r[1] for r in rows),
+                   "launches": statistics.median(r[2] for r in rows)}
+            for name, rows in sums.items()}
+
+
+def _traced_split(fn: Callable, *args) -> tuple[float, float, dict] | None:
+    """:func:`device_busy_split` and the trace's :func:`phase_table`."""
     device = _device_of(args)
     if device is None or device.type != "cuda" or torch.autograd._profiler_enabled():
         fn(*args)
@@ -125,13 +182,27 @@ def device_busy_split(fn: Callable, *args) -> tuple[float, float] | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn(*args)
         _fence(device)
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    trace = prof.events()
+    events = [e for e in trace if e.device_type == DeviceType.CUDA]
     if not events:
         return None
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     nccl = [(e.time_range.start, e.time_range.end) for e in events
             if "nccl" in e.name.lower()]
-    return _union_us(spans) / 1e6, _union_us(nccl) / 1e6
+    return _union_us(spans) / 1e6, _union_us(nccl) / 1e6, phase_table(trace)
+
+
+def device_busy_split(fn: Callable, *args) -> tuple[float, float] | None:
+    """``(busy_s, collective_s)`` of one call of ``fn(*args)`` on the card:
+    the union of the device intervals (kernels, copies, fills) of a
+    ``torch.profiler`` trace of the call, closed by one fence inside the
+    trace, and the union of its NCCL kernels' intervals alone.  Reading the
+    trace builds the profiler's event list, which takes seconds at a few
+    thousand launches.  The call runs either way; None off the card, while
+    another profiler is recording, or when the trace holds no device
+    events."""
+    split = _traced_split(fn, *args)
+    return None if split is None else split[:2]
 
 
 def time_call(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
@@ -506,11 +577,13 @@ class StepProbe:
         """Device time and fenced wall time of the probe step on a clone of
         the state, in seconds per optimizer update (inner steps divided back
         out): ``{"device_step_s", "compute_s", "collective_s",
-        "probe_wall_step_s", "device_time_from"}``.  One traced call gives
-        the device time (:func:`device_busy_split`; ``device_time_from`` is
-        ``"kernels"``), then ``iters`` calls between two fences the wall
-        time, which stands in for the device time where no trace can be
-        taken (``"fenced_wall"``).  The collective is 0.0 on one device;
+        "probe_wall_step_s", "device_time_from", "phases"}``.  One traced
+        call gives the device time (:func:`device_busy_split`;
+        ``device_time_from`` is ``"kernels"``) and ``phases``, its
+        :func:`phase_table` (None without a trace), then ``iters`` calls
+        between two fences the wall time, which stands in for the device
+        time where no trace can be taken (``"fenced_wall"``).  The
+        collective is 0.0 on one device;
         under dp the trace's NCCL time, or, without a trace, the fenced
         wall time less that of the collective-free copy (None under
         ZeRO-1).  The first measure also reads the step's peak device
@@ -521,7 +594,7 @@ class StepProbe:
         read_memory = self._memory is None and self.device.type == "cuda"
         p, o = _clone_state(params, opt_state)
         x, y = self._batch
-        split = device_busy_split(self._step, p, o, x, y)
+        split = _traced_split(self._step, p, o, x, y)
         busy_s = split[0] if split is not None else None
         if read_memory:
             reset_device_peak(self.device)
@@ -553,7 +626,8 @@ class StepProbe:
         return {"device_step_s": device_s / updates, "compute_s": compute_s / updates,
                 "collective_s": None if collective_s is None else collective_s / updates,
                 "probe_wall_step_s": wall_s / updates,
-                "device_time_from": "kernels" if busy_s is not None else "fenced_wall"}
+                "device_time_from": "kernels" if busy_s is not None else "fenced_wall",
+                "phases": split[2] if split is not None else None}
 
     def loop_wall_step_s(self, params, opt_state, iters: int | None = None) -> float:
         """Wall seconds per optimizer update of a training-shaped mini loop
@@ -598,7 +672,9 @@ class StepProbe:
         knobs that set it (``remat_policy``, ``grads_dtype``,
         ``scan_layers``), and the roofline rows on the first record of the
         run (``include_programs`` overrides).  The keys are the JAX
-        package's plus ``probe_wall_step_s`` and ``device_time_from``."""
+        package's plus ``probe_wall_step_s`` and ``device_time_from``, and
+        ``phases`` (:func:`phase_table` of the probe's trace) where the
+        trace holds the step's phase ranges."""
         first = self._costs is None
         measured = self.measure(params, opt_state)
         device_s = measured["device_step_s"]
@@ -626,6 +702,9 @@ class StepProbe:
             "grads_dtype": getattr(self.hparams, "grads_dtype", "float32"),
             "scan_layers": self.config.scan_layers,
         }
+        if measured["phases"]:
+            record["phases"] = {name: {k: round(v, 3) for k, v in figures.items()}
+                                for name, figures in measured["phases"].items()}
         if include_programs if include_programs is not None else first:
             record["programs"] = self._costs
         return record

@@ -88,7 +88,10 @@ RECORD_SCHEMAS: dict[str, set[str]] = {
     # without the counters) and ``remat_policy`` / ``grads_dtype`` /
     # ``scan_layers`` — so a peak or MFU move is attributable to the knob
     # that caused it.  ``train_peak_hbm_bytes`` feeds the report compare
-    # gate (lower), as does the derived ``mfu_compute_ceiling``.
+    # gate (lower), as does the derived ``mfu_compute_ceiling``.  The
+    # port's records may add ``phases`` (optional): the probe trace's
+    # ``{phase: {host_ms, device_ms, launches}}`` by the step's ``bpt.*``
+    # ranges (``telemetry/attribution.py`` ``phase_table``).
     "attribution": {
         "kind", "t", "step", "wall_step_s", "device_step_s",
         "compute_frac", "collective_frac", "host_gap_frac",

@@ -19,26 +19,80 @@ JSONL schema):
   (NaN detection, watchdog trips, checkpoint completions).
 - ``{"kind": "manifest", ...}`` / ``{"kind": "footer", ...}`` — run header
   and trailer (see `telemetry.manifest` and :meth:`Telemetry.footer`).
+
+:func:`phase` is the one span primitive the step's hot path uses: while a
+``torch.profiler`` records, it opens a host range named ``bpt.<name>`` on the
+profiler's own clock, beside the kernels and the CUDA runtime calls, and
+with no profiler it costs one flag check.  The trace is the store: nothing
+is kept in memory.  A ``Telemetry`` span opens the same range, so the
+loop's set-up, eval, checkpoint and rollback spans show on a
+``--profile-trace`` timeline too.  The ranges are ``FUNCTION`` scope, never
+``USER_SCOPE``: the profiler mirrors a user-scope range onto the device
+timeline as a CUDA-typed ``gpu_user_annotation``, which every union of
+device intervals (the busy time, the idle share) would count as device work.
+This module imports without torch (the router and the fleet tools narrate
+through ``Telemetry`` on hosts that have none); the ranges bind to torch
+once it is loaded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from collections import Counter
 from typing import Callable
 
+#: The context every span returns while no profiler records: one shared
+#: object, so a span then allocates nothing.
+_NO_SPAN = contextlib.nullcontext()
+#: ``torch.autograd.profiler`` (whose ``_is_profiler_enabled`` flag the
+#: profiler sets as it starts and clears as it stops) and the range's
+#: constructor, ``torch._C._profiler._RecordFunctionFast``, bound by
+#: :func:`_bind` once torch is loaded.
+_profiler = None
+_open_range = None
+
+
+def _bind() -> bool:
+    """Bind the profiler's flag and the range's constructor; False while
+    torch is not loaded (then no profiler can be recording)."""
+    global _profiler, _open_range
+    if sys.modules.get("torch") is None:
+        return False
+    from torch._C._profiler import _RecordFunctionFast
+    from torch.autograd import profiler
+
+    _open_range = _RecordFunctionFast
+    _profiler = profiler
+    return True
+
+
+def phase(name: str):
+    """``with phase("forward"): ...`` — a ``bpt.<name>`` range on the
+    profiler's clock while a ``torch.profiler`` records (``FUNCTION``
+    scope: a host event, module docstring); otherwise the shared no-op
+    context, after one flag check."""
+    if _profiler is None and not _bind():
+        return _NO_SPAN
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _open_range("bpt." + name)
+
 
 class SpanHandle:
     """An open span; ``end()`` (or the ``Telemetry.span`` context manager)
-    closes it and emits the record."""
+    closes it and emits the record.  While a profiler records, the span is
+    also a :func:`phase` range, closed by ``end()``."""
 
     def __init__(self, telemetry: "Telemetry", name: str, path: str, attrs: dict):
         self._telemetry = telemetry
         self.name = name
         self.path = path
         self._attrs = attrs
+        self._range = phase(name)
+        self._range.__enter__()
         self._start = telemetry._clock()
         self._closed = False
 
@@ -48,6 +102,7 @@ class SpanHandle:
             return 0.0
         self._closed = True
         dur = self._telemetry._clock() - self._start
+        self._range.__exit__(None, None, None)
         self._telemetry._close_span(self, dur, extra_attrs)
         return dur
 
@@ -109,7 +164,7 @@ class Telemetry:
 
     def start_span(self, name: str, **attrs) -> SpanHandle:
         """Open a span; close it with ``handle.end()``.  Spans must close in
-        LIFO order (they nest)."""
+        LIFO order (they nest), on the thread that opened them."""
         path = "/".join(self._stack + [name])
         self._stack.append(name)
         return SpanHandle(self, name, path, attrs)

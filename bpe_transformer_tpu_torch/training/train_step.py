@@ -23,6 +23,12 @@ swaps the update for ZeRO-1 (:mod:`optim.sharded`).  ``layout`` (a
 the parameters and moments (FSDP, tensor parallelism): the sharded forward
 and backward, then :func:`_gspmd_update`.  These are the bodies that
 :mod:`parallel.train_step` and :mod:`parallel.sp` run on each rank.
+
+Under a ``torch.profiler`` the step marks its phases with
+:func:`telemetry.spans.phase` ranges: ``bpt.train_step`` around each update,
+and under it ``bpt.forward``, ``bpt.backward``, ``bpt.grad_reduce``,
+``bpt.clip`` and ``bpt.adamw`` (ZeRO-1 and the sharded update add
+``bpt.param_gather``); with no profiler each costs one flag check.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
 from bpe_transformer_tpu_torch.optim.sharded import sharded_adamw_update
 from bpe_transformer_tpu_torch.telemetry.dynamics import dynamics_from_parts, per_tensor_nonfinite
 from bpe_transformer_tpu_torch.telemetry.health import health_metrics
+from bpe_transformer_tpu_torch.telemetry.spans import phase
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -122,9 +129,11 @@ def value_and_grad(loss_fn: Callable, has_aux: bool = False) -> Callable:
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            out = loss_fn(params, x, y)
+            with phase("forward"):
+                out = loss_fn(params, x, y)
             loss = out[0] if has_aux else out
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with phase("backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         grads = tree_unflatten(params, grads)
         if has_aux:
@@ -205,7 +214,8 @@ def _zero1_update(params, opt_state, loss, grads, hparams: TrainHParams, reduce_
     """The ZeRO-1 tail of a step: the loss's mean over the axis, the
     schedule, then reduce-scatter, the row's AdamW and the all-gather
     (:func:`optim.sharded.sharded_adamw_update`)."""
-    (loss,) = _pmean_scalars(reduce_axis, loss)
+    with phase("grad_reduce"):
+        (loss,) = _pmean_scalars(reduce_axis, loss)
     lr = _schedule(opt_state, hparams)
     params, opt_state, grad_norm = sharded_adamw_update(
         params, grads, opt_state, lr, axis=reduce_axis, n_shards=n_shards,
@@ -226,25 +236,28 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
     norms from ``adamw_update``'s ``delta_norms``: no copy of the weights
     is kept.  ``moe_aux``, when given, joins the health stats as
     ``moe_aux``."""
-    grads = _reduce_grads(grads, reduce_axis, hparams.grads_dtype)
-    if reduce_axis is not None:
-        if moe_aux is not None:
-            loss, moe_aux = _pmean_scalars(reduce_axis, loss, moe_aux)
-        else:
-            (loss,) = _pmean_scalars(reduce_axis, loss)
-        if act_stats is not None:
-            act_stats = _reduce_act_stats(act_stats, reduce_axis)
+    with phase("grad_reduce"):
+        grads = _reduce_grads(grads, reduce_axis, hparams.grads_dtype)
+        if reduce_axis is not None:
+            if moe_aux is not None:
+                loss, moe_aux = _pmean_scalars(reduce_axis, loss, moe_aux)
+            else:
+                (loss,) = _pmean_scalars(reduce_axis, loss)
+            if act_stats is not None:
+                act_stats = _reduce_act_stats(act_stats, reduce_axis)
     # Dynamics reports the pre-clip gradient magnitudes.
     raw_grads = grads
     nonfinite_params = per_tensor_nonfinite(params) if dynamics else None
-    grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
+    with phase("clip"):
+        grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
     lr = _schedule(opt_state, hparams)
     delta_norms = [] if dynamics else None
-    params, opt_state = adamw_update(
-        params, grads, opt_state, lr,
-        betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
-        delta_norms=delta_norms,
-    )
+    with phase("adamw"):
+        params, opt_state = adamw_update(
+            params, grads, opt_state, lr,
+            betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+            delta_norms=delta_norms,
+        )
     metrics = {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
     if health:
         # Post-update params: an optimizer-made non-finite shows the same step.
@@ -285,51 +298,55 @@ def _gspmd_update(params, opt_state: AdamWState, loss, grads, hparams: TrainHPar
     zdims = [layout.zero1_dim(i) for i in range(len(leaves))]
     plain = [i for i, spec in enumerate(layout.leaf_specs)
              if zdims[i] is None and not layout.data_reduced(spec)]
-    if data is None:
-        if narrow != torch.float32:
-            for i in plain:
-                g[i] = g[i].to(narrow).float()
-    else:
-        if plain:
-            flat = torch.cat([g[i].reshape(-1).to(narrow) for i in plain])
-            data.pmean_(flat)
-            offset = 0
-            for i in plain:
-                n = g[i].numel()
-                g[i] = flat[offset:offset + n].view(g[i].shape).float()
-                offset += n
-        for i, dim in enumerate(zdims):
-            if dim is not None:
-                g[i] = reduce_scatter_dim(g[i].to(narrow), dim, data).div_(data.size).float()
-        if moe_aux is not None:
-            loss, moe_aux = _pmean_scalars(data, loss, moe_aux)
+    with phase("grad_reduce"):
+        if data is None:
+            if narrow != torch.float32:
+                for i in plain:
+                    g[i] = g[i].to(narrow).float()
         else:
-            (loss,) = _pmean_scalars(data, loss)
-    if act_stats is not None:
-        act_stats = layout.act_stats(act_stats)
+            if plain:
+                flat = torch.cat([g[i].reshape(-1).to(narrow) for i in plain])
+                data.pmean_(flat)
+                offset = 0
+                for i in plain:
+                    n = g[i].numel()
+                    g[i] = flat[offset:offset + n].view(g[i].shape).float()
+                    offset += n
+            for i, dim in enumerate(zdims):
+                if dim is not None:
+                    g[i] = reduce_scatter_dim(g[i].to(narrow), dim, data).div_(data.size).float()
+            if moe_aux is not None:
+                loss, moe_aux = _pmean_scalars(data, loss, moe_aux)
+            else:
+                (loss,) = _pmean_scalars(data, loss)
+        if act_stats is not None:
+            act_stats = layout.act_stats(act_stats)
     owned_specs = [layout.leaf_moment_specs[i] if zdims[i] is not None else layout.leaf_specs[i]
                    for i in range(len(leaves))]
     reduce_g = layout.leaf_reducer(owned_specs)
     reduce_p = layout.leaf_reducer(layout.leaf_specs)
     nonfinite_params = per_tensor_nonfinite(params, reduce_p) if dynamics else None
-    sumsq = torch.stack([torch.sum(torch.square(t.float())) for t in g])
-    grad_norm = torch.sqrt(torch.sum(reduce_g(sumsq)))
-    scale = torch.clamp(hparams.grad_clip_norm / (grad_norm + 1e-6), max=1.0)
-    clipped = [(t * scale).to(t.dtype) for t in g]
+    with phase("clip"):
+        sumsq = torch.stack([torch.sum(torch.square(t.float())) for t in g])
+        grad_norm = torch.sqrt(torch.sum(reduce_g(sumsq)))
+        scale = torch.clamp(hparams.grad_clip_norm / (grad_norm + 1e-6), max=1.0)
+        clipped = [(t * scale).to(t.dtype) for t in g]
     owned = [p if dim is None else p.narrow(dim, data.index * (p.shape[dim] // data.size),
                                             p.shape[dim] // data.size)
              for p, dim in zip(leaves, zdims)]
     lr = _schedule(opt_state, hparams)
     delta_norms = [] if dynamics else None
-    _, new_state = adamw_update(
-        owned, clipped, AdamWState(opt_state.step, tree_leaves(opt_state.m),
-                                   tree_leaves(opt_state.v)), lr,
-        betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
-        delta_norms=delta_norms,
-    )
-    for p, part, dim in zip(leaves, owned, zdims):
-        if dim is not None:
-            p.copy_(all_gather_dim(part, dim, data))
+    with phase("adamw"):
+        _, new_state = adamw_update(
+            owned, clipped, AdamWState(opt_state.step, tree_leaves(opt_state.m),
+                                       tree_leaves(opt_state.v)), lr,
+            betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+            delta_norms=delta_norms,
+        )
+    with phase("param_gather"):
+        for p, part, dim in zip(leaves, owned, zdims):
+            if dim is not None:
+                p.copy_(all_gather_dim(part, dim, data))
     opt_state = AdamWState(step=new_state.step, m=opt_state.m, v=opt_state.v)
     metrics = {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
     if health:
@@ -375,26 +392,28 @@ def train_step_fn(
     if zero1_shards is not None:
 
         def zero1_step(params, opt_state, x, y):
-            loss, grads = grad_fn(params, x, y)
-            return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
-                                 zero1_shards)
+            with phase("train_step"):
+                loss, grads = grad_fn(params, x, y)
+                return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
+                                     zero1_shards)
 
         return zero1_step
 
     def step(params, opt_state: AdamWState, x, y):
-        act_stats = moe_aux = None
-        if dynamics:
-            (loss, (aux, act_stats)), grads = grad_fn(params, x, y)
-            moe_aux = aux if with_aux else None
-        elif with_aux:
-            (loss, moe_aux), grads = grad_fn(params, x, y)
-        else:
-            loss, grads = grad_fn(params, x, y)
-        if layout is not None:
-            return _gspmd_update(params, opt_state, loss, grads, hparams, health, dynamics,
-                                 act_stats, moe_aux, layout)
-        return _update(params, opt_state, loss, grads, hparams, health, dynamics, act_stats,
-                       moe_aux, reduce_axis)
+        with phase("train_step"):
+            act_stats = moe_aux = None
+            if dynamics:
+                (loss, (aux, act_stats)), grads = grad_fn(params, x, y)
+                moe_aux = aux if with_aux else None
+            elif with_aux:
+                (loss, moe_aux), grads = grad_fn(params, x, y)
+            else:
+                loss, grads = grad_fn(params, x, y)
+            if layout is not None:
+                return _gspmd_update(params, opt_state, loss, grads, hparams, health,
+                                     dynamics, act_stats, moe_aux, layout)
+            return _update(params, opt_state, loss, grads, hparams, health, dynamics,
+                           act_stats, moe_aux, reduce_axis)
 
     return step
 
@@ -457,15 +476,16 @@ def grad_accum_step_fn(
     grad_fn = value_and_grad(make_loss_fn(config, shard=layout))
 
     def step(params, opt_state, xs, ys):
-        loss, grads = accumulate_grads(grad_fn, params, xs, ys, accum_steps)
-        if layout is not None:
-            return _gspmd_update(params, opt_state, loss, grads, hparams, health, dynamics,
-                                 layout=layout)
-        if zero1_shards is not None:
-            return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
-                                 zero1_shards)
-        return _update(params, opt_state, loss, grads, hparams, health, dynamics,
-                       reduce_axis=reduce_axis)
+        with phase("train_step"):
+            loss, grads = accumulate_grads(grad_fn, params, xs, ys, accum_steps)
+            if layout is not None:
+                return _gspmd_update(params, opt_state, loss, grads, hparams, health,
+                                     dynamics, layout=layout)
+            if zero1_shards is not None:
+                return _zero1_update(params, opt_state, loss, grads, hparams, reduce_axis,
+                                     zero1_shards)
+            return _update(params, opt_state, loss, grads, hparams, health, dynamics,
+                           reduce_axis=reduce_axis)
 
     return step
 

@@ -26,7 +26,11 @@ rank a gloo process on the CPU started by the port's ``launch``, against
 the JAX package's steps and loop on virtual CPU devices (2e-5, the JAX
 ZeRO-1 test's tolerance) and against the port's stacked ring (1e-5).
 Loop (n): sharded parameters in the loop and the sharded checkpoint
-directory (format v2), both ways between the packages.
+directory (format v2), both ways between the packages.  Loop (o): the
+step's phase ranges (``telemetry/spans.py`` ``phase``) under a host
+profiler: their order and nesting, never of user scope, none opened with no
+profiler, the step's numbers equal with the profiler on and off, and their
+reading (``attribution.phase_table``) in the probe's record.
 """
 
 import dataclasses
@@ -1367,6 +1371,14 @@ for name, kw in spec["dp_cases"]:
                           iters=1, device="cpu")
         out[f"probe {zero1}"] = probe.attribution_record(params, opt, step=2, wall_step_s=1.0,
                                                          t=0.0)
+# One ZeRO-1 step's phase ranges, recorded on the host.
+from torch.profiler import ProfilerActivity, profile
+params, _ = training_state(init, "cpu")
+opt = sharded_adamw_init(params, 2, mesh)
+step = make_dp_train_step(cfg, hp, mesh, opt_sharding="zero1")
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    step(params, opt, *shard_batch((batch["x"][0], batch["y"][0]), mesh))
+out["zero1 spans"] = [e.name for e in prof.events() if e.name.startswith("bpt.")]
 # The loop: ZeRO-1 data parallelism from the JAX-written step-0 checkpoint.
 data = np.load(work / "tokens.npy")
 loop = LoopConfig(**spec["loop"], parallel="dp", opt_sharding="zero1",
@@ -1443,7 +1455,8 @@ def _multi_gpu(tmp_path):
     tolerance); ZeRO-1's 3 steps, its gathered ``(N, L)`` m, v and master
     against JAX's ``opt_sharding="zero1"`` step, within 2e-5; the dp probe's
     record keys (collective split off the card for dense dp, None under
-    ZeRO-1); and ``train(parallel="dp", opt_sharding="zero1")`` from a
+    ZeRO-1); ZeRO-1's phase ranges under a host profiler, ``bpt.param_gather``
+    last; and ``train(parallel="dp", opt_sharding="zero1")`` from a
     JAX-written checkpoint against JAX's ``train`` on the same mesh: logged
     losses within 2e-5, one stream (rank 0's), a checkpoint that JAX's
     ``load_checkpoint`` reads as its own ``ShardedAdamWState`` and that the
@@ -1650,6 +1663,11 @@ def _multi_gpu(tmp_path):
         assert (record["collective_frac"] is None) == (zero1 is not None), record
         assert abs(record["compute_frac"] + (record["collective_frac"] or 0.0)
                    + record["host_gap_frac"] - 1.0) <= 2e-3, record
+    # ZeRO-1's phases: the loss's mean, then the reduce-scatter, the row's
+    # norm and update, and the all-gather into the parameters.
+    assert got["zero1 spans"] == [
+        "bpt.train_step", "bpt.forward", "bpt.backward", "bpt.grad_reduce", "bpt.grad_reduce",
+        "bpt.clip", "bpt.adamw", "bpt.param_gather"], got["zero1 spans"]
     want_losses = [r["loss"] for r in jax_loop["history"]]
     _close(got["loop"]["losses"], want_losses[:2], 2e-5, "dp zero1 loop losses")
     records = _read_jsonl(work / "dp.jsonl")
@@ -2086,6 +2104,191 @@ def _sharded_loop(tmp_path):
     assert "step_00000006.ckpt.corrupt" in outcomes["port"][2], outcomes
 
 
+# ------------------------------------------------------ (o) phase spans
+
+#: The dense step's phases under ``bpt.train_step``, in order, and an MoE
+#: layer's four stages.
+STEP_PHASES = ["bpt.forward", "bpt.backward", "bpt.grad_reduce", "bpt.clip", "bpt.adamw"]
+MOE_STAGES = ["bpt.moe.route", "bpt.moe.dispatch", "bpt.moe.experts", "bpt.moe.combine"]
+USER_SCOPE = 7  # at::RecordScope::USER_SCOPE, what record_function opens
+
+
+def _span_state(cfg, seed=0):
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    x, y = (torch.randint(0, cfg.vocab_size, (2, cfg.context_length), generator=gen)
+            for _ in range(2))
+    return params, adamw_init(params), x, y
+
+
+def _host_trace(cfg, steps=1):
+    """The ``bpt.*`` events of ``steps`` updates recorded on the host, and
+    every event of the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, opt, x, y = _span_state(cfg)
+    step = make_train_step(cfg, TrainHParams(warmup_iters=1))
+    params, opt, _ = step(params, opt, x, y)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(steps):
+            params, opt, _ = step(params, opt, x, y)
+    events = prof.events()
+    return [e for e in events if e.name.startswith("bpt.")], events
+
+
+def _inside(inner, outer) -> bool:
+    return (outer.time_range.start <= inner.time_range.start
+            and inner.time_range.end <= outer.time_range.end)
+
+
+def _phase_spans():
+    """(o) The step's phase ranges.  The dense step marks ``bpt.train_step``
+    and under it forward, backward, grad_reduce, clip and adamw in that
+    order; an MoE forward marks its four stages once per layer.  No range
+    is ``USER_SCOPE`` (the profiler would mirror it onto the card's timeline
+    as device work, filling the idle gaps the benchmark measures), and all
+    are host events.  With no profiler a span opens no range (the range's
+    constructor patched to raise) and the step's losses, parameters and
+    moments are bit-identical with the profiler on and off.  A ``Telemetry``
+    span opens the same range and keeps its record.  ``phase_table`` reads
+    a CPU trace and a synthetic one whose kernels and launches come from
+    two threads, and the probe's record carries it as ``phases``.  (ZeRO-1's
+    ``bpt.param_gather`` is held by (m)'s gloo ranks.)"""
+    import contextlib
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bpe_transformer_tpu_torch.telemetry import attribution, spans
+    from bpe_transformer_tpu_torch.telemetry.spans import Telemetry, phase
+
+    dense = dataclasses.replace(TS_TEST_CONFIG, vocab_size=256, num_layers=2)
+    moe = dataclasses.replace(dense, ffn_type="moe", n_experts=4, capacity_factor=2.0)
+
+    # The dense phases nest under the update, in order.
+    ev, _ = _host_trace(dense)
+    assert [e.name for e in ev] == ["bpt.train_step", *STEP_PHASES], [e.name for e in ev]
+    root, children = ev[0], ev[1:]
+    assert all(_inside(c, root) for c in children)
+    for a, b in zip(children, children[1:]):
+        assert a.time_range.end <= b.time_range.start, (a.name, b.name)
+
+    # The MoE stages, once per layer, inside the forward.
+    ev, _ = _host_trace(moe)
+    names = [e.name for e in ev]
+    forward_range = next(e for e in ev if e.name == "bpt.forward")
+    stages = [e for e in ev if e.name.startswith("bpt.moe.")]
+    assert [e.name for e in stages] == MOE_STAGES * moe.num_layers, names
+    assert all(_inside(e, forward_range) for e in stages)
+    assert names[:2] == ["bpt.train_step", "bpt.forward"] and names[-4:] == STEP_PHASES[1:]
+
+    # No range of user scope, and every range a host event.
+    params, opt, x, y = _span_state(moe)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with Telemetry().span("eval", step=3):
+            make_train_step(moe, TrainHParams())(params, opt, x, y)
+    ev = [e for e in prof.events() if e.name.startswith("bpt.")]
+    assert {"bpt.eval", "bpt.train_step", *STEP_PHASES, *MOE_STAGES} <= {e.name for e in ev}
+    assert all(e.scope != USER_SCOPE for e in ev), [(e.name, e.scope) for e in ev]
+    assert all(str(e.device_type).endswith("CPU") for e in ev)
+
+    # With no profiler, no range opens.
+    spans._bind()
+
+    def refuse(name):
+        raise AssertionError(f"a range opened with no profiler: {name}")
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(spans, "_open_range", refuse)
+        assert phase("forward") is spans._NO_SPAN
+        params, opt, x, y = _span_state(moe)
+        make_train_step(moe, TrainHParams())(params, opt, x, y)
+        with Telemetry().span("setup"):
+            pass
+
+    # The same numbers with the profiler on and off.
+    runs = []
+    for traced in (False, True):
+        params, opt, x, y = _span_state(moe, seed=5)
+        step = make_train_step(moe, TrainHParams(warmup_iters=1))
+        losses = []
+        with profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext():
+            for _ in range(2):
+                params, opt, m = step(params, opt, x, y)
+                losses.append(m["loss"])
+        runs.append((losses, tree_leaves(params), tree_leaves(opt.m), tree_leaves(opt.v)))
+    (l0, p0, m0, v0), (l1, p1, m1, v1) = runs
+    for a, b in zip(l0 + p0 + m0 + v0, l1 + p1 + m1 + v1, strict=True):
+        assert torch.equal(a, b)
+
+    # A Telemetry span opens the range and keeps its record.
+    records = []
+    telemetry = Telemetry(sink=records.append)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        handle = telemetry.start_span("checkpoint", step=4)
+        torch.ones(4).sum()
+        handle.end()
+    with telemetry.span("checkpoint", step=5):
+        pass
+    ranges = [e for e in prof.events() if e.name == "bpt.checkpoint"]
+    assert len(ranges) == 1 and ranges[0].scope != USER_SCOPE
+    assert [set(r) for r in records] == [{"kind", "name", "path", "t", "dur_s", "step"}] * 2
+
+    # phase_table over a CPU trace of two updates.
+    _, events = _host_trace(dense, steps=2)
+    table = attribution.phase_table(events)
+    assert set(table) == {"train_step", *(n[4:] for n in STEP_PHASES)}, table
+    assert all(v["host_ms"] >= 0 and v["device_ms"] == 0 and v["launches"] == 0
+               for v in table.values()), table
+    assert sum(table[n[4:]]["host_ms"] for n in STEP_PHASES) <= table["train_step"]["host_ms"]
+    assert attribution.phase_table([e for e in events if e.name != "bpt.train_step"]) == {}
+
+    # Kernels count by the start of their host operator, launches by the
+    # start of the runtime call, whichever thread made them: the
+    # backward's come from autograd's device thread.
+    def event(name, a, b, kernels=()):
+        return types.SimpleNamespace(
+            name=name, time_range=types.SimpleNamespace(start=a, end=b),
+            kernels=[types.SimpleNamespace(duration=d) for d in kernels])
+
+    events = []
+    for t0 in (0.0, 1000.0):
+        events += [event("bpt.train_step", t0, t0 + 900), event("bpt.forward", t0 + 10, t0 + 300),
+                   event("aten::mm", t0 + 20, t0 + 40, kernels=[50.0]),
+                   event("cudaLaunchKernel", t0 + 30, t0 + 35),
+                   event("bpt.backward", t0 + 300, t0 + 800),
+                   # autograd's thread, inside the waiting backward
+                   event("autograd::engine::evaluate_function", t0 + 400, t0 + 450,
+                         kernels=[70.0, 5.0]),
+                   event("cudaLaunchKernel", t0 + 410, t0 + 412),
+                   event("cuLaunchKernel", t0 + 420, t0 + 422)]
+    events.append(event("cudaLaunchKernel", 950.0, 951.0))  # between the updates
+    table = attribution.phase_table(events)
+    assert table["forward"] == pytest.approx({"host_ms": 0.29, "device_ms": 0.05, "launches": 1})
+    assert table["backward"] == pytest.approx({"host_ms": 0.5, "device_ms": 0.075, "launches": 2})
+    assert table["train_step"] == pytest.approx(
+        {"host_ms": 0.9, "device_ms": 0.125, "launches": 3})
+
+    # The probe's record carries the trace's phases, and leaves them out
+    # without a trace.
+    table = {"train_step": {"host_ms": 2.0, "device_ms": 1.5, "launches": 9}}
+
+    def traced_split(fn, *args):
+        fn(*args)
+        return 1e-3, 0.0, table
+
+    params, opt, _, _ = _span_state(dense)
+    probe = attribution.StepProbe(dense, TrainHParams(), batch_size=2, iters=1, device="cpu")
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(attribution, "_traced_split", traced_split)
+        record = probe.attribution_record(params, opt, step=1, wall_step_s=0.01, t=0.0)
+    assert record["phases"] == table and record["device_time_from"] == "kernels"
+    record = probe.attribution_record(params, opt, step=2, wall_step_s=0.01, t=0.0)
+    assert "phases" not in record and record["device_time_from"] == "fenced_wall"
+
+
 def _numpy_tree(tree):
     """A port tree as numpy arrays."""
     return jax.tree_util.tree_map(lambda t: t.detach().numpy(), tree)
@@ -2116,3 +2319,4 @@ def test_torch_training_matches_jax(tmp_path):
     _multi_gpu(tmp_path)
     _pipeline(tmp_path)
     _sharded_loop(tmp_path)
+    _phase_spans()
