@@ -6,6 +6,10 @@ The state mirrors the parameter tree (first and second moments) plus the
 step count.  ``step`` is a 0-d int32 tensor kept on the host: the schedule
 and the bias correction read it every step, and reading a host tensor
 never waits for the card.  The moments live beside the parameters.
+
+The update runs in ``kernels/adamw.py``: on CUDA tensors the multi-tensor
+kernel of ``csrc/adamw.cu``, every leaf in one launch (with the clip,
+:func:`clip_adamw_update`, two); on CPU tensors the plain per-leaf loop.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from bpe_transformer_tpu_torch.kernels import adamw as kernel
 from bpe_transformer_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -53,21 +58,41 @@ def adamw_update(
     tree-leaf order), taken before the new values are written: the update
     norm that the dynamics tap reads without a copy of the old weights.
     """
-    b1, b2 = betas
     step = int(state.step) + 1
-    bias1 = 1.0 - b1**step
-    bias2 = 1.0 - b2**step
-    for p, g, m, v in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v)
-    ):
-        g32 = g.float()
-        m.mul_(b1).add_(g32, alpha=1.0 - b1)
-        v.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
-        update = (m / bias1) / (torch.sqrt(v / bias2) + eps)
-        new = (p.float() * (1.0 - lr * weight_decay) - lr * update).to(p.dtype)
-        if delta_norms is not None:
-            delta_norms.append(torch.dist(new.float(), p.float()))
-        p.copy_(new)
+    kernel.adamw(
+        tree_leaves(params), tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v),
+        step=step, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+        delta_norms=delta_norms,
+    )
     return params, AdamWState(
         step=torch.tensor(step, dtype=torch.int32), m=state.m, v=state.v
     )
+
+
+@torch.no_grad()
+def clip_adamw_update(
+    params,
+    grads,
+    state: AdamWState,
+    lr: float,
+    *,
+    max_norm: float,
+    betas: tuple[float, float] = (0.9, 0.999),
+    eps: float = 1e-8,
+    weight_decay: float = 0.01,
+    delta_norms: list | None = None,
+):
+    """``ops.grad.clip_by_global_norm(grads, max_norm)`` then
+    :func:`adamw_update` on the clipped gradients, in one pass; returns
+    ``(params, new_state, pre_clip_norm)``.  ``grads`` is read, never
+    written; the clipped gradients are never built (``ops.grad.scale_grads``
+    builds them from the norm).  Marks ``bpt.clip`` and ``bpt.adamw``."""
+    step = int(state.step) + 1
+    grad_norm = kernel.clip_adamw(
+        tree_leaves(params), tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v),
+        step=step, lr=lr, max_norm=max_norm, betas=betas, eps=eps,
+        weight_decay=weight_decay, delta_norms=delta_norms,
+    )
+    return params, AdamWState(
+        step=torch.tensor(step, dtype=torch.int32), m=state.m, v=state.v
+    ), grad_norm

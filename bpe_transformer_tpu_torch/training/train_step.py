@@ -47,9 +47,9 @@ from bpe_transformer_tpu_torch.models.transformer import (
     lm_head_weight,
 )
 from bpe_transformer_tpu_torch.ops.core import head_logits
-from bpe_transformer_tpu_torch.ops.grad import clip_by_global_norm
+from bpe_transformer_tpu_torch.ops.grad import scale_grads
 from bpe_transformer_tpu_torch.ops.losses import cross_entropy, lm_loss
-from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_update
+from bpe_transformer_tpu_torch.optim.adamw import AdamWState, adamw_update, clip_adamw_update
 from bpe_transformer_tpu_torch.optim.schedule import cosine_schedule
 from bpe_transformer_tpu_torch.optim.sharded import sharded_adamw_update
 from bpe_transformer_tpu_torch.telemetry.dynamics import dynamics_from_parts, per_tensor_nonfinite
@@ -231,11 +231,13 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
     """Reduce, clip, schedule and AdamW, with the optional taps.  With
     ``reduce_axis`` the gradients, the loss, ``moe_aux`` and the activation
     stats are first reduced over it (``grads``, ``loss`` and ``moe_aux``
-    are this rank's).  The dynamics tap counts the input params'
-    non-finites before AdamW rewrites them in place and takes the update
-    norms from ``adamw_update``'s ``delta_norms``: no copy of the weights
-    is kept.  ``moe_aux``, when given, joins the health stats as
-    ``moe_aux``."""
+    are this rank's).  The clip and AdamW are one pass
+    (:func:`optim.adamw.clip_adamw_update`: on the card two kernel launches
+    for the whole tree); the clipped gradients are built only for the
+    health tap.  The dynamics tap counts the input params' non-finites
+    before AdamW rewrites them in place and takes the update norms from the
+    update's ``delta_norms``: no copy of the weights is kept.  ``moe_aux``,
+    when given, joins the health stats as ``moe_aux``."""
     with phase("grad_reduce"):
         grads = _reduce_grads(grads, reduce_axis, hparams.grads_dtype)
         if reduce_axis is not None:
@@ -245,28 +247,27 @@ def _update(params, opt_state: AdamWState, loss, grads, hparams: TrainHParams,
                 (loss,) = _pmean_scalars(reduce_axis, loss)
             if act_stats is not None:
                 act_stats = _reduce_act_stats(act_stats, reduce_axis)
-    # Dynamics reports the pre-clip gradient magnitudes.
-    raw_grads = grads
     nonfinite_params = per_tensor_nonfinite(params) if dynamics else None
-    with phase("clip"):
-        grads, grad_norm = clip_by_global_norm(grads, hparams.grad_clip_norm)
     lr = _schedule(opt_state, hparams)
     delta_norms = [] if dynamics else None
-    with phase("adamw"):
-        params, opt_state = adamw_update(
-            params, grads, opt_state, lr,
-            betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
-            delta_norms=delta_norms,
-        )
+    # The clip and AdamW in one pass (phases ``clip`` and ``adamw``); the
+    # pre-clip gradients stay as they are, for the dynamics tap.
+    params, opt_state, grad_norm = clip_adamw_update(
+        params, grads, opt_state, lr, max_norm=hparams.grad_clip_norm,
+        betas=hparams.betas, eps=hparams.eps, weight_decay=hparams.weight_decay,
+        delta_norms=delta_norms,
+    )
     metrics = {"loss": loss.float(), "lr": lr, "grad_norm": grad_norm}
     if health:
         # Post-update params: an optimizer-made non-finite shows the same step.
-        metrics["health"] = health_metrics(loss, grads, params)
+        clipped = scale_grads(grads, grad_norm, hparams.grad_clip_norm)
+        metrics["health"] = health_metrics(loss, clipped, params)
         if moe_aux is not None:
             metrics["health"]["moe_aux"] = moe_aux.detach().float()
     if dynamics:
+        # Dynamics reports the pre-clip gradient magnitudes.
         metrics["dynamics"] = dynamics_from_parts(
-            raw_grads, params, delta_norms, nonfinite_params, act_stats
+            grads, params, delta_norms, nonfinite_params, act_stats
         )
     return params, opt_state, metrics
 

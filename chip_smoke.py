@@ -266,10 +266,19 @@ Phases (each failure exits non-zero and prints no ``ok`` line):
    ``make_ring_attention`` against the flash forward, ``rope`` and
    ``transformer_block`` against their CPU results, and
    ``state_dict_from_params`` round-tripped, on CUDA tensors;
+22. the clip + AdamW kernels (``kernels/adamw.py``, which replace no TPU
+   kernel): the card tests ``tests/card_adamw.py`` (kernel against the
+   plain per-leaf loop after 1 and 5 steps at A's and C's trees of
+   ``portbench/configs``, float32 and bf16, ragged, narrowed and 700
+   leaves; two kernels a call and nothing else on the card), then at A's
+   and C's trees the kernels' device time beside their bound, the plain
+   loop's and fused ``torch.optim.AdamW``'s (the yardstick), and one
+   training step of each under a host profiler: the clip's and AdamW's
+   launches (at most 4) and host ms;
 then one JSON line listing every ported kernel (launches counted over the
 main paths, phases 18's, 19's, 20's and 21a's included), and the ``ok``
-line.  ``python3 chip_smoke.py --phase 21`` runs the build and phase 21
-alone.
+line.  ``python3 chip_smoke.py --phase 21`` (or ``--phase 22``) runs the
+build and that phase alone.
 
 ``python3 chip_smoke.py --phase 18 --world 4`` (on a host with four
 cards) builds the kernels and runs phase 18 across cards
@@ -316,7 +325,8 @@ fused tails), ``chip_smoke_gelu.json`` (the GeLU kernels), ``chip_smoke_sp.json`
 ``chip_smoke_loop.json`` (phase 15's training-loop figures),
 ``chip_smoke_moe.json`` (phase 16's MoE figures),
 ``chip_smoke_surface.json`` (phase 17's), ``chip_smoke_parallel.json``
-(phases 18's and 19's), ``chip_smoke_public.json`` (phase 21's) and, from
+(phases 18's and 19's), ``chip_smoke_public.json`` (phase 21's),
+``chip_smoke_optim.json`` (phase 22's) and, from
 the four-card runs,
 ``chip_smoke_parallel4.json``, ``chip_smoke_parallel4_cli.json``,
 ``chip_smoke_sharded4.json``, ``chip_smoke_sharded4_cli.json``,
@@ -5012,12 +5022,14 @@ def phase_moe(torch, smi: str, cfg=None, device: str = "cuda", batch: int = 16) 
 #: inside the checkout and removed at the end of the phase.
 SURFACE_WORK = ROOT / ".scratch" / "chip_smoke_surface"
 #: The keys of a ``kind="attribution"`` record, as the JAX package's probe
-#: writes them (``programs`` on the first record only).
+#: writes them (``programs`` on the first record only), then the port's own:
+#: the fenced wall time, the device time's source and, from the probe's
+#: trace on the card, the step's phase table (``phases``).
 ATTRIBUTION_KEYS = {
     "kind", "t", "step", "wall_step_s", "device_step_s", "compute_frac", "collective_frac",
     "host_gap_frac", "probe_iters", "train_peak_hbm_bytes", "train_temp_hbm_bytes",
     "remat_policy", "grads_dtype", "scan_layers",
-} | {"probe_wall_step_s", "device_time_from"}
+} | {"probe_wall_step_s", "device_time_from", "phases"}
 #: CUDA against CPU for the adapters, float32 (TF32 off): the largest
 #: absolute difference over the largest magnitude of the CPU result.
 ADAPTER_REL_TOL = 1e-4
@@ -7194,9 +7206,170 @@ def phase_public(torch, smi: str, device: str = "cuda") -> dict:
     return gen["counts"]
 
 
+# ----------------------------------------------------------- phase 22
+
+
+#: Phase 22's trees: A's and C's models (portbench/configs), whose leaves
+#: the clip and AdamW take.
+OPTIM_CONFIGS = ("gpt2_small_32k", "tinystories_moe")
+
+
+def _optim_config(name: str):
+    from bpe_transformer_tpu_torch.models.config import ModelConfig
+
+    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
+    return ModelConfig.from_dict(conf["model"])
+
+
+def _optim_device_ms(torch, run, iters: int) -> tuple[float, float, int]:
+    """``(wall ms, device ms, kernels)`` a call of ``run``: CUDA events over
+    ``iters`` calls, then the device time and kernel count of one more call
+    from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name, busy_us = _device_breakdown(prof, 1)
+    return (start.elapsed_time(end) / iters, busy_us / 1e3,
+            sum(n for _, n in by_name.values()))
+
+
+def phase_optimizer(torch, smi: str) -> dict:
+    """22: the clip + AdamW kernels (``kernels/adamw.py``).  (a) the card
+    tests ``tests/card_adamw.py`` (kernel against the plain loop, 1 and 5
+    steps, A's and C's trees, float32 and bf16, ragged and narrowed leaves,
+    700 leaves; the kernels alone on the card); (b, c)
+    :func:`optimizer_measurements`.  Each in a process of its own: after
+    the earlier phases' profiler sessions, a short trace in this process
+    has been seen to record no device activity."""
+    for what, argv in (
+            ("22a card tests", ["-m", "pytest", "-q", "-p", "no:cacheprovider", "-m", "card",
+                                "tests/card_adamw.py"]),
+            ("22b-c", ["-c", "import sys, torch, chip_smoke; "
+                       "chip_smoke.optimizer_measurements(torch, sys.argv[1])", smi])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+                              timeout=900)
+        out = (proc.stdout + proc.stderr).strip().splitlines()
+        require(proc.returncode == 0 and not (what.startswith("22a") and "skipped" in out[-1]),
+                f"{what}: rc {proc.returncode}\n{proc.stdout[-6000:]}{proc.stderr[-3000:]}")
+        if what.startswith("22a"):
+            log(f"{what}: {out[-1]} ({time.perf_counter() - t0:.1f} s)")
+        else:
+            print(proc.stdout, end="", flush=True)
+    return json.loads((OUT_DIR / "chip_smoke_optim.json").read_text())
+
+
+def optimizer_measurements(torch, smi: str) -> dict:
+    """22b: at A's and C's trees (float32, clip engaged) the kernels' time
+    beside their bound (32 bytes a parameter: p, g, m, v read, p, m, v
+    written, g read once more for the norm, at 3.35 TB/s), the plain loop's
+    on the card and ``torch.optim.AdamW(fused=True)``'s (no clip; the
+    library yardstick only); 22c: one training step of each config at 2 x
+    256 under a host profiler: the ``bpt.clip`` + ``bpt.adamw`` phases'
+    launches (at most 4) and host ms (``telemetry/attribution.py``
+    ``phase_table``).  Writes ``chip_smoke_optim.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bpe_transformer_tpu_torch.kernels import adamw as K
+    from bpe_transformer_tpu_torch.models.transformer import init_params
+    from bpe_transformer_tpu_torch.optim import adamw_init
+    from bpe_transformer_tpu_torch.telemetry.attribution import phase_table
+    from bpe_transformer_tpu_torch.training.train_step import TrainHParams, make_train_step
+    from bpe_transformer_tpu_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, steps = [], {}
+    for name in OPTIM_CONFIGS:
+        cfg = _optim_config(name)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tree_leaves(init_params(cfg, gen, device="cuda"))
+        n = sum(p.numel() for p in params)
+        g_gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = [torch.randn(p.shape, generator=g_gen, device="cuda") * 1e-3 for p in params]
+        ms = [torch.zeros_like(p) for p in params]
+        vs = [torch.zeros_like(p) for p in params]
+        state = {"step": 0}
+
+        def kernel():
+            state["step"] += 1
+            K.clip_adamw(params, grads, ms, vs, step=state["step"], lr=6e-4, max_norm=1.0)
+
+        def plain():
+            state["step"] += 1
+            clipped, _ = K.clip_plain(grads, 1.0)
+            K.adamw_plain(params, clipped, ms, vs, step=state["step"], lr=6e-4,
+                          betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+
+        lib_params = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        for p, g in zip(lib_params, grads):
+            p.grad = g
+        lib = torch.optim.AdamW(lib_params, lr=6e-4, weight_decay=0.01, fused=True)
+        k_ms, k_dev, k_n = _optim_device_ms(torch, kernel, 20)
+        p_ms, p_dev, p_n = _optim_device_ms(torch, plain, 5)
+        l_ms, l_dev, l_n = _optim_device_ms(torch, lib.step, 20)
+        bound = n * 32 / HBM_BYTES_S * 1e3
+        row = {"tree": name, "leaves": len(params), "params": n, "device": smi,
+               "kernel_ms": k_ms, "kernel_dev_ms": k_dev, "kernel_launches": k_n,
+               "bound_ms": bound, "plain_ms": p_ms, "plain_dev_ms": p_dev,
+               "plain_launches": p_n, "library_ms": l_ms, "library_dev_ms": l_dev,
+               "library_launches": l_n}
+        rows.append(row)
+        log(f"22b {name}: {len(params)} leaves, {n} parameters; kernels {k_ms:.3f} ms "
+            f"(device {k_dev:.3f} in {k_n} kernels) against a bound of {bound:.3f} "
+            f"({k_dev / bound:.2f}x); plain loop {p_ms:.3f} ms (device {p_dev:.3f} in {p_n}); "
+            f"fused torch AdamW, no clip, {l_ms:.3f} ms (device {l_dev:.3f} in {l_n})")
+        require(k_n == 2, f"22b {name}: {k_n} kernels a clip + AdamW, want 2")
+        del params, grads, ms, vs, lib_params, lib
+        torch.cuda.empty_cache()
+
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        opt = adamw_init(params)
+        step = make_train_step(cfg, TrainHParams(max_learning_rate=6e-4, warmup_iters=1))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        batches = [(torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device="cuda"),
+                    torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device="cuda"))
+                   for _ in range(4)]
+        params, opt, _ = step(params, opt, *batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for x, y in batches[1:]:
+                params, opt, _ = step(params, opt, x, y)
+            torch.cuda.synchronize()
+        table = phase_table(prof.events())
+        clip, adamw = table.get("clip", {}), table.get("adamw", {})
+        launches = clip.get("launches", 0) + adamw.get("launches", 0)
+        steps[name] = {"clip": clip, "adamw": adamw, "launches": launches,
+                       "step": table.get("train_step", {})}
+        log(f"22c {name} train step: clip + AdamW {launches} launches "
+            f"({clip.get('launches')} + {adamw.get('launches')}), host "
+            f"{clip.get('host_ms', 0):.2f} + {adamw.get('host_ms', 0):.2f} ms, device "
+            f"{clip.get('device_ms', 0):.3f} + {adamw.get('device_ms', 0):.3f} ms; the step "
+            f"{table.get('train_step', {}).get('launches')} launches")
+        require(0 < launches <= 4, f"22c {name}: the clip and AdamW took {launches} launches")
+        del params, opt, step, batches
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_optim.json").write_text(json.dumps(
+        {"device": smi, "kernels": rows, "train_steps": steps}, indent=1))
+    return {"rows": rows, "steps": steps}
+
+
 def main_parallel(world: int, phase: int = 18) -> int:
-    """``chip_smoke.py --phase 18|19|20 [--world N]`` or ``--phase 21``: the
-    build, then the phase alone: 21 as in the default run; at world 1 the
+    """``chip_smoke.py --phase 18|19|20 [--world N]``, ``--phase 21`` or
+    ``--phase 22``: the build, then the phase alone: 21 and 22 as in the
+    default run; at world 1 the
     default run's phases 18, 19 and 20, at
     world N > 1 one rank process a card (NCCL) for dp, ZeRO-1 and the sp
     grids (18), the GSPMD strategies (19) or Ulysses, the pipeline and
@@ -7231,6 +7404,8 @@ def main_parallel(world: int, phase: int = 18) -> int:
     t0 = time.perf_counter()
     if phase == 21:
         log(f"21 launches {phase_public(torch, smi)}")
+    elif phase == 22:
+        phase_optimizer(torch, smi)
     elif world == 1:
         counts, counts19, counts20 = phase_parallel(torch, smi)
         log(f"18 launches {counts}; 19 launches {counts19}; 20 launches {counts20}")
@@ -7379,6 +7554,9 @@ def main() -> int:
     counts21 = phase_public(torch, smi)
     log(f"phase 21 the public surface (generate_cached, the examples, the new functions): ok "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_optimizer(torch, smi)
+    log(f"phase 22 the clip + AdamW kernels: ok ({time.perf_counter() - t0:.1f} s)")
     for name in KERNEL_META:
         counts[name] = (counts.get(name, 0) + counts18[name] + counts19[name] + counts20[name]
                         + counts21[name])
@@ -7404,12 +7582,12 @@ def main() -> int:
 
 
 def _args(argv: list) -> dict:
-    """``--phase 18|19|20 [--world N] [--rank-child]``, ``--phase 21``, or
-    nothing (every phase)."""
+    """``--phase 18|19|20 [--world N] [--rank-child]``, ``--phase 21``,
+    ``--phase 22``, or nothing (every phase)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="Run the port on the card and check it.")
-    parser.add_argument("--phase", type=int, choices=[18, 19, 20, 21], default=None,
+    parser.add_argument("--phase", type=int, choices=[18, 19, 20, 21, 22], default=None,
                         help="run the build and this phase alone")
     parser.add_argument("--world", type=int, default=1,
                         help="cards for --phase 18, 19 or 20 (one rank process a card)")
@@ -7426,9 +7604,9 @@ if __name__ == "__main__":
             sys.path.insert(0, str(ROOT))
             {18: parallel_rank, 19: sharded_rank, 20: pipeline_rank}[opts["phase"]](torch)
             sys.exit(0)
-        if opts["phase"] == 21 and opts["world"] != 1:
-            raise SmokeFailure("--phase 21 runs on one card")
-        if opts["phase"] in (18, 19, 20, 21):
+        if opts["phase"] in (21, 22) and opts["world"] != 1:
+            raise SmokeFailure(f"--phase {opts['phase']} runs on one card")
+        if opts["phase"] in (18, 19, 20, 21, 22):
             sys.exit(main_parallel(opts["world"], opts["phase"]))
         sys.exit(main())
     except SmokeFailure as exc:

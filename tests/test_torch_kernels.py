@@ -41,9 +41,14 @@ the JAX package's on seeded torch inputs, with the tolerances stated in
 (``make_ring_attention``, ``rope``, ``transformer_block``,
 ``state_dict_from_params``, ``mfu``, ``attach_manifest``, the
 pre-tokenization entry points) with those of ``_public_functions_match_jax``.
+It holds the clip + AdamW kernels' plain version (``kernels/adamw.py``)
+against the JAX package's clip then AdamW, with the tolerances stated in
+``_clip_adamw_matches_jax``, and the chunk table those kernels walk
+(``_clip_adamw_chunk_table``).
 """
 
 import importlib
+import math
 from functools import partial
 
 import numpy as np
@@ -76,12 +81,16 @@ from bpe_transformer_tpu.kernels.pallas.quant_matmul import quant_matmul as jax_
 from bpe_transformer_tpu.kernels.pallas.sample import fused_head_sample as jax_fused_head_sample
 from bpe_transformer_tpu.kernels.pallas.sample import fused_verify_head as jax_fused_verify_head
 from bpe_transformer_tpu.kernels.pallas.swiglu import swiglu_fused as jax_swiglu
+from bpe_transformer_tpu.ops.grad import clip_by_global_norm as jax_clip_by_global_norm
 from bpe_transformer_tpu.ops.quant import quantize_weight as jax_quantize_weight
+from bpe_transformer_tpu.optim.adamw import adamw_init as jax_adamw_init
+from bpe_transformer_tpu.optim.adamw import adamw_update as jax_adamw_update
 from bpe_transformer_tpu.ops.rope import rope_tables as jax_rope_tables
 from bpe_transformer_tpu.parallel import make_mesh
 from bpe_transformer_tpu.parallel import ring_attention as jax_ring
 from bpe_transformer_tpu_torch import parallel
 from bpe_transformer_tpu_torch.kernels import _build
+from bpe_transformer_tpu_torch.kernels import adamw as aw
 from bpe_transformer_tpu_torch.kernels import sample as smp
 from bpe_transformer_tpu_torch.kernels import swiglu as sw
 from bpe_transformer_tpu_torch.ops.quant import quantize_weight
@@ -711,9 +720,191 @@ def test_torch_kernel_plain_versions_match_jax_kernels(tmp_path):
     _adapters_match_jax(tmp_path)
     # The last public functions of the JAX package.
     _public_functions_match_jax(tmp_path)
+    # The clip + AdamW kernels' plain version and their chunk table.
+    _clip_adamw_matches_jax()
+    _clip_adamw_chunk_table()
 
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert _build.launches == counts_before
+
+
+# ------------------------------------------------------------------------
+# The clip + AdamW kernels (``kernels/adamw.py``): their plain version
+# against the JAX package's clip then AdamW, and the chunk table the
+# kernels walk.
+
+#: (parameter dtype, gradient dtype, max_norm, delta_norms): float32 and
+#: bf16 parameters, ``grads_dtype="bfloat16"`` gradients, the clip engaged
+#: (max_norm 0.5 against norms of about 1.5) and not (1e4), the update
+#: norms asked for.
+CLIP_ADAMW_CASES = [
+    ("float32", "float32", 0.5, True),
+    ("float32", "float32", 1e4, False),
+    ("float32", "bfloat16", 0.5, True),
+    ("bfloat16", "float32", 0.5, False),
+    ("bfloat16", "bfloat16", 1e4, True),
+]
+
+
+def _clip_adamw_matches_jax():
+    """5 steps of ``aw.clip_adamw`` on CPU tensors (the plain clip and the
+    plain per-leaf loop) against the JAX package's ``clip_by_global_norm``
+    then ``adamw_update`` on the same numpy inputs: the norm, p, m and v
+    after every step, and the update norms against JAX's ``||new - old||``.
+    Tolerances in float32: the norm, m and v to 1e-5 relative (m and v
+    plus 1e-7): the norm is summed in another order; parameters to 1e-5
+    relative plus ``lr`` times 1e-4: JAX takes ``b2 ** step`` in float32,
+    where the port takes it in double, and at step 2 ``1 - 0.999 ** 2`` so
+    taken is 3e-5 off, which moves the update by half that.  In bfloat16
+    one bf16 ulp (2^-7 relative, plus ``lr`` times 2^-6) a step for the
+    parameters, and for m and v from bf16 gradients, which round the
+    clipped gradient to bf16 from scales an ulp apart."""
+    lr, betas, eps, wd = 1e-2, (0.9, 0.999), 1e-8, 0.01
+    shapes = [(7, 5), (0,), (3,), (33, 17), (1000,)]
+    for p_name, g_name, max_norm, deltas in CLIP_ADAMW_CASES:
+        rng = np.random.default_rng(7)
+        p_dt, g_dt = getattr(torch, p_name), getattr(torch, g_name)
+        params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(p_dt)
+                  for s in shapes]
+        ms = [torch.zeros(p.shape) for p in params]
+        vs = [torch.zeros(p.shape) for p in params]
+        # Copies: JAX may alias a numpy buffer, and the port writes in place.
+        j_params = [jnp.asarray(p.float().numpy().copy()).astype(p_name) for p in params]
+        j_state = jax_adamw_init(j_params)
+        what = f"clip_adamw {p_name} / {g_name} max_norm {max_norm}"
+        bf16 = p_dt == torch.bfloat16 or g_dt == torch.bfloat16
+        for step in range(1, 6):
+            grads_np = [(rng.standard_normal(s) * 0.05).astype(np.float32) for s in shapes]
+            grads = [torch.from_numpy(g).to(g_dt) for g in grads_np]
+            j_grads = [jnp.asarray(g.float().numpy()).astype(g_name) for g in grads]
+            delta_norms = [] if deltas else None
+            norm = aw.clip_adamw(params, grads, ms, vs, step=step, lr=lr, max_norm=max_norm,
+                                 betas=betas, eps=eps, weight_decay=wd, delta_norms=delta_norms)
+            j_old = j_params
+            j_clipped, j_norm = jax_clip_by_global_norm(j_grads, max_norm)
+            j_params, j_state = jax_adamw_update(j_params, j_clipped, j_state, lr, betas=betas,
+                                                 eps=eps, weight_decay=wd)
+            np.testing.assert_allclose(float(norm), float(j_norm), rtol=1e-5,
+                                       err_msg=f"{what} step {step} norm")
+            assert (float(j_norm) > max_norm) == (max_norm < 1.0), what
+            rtol = 2.0**-7 * step if bf16 else 1e-5
+            for i, (p, jp) in enumerate(zip(params, j_params)):
+                np.testing.assert_allclose(
+                    p.float().numpy(), np.asarray(jp.astype(jnp.float32)),
+                    rtol=2.0**-7 * step if p_dt == torch.bfloat16 else 1e-5,
+                    atol=lr * 2.0**-6 * step if bf16 else lr * 1e-4,
+                    err_msg=f"{what} step {step} p[{i}]")
+            for name, ours, theirs in (("m", ms, j_state.m), ("v", vs, j_state.v)):
+                for i, (a, b) in enumerate(zip(ours, theirs)):
+                    np.testing.assert_allclose(
+                        a.numpy(), np.asarray(b), rtol=rtol,
+                        atol=rtol * float(np.abs(np.asarray(b)).max(initial=0.0)) if bf16
+                        else 1e-7, err_msg=f"{what} step {step} {name}[{i}]")
+            if deltas:
+                want = [np.linalg.norm(np.asarray(n.astype(jnp.float32))
+                                       - np.asarray(o.astype(jnp.float32)))
+                        for n, o in zip(j_params, j_old)]
+                assert len(delta_norms) == len(shapes), what
+                np.testing.assert_allclose(
+                    [float(d) for d in delta_norms], want, rtol=5e-2 if bf16 else 1e-4,
+                    atol=1e-7, err_msg=f"{what} step {step} delta_norms")
+
+
+def _clip_adamw_chunk_table():
+    """The kernels' chunk table in pure Python: each chunk of a launch,
+    found by ``csrc/adamw.cu``'s search (the last leaf whose first chunk is
+    at or before it), covers ``CHUNK`` elements of one leaf, the last chunk
+    of a leaf its ragged tail (a leaf whose gradient is transposed: a
+    ``TILE`` x ``TILE`` square of one of its matrices, those on the edges
+    ragged); together they cover every element of every leaf once, an
+    empty leaf none, a leaf under one chunk in one chunk, and more than
+    ``MAX_LEAVES`` leaves in several launches whose chunks number the
+    step's partial sums in order.  The table's entries and flags."""
+
+    def leaf_of(starts, n, c):
+        lo, hi = 0, n - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if starts[mid] <= c:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+
+    chunk, tile = aw.CHUNK, aw.TILE
+    cases = [
+        [((chunk,), False)],  # one whole chunk
+        [((1,), False), ((chunk - 1,), False), ((chunk + 1,), False), ((3, chunk + 5), False)],
+        [((0,), False), ((5,), False), ((0, 4), False), ((0,), False), ((2 * chunk,), False),
+         ((0,), False)],  # empty leaves first, between and last
+        [((7,), False)] * 300 + [((chunk + 3,), False)] * 300 + [((0,), False)] * 50,
+        [((0,), False), ((0,), False)],
+        # Transposed gradients: a matrix under one square, ragged edges both
+        # ways (the MoE experts' 512 x 1365), a batch of matrices, one empty.
+        [((3, 5), True), ((8, 512, 1365), True), ((2, tile, tile + 1), True),
+         ((4, 0, 7), True), ((33,), False)],
+    ]
+    for leaves in cases:
+        counts = [aw.leaf_chunks(shape, tiled) for shape, tiled in leaves]
+        groups = aw.chunk_groups(counts)
+        assert [g.first for g in groups] == list(range(0, len(leaves), aw.MAX_LEAVES))
+        assert sum(g.count for g in groups) == len(leaves)
+        seen = [[] for _ in leaves]
+        chunk0 = 0
+        for g in groups:
+            assert g.chunk0 == chunk0 and g.count <= aw.MAX_LEAVES
+            mine = leaves[g.first:g.first + g.count]
+            params = [torch.zeros(shape) for shape, _ in mine]
+            grads = [torch.zeros(shape[:-2] + shape[:-3:-1]).transpose(-1, -2) if tiled
+                     else torch.zeros(shape) for shape, tiled in mine]
+            trans = [aw.transposed(t) for t in grads]
+            table = aw.leaf_table(g._replace(first=0), grads, params, params, params, trans)
+            assert len(table) == aw.FIELDS * g.count
+            entry = [table[k * aw.FIELDS:(k + 1) * aw.FIELDS] for k in range(g.count)]
+            starts = [e[5] for e in entry] + [g.chunks]
+            for (shape, tiled), e in zip(mine, entry):
+                assert e[4] == math.prod(shape)
+                trans = tiled and math.prod(shape) > 0
+                assert bool(e[6] & aw.TRANS) == trans
+                assert (e[7], e[8]) == (shape[-2:] if trans else (0, 0))
+            for c in range(g.chunks):
+                k = leaf_of(starts, g.count, c)
+                shape, tiled = mine[k]
+                local = c - starts[k]
+                if entry[k][6] & aw.TRANS:
+                    rows, cols = shape[-2:]
+                    rb, cb = -(-rows // tile), -(-cols // tile)
+                    b, sq = divmod(local, rb * cb)
+                    r0, c0 = (sq // cb) * tile, (sq % cb) * tile
+                    assert b < math.prod(shape[:-2]) and r0 < rows and c0 < cols
+                    seen[g.first + k].append(
+                        (b, r0, c0, (min(r0 + tile, rows) - r0) * (min(c0 + tile, cols) - c0)))
+                else:
+                    e0 = local * chunk
+                    n = min(chunk, math.prod(shape) - e0)
+                    assert 0 < n <= chunk
+                    seen[g.first + k].append((e0, n))
+            chunk0 += g.chunks
+        for (shape, _), spans in zip(leaves, seen):
+            # Distinct chunks whose sizes add up to the leaf: each element once.
+            assert len(set(spans)) == len(spans), shape
+            assert sum(span[-1] for span in spans) == math.prod(shape), (shape, spans[:4])
+            if spans and len(spans[0]) == 2:
+                assert sorted(spans) == [(a, min(chunk, math.prod(shape) - a))
+                                         for a in range(0, math.prod(shape), chunk)]
+        assert chunk0 == sum(counts)
+    # Flags: bf16 parameter and gradient; vectors only where every pointer
+    # allows four-element loads (an offset view does not); a gradient
+    # transposed in its last two dims, and what the norm alone reads.
+    p = torch.zeros(64, dtype=torch.bfloat16)
+    g, m, v = torch.zeros(64), torch.zeros(64), torch.zeros(64)
+    assert aw.leaf_flags(g, p, m, v) == aw.P_BF16 | aw.VEC | aw.G_VEC
+    assert aw.leaf_flags(g[1:], p[1:], m[1:], v[1:]) == aw.P_BF16
+    assert aw.leaf_flags(p) == aw.G_BF16 | aw.G_VEC
+    w, gt = torch.zeros(8, 6), torch.zeros(6, 8).t()
+    assert aw.transposed(gt) and not aw.transposed(w) and not aw.transposed(w[:, :3])
+    assert aw.leaf_flags(gt, w, w, w, trans=True) == aw.TRANS | aw.G_VEC
+    assert aw.leaf_flags(gt) == aw.G_VEC
 
 
 # ------------------------------------------------------------------------
