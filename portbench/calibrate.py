@@ -33,13 +33,14 @@ from portbench.reference import compare  # noqa: E402
 from portbench.reference import model as reference  # noqa: E402
 
 
-def train_control(model: dict, traffic: dict, seed: int, precision: str, device) -> dict:
-    """The reference in ``precision`` against the float32 reference, from
-    the seed's weights over the rows the cell's feed draws for its checked
-    steps."""
+def train_control(conf: dict, traffic: dict, seed: int, precision: str, device) -> dict:
+    """The configuration's reference in ``precision`` against its float32
+    reference, from the seed's weights over the rows the cell's feed draws
+    for its checked steps."""
     from bpe_transformer_tpu_torch.data import get_batch
 
-    params = weights.make_params(model, seed, device)
+    model, arch = conf["model"], spec.architecture(conf)
+    params = weights.make_params(arch.layout(model), seed, device)
     pool = weights.token_pool(seed, model["vocab_size"], traffic["pool_tokens"])
     rng = np.random.default_rng([int(seed), 2])
     rows = traffic["batch"] * traffic.get("world", 1)
@@ -47,10 +48,10 @@ def train_control(model: dict, traffic: dict, seed: int, precision: str, device)
     for _ in range(traffic["check_steps"]):
         x, y = get_batch(pool, rows, traffic["seq"], rng)
         batches.append((torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)))
-    block = None if model.get("ffn_type") == "moe" else traffic.get("ref_block_rows")
+    block = None if arch.whole_batch(model) else traffic.get("ref_block_rows")
     hp = {k: traffic[k] for k in ("lr", "min_lr", "warmup", "cosine_cycle")}
-    ref = reference.train(params, batches, model, hp, "fp32", block)
-    low = reference.train(params, batches, model, hp, precision, block)
+    ref = arch.train(params, batches, model, hp, "fp32", block)
+    low = arch.train(params, batches, model, hp, precision, block)
     return compare.train_numbers(low, ref, weights.leaf_names(params))
 
 
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
                 line["program"] = out["check"]["numbers"]
                 line["program_where"] = out["check"]["where"]
             if args.control:
-                low = train_control(conf["model"], traffic, seed, args.control, dev)
+                low = train_control(conf, traffic, seed, args.control, dev)
                 line["control"] = low["numbers"]
                 line["control_where"] = low["where"]
         line["seconds"] = time.time() - t0

@@ -34,14 +34,21 @@ def traces(run: dict) -> list[dict]:
     return [r["trace"] for r in ranks if r.get("trace")]
 
 
-def roofline(run: dict, launch: str, least_per_call) -> float | None:
+def roofline(run: dict, launch: str, least_per_call, pattern: str | None = None
+             ) -> float | None:
     """Percent of the roofline over the traced stretch, averaged over the
     ranks: the least time of the calls the stretch made (the program's
-    launch counter for ``launch``; ``least_per_call(run, t)`` gives the sum
-    over them) over the device time of the kernels of ``launch``."""
+    launch counter for ``launch``, in the trace's ``calls``;
+    ``least_per_call(run, t)`` gives the sum over them) over the device time
+    of the kernels of ``launch``.  Those are named by
+    :data:`KERNEL_PATTERNS`, or where it has no entry for ``launch`` by
+    ``pattern``, which the metric's own file gives."""
+    rx = KERNEL_PATTERNS.get(launch, pattern)
+    if rx is None:
+        raise KeyError(f"no kernel-name pattern for launch {launch!r}: the metric gives none")
     shares = []
     for t in traces(run):
-        seconds, n = trace.kernel_seconds(t["kernels"], KERNEL_PATTERNS[launch])
+        seconds, n = trace.kernel_seconds(t["kernels"], rx)
         least = least_per_call(run, t)
         if not seconds or not n or least is None or least <= 0:
             continue

@@ -20,6 +20,15 @@ cosine schedule.
 ``"tf32"``, ``"bf16"`` (operands rounded to bfloat16, float32
 accumulation) and ``"fp8"`` (operands scaled per tensor into float8 e4m3,
 gradients into e5m2, float32 accumulation).
+
+This module is also the architecture of every configuration whose file
+names no ``architecture`` (``spec.architecture``).  An architecture module
+gives the parameter layout (:func:`layout`), the float32 :func:`train` and
+:func:`logits`, whether the reference takes a step's batch whole
+(:func:`whole_batch`) and the model FLOPs of a training step, a prefill and
+a decode tick (here ``portbench/counts.py``'s).  Another architecture is a
+file beside this one that gives the same names; it may build on the pieces
+here, and hands its own loss to :func:`train` as ``objective``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import contextlib
 import math
 
 import torch
+
+from portbench.counts import decode_tick_flops, prefill_flops, train_step_flops  # noqa: F401
 
 PRECISIONS = ("fp32", "tf32", "bf16", "fp8")
 
@@ -183,6 +194,50 @@ def loss(params: dict, x: torch.Tensor, y: torch.Tensor, cfg: dict, precision: s
     return ce
 
 
+def layout(cfg: dict) -> list[tuple[tuple, tuple, str]]:
+    """``(path, shape, init)`` of every leaf of the parameter tree the
+    program takes and this reference reads (``(d_out, d_in)`` matrices),
+    matrices first, then norm gains.  ``init`` is the leaf's law in
+    ``weights.make_params``: ``"matrix"`` (truncated normal), ``"gain"``
+    (``1 + 0.1 z``) or ``"zeros"``.
+
+        {"token_embeddings": (V, d), "lm_head": (V, d), "ln_final": (d,),
+         "layers": [{"attn": {"q_proj", "k_proj", "v_proj", "output_proj"},
+                     "ln1": (d,), "ln2": (d,),
+                     "ffn": {"w1": (ff, d), "w2": (d, ff), "w3": (ff, d)}
+                        or {"router": (e, d), "w1": (e, ff, d),
+                            "w2": (e, d, ff), "w3": (e, ff, d)}}, ...]}
+    """
+    d, ff, v = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"]
+    d_kv = (cfg.get("num_kv_heads") or cfg["num_heads"]) * (d // cfg["num_heads"])
+    mats = [(("token_embeddings",), (v, d)), (("lm_head",), (v, d))]
+    norms = [(("ln_final",), (d,))]
+    for i in range(cfg["num_layers"]):
+        mats += [(("layers", i, "attn", "q_proj"), (d, d)),
+                 (("layers", i, "attn", "k_proj"), (d_kv, d)),
+                 (("layers", i, "attn", "v_proj"), (d_kv, d)),
+                 (("layers", i, "attn", "output_proj"), (d, d))]
+        if cfg.get("ffn_type") == "moe":
+            e = cfg["n_experts"]
+            mats += [(("layers", i, "ffn", "router"), (e, d)),
+                     (("layers", i, "ffn", "w1"), (e, ff, d)),
+                     (("layers", i, "ffn", "w2"), (e, d, ff)),
+                     (("layers", i, "ffn", "w3"), (e, ff, d))]
+        else:
+            mats += [(("layers", i, "ffn", "w1"), (ff, d)),
+                     (("layers", i, "ffn", "w2"), (d, ff)),
+                     (("layers", i, "ffn", "w3"), (ff, d))]
+        norms += [(("layers", i, "ln1"), (d,)), (("layers", i, "ln2"), (d,))]
+    return [(p, s, "matrix") for p, s in mats] + [(p, s, "gain") for p, s in norms]
+
+
+def whole_batch(cfg: dict) -> bool:
+    """Whether the reference takes a step's batch whole: the experts'
+    capacity is the whole batch's, so blocks of rows would route
+    otherwise."""
+    return cfg.get("ffn_type") == "moe"
+
+
 def _f32(tree):
     if isinstance(tree, dict):
         return {k: _f32(v) for k, v in tree.items()}
@@ -206,11 +261,14 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def loss_and_grads(params: dict, x, y, cfg: dict, precision: str, block_rows: int | None):
+def loss_and_grads(params: dict, x, y, cfg: dict, precision: str, block_rows: int | None,
+                   objective=None):
     """The mean loss and its gradients (float32, in :func:`_leaves` order).
     ``block_rows`` splits the batch into equal blocks of rows whose
     gradients are averaged (a dense model only: the experts' capacity is
-    the whole batch's)."""
+    the whole batch's).  ``objective(params, x, y, cfg, precision)`` is the
+    loss (this module's :func:`loss` when None)."""
+    objective = objective or loss
     leaves = [p.detach().float().requires_grad_(True) for p in _leaves(params)]
     tree = _rebuild(params, iter(leaves))
     rows = x.shape[0]
@@ -219,7 +277,7 @@ def loss_and_grads(params: dict, x, y, cfg: dict, precision: str, block_rows: in
         raise ValueError(f"{rows} rows do not split into blocks of {step}")
     total, grads = 0.0, None
     for i in range(0, rows, step):
-        part = loss(tree, x[i:i + step], y[i:i + step], cfg, precision)
+        part = objective(tree, x[i:i + step], y[i:i + step], cfg, precision)
         g = torch.autograd.grad(part, leaves)
         total = total + part.detach()
         grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
@@ -237,11 +295,12 @@ def cosine_lr(it: int, hp: dict) -> float:
 
 
 def train(params: dict, batches: list, cfg: dict, hp: dict, precision: str = "fp32",
-          block_rows: int | None = None) -> dict:
+          block_rows: int | None = None, objective=None) -> dict:
     """AdamW steps on ``batches`` ((x, y) pairs) from ``params`` (left as
-    they are).  Returns each step's loss, the per-leaf norms of the first
-    step's clipped gradient, and of each leaf's change after the last step
-    (float64 host values, in :func:`_leaves` order)."""
+    they are) on the loss ``objective`` (:func:`loss_and_grads`).  Returns
+    each step's loss, the per-leaf norms of the first step's clipped
+    gradient, and of each leaf's change after the last step (float64 host
+    values, in :func:`_leaves` order)."""
     b1, b2 = hp.get("betas", (0.9, 0.999))
     eps, wd, clip = hp.get("eps", 1e-8), hp.get("weight_decay", 0.01), hp.get("clip", 1.0)
     start = [p.detach().float().clone() for p in _leaves(params)]
@@ -252,7 +311,7 @@ def train(params: dict, batches: list, cfg: dict, hp: dict, precision: str = "fp
     with matmul_precision(precision):
         for it, (x, y) in enumerate(batches):
             value, grads = loss_and_grads(_rebuild(params, iter(cur)), x, y, cfg, precision,
-                                          block_rows)
+                                          block_rows, objective)
             losses.append(float(value))
             with torch.no_grad():
                 norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))

@@ -38,9 +38,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from portbench import devices, trace, weights
+from portbench import devices, spec, trace, weights
 from portbench.reference import compare
 from portbench.reference import model as reference
+from portbench.runners import model_config
 
 
 def request_sizes(traffic: dict) -> list[tuple[int, int]]:
@@ -252,14 +253,14 @@ def _client(serving, source: Traffic, records: list, stop: threading.Event, firs
 
 def run(conf: dict, traffic: dict, seed: int, seconds: float, traced: bool,
         t_start: float, fault=None, device="cuda", control: str | None = None) -> dict:
-    from bpe_transformer_tpu_torch.models.config import ModelConfig
     from bpe_transformer_tpu_torch.serving.server import Request, ServingEngine
 
     dev = torch.device(device)
     model = conf["model"]
-    cfg = ModelConfig.from_dict(model)
+    cfg = model_config(conf)
+    arch = spec.architecture(conf)
     act = getattr(torch, model.get("activation_dtype", "float32"))
-    params = weights.make_params(model, seed, dev, dtype=act)
+    params = weights.make_params(arch.layout(model), seed, dev, dtype=act)
     host_params = [p.detach().to("cpu", copy=True) for p in weights.leaves(params)]
     serving = ServingEngine(params, cfg, slots=traffic["slots"], max_queue=traffic["max_queue"],
                             device=dev)
@@ -337,7 +338,7 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, traced: bool,
     window = t1 - t0
     done = [r for r in records if r.result is not None and r.result.finish_reason == "length"]
     in_window = [r for r in records if t0 <= r.t_submit < t1]
-    check = _check(model, host_params, done, t0, t1, traffic, seed, dev, control)
+    check = _check(arch, model, host_params, done, t0, t1, traffic, seed, dev, control)
     numbers = dict(check["numbers"])
     finished_in_window = [r for r in done if t0 <= r.t_last < t1]
     numbers["wrong_length"] = sum(len(r.tokens) != r.max_new for r in finished_in_window)
@@ -373,11 +374,11 @@ def _alter_tokens(engine, vocab: int) -> None:
     engine.tick = altered
 
 
-def _check(model: dict, host_params: list, done: list, t0: float, t1: float, traffic: dict,
-           seed: int, dev, control: str | None) -> dict:
-    """The reference over a seeded sample of the greedy requests the
-    window finished, the longest among them: the widest gap below the
-    reference's best logit of a served token.  With ``control`` (a lower
+def _check(arch, model: dict, host_params: list, done: list, t0: float, t1: float,
+           traffic: dict, seed: int, dev, control: str | None) -> dict:
+    """The architecture's reference over a seeded sample of the greedy
+    requests the window finished, the longest among them: the widest gap
+    below the reference's best logit of a served token.  With ``control`` (a lower
     precision of the reference's), the control stands in the program's
     place: at each position of the same prompts and served tokens the
     token it puts first is judged instead, and the program's own gap goes
@@ -390,19 +391,19 @@ def _check(model: dict, host_params: list, done: list, t0: float, t1: float, tra
     rest = greedy[:-1]
     picks = [greedy[-1]] + [rest[i] for i in sorted(
         rng.choice(len(rest), min(len(rest), traffic["check_requests"] - 1), replace=False))]
-    params = weights.tree_from(model, host_params, dev, torch.float32)
+    params = weights.tree_from(arch.layout(model), host_params, dev, torch.float32)
     program, controlled, n_tokens = 0.0, 0.0, 0
     t_ref = time.perf_counter()
     with torch.no_grad(), reference.matmul_precision("fp32"):
         for r in picks:
             ids = torch.tensor([r.prompt + r.tokens[:-1]], device=dev)
-            lg = reference.logits(params, ids, model)[0, len(r.prompt) - 1:]
+            lg = arch.logits(params, ids, model)[0, len(r.prompt) - 1:]
             served = torch.tensor(r.tokens, device=dev)
             program = max(program, float(compare.served_gaps(lg, served).max()))
             n_tokens += len(r.tokens)
             if control is not None:
                 with reference.matmul_precision(control):
-                    low = reference.logits(params, ids, model, control)[0, len(r.prompt) - 1:]
+                    low = arch.logits(params, ids, model, control)[0, len(r.prompt) - 1:]
                 gap = compare.served_gaps(lg, low.argmax(-1))
                 controlled = max(controlled, float(gap.max()))
     notes = {"checked_requests": len(picks), "checked_tokens": n_tokens,

@@ -8,8 +8,12 @@ Traffic parameters (``traffic/<mix>.json``, ``"kind": "train"``):
 ``warmup``, ``cosine_cycle``, ``pool_tokens`` (the seeded token array the
 feed samples windows from), ``check_steps`` (steps the reference follows),
 ``profile_steps`` (steps in the traced stretch) and ``ref_block_rows``
-(rows a reference block; the reference of an MoE model takes the whole
-batch, whose expert capacity it shares).
+(rows a reference block, unless the architecture's ``whole_batch`` says
+its reference takes the whole batch, as an MoE model's does, whose expert
+capacity the batch shares).
+
+The weights, the reference and its batching are the configuration's
+architecture's (``spec.architecture``).
 
 Each step's rows come from the program's ``data.get_batch`` over the token
 array, with a generator seeded from the run's seed: every row differs, and
@@ -30,15 +34,9 @@ import time
 import numpy as np
 import torch
 
-from portbench import devices, trace, weights
+from portbench import devices, phases, spec, trace, weights
 from portbench.reference import compare
-from portbench.reference import model as reference
-
-
-def model_config(conf: dict):
-    from bpe_transformer_tpu_torch.models.config import ModelConfig
-
-    return ModelConfig.from_dict(conf["model"])
+from portbench.runners import model_config
 
 
 def hparams(traffic: dict):
@@ -71,13 +69,16 @@ def _feed(traffic: dict, pool: np.ndarray, seed: int, device, mesh):
     return feed
 
 
-def _launches(names) -> dict:
+def _launches() -> dict:
+    """The program's launch counter of every kernel name it has counted,
+    and of :data:`KERNELS` (0 until counted)."""
     from bpe_transformer_tpu_torch.kernels import _build
 
-    return _build.read_launches(names)
+    return {**_build.read_launches(KERNELS), **_build.launches}
 
 
-#: Kernel launch names the training metrics read.
+#: Launch names that every traced stretch's ``calls`` holds, 0 where none
+#: ran; any other name of the program's counter is there where it moved.
 KERNELS = ("flash_attention_rope", "swiglu")
 
 
@@ -98,12 +99,13 @@ def train_rank(conf: dict, traffic: dict, seed: int, seconds: float, traced: boo
     t_start = time.time() if t_start is None else t_start
     cfg = model_config(conf)
     model = conf["model"]
+    arch = spec.architecture(conf)
     hp = hparams(traffic)
     world = traffic.get("world", 1)
     rank = 0 if mesh is None else mesh.rank
     zero1 = traffic.get("opt_sharding") == "zero1"
 
-    params = weights.make_params(model, seed, device)
+    params = weights.make_params(arch.layout(model), seed, device)
     names = weights.leaf_names(params)
     p0_host = ([p.detach().to("cpu", copy=True) for p in weights.leaves(params)]
                if rank == 0 else None)
@@ -169,7 +171,7 @@ def train_rank(conf: dict, traffic: dict, seed: int, seconds: float, traced: boo
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     if rank == 0:
-        out["check"] = _check(model, traffic, p0_host, names, batches, device,
+        out["check"] = _check(arch, model, traffic, p0_host, names, batches, device,
                               {"losses": losses, "first_grad": first_grad, "change": change})
     return out
 
@@ -258,15 +260,17 @@ def _profile(step, params, opt_state, feed, n_steps: int, device) -> dict:
     """Two ``torch.profiler`` traces of ``n_steps`` steps after the window,
     each read after it stopped.  The first records the device alone (the
     CUDA runtime's calls too), whose cost to the host is small: the busy
-    time, the kernels and the launch counts over it come from it.  The
-    second also records every host operator, which slows the host by
-    several microseconds an operator: it only names the idle gaps."""
+    time, the kernels and the launches over it (``calls``: :data:`KERNELS`
+    and every launch name whose counter moved) come from it.  The second
+    also records every host operator, which slows the host by several
+    microseconds an operator: it names the idle gaps, and its ``bpt.*``
+    ranges give the step's phases (``phases.read``)."""
     from torch.profiler import profile
 
     def stretch(host_ops):
         batches = [feed() for _ in range(n_steps)]
         devices.sync(device)
-        before = _launches(KERNELS)
+        before = _launches()
         nonlocal params, opt_state
         with profile(activities=devices.activities(host_ops)) as prof:
             t0 = time.perf_counter()
@@ -274,26 +278,30 @@ def _profile(step, params, opt_state, feed, n_steps: int, device) -> dict:
                 params, opt_state, _ = step(params, opt_state, x, y)
             devices.sync(device)
             window_s = time.perf_counter() - t0
-        after = _launches(KERNELS)
+        after = _launches()
         out = trace.summarize(prof, window_s)
-        out["calls"] = {k: after[k] - before[k] for k in KERNELS}
+        out["calls"] = {k: n - before.get(k, 0) for k, n in after.items()
+                        if k in KERNELS or n != before.get(k, 0)}
+        if host_ops:
+            out["phases"] = phases.read(prof, n_steps)
         return out
 
     out = stretch(False)
-    out["idle_gaps"] = stretch(True)["idle_gaps"]
+    host = stretch(True)
+    out["idle_gaps"], out["phases"] = host["idle_gaps"], host["phases"]
     out["steps"] = n_steps
     return out
 
 
-def _check(model: dict, traffic: dict, p0_host: list, names: list, batches: list, device,
-           prog: dict, precision: str = "fp32") -> dict:
-    """The reference over the checked steps, from the same weights and
-    rows, and the numbers compared."""
-    start = weights.tree_from(model, p0_host, device)
+def _check(arch, model: dict, traffic: dict, p0_host: list, names: list, batches: list,
+           device, prog: dict, precision: str = "fp32") -> dict:
+    """The architecture's reference over the checked steps, from the same
+    weights and rows, and the numbers compared."""
+    start = weights.tree_from(arch.layout(model), p0_host, device)
     ref_batches = [tuple(torch.from_numpy(a).to(device) for a in b) for b in batches]
-    block = None if model.get("ffn_type") == "moe" else traffic.get("ref_block_rows")
+    block = None if arch.whole_batch(model) else traffic.get("ref_block_rows")
     t0 = time.perf_counter()
-    ref = reference.train(start, ref_batches, model, _ref_hp(traffic), precision, block)
+    ref = arch.train(start, ref_batches, model, _ref_hp(traffic), precision, block)
     result = compare.train_numbers(prog, ref, names)
     result["reference_s"] = time.perf_counter() - t0
     result["losses"] = {"program": prog["losses"], "reference": ref["losses"]}
@@ -313,6 +321,7 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, traced: bool,
     program's ``parallel/launch.py`` (one process a card).  Returns the
     end-to-end readings (``e2e``), the numbers compared (``numbers``), the
     steps attempted and failed, and every rank's readings (``ranks``)."""
+    model_config(conf)  # refuses, before any rank starts, a key the program lacks
     world = traffic.get("world", 1)
     if world == 1:
         ranks = [train_rank(conf, traffic, seed, seconds, traced, torch.device(device),

@@ -66,7 +66,8 @@ def test_the_control_fails_a_limit(cell, precision):
     conf = spec.config(bench, spec.workload(bench, cell)["config"])
     model, sizes = tiny(cell)
     traffic = {**spec.traffic(spec.workload(bench, cell)["traffic"]), **sizes}
-    low = train_control({**conf["model"], **model}, traffic, 5, precision, torch.device("cpu"))
+    low = train_control({**conf, "model": {**conf["model"], **model}}, traffic, 5, precision,
+                        torch.device("cpu"))
     assert not compare.within(compare.held(low["numbers"], spec.limits(cell))), low
 
 
@@ -108,7 +109,7 @@ def test_the_control_on_the_card_at_the_cells_size(cell, precision):
                             control=precision)
             low = {"numbers": run["numbers"], "notes": run["notes"]}
         else:
-            low = train_control(conf["model"], traffic, seed, precision, torch.device("cuda"))
+            low = train_control(conf, traffic, seed, precision, torch.device("cuda"))
         print(cell, seed, low, flush=True)
         readings.append(low["numbers"])
     for numbers in readings:

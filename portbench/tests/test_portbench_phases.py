@@ -1,12 +1,11 @@
 """The step-phase reading (``portbench/phases.py``) and the per-layer
-metrics that read it, held back in ``portbench/pending/step-phases.json``
-until the training runner keeps the phases of its host-operator stretch.
-On the CPU at a tiny size: the program's ``bpt.*`` ranges read from a
-traced step, the benchmark's reading held to the program's own
-(``phase_table``) on that trace and on a synthetic one with kernels and
-launches, and each reader over one rank and over two."""
+metrics in ``BENCHMARK.json`` that read it, from the phases the training
+runner keeps of its host-operator stretch.  On the CPU at a tiny size: the
+program's ``bpt.*`` ranges read from a traced step, the benchmark's reading
+held to the program's own (``phase_table``) on that trace and on a
+synthetic one with kernels and launches, each reader over one rank and over
+two, and whole traced runs that report them."""
 
-import json
 import types
 
 import pytest
@@ -15,9 +14,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from portbench import phases, spec, weights
 from portbench.runners import train
-from portbench.tests.helpers import PENDING, TINY_MODEL, TINY_MOE, tiny
+from portbench.tests.helpers import TINY_MODEL, TINY_MOE, run_cell, tiny
 
-HELD = json.loads((PENDING / "step-phases.json").read_text())
+PHASE_METRICS = ("step_host_ms.train", "forward_host_ms.train", "backward_host_ms.train",
+                 "optimizer_host_ms.train", "optimizer_launches.train", "moe_host_ms.train")
+ENTRIES = [m for m in spec.load_benchmark()["per_layer"] if m["name"] in PHASE_METRICS]
 A, C, D = "gpt2s-train-b8s1024", "tsmoe-train-b16s512", "gpt2s-train-dp4-zero1"
 STEP = ["forward", "backward", "grad_reduce", "clip", "adamw"]
 MOE = ["moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
@@ -30,7 +31,7 @@ def _traced(cell: str, steps: int = 2):
     conf = spec.config(bench, spec.workload(bench, cell)["config"])
     model = {**conf["model"], **(TINY_MOE if cell == C else TINY_MODEL)}
     traffic = {**spec.traffic(spec.workload(bench, cell)["traffic"]), **tiny(cell)[1]}
-    params = weights.make_params(model, 3, torch.device("cpu"))
+    params = weights.make_params(spec.architecture(conf).layout(model), 3, torch.device("cpu"))
     from bpe_transformer_tpu_torch.optim import adamw_init
     from bpe_transformer_tpu_torch.training.train_step import make_train_step
 
@@ -107,7 +108,7 @@ def test_read_gives_nothing_without_the_ranges():
 def test_each_held_metric_reads_the_phases(cell, ranks):
     table = _traced_phases(C if cell == C else A)
     run = {"ranks": [{"trace": {"phases": table}} for _ in range(ranks)]}
-    for m in HELD["per_layer"]:
+    for m in ENTRIES:
         value = spec.metric_reader(m["name"])(run)
         if cell in m["workloads"]:
             assert value is not None and value >= 0, m["name"]
@@ -119,8 +120,23 @@ def test_each_held_metric_reads_the_phases(cell, ranks):
 
 def test_every_held_entry_has_its_reader_and_follows_the_contract():
     cells = {w["name"] for w in spec.load_benchmark()["workloads"]}
-    for m in HELD["per_layer"]:
+    assert sorted(m["name"] for m in ENTRIES) == sorted(PHASE_METRICS)
+    for m in ENTRIES:
         assert callable(spec.metric_reader(m["name"]))
         assert m["source"] == "program_span" and m["moves"] == "train_tokens_per_s"
-        assert set(m["workloads"]) <= cells
-    assert not HELD["workloads"] and not HELD["end_to_end"]
+        assert set(m["workloads"]) == ({C} if m["name"] == "moe_host_ms.train" else {A, C, D})
+    assert not (spec.HERE / "pending" / "step-phases.json").exists()
+
+
+@pytest.mark.parametrize("cell", [A, C, D])
+def test_a_traced_run_reports_the_phase_metrics_of_its_cell(cell):
+    """The runner keeps the phases of its host-operator stretch, so a
+    traced run's result line carries every phase metric that lists its
+    cell, each with a value."""
+    out = run_cell(cell, 2**31 + 31, trace=1)
+    assert out["correct"] is True, out["checked"]
+    wanted = {m["name"] for m in ENTRIES if cell in m["workloads"]}
+    assert wanted <= set(out["metrics"]), out["metrics"]
+    for name in wanted:
+        assert out["metrics"][name]["value"] >= 0, name
+    assert out["metrics"]["step_host_ms.train"]["value"] > 0

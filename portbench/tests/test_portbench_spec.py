@@ -2,7 +2,10 @@
 names found by its name."""
 
 import json
+import os
 import re
+import subprocess
+import sys
 
 import pytest
 
@@ -143,3 +146,131 @@ def test_an_added_traffic_mix_cell_and_metric_need_no_edit(tmp_path):
     out = run_in(root, "dummy-cell", 7, trace=1)
     assert out["correct"] is True, out["checked"]
     assert out["metrics"]["steps_seen.train"]["value"] >= 1
+
+
+#: A new architecture, added as a file: today's block with the LM head tied
+#: to the token embedding (the program's ``tie_embeddings``), which has no
+#: ``lm_head`` leaf.
+TIED_REFERENCE = '''"""Today's block with the LM head tied to the token embedding."""
+
+from portbench.reference import model as base
+from portbench.reference.model import (  # noqa: F401
+    decode_tick_flops, prefill_flops, train_step_flops, whole_batch)
+
+
+def _tied(params):
+    return {**params, "lm_head": params["token_embeddings"]}
+
+
+def layout(cfg):
+    return [leaf for leaf in base.layout(cfg) if leaf[0] != ("lm_head",)]
+
+
+def logits(params, ids, cfg, precision="fp32"):
+    return base.logits(_tied(params), ids, cfg, precision)
+
+
+def loss(params, x, y, cfg, precision="fp32"):
+    return base.loss(_tied(params), x, y, cfg, precision)
+
+
+def train(params, batches, cfg, hp, precision="fp32", block_rows=None):
+    return base.train(params, batches, cfg, hp, precision, block_rows, objective=loss)
+'''
+#: A per-layer metric of a kernel that ``readers.KERNEL_PATTERNS`` does not
+#: know, its kernel-name pattern in its own file.  It refuses a run whose
+#: traced stretch brings it no ``calls``.
+TIED_ROOFLINE = '''"""The roofline share of the kernels the program launches as
+``tied_head``."""
+
+from portbench import readers
+
+PATTERN = r"\\btied_head_kernel\\b"
+
+
+def read(run):
+    traces = readers.traces(run)
+    if not traces or any("calls" not in t for t in traces):
+        raise RuntimeError("the traced stretch's calls did not reach the reader")
+
+    def least(run, tr):
+        return readers.least(run, 2.0e9 * tr["calls"].get("tied_head", 0), 0.0)
+
+    return readers.roofline(run, "tied_head", least, pattern=PATTERN)
+'''
+
+
+def _tree(root) -> dict:
+    return {p: p.read_bytes() for p in sorted((root / "portbench").rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
+
+
+def _run_raw(root, cell: str, seed: int) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, str(root / "portbench" / "run.py"), "--workload", cell, "--seed",
+         str(seed), "--seconds", "1", "--trace", "0", "--device", "cpu"],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+
+
+def test_an_added_architecture_needs_no_edit(tmp_path):
+    """A copy of the benchmark gains an architecture the program runs and
+    today's block cannot state (tied embeddings), with its reference,
+    configuration, traffic, limits, cell and a kernel's roofline metric,
+    by added files and entries only.  Its sound run is correct, its
+    half-batch fault is not, and the same configuration without its
+    ``architecture`` key gives no correct result."""
+    root = copy_benchmark(tmp_path)
+    before = _tree(root)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    conf = json.loads((ROOT / "portbench/configs/gpt2_small_32k.json").read_text())
+    tied = {**conf, "name": "tied_model", "architecture": "tied_head",
+            "model": {**conf["model"], **TINY_MODEL, "tie_embeddings": True}}
+    (root / "portbench/configs/tied_model.json").write_text(json.dumps(tied))
+    (root / "portbench/reference/tied_head.py").write_text(TIED_REFERENCE)
+    traffic = json.loads((ROOT / "portbench/traffic/train_b8s1024.json").read_text())
+    (root / "portbench/traffic/train_tied.json").write_text(json.dumps({**traffic, **TINY_TRAIN}))
+    (root / "portbench/limits/tied-cell.json").write_text(
+        (ROOT / "portbench/limits/gpt2s-train-b8s1024.json").read_text())
+    (root / "portbench/metrics/tied_head_roofline.train.py").write_text(TIED_ROOFLINE)
+    bench["configs"].append({"name": "tied_model", "source": "a test",
+                             "file": "portbench/configs/tied_model.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "tied-cell", "config": "tied_model",
+                               "traffic": "train_tied", "chips": 1, "why": "a test"})
+    bench["per_layer"].append({"name": "tied_head_roofline.train", "unit": "%",
+                               "better": "higher", "source": "device_trace", "layer": "kernels",
+                               "moves": "train_tokens_per_s", "workloads": ["tied-cell"]})
+    for m in bench["end_to_end"]:
+        if m["name"] == "train_tokens_per_s":
+            m["workloads"].append("tied-cell")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    sound = run_in(root, "tied-cell", 2**31 + 41, trace=1)
+    assert sound["correct"] is True, sound["checked"]
+    # On the CPU no launch counter moves: the reader was called with the
+    # stretch's calls and found nothing to read.
+    assert "tied_head_roofline.train" not in sound["metrics"]
+    broken = run_in(root, "tied-cell", 2**31 + 42, fault="half_batch")
+    assert broken["correct"] is False, broken["checked"]
+
+    # The reader takes its kernels by the pattern of its own file.
+    reader = spec.metric_reader("tied_head_roofline.train", here=root / "portbench")
+    run = {"device_kind": "NVIDIA H100 80GB HBM3", "ranks": [{"trace": {
+        "kernels": {"void tied_head_kernel<float>": [4e-3, 2], "flash_fwd_kernel<x>": [1.0, 9]},
+        "calls": {"flash_attention_rope": 0, "swiglu": 0, "tied_head": 2}}}]}
+    assert reader(run) == pytest.approx(100.0 * 4e9 / 989e12 / 4e-3)
+    run["ranks"][0]["trace"]["kernels"] = {"flash_fwd_kernel<x>": [1.0, 9]}
+    assert reader(run) is None
+
+    # Nothing that was there before changed.
+    after = _tree(root)
+    assert {p: after[p] for p in before} == before
+
+    # Without its architecture the configuration runs today's block, whose
+    # untied head the program does not have.
+    del tied["architecture"]
+    (root / "portbench/configs/tied_model.json").write_text(json.dumps(tied))
+    out = _run_raw(root, "tied-cell", 2**31 + 43)
+    assert out.returncode != 0 or json.loads(
+        out.stdout.strip().splitlines()[-1])["correct"] is False, out.stdout[-2000:]
